@@ -1,0 +1,22 @@
+"""Compute dtypes of the port (counterpart of ``p2p_tpu/core/dtypes.py`` and
+``p2p_tpu/serve/engine.py:49 _resolve_dtype``): serving runs the generator
+in bf16 (activations and weights; convolutions accumulate in f32 and the
+norm statistics are f32) or in f32."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_DTYPES = {None: torch.float32, "f32": torch.float32,
+           "float32": torch.float32, "bf16": torch.bfloat16,
+           "bfloat16": torch.bfloat16}
+
+
+def resolve_dtype(dtype: Optional[str]) -> torch.dtype:
+    """``"bf16"``/``"bfloat16"`` → bf16; ``None``/``"f32"``/``"float32"``
+    → f32."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {dtype!r} (use 'bf16' or 'f32')")
+    return _DTYPES[dtype]

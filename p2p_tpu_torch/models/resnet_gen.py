@@ -1,0 +1,87 @@
+"""ResNet generator (counterpart of ``p2p_tpu/models/resnet_gen.py``
+``ResnetBlock`` and ``ResnetGenerator``).
+
+c7s1-ngf → ``n_downsampling`` stride-2 k3 convs → ``n_blocks`` residual
+blocks → as many nearest-resize k3 convs up → c7s1-out, tanh. Every conv is
+reflection-padded and followed by the norm epilogue; the classic
+ResnetBlock has NO activation after its residual add. Convs in front of a
+mean-subtracting norm carry no bias (it would cancel exactly), as in the
+JAX default layout; with ``norm="none"`` they do. Submodule names follow
+the flax parameter tree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from p2p_tpu_torch.ops.activations import tanh_y
+from p2p_tpu_torch.ops.conv import ConvLayer, UpsampleConvLayer
+from p2p_tpu_torch.ops.norm import make_norm_act
+
+
+class ResnetBlock(nn.Module):
+    """reflectpad-conv-norm-relu-reflectpad-conv-norm + identity."""
+
+    def __init__(self, features: int, norm: str = "instance"):
+        super().__init__()
+        ub = norm == "none"
+        self.na = make_norm_act(norm)
+        self.ConvLayer_0 = ConvLayer(features, features, 3, use_bias=ub)
+        self.ConvLayer_1 = ConvLayer(features, features, 3, use_bias=ub)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.na(self.ConvLayer_0(x), act="relu")
+        return self.na(self.ConvLayer_1(y), residual=x)
+
+
+class ResnetGenerator(nn.Module):
+    """``max_features`` caps the channel growth (pix2pixHD's G1 uses 1024);
+    ``return_features`` skips the c7s1-out head and returns the
+    ngf-channel feature map (the pix2pixHD enhancer taps it)."""
+
+    def __init__(self, in_channels: int = 3, ngf: int = 64,
+                 n_blocks: int = 9, out_channels: int = 3,
+                 n_downsampling: int = 2, norm: str = "instance",
+                 max_features: Optional[int] = None,
+                 return_features: bool = False):
+        super().__init__()
+        self.na = make_norm_act(norm)
+        self.n_downsampling = n_downsampling
+        self.n_blocks = n_blocks
+        self.return_features = return_features
+        cap = max_features or (1 << 30)
+        ub = norm == "none"
+
+        self.ConvLayer_0 = ConvLayer(in_channels, ngf, 7, use_bias=ub)
+        c = ngf
+        for i in range(n_downsampling):
+            f = min(ngf * 2 ** (i + 1), cap)
+            setattr(self, f"ConvLayer_{i + 1}",
+                    ConvLayer(c, f, 3, stride=2, use_bias=ub))
+            c = f
+        for i in range(n_blocks):
+            setattr(self, f"ResnetBlock_{i}", ResnetBlock(c, norm=norm))
+        for j, i in enumerate(reversed(range(n_downsampling))):
+            f = min(ngf * 2 ** i, cap)
+            setattr(self, f"UpsampleConvLayer_{j}",
+                    UpsampleConvLayer(c, f, 3, upsample=2, use_bias=ub))
+            c = f
+        if not return_features:
+            setattr(self, f"ConvLayer_{n_downsampling + 1}",
+                    ConvLayer(c, out_channels, 7))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.na(self.ConvLayer_0(x), act="relu")
+        for i in range(self.n_downsampling):
+            y = self.na(getattr(self, f"ConvLayer_{i + 1}")(y), act="relu")
+        for i in range(self.n_blocks):
+            y = getattr(self, f"ResnetBlock_{i}")(y)
+        for j in range(self.n_downsampling):
+            y = self.na(getattr(self, f"UpsampleConvLayer_{j}")(y),
+                        act="relu")
+        if self.return_features:
+            return y
+        return tanh_y(getattr(self, f"ConvLayer_{self.n_downsampling + 1}")(y))

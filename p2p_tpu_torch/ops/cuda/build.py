@@ -1,0 +1,150 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface, loaded with :mod:`ctypes`. There is
+no PyTorch header in the sources, so a build takes seconds. The libraries go
+to ``build/torch_ext/`` at the root of the checkout (listed in
+``.gitignore``), named by a hash of their sources and flags, so a changed
+source is rebuilt and an unchanged one is reused. The first use of any
+kernel builds all of them, one ``nvcc`` per source, all started together.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
+KERNELS = ("instance_norm_stats", "norm_act")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+# dtype codes of csrc/common.cuh (p2p::DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+# argtypes of each library's entry point (the C signatures in csrc/)
+SIGNATURES = {
+    "instance_norm_stats": ("p2p_instance_norm_stats",
+                            (_P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _L,
+                             _P, _P, _P, _P, _F, _P)),
+    "norm_act": ("p2p_norm_act",
+                 (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _F,
+                  _I, _I, _P)),
+}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+        nvcc = os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(nvcc):
+        raise RuntimeError("nvcc not found (looked on PATH and in "
+                           "$CUDA_HOME/bin); the CUDA kernels cannot be built")
+    return nvcc
+
+
+def _library_path(name: str, nvcc: str) -> Path:
+    h = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+        h.update(src.read_bytes())
+    h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every kernel library that is missing, all in parallel.
+    Returns ``{name: seconds}`` for the libraries built by this call;
+    raises ``RuntimeError`` with the compiler's output if one fails."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        out = _library_path(name, nvcc)
+        if out.exists():
+            continue
+        tmp = out.with_name(f".{out.name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    seconds = {}
+    failures = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed for {name}.cu:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+@functools.cache
+def load(name: str):
+    """The entry point of kernel library ``name`` (built on first use),
+    with its argtypes set; returns ``(library, function)``."""
+    path = _library_path(name, find_nvcc())
+    if not path.exists():
+        build_all()
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    lib.p2p_error_string.argtypes = [ctypes.c_int]
+    lib.p2p_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def check(lib, err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = lib.p2p_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_activation(x: torch.Tensor, what: str) -> None:
+    """The layout every kernel takes: a 4-D CUDA tensor in f32 or bf16,
+    dense in ``torch.channels_last`` (NHWC in memory). Raises on anything
+    else; the wrappers never copy to fix a layout."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: expected a CUDA tensor, got {x.device}")
+    if x.dim() != 4:
+        raise ValueError(
+            f"{what}: expected (N, C, H, W), got {tuple(x.shape)}")
+    if x.dtype not in DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported "
+                        f"(have {sorted(map(str, DTYPE_CODES))})")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError(f"{what}: tensor must be contiguous in "
+                         "torch.channels_last (NHWC in memory)")
+
+
+def vector_width(c: int, *tensors: torch.Tensor) -> int:
+    """Elements per 16-byte access along C: the full vector when C divides
+    into it and every tensor is 16-byte aligned, else one element."""
+    vec = 16 // tensors[0].element_size()
+    if c % vec or any(t.data_ptr() % 16 for t in tensors):
+        return 1
+    return vec

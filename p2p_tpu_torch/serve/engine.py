@@ -1,0 +1,174 @@
+"""The inference engine: bucket-batched generator serving (counterpart of
+``p2p_tpu/serve/engine.py:81 InferenceEngine`` and ``ServeStats``).
+
+Every request batch is padded up to one of a few batch buckets; start-up
+runs one forward per bucket (the warm-up that the JAX engine spends on
+ahead-of-time compiles), so cuDNN's algorithm choice and the kernel build
+are paid before the first request. Dispatch is asynchronous on the card;
+the device→host copy and the PNG encode run on the
+:class:`~p2p_tpu_torch.serve.io.AsyncImageWriter` threads, overlapping the
+next batch's compute. :meth:`InferenceEngine.run` reports a fenced timing
+breakdown (``torch.cuda.synchronize``), so img/s is measured, not
+asserted. ``dtype="bf16"`` (the default, as in the JAX engine) serves a
+bf16 copy of the generator.
+"""
+
+from __future__ import annotations
+
+import copy
+import dataclasses
+import time
+from typing import (Any, Dict, Iterable, Iterator, List, Optional, Sequence,
+                    Tuple, Union)
+
+import numpy as np
+import torch
+from torch import nn
+
+from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.core.device import resolve_device
+from p2p_tpu_torch.core.dtypes import resolve_dtype
+from p2p_tpu_torch.serve.io import (AsyncImageWriter, chunk_batch, pad_batch,
+                                    pick_bucket)
+from p2p_tpu_torch.train.step import make_infer_forward
+
+IO_WORKERS = 4   # writer threads: device→host fetch + PNG encode
+
+
+@dataclasses.dataclass
+class ServeStats:
+    """Fenced timing breakdown for one :meth:`InferenceEngine.run`."""
+
+    n_images: int = 0
+    n_batches: int = 0
+    infer_sec: float = 0.0    # first dispatch → last result on the device
+    encode_sec: float = 0.0   # summed writer-thread fetch + encode time
+    wall_sec: float = 0.0     # end to end, writer drain included
+    img_per_sec: float = 0.0  # n_images / wall_sec
+    device_img_per_sec: float = 0.0  # n_images / infer_sec
+    overlap_sec: float = 0.0  # encode time hidden under device compute
+    n_warmups: int = 0
+    buckets: Tuple[int, ...] = ()
+
+    def as_dict(self) -> Dict[str, Any]:
+        d = dataclasses.asdict(self)
+        d["buckets"] = list(self.buckets)
+        return d
+
+
+class InferenceEngine:
+    """Bucket-batched generator inference on one device.
+
+    ``generator`` is the port's generator for ``cfg`` (any device and
+    dtype; the engine serves its own copy on ``device`` in ``dtype``, in
+    channels_last). ``buckets`` are the batch sizes warmed up at start
+    (default: ``cfg.data.test_batch_size``). ``device`` defaults to
+    ``cuda`` and raises when there is none; pass ``"cpu"`` to serve with
+    the plain PyTorch versions of the kernels.
+    """
+
+    def __init__(self, cfg: Config, generator: nn.Module,
+                 buckets: Optional[Sequence[int]] = None,
+                 dtype: Optional[str] = "bf16",
+                 device: Union[str, torch.device, None] = None):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(dtype)
+        self.buckets: Tuple[int, ...] = tuple(sorted(set(
+            int(b) for b in (buckets or (cfg.data.test_batch_size,)))))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"bad buckets {self.buckets}")
+        self.model = copy.deepcopy(generator).to(
+            device=self.device, dtype=self.dtype,
+            memory_format=torch.channels_last).eval()
+        self._fwd = make_infer_forward(cfg, self.dtype)
+        h, w = cfg.image_hw
+        self._input_shape = (h, w, cfg.model.input_nc)
+        self._input_dtype = (np.uint8 if cfg.data.uint8_pipeline
+                             else np.float32)
+        self._warm: set = set()
+        self.n_warmups = 0
+
+    def synchronize(self) -> None:
+        """Wait for the device's queued work (a no-op on the CPU)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup(self) -> "InferenceEngine":
+        """One forward per bucket not yet warmed (idempotent)."""
+        for b in self.buckets:
+            if b not in self._warm:
+                zeros = np.zeros((b,) + self._input_shape, self._input_dtype)
+                self._fwd(self.model, {"input": zeros})
+                self._warm.add(b)
+                self.n_warmups += 1
+        self.synchronize()
+        return self
+
+    def infer_batch(self, host_batch: Dict[str, np.ndarray]):
+        """Pad one NHWC host batch to its bucket and dispatch (asynchronous
+        on the card). Returns ``(pred, metrics, n_real)`` with ``pred`` an
+        NHWC device tensor; rows from ``n_real`` on are padding."""
+        if not self._warm:
+            self.warmup()
+        n = host_batch["input"].shape[0]
+        padded, n_real = pad_batch(
+            {"input": np.asarray(host_batch["input"])},
+            pick_bucket(n, self.buckets))
+        pred, metrics = self._fwd(self.model, padded)
+        return pred, metrics, n_real
+
+    def stream(self, host_batches: Iterable[Dict[str, np.ndarray]]
+               ) -> Iterator[Tuple[Any, Any, int]]:
+        """:meth:`infer_batch` over an iterator, one dispatch ahead of the
+        consumer, chunking batches larger than the largest bucket."""
+        pending = None
+        for host_batch in host_batches:
+            for chunk in chunk_batch(host_batch, self.buckets[-1]):
+                out = self.infer_batch(chunk)
+                if pending is not None:
+                    yield pending
+                pending = out
+        if pending is not None:
+            yield pending
+
+    def run(self, host_batches: Iterable[Dict[str, np.ndarray]],
+            names: Optional[Sequence[str]] = None,
+            out_dir: Optional[str] = None) -> Tuple[ServeStats, Dict]:
+        """Serve every batch: bucket → dispatch → threaded fetch + PNG
+        write. ``names[i]`` names the i-th real image's file under
+        ``out_dir`` (default ``<i>.png``); with ``out_dir=None`` nothing is
+        written. Returns ``(stats, metrics)``; metrics are empty in this
+        slice."""
+        self.warmup()
+        writer = AsyncImageWriter(IO_WORKERS) if out_dir else None
+        stats = ServeStats(buckets=self.buckets, n_warmups=self.n_warmups)
+        t0 = time.perf_counter()
+        n_saved = 0
+        try:
+            for pred, _, n_real in self.stream(host_batches):
+                if writer is not None:
+                    paths: List[str] = []
+                    for _ in range(n_real):
+                        name = (names[n_saved]
+                                if names and n_saved < len(names)
+                                else f"{n_saved}.png")
+                        paths.append(f"{out_dir}/{name}")
+                        n_saved += 1
+                    writer.submit_batch(pred, paths)
+                stats.n_images += n_real
+                stats.n_batches += 1
+            self.synchronize()
+            stats.infer_sec = max(time.perf_counter() - t0, 1e-9)
+            if writer is not None:
+                writer.drain()
+                stats.encode_sec = writer.encode_sec
+        finally:
+            if writer is not None:
+                writer.close()
+        stats.wall_sec = max(time.perf_counter() - t0, 1e-9)
+        stats.img_per_sec = stats.n_images / stats.wall_sec
+        stats.device_img_per_sec = stats.n_images / stats.infer_sec
+        stats.overlap_sec = max(
+            0.0, stats.infer_sec + stats.encode_sec - stats.wall_sec)
+        return stats, {}

@@ -32,3 +32,7 @@ def pytest_configure(config):
         "markers",
         "slow: compile-heavy test (>~10 s on CPU); quick gate: -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "gpu: needs a CUDA device and nvcc (skips without them)",
+    )
