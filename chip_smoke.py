@@ -9,18 +9,29 @@ to the CPU or to a plain version):
 
 1. device and build: the card's name and power limit (nvidia-smi), then the
    port's CUDA kernels built from the sources in this checkout;
-2. kernels: at every epilogue shape of the full-width pix2pixHD generator
-   at each batch size the main path serves (N = 1, 2, 4), in bf16 and f32,
-   with each activation/residual form the path uses) each kernel is held
-   against its plain PyTorch version on the card and timed
-   with CUDA events (median of 20 cold-L2 runs) beside its plain version,
-   a PyTorch library yardstick and its bound from bytes and operations;
-3. slice: the full-width pix2pixHD generator (random weights from a seed)
+2. kernels: at every shape of the two main paths each kernel is held
+   against its plain PyTorch version on the card, in bf16 and f32, and
+   timed with CUDA events (median of 20 cold-L2 runs) beside its plain
+   version, a PyTorch library yardstick and its bound (bytes moved over the
+   card's memory rate): #1 and #3 at every epilogue shape of the
+   full-width pix2pixHD generator at each batch size serving uses (N = 1,
+   2, 4) and each activation/residual form; #5 at the five (M, C) shapes
+   of the reference train step;
+3. serving: the full-width pix2pixHD generator (random weights from a seed)
    served through ``InferenceEngine`` in bf16 on synthetic 512×1024
-   requests; the kernel launch counts of that run must be exactly 36 + 36
-   per forward batch; the f32 generator through the kernels must match the
-   f32 generator through the plain versions within 1e-3 on a batch of 4;
-4. a ``{"kernels": [...]}`` line, then the last line
+   requests; the launch counts of that run must be exactly 36 + 36 per
+   forward batch (and no #5); the f32 generator through the kernels must
+   match the f32 generator through the plain versions within 1e-3 on a
+   batch of 4;
+4. training: the full-width ``reference`` preset (net_c, ExpandNetwork,
+   3-scale spectral-norm PatchGAN, VGG19; random weights from a seed)
+   trained through ``create_train_state`` / ``build_train_step`` in bf16 on
+   synthetic 256² batches: 2 warm-up and 8 timed steps with finite losses
+   and exactly 50 launches of #5 per step (and no #1/#3); then in f32 with
+   TF32 off, 2 steps through the kernel against 2 through the plain version
+   from the same state, losses and running statistics within the stated
+   bands;
+5. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -28,6 +39,8 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -46,15 +59,35 @@ BUCKETS = (1, 2, 4)
 # the main path: engine.run over these batches, then every request alone
 RUN_BATCHES = (4, 2)
 EPILOGUES_PER_FORWARD = 36
-# published H100 SXM peaks: HBM3 bytes/s and non-tensor-core f32 flop/s
+# published H100 SXM HBM3 bytes/s; every kernel of the port does 2-5 flops
+# per element it moves, so the bytes always bound it (at 67 TFLOP/s f32 the
+# operations term is at least 20x smaller)
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_FLOP_PER_S = 67e12
 # kernel vs plain version: f32 differs only in the order of partial sums;
 # bf16 outputs may differ by one rounding of the stored value
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0 ** -7)}
 STATS_TOL = (1e-4, 1e-4)   # (atol, rtol): f32 outputs from either input type
 SLICE_F32_TOL = 1e-3
 TIMING_REPS = 20
+# #5 vs plain: f32 sums of the same terms in two orders; the error of
+# either is a small multiple of 2^-24 times the sum of |terms|
+MOMENTS_RTOL_OF_ABS_SUM = 1e-5
+# the train phase: batch 1 at 256² (the preset's shape), bf16 steps
+TRAIN_WARMUP, TRAIN_STEPS = 2, 8
+# f32 train steps through #5 vs through its plain version, from one state.
+# Step 1's losses differ only by the order of f32 sums (and cuDNN's
+# algorithm choices): rtol 1e-4. Adam's first update moves every weight by
+# exactly +-lr (m/sqrt(v) = sign(g)), so weights whose gradient is near 0
+# and flips sign between the routes end 2 lr = 4e-4 apart; step 2's losses
+# then differ by up to 2% (the band of tests/test_torch_train_step.py), and
+# a running statistic, which takes 0.1 of a batch statistic of activations
+# that sum up to 1,152 such weights (a k3 conv over 128 channels), by up to
+# 0.05 plus 2% of its value.
+TRAIN_F32_STEPS = 2
+TRAIN_STEP1_RTOL, TRAIN_LATER_RTOL = 1e-4, 2e-2
+TRAIN_STATS_ATOL = 5e-2
+LOSS_KEYS = ("loss_g", "loss_d", "loss_c", "g_gan", "g_feat", "g_vgg",
+             "g_tv")
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -103,10 +136,20 @@ class Timer:
         return statistics.median(times)
 
 
-def bound_ms(nbytes: int, flops: int):
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def bound_ms(nbytes: int) -> float:
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def batchnorm_plan(ngf: int, n_blocks: int, h: int, w: int):
+    """(M, C) of every BatchNorm of one reference train step at batch 1, in
+    order: G twice (the G step, then the net_c branch), each with 3
+    encoder, 2·n_blocks trunk, 2 decoder and the head's BatchNorm
+    (models/expand.py), and net_c twice with one (models/compression.py)."""
+    p = h * w
+    g = ([(p, ngf), (p // 4, 2 * ngf), (p // 16, 4 * ngf)]
+         + [(p // 16, 4 * ngf)] * (2 * n_blocks)
+         + [(p // 4, 2 * ngf), (p, ngf), (p, 3)])
+    return 2 * g + 2 * [(p, 64)]
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -149,6 +192,7 @@ def kernel_phase(device, plan):
     gen = torch.Generator(device=device).manual_seed(SEED)
     per_shape = collections.Counter((h, w, c) for h, w, c, _, _ in plan)
     per_form = collections.Counter(plan)
+    forwards = main_path_forwards()
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         elt = torch.tensor([], dtype=dtype).element_size()
@@ -162,16 +206,16 @@ def kernel_phase(device, plan):
             pmean, prstd = instance_norm_stats_plain(x)
             assert_close(f"stats {where} mean", mean, pmean, *STATS_TOL)
             assert_close(f"stats {where} rstd", rstd, prstd, *STATS_TOL)
-            b, by = bound_ms(numel * elt + 2 * n * c * 4, 3 * numel)
             rows.append(dict(
                 kernel="instance_norm_stats", dtype=str(dtype)[6:], n=n,
                 shape=(h, w, c), form="-", per_forward=per_shape[(h, w, c)],
+                launches=per_shape[(h, w, c)] * forwards[n],
                 max_abs_err=max(max_err(mean, pmean), max_err(rstd, prstd)),
                 ms=timer(lambda: instance_norm_stats(x)),
                 plain_ms=timer(lambda: instance_norm_stats_plain(x)),
                 library_ms=timer(lambda: torch.var_mean(
                     x, dim=(2, 3), correction=0)),
-                bound_ms=b, bound_by=by))
+                bound_ms=bound_ms(numel * elt + 2 * n * c * 4)))
             for (fh, fw, fc, act, has_res), n_form in sorted(per_form.items()):
                 if (fh, fw, fc) != (h, w, c):
                     continue
@@ -181,18 +225,18 @@ def kernel_phase(device, plan):
                 py = norm_act_plain(x, pmean, prstd, residual=r, act=act)
                 form = act + ("+residual" if has_res else "")
                 assert_close(f"norm_act {where} {form}", y, py, atol, rtol)
-                b, by = bound_ms(numel * elt * (3 if has_res else 2)
-                                 + 2 * n * c * 4, 5 * numel)
                 rows.append(dict(
                     kernel="norm_act", dtype=str(dtype)[6:], n=n,
                     shape=(h, w, c), form=form, per_forward=n_form,
+                    launches=n_form * forwards[n],
                     max_abs_err=max_err(y, py),
                     ms=timer(lambda: norm_act(x, pmean, prstd, residual=r,
                                               act=act)),
                     plain_ms=timer(lambda: norm_act_plain(
                         x, pmean, prstd, residual=r, act=act)),
                     library_ms=timer(lambda: F.instance_norm(x)),
-                    bound_ms=b, bound_by=by))
+                    bound_ms=bound_ms(numel * elt * (3 if has_res else 2)
+                                      + 2 * n * c * 4)))
     print("kernel phase (device ms, median of "
           f"{TIMING_REPS} cold-L2 runs; tolerance passed):")
     for row in rows:
@@ -200,37 +244,84 @@ def kernel_phase(device, plan):
     return rows
 
 
+def moments_phase(device, plan):
+    """#5 at every (M, C) of the reference train step: kernel vs plain
+    version (per channel, within MOMENTS_RTOL_OF_ABS_SUM of Σ|x| and Σx²),
+    and times. Channel 0 of each input has a large mean and a small
+    spread; the others differ in mean and spread."""
+    from p2p_tpu_torch.ops.cuda.batch_moments import (
+        batch_moments, batch_moments_plain)
+
+    timer = Timer(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    per_step = collections.Counter(plan)
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    rows = []
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.tensor([], dtype=dtype).element_size()
+        for m, c in sorted(per_step):
+            mean = torch.linspace(-2.0, 2.0, c, device=device)
+            spread = torch.linspace(3.0, 0.1, c, device=device)
+            mean[0], spread[0] = 40.0, 0.01
+            x = (torch.randn((m, c), generator=gen, device=device) * spread
+                 + mean).to(dtype)
+            s1, s2 = batch_moments(x)
+            p1, p2 = batch_moments_plain(x)
+            abs_sum = x.float().abs().sum(dim=0)
+            where = f"batch_moments {str(dtype)[6:]} M={m} C={c}"
+            for what, got, want, scale in (("sum", s1, p1, abs_sum),
+                                           ("sum of squares", s2, p2, p2)):
+                excess = ((got - want).abs()
+                          - MOMENTS_RTOL_OF_ABS_SUM * scale).max()
+                if not bool(excess <= 0):
+                    raise AssertionError(
+                        f"{where} {what}: kernel differs from plain version "
+                        f"by {max_err(got, want):.3g}")
+            rows.append(dict(
+                kernel="batch_moments", dtype=str(dtype)[6:], n=1,
+                shape=(m, c), form="-", per_step=per_step[(m, c)],
+                launches=per_step[(m, c)] * steps,
+                max_abs_err=max(max_err(s1, p1), max_err(s2, p2)),
+                max_rel_err=max(float(((s1 - p1).abs() / abs_sum).max()),
+                                float(((s2 - p2).abs() / p2).max())),
+                ms=timer(lambda: batch_moments(x)),
+                plain_ms=timer(lambda: batch_moments_plain(x)),
+                library_ms=timer(lambda: torch.var_mean(x, dim=0)),
+                bound_ms=bound_ms(m * c * elt + 2 * c * 4)))
+    print("moments phase (#5; device ms, median of "
+          f"{TIMING_REPS} cold-L2 runs; tolerance passed):")
+    for row in rows:
+        print("  " + json.dumps(row))
+    return rows
+
+
 def totals(rows, kernel, dtype="bfloat16"):
-    """A kernel's launches on the main path at the serving dtype: each
-    (N, shape, form) time weighted by how often the main path launched it."""
-    forwards = main_path_forwards()
-    sel = [(r, r["per_forward"] * forwards[r["n"]]) for r in rows
-           if r["kernel"] == kernel and r["dtype"] == dtype]
-    out = {k: sum(r[k] * m for r, m in sel)
+    """A kernel's launches on its main path at that path's dtype (bf16):
+    each (N, shape, form) time weighted by how often the path launched it."""
+    sel = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype]
+    out = {k: sum(r[k] * r["launches"] for r in sel)
            for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    out["launches"] = sum(m for _, m in sel)
-    out["max_abs_err"] = max(r["max_abs_err"] for r, _ in sel)
-    by = collections.Counter()
-    for r, m in sel:
-        by[r["bound_by"]] += r["bound_ms"] * m
-    out["bound_by"] = by.most_common(1)[0][0]
+    out["launches"] = sum(r["launches"] for r in sel)
+    out["max_abs_err"] = max(r["max_abs_err"] for r in sel)
     return out
 
 
-def launch_counts():
+def _wrappers():
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import instance_norm_stats
     from p2p_tpu_torch.ops.cuda.norm_act import norm_act
 
-    return {"instance_norm_stats": instance_norm_stats.launches,
-            "norm_act": norm_act.launches}
+    return {"instance_norm_stats": instance_norm_stats, "norm_act": norm_act,
+            "batch_moments": batch_moments}
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts():
-    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import instance_norm_stats
-    from p2p_tpu_torch.ops.cuda.norm_act import norm_act
-
-    instance_norm_stats.launches = 0
-    norm_act.launches = 0
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def check_png(path: str, h: int, w: int) -> None:
@@ -289,9 +380,10 @@ def slice_phase(device, card, profile: bool):
             check_png(os.path.join(out_dir, path), h, w)
     want = EPILOGUES_PER_FORWARD * n_forwards
     print(f"slice: launches over {n_forwards} forward batches: {counts} "
-          f"(want {want} each)")
-    if any(v != want for v in counts.values()):
-        raise AssertionError(f"launch counts {counts} != {want} each")
+          f"(want {want} of #1 and #3, none of #5)")
+    if counts != {"instance_norm_stats": want, "norm_act": want,
+                  "batch_moments": 0}:
+        raise AssertionError(f"launch counts {counts} != {want} of #1, #3")
     pred = torch.cat(preds)
     if tuple(pred.shape) != (N_REQUESTS, h, w, 3):
         raise AssertionError(f"pred shape {tuple(pred.shape)}")
@@ -306,21 +398,20 @@ def slice_phase(device, card, profile: bool):
 
     # f32: the kernels against the plain versions on the same weights and
     # the largest bucket's batch
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     n32 = max(BUCKETS)
-    eng32 = InferenceEngine(cfg, generator, buckets=(n32,), dtype="f32")
-    eng32.warmup()
-    before = launch_counts()
-    y_kernel, _, _ = eng32.infer_batch({"input": reqs[:n32]})
-    with mock.patch.object(seam, "instance_norm_stats",
-                           instance_norm_stats_plain), \
-            mock.patch.object(seam, "norm_act", norm_act_plain):
-        mid = launch_counts()
-        y_plain, _, _ = eng32.infer_batch({"input": reqs[:n32]})
-    after = launch_counts()
-    if any(mid[k] - before[k] != EPILOGUES_PER_FORWARD for k in mid) \
-            or after != mid:
+    with tf32_off():
+        eng32 = InferenceEngine(cfg, generator, buckets=(n32,), dtype="f32")
+        eng32.warmup()
+        before = launch_counts()
+        y_kernel, _, _ = eng32.infer_batch({"input": reqs[:n32]})
+        with mock.patch.object(seam, "instance_norm_stats",
+                               instance_norm_stats_plain), \
+                mock.patch.object(seam, "norm_act", norm_act_plain):
+            mid = launch_counts()
+            y_plain, _, _ = eng32.infer_batch({"input": reqs[:n32]})
+        after = launch_counts()
+    if any(mid[k] - before[k] != EPILOGUES_PER_FORWARD
+           for k in ("instance_norm_stats", "norm_act")) or after != mid:
         raise AssertionError(f"f32 check did not take the intended routes: "
                              f"{before} {mid} {after}")
     diff = max_err(y_kernel, y_plain)
@@ -336,15 +427,155 @@ def slice_phase(device, card, profile: bool):
     return counts, stats, latencies
 
 
-def profile_forward(engine, batch):
-    """torch.profiler over one bf16 bucket-1 forward: device time by kernel."""
+@contextlib.contextmanager
+def tf32_off():
+    """f32 convolutions and matmuls in full f32 (no TF32) inside."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def profile_call(what: str, fn) -> None:
+    """torch.profiler over one call: device time by kernel, then the
+    call's wall time, the device's busy time and the kernel launches."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    table = prof.key_averages()
+    print(table.table(sort_by="cuda_time_total", row_limit=30))
+    # the table's own "Self CUDA time total": device events only
+    busy = sum(e.self_device_time_total for e in table
+               if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation) / 1e3
+    launches = sum(e.count for e in table
+                   if e.key.startswith("cudaLaunchKernel"))
+    print(f"profile {what}: wall {wall:.3f} ms (profiler on), device busy "
+          f"{busy:.3f} ms, {launches} kernel launches")
+
+
+def profile_forward(engine, batch):
+    """One bf16 bucket-1 forward of the serving engine."""
+    def fwd():
         engine.infer_batch({"input": batch})
         engine.synchronize()
-    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+    profile_call("serving forward", fwd)
+
+
+def train_phase(device, card, profile: bool):
+    """The reference preset's training slice: bf16 steps with their times,
+    losses and #5 launch counts, then the f32 kernel-vs-plain check."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_batch
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.ops.cuda.batch_moments import (
+        batch_moments, batch_moments_plain)
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = get_preset("reference")
+    h, w = cfg.image_hw
+    m = cfg.model
+    per_step = len(batchnorm_plan(m.ngf, m.n_blocks, h, w))
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    host = synthetic_batch(n_steps * cfg.data.batch_size, h, m.quant_bits,
+                           seed=SEED, width=w)
+    bs = cfg.data.batch_size
+    batches = [{k: v[i * bs:(i + 1) * bs] for k, v in host.items()}
+               for i in range(n_steps)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    vgg = load_vgg19(device=device)
+    step = build_train_step(cfg, vgg, dtype)
+    sizes = {k: sum(p.numel() for p in net.parameters()) for k, net in (
+        ("G", state.net_g), ("D", state.net_d), ("C", state.net_c))}
+    print(f"train: reference preset, {h}x{w}, batch {bs}, {dtype}, ngf "
+          f"{m.ngf}, ndf {m.ndf}, {m.n_blocks} blocks, {m.num_D} D scales, "
+          f"parameters {sizes}; built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    reset_launch_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses = {k: float(metrics[k]) for k in LOSS_KEYS}
+        print(f"train: step {i + 1} {times[-1]:.2f} ms {json.dumps(losses)}")
+        if not all(np.isfinite(v) for v in losses.values()) \
+                or float(metrics["health_ok"]) != 1.0:
+            raise AssertionError(f"step {i + 1}: non-finite losses {losses}")
+    counts = launch_counts()
+    want = {"instance_norm_stats": 0, "norm_act": 0,
+            "batch_moments": per_step * n_steps}
+    print(f"train: launches over {n_steps} steps: {counts} (want {want})")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    timed = times[TRAIN_WARMUP:]
+    med = statistics.median(timed)
+    print(f"train: {TRAIN_STEPS} timed bf16 steps (after {TRAIN_WARMUP} "
+          f"warm-up): median {med:.2f} ms/step, min {min(timed):.2f}, max "
+          f"{max(timed):.2f}; {bs * 1e3 / med:.2f} img/s; on {card}",
+          flush=True)
+    if profile:
+        profile_call("train step", lambda: step(state, batches[0]))
+    del state, step
+
+    # f32, TF32 off: the same state through #5 and through its plain version
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  mixed_precision=False))
+    runs = {}
+    with tf32_off():
+        for route in ("kernel", "plain"):
+            st = create_train_state(cfg32, SEED)
+            stp = build_train_step(cfg32, vgg)
+            plain = mock.patch.object(norm, "batch_moments",
+                                      batch_moments_plain)
+            before = batch_moments.launches
+            with plain if route == "plain" else contextlib.nullcontext():
+                losses = [{k: float(v) for k, v in stp(st, b)[1].items()}
+                          for b in batches[:TRAIN_F32_STEPS]]
+            launched = batch_moments.launches - before
+            if launched != (per_step * TRAIN_F32_STEPS
+                            if route == "kernel" else 0):
+                raise AssertionError(f"f32 {route} run launched #5 "
+                                     f"{launched} times")
+            stats = torch.cat([b.reshape(-1) for net in (st.net_g, st.net_c)
+                               for b in net.buffers()])
+            runs[route] = (losses, stats)
+    worst = 0.0
+    for i, (lk, lp) in enumerate(zip(runs["kernel"][0], runs["plain"][0])):
+        rtol = TRAIN_STEP1_RTOL if i == 0 else TRAIN_LATER_RTOL
+        for k in LOSS_KEYS:
+            rel = abs(lk[k] - lp[k]) / abs(lp[k])
+            worst = max(worst, rel)
+            if not rel <= rtol:
+                raise AssertionError(f"f32 step {i + 1} {k}: kernel "
+                                     f"{lk[k]} vs plain {lp[k]} (rtol {rtol})")
+    sk, sp = runs["kernel"][1], runs["plain"][1]
+    print(f"train: f32 (TF32 off) {TRAIN_F32_STEPS} steps through #5 vs its "
+          f"plain version: losses max rel diff {worst:.3g} (step 1 limit "
+          f"{TRAIN_STEP1_RTOL}, later {TRAIN_LATER_RTOL}); running stats "
+          f"max abs diff {max_err(sk, sp):.3g} (limit {TRAIN_STATS_ATOL} + "
+          f"{TRAIN_LATER_RTOL} of the value)")
+    assert_close("f32 running stats", sk, sp, TRAIN_STATS_ATOL,
+                 TRAIN_LATER_RTOL)
+    return counts, med
 
 
 def main(argv=None) -> int:
@@ -356,7 +587,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     from p2p_tpu_torch.core.config import get_preset
-    from p2p_tpu_torch.ops.cuda import build, instance_norm_kernel, norm_act
+    from p2p_tpu_torch.ops.cuda import (
+        batch_moments, build, instance_norm_kernel, norm_act)
 
     device = torch.device("cuda")
     card = subprocess.run(
@@ -381,12 +613,18 @@ def main(argv=None) -> int:
         raise AssertionError(f"plan has {len(plan)} epilogues")
     if sum(RUN_BATCHES) != N_REQUESTS or not set(RUN_BATCHES) <= set(BUCKETS):
         raise AssertionError("RUN_BATCHES must split the requests into buckets")
-    rows = kernel_phase(device, plan)
-    counts, _, _ = slice_phase(device, card, args.profile)
+    ref = get_preset("reference")
+    bn_plan = batchnorm_plan(ref.model.ngf, ref.model.n_blocks,
+                             *ref.image_hw)
+    rows = kernel_phase(device, plan) + moments_phase(device, bn_plan)
+    serve_counts, _, _ = slice_phase(device, card, args.profile)
+    train_counts, _ = train_phase(device, card, args.profile)
 
     kernels = []
-    for name, mod in (("instance_norm_stats", instance_norm_kernel),
-                      ("norm_act", norm_act)):
+    for name, mod, counts in (
+            ("instance_norm_stats", instance_norm_kernel, serve_counts),
+            ("norm_act", norm_act, serve_counts),
+            ("batch_moments", batch_moments, train_counts)):
         tot = totals(rows, name)
         if tot["launches"] != counts[name]:
             raise AssertionError(f"{name}: timed rows cover {tot['launches']} "
@@ -396,10 +634,17 @@ def main(argv=None) -> int:
             "replaces": mod.REPLACES.split(" ")[0],
             "launches": counts[name], "max_abs_err": tot["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-            "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
+            "bound_ms": tot["bound_ms"], "bound_by": "bytes",
             "library_ms": tot["library_ms"]})
-    print("per-kernel numbers are the main path's bf16 launches at "
-          f"{h}x{w}: per-(N, shape, form) device times weighted by launches")
+    steps = TRAIN_WARMUP + TRAIN_STEPS
+    bm = kernels[-1]
+    print(f"#5 per train step (bf16, {len(bn_plan)} launches): "
+          + ", ".join(f"{k} {bm[k] / steps:.4f}" for k in (
+              "ms", "bound_ms", "plain_ms", "library_ms")))
+    print("per-kernel numbers are each main path's bf16 launches (#1, #3: "
+          f"serving at {h}x{w}; #5: {steps} train steps at "
+          f"{ref.image_hw[0]}x{ref.image_hw[1]}): per-(N, shape, form) "
+          "device times weighted by launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,16 @@
-"""Weights across frameworks: flax generator params → a torch state_dict,
-and ``.npz`` files of flax parameter trees.
+"""Weights across frameworks: flax variable trees → torch state_dicts
+(generators, net_c, the discriminators, VGG19, a whole train state), and
+``.npz`` files of flax parameter trees.
 
-A flax tree is a nested dict of arrays; every conv of the port's
-generators sits at the same path as its flax counterpart, with the inner
-``Conv_0`` renamed ``conv`` and the kernel moved from HWIO to OIHW:
+A flax tree is a nested dict of arrays; every parameter and buffer of the
+port's modules sits at the same path as its flax counterpart, with the
+inner ``Conv_0`` renamed ``conv``, the kernel moved from HWIO to OIHW, and
+BatchNorm's doubled level dropped:
 
     global/ResnetBlock_0/ConvLayer_1/Conv_0/kernel (3,3,I,O)
       → global.ResnetBlock_0.ConvLayer_1.conv.weight (O,I,3,3)
+    ResidualBlock_0/BatchNorm_1/BatchNorm_0/mean → ResidualBlock_0.BatchNorm_1.mean
+    scale2/SpectralConv_0/kernel, …/u → scale2.SpectralConv_0.weight, ….u
 
 An ``.npz`` file holds one array per leaf under its ``/``-joined path.
 """
@@ -56,25 +60,53 @@ def load_npz(path: str) -> Dict[str, Any]:
         return unflatten_tree({k: z[k] for k in z.files})
 
 
-def generator_state_from_flax(params: Mapping[str, Any]
-                              ) -> Dict[str, torch.Tensor]:
-    """A flax generator tree (the ``params`` collection) → the state_dict
-    of the port's generator of the same config. Raises on a leaf that is
-    not a conv kernel or bias."""
+# leaves that keep their flax name (every other leaf must be a conv kernel)
+_KEPT_LEAVES = ("bias", "scale", "mean", "var", "alpha", "u")
+
+
+def state_from_flax(*trees: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax variable trees of one module (its ``params`` and any
+    collections: ``batch_stats``, ``spectral``) → the state_dict of the
+    port's module of the same config. Raises on a leaf with no counterpart.
+
+    Conv kernels go HWIO → OIHW and are named ``weight`` (under ``conv``
+    where flax has an inner ``Conv_0``); BatchNorm's inner ``BatchNorm_0``
+    level goes (its ``scale``/``bias``/``mean``/``var`` keep their names);
+    the PReLU ``alpha`` and the spectral-norm ``u`` keep theirs."""
     state = {}
-    for key, arr in flatten_tree(params).items():
-        *path, module, leaf = key.split("/")
-        if module != "Conv_0" or leaf not in ("kernel", "bias"):
-            raise ValueError(f"no torch counterpart for flax leaf {key!r}")
-        if leaf == "kernel":
-            if arr.ndim != 4:
-                raise ValueError(f"{key}: expected an HWIO kernel, got "
-                                 f"shape {arr.shape}")
-            name, value = "weight", arr.transpose(3, 2, 0, 1)
-        else:
-            name, value = "bias", arr
-        state[".".join(path + ["conv", name])] = torch.from_numpy(
-            np.array(value, dtype=np.float32, order="C"))
+    for tree in trees:
+        for key, arr in flatten_tree(tree).items():
+            *path, leaf = key.split("/")
+            if path and path[-1] == "Conv_0":
+                path[-1] = "conv"
+            if path[-1:] == ["BatchNorm_0"] and len(path) > 1 \
+                    and path[-2].startswith("BatchNorm_"):
+                path.pop()
+            if leaf == "kernel":
+                if arr.ndim != 4:
+                    raise ValueError(f"{key}: expected an HWIO kernel, got "
+                                     f"shape {arr.shape}")
+                leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+            elif leaf not in _KEPT_LEAVES:
+                raise ValueError(f"no torch counterpart for flax leaf "
+                                 f"{key!r}")
+            state[".".join(path + [leaf])] = torch.from_numpy(
+                np.array(arr, dtype=np.float32, order="C"))
+    return state
+
+
+def load_train_state(state, flax_state: Mapping[str, Any]):
+    """Load a JAX ``TrainState``'s networks into the port's ``state``
+    (train/state.py): ``flax_state`` maps the JAX field names
+    ``params_g``, ``batch_stats_g``, ``params_d``, ``spectral_d``,
+    ``params_c`` and ``batch_stats_c`` to numpy trees. Every parameter and
+    buffer must be present, and nothing else; the optimizers stay fresh,
+    as the JAX state's are at creation."""
+    for net, fields in ((state.net_g, ("params_g", "batch_stats_g")),
+                        (state.net_d, ("params_d", "spectral_d")),
+                        (state.net_c, ("params_c", "batch_stats_c"))):
+        net.load_state_dict(state_from_flax(
+            *(flax_state[f] for f in fields)), strict=True)
     return state
 
 
@@ -82,6 +114,6 @@ def load_generator(generator: torch.nn.Module, npz_path: str
                    ) -> torch.nn.Module:
     """Load a flax generator tree from ``npz_path`` into ``generator``
     (every parameter must be present, and nothing else)."""
-    generator.load_state_dict(
-        generator_state_from_flax(load_npz(npz_path)), strict=True)
+    generator.load_state_dict(state_from_flax(load_npz(npz_path)),
+                              strict=True)
     return generator

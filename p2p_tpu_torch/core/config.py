@@ -1,6 +1,9 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
-fields the serving path reads. Field names, defaults and the preset values
-are those of the JAX package, so one preset name means one model in both.
+fields the serving path and the ``reference`` train step read. Field names,
+defaults and the preset values are those of the JAX package, so one preset
+name means one model in both. A few fields name machinery the port does not
+have yet (the fake pool, int8, dropout, EMA); the train step reads them
+only to raise.
 """
 
 from __future__ import annotations
@@ -11,17 +14,57 @@ from typing import Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    # generator family: "pix2pixhd" (coarse-to-fine global + local),
-    # "pix2pixhd_global" (G1 alone), "resnet" (9-block ResnetGenerator)
+    # generator family: "expand" (the reference ExpandNetwork, trained),
+    # "pix2pixhd" (coarse-to-fine global + local), "pix2pixhd_global" (G1
+    # alone), "resnet" (9-block ResnetGenerator); the last three are served
     generator: str = "expand"
     input_nc: int = 3
     output_nc: int = 3
     ngf: int = 32
+    ndf: int = 64
     n_blocks: int = 9
-    # the compression pre-filter; the port serves presets without it
+    # multiscale PatchGAN: num_D scales of n_layers_D inner convs, spectral
+    # norm on the inner convs, every intermediate tap kept for the
+    # feature-matching loss
+    num_D: int = 3
+    n_layers_D: int = 3
+    use_spectral_norm: bool = True
+    get_interm_feat: bool = True
+    # the compression pre-filter (net_c) and its quantizer's bits, with a
+    # straight-through gradient when quant_ste
     use_compression_net: bool = True
-    # "instance" | "pallas_instance" ("batch" comes with training)
+    quant_bits: int = 3
+    quant_ste: bool = True
+    # "batch" | "instance" | "pallas_instance" | "none"
     norm: str = "batch"
+    # discriminator-side norm; the port has "none" only
+    norm_d: str = "none"
+    # not ported: U-Net dropout, the int8 QAT path
+    use_dropout: bool = False
+    int8: bool = False
+    int8_delayed: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    gan_mode: str = "lsgan"          # lsgan | vanilla | hinge
+    lambda_feat: float = 10.0
+    lambda_vgg: float = 10.0
+    lambda_tv: float = 1.0
+    # feed VGG [-1, 1] images un-normalized, as the reference does
+    vgg_imagenet_norm: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    lr: float = 2e-4
+    beta1: float = 0.5
+    beta2: float = 0.999
+    lr_policy: str = "lambda"        # the port has the lambda policy only
+    niter: int = 100                 # epochs at constant lr
+    niter_decay: int = 100           # epochs of linear decay to 0
+    # False is the reference's bug: its optimizer_c never trains net_c
+    train_compression_net: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,10 +80,32 @@ class DataConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    epoch_count: int = 1             # 1-based epoch label of step 0
+    # bf16 compute on f32 master parameters (core/dtypes.py)
+    mixed_precision: bool = True
+    # not ported: the historical-fake pool
+    pool_size: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class HealthConfig:
+    # the in-step skip guard: a step whose G, D or C loss is not finite
+    # leaves parameters, optimizer state and running statistics unchanged
+    enabled: bool = True
+    # not ported: the EMA generator (None = off)
+    ema_decay: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     name: str = "default"
     model: ModelConfig = ModelConfig()
+    loss: LossConfig = LossConfig()
+    optim: OptimConfig = OptimConfig()
     data: DataConfig = DataConfig()
+    train: TrainConfig = TrainConfig()
+    health: HealthConfig = HealthConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -60,12 +125,23 @@ def _register(cfg: Config) -> Config:
     return cfg
 
 
+# the reference system: net_c → 3-bit STE quantizer → ExpandNetwork →
+# 3-scale spectral-norm PatchGAN, LSGAN + 10·FM + 10·VGG19 + 1·TV
+_register(
+    Config(
+        name="reference",
+        model=ModelConfig(generator="expand"),
+        data=DataConfig(dataset="facades", image_size=256, batch_size=1),
+    )
+)
+
 # pix2pixHD coarse-to-fine G at 1024×512, fused instance-norm epilogues
 _register(
     Config(
         name="pix2pixhd",
         model=ModelConfig(generator="pix2pixhd", ngf=64,
                           norm="pallas_instance", use_compression_net=False),
+        loss=LossConfig(lambda_tv=0.0),
         data=DataConfig(dataset="cityscapes_hd", image_size=512,
                         image_width=1024, batch_size=1),
     )

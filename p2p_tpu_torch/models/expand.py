@@ -1,0 +1,83 @@
+"""ExpandNetwork, the reference preset's generator (counterpart of
+``p2p_tpu/models/expand.py`` ``ResidualBlock`` and ``ExpandNetwork``).
+
+PixelUnshuffle(2) → nearest ×2 → [conv k9 12→ngf, conv k3 s2 ngf→2ngf,
+conv k3 s2 2ngf→4ngf], each norm + the shared PReLU → ``n_blocks``
+residual blocks → long skip + LeakyReLU(0.2) → [up×2 conv 4ngf→2ngf,
+up×2 conv 2ngf→ngf], norm + PReLU each → conv k9 ngf→out → norm → tanh.
+Every conv is followed by a norm, so no conv carries a bias (JAX
+``ub = legacy_layout or norm == "none"``). One PReLU scalar serves every
+call site. Submodule names follow the flax tree.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from p2p_tpu_torch.ops.activations import PReLU, leaky_relu_y, tanh_y
+from p2p_tpu_torch.ops.conv import ConvLayer, UpsampleConvLayer, \
+    upsample_nearest
+from p2p_tpu_torch.ops.norm import make_norm, make_norm_act
+from p2p_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
+
+
+class ResidualBlock(nn.Module):
+    """conv-norm-relu-conv-norm + identity, relu after the add."""
+
+    def __init__(self, features: int, norm: str = "batch",
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        ub = norm == "none"
+        self.ConvLayer_0 = ConvLayer(features, features, 3, use_bias=ub,
+                                     dtype=dtype)
+        self.BatchNorm_0 = make_norm_act(norm, features)
+        self.ConvLayer_1 = ConvLayer(features, features, 3, use_bias=ub,
+                                     dtype=dtype)
+        self.BatchNorm_1 = make_norm_act(norm, features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.BatchNorm_0(self.ConvLayer_0(x), act="relu")
+        return self.BatchNorm_1(self.ConvLayer_1(y), act="relu", residual=x)
+
+
+class ExpandNetwork(nn.Module):
+    def __init__(self, in_channels: int = 3, ngf: int = 32,
+                 n_blocks: int = 9, out_channels: int = 3,
+                 norm: str = "batch", dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        ub = norm == "none"
+        self.n_blocks = n_blocks
+        self.PReLU_0 = PReLU()
+        widths = [(in_channels * 4, ngf, 9, 1), (ngf, ngf * 2, 3, 2),
+                  (ngf * 2, ngf * 4, 3, 2)]
+        for i, (cin, f, k, s) in enumerate(widths):
+            setattr(self, f"ConvLayer_{i}", ConvLayer(
+                cin, f, k, stride=s, use_bias=ub, dtype=dtype))
+            setattr(self, f"BatchNorm_{i}", make_norm(norm, f))
+        for i in range(n_blocks):
+            setattr(self, f"ResidualBlock_{i}",
+                    ResidualBlock(ngf * 4, norm=norm, dtype=dtype))
+        ups = [(ngf * 4, ngf * 2, 3, 2), (ngf * 2, ngf, 3, 2),
+               (ngf, out_channels, 9, 0)]
+        for i, (cin, f, k, up) in enumerate(ups):
+            setattr(self, f"UpsampleConvLayer_{i}", UpsampleConvLayer(
+                cin, f, k, upsample=up, use_bias=ub, dtype=dtype))
+            setattr(self, f"BatchNorm_{i + 3}", make_norm(norm, f))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        act = self.PReLU_0
+        y = upsample_nearest(pixel_unshuffle(x, 2), 2)
+        for i in range(3):
+            y = act(getattr(self, f"BatchNorm_{i}")(
+                getattr(self, f"ConvLayer_{i}")(y)))
+        residual = y
+        for i in range(self.n_blocks):
+            y = getattr(self, f"ResidualBlock_{i}")(y)
+        y = leaky_relu_y(y + residual, 0.2)
+        for i in range(2):
+            y = act(getattr(self, f"BatchNorm_{i + 3}")(
+                getattr(self, f"UpsampleConvLayer_{i}")(y)))
+        return tanh_y(self.BatchNorm_5(self.UpsampleConvLayer_2(y)))

@@ -1,16 +1,35 @@
-"""Generator factory (counterpart of ``p2p_tpu/models/registry.py:33
-define_G``) and the reference weight init."""
+"""Model factories (counterparts of ``p2p_tpu/models/registry.py:25
+define_C``, ``:33 define_G`` and ``:109 define_D``) and the reference
+weight init.
+
+``dtype`` is the compute dtype of the trained networks (flax ``dtype=``);
+the served generators compute in their weights' dtype and take none.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from p2p_tpu_torch.core.config import ModelConfig
+from p2p_tpu_torch.ops.norm import BatchNorm
+from p2p_tpu_torch.ops.spectral_norm import SpectralConv, l2normalize
 
 
-def define_G(cfg: ModelConfig) -> nn.Module:
+def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
+             ) -> nn.Module:
     """The generator ``cfg.generator`` names, on the CPU in f32."""
+    if cfg.generator == "expand":
+        from p2p_tpu_torch.models.expand import ExpandNetwork
+
+        return ExpandNetwork(
+            in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
+            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype)
+    if dtype is not None:
+        raise ValueError(f"generator {cfg.generator!r} is served only; it "
+                         "computes in its weights' dtype")
     if cfg.generator == "pix2pixhd":
         from p2p_tpu_torch.models.pix2pixhd import Pix2PixHDGenerator
 
@@ -34,14 +53,43 @@ def define_G(cfg: ModelConfig) -> nn.Module:
     raise ValueError(f"generator {cfg.generator!r} is not ported yet")
 
 
+def define_C(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
+             ) -> nn.Module:
+    """net_c, the compression pre-filter."""
+    from p2p_tpu_torch.models.compression import CompressionNetwork
+
+    return CompressionNetwork(in_channels=cfg.input_nc, dtype=dtype)
+
+
+def define_D(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
+             ) -> nn.Module:
+    """The multiscale PatchGAN on (input ‖ output) pairs."""
+    from p2p_tpu_torch.models.patchgan import MultiscaleDiscriminator
+
+    if cfg.norm_d != "none":
+        raise ValueError(f"norm_d {cfg.norm_d!r} is not ported yet")
+    return MultiscaleDiscriminator(
+        in_channels=cfg.input_nc + cfg.output_nc, ndf=cfg.ndf,
+        n_layers=cfg.n_layers_D, num_D=cfg.num_D,
+        use_spectral_norm=cfg.use_spectral_norm,
+        get_interm_feat=cfg.get_interm_feat, dtype=dtype)
+
+
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
-    """Reference init (networks.py:131 via ``normal_init``): every conv
-    kernel ~ N(0, std), every bias 0, drawn from ``generator``."""
+    """Reference init (networks.py:131 via ``normal_init``), drawn from
+    ``generator``: every conv kernel ~ N(0, std) and every conv bias 0;
+    BatchNorm γ ~ N(1, 0.02) and β = 0; a spectral-norm ``u`` ~ N(0, 1),
+    normalized. PReLU keeps its 0.25."""
     for m in module.modules():
-        if isinstance(m, nn.Conv2d):
+        if isinstance(m, (nn.Conv2d, SpectralConv)):
             m.weight.normal_(0.0, std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+        if isinstance(m, SpectralConv):
+            m.u.copy_(l2normalize(m.u.normal_(generator=generator)))
+        elif isinstance(m, BatchNorm):
+            m.scale.normal_(1.0, 0.02, generator=generator)
+            m.bias.zero_()
     return module

@@ -1,0 +1,87 @@
+"""The VGG19 feature trunk of the perceptual loss (counterpart of
+``p2p_tpu/models/vgg.py:48 VGG19Features``).
+
+The torchvision VGG19 ``features`` through conv5_1, returning the five
+activations after relu1_1, relu2_1, relu3_1, relu4_1 and relu5_1. Images go
+in as [-1, 1] with no ImageNet normalization unless ``imagenet_norm``. The
+trunk is frozen. Its convs compute in the promoted type of input and
+weight (flax ``dtype=None``): the f32 weights make it f32 even on a bf16
+input, as in the JAX step.
+
+No pretrained weights are in the repository and none can be fetched, so
+:func:`init_vgg19` draws the JAX package's distribution (flax
+``lecun_normal``: a normal truncated at 2σ, variance 1/fan_in, zero bias)
+from a seed; the CPU tests carry the JAX package's own fixed-seed draw
+across with ``convert.py`` instead.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from p2p_tpu_torch.ops.activations import relu_y
+from p2p_tpu_torch.ops.conv import cast_conv
+
+# (name, out_channels); "M" = 2×2 max pool
+_CFG = [
+    ("conv1_1", 64), ("conv1_2", 64), ("M", 0),
+    ("conv2_1", 128), ("conv2_2", 128), ("M", 0),
+    ("conv3_1", 256), ("conv3_2", 256), ("conv3_3", 256), ("conv3_4", 256),
+    ("M", 0),
+    ("conv4_1", 512), ("conv4_2", 512), ("conv4_3", 512), ("conv4_4", 512),
+    ("M", 0),
+    ("conv5_1", 512),
+]
+_TAPS = ("conv1_1", "conv2_1", "conv3_1", "conv4_1", "conv5_1")
+_IMAGENET_MEAN = (0.485, 0.456, 0.406)
+_IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+class VGG19Features(nn.Module):
+    def __init__(self, imagenet_norm: bool = False):
+        super().__init__()
+        self.imagenet_norm = imagenet_norm
+        cin = 3
+        for name, ch in _CFG:
+            if name != "M":
+                setattr(self, name, nn.Conv2d(cin, ch, 3, padding=1))
+                cin = ch
+        self.requires_grad_(False)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.imagenet_norm:
+            mean = x.new_tensor(_IMAGENET_MEAN).view(1, 3, 1, 1)
+            std = x.new_tensor(_IMAGENET_STD).view(1, 3, 1, 1)
+            x = ((x + 1.0) * 0.5 - mean) / std
+        outs = []
+        y = x
+        for name, _ in _CFG:
+            if name == "M":
+                y = F.max_pool2d(y, 2, 2)
+                continue
+            y = relu_y(cast_conv(getattr(self, name), y))
+            if name in _TAPS:
+                outs.append(y)
+        return outs
+
+
+@torch.no_grad()
+def init_vgg19(vgg: VGG19Features, generator: torch.Generator
+               ) -> VGG19Features:
+    """Random VGG19 weights from ``generator``: flax ``lecun_normal``
+    kernels (std √(1/fan_in) / 0.87962566, truncated at ±2 of the base
+    normal) and zero biases."""
+    for m in vgg.modules():
+        if isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
+            w = torch.empty(m.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
+                                  generator=generator)
+            m.weight.copy_(w * std)
+            m.bias.zero_()
+    return vgg

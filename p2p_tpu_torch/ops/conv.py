@@ -10,13 +10,30 @@ The JAX package's dispatch forms (``PatchesConv`` :253, ``ThinHeadConv``
 unit, with the same ``Conv_0/kernel`` parameters, so here they are this
 one conv. Parameter names follow the flax tree (``conv`` holds
 ``Conv_0``), which keeps convert.py a direct mapping.
+
+``dtype`` is flax's ``dtype=``: the conv's input, weight and bias are cast
+to it (bf16 compute on f32 master weights in training); ``None`` computes
+in the promoted type of input and weight.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def cast_conv(conv: nn.Conv2d, x: torch.Tensor,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``conv(x)`` with input, weight and bias cast to ``dtype`` (or to the
+    promoted type of x and the weight), with the conv's own stride and
+    zero padding."""
+    dt = dtype or torch.promote_types(x.dtype, conv.weight.dtype)
+    bias = None if conv.bias is None else conv.bias.to(dt)
+    return F.conv2d(x.to(dt), conv.weight.to(dt), bias, conv.stride,
+                    conv.padding)
 
 
 def reflect_pad_2d(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -37,28 +54,32 @@ class ConvLayer(nn.Module):
     """ReflectionPad(k//2) + conv, no norm or activation."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 stride: int = 1, use_bias: bool = True):
+                 stride: int = 1, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.pad = kernel_size // 2
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, features, kernel_size,
                               stride=stride, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(reflect_pad_2d(x, self.pad))
+        return cast_conv(self.conv, reflect_pad_2d(x, self.pad), self.dtype)
 
 
 class UpsampleConvLayer(nn.Module):
     """Optional nearest ×upsample → ReflectionPad(k//2) → conv."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
-                 stride: int = 1, upsample: int = 0, use_bias: bool = True):
+                 stride: int = 1, upsample: int = 0, use_bias: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.upsample = upsample
         self.pad = kernel_size // 2
+        self.dtype = dtype
         self.conv = nn.Conv2d(in_channels, features, kernel_size,
                               stride=stride, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.upsample:
             x = upsample_nearest(x, self.upsample)
-        return self.conv(reflect_pad_2d(x, self.pad))
+        return cast_conv(self.conv, reflect_pad_2d(x, self.pad), self.dtype)

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-KERNELS = ("instance_norm_stats", "norm_act")
+KERNELS = ("instance_norm_stats", "norm_act", "batch_moments")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of csrc/common.cuh (p2p::DType)
@@ -43,6 +43,9 @@ SIGNATURES = {
     "norm_act": ("p2p_norm_act",
                  (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _F,
                   _I, _I, _P)),
+    "batch_moments": ("p2p_batch_moments",
+                      (_P, _I, _L, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P,
+                       _P, _P)),
 }
 
 
@@ -59,7 +62,7 @@ def find_nvcc() -> str:
 
 def _library_path(name: str, nvcc: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"

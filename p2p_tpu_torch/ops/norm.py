@@ -1,23 +1,119 @@
-"""Normalization factories (counterparts of ``p2p_tpu/ops/norm.py:224
-make_norm_act`` and ``:288 make_norm``).
+"""Normalization (counterparts of ``p2p_tpu/ops/norm.py:37 dual_moments``,
+``:86 _FastBatchNorm``, ``:224 make_norm_act`` and ``:288 make_norm``).
 
-Kinds in this port: ``"pallas_instance"`` (the fused epilogue through the
-Hopper kernels, ops/instance_norm.py), ``"instance"`` (plain PyTorch, the
-op order of the JAX ``InstanceNorm`` module) and ``"none"``. The norms are
-stateless and affine-free, as in the JAX generators, so a factory returns
-plain functions on tensors. ``"batch"`` comes with the training slice.
+Kinds in this port: ``"batch"`` (BatchNorm with running statistics, its
+moments through the Hopper kernel ops/cuda/batch_moments.py),
+``"pallas_instance"`` (the fused instance-norm epilogue through the Hopper
+kernels, ops/instance_norm.py), ``"instance"`` (plain PyTorch, the op order
+of the JAX ``InstanceNorm`` module) and ``"none"``. The stateless kinds
+are plain functions on tensors; ``"batch"`` is a module, built per call
+site with its channel count, so the factories take ``features`` for it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
+from torch import nn
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y
+from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
 from p2p_tpu_torch.ops.instance_norm import instance_norm_act
 
 EpilogueFn = Callable[..., torch.Tensor]
+
+
+class _DualMoments(torch.autograd.Function):
+    """(Σxc, Σxc²) per column of an (M, C) tensor through the kernel
+    wrapper, with the closed-form VJP of the JAX ``dual_moments``
+    (``p2p_tpu/ops/norm.py:77-80``): ``dxc = ds + 2·xc·dss`` in f32, cast
+    to xc's dtype."""
+
+    @staticmethod
+    def forward(ctx, xc):
+        ctx.save_for_backward(xc)
+        return batch_moments(xc)
+
+    @staticmethod
+    def backward(ctx, ds, dss):
+        (xc,) = ctx.saved_tensors
+        dxc = ds[None, :] + 2.0 * xc.float() * dss[None, :]
+        return dxc.to(xc.dtype)
+
+
+def dual_moments(xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (Σxc, Σxc²) of an (M, C) tensor in f32, one read of xc
+    (the Hopper kernel on a CUDA tensor, the plain version on the CPU)."""
+    return _DualMoments.apply(xc)
+
+
+class BatchNorm(nn.Module):
+    """The JAX ``_FastBatchNorm`` over (N, H, W) of an (N, C, H, W) tensor.
+
+    In training the moments are shifted by the running mean ``c`` (cast to
+    x's dtype, no gradient): ``xc = x − c``, ``mean = Σxc/n + c``,
+    ``var = max(Σxc²/n − (Σxc/n)², 0)`` (biased), and the running
+    statistics move as ``r ← 0.9·r + 0.1·stat`` (flax momentum 0.9, torch
+    momentum 0.1) in place. The folded affine ``a = γ·rsqrt(var + ε)``,
+    ``b = β − mean·a`` is computed in f32 and applied as ``x·a + b`` in x's
+    dtype. Names are flax's: ``scale`` (γ ~ N(1, 0.02) at init), ``bias``,
+    and the buffers ``mean`` and ``var``.
+    """
+
+    momentum = 0.9
+    epsilon = 1e-5
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        c = x.shape[1]
+        if self.training:
+            shift = self.mean.to(x.dtype)
+            xc = x - shift.view(1, c, 1, 1)
+            n = x.numel() // c
+            s1, s2 = dual_moments(xc.permute(0, 2, 3, 1).reshape(-1, c))
+            mean_c = s1 / n
+            mean = mean_c + shift.float()
+            var = torch.maximum(s2 / n - mean_c * mean_c, s2.new_zeros(()))
+            with torch.no_grad():
+                m = self.momentum
+                self.mean.copy_(m * self.mean + (1.0 - m) * mean)
+                self.var.copy_(m * self.var + (1.0 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        a = self.scale * torch.rsqrt(var + self.epsilon)
+        b = self.bias - mean * a
+        return x * a.to(x.dtype).view(1, c, 1, 1) + b.to(x.dtype).view(
+            1, c, 1, 1)
+
+
+def _epilogue(z: torch.Tensor, act: str, slope: float,
+              residual: Optional[torch.Tensor]) -> torch.Tensor:
+    """[+ residual] → activation, the JAX reference chain's order."""
+    if residual is not None:
+        z = z + residual
+    if act == "relu":
+        return relu_y(z)
+    if act == "leaky":
+        return leaky_relu_y(z, slope)
+    if act != "none":
+        raise ValueError(f"unknown act {act!r}")
+    return z
+
+
+class BatchNormAct(BatchNorm):
+    """The ``"batch"`` kind of :func:`make_norm_act`: a BatchNorm whose
+    call takes the epilogue's ``act``, ``slope`` and ``residual``."""
+
+    def forward(self, y: torch.Tensor, act: str = "none", slope: float = 0.2,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return _epilogue(super().forward(y), act, slope, residual)
 
 
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -29,8 +125,18 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def make_norm(kind: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    """The norm of ``kind`` as a function of one tensor."""
+def _need_features(kind: str, features: Optional[int]) -> int:
+    if features is None:
+        raise ValueError(f"norm kind {kind!r} needs the channel count")
+    return features
+
+
+def make_norm(kind: str, features: Optional[int] = None
+              ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The norm of ``kind`` as a callable on one tensor (a module for
+    ``"batch"``, which needs ``features``)."""
+    if kind == "batch":
+        return BatchNorm(_need_features(kind, features))
     if kind == "instance":
         return instance_norm
     if kind == "pallas_instance":
@@ -40,12 +146,15 @@ def make_norm(kind: str) -> Callable[[torch.Tensor], torch.Tensor]:
     raise ValueError(f"unknown norm kind {kind!r}")
 
 
-def make_norm_act(kind: str) -> EpilogueFn:
+def make_norm_act(kind: str, features: Optional[int] = None) -> EpilogueFn:
     """The post-conv epilogue ``apply(y, act="none", slope=0.2,
     residual=None)`` = act(norm(y) [+ residual]). ``pallas_instance``
-    fuses the chain into the kernels' normalize pass; the other kinds run
+    fuses the chain into the kernels' normalize pass; ``"batch"`` is a
+    :class:`BatchNormAct` module (needs ``features``); the other kinds run
     norm → residual add → activation in y's dtype, as the JAX reference
     chain does."""
+    if kind == "batch":
+        return BatchNormAct(_need_features(kind, features))
     if kind == "pallas_instance":
         def apply_fused(y: torch.Tensor, act: str = "none",
                         slope: float = 0.2,
@@ -59,15 +168,6 @@ def make_norm_act(kind: str) -> EpilogueFn:
 
     def apply_ref(y: torch.Tensor, act: str = "none", slope: float = 0.2,
                   residual: Optional[torch.Tensor] = None):
-        z = norm(y)
-        if residual is not None:
-            z = z + residual
-        if act == "relu":
-            return relu_y(z)
-        if act == "leaky":
-            return leaky_relu_y(z, slope)
-        if act != "none":
-            raise ValueError(f"unknown act {act!r}")
-        return z
+        return _epilogue(norm(y), act, slope, residual)
 
     return apply_ref

@@ -1,21 +1,61 @@
-"""Generator inference (counterpart of ``p2p_tpu/train/step.py:940
-make_infer_forward``), the serving half: ingest → G → pred, without the
-compression net and without the PSNR/SSIM tail (both come with later
-slices)."""
+"""The train step of the ``reference`` preset and generator inference
+(counterparts of ``p2p_tpu/train/step.py:79 single_forward_d_losses``,
+``:140 make_g_loss_fn``, ``:209 build_train_step`` and ``:940
+make_infer_forward``).
+
+``build_train_step(cfg, vgg)`` returns ``step(state, batch) -> (state,
+metrics)`` in the order of the JAX step (``step.py:277-597``):
+
+1. ``compressed = quantize(net_c(real_b), bits)``, no gradient;
+2. ``fake_b = G(compressed)``;
+3. ONE D(fake) forward on (real_a ‖ fake_b) that serves both the D loss
+   (gradient to D's parameters only: the reference's ``fake_b.detach()``)
+   and the G loss (gradient through D to fake_b only: the reference's
+   ``zero_grad`` before the D step), then D(real);
+4. the G loss: GAN + feature matching + VGG + TV;
+5. G's update, then D's;
+6. the net_c branch against the UPDATED G: MSE(G(cq), real_b) +
+   λ_vgg·VGG(cq, real_b), ``cq = quantize_ste(net_c(real_b))``, the
+   gradient reaching net_c through the straight-through quantizer.
+
+Running statistics and spectral ``u`` are buffers that each forward in
+training mode advances in place, so they move as the JAX collections are
+threaded: net_c's from its first run (the net_c branch reruns it from the
+step's starting statistics and drops that update, as the JAX branch reads
+``state.batch_stats_c``), G's twice (the G step, then the net_c branch:
+the stored value is the second), D's ``u`` once per D forward.
+
+The skip guard (``health.enabled``, ``step.py:442-481``): when the G or D
+loss is not finite, no optimizer steps and D's ``u`` and all running
+statistics return to the step's start; when the net_c loss is not finite,
+net_c does not step and the running statistics return to the start. The
+verdicts are read on the host (two synchronizations per step).
+
+Not ported, and refused by :func:`build_train_step`: the historical-fake
+pool, int8 QAT, dropout, the EMA generator, pipeline parallelism.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.func import functional_call
 
 from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
+from p2p_tpu_torch.losses.gan import gan_loss
+from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
+from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
+from p2p_tpu_torch.ops.tv import total_variation_loss
+from p2p_tpu_torch.train.state import TrainState
 from p2p_tpu_torch.utils.images import ingest
 
 InferFn = Callable[[nn.Module, Dict[str, np.ndarray]],
                    Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+Metrics = Dict[str, torch.Tensor]
 
 
 def make_infer_forward(cfg: Config, dtype: Optional[torch.dtype] = None,
@@ -33,11 +73,182 @@ def make_infer_forward(cfg: Config, dtype: Optional[torch.dtype] = None,
 
     def fwd(generator: nn.Module, batch: Dict[str, np.ndarray]):
         device = next(generator.parameters()).device
-        x = torch.as_tensor(batch["input"]).to(device, non_blocking=True)
-        # an NHWC tensor viewed as (N, C, H, W) is channels_last already
-        x = ingest(x.permute(0, 3, 1, 2), dtype)
+        x = to_device_image(batch["input"], device, dtype)
         with torch.inference_mode():
             pred = generator(x)
         return pred.permute(0, 2, 3, 1), {}
 
     return fwd
+
+
+def to_device_image(x: np.ndarray, device: torch.device,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """An NHWC host batch → a channels_last (N, C, H, W) tensor on
+    ``device``, normalized there (utils/images.ingest) and cast to
+    ``dtype``. An NHWC tensor viewed as (N, C, H, W) is channels_last
+    already."""
+    t = torch.as_tensor(x).to(device, non_blocking=True)
+    return ingest(t.permute(0, 3, 1, 2), dtype)
+
+
+def single_forward_d_losses(net_d: nn.Module, fake_pair: torch.Tensor,
+                            real_pair: torch.Tensor, gan_mode: str):
+    """ONE D(fake) forward for both losses, then D(real). Accumulates the
+    D-loss gradient into D's ``.grad`` and returns ``(loss_d, pred_fake,
+    pred_real)``: ``pred_fake`` keeps its graph (through D to the fake
+    pair) for the G loss; ``pred_real`` is detached."""
+    d_params = list(net_d.parameters())
+    pred_fake = net_d(fake_pair)
+    loss_fake = 0.5 * gan_loss(pred_fake, False, gan_mode)
+    loss_fake.backward(inputs=d_params, retain_graph=True)
+    pred_real = net_d(real_pair)
+    loss_real = 0.5 * gan_loss(pred_real, True, gan_mode)
+    loss_real.backward(inputs=d_params)
+    pred_real = [[t.detach() for t in scale] for scale in pred_real]
+    return (loss_fake + loss_real).detach(), pred_fake, pred_real
+
+
+def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module]):
+    """``g_losses(fake_b, pred_fake, pred_real, real_feats) -> (total,
+    parts)``: GAN + feature matching + VGG + TV per the config; ``parts``
+    holds each term under the JAX metric keys."""
+    L = cfg.loss
+
+    def g_losses(fake_b, pred_fake, pred_real, real_feats):
+        total = gan_loss(pred_fake, True, L.gan_mode, for_discriminator=False)
+        parts = {"g_gan": total}
+        if L.lambda_feat > 0:
+            parts["g_feat"] = feature_matching_loss(
+                pred_fake, pred_real, cfg.model.n_layers_D, L.lambda_feat)
+        if L.lambda_vgg > 0 and vgg is not None:
+            parts["g_vgg"] = vgg_loss(vgg, fake_b, real_feats) * L.lambda_vgg
+        if L.lambda_tv > 0:
+            parts["g_tv"] = total_variation_loss(fake_b) * L.lambda_tv
+        for k in ("g_feat", "g_vgg", "g_tv"):
+            if k in parts:
+                total = total + parts[k]
+        return total, parts
+
+    return g_losses
+
+
+def _check_supported(cfg: Config) -> None:
+    m = cfg.model
+    unported = {
+        "a generator other than 'expand'": m.generator != "expand",
+        "training without net_c": not m.use_compression_net,
+        "dropout": m.use_dropout,
+        "int8 QAT": m.int8 or m.int8_delayed,
+        "the historical-fake pool": cfg.train.pool_size > 0,
+        "the EMA generator": cfg.health.ema_decay is not None,
+    }
+    missing = [k for k, v in unported.items() if v]
+    if missing:
+        raise NotImplementedError(
+            f"the port's train step does not have {', '.join(missing)} yet")
+
+
+class _Snapshot:
+    """Flat copies of a set of buffers (one concatenation), to put them
+    back when the skip guard drops a step."""
+
+    def __init__(self, buffers: List[torch.Tensor]):
+        self.buffers = buffers
+        self.flat = torch.cat([b.reshape(-1) for b in buffers]) \
+            if buffers else None
+
+    def restore(self) -> None:
+        if not self.buffers:
+            return
+        parts = self.flat.split([b.numel() for b in self.buffers])
+        with torch.no_grad():
+            for b, p in zip(self.buffers, parts):
+                b.copy_(p.view_as(b))
+
+
+def _apply(opt, grads_ok: bool) -> None:
+    optimizer, scheduler = opt
+    if grads_ok:
+        optimizer.step()
+        scheduler.step()
+    optimizer.zero_grad(set_to_none=True)
+
+
+def _finite(*losses: torch.Tensor) -> bool:
+    return bool(torch.isfinite(torch.stack(losses)).all())
+
+
+def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
+                     train_dtype: Optional[torch.dtype] = None):
+    """``step(state, batch) -> (state, metrics)`` for ``cfg`` (the
+    ``reference`` preset's path); ``vgg`` is the frozen VGG19 trunk (needed
+    when ``lambda_vgg > 0``), ``train_dtype`` the dtype the images enter
+    in (bf16 under mixed precision, None for f32). ``batch`` holds NHWC
+    host arrays ``"input"`` and ``"target"``; ``state`` is advanced in
+    place; ``metrics`` are 0-d f32 tensors on the device under the JAX
+    keys."""
+    _check_supported(cfg)
+    L = cfg.loss
+    bits = cfg.model.quant_bits
+    quant = quantize_ste if cfg.model.quant_ste else quantize
+    need_vgg = L.lambda_vgg > 0 and vgg is not None
+    if need_vgg and vgg.imagenet_norm != L.vgg_imagenet_norm:
+        raise ValueError("vgg.imagenet_norm must equal "
+                         "cfg.loss.vgg_imagenet_norm")
+    g_losses = make_g_loss_fn(cfg, vgg)
+    guard = cfg.health.enabled
+
+    def step(state: TrainState, batch: Dict[str, np.ndarray]
+             ) -> Tuple[TrainState, Metrics]:
+        net_g, net_d, net_c = state.net_g, state.net_d, state.net_c
+        real_a = to_device_image(batch["input"], state.device, train_dtype)
+        real_b = to_device_image(batch["target"], state.device, train_dtype)
+        stats = [b for net in (net_g, net_c) for b in net.buffers()]
+        snap_stats = _Snapshot(stats) if guard else None
+        snap_u = _Snapshot(list(net_d.buffers())) if guard else None
+        # net_c's statistics at the step's start, for the net_c branch
+        stats_c0 = {k: v.clone() for k, v in net_c.named_buffers()}
+
+        # ---- 1. net_c + quantizer (its statistics update is kept) -------
+        with torch.no_grad():
+            compressed = quant(net_c(real_b), bits)
+
+        # ---- 2-4. G, one D(fake) forward for both losses, G loss --------
+        fake_b = net_g(compressed)
+        loss_d, pred_fake, pred_real = single_forward_d_losses(
+            net_d, torch.cat([real_a, fake_b], dim=1),
+            torch.cat([real_a, real_b], dim=1), L.gan_mode)
+        real_feats = target_features(vgg, real_b) if need_vgg else None
+        loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_feats)
+        loss_g.backward(inputs=list(net_g.parameters()))
+
+        # ---- 5. G then D updates, unless the guard drops the step --------
+        ok = _finite(loss_g, loss_d) if guard else True
+        _apply(state.opt_g, ok)
+        _apply(state.opt_d, ok)
+        if not ok:
+            snap_u.restore()
+
+        # ---- 6. net_c branch against the updated G -----------------------
+        cq = quant(functional_call(net_c, stats_c0, (real_b,)), bits)
+        fake_ac = net_g(cq)
+        loss_c = ((fake_ac.float() - real_b.float()) ** 2).mean()
+        if need_vgg:
+            loss_c = loss_c + vgg_loss(vgg, cq, real_feats) * L.lambda_vgg
+        ok_all = ok and (_finite(loss_c) if guard else True)
+        if cfg.optim.train_compression_net:
+            loss_c.backward(inputs=list(net_c.parameters()))
+            _apply(state.opt_c, ok_all)
+        if not ok_all:
+            snap_stats.restore()
+
+        state.step += 1
+        metrics = {"loss_d": loss_d, "loss_g": loss_g.detach(),
+                   "loss_c": loss_c.detach(),
+                   **{k: v.detach() for k, v in parts.items()}}
+        if guard:
+            metrics["health_ok"] = torch.tensor(float(ok_all),
+                                                device=state.device)
+        return state, metrics
+
+    return step

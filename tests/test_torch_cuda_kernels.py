@@ -1,10 +1,13 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach: odd channel counts (one element per
-access), a misaligned view, N > 1 and a residual with an affine. Runs only
-where there is a CUDA device (``-m gpu`` on the card); skips elsewhere.
+access), a misaligned view, N > 1, a residual with an affine, and for the
+BatchNorm moments kernel (#5) ragged M, C = 3 and the autograd backward.
+Runs only where there is a CUDA device (``-m gpu`` on the card); skips
+elsewhere.
 
 Tolerance: f32 atol 1e-4 (order of partial sums); bf16 atol 1e-2 + rtol
-2⁻⁷ (one rounding of the stored value).
+2⁻⁷ (one rounding of the stored value); #5's f32 sums within 1e-5 of the
+sum of |terms| (the same terms summed in two orders).
 """
 
 import pytest
@@ -13,8 +16,11 @@ torch = pytest.importorskip("torch")
 
 from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (  # noqa: E402
     instance_norm_stats, instance_norm_stats_plain)
+from p2p_tpu_torch.ops.cuda.batch_moments import (  # noqa: E402
+    batch_moments, batch_moments_plain)
 from p2p_tpu_torch.ops.cuda.norm_act import (  # noqa: E402
     norm_act, norm_act_plain)
+from p2p_tpu_torch.ops.norm import dual_moments  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -91,3 +97,49 @@ def test_wrappers_raise_on_a_layout_they_do_not_take(cuda):
     xh = x.half().contiguous(memory_format=torch.channels_last)
     with pytest.raises(TypeError, match="not supported"):
         instance_norm_stats(xh)
+
+
+def _rows(m, c, dtype, device, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    mean = torch.linspace(-2.0, 2.0, c, device=device)
+    mean[0] = 40.0
+    return (torch.randn((m, c), generator=g, device=device) + mean).to(dtype)
+
+
+def _assert_moments_close(got, want, x):
+    scale = (x.float().abs().sum(0), want[1])
+    for a, b, s in zip(got, want, scale):
+        assert bool(((a - b).abs() <= 1e-5 * s + 1e-6).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,c", [(1, 3), (291, 3), (1000, 8), (777, 128),
+                                 (4096, 128), (100, 24), (65536, 64)])
+def test_batch_moments_matches_plain_version(cuda, dtype, m, c):
+    x = _rows(m, c, dtype, cuda, m + c)
+    _assert_moments_close(batch_moments(x), batch_moments_plain(x), x)
+
+
+def test_batch_moments_is_reproducible_counts_and_takes_a_misaligned_view(
+        cuda):
+    x = _rows(4096, 32, torch.bfloat16, cuda, 4)
+    n = batch_moments.launches
+    a, b = batch_moments(x), batch_moments(x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert batch_moments.launches - n == 2
+    base = _rows(1 + 64 * 8, 1, torch.float32, cuda, 5).reshape(-1)
+    xm = base[1:].view(64, 8)
+    assert xm.data_ptr() % 16
+    _assert_moments_close(batch_moments(xm), batch_moments_plain(xm), xm)
+    with pytest.raises(ValueError, match="contiguous"):
+        batch_moments(x.t())
+
+
+def test_dual_moments_backward_on_the_card(cuda):
+    x = _rows(300, 16, torch.float32, cuda, 6).requires_grad_(True)
+    ds, dss = torch.randn(16, device=cuda), torch.randn(16, device=cuda)
+    s1, s2 = dual_moments(x)
+    (got,) = torch.autograd.grad((s1 * ds).sum() + (s2 * dss).sum(), x)
+    torch.testing.assert_close(got, ds + 2 * x.detach() * dss, atol=1e-5,
+                               rtol=1e-6)
+    torch.cuda.synchronize()

@@ -23,7 +23,7 @@ import jax.numpy as jnp  # noqa: E402
 from p2p_tpu.core.config import get_preset as jax_preset  # noqa: E402
 from p2p_tpu.models.registry import define_G as jax_define_G  # noqa: E402
 from p2p_tpu.ops import conv as jconv  # noqa: E402
-from p2p_tpu_torch.convert import generator_state_from_flax  # noqa: E402
+from p2p_tpu_torch.convert import state_from_flax  # noqa: E402
 from p2p_tpu_torch.core.config import get_preset  # noqa: E402
 from p2p_tpu_torch.models.registry import define_G  # noqa: E402
 from p2p_tpu_torch.ops import conv as tconv  # noqa: E402
@@ -52,7 +52,7 @@ def _jax_layer(layer, x):
 
 
 def _torch_layer(layer, params, x):
-    layer.load_state_dict(generator_state_from_flax(params), strict=True)
+    layer.load_state_dict(state_from_flax(params), strict=True)
     with torch.no_grad():
         return _nhwc(layer(_t(x)))
 
@@ -116,7 +116,7 @@ def small_generator():
         jax.random.key(0))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     tg = define_G(tcfg.model)
-    tg.load_state_dict(generator_state_from_flax(params), strict=True)
+    tg.load_state_dict(state_from_flax(params), strict=True)
     tg = tg.to(memory_format=torch.channels_last).eval()
     return g, params, tg, x
 

@@ -24,7 +24,7 @@ from p2p_tpu.models.registry import define_G as jax_define_G  # noqa: E402
 from p2p_tpu.train.step import (  # noqa: E402
     make_infer_forward as jax_make_infer_forward)
 from p2p_tpu_torch.convert import (  # noqa: E402
-    flatten_tree, generator_state_from_flax, load_generator, load_npz,
+    flatten_tree, state_from_flax, load_generator, load_npz,
     save_npz)
 from p2p_tpu_torch.core.config import get_preset  # noqa: E402
 from p2p_tpu_torch.models.registry import define_G  # noqa: E402
@@ -62,7 +62,7 @@ def served():
         jax.random.key(0))["params"]
     params = jax.tree_util.tree_map(np.asarray, params)
     tg = define_G(tcfg.model)
-    tg.load_state_dict(generator_state_from_flax(params), strict=True)
+    tg.load_state_dict(state_from_flax(params), strict=True)
     return jcfg, tcfg, params, tg
 
 
