@@ -4,12 +4,13 @@ main``): serve every image in ``--input_dir`` once and exit.
     python -m p2p_tpu_torch.cli.serve --input_dir reqs --once \\
         --weights g.npz [--preset pix2pixhd] [--device cuda|cpu]
 
-``--weights`` is an ``.npz`` of the flax generator tree
-(``p2p_tpu_torch.convert.save_npz``). Requests are decoded with PIL, which
-must be installed for this CLI, and resized to the preset's size; outputs
-are PNGs named after their inputs under ``--out`` (default
-``<input_dir>_out``). Watch mode, HTTP, tenancy and quarantine come with
-later slices.
+``--weights`` is an ``.npz`` of the flax generator's variables, its
+parameters and (the U-Net) BatchNorm statistics
+(``p2p_tpu_torch.convert.save_npz``). Requests are PNG files, decoded by
+the port's stdlib reader and resized bicubic to the preset's size
+(``utils/images.py``; no Pillow); outputs are PNGs named after their inputs
+under ``--out`` (default ``<input_dir>_out``). Watch mode, HTTP, tenancy
+and quarantine come with later slices.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import time
 
 import numpy as np
 
-IMG_EXTENSIONS = (".jpg", ".jpeg", ".png", ".ppm", ".bmp")
+IMG_EXTENSIONS = (".png",)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -37,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve the directory's current contents and exit "
                         "(the only mode in this port so far)")
     p.add_argument("--weights", type=str, required=True,
-                   help=".npz of the flax generator parameter tree")
+                   help=".npz of the flax generator's variables")
     p.add_argument("--device", type=str, default=None,
                    help="'cuda' (default) or 'cpu'")
     p.add_argument("--image_size", type=int, default=None)
@@ -77,18 +78,15 @@ def build_config(args):
 
 
 def load_request(path: str, h: int, w: int) -> np.ndarray:
-    """Decode one request image to uint8 (h, w, 3), bicubic-resized when
-    its size differs (the JAX ``load_image`` semantics)."""
-    try:
-        from PIL import Image
-    except ImportError:
-        raise RuntimeError("reading request images needs PIL, which is not "
-                           "installed") from None
-    with Image.open(path) as im:
-        img = im.convert("RGB")
-    if img.size != (w, h):
-        img = img.resize((w, h), Image.BICUBIC)
-    return np.asarray(img, np.uint8)
+    """Decode one PNG request to uint8 (h, w, 3), bicubic-resized when its
+    size differs (the JAX ``load_image`` semantics)."""
+    from p2p_tpu_torch.utils.images import decode_png, resize_bicubic
+
+    with open(path, "rb") as f:
+        img = decode_png(f.read())
+    if img.shape[:2] != (h, w):
+        img = resize_bicubic(img, h, w)
+    return img
 
 
 def main(argv=None) -> int:
@@ -103,7 +101,8 @@ def main(argv=None) -> int:
 
     cfg = build_config(args)
     h, w = cfg.image_hw
-    generator = load_generator(define_G(cfg.model), args.weights)
+    generator = load_generator(define_G(cfg.model, image_hw=(h, w)),
+                               args.weights)
     engine = InferenceEngine(cfg, generator,
                              buckets=default_buckets(args.max_batch),
                              dtype=args.dtype, device=args.device)

@@ -12,12 +12,22 @@ BatchNorm's doubled level dropped:
     ResidualBlock_0/BatchNorm_1/BatchNorm_0/mean → ResidualBlock_0.BatchNorm_1.mean
     scale2/SpectralConv_0/kernel, …/u → scale2.SpectralConv_0.weight, ….u
 
-An ``.npz`` file holds one array per leaf under its ``/``-joined path.
+Given the port's module, two kernel layouts follow its layer types: a
+flax ``ConvTranspose`` kernel (kh,kw,I,O) becomes the ``weight`` of an
+``nn.ConvTranspose2d`` (I,O,kh,kw) flipped in both spatial axes, and a
+layer that holds a ``kernel`` parameter (the subpixel head's conv, which
+kernel #6 reads in HWIO) keeps it as it is:
+
+    up3/kernel (4,4,I,O) → up3.weight (I,O,4,4), [i,o,a,b] = [3-a,3-b,i,o]
+    up0/Conv_0/kernel (2,2,C,4F) → up0.conv.kernel (2,2,C,4F)
+
+An ``.npz`` file holds one array per leaf under its ``/``-joined path (a
+generator's parameters and running statistics side by side).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -48,10 +58,19 @@ def unflatten_tree(flat: Mapping[str, np.ndarray]) -> Dict[str, Any]:
     return tree
 
 
-def save_npz(path: str, params: Mapping[str, Any]) -> None:
-    """Write a flax parameter tree as an ``.npz`` of ``/``-joined keys."""
+def save_npz(path: str, *trees: Mapping[str, Any]) -> None:
+    """Write flax variable trees of one module (its ``params``, and its
+    ``batch_stats`` where it has BatchNorms) as one ``.npz`` of
+    ``/``-joined keys; the trees must not share a leaf."""
+    flat: Dict[str, np.ndarray] = {}
+    for tree in trees:
+        leaves = flatten_tree(tree)
+        shared = sorted(set(leaves) & set(flat))
+        if shared:
+            raise ValueError(f"trees share leaves {shared[:3]}")
+        flat.update(leaves)
     with open(path, "wb") as f:
-        np.savez(f, **flatten_tree(params))
+        np.savez(f, **flat)
 
 
 def load_npz(path: str) -> Dict[str, Any]:
@@ -64,15 +83,20 @@ def load_npz(path: str) -> Dict[str, Any]:
 _KEPT_LEAVES = ("bias", "scale", "mean", "var", "alpha", "u")
 
 
-def state_from_flax(*trees: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+def state_from_flax(*trees: Mapping[str, Any],
+                    module: Optional[torch.nn.Module] = None
+                    ) -> Dict[str, torch.Tensor]:
     """Flax variable trees of one module (its ``params`` and any
     collections: ``batch_stats``, ``spectral``) → the state_dict of the
     port's module of the same config. Raises on a leaf with no counterpart.
 
     Conv kernels go HWIO → OIHW and are named ``weight`` (under ``conv``
-    where flax has an inner ``Conv_0``); BatchNorm's inner ``BatchNorm_0``
-    level goes (its ``scale``/``bias``/``mean``/``var`` keep their names);
-    the PReLU ``alpha`` and the spectral-norm ``u`` keep theirs."""
+    where flax has an inner ``Conv_0``); with ``module``, transposed-conv
+    kernels are flipped into ``nn.ConvTranspose2d``'s layout and a layer's
+    own ``kernel`` parameter stays HWIO. BatchNorm's inner
+    ``BatchNorm_0`` level goes (its ``scale``/``bias``/``mean``/``var``
+    keep their names); the PReLU ``alpha`` and the spectral-norm ``u``
+    keep theirs."""
     state = {}
     for tree in trees:
         for key, arr in flatten_tree(tree).items():
@@ -86,7 +110,13 @@ def state_from_flax(*trees: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 if arr.ndim != 4:
                     raise ValueError(f"{key}: expected an HWIO kernel, got "
                                      f"shape {arr.shape}")
-                leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+                owner = _owner(module, path)
+                if isinstance(owner, torch.nn.ConvTranspose2d):
+                    leaf, arr = "weight", arr[::-1, ::-1].transpose(
+                        2, 3, 0, 1)
+                elif not isinstance(getattr(owner, "kernel", None),
+                                    torch.nn.Parameter):
+                    leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
             elif leaf not in _KEPT_LEAVES:
                 raise ValueError(f"no torch counterpart for flax leaf "
                                  f"{key!r}")
@@ -95,18 +125,42 @@ def state_from_flax(*trees: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     return state
 
 
+def _owner(module: Optional[torch.nn.Module], path) -> Any:
+    """The submodule of ``module`` at ``path``, or None."""
+    if module is None:
+        return None
+    try:
+        return module.get_submodule(".".join(path))
+    except AttributeError:
+        return None
+
+
+def load_flax(net: torch.nn.Module, *trees: Mapping[str, Any]
+              ) -> torch.nn.Module:
+    """Load flax variable trees into ``net`` (every parameter and buffer
+    must be present, and nothing else)."""
+    net.load_state_dict(state_from_flax(*trees, module=net), strict=True)
+    return net
+
+
 def load_train_state(state, flax_state: Mapping[str, Any]):
     """Load a JAX ``TrainState``'s networks into the port's ``state``
     (train/state.py): ``flax_state`` maps the JAX field names
     ``params_g``, ``batch_stats_g``, ``params_d``, ``spectral_d``,
-    ``params_c`` and ``batch_stats_c`` to numpy trees. Every parameter and
-    buffer must be present, and nothing else; the optimizers stay fresh,
-    as the JAX state's are at creation."""
+    ``params_c`` and ``batch_stats_c`` to numpy trees (the ``_c`` fields
+    None or absent for a state without net_c). Every parameter and buffer
+    must be present, and nothing else; the optimizers stay fresh, as the
+    JAX state's are at creation."""
     for net, fields in ((state.net_g, ("params_g", "batch_stats_g")),
                         (state.net_d, ("params_d", "spectral_d")),
                         (state.net_c, ("params_c", "batch_stats_c"))):
-        net.load_state_dict(state_from_flax(
-            *(flax_state[f] for f in fields)), strict=True)
+        trees = [flax_state.get(f) for f in fields]
+        if net is None:
+            if any(trees):
+                raise ValueError(f"the JAX state has {fields[0]} but the "
+                                 "port's state has no such network")
+            continue
+        load_flax(net, *(t for t in trees if t is not None))
     return state
 
 
@@ -114,6 +168,4 @@ def load_generator(generator: torch.nn.Module, npz_path: str
                    ) -> torch.nn.Module:
     """Load a flax generator tree from ``npz_path`` into ``generator``
     (every parameter must be present, and nothing else)."""
-    generator.load_state_dict(state_from_flax(load_npz(npz_path)),
-                              strict=True)
-    return generator
+    return load_flax(generator, load_npz(npz_path))

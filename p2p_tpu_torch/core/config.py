@@ -1,9 +1,9 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
-fields the serving path and the ``reference`` train step read. Field names,
-defaults and the preset values are those of the JAX package, so one preset
-name means one model in both. A few fields name machinery the port does not
-have yet (the fake pool, int8, dropout, EMA); the train step reads them
-only to raise.
+fields the serving paths and the ``reference`` and ``facades`` train steps
+read. Field names, defaults and the preset values are those of the JAX
+package, so one preset name means one model in both. A few fields name
+machinery the port does not have yet (the fake pool, int8, EMA); the train
+step reads them only to raise.
 """
 
 from __future__ import annotations
@@ -15,8 +15,9 @@ from typing import Optional, Tuple
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     # generator family: "expand" (the reference ExpandNetwork, trained),
-    # "pix2pixhd" (coarse-to-fine global + local), "pix2pixhd_global" (G1
-    # alone), "resnet" (9-block ResnetGenerator); the last three are served
+    # "unet" (the pix2pix U-Net, trained and served), "pix2pixhd"
+    # (coarse-to-fine global + local), "pix2pixhd_global" (G1 alone),
+    # "resnet" (9-block ResnetGenerator); the last three are served
     generator: str = "expand"
     input_nc: int = 3
     output_nc: int = 3
@@ -39,8 +40,19 @@ class ModelConfig:
     norm: str = "batch"
     # discriminator-side norm; the port has "none" only
     norm_d: str = "none"
-    # not ported: U-Net dropout, the int8 QAT path
+    # U-Net: dropout 0.5 on three decoder levels in training
     use_dropout: bool = False
+    # U-Net decoder upsample: "deconv" (ConvTranspose k4 s2) is ported;
+    # "subpixel" and "resize" raise
+    upsample_mode: str = "deconv"
+    # keep the conv biases in front of norms (dead: the norm cancels them)
+    legacy_layout: bool = False
+    # U-Net image head as the subpixel form (k2-s1 conv to 4·F channels +
+    # shifted interleave); with head_pallas its conv runs through the
+    # Hopper kernels #6 (forward) and #7 (dx)
+    thin_head: bool = False
+    head_pallas: bool = False
+    # not ported: the int8 QAT path
     int8: bool = False
     int8_delayed: bool = False
 
@@ -53,6 +65,7 @@ class LossConfig:
     lambda_tv: float = 1.0
     # feed VGG [-1, 1] images un-normalized, as the reference does
     vgg_imagenet_norm: bool = False
+    lambda_l1: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,6 +95,8 @@ class DataConfig:
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
     epoch_count: int = 1             # 1-based epoch label of step 0
+    # seeds the per-step dropout noise (with the step number)
+    seed: int = 123
     # bf16 compute on f32 master parameters (core/dtypes.py)
     mixed_precision: bool = True
     # not ported: the historical-fake pool
@@ -131,6 +146,20 @@ _register(
     Config(
         name="reference",
         model=ModelConfig(generator="expand"),
+        data=DataConfig(dataset="facades", image_size=256, batch_size=1),
+    )
+)
+
+# classic pix2pix: U-Net G (8 levels, dropout) + one 70×70 PatchGAN
+# without spectral norm, LSGAN + 100·L1, batch 1 at 256²
+_register(
+    Config(
+        name="facades",
+        model=ModelConfig(generator="unet", ngf=64, num_D=1, n_layers_D=3,
+                          use_spectral_norm=False,
+                          use_compression_net=False, use_dropout=True),
+        loss=LossConfig(lambda_feat=0.0, lambda_vgg=0.0, lambda_tv=0.0,
+                        lambda_l1=100.0),
         data=DataConfig(dataset="facades", image_size=256, batch_size=1),
     )
 )

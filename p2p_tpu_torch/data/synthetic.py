@@ -4,7 +4,10 @@ _synthetic_image`` and ``:71 synthetic_batch``, with
 
 Procedural RGB images (smooth gradients, rectangles and disks) and their
 bit-depth-quantized copies, the same draws from the same seed as the JAX
-package.
+package; and facades-shaped pairs (:func:`synthetic_facades_batch`): a
+label map of a building front in flat class colours as the input, a
+shaded photo-like rendering of it as the target, as the ``facades``
+preset translates labels to photos.
 """
 
 from __future__ import annotations
@@ -65,3 +68,63 @@ def synthetic_batch(batch_size: int = 1, size: int = 64, bits: int = 3,
                 * np.float32(1.0 / 127.5))
 
     return {"input": to_f(inputs), "target": to_f(targets)}
+
+
+# colours of the 12 CMP Facade classes in the label images: background,
+# facade, window, door, cornice, sill, balcony, blind, deco, molding,
+# pillar, shop
+FACADE_PALETTE = np.array(
+    [[0, 0, 170], [0, 0, 255], [0, 85, 255], [0, 170, 255], [0, 255, 255],
+     [85, 255, 170], [170, 255, 85], [255, 255, 0], [255, 170, 0],
+     [255, 85, 0], [255, 0, 0], [170, 0, 0]], np.uint8)
+
+
+def _facade_labels(rng: np.random.Generator, size: int) -> np.ndarray:
+    """(size, size) class indices: a facade with a cornice, rows of
+    windows with sills and blinds, a door or a shop front, pillars."""
+    lab = np.zeros((size, size), np.int64)
+    top = int(rng.integers(0, size // 8))
+    lab[top:, :] = 1
+    lab[top:top + max(2, size // 32), :] = 4                 # cornice
+    rows, cols = int(rng.integers(3, 6)), int(rng.integers(3, 6))
+    cell_h = (size - top) // (rows + 1)
+    cell_w = size // cols
+    for r in range(rows):
+        for c in range(cols):
+            y0 = top + r * cell_h + cell_h // 4
+            x0 = c * cell_w + cell_w // 4
+            y1, x1 = y0 + cell_h // 2, x0 + cell_w // 2
+            lab[y0:y1, x0:x1] = 2                            # window
+            if rng.uniform() < 0.3:
+                lab[y0:y0 + (y1 - y0) // 3, x0:x1] = 7       # blind
+            lab[y1:y1 + max(1, size // 64), x0:x1] = 5       # sill
+            if r == 1 and rng.uniform() < 0.4:
+                lab[y1 - 2:y1 + 3, x0 - 2:x1 + 2] = 6        # balcony
+    for c in range(1, cols):
+        lab[top:, c * cell_w - 1:c * cell_w + 1] = 10        # pillar
+    gy = top + rows * cell_h
+    if rng.uniform() < 0.5:
+        lab[gy:, :] = 11                                     # shop
+    else:
+        d0 = int(rng.integers(0, size - size // 6))
+        lab[gy:, d0:d0 + size // 6] = 3                      # door
+    lab[gy - 2:gy, :] = 9                                    # molding
+    return lab
+
+
+def synthetic_facades_batch(batch_size: int = 1, size: int = 256,
+                            seed: int = 0) -> Dict[str, np.ndarray]:
+    """``{"input", "target"}`` uint8 NHWC pairs at ``size``²: the input a
+    label map in :data:`FACADE_PALETTE` colours, the target a rendering of
+    it (a colour per class drawn from ``seed``, vertical light falloff,
+    per-pixel noise)."""
+    rng = np.random.default_rng(seed)
+    inputs, targets = [], []
+    yy = np.linspace(1.0, 0.7, size, dtype=np.float32)[:, None, None]
+    for _ in range(batch_size):
+        lab = _facade_labels(rng, size)
+        colours = rng.uniform(40, 220, (len(FACADE_PALETTE), 3))
+        photo = colours[lab] * yy + rng.normal(0, 6, (size, size, 3))
+        inputs.append(FACADE_PALETTE[lab])
+        targets.append(np.clip(np.round(photo), 0, 255).astype(np.uint8))
+    return {"input": np.stack(inputs), "target": np.stack(targets)}

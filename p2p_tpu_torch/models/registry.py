@@ -2,31 +2,51 @@
 define_C``, ``:33 define_G`` and ``:109 define_D``) and the reference
 weight init.
 
-``dtype`` is the compute dtype of the trained networks (flax ``dtype=``);
-the served generators compute in their weights' dtype and take none.
+``dtype`` is the compute dtype of the trained networks (flax ``dtype=``,
+on f32 parameters and statistics); the served-only generators compute in
+their weights' dtype and take none.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
 from p2p_tpu_torch.core.config import ModelConfig
+from p2p_tpu_torch.ops.conv import SubpixelConv
 from p2p_tpu_torch.ops.norm import BatchNorm
 from p2p_tpu_torch.ops.spectral_norm import SpectralConv, l2normalize
 
+# generators built with a compute dtype on f32 masters, trained and served
+# so; the others are served as a copy cast to the serving dtype
+COMPUTE_DTYPE_GENERATORS = ("expand", "unet")
 
-def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
-             ) -> nn.Module:
-    """The generator ``cfg.generator`` names, on the CPU in f32."""
+
+def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
+             image_hw: Optional[Tuple[int, int]] = None) -> nn.Module:
+    """The generator ``cfg.generator`` names, on the CPU in f32.
+    ``image_hw`` is the input size, which fixes the U-Net's depth."""
     if cfg.generator == "expand":
         from p2p_tpu_torch.models.expand import ExpandNetwork
 
         return ExpandNetwork(
             in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
             out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype)
+    if cfg.generator == "unet":
+        from p2p_tpu_torch.models.unet import UNetGenerator
+
+        if image_hw is None:
+            raise ValueError("the U-Net needs image_hw: its depth follows "
+                             "the input size")
+        return UNetGenerator(
+            in_channels=cfg.input_nc, ngf=cfg.ngf,
+            out_channels=cfg.output_nc, image_hw=image_hw, norm=cfg.norm,
+            use_dropout=cfg.use_dropout, upsample_mode=cfg.upsample_mode,
+            legacy_layout=cfg.legacy_layout, thin_head=cfg.thin_head,
+            head_pallas=cfg.head_pallas,
+            int8=cfg.int8 or cfg.int8_delayed, dtype=dtype)
     if dtype is not None:
         raise ValueError(f"generator {cfg.generator!r} is served only; it "
                          "computes in its weights' dtype")
@@ -79,12 +99,15 @@ def define_D(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
 def init_weights(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
     """Reference init (networks.py:131 via ``normal_init``), drawn from
-    ``generator``: every conv kernel ~ N(0, std) and every conv bias 0;
-    BatchNorm γ ~ N(1, 0.02) and β = 0; a spectral-norm ``u`` ~ N(0, 1),
-    normalized. PReLU keeps its 0.25."""
+    ``generator``: every conv kernel (plain, transposed, spectral-norm,
+    subpixel) ~ N(0, std) and every conv bias 0; BatchNorm γ ~ N(1, 0.02)
+    and β = 0; a spectral-norm ``u`` ~ N(0, 1), normalized. PReLU keeps
+    its 0.25."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, SpectralConv)):
-            m.weight.normal_(0.0, std, generator=generator)
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, SpectralConv,
+                          SubpixelConv)):
+            kernel = m.kernel if isinstance(m, SubpixelConv) else m.weight
+            kernel.normal_(0.0, std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
         if isinstance(m, SpectralConv):

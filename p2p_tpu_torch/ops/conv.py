@@ -1,9 +1,14 @@
 """Convolution layers on channels_last (N, C, H, W) tensors (counterparts
 of ``p2p_tpu/ops/conv.py:104 reflect_pad_2d``, ``:116 ConvLayer``, ``:452
-upsample_nearest`` and ``:646 UpsampleConvLayer``).
+upsample_nearest``, ``:462 subpixel_interleave``, ``:478
+_PallasHeadConv``, ``:516 SubpixelDeconv`` and ``:646
+UpsampleConvLayer``, and of flax's ``nn.ConvTranspose``).
 
-Each layer is reflect pad + ``F.conv2d``, which PyTorch hands to cuDNN on
-the card, as XLA computed these convolutions outside any Pallas kernel.
+The reflect-padded layers are reflect pad + ``F.conv2d``, which PyTorch
+hands to cuDNN on the card, as XLA computed these convolutions outside
+any Pallas kernel; so are the U-Net's strided and transposed convs. The
+one Pallas conv of the JAX package, the subpixel head's
+(``SubpixelDeconv(pallas=True)``), runs through the Hopper kernels #6/#7.
 The JAX package's dispatch forms (``PatchesConv`` :253, ``ThinHeadConv``
 :375 and ``_NearestUp2Conv`` :583, gated at ``_THIN_DISPATCH_MIN_PIXELS``
 :76) are exact rewrites of this same convolution for the TPU's matrix
@@ -24,16 +29,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p2p_tpu_torch.ops.cuda.subpixel_head import subpixel_head_conv
 
-def cast_conv(conv: nn.Conv2d, x: torch.Tensor,
+
+def cast_conv(conv: nn.Module, x: torch.Tensor,
               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``conv(x)`` with input, weight and bias cast to ``dtype`` (or to the
-    promoted type of x and the weight), with the conv's own stride and
-    zero padding."""
+    """``conv(x)`` for an ``nn.Conv2d`` or an ``nn.ConvTranspose2d``, with
+    input, weight and bias cast to ``dtype`` (or to the promoted type of x
+    and the weight), with the conv's own stride and zero padding. Flax's
+    ``ConvTranspose(k4, s2, "SAME")`` is ``nn.ConvTranspose2d(k4, stride
+    2, padding 1)`` with its kernel flipped in both spatial axes
+    (``convert.py`` maps it)."""
     dt = dtype or torch.promote_types(x.dtype, conv.weight.dtype)
     bias = None if conv.bias is None else conv.bias.to(dt)
-    return F.conv2d(x.to(dt), conv.weight.to(dt), bias, conv.stride,
-                    conv.padding)
+    fn = (F.conv_transpose2d if isinstance(conv, nn.ConvTranspose2d)
+          else F.conv2d)
+    return fn(x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding)
 
 
 def reflect_pad_2d(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -83,3 +94,69 @@ class UpsampleConvLayer(nn.Module):
         if self.upsample:
             x = upsample_nearest(x, self.upsample)
         return cast_conv(self.conv, reflect_pad_2d(x, self.pad), self.dtype)
+
+
+def subpixel_interleave(out: torch.Tensor, features: int) -> torch.Tensor:
+    """The shifted depth-to-space of :class:`SubpixelDeconv`: the k2-s1
+    conv's (N, 4F, H+1, W+1) output → (N, F, 2H, 2W) with
+    ``y[2i+u, 2j+v, f] = out[i+u, j+v, (2u+v)·F + f]``; pure indexing, so
+    bitwise the JAX function."""
+    n, _, h1, w1 = out.shape
+    h, w, f = h1 - 1, w1 - 1, features
+    o = out.reshape(n, 2, 2, f, h1, w1)
+    rows = [torch.stack([o[:, u, v, :, u:u + h, v:v + w] for v in range(2)],
+                        dim=-1) for u in range(2)]          # (N,F,H,W,2)
+    y = torch.stack(rows, dim=3)                            # (N,F,H,2,W,2)
+    return y.reshape(n, f, 2 * h, 2 * w).contiguous(
+        memory_format=torch.channels_last)
+
+
+class SubpixelConv(nn.Module):
+    """The k2-s1 pad-1 conv inside :class:`SubpixelDeconv` (the flax
+    ``Conv_0``): its kernel stays in flax's HWIO layout (2, 2, C, 4F),
+    the layout kernel #6 reads."""
+
+    def __init__(self, in_channels: int, features: int,
+                 use_bias: bool = True):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(2, 2, in_channels, features))
+        nn.init.normal_(self.kernel, 0.0, 0.02)
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+
+
+class SubpixelDeconv(nn.Module):
+    """ConvTranspose(k4, s2, "SAME") as a k2-s1 pad-1 conv to 4·F channels
+    + :func:`subpixel_interleave`. ``pallas`` runs the conv through the
+    Hopper kernels #6/#7 (the JAX ``_PallasHeadConv``): x and the kernel in
+    the compute dtype (f32 when ``dtype`` is None), z in f32, the f32 bias
+    added in f32, then cast to the compute dtype. Otherwise it is one
+    library conv in the compute dtype with the bias, as flax's ``nn.Conv``.
+    """
+
+    def __init__(self, in_channels: int, features: int,
+                 use_bias: bool = True, pallas: bool = False,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.features = features
+        self.pallas = pallas
+        self.dtype = dtype
+        self.conv = SubpixelConv(in_channels, 4 * features, use_bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        kernel, bias = self.conv.kernel, self.conv.bias
+        if self.pallas:
+            dt = self.dtype or torch.float32
+            # the kernels take x in channels_last and the HWIO kernel
+            # dense (a module moved to channels_last relayouts its 4-D
+            # parameters)
+            z = subpixel_head_conv(
+                x.to(dt).contiguous(memory_format=torch.channels_last),
+                kernel.to(dt).contiguous())
+            if bias is not None:
+                z = z + bias.view(1, -1, 1, 1)
+            out = z.to(dt)
+        else:
+            dt = self.dtype or torch.promote_types(x.dtype, kernel.dtype)
+            out = F.conv2d(x.to(dt), kernel.to(dt).permute(3, 2, 0, 1),
+                           None if bias is None else bias.to(dt), padding=1)
+        return subpixel_interleave(out, self.features)

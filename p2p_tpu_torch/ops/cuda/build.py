@@ -19,13 +19,14 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-KERNELS = ("instance_norm_stats", "norm_act", "batch_moments")
+KERNELS = ("instance_norm_stats", "norm_act", "batch_moments",
+           "subpixel_head")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # dtype codes of csrc/common.cuh (p2p::DType)
@@ -35,17 +36,21 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
-# argtypes of each library's entry point (the C signatures in csrc/)
+# argtypes of each library's entry points (the C signatures in csrc/)
 SIGNATURES = {
-    "instance_norm_stats": ("p2p_instance_norm_stats",
-                            (_P, _I, _I, _L, _I, _I, _I, _I, _I, _I, _L,
-                             _P, _P, _P, _P, _F, _P)),
-    "norm_act": ("p2p_norm_act",
-                 (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I, _F,
-                  _I, _I, _P)),
-    "batch_moments": ("p2p_batch_moments",
-                      (_P, _I, _L, _I, _I, _I, _I, _I, _I, _L, _P, _P, _P,
-                       _P, _P)),
+    "instance_norm_stats": {
+        "p2p_instance_norm_stats": (_P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+                                    _L, _P, _P, _P, _P, _F, _P)},
+    "norm_act": {
+        "p2p_norm_act": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
+                         _F, _I, _I, _P)},
+    "batch_moments": {
+        "p2p_batch_moments": (_P, _I, _L, _I, _I, _I, _I, _I, _I, _L, _P, _P,
+                              _P, _P, _P)},
+    "subpixel_head": {
+        "p2p_subpixel_head_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "p2p_subpixel_head_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+        "p2p_subpixel_head_fwd_smem": (_I, _I)},
 }
 
 
@@ -100,20 +105,29 @@ def build_all() -> Dict[str, float]:
 
 
 @functools.cache
-def load(name: str):
-    """The entry point of kernel library ``name`` (built on first use),
-    with its argtypes set; returns ``(library, function)``."""
+def library(name: str) -> ctypes.CDLL:
+    """Kernel library ``name`` (built on first use), with the argtypes of
+    its entry points set."""
     path = _library_path(name, find_nvcc())
     if not path.exists():
         build_all()
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
     lib.p2p_error_string.argtypes = [ctypes.c_int]
     lib.p2p_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return lib
+
+
+def load(name: str, fn_name: Optional[str] = None):
+    """``(library, entry point)`` of kernel library ``name``; ``fn_name``
+    picks the entry point where the library has more than one."""
+    lib = library(name)
+    if fn_name is None:
+        (fn_name,) = SIGNATURES[name]
+    return lib, getattr(lib, fn_name)
 
 
 def check(lib, err: int, what: str) -> None:

@@ -1,0 +1,160 @@
+"""The subpixel image head's k2-s1 pad-1 conv: the Hopper kernels #6
+(forward) and #7 (input gradient), their plain versions, and the autograd
+function that joins them.
+
+``subpixel_head_conv(x, w)`` takes a channels_last (N, C, H, W) x and an
+HWIO (2, 2, C, F4) weight in the same compute dtype and returns the conv
+with one zero ring of padding as an f32 channels_last (N, F4, H+1, W+1)
+tensor, ``z[h, w, f] = Σ_{dh,dw,c} xpad[h+dh, w+dw, c]·w[dh, dw, c, f]``,
+which ``ops/conv.subpixel_interleave`` turns into the ×2 upsample. Its
+backward is #7 for dx (dz in f32, the weight upcast to f32, dx in x's
+dtype) and, for dW, the library's conv weight gradient of the same conv on
+``dz`` cast to x's dtype, as the JAX ``_bwd`` takes XLA's.
+
+Replaces ``p2p_tpu/ops/pallas/subpixel_head.py:165 _fwd`` and ``:200
+_bwd`` (the dx ``pallas_call``). The kernels are
+``csrc/subpixel_head.cu``: about 5 MB and 0.2 GFLOP per call at the
+facades head, so bytes would bound them on tensor cores, but they run
+their tap products on the CUDA cores in f32, where the FLOPs take about
+twice as long as the bytes. #6 stages two input rows and the weight in
+shared memory and splits the channel sum over eight warps; #7 keeps each
+channel's weights in registers and reads the two dz rows it needs from
+shared memory. No atomics.
+
+On CPU tensors the wrappers compute the plain versions; on CUDA tensors
+they launch the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from p2p_tpu_torch.ops.cuda import build
+
+REPLACES_FWD = "p2p_tpu/ops/pallas/subpixel_head.py:165 (_fwd)"
+REPLACES_DX = "p2p_tpu/ops/pallas/subpixel_head.py:200 (_bwd)"
+SOURCE = "p2p_tpu_torch/ops/cuda/csrc/subpixel_head.cu"
+# 4·F for 1-4 output channels (the kernels' template instances)
+F4_SUPPORTED = (4, 8, 12, 16)
+# an H100's shared memory per block (the opt-in maximum)
+_MAX_SMEM = 232448
+
+
+def _oihw(w: torch.Tensor) -> torch.Tensor:
+    return w.permute(3, 2, 0, 1)
+
+
+def subpixel_head_fwd_plain(x: torch.Tensor, w: torch.Tensor
+                            ) -> torch.Tensor:
+    """The plain version of #6: an f32 conv of the upcast operands."""
+    return F.conv2d(x.float(), _oihw(w).float(), padding=1)
+
+
+def subpixel_head_dx_plain(dz: torch.Tensor, w: torch.Tensor
+                           ) -> torch.Tensor:
+    """The plain version of #7: the f32 transposed conv of dz with the
+    upcast weight, cast to the weight's (= x's) dtype."""
+    return F.conv_transpose2d(dz.float(), _oihw(w).float(),
+                              padding=1).to(w.dtype)
+
+
+def subpixel_head_dw(x: torch.Tensor, dz: torch.Tensor, w: torch.Tensor
+                     ) -> torch.Tensor:
+    """dW of the conv (HWIO, w's dtype): the library's weight gradient on
+    dz cast to x's dtype. Not a port of a kernel: the JAX ``_bwd`` leaves
+    this contraction to XLA's conv weight gradient too."""
+    dw = torch.ops.aten.convolution_backward(
+        dz.to(x.dtype), x, _oihw(w), None, [1, 1], [1, 1], [1, 1], False,
+        [0, 0], 1, [False, True, False])[1]
+    return dw.permute(2, 3, 1, 0).to(w.dtype)
+
+
+def _check_weight(w: torch.Tensor, c: int, x: torch.Tensor,
+                  what: str) -> int:
+    if (w.dim() != 4 or tuple(w.shape[:3]) != (2, 2, c)
+            or w.shape[3] not in F4_SUPPORTED):
+        raise ValueError(f"{what}: weight must be (2, 2, {c}, F4) with F4 "
+                         f"in {F4_SUPPORTED}, got {tuple(w.shape)}")
+    if w.device != x.device or w.dtype != x.dtype or not w.is_contiguous():
+        raise ValueError(f"{what}: weight must be contiguous, on {x.device} "
+                         f"in {x.dtype}; got {w.dtype} on {w.device}")
+    return w.shape[3]
+
+
+def subpixel_head_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """#6: z = conv(x, w, pad 1) in f32, channels_last (N, F4, H+1, W+1)."""
+    if x.device.type == "cpu":
+        return subpixel_head_fwd_plain(x, w)
+    build.check_activation(x, "subpixel_head_fwd")
+    n, c, h, wd = x.shape
+    f4 = _check_weight(w, c, x, "subpixel_head_fwd")
+    lib, fn = build.load("subpixel_head", "p2p_subpixel_head_fwd")
+    smem = lib.p2p_subpixel_head_fwd_smem(c, f4)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"subpixel_head_fwd: C = {c} needs {smem} bytes of "
+                         f"shared memory per block (at most {_MAX_SMEM})")
+    z = torch.empty((n, f4, h + 1, wd + 1), device=x.device,
+                    dtype=torch.float32, memory_format=torch.channels_last)
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(),
+                 build.DTYPE_CODES[x.dtype], n, h, wd, c, f4,
+                 build.stream_handle(x.device))
+    build.check(lib, err, "subpixel_head_fwd")
+    subpixel_head_fwd.launches += 1
+    return z
+
+
+def subpixel_head_dx(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """#7: dx of the conv from an f32 channels_last dz (N, F4, H+1, W+1),
+    channels_last (N, C, H, W) in w's dtype (the forward's x dtype)."""
+    if dz.device.type == "cpu":
+        return subpixel_head_dx_plain(dz, w)
+    build.check_activation(dz, "subpixel_head_dx")
+    if dz.dtype != torch.float32:
+        raise TypeError(f"subpixel_head_dx: dz must be f32, got {dz.dtype}")
+    n, f4, ho, wo = dz.shape
+    if w.dim() != 4 or w.shape[:2] != (2, 2) or w.shape[3] != f4 \
+            or w.dtype not in build.DTYPE_CODES or w.device != dz.device \
+            or not w.is_contiguous() or f4 not in F4_SUPPORTED:
+        raise ValueError(f"subpixel_head_dx: weight must be a contiguous "
+                         f"(2, 2, C, {f4}) f32/bf16 tensor on {dz.device}, "
+                         f"got {w.dtype} {tuple(w.shape)} on {w.device}")
+    c = w.shape[2]
+    dx = torch.empty((n, c, ho - 1, wo - 1), device=dz.device, dtype=w.dtype,
+                     memory_format=torch.channels_last)
+    lib, fn = build.load("subpixel_head", "p2p_subpixel_head_dx")
+    with torch.cuda.device(dz.device):
+        err = fn(dz.data_ptr(), w.data_ptr(), dx.data_ptr(),
+                 build.DTYPE_CODES[w.dtype], n, ho - 1, wo - 1, c, f4,
+                 build.stream_handle(dz.device))
+    build.check(lib, err, "subpixel_head_dx")
+    subpixel_head_dx.launches += 1
+    return dx
+
+
+subpixel_head_fwd.launches = 0
+subpixel_head_dx.launches = 0
+
+
+class SubpixelHeadConv(torch.autograd.Function):
+    """The conv with #6 as its forward and #7 + the library wgrad as its
+    backward (the JAX ``subpixel_head_conv`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return subpixel_head_fwd(x, w)
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, w = ctx.saved_tensors
+        dz = dz.float().contiguous(memory_format=torch.channels_last)
+        dx = subpixel_head_dx(dz, w) if ctx.needs_input_grad[0] else None
+        dw = subpixel_head_dw(x, dz, w) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
+def subpixel_head_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """conv(x, w, pad 1) → f32 z through #6, differentiable through #7."""
+    return SubpixelHeadConv.apply(x, w)

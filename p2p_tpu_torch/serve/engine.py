@@ -9,8 +9,11 @@ the device→host copy and the PNG encode run on the
 :class:`~p2p_tpu_torch.serve.io.AsyncImageWriter` threads, overlapping the
 next batch's compute. :meth:`InferenceEngine.run` reports a fenced timing
 breakdown (``torch.cuda.synchronize``), so img/s is measured, not
-asserted. ``dtype="bf16"`` (the default, as in the JAX engine) serves a
-bf16 copy of the generator.
+asserted. ``dtype="bf16"`` (the default, as in the JAX engine) serves the
+generator in bf16: the served-only families (pix2pixHD, ResNet) as a bf16
+copy; the trained families (U-Net, ExpandNetwork) as they train, f32
+parameters and BatchNorm statistics computing in bf16 (``define_G(cfg,
+dtype)``, the JAX serving forward's ``train_dtype``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ from torch import nn
 from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import resolve_dtype
+from p2p_tpu_torch.models.registry import COMPUTE_DTYPE_GENERATORS, define_G
 from p2p_tpu_torch.serve.io import (AsyncImageWriter, chunk_batch, pad_batch,
                                     pick_bucket)
 from p2p_tpu_torch.train.step import make_infer_forward
@@ -78,9 +82,8 @@ class InferenceEngine:
             int(b) for b in (buckets or (cfg.data.test_batch_size,)))))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad buckets {self.buckets}")
-        self.model = copy.deepcopy(generator).to(
-            device=self.device, dtype=self.dtype,
-            memory_format=torch.channels_last).eval()
+        self.model = self._serving_copy(generator).to(
+            device=self.device, memory_format=torch.channels_last).eval()
         self._fwd = make_infer_forward(cfg, self.dtype)
         h, w = cfg.image_hw
         self._input_shape = (h, w, cfg.model.input_nc)
@@ -88,6 +91,15 @@ class InferenceEngine:
                              else np.float32)
         self._warm: set = set()
         self.n_warmups = 0
+
+    def _serving_copy(self, generator: nn.Module) -> nn.Module:
+        m = self.cfg.model
+        if m.generator not in COMPUTE_DTYPE_GENERATORS:
+            return copy.deepcopy(generator).to(dtype=self.dtype)
+        compute = None if self.dtype == torch.float32 else self.dtype
+        model = define_G(m, compute, self.cfg.image_hw)
+        model.load_state_dict(generator.state_dict(), strict=True)
+        return model
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (a no-op on the CPU)."""

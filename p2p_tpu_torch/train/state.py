@@ -2,7 +2,8 @@
 ``:283 make_optimizers`` and ``:342 create_train_state``).
 
 The JAX state is one immutable pytree of parameters, collections and
-optimizer states. Here it holds the three networks, whose running
+optimizer states. Here it holds the networks (net_c and its optimizer are
+``None`` when the preset has no compression net), whose running
 statistics (BatchNorm ``mean``/``var``, the flax ``batch_stats``) and
 spectral-norm ``u`` (flax ``spectral``) are buffers that a train step
 updates in place, and one ``torch.optim.Adam`` with a ``LambdaLR`` per
@@ -35,10 +36,10 @@ class TrainState:
     step: int
     net_g: nn.Module
     net_d: nn.Module
-    net_c: nn.Module
+    net_c: Optional[nn.Module]
     opt_g: Optimizer
     opt_d: Optimizer
-    opt_c: Optimizer
+    opt_c: Optional[Optimizer]
 
     @property
     def device(self) -> torch.device:
@@ -46,13 +47,13 @@ class TrainState:
 
 
 def build_models(cfg: Config, train_dtype: Optional[torch.dtype] = None
-                 ) -> Tuple[nn.Module, nn.Module, nn.Module]:
+                 ) -> Tuple[nn.Module, nn.Module, Optional[nn.Module]]:
     """G, D and C of ``cfg`` on the CPU in f32, computing in
-    ``train_dtype``."""
-    if not cfg.model.use_compression_net:
-        raise NotImplementedError("the port trains presets with net_c only")
-    return (define_G(cfg.model, train_dtype), define_D(cfg.model, train_dtype),
-            define_C(cfg.model, train_dtype))
+    ``train_dtype``; C is None without a compression net."""
+    net_c = (define_C(cfg.model, train_dtype)
+             if cfg.model.use_compression_net else None)
+    return (define_G(cfg.model, train_dtype, cfg.image_hw),
+            define_D(cfg.model, train_dtype), net_c)
 
 
 def make_optimizers(cfg: Config, nets: List[nn.Module],
@@ -78,13 +79,16 @@ def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
     (G, then D, then C), as f32 masters on ``device`` (``cuda`` unless the
     caller asks for the CPU) in channels_last, and fresh optimizers."""
     dev = resolve_device(device)
-    nets = build_models(cfg, train_dtype)
+    g, d, c = build_models(cfg, train_dtype)
+    nets = [g, d] if c is None else [g, d, c]
     gen = torch.Generator().manual_seed(seed)
     for net in nets:
         init_weights(net, gen)
         net.to(dev, memory_format=torch.channels_last).train()
-    opts = make_optimizers(cfg, list(nets), steps_per_epoch)
-    return TrainState(0, *nets, *opts)
+    opts = make_optimizers(cfg, nets, steps_per_epoch)
+    if c is None:
+        return TrainState(0, g, d, None, *opts, None)
+    return TrainState(0, g, d, c, *opts)
 
 
 def load_vgg19(seed: int = 190,

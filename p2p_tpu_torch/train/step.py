@@ -1,29 +1,34 @@
-"""The train step of the ``reference`` preset and generator inference
-(counterparts of ``p2p_tpu/train/step.py:79 single_forward_d_losses``,
-``:140 make_g_loss_fn``, ``:209 build_train_step`` and ``:940
-make_infer_forward``).
+"""The train step of the ``reference`` and ``facades`` presets and
+generator inference (counterparts of ``p2p_tpu/train/step.py:79
+single_forward_d_losses``, ``:140 make_g_loss_fn``, ``:209
+build_train_step`` and ``:940 make_infer_forward``).
 
 ``build_train_step(cfg, vgg)`` returns ``step(state, batch) -> (state,
 metrics)`` in the order of the JAX step (``step.py:277-597``):
 
-1. ``compressed = quantize(net_c(real_b), bits)``, no gradient;
-2. ``fake_b = G(compressed)``;
+1. with a compression net, ``compressed = quantize(net_c(real_b), bits)``,
+   no gradient; without one (``facades``), G's input is ``real_a``;
+2. ``fake_b = G(compressed or real_a)``, with the step's dropout noise
+   when ``use_dropout`` (a ``torch.Generator`` seeded from
+   ``(cfg.train.seed, step)``, so a rerun of a step draws the same masks);
 3. ONE D(fake) forward on (real_a ‖ fake_b) that serves both the D loss
    (gradient to D's parameters only: the reference's ``fake_b.detach()``)
    and the G loss (gradient through D to fake_b only: the reference's
    ``zero_grad`` before the D step), then D(real);
-4. the G loss: GAN + feature matching + VGG + TV;
+4. the G loss: GAN + feature matching + VGG + TV + L1 per the config;
 5. G's update, then D's;
-6. the net_c branch against the UPDATED G: MSE(G(cq), real_b) +
-   λ_vgg·VGG(cq, real_b), ``cq = quantize_ste(net_c(real_b))``, the
-   gradient reaching net_c through the straight-through quantizer.
+6. with a compression net, the net_c branch against the UPDATED G:
+   MSE(G(cq), real_b) + λ_vgg·VGG(cq, real_b), ``cq =
+   quantize_ste(net_c(real_b))``, the gradient reaching net_c through the
+   straight-through quantizer; without one, ``loss_c`` is a 0-d zero.
 
 Running statistics and spectral ``u`` are buffers that each forward in
 training mode advances in place, so they move as the JAX collections are
 threaded: net_c's from its first run (the net_c branch reruns it from the
 step's starting statistics and drops that update, as the JAX branch reads
 ``state.batch_stats_c``), G's twice (the G step, then the net_c branch:
-the stored value is the second), D's ``u`` once per D forward.
+the stored value is the second; once without net_c), D's ``u`` once per D
+forward.
 
 The skip guard (``health.enabled``, ``step.py:442-481``): when the G or D
 loss is not finite, no optimizer steps and D's ``u`` and all running
@@ -32,7 +37,7 @@ net_c does not step and the running statistics return to the start. The
 verdicts are read on the host (two synchronizations per step).
 
 Not ported, and refused by :func:`build_train_step`: the historical-fake
-pool, int8 QAT, dropout, the EMA generator, pipeline parallelism.
+pool, int8 QAT, the EMA generator, pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ from torch.func import functional_call
 from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
 from p2p_tpu_torch.losses.gan import gan_loss
+from p2p_tpu_torch.losses.l1 import l1_loss
 from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
 from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
 from p2p_tpu_torch.ops.tv import total_variation_loss
@@ -109,12 +115,12 @@ def single_forward_d_losses(net_d: nn.Module, fake_pair: torch.Tensor,
 
 
 def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module]):
-    """``g_losses(fake_b, pred_fake, pred_real, real_feats) -> (total,
-    parts)``: GAN + feature matching + VGG + TV per the config; ``parts``
-    holds each term under the JAX metric keys."""
+    """``g_losses(fake_b, pred_fake, pred_real, real_b, real_feats) ->
+    (total, parts)``: GAN + feature matching + VGG + TV + L1 per the
+    config; ``parts`` holds each term under the JAX metric keys."""
     L = cfg.loss
 
-    def g_losses(fake_b, pred_fake, pred_real, real_feats):
+    def g_losses(fake_b, pred_fake, pred_real, real_b, real_feats):
         total = gan_loss(pred_fake, True, L.gan_mode, for_discriminator=False)
         parts = {"g_gan": total}
         if L.lambda_feat > 0:
@@ -124,7 +130,9 @@ def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module]):
             parts["g_vgg"] = vgg_loss(vgg, fake_b, real_feats) * L.lambda_vgg
         if L.lambda_tv > 0:
             parts["g_tv"] = total_variation_loss(fake_b) * L.lambda_tv
-        for k in ("g_feat", "g_vgg", "g_tv"):
+        if L.lambda_l1 > 0:
+            parts["g_l1"] = l1_loss(fake_b, real_b) * L.lambda_l1
+        for k in ("g_feat", "g_vgg", "g_tv", "g_l1"):
             if k in parts:
                 total = total + parts[k]
         return total, parts
@@ -135,9 +143,8 @@ def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module]):
 def _check_supported(cfg: Config) -> None:
     m = cfg.model
     unported = {
-        "a generator other than 'expand'": m.generator != "expand",
-        "training without net_c": not m.use_compression_net,
-        "dropout": m.use_dropout,
+        "a generator other than 'expand' or 'unet'":
+            m.generator not in ("expand", "unet"),
         "int8 QAT": m.int8 or m.int8_delayed,
         "the historical-fake pool": cfg.train.pool_size > 0,
         "the EMA generator": cfg.health.ema_decay is not None,
@@ -178,10 +185,20 @@ def _finite(*losses: torch.Tensor) -> bool:
     return bool(torch.isfinite(torch.stack(losses)).all())
 
 
+def dropout_generator(seed: int, step: int, device: torch.device
+                      ) -> torch.Generator:
+    """The generator of one step's dropout noise on ``device``, seeded from
+    ``(seed, step)``: the same step draws the same masks. The pair is
+    hashed (numpy's ``SeedSequence``), since the CPU generator keeps only
+    32 bits of its seed."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(mixed[0]))
+
+
 def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
                      train_dtype: Optional[torch.dtype] = None):
     """``step(state, batch) -> (state, metrics)`` for ``cfg`` (the
-    ``reference`` preset's path); ``vgg`` is the frozen VGG19 trunk (needed
+    ``reference`` and ``facades`` paths); ``vgg`` is the frozen VGG19 trunk (needed
     when ``lambda_vgg > 0``), ``train_dtype`` the dtype the images enter
     in (bf16 under mixed precision, None for f32). ``batch`` holds NHWC
     host arrays ``"input"`` and ``"target"``; ``state`` is advanced in
@@ -191,6 +208,9 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
     L = cfg.loss
     bits = cfg.model.quant_bits
     quant = quantize_ste if cfg.model.quant_ste else quantize
+    use_c = cfg.model.use_compression_net
+    # dropout lives in the U-Net only (the JAX ExpandNetwork has none)
+    use_dropout = cfg.model.use_dropout and cfg.model.generator == "unet"
     need_vgg = L.lambda_vgg > 0 and vgg is not None
     if need_vgg and vgg.imagenet_norm != L.vgg_imagenet_norm:
         raise ValueError("vgg.imagenet_norm must equal "
@@ -203,23 +223,33 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         net_g, net_d, net_c = state.net_g, state.net_d, state.net_c
         real_a = to_device_image(batch["input"], state.device, train_dtype)
         real_b = to_device_image(batch["target"], state.device, train_dtype)
-        stats = [b for net in (net_g, net_c) for b in net.buffers()]
+        stats = [b for net in (net_g, net_c) if net is not None
+                 for b in net.buffers()]
         snap_stats = _Snapshot(stats) if guard else None
         snap_u = _Snapshot(list(net_d.buffers())) if guard else None
-        # net_c's statistics at the step's start, for the net_c branch
-        stats_c0 = {k: v.clone() for k, v in net_c.named_buffers()}
+        gen = (dropout_generator(cfg.train.seed, state.step, state.device)
+               if use_dropout else None)
+
+        def g_forward(x):
+            return net_g(x) if gen is None else net_g(x, generator=gen)
 
         # ---- 1. net_c + quantizer (its statistics update is kept) -------
-        with torch.no_grad():
-            compressed = quant(net_c(real_b), bits)
+        if use_c:
+            # net_c's statistics at the step's start, for the net_c branch
+            stats_c0 = {k: v.clone() for k, v in net_c.named_buffers()}
+            with torch.no_grad():
+                g_input = quant(net_c(real_b), bits)
+        else:
+            g_input = real_a
 
         # ---- 2-4. G, one D(fake) forward for both losses, G loss --------
-        fake_b = net_g(compressed)
+        fake_b = g_forward(g_input)
         loss_d, pred_fake, pred_real = single_forward_d_losses(
             net_d, torch.cat([real_a, fake_b], dim=1),
             torch.cat([real_a, real_b], dim=1), L.gan_mode)
         real_feats = target_features(vgg, real_b) if need_vgg else None
-        loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_feats)
+        loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_b,
+                                 real_feats)
         loss_g.backward(inputs=list(net_g.parameters()))
 
         # ---- 5. G then D updates, unless the guard drops the step --------
@@ -230,15 +260,19 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             snap_u.restore()
 
         # ---- 6. net_c branch against the updated G -----------------------
-        cq = quant(functional_call(net_c, stats_c0, (real_b,)), bits)
-        fake_ac = net_g(cq)
-        loss_c = ((fake_ac.float() - real_b.float()) ** 2).mean()
-        if need_vgg:
-            loss_c = loss_c + vgg_loss(vgg, cq, real_feats) * L.lambda_vgg
-        ok_all = ok and (_finite(loss_c) if guard else True)
-        if cfg.optim.train_compression_net:
-            loss_c.backward(inputs=list(net_c.parameters()))
-            _apply(state.opt_c, ok_all)
+        ok_all = ok
+        if use_c:
+            cq = quant(functional_call(net_c, stats_c0, (real_b,)), bits)
+            fake_ac = g_forward(cq)
+            loss_c = ((fake_ac.float() - real_b.float()) ** 2).mean()
+            if need_vgg:
+                loss_c = loss_c + vgg_loss(vgg, cq, real_feats) * L.lambda_vgg
+            ok_all = ok and (_finite(loss_c) if guard else True)
+            if cfg.optim.train_compression_net:
+                loss_c.backward(inputs=list(net_c.parameters()))
+                _apply(state.opt_c, ok_all)
+        else:
+            loss_c = torch.zeros((), device=state.device)
         if not ok_all:
             snap_stats.restore()
 

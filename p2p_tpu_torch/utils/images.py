@@ -1,6 +1,8 @@
 """Image helpers (counterpart of ``p2p_tpu/utils/images.py:15 ingest`` and
-``:39 to_uint8_img``) and a PNG writer built on the standard library
-(zlib + struct), so serving writes its outputs without PIL.
+``:39 to_uint8_img``), a PNG writer and reader built on the standard
+library (zlib + struct), and the bicubic resize of
+``p2p_tpu/data/pipeline.py:56-58 load_image``, so serving reads its
+requests and writes its outputs without Pillow.
 """
 
 from __future__ import annotations
@@ -11,6 +13,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 # 1/127.5 rounded to f32 once: the scalar the JAX package multiplies by
 _INV_127_5 = float(np.float32(1.0 / 127.5))
@@ -72,3 +75,129 @@ def save_img(x, path: str) -> None:
     """[-1, 1] float HWC (or uint8) → PNG file at ``path``."""
     with open(path, "wb") as f:
         f.write(encode_png(to_uint8_img(x)))
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# samples per pixel of each 8-bit colour type
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _png_chunks(data: bytes):
+    """Yield ``(type, payload)`` of every chunk, checking each CRC."""
+    pos = len(_PNG_SIGNATURE)
+    while pos < len(data):
+        if pos + 8 > len(data):
+            raise ValueError("PNG truncated inside a chunk header")
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        end = pos + 8 + length
+        if end + 4 > len(data):
+            raise ValueError(f"PNG truncated inside chunk {kind!r}")
+        payload = data[pos + 8:end]
+        (crc,) = struct.unpack(">I", data[end:end + 4])
+        if zlib.crc32(kind + payload) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG chunk {kind!r} has a bad CRC")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos = end + 4
+    raise ValueError("PNG truncated: no IEND chunk")
+
+
+def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG row filters (None, Sub, Up, Average, Paeth) of
+    ``h`` rows of ``stride`` bytes, ``bpp`` bytes per pixel."""
+    if len(raw) != h * (stride + 1):
+        raise ValueError(f"PNG image data holds {len(raw)} bytes, expected "
+                         f"{h * (stride + 1)}")
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for r in range(h):
+        ftype = raw[r * (stride + 1)]
+        line = np.frombuffer(raw, np.uint8, stride, r * (stride + 1) + 1)
+        if ftype == 0:
+            cur = line.copy()
+        elif ftype == 1:      # Sub: a running sum mod 256 per byte lane
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:      # Up
+            cur = line + prior
+        elif ftype in (3, 4):  # Average, Paeth: each byte needs its left
+            cur = bytearray(line.tobytes())
+            b = prior.tobytes()
+            for i in range(stride):
+                a = cur[i - bpp] if i >= bpp else 0
+                if ftype == 3:
+                    pred = (a + b[i]) >> 1
+                else:
+                    c = b[i - bpp] if i >= bpp else 0
+                    p = a + b[i] - c
+                    pa, pb, pc = abs(p - a), abs(p - b[i]), abs(p - c)
+                    pred = a if pa <= pb and pa <= pc else (
+                        b[i] if pb <= pc else c)
+                cur[i] = (cur[i] + pred) & 0xFF
+            cur = np.frombuffer(bytes(cur), np.uint8)
+        else:
+            raise ValueError(f"PNG row {r} has unknown filter type {ftype}")
+        out[r] = cur
+        prior = out[r]
+    return out
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes → uint8 (h, w, 3) RGB: the inverse of :func:`encode_png`
+    for every 8-bit non-interlaced colour type (0 grey, 2 RGB, 3 palette,
+    4 grey + alpha, 6 RGBA), converted as Pillow's ``convert("RGB")`` does
+    (grey repeated, alpha dropped, palette looked up). Raises
+    ``ValueError`` on anything else: another bit depth, interlace, a
+    truncated stream or a chunk with a bad CRC."""
+    if not data.startswith(_PNG_SIGNATURE):
+        raise ValueError("not a PNG (bad signature)")
+    header, palette, idat = None, None, []
+    for kind, payload in _png_chunks(data):
+        if kind == b"IHDR":
+            if len(payload) != 13:
+                raise ValueError("PNG IHDR chunk is not 13 bytes")
+            header = struct.unpack(">IIBBBBB", payload)
+        elif kind == b"PLTE":
+            if len(payload) % 3:
+                raise ValueError("PNG PLTE chunk is not RGB triples")
+            palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if header is None:
+        raise ValueError("PNG has no IHDR chunk")
+    w, h, depth, color, compression, filt, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS:
+        raise ValueError(f"unsupported PNG: bit depth {depth}, colour type "
+                         f"{color} (only 8-bit types 0, 2, 3, 4, 6)")
+    if interlace != 0 or compression != 0 or filt != 0:
+        raise ValueError("unsupported PNG: interlaced or non-standard "
+                         "compression/filter method")
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        raise ValueError(f"PNG image data does not inflate: {e}") from None
+    c = _PNG_CHANNELS[color]
+    img = _unfilter(raw, h, w * c, c).reshape(h, w, c)
+    if color == 3:
+        if palette is None:
+            raise ValueError("palette PNG has no PLTE chunk")
+        if int(img.max(initial=0)) >= len(palette):
+            raise ValueError("PNG palette index out of range")
+        return palette[img[:, :, 0]]
+    if color in (0, 4):
+        return np.repeat(img[:, :, :1], 3, axis=2)
+    return np.ascontiguousarray(img[:, :, :3])
+
+
+def resize_bicubic(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """uint8 (H, W, C) → uint8 (h, w, C), bicubic with antialiasing (Pillow's
+    ``Image.BICUBIC`` resize, which the JAX ``load_image`` uses). As
+    Pillow does, the width is resized first and the intermediate image is
+    rounded and clamped to uint8 before the height is resized."""
+    x = torch.from_numpy(np.array(img, np.float32)).permute(2, 0, 1)[None]
+    for size in ((x.shape[2], w), (h, w)):
+        x = F.interpolate(x, size=size, mode="bicubic", align_corners=False,
+                          antialias=True).round().clamp(0, 255)
+    return x[0].permute(1, 2, 0).to(torch.uint8).numpy()

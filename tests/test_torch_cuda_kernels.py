@@ -1,13 +1,18 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach: odd channel counts (one element per
-access), a misaligned view, N > 1, a residual with an affine, and for the
-BatchNorm moments kernel (#5) ragged M, C = 3 and the autograd backward.
+access), a misaligned view, N > 1, a residual with an affine, for the
+BatchNorm moments kernel (#5) ragged M, C = 3 and the autograd backward,
+and for the subpixel head's forward (#6) and dx (#7) the path's shapes,
+ragged widths, every F4 and the autograd function.
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
 Tolerance: f32 atol 1e-4 (order of partial sums); bf16 atol 1e-2 + rtol
 2⁻⁷ (one rounding of the stored value); #5's f32 sums within 1e-5 of the
-sum of |terms| (the same terms summed in two orders).
+sum of |terms| (the same terms summed in two orders); #6's f32 output
+within 1e-4 + 1e-4 relative in both input types (bf16 products are exact
+in f32), #7's dx as the other outputs stored in its dtype. The plain
+versions run with TF32 off.
 """
 
 import pytest
@@ -21,6 +26,9 @@ from p2p_tpu_torch.ops.cuda.batch_moments import (  # noqa: E402
 from p2p_tpu_torch.ops.cuda.norm_act import (  # noqa: E402
     norm_act, norm_act_plain)
 from p2p_tpu_torch.ops.norm import dual_moments  # noqa: E402
+from p2p_tpu_torch.ops.cuda.subpixel_head import (  # noqa: E402
+    subpixel_head_conv, subpixel_head_dx, subpixel_head_dx_plain,
+    subpixel_head_fwd, subpixel_head_fwd_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -32,6 +40,14 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_tf32(cuda):
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = saved
 
 
 def _x(shape, dtype, device, seed):
@@ -143,3 +159,76 @@ def test_dual_moments_backward_on_the_card(cuda):
     torch.testing.assert_close(got, ds + 2 * x.detach() * dss, atol=1e-5,
                                rtol=1e-6)
     torch.cuda.synchronize()
+
+
+def _head(n, c, h, w, f4, dtype, device, seed):
+    x = _x((n, c, h, w), dtype, device, seed)
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    wt = (torch.randn((2, 2, c, f4), generator=g, device=device) * 0.05).to(
+        dtype)
+    dz = _x((n, f4, h + 1, w + 1), torch.float32, device, seed + 2)
+    return x, wt, dz
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w,f4", [
+    (1, 128, 128, 128, 12), (2, 128, 128, 128, 12), (4, 128, 128, 128, 12),
+    (2, 32, 12, 10, 12), (3, 5, 7, 33, 4), (1, 64, 1, 1, 8),
+    (2, 24, 31, 65, 16), (1, 300, 9, 40, 12)])
+def test_subpixel_head_kernels_match_plain_versions(no_tf32, dtype, n, c, h,
+                                                    w, f4):
+    x, wt, dz = _head(n, c, h, w, f4, dtype, no_tf32, n + c + h)
+    z = subpixel_head_fwd(x, wt)
+    assert z.dtype == torch.float32 and z.shape == (n, f4, h + 1, w + 1)
+    assert z.is_contiguous(memory_format=torch.channels_last)
+    torch.testing.assert_close(z, subpixel_head_fwd_plain(x, wt), atol=1e-4,
+                               rtol=1e-4)
+    dx = subpixel_head_dx(dz, wt)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert dx.is_contiguous(memory_format=torch.channels_last)
+    atol, rtol = TOL[dtype]
+    torch.testing.assert_close(dx.float(),
+                               subpixel_head_dx_plain(dz, wt).float(),
+                               atol=atol, rtol=rtol)
+    torch.cuda.synchronize()
+
+
+def test_subpixel_head_kernels_are_reproducible_and_count_launches(cuda):
+    x, wt, dz = _head(2, 128, 64, 64, 12, torch.bfloat16, cuda, 7)
+    n_fwd, n_dx = subpixel_head_fwd.launches, subpixel_head_dx.launches
+    assert torch.equal(subpixel_head_fwd(x, wt), subpixel_head_fwd(x, wt))
+    assert torch.equal(subpixel_head_dx(dz, wt), subpixel_head_dx(dz, wt))
+    assert (subpixel_head_fwd.launches - n_fwd,
+            subpixel_head_dx.launches - n_dx) == (2, 2)
+
+
+def test_subpixel_head_conv_backward_on_the_card(no_tf32):
+    """The autograd function: #7 for dx, the library's wgrad for dW, each
+    against autograd of the plain forward."""
+    x, wt, _ = _head(2, 32, 12, 10, 12, torch.float32, no_tf32, 8)
+    x.requires_grad_(True)
+    wt.requires_grad_(True)
+    z = subpixel_head_conv(x, wt)
+    r = torch.randn(z.shape, device=no_tf32)
+    dx, dw = torch.autograd.grad((z * r).sum(), (x, wt))
+    x2 = x.detach().requires_grad_(True)
+    w2 = wt.detach().requires_grad_(True)
+    pdx, pdw = torch.autograd.grad(
+        (subpixel_head_fwd_plain(x2, w2) * r).sum(), (x2, w2))
+    torch.testing.assert_close(dx, pdx, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(dw, pdw, atol=1e-4, rtol=1e-4)
+
+
+def test_subpixel_head_wrappers_raise_on_what_they_do_not_take(cuda):
+    x, wt, dz = _head(1, 16, 8, 8, 12, torch.float32, cuda, 9)
+    with pytest.raises(ValueError, match="channels_last"):
+        subpixel_head_fwd(x.contiguous(), wt)
+    with pytest.raises(ValueError, match="F4"):
+        subpixel_head_fwd(x, wt[..., :6].contiguous())
+    with pytest.raises(ValueError, match="weight"):
+        subpixel_head_fwd(x, wt.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="f32"):
+        subpixel_head_dx(dz.to(torch.bfloat16), wt)
+    with pytest.raises(ValueError, match="shared memory"):
+        xs, ws, _ = _head(1, 1024, 4, 4, 16, torch.float32, cuda, 10)
+        subpixel_head_fwd(xs, ws)

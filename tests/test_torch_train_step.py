@@ -210,10 +210,8 @@ def test_without_guard_or_net_c_training():
 
 def test_step_refuses_what_is_not_ported():
     cfg = _small(get_preset("reference"))
-    for bad in (dataclasses.replace(cfg.model, use_dropout=True),
-                dataclasses.replace(cfg.model, int8=True),
-                dataclasses.replace(cfg.model, generator="resnet"),
-                dataclasses.replace(cfg.model, use_compression_net=False)):
+    for bad in (dataclasses.replace(cfg.model, int8=True),
+                dataclasses.replace(cfg.model, generator="resnet")):
         with pytest.raises(NotImplementedError):
             build_train_step(cfg.replace(model=bad))
     with pytest.raises(NotImplementedError, match="pool"):
