@@ -14,11 +14,17 @@ to the CPU or to a plain version):
    CUDA events (median of 20 cold-L2 runs) beside its plain version, a
    PyTorch library yardstick and its bound (the larger of the bytes moved
    over the card's memory rate and the operations over its peak rate for
-   the operands' type): #1 and #3 at every epilogue shape of the
-   full-width pix2pixHD generator at each batch size serving uses (N = 1,
-   2, 4) and each activation/residual form; #5 at the (M, C) shapes of
-   the reference and facades train steps; #6 and #7 at the facades image
-   head's shapes (N = 1, 2, 4 serving, N = 1 training);
+   the operands' type): #1, #2 and #3 at every norm shape of the
+   instance-norm paths (the full-width pix2pixHD generator at each batch
+   size serving uses, N = 1, 2, 4, and in training at N = 1; the
+   instance-norm ``reference`` G and D at N = 1) and each
+   activation/residual form, #2's C = 3 head on its one-element path; #5
+   at the (M, C) shapes of the reference, facades and instance-norm train
+   steps; #6 and #7 at the facades image head's shapes (N = 1, 2, 4
+   serving, N = 1 training); then, in f32, the gradients through the two
+   instance-norm autograd Functions (kernels forward, closed-form
+   backward) against autograd through the plain versions at the largest
+   shapes of both instance-norm training paths;
 3. pix2pixHD serving: the full-width generator (random weights from a
    seed) served through ``InferenceEngine`` in bf16 on synthetic 512×1024
    requests; the launch counts of that run must be exactly 36 + 36 per
@@ -42,7 +48,19 @@ to the CPU or to a plain version):
    #5, one #6 and one #7 per step; then in f32 with TF32 off, 2 steps
    through the kernels against 2 through the plain versions from the same
    state and dropout seed, losses within the stated bands;
-7. a ``{"kernels": [...]}`` line, then the last line
+7. instance-norm training, path A: the full-width ``reference`` preset
+   with ``norm="pallas_instance", norm_d="pallas_instance"`` (ExpandNetwork
+   on #1 + #2 at its 6 plain norms and #1 + #3 at its 18 residual-block
+   epilogues, the D's 9 inner epilogues on #1 + #3 with LeakyReLU), bf16:
+   2 warm-up and 8 timed steps with finite losses and exactly 66 #1, 12
+   #2, 54 #3 and 2 #5 per step; then the f32 (TF32 off) 2-step
+   kernels-vs-plain check;
+8. instance-norm training, path B: the full-width ``pix2pixhd`` preset at
+   1024×512 (3-scale D, LSGAN + 10·FM + 10·VGG19), bf16: 2 warm-up
+   and 4 timed steps with finite losses, the peak device memory, exactly
+   36 #1 and 36 #3 per step and no #2; then the f32 (TF32 off) 2-step
+   kernels-vs-plain check at full depth;
+9. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -110,6 +128,35 @@ HEAD_Z_TOL = (1e-4, 1e-4)
 # packages on the CPU at step 3): rtol 1e-3.
 FACADES_STEP1_RTOL, FACADES_LATER_RTOL = 1e-4, 1e-3
 FACADES_LOSS_KEYS = ("loss_g", "loss_d", "g_gan", "g_l1")
+# instance-norm training: path A (reference with pallas_instance norms)
+# 2 + 8 bf16 steps, path B (pix2pixhd at 1024x512) 2 + 4
+HD_TRAIN_WARMUP, HD_TRAIN_STEPS = 2, 4
+HD_LOSS_KEYS = ("loss_g", "loss_d", "g_gan", "g_feat", "g_vgg")
+# the f32 kernels-vs-plain steps of the instance-norm paths: the losses of
+# step 1 taken before any update differ only by the order of f32 sums in
+# the norm statistics (rtol 1e-5); those after an update (step 1's net_c
+# loss, against the updated G, and all of step 2) follow Adam's sign-like
+# first update, which moves a weight whose gradient is near 0 by +-lr on
+# either route, and on path B a G gradient that is ill-conditioned (it
+# moves by 1.5e-3 of a tensor's largest when only the last bit of its
+# norm statistics changes, tests/test_torch_hd_train_step.py): within
+# 5e-2 (measured on an H100: path A's net_c loss 1.3e-2 at step 2, path
+# B 1.6e-5; the gradients themselves are held by the backward check)
+INSTANCE_STEP1_RTOL = 1e-5
+INSTANCE_LATER_RTOL = 5e-2
+AFTER_UPDATE_KEYS = ("loss_c",)
+# gradients through the instance-norm Functions vs autograd through the
+# plain chain, f32: dx and dres within 1e-4 + 1e-4 relative (elementwise
+# closed form against autograd's chain: rounding of O(1) values); dscale
+# and dbias, sums over H*W pixels, within 1e-4 of the tensor's largest.
+# Elements whose activation input (the plain pre-activation) lies within
+# MASK_MARGIN of 0 are left out of dx and dres: the kernel's and the plain
+# forward's y differ in their last bits (~1e-7), so the two routes may put
+# the relu/leaky mask on either side of such an element (the margin leaves
+# out about one element in 10^4; the CPU tests pin the mask rule)
+GRAD_TOL = (1e-4, 1e-4)
+GRAD_SUM_RTOL_OF_MAX = 1e-4
+MASK_MARGIN = 1e-4
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -210,24 +257,96 @@ def make_input(gen, n, c, h, w, dtype, device):
         memory_format=torch.channels_last)
 
 
-def kernel_phase(device, plan):
+def expand_norm_plan(ngf: int, n_blocks: int, h: int, w: int,
+                     out_nc: int = 3):
+    """(H, W, C, form) of every instance norm of one ExpandNetwork forward
+    with ``norm="pallas_instance"`` (models/expand.py): #2 ("apply") at the
+    k9 stem, two downsamples, two upsamples and the head; #3 at both
+    epilogues of each residual block."""
+    apply = [(h, w, ngf), (h // 2, w // 2, 2 * ngf), (h // 4, w // 4, 4 * ngf),
+             (h // 2, w // 2, 2 * ngf), (h, w, ngf), (h, w, out_nc)]
+    blocks = [(h // 4, w // 4, 4 * ngf, "relu"),
+              (h // 4, w // 4, 4 * ngf, "relu+residual")] * n_blocks
+    return [shape + ("apply",) for shape in apply] + blocks
+
+
+def d_norm_plan(ndf: int, n_layers: int, num_D: int, h: int, w: int):
+    """(H, W, C, "leaky") of every inner epilogue of one multiscale D
+    forward (models/patchgan.py): k4 pad-2 convs give H // stride + 1 rows
+    (stride 2) or H + 1 (stride 1); each scale sees the input pooled by
+    AvgPool(3, 2, 1) once more."""
+    plan = []
+    for _ in range(num_D):
+        hh, ww = h // 2 + 1, w // 2 + 1              # the stem, stride 2
+        nf = ndf
+        for i in range(n_layers):
+            stride = 2 if i < n_layers - 1 else 1
+            nf = min(nf * 2, 512)
+            hh, ww = hh // stride + 1, ww // stride + 1
+            plan.append((hh, ww, nf, "leaky"))
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    return plan
+
+
+def instance_config():
+    """Path A: the ``reference`` preset with instance norms in G and D."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset("reference")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, norm="pallas_instance", norm_d="pallas_instance"))
+
+
+def path_a_step_plan(cfg):
+    """(H, W, C, form) of every instance norm of one path-A train step: G
+    twice (the G step and the net_c branch), D twice (fake, real)."""
+    m = cfg.model
+    h, w = cfg.image_hw
+    return (2 * expand_norm_plan(m.ngf, m.n_blocks, h, w, m.output_nc)
+            + 2 * d_norm_plan(m.ndf, m.n_layers_D, m.num_D, h, w))
+
+
+def form_of(act: str, has_res: bool) -> str:
+    return act + ("+residual" if has_res else "")
+
+
+def instance_launches(plan, a_plan, a_steps: int, b_steps: int):
+    """{(N, H, W, C, form): launches of #2 (form "apply") or #3 (the
+    others)} on the main paths: pix2pixHD serving (``plan`` per forward at
+    each batch size), path A (``a_plan`` per step, N = 1) and path B
+    (``plan`` per step, N = 1). #1 runs once before each of them."""
+    out = collections.Counter()
+    for n, forwards in main_path_forwards().items():
+        for h, w, c, act, res in plan:
+            out[(n, h, w, c, form_of(act, res))] += forwards
+    for h, w, c, form in a_plan:
+        out[(1, h, w, c, form)] += a_steps
+    for h, w, c, act, res in plan:
+        out[(1, h, w, c, form_of(act, res))] += b_steps
+    return out
+
+
+def kernel_phase(device, launches):
+    """#1, #2 and #3 at every (N, shape) of ``launches`` (and each of its
+    forms), in bf16 and f32, against their plain versions, with times."""
     import torch.nn.functional as F
 
+    from p2p_tpu_torch.ops.cuda import build
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
-        instance_norm_stats, instance_norm_stats_plain)
+        instance_norm_apply, instance_norm_apply_plain, instance_norm_stats,
+        instance_norm_stats_plain)
     from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_plain
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(SEED)
-    per_shape = collections.Counter((h, w, c) for h, w, c, _, _ in plan)
-    per_form = collections.Counter(plan)
-    forwards = main_path_forwards()
+    by_shape = collections.defaultdict(dict)
+    for (n, h, w, c, form), count in launches.items():
+        by_shape[(n, h, w, c)][form] = count
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         elt = torch.tensor([], dtype=dtype).element_size()
         atol, rtol = TOL[dtype]
-        for n, (h, w, c) in sorted(
-                (n, shape) for n in main_path_forwards() for shape in per_shape):
+        for (n, h, w, c), forms in sorted(by_shape.items()):
             where = f"{str(dtype)[6:]} N={n} {h}x{w}x{c}"
             x = make_input(gen, n, c, h, w, dtype, device)
             numel = x.numel()
@@ -235,42 +354,76 @@ def kernel_phase(device, plan):
             pmean, prstd = instance_norm_stats_plain(x)
             assert_close(f"stats {where} mean", mean, pmean, *STATS_TOL)
             assert_close(f"stats {where} rstd", rstd, prstd, *STATS_TOL)
+            common = dict(dtype=str(dtype)[6:], n=n, shape=(h, w, c))
             rows.append(dict(
-                kernel="instance_norm_stats", dtype=str(dtype)[6:], n=n,
-                shape=(h, w, c), form="-", per_forward=per_shape[(h, w, c)],
-                launches=per_shape[(h, w, c)] * forwards[n],
+                kernel="instance_norm_stats", **common, form="-",
+                launches=sum(forms.values()),
                 max_abs_err=max(max_err(mean, pmean), max_err(rstd, prstd)),
                 ms=timer(lambda: instance_norm_stats(x)),
                 plain_ms=timer(lambda: instance_norm_stats_plain(x)),
                 library_ms=timer(lambda: torch.var_mean(
                     x, dim=(2, 3), correction=0)),
                 **bound_row(numel * elt + 2 * n * c * 4, 3 * numel, dtype)))
-            for (fh, fw, fc, act, has_res), n_form in sorted(per_form.items()):
-                if (fh, fw, fc) != (h, w, c):
+            for form, count in sorted(forms.items()):
+                if form == "apply":
+                    rows.append(apply_row(
+                        timer, x, pmean, prstd, common, count, where,
+                        instance_norm_apply, instance_norm_apply_plain,
+                        build.vector_width(c, x)))
                     continue
-                r = make_input(gen, n, c, h, w, dtype, device) if has_res \
+                act, _, res = form.partition("+")
+                r = make_input(gen, n, c, h, w, dtype, device) if res \
                     else None
                 y = norm_act(x, pmean, prstd, residual=r, act=act)
                 py = norm_act_plain(x, pmean, prstd, residual=r, act=act)
-                form = act + ("+residual" if has_res else "")
                 assert_close(f"norm_act {where} {form}", y, py, atol, rtol)
                 rows.append(dict(
-                    kernel="norm_act", dtype=str(dtype)[6:], n=n,
-                    shape=(h, w, c), form=form, per_forward=n_form,
-                    launches=n_form * forwards[n],
+                    kernel="norm_act", **common, form=form, launches=count,
                     max_abs_err=max_err(y, py),
                     ms=timer(lambda: norm_act(x, pmean, prstd, residual=r,
                                               act=act)),
                     plain_ms=timer(lambda: norm_act_plain(
                         x, pmean, prstd, residual=r, act=act)),
                     library_ms=timer(lambda: F.instance_norm(x)),
-                    **bound_row(numel * elt * (3 if has_res else 2)
+                    **bound_row(numel * elt * (3 if res else 2)
                                 + 2 * n * c * 4, 4 * numel, dtype)))
-    print("kernel phase (device ms, median of "
+    print("kernel phase (#1, #2, #3; device ms, median of "
           f"{TIMING_REPS} cold-L2 runs; tolerance passed):")
     for row in rows:
         print("  " + json.dumps(row))
     return rows
+
+
+def apply_row(timer, x, mean, rstd, common, count, where, kernel, plain,
+              vec):
+    """#2 against its plain version at one shape, with its times. The
+    library yardstick is ``F.batch_norm`` in inference mode on the (1, C,
+    H, W) tensor with ``running_var = rstd⁻² − ε``: the same function at
+    N = 1, the only N of #2's launches on the main path."""
+    import torch.nn.functional as F
+
+    n, c = x.shape[:2]
+    if n != 1:
+        raise AssertionError(f"#2 at N={n}: its yardstick needs N = 1")
+    if c % (16 // x.element_size()) and vec != 1:
+        raise AssertionError(f"#2 {where}: C={c} must take one element "
+                             "per access")
+    atol, rtol = TOL[x.dtype]
+    y = kernel(x, mean, rstd)
+    py = plain(x, mean, rstd)
+    assert_close(f"instance_norm_apply {where}", y, py, atol, rtol)
+    eps = 1e-5
+    var = rstd[0].double().pow(-2).sub(eps).float()
+    elt = x.element_size()
+    return dict(
+        kernel="instance_norm_apply", **common, form="apply", vec=vec,
+        launches=count, max_abs_err=max_err(y, py),
+        ms=timer(lambda: kernel(x, mean, rstd)),
+        plain_ms=timer(lambda: plain(x, mean, rstd)),
+        library_ms=timer(lambda: F.batch_norm(
+            x, mean[0], var, training=False, eps=eps)),
+        **bound_row(2 * x.numel() * elt + 2 * n * c * 4, 2 * x.numel(),
+                    x.dtype))
 
 
 def moments_phase(device, launches):
@@ -411,12 +564,14 @@ def totals(rows, kernel, dtype="bfloat16"):
 
 def _wrappers():
     from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
-    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import instance_norm_stats
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_apply, instance_norm_stats)
     from p2p_tpu_torch.ops.cuda.norm_act import norm_act
     from p2p_tpu_torch.ops.cuda.subpixel_head import (subpixel_head_dx,
                                                       subpixel_head_fwd)
 
-    return {"instance_norm_stats": instance_norm_stats, "norm_act": norm_act,
+    return {"instance_norm_stats": instance_norm_stats,
+            "instance_norm_apply": instance_norm_apply, "norm_act": norm_act,
             "batch_moments": batch_moments,
             "subpixel_head_fwd": subpixel_head_fwd,
             "subpixel_head_dx": subpixel_head_dx}
@@ -574,7 +729,8 @@ def profile_call(what: str, fn) -> None:
     launches = sum(e.count for e in table
                    if e.key.startswith("cudaLaunchKernel"))
     print(f"profile {what}: wall {wall:.3f} ms (profiler on), device busy "
-          f"{busy:.3f} ms, {launches} kernel launches")
+          f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the wall), "
+          f"{launches} kernel launches")
 
 
 def profile_forward(engine, batch):
@@ -620,31 +776,9 @@ def train_phase(device, card, profile: bool):
           f"parameters {sizes}; built in {time.perf_counter() - t0:.1f}s",
           flush=True)
 
-    reset_launch_counts()
-    times = []
-    for i, batch in enumerate(batches):
-        t = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        losses = {k: float(metrics[k]) for k in LOSS_KEYS}
-        print(f"train: step {i + 1} {times[-1]:.2f} ms {json.dumps(losses)}")
-        if not all(np.isfinite(v) for v in losses.values()) \
-                or float(metrics["health_ok"]) != 1.0:
-            raise AssertionError(f"step {i + 1}: non-finite losses {losses}")
-    counts = launch_counts()
-    want = only(batch_moments=per_step * n_steps)
-    print(f"train: launches over {n_steps} steps: {counts} (want {want})")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
-    timed = times[TRAIN_WARMUP:]
-    med = statistics.median(timed)
-    print(f"train: {TRAIN_STEPS} timed bf16 steps (after {TRAIN_WARMUP} "
-          f"warm-up): median {med:.2f} ms/step, min {min(timed):.2f}, max "
-          f"{max(timed):.2f}; {bs * 1e3 / med:.2f} img/s; on {card}",
-          flush=True)
-    if profile:
-        profile_call("train step", lambda: step(state, batches[0]))
+    counts, med = bf16_train_run(
+        "train", state, step, batches, TRAIN_WARMUP,
+        only(batch_moments=per_step * n_steps), LOSS_KEYS, card, profile)
     del state, step
 
     # f32, TF32 off: the same state through #5 and through its plain version
@@ -819,34 +953,10 @@ def facades_train_phase(device, card, profile: bool):
           f"{m.ndf}, dropout {m.use_dropout}, subpixel head on #6/#7, "
           f"parameters {sizes}; built in {time.perf_counter() - t0:.1f}s",
           flush=True)
-    reset_launch_counts()
-    times = []
-    for i, batch in enumerate(batches):
-        t = time.perf_counter()
-        state, metrics = step(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-        losses = {k: float(metrics[k]) for k in FACADES_LOSS_KEYS}
-        print(f"facades train: step {i + 1} {times[-1]:.2f} ms "
-              f"{json.dumps(losses)}")
-        if not all(np.isfinite(v) for v in losses.values()) \
-                or float(metrics["health_ok"]) != 1.0:
-            raise AssertionError(f"step {i + 1}: non-finite losses {losses}")
-    counts = launch_counts()
-    want = only(batch_moments=per_step * n_steps,
-                subpixel_head_fwd=n_steps, subpixel_head_dx=n_steps)
-    print(f"facades train: launches over {n_steps} steps: {counts} (want "
-          f"{want})")
-    if counts != want:
-        raise AssertionError(f"launch counts {counts} != {want}")
-    timed = times[TRAIN_WARMUP:]
-    med = statistics.median(timed)
-    print(f"facades train: {TRAIN_STEPS} timed bf16 steps (after "
-          f"{TRAIN_WARMUP} warm-up): median {med:.2f} ms/step, min "
-          f"{min(timed):.2f}, max {max(timed):.2f}; {bs * 1e3 / med:.2f} "
-          f"img/s; on {card}", flush=True)
-    if profile:
-        profile_call("facades train step", lambda: step(state, batches[0]))
+    counts, med = bf16_train_run(
+        "facades train", state, step, batches, TRAIN_WARMUP,
+        only(batch_moments=per_step * n_steps, subpixel_head_fwd=n_steps,
+             subpixel_head_dx=n_steps), FACADES_LOSS_KEYS, card, profile)
     del state, step
 
     cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
@@ -889,6 +999,275 @@ def facades_train_phase(device, card, profile: bool):
     return counts, med
 
 
+def backward_phase(device, a_plan, plan):
+    """In f32 (TF32 off), at the largest shape of each instance-norm form
+    on paths A (``a_plan``) and B (``plan``, N = 1): the gradients through
+    the two autograd Functions (kernels forward, closed-form backward)
+    against autograd through the plain versions of the kernels. Returns
+    the largest error of dx (and dres) and of dscale/dbias."""
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_stats_plain)
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_plain
+    from p2p_tpu_torch.ops.instance_norm import (instance_norm_act,
+                                                 instance_norm_fused)
+
+    largest = {}
+    for path, entries in (("A", a_plan), ("B", [
+            (h, w, c, form_of(act, res)) for h, w, c, act, res in plan])):
+        for h, w, c, form in entries:
+            key = (path, form)
+            if h * w * c > np.prod(largest.get(key, (0,))):
+                largest[key] = (h, w, c)
+    # the path has no affine; #2 is also checked with one, for dγ and dβ
+    cases = sorted(largest.items()) + [
+        (("A", "apply+affine"), largest[("A", "apply")])]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    worst = {"dx": 0.0, "dparam": 0.0}
+    with tf32_off():
+        for (path, form), (h, w, c) in cases:
+            act, _, rest = form.partition("+")
+            res, affine = rest == "residual", rest == "affine"
+            x = make_input(gen, 1, c, h, w, torch.float32, device)
+            r = make_input(gen, 1, c, h, w, torch.float32, device) if res \
+                else None
+            scale = bias = None
+            if affine:
+                scale = torch.randn(c, generator=gen, device=device) * 0.1 + 1
+                bias = torch.randn(c, generator=gen, device=device) * 0.1
+            up = torch.randn((1, c, h, w), generator=gen, device=device
+                             ).contiguous(memory_format=torch.channels_last)
+            leaves = [t.requires_grad_(True) for t in (x, r, scale, bias)
+                      if t is not None]
+            if act == "apply":
+                y = instance_norm_fused(x, scale, bias)
+            else:
+                y = instance_norm_act(x, scale, bias, r, act=act)
+            got = torch.autograd.grad((y * up).sum(), leaves)
+            mean, rstd = instance_norm_stats_plain(x)
+            yp = norm_act_plain(x, mean, rstd, scale, bias, r,
+                                "none" if act == "apply" else act)
+            want = torch.autograd.grad((yp * up).sum(), leaves)
+            names = ["dx"] + (["dres"] if res else []) + (
+                ["dscale", "dbias"] if affine else [])
+            with torch.no_grad():
+                z = norm_act_plain(x, mean, rstd, scale, bias, r, "none")
+            keep = (z.abs() > MASK_MARGIN if act in ("relu", "leaky")
+                    else torch.ones_like(z, dtype=torch.bool))
+            errs = {"left_out": int((~keep).sum())}
+            for name, a, b in zip(names, got, want):
+                if name in ("dx", "dres"):
+                    a, b = a[keep], b[keep]
+                errs[name] = max_err(a, b)
+                if name in ("dx", "dres"):
+                    assert_close(f"backward {path} {form} {h}x{w}x{c} {name}",
+                                 a, b, *GRAD_TOL)
+                    worst["dx"] = max(worst["dx"], errs[name])
+                else:
+                    lim = GRAD_SUM_RTOL_OF_MAX * float(b.abs().max())
+                    if not errs[name] <= lim:
+                        raise AssertionError(
+                            f"backward {path} {form} {name}: {errs[name]:.3g}"
+                            f" > {lim:.3g}")
+                    worst["dparam"] = max(worst["dparam"], errs[name])
+            print(f"backward: path {path} {form} at 1x{c}x{h}x{w}, f32: "
+                  f"Functions vs autograd of the plain chain, max abs "
+                  f"{json.dumps(errs)}", flush=True)
+    print(f"backward: largest |dx|, |dres| error {worst['dx']:.3g} (limit "
+          f"{GRAD_TOL[0]} + {GRAD_TOL[1]} relative), |dscale|, |dbias| "
+          f"{worst['dparam']:.3g} (limit {GRAD_SUM_RTOL_OF_MAX} of the "
+          f"largest)")
+    return worst
+
+
+def bf16_train_run(what, state, step, batches, warmup, want, loss_keys,
+                   card, profile):
+    """``len(batches)`` bf16 steps: each step's time (host clock to a
+    synchronized device) and losses, which must be finite; the launch
+    counts of the run, which must equal ``want``. Returns the counts and
+    the median of the steps after ``warmup``."""
+    reset_launch_counts()
+    times = []
+    for i, batch in enumerate(batches):
+        t = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        losses = {k: float(metrics[k]) for k in loss_keys}
+        print(f"{what}: step {i + 1} {times[-1]:.2f} ms {json.dumps(losses)}")
+        if not all(np.isfinite(v) for v in losses.values()) \
+                or float(metrics["health_ok"]) != 1.0:
+            raise AssertionError(f"step {i + 1}: non-finite losses {losses}")
+    counts = launch_counts()
+    print(f"{what}: launches over {len(batches)} steps: {counts} (want "
+          f"{want})")
+    if counts != want:
+        raise AssertionError(f"launch counts {counts} != {want}")
+    timed = times[warmup:]
+    med = statistics.median(timed)
+    n_img = len(batches[0]["input"])
+    print(f"{what}: {len(timed)} timed bf16 steps (after {warmup} warm-up): "
+          f"median {med:.2f} ms/step, min {min(timed):.2f}, max "
+          f"{max(timed):.2f}; {n_img * 1e3 / med:.3f} img/s; on {card}",
+          flush=True)
+    if profile:
+        profile_call(f"{what} step", lambda: step(state, batches[0]))
+    return counts, med
+
+
+def instance_plain_patches():
+    """Patches that route every kernel of the instance-norm paths (#1, #2,
+    #3 and net_c's #5) to its plain version."""
+    import p2p_tpu_torch.ops.instance_norm as seam
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments_plain
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_apply_plain, instance_norm_stats_plain)
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_plain
+
+    return (mock.patch.object(seam, "instance_norm_stats",
+                              instance_norm_stats_plain),
+            mock.patch.object(seam, "instance_norm_apply",
+                              instance_norm_apply_plain),
+            mock.patch.object(seam, "norm_act", norm_act_plain),
+            mock.patch.object(norm, "batch_moments", batch_moments_plain))
+
+
+def f32_check(what, cfg, batches, vgg, per_step, loss_keys):
+    """f32 (TF32 off) steps from one state through the kernels and through
+    their plain versions: the launches of each route (``per_step`` per
+    step through the kernels, none through the plain versions) and the
+    losses, within INSTANCE_STEP1_RTOL before the first update and
+    INSTANCE_LATER_RTOL after it."""
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  mixed_precision=False))
+    runs = {}
+    with tf32_off():
+        for route in ("kernel", "plain"):
+            st = create_train_state(cfg32, SEED)
+            stp = build_train_step(cfg32, vgg)
+            before = launch_counts()
+            with contextlib.ExitStack() as stack:
+                if route == "plain":
+                    for patch in instance_plain_patches():
+                        stack.enter_context(patch)
+                runs[route] = [{k: float(v) for k, v in stp(st, b)[1].items()}
+                               for b in batches]
+            launched = {k: launch_counts()[k] - before[k] for k in before}
+            n = len(batches) if route == "kernel" else 0
+            if launched != only(**{k: v * n for k, v in per_step.items()}):
+                raise AssertionError(f"f32 {route} run launched {launched}")
+            del st, stp
+            torch.cuda.empty_cache()
+    worst = {"before": 0.0, "after": 0.0}
+    failed = []
+    for i, (lk, lp) in enumerate(zip(runs["kernel"], runs["plain"])):
+        rels = {k: abs(lk[k] - lp[k]) / abs(lp[k]) for k in loss_keys}
+        print(f"{what}: f32 step {i + 1} kernel vs plain, rel diff "
+              f"{json.dumps(rels)}")
+        for k, rel in rels.items():
+            when = "before" if i == 0 and k not in AFTER_UPDATE_KEYS \
+                else "after"
+            rtol = INSTANCE_STEP1_RTOL if when == "before" \
+                else INSTANCE_LATER_RTOL
+            worst[when] = max(worst[when], rel)
+            if not rel <= rtol:
+                failed.append(f"step {i + 1} {k}: kernel {lk[k]} vs plain "
+                              f"{lp[k]} (rtol {rtol})")
+    print(f"{what}: f32 (TF32 off) {len(batches)} steps through the kernels "
+          f"vs their plain versions from one state: losses max rel diff "
+          f"{worst['before']:.3g} before the first update (limit "
+          f"{INSTANCE_STEP1_RTOL}), {worst['after']:.3g} after (limit "
+          f"{INSTANCE_LATER_RTOL})", flush=True)
+    if failed:
+        raise AssertionError(f"f32 {what}: " + "; ".join(failed))
+    return worst
+
+
+def instance_a_phase(device, card, profile, per_step):
+    """Path A: the instance-norm ``reference`` preset trained in bf16, then
+    the f32 kernels-vs-plain check."""
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_batch
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = instance_config()
+    h, w = cfg.image_hw
+    m = cfg.model
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    host = synthetic_batch(n_steps, h, m.quant_bits, seed=SEED, width=w)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(n_steps)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    vgg = load_vgg19(device=device)
+    step = build_train_step(cfg, vgg, dtype)
+    sizes = {k: sum(p.numel() for p in net.parameters()) for k, net in (
+        ("G", state.net_g), ("D", state.net_d), ("C", state.net_c))}
+    what = "path A train"
+    print(f"{what}: reference preset with norm={m.norm}, norm_d={m.norm_d}, "
+          f"{h}x{w}, batch 1, {dtype}, ngf {m.ngf}, ndf {m.ndf}, "
+          f"{m.n_blocks} blocks, parameters {sizes}; built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    counts, med = bf16_train_run(
+        what, state, step, batches, TRAIN_WARMUP,
+        only(**{k: v * n_steps for k, v in per_step.items()}), LOSS_KEYS,
+        card, profile)
+    del state, step
+    f32_check(what, cfg, batches[:TRAIN_F32_STEPS], vgg, per_step,
+              LOSS_KEYS)
+    return counts, med
+
+
+def instance_b_phase(device, card, profile, per_step):
+    """Path B: the ``pix2pixhd`` preset trained at 1024x512 in bf16 with
+    its peak device memory, then the f32 kernels-vs-plain check."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_hd_batch
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = get_preset("pix2pixhd")
+    h, w = cfg.image_hw
+    m = cfg.model
+    n_steps = HD_TRAIN_WARMUP + HD_TRAIN_STEPS
+    host = synthetic_hd_batch(n_steps, h, w, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(n_steps)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    vgg = load_vgg19(device=device)
+    step = build_train_step(cfg, vgg, dtype)
+    sizes = {k: sum(p.numel() for p in net.parameters()) for k, net in (
+        ("G", state.net_g), ("D", state.net_d))}
+    what = "path B train"
+    print(f"{what}: pix2pixhd preset, {h}x{w}, batch 1, {dtype}, ngf "
+          f"{m.ngf}, {m.n_blocks} global + 3 local blocks, ndf {m.ndf}, "
+          f"{m.num_D} D scales on concatenated pairs, norm_d "
+          f"{m.norm_d}, parameters {sizes}; built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    counts, med = bf16_train_run(
+        what, state, step, batches, HD_TRAIN_WARMUP,
+        only(**{k: v * n_steps for k, v in per_step.items()}), HD_LOSS_KEYS,
+        card, profile)
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"{what}: peak device memory {peak / 2 ** 30:.2f} GiB "
+          f"(torch.cuda.max_memory_allocated over build and steps)",
+          flush=True)
+    del state, step
+    f32_check(what, cfg, batches[:TRAIN_F32_STEPS], vgg, per_step,
+              HD_LOSS_KEYS)
+    return counts, med, peak
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -929,28 +1308,50 @@ def main(argv=None) -> int:
                              *ref.image_hw)
     fac = facades_config()
     fac_bn_plan = facades_bn_plan(fac.model.ngf, *fac.image_hw)
+    inst = instance_config()
+    a_plan = path_a_step_plan(inst)
+    n_apply = sum(form == "apply" for *_, form in a_plan)
+    # path A per step: #2 and #3 as planned, #1 before each, #5 under
+    # net_c's one BatchNorm in its two runs; path B: the 36 epilogues
+    a_per_step = dict(instance_norm_stats=len(a_plan),
+                      instance_norm_apply=n_apply,
+                      norm_act=len(a_plan) - n_apply, batch_moments=2)
+    if (len(a_plan), n_apply) != (66, 12):
+        raise AssertionError(f"path A plan: {len(a_plan)} norms, {n_apply} "
+                             "#2 (want 66, 12)")
+    b_per_step = dict(instance_norm_stats=NORMS_PER_FORWARD,
+                      norm_act=NORMS_PER_FORWARD)
     steps = TRAIN_WARMUP + TRAIN_STEPS
+    hd_steps = HD_TRAIN_WARMUP + HD_TRAIN_STEPS
+    net_c_bn = (ref.image_hw[0] * ref.image_hw[1], 64)
     bn_launches = collections.Counter()
-    for shape in bn_plan + fac_bn_plan:
+    for shape in bn_plan + fac_bn_plan + [net_c_bn] * 2:
         bn_launches[shape] += steps
     head_fwd = main_path_forwards() + collections.Counter({1: steps})
     head_dx = collections.Counter({1: steps})
-    rows = (kernel_phase(device, plan) + moments_phase(device, bn_launches)
+    rows = (kernel_phase(device, instance_launches(plan, a_plan, steps,
+                                                   hd_steps))
+            + moments_phase(device, bn_launches)
             + subpixel_phase(device, head_fwd, head_dx))
+    backward_phase(device, a_plan, plan)
     serve_counts, _, _ = slice_phase(device, card, args.profile)
     train_counts, _ = train_phase(device, card, args.profile)
     fac_serve_counts, _, _ = facades_serving_phase(device, card,
                                                    args.profile)
     fac_train_counts, _ = facades_train_phase(device, card, args.profile)
+    a_counts, _ = instance_a_phase(device, card, args.profile, a_per_step)
+    b_counts, _, _ = instance_b_phase(device, card, args.profile, b_per_step)
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
-              fac_train_counts):
+              fac_train_counts, a_counts, b_counts):
         counts.update(c)
 
     kernels = []
     for name, source, replaces in (
             ("instance_norm_stats", instance_norm_kernel.SOURCE,
              instance_norm_kernel.REPLACES),
+            ("instance_norm_apply", instance_norm_kernel.SOURCE_APPLY,
+             instance_norm_kernel.REPLACES_APPLY),
             ("norm_act", norm_act.SOURCE, norm_act.REPLACES),
             ("batch_moments", batch_moments.SOURCE, batch_moments.REPLACES),
             ("subpixel_head_fwd", subpixel_head.SOURCE,
@@ -969,25 +1370,42 @@ def main(argv=None) -> int:
             "ms": tot["ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"], "bound_by": tot["bound_by"],
             "library_ms": tot["library_ms"]})
-    bf16 = {(r["kernel"], r["n"], tuple(r["shape"])): r for r in rows
-            if r["dtype"] == "bfloat16" and r["kernel"] in (
-                "batch_moments", "subpixel_head_fwd", "subpixel_head_dx")}
+    bf16 = {(r["kernel"], r["n"], tuple(r["shape"]), r["form"]): r
+            for r in rows if r["dtype"] == "bfloat16"}
+    a_keys = collections.Counter()
+    for hh, ww, c, form in a_plan:
+        a_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
+        name = "instance_norm_apply" if form == "apply" else "norm_act"
+        a_keys[(name, 1, (hh, ww, c), form)] += 1
+    b_keys = collections.Counter()
+    for hh, ww, c, act, res in plan:
+        b_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
+        b_keys[("norm_act", 1, (hh, ww, c), form_of(act, res))] += 1
     for what, kernel, keys in (
             ("#5 per reference train step", "batch_moments",
-             [(1, shape) for shape in bn_plan]),
+             collections.Counter((1, shape, "-") for shape in bn_plan)),
             ("#5 per facades train step", "batch_moments",
-             [(1, shape) for shape in fac_bn_plan]),
+             collections.Counter((1, shape, "-") for shape in fac_bn_plan)),
             ("#6 per facades forward at N=1", "subpixel_head_fwd",
-             [(1, (128, 128, 128))]),
+             {(1, (128, 128, 128), "F4=12"): 1}),
             ("#7 per facades train step", "subpixel_head_dx",
-             [(1, (128, 128, 128))])):
-        sel = [bf16[(kernel,) + key] for key in keys]
-        print(f"{what} (bf16, {len(sel)} launches): " + ", ".join(
-            f"{k} {sum(r[k] for r in sel):.4f}" for k in (
-                "ms", "bound_ms", "plain_ms", "library_ms")))
+             {(1, (128, 128, 128), "F4=12"): 1}),
+            *[(f"#{i} per path A train step", name,
+               {k[1:]: v for k, v in a_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"),
+                              (2, "instance_norm_apply"), (3, "norm_act"))],
+            *[(f"#{i} per path B train step", name,
+               {k[1:]: v for k, v in b_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"), (3, "norm_act"))]):
+        sel = [(bf16[(kernel,) + key], v) for key, v in keys.items()]
+        print(f"{what} (bf16, {sum(v for _, v in sel)} launches): "
+              + ", ".join(f"{k} {sum(r[k] * v for r, v in sel):.4f}"
+                          for k in ("ms", "bound_ms", "plain_ms",
+                                    "library_ms")))
     print("per-kernel numbers are the main paths' bf16 launches (#1, #3: "
-          f"pix2pixHD serving at {h}x{w}; #5: {steps} reference and {steps} "
-          f"facades train steps at 256x256; #6: facades serving and "
+          f"pix2pixHD serving at {h}x{w}, path A ({steps} steps) and path B "
+          f"({hd_steps} steps) training; #2: path A; #5: {steps} reference, "
+          f"facades and path A train steps; #6: facades serving and "
           f"training; #7: facades training): per-(N, shape, form) device "
           "times weighted by launches")
     print(json.dumps({"kernels": kernels}))

@@ -21,6 +21,14 @@ kernel #6 reads in HWIO) keeps it as it is:
     up3/kernel (4,4,I,O) → up3.weight (I,O,4,4), [i,o,a,b] = [3-a,3-b,i,o]
     up0/Conv_0/kernel (2,2,C,4F) → up0.conv.kernel (2,2,C,4F)
 
+Networks whose flax tree has no leaf for a module carry none here
+either: an ExpandNetwork with ``norm="pallas_instance"`` (affine-free
+norms, no conv biases) has no ``BatchNorm_k`` leaves, and the
+pix2pixHD ``TrainState`` (G, the 3-scale D with its spectral ``u``, two
+Adams) has empty ``batch_stats`` and no net_c. Flax's ``_SplitStemConv``
+keeps its stem kernel whole, so a JAX D on split pairs has the tree of the
+port's D, which always takes concatenated pairs.
+
 An ``.npz`` file holds one array per leaf under its ``/``-joined path (a
 generator's parameters and running statistics side by side).
 """

@@ -1,7 +1,8 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
-fields the serving paths and the ``reference`` and ``facades`` train steps
-read. Field names, defaults and the preset values are those of the JAX
-package, so one preset name means one model in both. A few fields name
+fields the serving paths and the ``reference``, ``facades`` and
+``pix2pixhd`` train steps read. Field names, defaults and the preset
+values are those of the JAX package, so one preset name means one model
+in both. A few fields name
 machinery the port does not have yet (the fake pool, int8, EMA); the train
 step reads them only to raise.
 """
@@ -38,7 +39,9 @@ class ModelConfig:
     quant_ste: bool = True
     # "batch" | "instance" | "pallas_instance" | "none"
     norm: str = "batch"
-    # discriminator-side norm; the port has "none" only
+    # discriminator-side norm on the inner convs: "none" | "instance" |
+    # "pallas_instance" (stateless kinds only, as the JAX D; affine-free,
+    # so the parameter tree does not change)
     norm_d: str = "none"
     # U-Net: dropout 0.5 on three decoder levels in training
     use_dropout: bool = False
@@ -55,6 +58,12 @@ class ModelConfig:
     # not ported: the int8 QAT path
     int8: bool = False
     int8_delayed: bool = False
+    # JAX: feed D the unconcatenated (input, output) pair through a split
+    # stem conv with the same parameters and result. Accepted so that one
+    # preset means one model in both packages; the port always feeds D the
+    # concatenated pair (the split saves memory only under spatial
+    # sharding, which the port does not have; models/patchgan.py)
+    split_d_pairs: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,12 +173,16 @@ _register(
     )
 )
 
-# pix2pixHD coarse-to-fine G at 1024×512, fused instance-norm epilogues
+# pix2pixHD coarse-to-fine G at 1024×512, fused instance-norm epilogues,
+# 3-scale spectral-norm D (split pairs in JAX); LSGAN + 10·FM + 10·VGG19. The
+# JAX preset's MeshSpec(data=-1, spatial=2) has no counterpart here: the
+# port runs on one device (spatial sharding is a later slice).
 _register(
     Config(
         name="pix2pixhd",
         model=ModelConfig(generator="pix2pixhd", ngf=64,
-                          norm="pallas_instance", use_compression_net=False),
+                          norm="pallas_instance", use_compression_net=False,
+                          split_d_pairs=True),
         loss=LossConfig(lambda_tv=0.0),
         data=DataConfig(dataset="cityscapes_hd", image_size=512,
                         image_width=1024, batch_size=1),

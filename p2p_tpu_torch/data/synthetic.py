@@ -7,7 +7,9 @@ bit-depth-quantized copies, the same draws from the same seed as the JAX
 package; and facades-shaped pairs (:func:`synthetic_facades_batch`): a
 label map of a building front in flat class colours as the input, a
 shaded photo-like rendering of it as the target, as the ``facades``
-preset translates labels to photos.
+preset translates labels to photos; and street-scene pairs of the
+``pix2pixhd`` preset's shape (:func:`synthetic_hd_batch`), a semantic
+label map in Cityscapes class colours and its rendering, 512×1024.
 """
 
 from __future__ import annotations
@@ -128,3 +130,65 @@ def synthetic_facades_batch(batch_size: int = 1, size: int = 256,
         inputs.append(FACADE_PALETTE[lab])
         targets.append(np.clip(np.round(photo), 0, 255).astype(np.uint8))
     return {"input": np.stack(inputs), "target": np.stack(targets)}
+
+
+# Cityscapes colours of the classes a street scene draws: road, sidewalk,
+# building, pole, vegetation, sky, person, car
+STREET_PALETTE = np.array(
+    [[128, 64, 128], [244, 35, 232], [70, 70, 70], [153, 153, 153],
+     [107, 142, 35], [70, 130, 180], [220, 20, 60], [0, 0, 142]], np.uint8)
+
+
+def _street_labels(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
+    """(h, w) class indices: sky over a skyline of buildings and trees, a
+    sidewalk and a road below the horizon, poles, cars and people."""
+    lab = np.full((h, w), 5, np.int64)                       # sky
+    horizon = int(rng.integers(h * 2 // 5, h // 2))
+    x = 0
+    while x < w:                                             # skyline
+        bw = int(rng.integers(w // 16, w // 5))
+        top = int(rng.integers(h // 16, horizon - h // 16))
+        lab[top:horizon, x:x + bw] = 2 if rng.uniform() < 0.75 else 4
+        x += bw
+    lab[horizon:, :] = 0                                     # road
+    lab[horizon:horizon + h // 10, :] = 1                    # sidewalk
+    for _ in range(int(rng.integers(3, 8))):                 # poles
+        px = int(rng.integers(0, w - 4))
+        lab[int(rng.integers(h // 8, horizon)):horizon + h // 10,
+            px:px + max(2, w // 256)] = 3
+    for _ in range(int(rng.integers(2, 6))):                 # cars
+        cy = int(rng.integers(horizon + h // 10, h - h // 8))
+        cw = int(rng.integers(w // 12, w // 6))
+        cx = int(rng.integers(0, w - cw))
+        lab[cy:cy + cw * 2 // 5, cx:cx + cw] = 7
+    for _ in range(int(rng.integers(2, 7))):                 # people
+        py = int(rng.integers(horizon - h // 10, horizon + h // 20))
+        px = int(rng.integers(0, w - w // 64))
+        lab[py:py + h // 8, px:px + max(2, w // 80)] = 6
+    return lab
+
+
+def synthetic_hd_batch(batch_size: int = 1, height: int = 512,
+                       width: int = 1024, seed: int = 0,
+                       dtype: str = "uint8") -> Dict[str, np.ndarray]:
+    """``{"input", "target"}`` NHWC street-scene pairs (the ``pix2pixhd``
+    preset's 512×1024 by default): the input a label map in
+    :data:`STREET_PALETTE` colours, the target a rendering of it (a colour
+    per class drawn from ``seed``, vertical light falloff, per-pixel
+    noise). uint8, or float32 in [−1, 1] with ``dtype="float32"``."""
+    if dtype not in ("uint8", "float32"):
+        raise ValueError(f"dtype must be 'uint8' or 'float32', got {dtype!r}")
+    rng = np.random.default_rng(seed)
+    inputs, targets = [], []
+    shade = np.linspace(1.0, 0.75, height, dtype=np.float32)[:, None, None]
+    for _ in range(batch_size):
+        lab = _street_labels(rng, height, width)
+        colours = rng.uniform(30, 230, (len(STREET_PALETTE), 3))
+        photo = colours[lab] * shade + rng.normal(0, 6, (height, width, 3))
+        inputs.append(STREET_PALETTE[lab])
+        targets.append(np.clip(np.round(photo), 0, 255).astype(np.uint8))
+    out = {"input": np.stack(inputs), "target": np.stack(targets)}
+    if dtype == "uint8":
+        return out
+    return {k: (v.astype(np.float32) - np.float32(127.5))
+            * np.float32(1.0 / 127.5) for k, v in out.items()}

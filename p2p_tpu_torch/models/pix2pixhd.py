@@ -8,10 +8,13 @@ hands its pre-output ngf-channel features to G2, the local enhancer, which
 adds them to its own half-resolution features, runs ``n_blocks_local``
 residual blocks and one upsample back to full resolution. The enhancer
 runs at ``ngf // 2``. G1 is registered under the name ``"global"``, as in
-the flax tree.
+the flax tree. ``dtype`` is the convs' compute dtype on f32 masters, as
+in training (models/resnet_gen.py).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
@@ -26,12 +29,13 @@ from p2p_tpu_torch.ops.norm import make_norm_act
 def GlobalGenerator(in_channels: int = 3, ngf: int = 64,
                     out_channels: int = 3, n_blocks: int = 9,
                     norm: str = "instance",
-                    return_features: bool = False) -> ResnetGenerator:
+                    return_features: bool = False,
+                    dtype: Optional[torch.dtype] = None) -> ResnetGenerator:
     """G1: the ResnetGenerator configured as pix2pixHD's global net."""
     return ResnetGenerator(
         in_channels=in_channels, ngf=ngf, n_blocks=n_blocks,
         out_channels=out_channels, n_downsampling=4, norm=norm,
-        max_features=1024, return_features=return_features)
+        max_features=1024, return_features=return_features, dtype=dtype)
 
 
 class Pix2PixHDGenerator(nn.Module):
@@ -39,7 +43,8 @@ class Pix2PixHDGenerator(nn.Module):
 
     def __init__(self, in_channels: int = 3, ngf: int = 64,
                  out_channels: int = 3, n_blocks_global: int = 9,
-                 n_blocks_local: int = 3, norm: str = "instance"):
+                 n_blocks_local: int = 3, norm: str = "instance",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.na = make_norm_act(norm)
         self.n_blocks_local = n_blocks_local
@@ -47,15 +52,17 @@ class Pix2PixHDGenerator(nn.Module):
         ngf_local = ngf // 2
         self.add_module("global", GlobalGenerator(
             in_channels=in_channels, ngf=ngf, n_blocks=n_blocks_global,
-            norm=norm, return_features=True))
-        self.ConvLayer_0 = ConvLayer(in_channels, ngf_local, 7, use_bias=ub)
+            norm=norm, return_features=True, dtype=dtype))
+        self.ConvLayer_0 = ConvLayer(in_channels, ngf_local, 7, use_bias=ub,
+                                     dtype=dtype)
         self.ConvLayer_1 = ConvLayer(ngf_local, ngf, 3, stride=2,
-                                     use_bias=ub)
+                                     use_bias=ub, dtype=dtype)
         for i in range(n_blocks_local):
-            setattr(self, f"ResnetBlock_{i}", ResnetBlock(ngf, norm=norm))
+            setattr(self, f"ResnetBlock_{i}",
+                    ResnetBlock(ngf, norm=norm, dtype=dtype))
         self.UpsampleConvLayer_0 = UpsampleConvLayer(
-            ngf, ngf_local, 3, upsample=2, use_bias=ub)
-        self.ConvLayer_2 = ConvLayer(ngf_local, out_channels, 7)
+            ngf, ngf_local, 3, upsample=2, use_bias=ub, dtype=dtype)
+        self.ConvLayer_2 = ConvLayer(ngf_local, out_channels, 7, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         g1_feats = self._modules["global"](avg_pool_downsample(x))

@@ -3,8 +3,10 @@ define_C``, ``:33 define_G`` and ``:109 define_D``) and the reference
 weight init.
 
 ``dtype`` is the compute dtype of the trained networks (flax ``dtype=``,
-on f32 parameters and statistics); the served-only generators compute in
-their weights' dtype and take none.
+on f32 parameters and statistics). The ResNet-family generators
+(``pix2pixhd``, ``pix2pixhd_global``, ``resnet``) take one in training;
+the serving engine serves them as a whole-model cast copy built without
+one (serve/engine.py).
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ from p2p_tpu_torch.ops.conv import SubpixelConv
 from p2p_tpu_torch.ops.norm import BatchNorm
 from p2p_tpu_torch.ops.spectral_norm import SpectralConv, l2normalize
 
-# generators built with a compute dtype on f32 masters, trained and served
-# so; the others are served as a copy cast to the serving dtype
+# generators served with a compute dtype on f32 masters (their BatchNorm
+# statistics stay f32); the others are served as a copy cast to the
+# serving dtype
 COMPUTE_DTYPE_GENERATORS = ("expand", "unet")
 
 
@@ -47,29 +50,26 @@ def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
             legacy_layout=cfg.legacy_layout, thin_head=cfg.thin_head,
             head_pallas=cfg.head_pallas,
             int8=cfg.int8 or cfg.int8_delayed, dtype=dtype)
-    if dtype is not None:
-        raise ValueError(f"generator {cfg.generator!r} is served only; it "
-                         "computes in its weights' dtype")
     if cfg.generator == "pix2pixhd":
         from p2p_tpu_torch.models.pix2pixhd import Pix2PixHDGenerator
 
         return Pix2PixHDGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf,
             out_channels=cfg.output_nc, n_blocks_global=cfg.n_blocks,
-            norm=cfg.norm)
+            norm=cfg.norm, dtype=dtype)
     if cfg.generator == "pix2pixhd_global":
         from p2p_tpu_torch.models.pix2pixhd import GlobalGenerator
 
         return GlobalGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf,
             out_channels=cfg.output_nc, n_blocks=cfg.n_blocks,
-            norm=cfg.norm)
+            norm=cfg.norm, dtype=dtype)
     if cfg.generator == "resnet":
         from p2p_tpu_torch.models.resnet_gen import ResnetGenerator
 
         return ResnetGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
-            out_channels=cfg.output_nc, norm=cfg.norm)
+            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype)
     raise ValueError(f"generator {cfg.generator!r} is not ported yet")
 
 
@@ -83,16 +83,15 @@ def define_C(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
 
 def define_D(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
              ) -> nn.Module:
-    """The multiscale PatchGAN on (input ‖ output) pairs."""
+    """The multiscale PatchGAN on concatenated (input ‖ output) pairs, with
+    ``norm_d`` on its inner convs."""
     from p2p_tpu_torch.models.patchgan import MultiscaleDiscriminator
 
-    if cfg.norm_d != "none":
-        raise ValueError(f"norm_d {cfg.norm_d!r} is not ported yet")
     return MultiscaleDiscriminator(
         in_channels=cfg.input_nc + cfg.output_nc, ndf=cfg.ndf,
         n_layers=cfg.n_layers_D, num_D=cfg.num_D,
         use_spectral_norm=cfg.use_spectral_norm,
-        get_interm_feat=cfg.get_interm_feat, dtype=dtype)
+        get_interm_feat=cfg.get_interm_feat, norm=cfg.norm_d, dtype=dtype)
 
 
 @torch.no_grad()

@@ -7,7 +7,10 @@ reflection-padded and followed by the norm epilogue; the classic
 ResnetBlock has NO activation after its residual add. Convs in front of a
 mean-subtracting norm carry no bias (it would cancel exactly), as in the
 JAX default layout; with ``norm="none"`` they do. Submodule names follow
-the flax parameter tree.
+the flax parameter tree. ``dtype`` is the convs' compute dtype on f32
+masters (flax ``dtype=``), as in training; served as a whole-model cast
+copy (serve/engine.py), the networks take none and compute in their
+weights' dtype.
 """
 
 from __future__ import annotations
@@ -25,12 +28,15 @@ from p2p_tpu_torch.ops.norm import make_norm_act
 class ResnetBlock(nn.Module):
     """reflectpad-conv-norm-relu-reflectpad-conv-norm + identity."""
 
-    def __init__(self, features: int, norm: str = "instance"):
+    def __init__(self, features: int, norm: str = "instance",
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         ub = norm == "none"
         self.na = make_norm_act(norm)
-        self.ConvLayer_0 = ConvLayer(features, features, 3, use_bias=ub)
-        self.ConvLayer_1 = ConvLayer(features, features, 3, use_bias=ub)
+        self.ConvLayer_0 = ConvLayer(features, features, 3, use_bias=ub,
+                                     dtype=dtype)
+        self.ConvLayer_1 = ConvLayer(features, features, 3, use_bias=ub,
+                                     dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.na(self.ConvLayer_0(x), act="relu")
@@ -46,7 +52,8 @@ class ResnetGenerator(nn.Module):
                  n_blocks: int = 9, out_channels: int = 3,
                  n_downsampling: int = 2, norm: str = "instance",
                  max_features: Optional[int] = None,
-                 return_features: bool = False):
+                 return_features: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.na = make_norm_act(norm)
         self.n_downsampling = n_downsampling
@@ -55,23 +62,25 @@ class ResnetGenerator(nn.Module):
         cap = max_features or (1 << 30)
         ub = norm == "none"
 
-        self.ConvLayer_0 = ConvLayer(in_channels, ngf, 7, use_bias=ub)
+        self.ConvLayer_0 = ConvLayer(in_channels, ngf, 7, use_bias=ub,
+                                     dtype=dtype)
         c = ngf
         for i in range(n_downsampling):
             f = min(ngf * 2 ** (i + 1), cap)
             setattr(self, f"ConvLayer_{i + 1}",
-                    ConvLayer(c, f, 3, stride=2, use_bias=ub))
+                    ConvLayer(c, f, 3, stride=2, use_bias=ub, dtype=dtype))
             c = f
         for i in range(n_blocks):
-            setattr(self, f"ResnetBlock_{i}", ResnetBlock(c, norm=norm))
+            setattr(self, f"ResnetBlock_{i}",
+                    ResnetBlock(c, norm=norm, dtype=dtype))
         for j, i in enumerate(reversed(range(n_downsampling))):
             f = min(ngf * 2 ** i, cap)
-            setattr(self, f"UpsampleConvLayer_{j}",
-                    UpsampleConvLayer(c, f, 3, upsample=2, use_bias=ub))
+            setattr(self, f"UpsampleConvLayer_{j}", UpsampleConvLayer(
+                c, f, 3, upsample=2, use_bias=ub, dtype=dtype))
             c = f
         if not return_features:
             setattr(self, f"ConvLayer_{n_downsampling + 1}",
-                    ConvLayer(c, out_channels, 7))
+                    ConvLayer(c, out_channels, 7, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.na(self.ConvLayer_0(x), act="relu")

@@ -3,14 +3,21 @@
 // computed in f32 and stored in x's dtype; the residual is added before the
 // activation; act is none, relu or leaky(slope).
 //
-// Replaces p2p_tpu/ops/pallas/norm_act.py:_norm_act_local (kernel bodies
-// _norm_act_kernel and _norm_act_res_kernel).
+// Two entry points, one templated body:
+// - p2p_norm_act replaces p2p_tpu/ops/pallas/norm_act.py:_norm_act_local
+//   (kernel bodies _norm_act_kernel and _norm_act_res_kernel);
+// - p2p_instance_norm_apply replaces
+//   p2p_tpu/ops/pallas/instance_norm_kernel.py:_norm_local (kernel body
+//   _norm_kernel), the act-free normalize pass: the body instantiated with
+//   no activation and no residual.
 //
 // Bound on the card: bytes. Each element of x (and of r) is read once and
 // each element of y written once; the (N, C) mean/rstd and the C-long
 // affine are tiny and stay in L1/L2. On the 1024x512 pix2pixHD path the
 // largest epilogue (32 MB bf16 in, 32 MB out) needs at least ~20 us at
-// 3.35 TB/s.
+// 3.35 TB/s; #2's largest launch on the instance-norm ExpandNetwork
+// (1x32x256x256 bf16, 4 MB in and out) at least 2.5 us. C = 3 (that
+// network's head) takes the one-element path.
 //
 // Design. A flat grid-stride pass over (N*H*W*C) in 16-byte vectors: in
 // channels_last every vector holds VEC neighbouring channels of one pixel,
@@ -129,5 +136,32 @@ extern "C" int p2p_norm_act(const void* x, const void* res, const float* mean,
                                          gamma, beta, y, numel, hwc, c, slope,
                                          blocks, threads, stream);
   }
+  return static_cast<int>(err);
+}
+
+// The act-free normalize pass y = (x - mean) * rstd * gamma + beta: the same
+// arguments as p2p_norm_act without the residual and the activation.
+extern "C" int p2p_instance_norm_apply(const void* x, const float* mean,
+                                       const float* rstd, const float* gamma,
+                                       const float* beta, void* y, int dtype,
+                                       int64_t numel, int64_t hwc, int c,
+                                       int vec, int blocks, int threads,
+                                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  cudaError_t err = cudaErrorInvalidValue;
+#define P2P_APPLY(T, V)                                                     \
+  err = launch<T, V, kNone, false>(x, nullptr, mean, rstd, gamma, beta, y,  \
+                                   numel, hwc, c, 0.f, blocks, threads,     \
+                                   stream)
+  if (dtype == p2p::kF32 && vec == 4) {
+    P2P_APPLY(float, 4);
+  } else if (dtype == p2p::kF32 && vec == 1) {
+    P2P_APPLY(float, 1);
+  } else if (dtype == p2p::kBF16 && vec == 8) {
+    P2P_APPLY(__nv_bfloat16, 8);
+  } else if (dtype == p2p::kBF16 && vec == 1) {
+    P2P_APPLY(__nv_bfloat16, 1);
+  }
+#undef P2P_APPLY
   return static_cast<int>(err);
 }

@@ -1,12 +1,11 @@
-"""Instance-norm statistics: the Hopper kernel and its plain version.
+"""Instance norm's two passes: the Hopper kernels and their plain versions.
 
-``instance_norm_stats(x, eps)`` returns the per-(sample, channel) mean and
-rstd of a channels_last (N, C, H, W) activation as two (N, C) f32 tensors:
-``mean = Σx / HW``, ``var = max(Σx² / HW − mean², 0)``,
-``rstd = rsqrt(var + eps)``, accumulated in f32.
-
-Replaces ``p2p_tpu/ops/pallas/instance_norm_kernel.py:_stats_local`` (the
-stats pass, kernel body ``_stats_kernel``) and the mean/rstd arithmetic of
+``instance_norm_stats(x, eps)`` (#1) returns the per-(sample, channel) mean
+and rstd of a channels_last (N, C, H, W) activation as two (N, C) f32
+tensors: ``mean = Σx / HW``, ``var = max(Σx² / HW − mean², 0)``,
+``rstd = rsqrt(var + eps)``, accumulated in f32. It replaces
+``p2p_tpu/ops/pallas/instance_norm_kernel.py:_stats_local`` (the stats
+pass, kernel body ``_stats_kernel``) and the mean/rstd arithmetic of
 ``p2p_tpu/ops/pallas/norm_act.py:_fwd_impl``. The kernel is
 ``csrc/instance_norm_stats.cu``: it is bound by device-memory bytes (x read
 once, 2·N·C floats written; 3.35 TB/s on an H100 SXM), so it reads x in
@@ -14,20 +13,33 @@ once, 2·N·C floats written; 3.35 TB/s on an H100 SXM), so it reads x in
 largest extents fill every SM, and sums the per-chunk partials in a second
 short pass in a fixed order: no float atomics, the same bits on every run.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+``instance_norm_apply(x, mean, rstd, scale, bias)`` (#2) is the act-free
+normalize pass ``y = (x − mean)·rstd·γ + β``, computed in f32 and stored
+in x's dtype. It replaces ``instance_norm_kernel.py:_norm_local`` (kernel
+body ``_norm_kernel``). Like #3 it is bound by bytes (x read once, y
+written once), so it is #3's flat pass of 16-byte vectors along C with a
+one-element fallback (C = 3 at the ExpandNetwork's head): the
+``p2p_instance_norm_apply`` entry point of ``csrc/norm_act.cu``
+instantiates #3's body with no activation and no residual.
+
+On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from p2p_tpu_torch.ops.cuda import build
+from p2p_tpu_torch.ops.cuda.norm_act import THREADS, check_apply_args, \
+    grid_blocks
 
 REPLACES = "p2p_tpu/ops/pallas/instance_norm_kernel.py:79 (_stats_local)"
 SOURCE = "p2p_tpu_torch/ops/cuda/csrc/instance_norm_stats.cu"
+REPLACES_APPLY = "p2p_tpu/ops/pallas/instance_norm_kernel.py:105 (_norm_local)"
+SOURCE_APPLY = "p2p_tpu_torch/ops/cuda/csrc/norm_act.cu"
 
 # blocks of pass 1 to aim for: about eight per SM of the 132 on an H100
 _TARGET_BLOCKS = 1024
@@ -93,3 +105,44 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5
 
 
 instance_norm_stats.launches = 0
+
+
+def instance_norm_apply_plain(x: torch.Tensor, mean: torch.Tensor,
+                              rstd: torch.Tensor,
+                              scale: Optional[torch.Tensor] = None,
+                              bias: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """The plain PyTorch version of #2, in the kernel's op order."""
+    y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
+    if scale is not None:
+        y = y * scale[None, :, None, None] + bias[None, :, None, None]
+    return y.to(x.dtype)
+
+
+def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor,
+                        rstd: torch.Tensor,
+                        scale: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``(x − mean)·rstd·γ + β`` in x's dtype, for (N, C) f32 statistics
+    and an optional (C,) f32 affine."""
+    if x.device.type == "cpu":
+        return instance_norm_apply_plain(x, mean, rstd, scale, bias)
+    check_apply_args(x, mean, rstd, scale, bias, "instance_norm_apply")
+    n, c, h, w = x.shape
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    vec = build.vector_width(c, x, y)
+    numel = x.numel()
+    lib, fn = build.load("norm_act", "p2p_instance_norm_apply")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                 None if scale is None else scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(), y.data_ptr(),
+                 build.DTYPE_CODES[x.dtype], numel, h * w * c, c, vec,
+                 grid_blocks(numel, vec), THREADS,
+                 build.stream_handle(x.device))
+    build.check(lib, err, "instance_norm_apply")
+    instance_norm_apply.launches += 1
+    return y
+
+
+instance_norm_apply.launches = 0

@@ -30,7 +30,7 @@ REPLACES = "p2p_tpu/ops/pallas/norm_act.py:92 (_norm_act_local)"
 SOURCE = "p2p_tpu_torch/ops/cuda/csrc/norm_act.cu"
 ACTS = ("none", "relu", "leaky")
 
-_THREADS = 256
+THREADS = 256
 # grid-stride cap: 132 SMs × 8 resident blocks of 256 threads × 4 rounds
 _MAX_BLOCKS = 132 * 8 * 4
 
@@ -64,9 +64,31 @@ def norm_act_plain(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 def _check_vector(t: torch.Tensor, shape, device, what: str) -> None:
     if (t.device != device or t.dtype != torch.float32
             or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
-        raise ValueError(f"norm_act: {what} must be a contiguous f32 tensor "
-                         f"of shape {tuple(shape)} on {device}, got "
-                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        raise ValueError(f"{what} must be a contiguous f32 tensor of shape "
+                         f"{tuple(shape)} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+
+
+def check_apply_args(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                     scale: Optional[torch.Tensor],
+                     bias: Optional[torch.Tensor], what: str) -> None:
+    """What the normalize kernels take (this one and #2's): a channels_last
+    CUDA x, (N, C) f32 statistics and an optional (C,) f32 affine on its
+    device. Raises on anything else."""
+    build.check_activation(x, what)
+    n, c = x.shape[:2]
+    _check_vector(mean, (n, c), x.device, f"{what}: mean")
+    _check_vector(rstd, (n, c), x.device, f"{what}: rstd")
+    if (scale is None) != (bias is None):
+        raise ValueError(f"{what}: pass both scale and bias, or neither")
+    if scale is not None:
+        _check_vector(scale, (c,), x.device, f"{what}: scale")
+        _check_vector(bias, (c,), x.device, f"{what}: bias")
+
+
+def grid_blocks(numel: int, vec: int) -> int:
+    """Blocks of the flat grid-stride pass: one vector per thread, capped."""
+    return max(1, min(-(-numel // (vec * THREADS)), _MAX_BLOCKS))
 
 
 def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
@@ -79,15 +101,8 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
         return norm_act_plain(x, mean, rstd, scale, bias, residual, act,
                               slope)
     check_act(act, slope)
-    build.check_activation(x, "norm_act")
+    check_apply_args(x, mean, rstd, scale, bias, "norm_act")
     n, c, h, w = x.shape
-    _check_vector(mean, (n, c), x.device, "mean")
-    _check_vector(rstd, (n, c), x.device, "rstd")
-    if (scale is None) != (bias is None):
-        raise ValueError("norm_act: pass both scale and bias, or neither")
-    if scale is not None:
-        _check_vector(scale, (c,), x.device, "scale")
-        _check_vector(bias, (c,), x.device, "bias")
     tensors = [x]
     if residual is not None:
         build.check_activation(residual, "norm_act residual")
@@ -100,8 +115,7 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     tensors.append(y)
     vec = build.vector_width(c, *tensors)
     numel = x.numel()
-    blocks = max(1, min(-(-numel // (vec * _THREADS)), _MAX_BLOCKS))
-    lib, fn = build.load("norm_act")
+    lib, fn = build.load("norm_act", "p2p_norm_act")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(),
                  None if residual is None else residual.data_ptr(),
@@ -109,7 +123,8 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                  None if scale is None else scale.data_ptr(),
                  None if bias is None else bias.data_ptr(),
                  y.data_ptr(), build.DTYPE_CODES[x.dtype], numel,
-                 h * w * c, c, vec, ACTS.index(act), slope, blocks, _THREADS,
+                 h * w * c, c, vec, ACTS.index(act), slope,
+                 grid_blocks(numel, vec), THREADS,
                  build.stream_handle(x.device))
     build.check(lib, err, "norm_act")
     norm_act.launches += 1

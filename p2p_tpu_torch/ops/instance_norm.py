@@ -1,21 +1,108 @@
-"""The fused instance-norm epilogue seam: ``act(norm(x)·γ+β [+ residual])``.
+"""The fused instance-norm seam: ``norm(x)·γ+β`` and the whole post-conv
+epilogue ``act(norm(x)·γ+β [+ residual])``, each with its closed-form
+backward.
 
-Counterpart of ``p2p_tpu/ops/pallas/instance_norm.py:202
-pallas_instance_norm_act``: two passes over x, the statistics kernel
-(ops/cuda/instance_norm_kernel.py) and the fused normalize + activation
-kernel (ops/cuda/norm_act.py). Each wrapper picks its route from the
-tensor: a CPU tensor takes the plain PyTorch version, a CUDA tensor the
-kernel, and anything else raises.
+Counterparts of ``p2p_tpu/ops/pallas/instance_norm_kernel.py:
+instance_norm_fused`` (``_in_fused`` / ``_in_fused_bwd``: the statistics
+kernel #1, then the normalize kernel #2) and ``p2p_tpu/ops/pallas/
+norm_act.py:instance_norm_act_fused`` (``_in_act_fused`` /
+``_in_act_fused_bwd``: #1, then the fused normalize + activation kernel
+#3). Every call goes through a ``torch.autograd.Function``, on the CPU and
+on the card alike: its forward calls the kernel wrappers (the kernel on a
+CUDA tensor, the plain version on a CPU one), and its backward is the
+closed form of the JAX package in plain PyTorch, in f32, cast once at the
+end. The JAX package has no backward kernel for #1, #2 or #3: its VJPs
+are XLA closed forms.
+
+Backward, with ``count = H·W``, ``xhat = (x − μ)·rstd`` and the upstream
+cotangent ``g`` in f32: ``dxhat = g·γ``; ``m1 = Σ_HW dxhat / count``;
+``m2 = Σ_HW dxhat·xhat / count``; ``dx = rstd·(dxhat − m1 − xhat·m2)``;
+with the affine, ``dγ = Σ_NHW g·xhat`` and ``dβ = Σ_NHW g``. The epilogue
+form saves its OUTPUT ``y`` (not the pre-activation) and masks ``g`` from
+it first: relu ``y > 0``, leaky ``y >= 0 ? g : slope·g`` (sign-preserving
+activations only); the residual's cotangent is that masked ``g``, cast to
+the residual's dtype.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-from p2p_tpu_torch.ops.cuda.instance_norm_kernel import instance_norm_stats
+from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+    instance_norm_apply, instance_norm_stats)
 from p2p_tpu_torch.ops.cuda.norm_act import norm_act
+
+
+def _norm_backward(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                   scale: Optional[torch.Tensor], g32: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                              Optional[torch.Tensor]]:
+    """(dx in x's dtype, dγ, dβ) of ``(x − μ)·rstd·γ + β`` from the f32
+    cotangent ``g32``; dγ and dβ are None without the affine."""
+    count = float(x.shape[2] * x.shape[3])
+    mean = mean[:, :, None, None]
+    rstd = rstd[:, :, None, None]
+    xhat = (x.float() - mean) * rstd
+    dxhat = g32 if scale is None else g32 * scale.float()[None, :, None,
+                                                          None]
+    m1 = dxhat.sum(dim=(2, 3), keepdim=True) / count
+    m2 = (dxhat * xhat).sum(dim=(2, 3), keepdim=True) / count
+    dx = (rstd * (dxhat - m1 - xhat * m2)).to(x.dtype)
+    if scale is None:
+        return dx, None, None
+    dscale = (g32 * xhat).sum(dim=(0, 2, 3)).to(scale.dtype)
+    return dx, dscale, g32.sum(dim=(0, 2, 3)).to(scale.dtype)
+
+
+class _InstanceNorm(torch.autograd.Function):
+    """#1 then #2; saves x, the statistics and γ."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps):
+        mean, rstd = instance_norm_stats(x, eps)
+        ctx.save_for_backward(x, mean, rstd, scale)
+        return instance_norm_apply(x, mean, rstd, scale, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale = ctx.saved_tensors
+        dx, dscale, dbias = _norm_backward(x, mean, rstd, scale, g.float())
+        return dx, dscale, dbias, None
+
+
+class _InstanceNormAct(torch.autograd.Function):
+    """#1 then #3; saves x, the statistics, γ and the output y."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, residual, act, slope, eps):
+        mean, rstd = instance_norm_stats(x, eps)
+        y = norm_act(x, mean, rstd, scale, bias, residual, act, slope)
+        ctx.save_for_backward(x, mean, rstd, scale, y)
+        ctx.act, ctx.slope = act, slope
+        ctx.res_dtype = None if residual is None else residual.dtype
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rstd, scale, y = ctx.saved_tensors
+        g32 = g.float()
+        if ctx.act == "relu":
+            g32 = torch.where(y > 0, g32, 0.0)
+        elif ctx.act == "leaky":
+            g32 = torch.where(y >= 0, g32, ctx.slope * g32)
+        dx, dscale, dbias = _norm_backward(x, mean, rstd, scale, g32)
+        dres = None if ctx.res_dtype is None else g32.to(ctx.res_dtype)
+        return dx, dscale, dbias, dres, None, None, None
+
+
+def instance_norm_fused(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
+                        bias: Optional[torch.Tensor] = None,
+                        eps: float = 1e-5) -> torch.Tensor:
+    """Instance norm over H×W of a channels_last (N, C, H, W) tensor, with
+    an optional (C,) f32 affine; the output has x's dtype (#1 + #2)."""
+    return _InstanceNorm.apply(x, scale, bias, eps)
 
 
 def instance_norm_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
@@ -24,6 +111,6 @@ def instance_norm_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
                       act: str = "none", slope: float = 0.2,
                       eps: float = 1e-5) -> torch.Tensor:
     """Instance norm over H×W of a channels_last (N, C, H, W) tensor with
-    the whole post-conv epilogue fused; the output has x's dtype."""
-    mean, rstd = instance_norm_stats(x, eps)
-    return norm_act(x, mean, rstd, scale, bias, residual, act, slope)
+    the whole post-conv epilogue fused; the output has x's dtype (#1 +
+    #3)."""
+    return _InstanceNormAct.apply(x, scale, bias, residual, act, slope, eps)

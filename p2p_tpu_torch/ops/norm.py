@@ -3,9 +3,10 @@
 
 Kinds in this port: ``"batch"`` (BatchNorm with running statistics, its
 moments through the Hopper kernel ops/cuda/batch_moments.py),
-``"pallas_instance"`` (the fused instance-norm epilogue through the Hopper
-kernels, ops/instance_norm.py), ``"instance"`` (plain PyTorch, the op order
-of the JAX ``InstanceNorm`` module) and ``"none"``. The stateless kinds
+``"pallas_instance"`` (instance norm through the Hopper kernels with the
+closed-form backward, ops/instance_norm.py: #1 + #2 for the norm, #1 + #3
+for the fused epilogue), ``"instance"`` (plain PyTorch, the op order of the
+JAX ``InstanceNorm`` module) and ``"none"``. The stateless kinds
 are plain functions on tensors; ``"batch"`` is a module, built per call
 site with its channel count, so the factories take ``features`` for it.
 """
@@ -19,9 +20,12 @@ from torch import nn
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y
 from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
-from p2p_tpu_torch.ops.instance_norm import instance_norm_act
+from p2p_tpu_torch.ops.instance_norm import instance_norm_act, \
+    instance_norm_fused
 
 EpilogueFn = Callable[..., torch.Tensor]
+# the kinds of make_norm / make_norm_act
+NORM_KINDS = ("batch", "instance", "pallas_instance", "none")
 
 
 class _DualMoments(torch.autograd.Function):
@@ -140,7 +144,7 @@ def make_norm(kind: str, features: Optional[int] = None
     if kind == "instance":
         return instance_norm
     if kind == "pallas_instance":
-        return instance_norm_act
+        return instance_norm_fused
     if kind == "none":
         return lambda x: x
     raise ValueError(f"unknown norm kind {kind!r}")

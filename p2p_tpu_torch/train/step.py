@@ -1,5 +1,5 @@
-"""The train step of the ``reference`` and ``facades`` presets and
-generator inference (counterparts of ``p2p_tpu/train/step.py:79
+"""The train step of the ``reference``, ``facades`` and ``pix2pixhd``
+presets and generator inference (counterparts of ``p2p_tpu/train/step.py:79
 single_forward_d_losses``, ``:140 make_g_loss_fn``, ``:209
 build_train_step`` and ``:940 make_infer_forward``).
 
@@ -14,7 +14,9 @@ metrics)`` in the order of the JAX step (``step.py:277-597``):
 3. ONE D(fake) forward on (real_a ‖ fake_b) that serves both the D loss
    (gradient to D's parameters only: the reference's ``fake_b.detach()``)
    and the G loss (gradient through D to fake_b only: the reference's
-   ``zero_grad`` before the D step), then D(real);
+   ``zero_grad`` before the D step), then D(real); the pairs are
+   concatenated on channels whatever ``split_d_pairs`` says (the JAX
+   split stem computes the same function, models/patchgan.py);
 4. the G loss: GAN + feature matching + VGG + TV + L1 per the config;
 5. G's update, then D's;
 6. with a compression net, the net_c branch against the UPDATED G:
@@ -36,8 +38,10 @@ statistics return to the step's start; when the net_c loss is not finite,
 net_c does not step and the running statistics return to the start. The
 verdicts are read on the host (two synchronizations per step).
 
-Not ported, and refused by :func:`build_train_step`: the historical-fake
-pool, int8 QAT, the EMA generator, pipeline parallelism.
+Not ported, and refused by :func:`build_train_step`: generators other
+than ``expand``, ``unet`` and ``pix2pixhd``, norms the port does not have,
+the historical-fake pool, int8 QAT, the EMA generator, pipeline
+parallelism.
 """
 
 from __future__ import annotations
@@ -54,6 +58,8 @@ from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
 from p2p_tpu_torch.losses.gan import gan_loss
 from p2p_tpu_torch.losses.l1 import l1_loss
 from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
+from p2p_tpu_torch.models.patchgan import check_norm_d
+from p2p_tpu_torch.ops.norm import NORM_KINDS
 from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
 from p2p_tpu_torch.ops.tv import total_variation_loss
 from p2p_tpu_torch.train.state import TrainState
@@ -142,9 +148,13 @@ def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module]):
 
 def _check_supported(cfg: Config) -> None:
     m = cfg.model
+    if m.norm not in NORM_KINDS:
+        raise ValueError(f"norm {m.norm!r} is not a norm of the port "
+                         f"(have {NORM_KINDS})")
+    check_norm_d(m.norm_d)
     unported = {
-        "a generator other than 'expand' or 'unet'":
-            m.generator not in ("expand", "unet"),
+        "a generator other than 'expand', 'unet' or 'pix2pixhd'":
+            m.generator not in ("expand", "unet", "pix2pixhd"),
         "int8 QAT": m.int8 or m.int8_delayed,
         "the historical-fake pool": cfg.train.pool_size > 0,
         "the EMA generator": cfg.health.ema_decay is not None,
@@ -198,7 +208,8 @@ def dropout_generator(seed: int, step: int, device: torch.device
 def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
                      train_dtype: Optional[torch.dtype] = None):
     """``step(state, batch) -> (state, metrics)`` for ``cfg`` (the
-    ``reference`` and ``facades`` paths); ``vgg`` is the frozen VGG19 trunk (needed
+    ``reference``, ``facades`` and ``pix2pixhd`` paths); ``vgg`` is the
+    frozen VGG19 trunk (needed
     when ``lambda_vgg > 0``), ``train_dtype`` the dtype the images enter
     in (bf16 under mixed precision, None for f32). ``batch`` holds NHWC
     host arrays ``"input"`` and ``"target"``; ``state`` is advanced in

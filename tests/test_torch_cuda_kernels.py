@@ -2,8 +2,12 @@
 shapes chip_smoke.py does not reach: odd channel counts (one element per
 access), a misaligned view, N > 1, a residual with an affine, for the
 BatchNorm moments kernel (#5) ragged M, C = 3 and the autograd backward,
-and for the subpixel head's forward (#6) and dx (#7) the path's shapes,
-ragged widths, every F4 and the autograd function.
+for the subpixel head's forward (#6) and dx (#7) the path's shapes,
+ragged widths, every F4 and the autograd function, and for the act-free
+normalize kernel (#2) the ExpandNetwork's shapes (C = 3 one element at a
+time), an affine, a misaligned view, its launch count and the two
+instance-norm autograd Functions (kernels forward, closed-form backward)
+against autograd of the plain chain.
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
@@ -20,7 +24,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (  # noqa: E402
-    instance_norm_stats, instance_norm_stats_plain)
+    instance_norm_apply, instance_norm_apply_plain, instance_norm_stats,
+    instance_norm_stats_plain)
+from p2p_tpu_torch.ops.instance_norm import (  # noqa: E402
+    instance_norm_act, instance_norm_fused)
 from p2p_tpu_torch.ops.cuda.batch_moments import (  # noqa: E402
     batch_moments, batch_moments_plain)
 from p2p_tpu_torch.ops.cuda.norm_act import (  # noqa: E402
@@ -232,3 +239,74 @@ def test_subpixel_head_wrappers_raise_on_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         xs, ws, _ = _head(1, 1024, 4, 4, 16, torch.float32, cuda, 10)
         subpixel_head_fwd(xs, ws)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32, 256, 256), (1, 3, 256, 256),
+                                   (2, 64, 33, 17), (1, 5, 7, 9)])
+def test_instance_norm_apply_matches_plain_version(cuda, dtype, shape):
+    x = _x(shape, dtype, cuda, 11)
+    c = shape[1]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    scale = torch.randn(c, generator=g, device=cuda) * 0.1 + 1
+    bias = torch.randn(c, generator=g, device=cuda) * 0.1
+    mean, rstd = instance_norm_stats_plain(x)
+    atol, rtol = TOL[dtype]
+    n0 = instance_norm_apply.launches
+    for kw in ({}, {"scale": scale, "bias": bias}):
+        y = instance_norm_apply(x, mean, rstd, **kw)
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        torch.testing.assert_close(
+            y.float(), instance_norm_apply_plain(x, mean, rstd, **kw).float(),
+            atol=atol, rtol=rtol)
+    assert instance_norm_apply.launches - n0 == 2
+    torch.cuda.synchronize()
+
+
+def test_instance_norm_apply_takes_a_misaligned_view(cuda):
+    base = torch.randn(1 + 2 * 8 * 6 * 6, device=cuda)
+    x = base[1:].view(2, 6, 6, 8).permute(0, 3, 1, 2)
+    assert x.data_ptr() % 16
+    mean, rstd = instance_norm_stats_plain(x)
+    torch.testing.assert_close(instance_norm_apply(x, mean, rstd),
+                               instance_norm_apply_plain(x, mean, rstd),
+                               atol=1e-4, rtol=0)
+    with pytest.raises(ValueError, match="channels_last"):
+        instance_norm_apply(x.contiguous(), mean, rstd)
+
+
+def _plain_chain(x, scale, bias, residual, act):
+    """Autograd through the plain versions of the kernels."""
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_plain
+
+    mean, rstd = instance_norm_stats_plain(x)
+    return norm_act_plain(x, mean, rstd, scale, bias, residual, act)
+
+
+@pytest.mark.parametrize("act,res,affine", [
+    ("apply", False, True), ("relu", True, False), ("leaky", False, False),
+    ("none", True, True)])
+def test_instance_norm_functions_backward_on_the_card(no_tf32, act, res,
+                                                      affine):
+    shape = (2, 64, 40, 40)
+    x = _x(shape, torch.float32, no_tf32, 13).requires_grad_(True)
+    r = _x(shape, torch.float32, no_tf32, 14).requires_grad_(True) \
+        if res else None
+    g = torch.Generator(device=no_tf32).manual_seed(15)
+    scale = (torch.randn(64, generator=g, device=no_tf32) * 0.1 + 1
+             ).requires_grad_(True) if affine else None
+    bias = (torch.randn(64, generator=g, device=no_tf32) * 0.1
+            ).requires_grad_(True) if affine else None
+    up = torch.randn(shape, generator=g, device=no_tf32)
+    leaves = [t for t in (x, r, scale, bias) if t is not None]
+    if act == "apply":
+        y = instance_norm_fused(x, scale, bias)
+    else:
+        y = instance_norm_act(x, scale, bias, r, act=act)
+    got = torch.autograd.grad((y * up).sum(), leaves)
+    want = torch.autograd.grad(
+        (_plain_chain(x, scale, bias, r, "none" if act == "apply" else act)
+         * up).sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    torch.cuda.synchronize()

@@ -222,4 +222,4 @@ def test_step_refuses_what_is_not_ported():
             cfg.health, ema_decay=0.999)))
     with pytest.raises(ValueError, match="norm_d"):
         create_train_state(cfg.replace(model=dataclasses.replace(
-            cfg.model, norm_d="instance")), device="cpu")
+            cfg.model, norm_d="batch")), device="cpu")
