@@ -60,7 +60,24 @@ to the CPU or to a plain version):
    and 4 timed steps with finite losses, the peak device memory, exactly
    36 #1 and 36 #3 per step and no #2; then the f32 (TF32 off) 2-step
    kernels-vs-plain check at full depth;
-9. a ``{"kernels": [...]}`` line, then the last line
+9. facades int8 training: ``facades_int8`` with ``norm_d=
+   "pallas_instance", int8_fused_epilogue=True`` (the U-Net G in bf16, the
+   70×70 PatchGAN's three inner convs on the delayed-int8 path, inner
+   convs 2 and 3 fed by the quantize-fused epilogue #1 + #4, bf16 Adam
+   moments), dropout on, bf16: 2 warm-up and 8 timed steps with finite
+   losses, the peak device memory, exactly 4 #4, 6 #1, 2 #3 and 13 #5 per
+   step, and every stored amax finite and moved; then the f32 (TF32 off,
+   cuDNN deterministic) 2-step check from one state: through every kernel
+   against every plain version within the stated bands, and with #1 and
+   #5 on their plain versions equal to it (q and losses); then 2 bf16 steps of ``facades_int8``
+   as it is (no D norm: no #4, only its 13 #5 per step). Before it, in
+   the kernel phase, #4 at the path's shapes bitwise against its plain
+   version given the same statistics (at the path's scale and at one
+   whose quotients hit rounding ties), and every int8 contraction form of
+   the path (im2col + ``torch._int_mm``) exact against an f64 conv or
+   product of the same int8 operands, timed beside cuDNN's bf16 conv of
+   the same shape;
+10. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -92,6 +109,7 @@ NORMS_PER_FORWARD = 36
 # type (bf16 on the tensor cores, f32 outside them)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_INT8_OP_PER_S = 1979e12
 # kernel vs plain version: f32 differs only in the order of partial sums;
 # bf16 outputs may differ by one rounding of the stored value
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0 ** -7)}
@@ -157,6 +175,27 @@ AFTER_UPDATE_KEYS = ("loss_c",)
 GRAD_TOL = (1e-4, 1e-4)
 GRAD_SUM_RTOL_OF_MAX = 1e-4
 MASK_MARGIN = 1e-4
+# facades int8 training (slice 5): launches per step of the fused path: #4
+# before inner convs 2 and 3, #1 before those and the last inner epilogue
+# (#3), in the fake and the real D forward; #5 under the U-Net's 13
+# BatchNorms. The preset as it is runs 2 steps.
+INT8_PER_STEP = dict(norm_act_quant=4, instance_norm_stats=6, norm_act=2,
+                     batch_moments=13)
+INT8_AS_IS_STEPS = 2
+# its f32 kernels-vs-plain check (cuDNN deterministic): given the plain
+# statistics of #1 and #5, #3 and #4 are bitwise their plain versions and
+# the backward is the same code, so both steps' losses are equal (rel diff
+# 0 over 8 seeds, scripts/torch_int8_f32_spread.py on an H100). Through
+# every kernel, the last bits of #5's BatchNorm statistics move G's output
+# and so D's quantizers: 2–1,406 q elements of a #4 call differ at step
+# 1 (about as many with #1 on its plain version), and the losses moved
+# by up to 3.4e-4 at step 1 and 4.1e-3 at step 2 over those 8 seeds:
+# rtol 1e-3 and 1e-2
+INT8_STEP1_RTOL, INT8_LATER_RTOL = 1e-3, 1e-2
+INT8_SAME_STATS_RTOL = 0.0
+# #4's elementwise operations per element (normalize 2, activation, the
+# cast, the divide, round, clip, |.|, max)
+QUANT_OPS_PER_ELEMENT = 9
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -365,6 +404,10 @@ def kernel_phase(device, launches):
                     x, dim=(2, 3), correction=0)),
                 **bound_row(numel * elt + 2 * n * c * 4, 3 * numel, dtype)))
             for form, count in sorted(forms.items()):
+                if form.endswith("+quant"):
+                    rows.append(quant_row(timer, x, pmean, prstd, common,
+                                          count, where, form))
+                    continue
                 if form == "apply":
                     rows.append(apply_row(
                         timer, x, pmean, prstd, common, count, where,
@@ -387,8 +430,178 @@ def kernel_phase(device, launches):
                     library_ms=timer(lambda: F.instance_norm(x)),
                     **bound_row(numel * elt * (3 if res else 2)
                                 + 2 * n * c * 4, 4 * numel, dtype)))
-    print("kernel phase (#1, #2, #3; device ms, median of "
+    print("kernel phase (#1, #2, #3, #4; device ms, median of "
           f"{TIMING_REPS} cold-L2 runs; tolerance passed):")
+    for row in rows:
+        print("  " + json.dumps(row))
+    return rows
+
+
+def quant_row(timer, x, mean, rstd, common, count, where, form):
+    """#4 against its plain version at one shape, given the same
+    statistics: q and amax bitwise, at the path's kind of scale (the
+    activation's amax / 127) and at 2⁻⁴ on inputs from binary grids (whose
+    quotients hit rounding ties); then its times. The library yardstick is
+    ``F.instance_norm``, which computes the normalize alone (no activation,
+    quantize or amax)."""
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.cuda.norm_act import (norm_act_quant,
+                                                 norm_act_quant_plain)
+
+    act = form.partition("+")[0]
+    one = torch.ones((), device=x.device)
+    sx = norm_act_quant_plain(x, mean, rstd, sx=one, act=act)[1] / 127.0
+    grid = ((x.float() * 16).round() / 16).to(x.dtype)
+    cases = ((x, mean, rstd, sx),
+             (grid, (mean * 16).round() / 16, (rstd * 4).round() / 4,
+              torch.full((), 2.0 ** -4, device=x.device)))
+    for xx, mm, rr, ss in cases:
+        q, amax = norm_act_quant(xx, mm, rr, sx=ss, act=act)
+        pq, pamax = norm_act_quant_plain(xx, mm, rr, sx=ss, act=act)
+        if not (torch.equal(q, pq) and torch.equal(amax, pamax)):
+            raise AssertionError(
+                f"norm_act_quant {where} {form}: not bitwise the plain "
+                f"version (q {max_err(q, pq):.3g}, amax "
+                f"{max_err(amax, pamax):.3g})")
+    n, c = x.shape[:2]
+    elt = x.element_size()
+    return dict(
+        kernel="norm_act_quant", **common, form=form, launches=count,
+        max_abs_err=0.0,
+        ms=timer(lambda: norm_act_quant(x, mean, rstd, sx=sx, act=act)),
+        plain_ms=timer(lambda: norm_act_quant_plain(x, mean, rstd, sx=sx,
+                                                    act=act)),
+        library_ms=timer(lambda: F.instance_norm(x)),
+        **bound_row(2 * x.numel() * elt + 2 * n * c * 4 + 8,
+                    QUANT_OPS_PER_ELEMENT * x.numel(), x.dtype))
+
+
+def int8_config():
+    """Slice 5: ``facades_int8`` with the quantize-fused D epilogue."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset("facades_int8")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, norm_d="pallas_instance", int8_fused_epilogue=True))
+
+
+def int8_d_plan(cfg):
+    """(H, W, C, form) of every epilogue of one D forward of the fused
+    facades_int8 path: #4 ("leaky+quant") before inner convs 2 and 3, #3
+    after inner conv 3; #1 before each."""
+    m = cfg.model
+    plan = d_norm_plan(m.ndf, m.n_layers_D, m.num_D, *cfg.image_hw)
+    return ([(h, w, c, "leaky+quant") for h, w, c, _ in plan[:-1]]
+            + [plan[-1]])
+
+
+def int8_forms_phase(device):
+    """Every int8 contraction of the fused facades_int8 D at its shapes
+    (256², batch 1), on random int8 operands: the im2col + ``_int_mm``
+    result exact against an f64 conv (or product) of the same operands;
+    then its time beside cuDNN's bf16 conv of the same shape (forward,
+    input gradient, weight gradient). Also the times of the forms the
+    JAX dispatch keeps in bf16 (the stride-2 dgrads, the 65² wgrad)."""
+    import torch.nn.functional as F
+    from torch.nn.grad import conv2d_input, conv2d_weight
+
+    from p2p_tpu_torch.ops.int8 import conv_i32, im2col, int_mm
+
+    timer = Timer(device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device,
+                             dtype=torch.int8)
+
+    def bf(t):
+        return t.to(torch.bfloat16).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
+
+    rows = []
+    # (name, x NHWC, w HWIO, stride): inner convs 1, 2, 3
+    convs = [("conv1", (1, 129, 129, 64), (4, 4, 64, 128), 2),
+             ("conv2", (1, 65, 65, 128), (4, 4, 128, 256), 2),
+             ("conv3", (1, 33, 33, 256), (4, 4, 256, 512), 1)]
+    for name, xs, ws, s in convs:
+        x8, w8 = i8(*xs), i8(*ws)
+        pads = (2, 2)
+        y = conv_i32(x8, w8, (s, s), pads)
+        ho, wo, o = y.shape[1:]
+        x64 = x8.double().permute(0, 3, 1, 2)
+        w64 = w8.double().permute(3, 2, 0, 1)
+        want = F.conv2d(x64, w64, stride=s, padding=2).permute(0, 2, 3, 1)
+        forms = [("forward", y, want,
+                  lambda: conv_i32(x8, w8, (s, s), pads),
+                  lambda xb=bf(x8), wb=w8.to(torch.bfloat16).permute(
+                      3, 2, 0, 1).contiguous(): F.conv2d(
+                      xb, wb, stride=s, padding=2),
+                  2 * ho * wo * o * 16 * xs[3])]
+        g8 = i8(1, ho, wo, o)
+        if s == 1:     # the int8 dgrad: the flipped, transposed kernel
+            wt = w8.flip(0, 1).transpose(2, 3).contiguous()
+            dx = conv_i32(g8, wt, (1, 1), (1, 1))
+            want_dx = F.conv_transpose2d(
+                g8.double().permute(0, 3, 1, 2), w64, stride=1,
+                padding=2).permute(0, 2, 3, 1)
+            forms.append((
+                "dgrad", dx, want_dx,
+                lambda: conv_i32(g8, wt, (1, 1), (1, 1)),
+                lambda gb=bf(g8), wb=w8.to(torch.bfloat16).permute(
+                    3, 2, 0, 1).contiguous(): conv2d_input(
+                    (1, xs[3], xs[1], xs[2]), wb, gb, s, 2),
+                2 * xs[1] * xs[2] * xs[3] * 16 * o))
+        if ho * wo <= 4096:   # the int8 wgrad: one product over N·Ho·Wo
+            rows_x, _ = im2col(x8, (4, 4), (s, s), pads)
+            g2 = g8.reshape(ho * wo, o)
+            dw = int_mm(rows_x.t(), g2)
+            want_dw = rows_x.t().double() @ g2.double()
+            forms.append((
+                "wgrad", dw, want_dw,
+                lambda: int_mm(im2col(x8, (4, 4), (s, s), pads)[0].t(),
+                               g2),
+                lambda xb=bf(x8), gb=bf(g8): conv2d_weight(
+                    xb, (o, xs[3], 4, 4), gb, s, 2),
+                2 * ho * wo * o * 16 * xs[3]))
+        for form, got, exact, fn, cudnn, flops in forms:
+            if got.dtype != torch.int32 or not torch.equal(got.double(),
+                                                           exact):
+                raise AssertionError(f"int8 {name} {form}: not exact "
+                                     "against the f64 conv")
+            # bytes: both int8 operands read once, the int32 result written
+            nbytes = x8.numel() + w8.numel() + 4 * got.numel()
+            if form == "dgrad":
+                nbytes = g8.numel() + w8.numel() + 4 * got.numel()
+            elif form == "wgrad":
+                nbytes = x8.numel() + g8.numel() + 4 * got.numel()
+            rows.append(dict(
+                conv=name, form=form, shape=dict(x=list(xs), w=list(ws),
+                                                 stride=s),
+                exact=True, ms=timer(fn), cudnn_bf16_ms=timer(cudnn),
+                gop=flops / 1e9, bound_ms=max(
+                    nbytes / PEAK_BYTES_PER_S, flops / PEAK_INT8_OP_PER_S
+                ) * 1e3))
+    # the forms the JAX dispatch keeps in bf16 (f32 convs on bf16 values)
+    for name, xs, ws, s in convs:
+        xb = torch.randn((1, xs[3], xs[1], xs[2]), generator=gen,
+                         device=device).contiguous(
+            memory_format=torch.channels_last)
+        wb = torch.randn((ws[3], ws[2], 4, 4), generator=gen, device=device)
+        y = F.conv2d(xb, wb, stride=s, padding=2)
+        gb = torch.randn(y.shape, generator=gen, device=device).contiguous(
+            memory_format=torch.channels_last)
+        if s == 2:
+            rows.append(dict(conv=name, form="dgrad (bf16 on w_hat)",
+                             ms=timer(lambda: conv2d_input(xb.shape, wb, gb,
+                                                           s, 2))))
+        if y.shape[2] * y.shape[3] > 4096:
+            rows.append(dict(conv=name, form="wgrad (bf16 on x_hat)",
+                             ms=timer(lambda: conv2d_weight(xb, wb.shape, gb,
+                                                            s, 2))))
+    print("int8 forms (facades_int8 D at 256², batch 1; im2col + _int_mm "
+          "exact against f64; device ms, median of "
+          f"{TIMING_REPS} cold-L2 runs):")
     for row in rows:
         print("  " + json.dumps(row))
     return rows
@@ -566,12 +779,13 @@ def _wrappers():
     from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
         instance_norm_apply, instance_norm_stats)
-    from p2p_tpu_torch.ops.cuda.norm_act import norm_act
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_quant
     from p2p_tpu_torch.ops.cuda.subpixel_head import (subpixel_head_dx,
                                                       subpixel_head_fwd)
 
     return {"instance_norm_stats": instance_norm_stats,
             "instance_norm_apply": instance_norm_apply, "norm_act": norm_act,
+            "norm_act_quant": norm_act_quant,
             "batch_moments": batch_moments,
             "subpixel_head_fwd": subpixel_head_fwd,
             "subpixel_head_dx": subpixel_head_dx}
@@ -1116,51 +1330,66 @@ def bf16_train_run(what, state, step, batches, warmup, want, loss_keys,
 
 def instance_plain_patches():
     """Patches that route every kernel of the instance-norm paths (#1, #2,
-    #3 and net_c's #5) to its plain version."""
+    #3, #4 and the BatchNorms' #5) to its plain version."""
     import p2p_tpu_torch.ops.instance_norm as seam
     from p2p_tpu_torch.ops import norm
     from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments_plain
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
         instance_norm_apply_plain, instance_norm_stats_plain)
-    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_plain
+    from p2p_tpu_torch.ops.cuda.norm_act import (norm_act_plain,
+                                                 norm_act_quant_plain)
 
     return (mock.patch.object(seam, "instance_norm_stats",
                               instance_norm_stats_plain),
             mock.patch.object(seam, "instance_norm_apply",
                               instance_norm_apply_plain),
             mock.patch.object(seam, "norm_act", norm_act_plain),
+            mock.patch.object(seam, "norm_act_quant", norm_act_quant_plain),
             mock.patch.object(norm, "batch_moments", batch_moments_plain))
 
 
-def f32_check(what, cfg, batches, vgg, per_step, loss_keys):
-    """f32 (TF32 off) steps from one state through the kernels and through
-    their plain versions: the launches of each route (``per_step`` per
-    step through the kernels, none through the plain versions) and the
-    losses, within INSTANCE_STEP1_RTOL before the first update and
-    INSTANCE_LATER_RTOL after it."""
+def f32_route(cfg, batches, vgg, patches, want, route, seed=SEED):
+    """The losses of f32 (TF32 off) steps on ``batches`` from the state
+    made from ``seed``, under ``patches``; the run must launch ``want``.
+    Under ``int8_delayed`` the stored scales are initialized from the first
+    batch, before the patches apply."""
     from p2p_tpu_torch.train.state import create_train_state
     from p2p_tpu_torch.train.step import build_train_step
 
     cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
                                                   mixed_precision=False))
-    runs = {}
     with tf32_off():
-        for route in ("kernel", "plain"):
-            st = create_train_state(cfg32, SEED)
-            stp = build_train_step(cfg32, vgg)
-            before = launch_counts()
-            with contextlib.ExitStack() as stack:
-                if route == "plain":
-                    for patch in instance_plain_patches():
-                        stack.enter_context(patch)
-                runs[route] = [{k: float(v) for k, v in stp(st, b)[1].items()}
-                               for b in batches]
-            launched = {k: launch_counts()[k] - before[k] for k in before}
-            n = len(batches) if route == "kernel" else 0
-            if launched != only(**{k: v * n for k, v in per_step.items()}):
-                raise AssertionError(f"f32 {route} run launched {launched}")
-            del st, stp
-            torch.cuda.empty_cache()
+        st = create_train_state(cfg32, seed, sample_batch=batches[0])
+        stp = build_train_step(cfg32, vgg)
+        before = launch_counts()
+        with contextlib.ExitStack() as stack:
+            for patch in patches:
+                stack.enter_context(patch)
+            losses = [{k: float(v) for k, v in stp(st, b)[1].items()}
+                      for b in batches]
+        launched = {k: launch_counts()[k] - before[k] for k in before}
+    if launched != want:
+        raise AssertionError(f"f32 {route} run launched {launched}")
+    del st, stp
+    torch.cuda.empty_cache()
+    return losses
+
+
+def f32_check(what, cfg, batches, vgg, per_step, loss_keys,
+              bands=(INSTANCE_STEP1_RTOL, INSTANCE_LATER_RTOL)):
+    """f32 (TF32 off) steps from one state through the kernels and through
+    their plain versions: the launches of each route (``per_step`` per
+    step through the kernels, none through the plain versions) and the
+    losses, within ``bands[0]`` before the first update and ``bands[1]``
+    after it. Under ``int8_delayed`` the state's stored scales are
+    initialized from the first batch (through the kernels on both
+    routes)."""
+    runs = {}
+    for route in ("kernel", "plain"):
+        patches = instance_plain_patches() if route == "plain" else ()
+        n = len(batches) if route == "kernel" else 0
+        runs[route] = f32_route(cfg, batches, vgg, patches, only(
+            **{k: v * n for k, v in per_step.items()}), route)
     worst = {"before": 0.0, "after": 0.0}
     failed = []
     for i, (lk, lp) in enumerate(zip(runs["kernel"], runs["plain"])):
@@ -1170,8 +1399,7 @@ def f32_check(what, cfg, batches, vgg, per_step, loss_keys):
         for k, rel in rels.items():
             when = "before" if i == 0 and k not in AFTER_UPDATE_KEYS \
                 else "after"
-            rtol = INSTANCE_STEP1_RTOL if when == "before" \
-                else INSTANCE_LATER_RTOL
+            rtol = bands[0] if when == "before" else bands[1]
             worst[when] = max(worst[when], rel)
             if not rel <= rtol:
                 failed.append(f"step {i + 1} {k}: kernel {lk[k]} vs plain "
@@ -1179,8 +1407,8 @@ def f32_check(what, cfg, batches, vgg, per_step, loss_keys):
     print(f"{what}: f32 (TF32 off) {len(batches)} steps through the kernels "
           f"vs their plain versions from one state: losses max rel diff "
           f"{worst['before']:.3g} before the first update (limit "
-          f"{INSTANCE_STEP1_RTOL}), {worst['after']:.3g} after (limit "
-          f"{INSTANCE_LATER_RTOL})", flush=True)
+          f"{bands[0]}), {worst['after']:.3g} after (limit {bands[1]})",
+          flush=True)
     if failed:
         raise AssertionError(f"f32 {what}: " + "; ".join(failed))
     return worst
@@ -1268,6 +1496,185 @@ def instance_b_phase(device, card, profile, per_step):
     return counts, med, peak
 
 
+def _amax(net):
+    return {k: v.detach().clone() for k, v in net.named_buffers()
+            if k.endswith("amax_x")}
+
+
+def _floats(tensors):
+    return {k: float(v) for k, v in tensors.items()}
+
+
+def int8_f32_routes(cfg, batches, seed=SEED, deterministic=True):
+    """f32 (TF32 off) steps of the fused int8 path from the state made from
+    ``seed`` on four routes: every kernel; #1 on its plain version; #1 and
+    #5 on theirs; every plain version. With ``deterministic`` cuDNN runs
+    deterministic algorithms (otherwise a conv may sum in another order
+    each run, and a last-bit change anywhere before a quantizer can move
+    q). Returns ``{route: losses per step}`` and
+    ``{route: per #4 call of step 1, the elements of q that differ from
+    the plain route's}``."""
+    import p2p_tpu_torch.ops.instance_norm as seam
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments_plain
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_stats_plain)
+    from p2p_tpu_torch.ops.cuda.norm_act import (norm_act_quant,
+                                                 norm_act_quant_plain)
+
+    def stats1():
+        return mock.patch.object(seam, "instance_norm_stats",
+                                 instance_norm_stats_plain)
+
+    def stats5():
+        return mock.patch.object(norm, "batch_moments", batch_moments_plain)
+
+    n = len(batches)
+    fused = {k: INT8_PER_STEP[k] * n for k in ("norm_act_quant", "norm_act")}
+    # route: (patches, the #4 route recorded, launches)
+    routes = {
+        "kernel": ((), norm_act_quant, only(
+            **{k: v * n for k, v in INT8_PER_STEP.items()})),
+        "#1 plain": ((stats1(),), norm_act_quant, only(
+            batch_moments=INT8_PER_STEP["batch_moments"] * n, **fused)),
+        "#1 #5 plain": ((stats1(), stats5()), norm_act_quant, only(**fused)),
+        "plain": (instance_plain_patches(), norm_act_quant_plain, only()),
+    }
+    runs, qs = {}, {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = deterministic
+    try:
+        for route, (patches, quant, want) in routes.items():
+            seen = qs[route] = []
+
+            def record(*args, quant=quant, seen=seen, **kwargs):
+                q, amax = quant(*args, **kwargs)
+                seen.append(q.detach().clone())
+                return q, amax
+
+            runs[route] = f32_route(
+                cfg, batches, None, (*patches, mock.patch.object(
+                    seam, "norm_act_quant", record)), want, route, seed)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    step1 = INT8_PER_STEP["norm_act_quant"]
+    flips = {route: [int((a != b).sum()) for a, b in zip(
+        q[:step1], qs["plain"][:step1])] for route, q in qs.items()}
+    return runs, flips
+
+
+def int8_f32_check(what, cfg, batches):
+    """The fused int8 path's f32 kernels-vs-plain check (the routes of
+    :func:`int8_f32_routes`): given the plain statistics of #1 and #5, the
+    kernels' q equals the plain q and every step's losses agree within
+    INT8_SAME_STATS_RTOL; through every kernel the losses are within
+    INT8_STEP1_RTOL before the first update and INT8_LATER_RTOL after."""
+    runs, flips = int8_f32_routes(cfg, batches)
+    print(f"{what}: f32 q elements that differ from the plain route's, per "
+          f"#4 call of step 1: {json.dumps(flips)}")
+    failed = []
+    worst = collections.defaultdict(float)
+    for route in ("kernel", "#1 plain", "#1 #5 plain"):
+        for i, (lk, lp) in enumerate(zip(runs[route], runs["plain"])):
+            rels = {k: abs(lk[k] - lp[k]) / abs(lp[k])
+                    for k in FACADES_LOSS_KEYS}
+            print(f"{what}: f32 step {i + 1} {route} vs plain, rel diff "
+                  f"{json.dumps(rels)}")
+            worst[route, i == 0] = max(worst[route, i == 0], *rels.values())
+    limits = {("kernel", True): INT8_STEP1_RTOL,
+              ("kernel", False): INT8_LATER_RTOL,
+              ("#1 #5 plain", True): INT8_SAME_STATS_RTOL,
+              ("#1 #5 plain", False): INT8_SAME_STATS_RTOL}
+    for (route, first), limit in limits.items():
+        if not worst[route, first] <= limit:
+            failed.append(f"{route} {'step 1' if first else 'after'}: "
+                          f"{worst[route, first]} (rtol {limit})")
+    if any(flips["#1 #5 plain"]):
+        failed.append(f"q differs given the same statistics: {flips}")
+    print(f"{what}: f32 (TF32 off) {len(batches)} steps from one state, "
+          f"losses max rel diff against the plain versions: through every "
+          f"kernel {worst['kernel', True]:.3g} at step 1 (limit "
+          f"{INT8_STEP1_RTOL}), {worst['kernel', False]:.3g} after (limit "
+          f"{INT8_LATER_RTOL}); with #1 and #5 plain "
+          f"{worst['#1 #5 plain', True]:.3g} at step 1 and "
+          f"{worst['#1 #5 plain', False]:.3g} after (limit "
+          f"{INT8_SAME_STATS_RTOL}), q equal; with #1 plain "
+          f"{worst['#1 plain', True]:.3g} at step 1", flush=True)
+    if failed:
+        raise AssertionError(f"f32 {what}: " + "; ".join(failed))
+
+
+def int8_train_phase(device, card, profile):
+    """Slice 5: the fused facades_int8 path trained in bf16 with its peak
+    device memory and stored scales, the f32 kernels-vs-plain check, then
+    two bf16 steps of the preset as it is."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_facades_batch
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = int8_config()
+    h, w = cfg.image_hw
+    m = cfg.model
+    n_steps = TRAIN_WARMUP + TRAIN_STEPS
+    host = synthetic_facades_batch(n_steps, h, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(n_steps)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, SEED, train_dtype=dtype,
+                               sample_batch=batches[0])
+    step = build_train_step(cfg, None, dtype)
+    sizes = {k: sum(p.numel() for p in net.parameters()) for k, net in (
+        ("G", state.net_g), ("D", state.net_d))}
+    amax0 = _amax(state.net_d)
+    what = "facades int8 train"
+    print(f"{what}: facades_int8 with norm_d={m.norm_d}, "
+          f"int8_fused_epilogue={m.int8_fused_epilogue}, {h}x{w}, batch 1, "
+          f"{dtype}, ngf {m.ngf}, ndf {m.ndf}, dropout {m.use_dropout}, Adam "
+          f"moments {cfg.optim.moment_dtype}, parameters {sizes}; stored "
+          f"amax at init {json.dumps(_floats(amax0))}; built in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    counts, med = bf16_train_run(
+        what, state, step, batches, TRAIN_WARMUP,
+        only(**{k: v * n_steps for k, v in INT8_PER_STEP.items()}),
+        FACADES_LOSS_KEYS, card, profile)
+    peak = torch.cuda.max_memory_allocated(device)
+    amax1 = _amax(state.net_d)
+    print(f"{what}: peak device memory {peak / 2 ** 30:.2f} GiB; stored amax "
+          f"after {n_steps} steps {json.dumps(_floats(amax1))}",
+          flush=True)
+    if len(amax1) != 3 or not all(bool(torch.isfinite(v)) and float(v) > 0
+                                  for v in amax1.values()):
+        raise AssertionError(f"stored amax not finite and positive: {amax1}")
+    if any(torch.equal(amax0[k], v) for k, v in amax1.items()):
+        raise AssertionError("a stored amax did not move in training")
+    del state, step
+    int8_f32_check(what, cfg, batches[:TRAIN_F32_STEPS])
+
+    as_is = get_preset("facades_int8")
+    state = create_train_state(as_is, SEED, train_dtype=dtype,
+                               sample_batch=batches[0])
+    step = build_train_step(as_is, None, dtype)
+    a0 = _amax(state.net_d)
+    print(f"facades_int8 as it is: norm_d={as_is.model.norm_d}, "
+          f"int8_fused_epilogue={as_is.model.int8_fused_epilogue}",
+          flush=True)
+    as_is_counts, _ = bf16_train_run(
+        "facades_int8 as it is", state, step, batches[:INT8_AS_IS_STEPS], 1,
+        only(batch_moments=INT8_PER_STEP["batch_moments"]
+             * INT8_AS_IS_STEPS), FACADES_LOSS_KEYS, card, False)
+    a1 = _amax(state.net_d)
+    if len(a1) != 3 or any(torch.equal(a0[k], v) or not bool(
+            torch.isfinite(v)) for k, v in a1.items()):
+        raise AssertionError(f"facades_int8 stored amax {a0} -> {a1}")
+    del state, step
+    return counts, as_is_counts, med, peak
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -1324,15 +1731,30 @@ def main(argv=None) -> int:
     steps = TRAIN_WARMUP + TRAIN_STEPS
     hd_steps = HD_TRAIN_WARMUP + HD_TRAIN_STEPS
     net_c_bn = (ref.image_hw[0] * ref.image_hw[1], 64)
+    i8 = int8_config()
+    i8_plan = 2 * int8_d_plan(i8)          # the fake and the real D forward
+    i8_count = collections.Counter(form for *_, form in i8_plan)
+    if (len(i8_plan), i8_count["leaky+quant"], i8_count["leaky"]) != (
+            INT8_PER_STEP["instance_norm_stats"],
+            INT8_PER_STEP["norm_act_quant"], INT8_PER_STEP["norm_act"]):
+        raise AssertionError(f"facades_int8 D plan {i8_plan}")
+    if len(facades_bn_plan(i8.model.ngf, *i8.image_hw)) != \
+            INT8_PER_STEP["batch_moments"]:
+        raise AssertionError("facades_int8 BatchNorm plan")
     bn_launches = collections.Counter()
     for shape in bn_plan + fac_bn_plan + [net_c_bn] * 2:
         bn_launches[shape] += steps
+    for shape in facades_bn_plan(i8.model.ngf, *i8.image_hw):
+        bn_launches[shape] += steps + INT8_AS_IS_STEPS
     head_fwd = main_path_forwards() + collections.Counter({1: steps})
     head_dx = collections.Counter({1: steps})
-    rows = (kernel_phase(device, instance_launches(plan, a_plan, steps,
-                                                   hd_steps))
+    norm_launches = instance_launches(plan, a_plan, steps, hd_steps)
+    for hh, ww, c, form in i8_plan:
+        norm_launches[(1, hh, ww, c, form)] += steps
+    rows = (kernel_phase(device, norm_launches)
             + moments_phase(device, bn_launches)
             + subpixel_phase(device, head_fwd, head_dx))
+    int8_forms_phase(device)
     backward_phase(device, a_plan, plan)
     serve_counts, _, _ = slice_phase(device, card, args.profile)
     train_counts, _ = train_phase(device, card, args.profile)
@@ -1341,9 +1763,12 @@ def main(argv=None) -> int:
     fac_train_counts, _ = facades_train_phase(device, card, args.profile)
     a_counts, _ = instance_a_phase(device, card, args.profile, a_per_step)
     b_counts, _, _ = instance_b_phase(device, card, args.profile, b_per_step)
+    i8_counts, i8_as_is_counts, _, _ = int8_train_phase(device, card,
+                                                         args.profile)
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
-              fac_train_counts, a_counts, b_counts):
+              fac_train_counts, a_counts, b_counts, i8_counts,
+              i8_as_is_counts):
         counts.update(c)
 
     kernels = []
@@ -1353,6 +1778,7 @@ def main(argv=None) -> int:
             ("instance_norm_apply", instance_norm_kernel.SOURCE_APPLY,
              instance_norm_kernel.REPLACES_APPLY),
             ("norm_act", norm_act.SOURCE, norm_act.REPLACES),
+            ("norm_act_quant", norm_act.SOURCE, norm_act.REPLACES_QUANT),
             ("batch_moments", batch_moments.SOURCE, batch_moments.REPLACES),
             ("subpixel_head_fwd", subpixel_head.SOURCE,
              subpixel_head.REPLACES_FWD),
@@ -1381,6 +1807,11 @@ def main(argv=None) -> int:
     for hh, ww, c, act, res in plan:
         b_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
         b_keys[("norm_act", 1, (hh, ww, c), form_of(act, res))] += 1
+    i8_keys = collections.Counter()
+    for hh, ww, c, form in i8_plan:
+        i8_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
+        name = "norm_act_quant" if form.endswith("+quant") else "norm_act"
+        i8_keys[(name, 1, (hh, ww, c), form)] += 1
     for what, kernel, keys in (
             ("#5 per reference train step", "batch_moments",
              collections.Counter((1, shape, "-") for shape in bn_plan)),
@@ -1396,18 +1827,24 @@ def main(argv=None) -> int:
                               (2, "instance_norm_apply"), (3, "norm_act"))],
             *[(f"#{i} per path B train step", name,
                {k[1:]: v for k, v in b_keys.items() if k[0] == name})
-              for i, name in ((1, "instance_norm_stats"), (3, "norm_act"))]):
+              for i, name in ((1, "instance_norm_stats"), (3, "norm_act"))],
+            *[(f"#{i} per facades int8 train step", name,
+               {k[1:]: v for k, v in i8_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"), (3, "norm_act"),
+                              (4, "norm_act_quant"))]):
         sel = [(bf16[(kernel,) + key], v) for key, v in keys.items()]
         print(f"{what} (bf16, {sum(v for _, v in sel)} launches): "
               + ", ".join(f"{k} {sum(r[k] * v for r, v in sel):.4f}"
                           for k in ("ms", "bound_ms", "plain_ms",
                                     "library_ms")))
     print("per-kernel numbers are the main paths' bf16 launches (#1, #3: "
-          f"pix2pixHD serving at {h}x{w}, path A ({steps} steps) and path B "
-          f"({hd_steps} steps) training; #2: path A; #5: {steps} reference, "
-          f"facades and path A train steps; #6: facades serving and "
-          f"training; #7: facades training): per-(N, shape, form) device "
-          "times weighted by launches")
+          f"pix2pixHD serving at {h}x{w}, path A ({steps} steps), path B "
+          f"({hd_steps} steps) and facades int8 ({steps} steps) training; "
+          f"#2: path A; #4: facades int8; #5: {steps} reference, facades, "
+          f"path A and facades int8 train steps and {INT8_AS_IS_STEPS} of "
+          f"facades_int8 as it is; #6: facades serving and training; #7: "
+          "facades training): per-(N, shape, form) device times weighted by "
+          "launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,6 +29,12 @@ Adams) has empty ``batch_stats`` and no net_c. Flax's ``_SplitStemConv``
 keeps its stem kernel whole, so a JAX D on split pairs has the tree of the
 port's D, which always takes concatenated pairs.
 
+A delayed-int8 discriminator's ``quant`` collection (the JAX state's
+``quant_d``) holds one 0-d ``amax_x`` per quantized conv, under the conv's
+``Conv_0``; it is the buffer of the port's ``QuantConv`` at the same path:
+
+    scale0/_PlainConv_2/Conv_0/amax_x () → scale0._PlainConv_2.conv.amax_x
+
 An ``.npz`` file holds one array per leaf under its ``/``-joined path (a
 generator's parameters and running statistics side by side).
 """
@@ -88,7 +94,7 @@ def load_npz(path: str) -> Dict[str, Any]:
 
 
 # leaves that keep their flax name (every other leaf must be a conv kernel)
-_KEPT_LEAVES = ("bias", "scale", "mean", "var", "alpha", "u")
+_KEPT_LEAVES = ("bias", "scale", "mean", "var", "alpha", "u", "amax_x")
 
 
 def state_from_flax(*trees: Mapping[str, Any],
@@ -103,8 +109,8 @@ def state_from_flax(*trees: Mapping[str, Any],
     kernels are flipped into ``nn.ConvTranspose2d``'s layout and a layer's
     own ``kernel`` parameter stays HWIO. BatchNorm's inner
     ``BatchNorm_0`` level goes (its ``scale``/``bias``/``mean``/``var``
-    keep their names); the PReLU ``alpha`` and the spectral-norm ``u``
-    keep theirs."""
+    keep their names); the PReLU ``alpha``, the spectral-norm ``u`` and
+    the delayed-int8 ``amax_x`` keep theirs."""
     state = {}
     for tree in trees:
         for key, arr in flatten_tree(tree).items():
@@ -155,12 +161,14 @@ def load_train_state(state, flax_state: Mapping[str, Any]):
     """Load a JAX ``TrainState``'s networks into the port's ``state``
     (train/state.py): ``flax_state`` maps the JAX field names
     ``params_g``, ``batch_stats_g``, ``params_d``, ``spectral_d``,
-    ``params_c`` and ``batch_stats_c`` to numpy trees (the ``_c`` fields
-    None or absent for a state without net_c). Every parameter and buffer
+    ``quant_d``, ``params_c`` and ``batch_stats_c`` to numpy trees (the
+    ``_c`` fields None or absent for a state without net_c, ``quant_d``
+    for a D without delayed int8). Every parameter and buffer
     must be present, and nothing else; the optimizers stay fresh, as the
     JAX state's are at creation."""
     for net, fields in ((state.net_g, ("params_g", "batch_stats_g")),
-                        (state.net_d, ("params_d", "spectral_d")),
+                        (state.net_d, ("params_d", "spectral_d",
+                                       "quant_d")),
                         (state.net_c, ("params_c", "batch_stats_c"))):
         trees = [flax_state.get(f) for f in fields]
         if net is None:

@@ -1,10 +1,10 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
-fields the serving paths and the ``reference``, ``facades`` and
-``pix2pixhd`` train steps read. Field names, defaults and the preset
-values are those of the JAX package, so one preset name means one model
-in both. A few fields name
-machinery the port does not have yet (the fake pool, int8, EMA); the train
-step reads them only to raise.
+fields the serving paths and the ``reference``, ``facades``,
+``facades_int8`` and ``pix2pixhd`` train steps read. Field names, defaults
+and the preset values are those of the JAX package, so one preset name
+means one model in both. A few fields name machinery the port does not
+have yet (the fake pool, the int8 generator, stem and head, EMA); the
+train step reads them only to raise.
 """
 
 from __future__ import annotations
@@ -55,9 +55,25 @@ class ModelConfig:
     # Hopper kernels #6 (forward) and #7 (dx)
     thin_head: bool = False
     head_pallas: bool = False
-    # not ported: the int8 QAT path
+    # int8 QAT (ops/int8.py): the discriminator's inner convs as int8 ×
+    # int8 → int32 products with dynamic per-tensor activation scales;
+    # with int8_delayed the activation scale is a stored amax (a buffer
+    # ``amax_x`` per conv, updated by each training-mode forward)
     int8: bool = False
     int8_delayed: bool = False
+    # with int8 + int8_delayed + an instance-family norm_d: each inner
+    # conv after the first takes its input quantized by the fused
+    # [instance norm + LeakyReLU + clip/round + amax] epilogue (#1 + #4
+    # under "pallas_instance")
+    int8_fused_epilogue: bool = False
+    # not ported (the train step refuses them by name): int8 on the stems,
+    # on D's logits head (the int8 kn2row head), in G, in the U-Net
+    # decoder and in net_c
+    int8_stem: bool = False
+    int8_head: bool = False
+    int8_generator: bool = False
+    int8_decoder: bool = False
+    int8_compression: bool = False
     # JAX: feed D the unconcatenated (input, output) pair through a split
     # stem conv with the same parameters and result. Accepted so that one
     # preset means one model in both packages; the port always feeds D the
@@ -87,6 +103,9 @@ class OptimConfig:
     niter_decay: int = 100           # epochs of linear decay to 0
     # False is the reference's bug: its optimizer_c never trains net_c
     train_compression_net: bool = True
+    # storage dtype of both Adam moments (None = f32); the arithmetic stays
+    # f32 (train/state.py AdamLP)
+    moment_dtype: Optional[str] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +189,23 @@ _register(
         loss=LossConfig(lambda_feat=0.0, lambda_vgg=0.0, lambda_tv=0.0,
                         lambda_l1=100.0),
         data=DataConfig(dataset="facades", image_size=256, batch_size=1),
+    )
+)
+
+# facades with the discriminator's three inner convs on the delayed-int8
+# path (stored activation scales); G stays bf16 (int8_generator off), the
+# stem and the logits head stay bf16; both Adam moments stored in bf16
+_register(
+    Config(
+        name="facades_int8",
+        model=ModelConfig(generator="unet", ngf=64, num_D=1, n_layers_D=3,
+                          use_spectral_norm=False,
+                          use_compression_net=False, use_dropout=True,
+                          int8=True, int8_delayed=True),
+        loss=LossConfig(lambda_feat=0.0, lambda_vgg=0.0, lambda_tv=0.0,
+                        lambda_l1=100.0),
+        data=DataConfig(dataset="facades", image_size=256, batch_size=1),
+        optim=OptimConfig(moment_dtype="bfloat16"),
     )
 )
 

@@ -23,12 +23,25 @@ have, so the port always concatenates.
 The multiscale D runs ``num_D`` of them on the input downsampled 0, 1, …
 times; results come finest first and scale i is named
 ``scale{num_D-1-i}``, as in the flax tree.
+
+int8 (``p2p_tpu/models/patchgan.py:99-277``): with ``int8`` the three
+inner convs are ``ops.int8.QuantConv`` (``conv`` of ``_PlainConv_{1,2,3}``,
+so the state dict keeps its keys, plus ``conv.amax_x`` under
+``int8_delayed``); the stem and the head stay plain. With
+``int8_fused_epilogue`` (needs ``int8_delayed`` and an instance-family
+norm) inner conv 1 takes its input raw, inner convs 2 and 3 take the
+previous conv's raw output through the quantize-fused epilogue
+``norm + LeakyReLU + clip/round + amax`` (#1 + #4 under
+``"pallas_instance"``), and their feature taps are the dequantized
+surrogate ``sx·q``; the last inner epilogue stays unfused. Not ported, and
+refused by name: ``int8_stem``, ``int8_head`` (the int8 kn2row head) and
+int8 under spectral norm.
 """
 
 from __future__ import annotations
 
 import collections
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +49,7 @@ from torch import nn
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y
 from p2p_tpu_torch.ops.conv import cast_conv
+from p2p_tpu_torch.ops.int8 import QuantConv
 from p2p_tpu_torch.ops.norm import make_norm_act
 from p2p_tpu_torch.ops.spectral_norm import SpectralConv
 
@@ -58,26 +72,57 @@ def avg_pool_downsample(x: torch.Tensor) -> torch.Tensor:
 
 class _PlainConv(nn.Module):
     """k4 conv with zero padding 2 and a bias (the flax ``_PlainConv``,
-    whose ``Conv_0`` is ``conv`` here)."""
+    whose ``Conv_0`` is ``conv`` here); with ``int8`` a ``QuantConv``."""
 
     def __init__(self, in_channels: int, features: int, stride: int,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False,
+                 epilogue: Optional[Callable] = None,
+                 epilogue_tap: bool = False):
         super().__init__()
         self.dtype = dtype
-        self.conv = nn.Conv2d(in_channels, features, 4, stride=stride,
-                              padding=2)
+        self.int8 = int8
+        if int8:
+            self.conv = QuantConv(in_channels, features, 4, stride=stride,
+                                  padding=2, dtype=dtype,
+                                  delayed=int8_delayed, epilogue=epilogue,
+                                  epilogue_tap=epilogue_tap)
+        else:
+            self.conv = nn.Conv2d(in_channels, features, 4, stride=stride,
+                                  padding=2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
+        if self.int8:
+            return self.conv(x)
         return cast_conv(self.conv, x, self.dtype)
+
+
+def _check_int8(int8: bool, int8_stem: bool, int8_head: bool,
+                use_spectral_norm: bool) -> None:
+    unported = {"int8_stem": int8_stem, "int8_head (the int8 kn2row head)":
+                int8_head, "int8 under spectral norm": use_spectral_norm}
+    missing = [k for k, v in unported.items() if int8 and v]
+    if missing:
+        raise NotImplementedError(
+            f"the port's discriminator does not have {', '.join(missing)} "
+            "yet")
 
 
 class NLayerDiscriminator(nn.Module):
     def __init__(self, in_channels: int = 6, ndf: int = 64,
                  n_layers: int = 3, use_spectral_norm: bool = True,
                  get_interm_feat: bool = True, norm: str = "none",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False, int8_stem: bool = False,
+                 int8_head: bool = False, int8_fused_epilogue: bool = False):
         super().__init__()
         check_norm_d(norm)
+        _check_int8(int8, int8_stem, int8_head, use_spectral_norm)
+        self.fused_q = int8 and int8_delayed and int8_fused_epilogue
+        if self.fused_q and norm not in ("instance", "pallas_instance"):
+            raise ValueError(
+                "int8_fused_epilogue needs a stateless instance-family "
+                f"discriminator norm (norm_d), got {norm!r}")
         self.get_interm_feat = get_interm_feat
         self.na = None if norm == "none" else make_norm_act(norm)
         widths = []
@@ -88,10 +133,14 @@ class NLayerDiscriminator(nn.Module):
         widths.append((min(nf * 2, 512), 1))
         mods = [_PlainConv(in_channels, ndf, 2, dtype)]
         cin = ndf
-        for f, stride in widths:
-            mods.append(SpectralConv(cin, f, 4, stride=stride, padding=2,
-                                     dtype=dtype) if use_spectral_norm
-                        else _PlainConv(cin, f, stride, dtype))
+        for i, (f, stride) in enumerate(widths):
+            if use_spectral_norm:
+                mods.append(SpectralConv(cin, f, 4, stride=stride, padding=2,
+                                         dtype=dtype))
+            else:
+                ep = self._quant_epilogue if self.fused_q and i else None
+                mods.append(_PlainConv(cin, f, stride, dtype, int8,
+                                       int8_delayed, ep, ep is not None))
             cin = f
         mods.append(_PlainConv(cin, 1, 1, dtype))
         # flax names each module by its type and creation order
@@ -103,7 +152,12 @@ class NLayerDiscriminator(nn.Module):
             setattr(self, name, m)
             self.stages.append(name)
 
+    def _quant_epilogue(self, y: torch.Tensor, sx: torch.Tensor):
+        return self.na(y, act="leaky", slope=0.2, quant_scale=sx)
+
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        if self.fused_q:
+            return self._forward_fused(x)
         feats = []
         y = x
         last = len(self.stages) - 1
@@ -116,19 +170,37 @@ class NLayerDiscriminator(nn.Module):
             feats.append(y)
         return feats if self.get_interm_feat else feats[-1:]
 
+    def _forward_fused(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """Each inner conv after the first takes the previous one's raw
+        output through its quantize-fused epilogue; its tap (the
+        dequantized surrogate) stands where the float activation would."""
+        stem, *inner, head = (getattr(self, n) for n in self.stages)
+        y = leaky_relu_y(stem(x), 0.2)
+        feats = [y]
+        raw = inner[0](y)
+        for conv in inner[1:]:
+            raw, tap = conv(raw)
+            feats.append(tap)
+        y = self.na(raw, act="leaky", slope=0.2)
+        feats += [y, head(y)]
+        return feats if self.get_interm_feat else feats[-1:]
+
 
 class MultiscaleDiscriminator(nn.Module):
     def __init__(self, in_channels: int = 6, ndf: int = 64,
                  n_layers: int = 3, num_D: int = 3,
                  use_spectral_norm: bool = True,
                  get_interm_feat: bool = True, norm: str = "none",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False, int8_stem: bool = False,
+                 int8_head: bool = False, int8_fused_epilogue: bool = False):
         super().__init__()
         self.num_D = num_D
         for i in range(num_D):
             setattr(self, f"scale{num_D - 1 - i}", NLayerDiscriminator(
                 in_channels, ndf, n_layers, use_spectral_norm,
-                get_interm_feat, norm, dtype))
+                get_interm_feat, norm, dtype, int8, int8_delayed, int8_stem,
+                int8_head, int8_fused_epilogue))
 
     def forward(self, x: torch.Tensor) -> List[List[torch.Tensor]]:
         results = []

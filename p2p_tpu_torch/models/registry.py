@@ -49,7 +49,8 @@ def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
             use_dropout=cfg.use_dropout, upsample_mode=cfg.upsample_mode,
             legacy_layout=cfg.legacy_layout, thin_head=cfg.thin_head,
             head_pallas=cfg.head_pallas,
-            int8=cfg.int8 or cfg.int8_delayed, dtype=dtype)
+            int8=(cfg.int8 and cfg.int8_generator
+                  and cfg.upsample_mode == "deconv"), dtype=dtype)
     if cfg.generator == "pix2pixhd":
         from p2p_tpu_torch.models.pix2pixhd import Pix2PixHDGenerator
 
@@ -84,14 +85,17 @@ def define_C(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
 def define_D(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
              ) -> nn.Module:
     """The multiscale PatchGAN on concatenated (input ‖ output) pairs, with
-    ``norm_d`` on its inner convs."""
+    ``norm_d`` on its inner convs and the int8 flags of ``cfg``."""
     from p2p_tpu_torch.models.patchgan import MultiscaleDiscriminator
 
     return MultiscaleDiscriminator(
         in_channels=cfg.input_nc + cfg.output_nc, ndf=cfg.ndf,
         n_layers=cfg.n_layers_D, num_D=cfg.num_D,
         use_spectral_norm=cfg.use_spectral_norm,
-        get_interm_feat=cfg.get_interm_feat, norm=cfg.norm_d, dtype=dtype)
+        get_interm_feat=cfg.get_interm_feat, norm=cfg.norm_d, dtype=dtype,
+        int8=cfg.int8, int8_delayed=cfg.int8_delayed,
+        int8_stem=cfg.int8_stem, int8_head=cfg.int8_head,
+        int8_fused_epilogue=cfg.int8_fused_epilogue)
 
 
 @torch.no_grad()

@@ -33,8 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from p2p_tpu_torch.ops.cuda import build
-from p2p_tpu_torch.ops.cuda.norm_act import THREADS, check_apply_args, \
-    grid_blocks
+from p2p_tpu_torch.ops.cuda.norm_act import THREADS, affine_fma, \
+    check_apply_args, grid_blocks
 
 REPLACES = "p2p_tpu/ops/pallas/instance_norm_kernel.py:79 (_stats_local)"
 SOURCE = "p2p_tpu_torch/ops/cuda/csrc/instance_norm_stats.cu"
@@ -115,7 +115,7 @@ def instance_norm_apply_plain(x: torch.Tensor, mean: torch.Tensor,
     """The plain PyTorch version of #2, in the kernel's op order."""
     y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
     if scale is not None:
-        y = y * scale[None, :, None, None] + bias[None, :, None, None]
+        y = affine_fma(y, scale, bias)
     return y.to(x.dtype)
 
 

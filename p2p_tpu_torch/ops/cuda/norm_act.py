@@ -14,13 +14,27 @@ residual read once, y written once; 3.35 TB/s on an H100 SXM), so it is
 one flat pass of 16-byte vector loads and stores along C, with the
 activation and the residual compiled in as template parameters.
 
-On a CPU tensor the wrapper computes the plain version; on a CUDA tensor
-it launches the kernel or raises.
+``norm_act_quant(x, mean, rstd, scale, bias, sx, act, slope)`` (#4) is the
+quantize-fused form of the delayed-int8 discriminator: the same epilogue
+without a residual, its value rounded through x's dtype (``yc``), then
+``q = clip(round(yc / sx), −127, 127)`` stored in x's dtype and
+``max|yc|`` as a 0-d f32 tensor, from one launch. ``sx`` is a 0-d f32
+tensor on x's device (never read on the host). It replaces
+``norm_act.py:_norm_act_quant_local`` (kernel body
+``_norm_act_quant_kernel``): the ``p2p_norm_act_quant`` entry point of the
+same library, #3's body with the quantize and a block-then-last-block
+amax reduction after it. The blocks count their arrivals on one counter
+per device and stream, which the last block sets back to 0, so a launch
+needs no fill before it.
+
+On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
+it launches its kernel or raises.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -28,6 +42,7 @@ from p2p_tpu_torch.ops.cuda import build
 
 REPLACES = "p2p_tpu/ops/pallas/norm_act.py:92 (_norm_act_local)"
 SOURCE = "p2p_tpu_torch/ops/cuda/csrc/norm_act.cu"
+REPLACES_QUANT = "p2p_tpu/ops/pallas/norm_act.py:277 (_norm_act_quant_local)"
 ACTS = ("none", "relu", "leaky")
 
 THREADS = 256
@@ -42,6 +57,17 @@ def check_act(act: str, slope: float) -> None:
         raise ValueError(f"leaky needs slope > 0 (got {slope})")
 
 
+def affine_fma(y: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
+               ) -> torch.Tensor:
+    """``y·γ + β`` over C of an (N, C, H, W) f32 tensor, rounded once, as a
+    fused multiply-add: XLA contracts the JAX expression into one, and the
+    kernels use ``fmaf``. The f32 product is exact in f64; the f64 sum
+    rounds to f32 as the fused result does unless it lands exactly on an
+    f32 midpoint (a chance of about 2⁻²⁹ per element)."""
+    y64 = y.double() * scale.double()[None, :, None, None]
+    return (y64 + bias.double()[None, :, None, None]).float()
+
+
 def norm_act_plain(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                    scale: Optional[torch.Tensor] = None,
                    bias: Optional[torch.Tensor] = None,
@@ -51,7 +77,7 @@ def norm_act_plain(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     check_act(act, slope)
     y = (x.float() - mean[:, :, None, None]) * rstd[:, :, None, None]
     if scale is not None:
-        y = y * scale[None, :, None, None] + bias[None, :, None, None]
+        y = affine_fma(y, scale, bias)
     if residual is not None:
         y = y + residual.float()
     if act == "relu":
@@ -132,3 +158,66 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
 
 
 norm_act.launches = 0
+
+
+def norm_act_quant_plain(x: torch.Tensor, mean: torch.Tensor,
+                         rstd: torch.Tensor,
+                         scale: Optional[torch.Tensor] = None,
+                         bias: Optional[torch.Tensor] = None,
+                         sx: Optional[torch.Tensor] = None,
+                         act: str = "none", slope: float = 0.2
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of #4, in the kernel's op order:
+    ``(q in x's dtype, amax 0-d f32)``."""
+    yc = norm_act_plain(x, mean, rstd, scale, bias, None, act,
+                        slope).float()
+    q = torch.clamp(torch.round(yc / sx), -127.0, 127.0)
+    return q.to(x.dtype), yc.abs().amax()
+
+
+@functools.cache
+def _arrival_counter(device: torch.device, stream: int) -> torch.Tensor:
+    """The zeroed block-arrival counter of #4's launches on ``stream``:
+    the launches on one stream run in order, and each leaves it at 0."""
+    return torch.zeros((1,), dtype=torch.int32, device=device)
+
+
+def norm_act_quant(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
+                   scale: Optional[torch.Tensor] = None,
+                   bias: Optional[torch.Tensor] = None,
+                   sx: Optional[torch.Tensor] = None,
+                   act: str = "none", slope: float = 0.2
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``q = clip(round(act((x − mean)·rstd·γ + β) in x's dtype / sx),
+    ±127)`` in x's dtype and ``max|act(...)|`` (0-d f32), for (N, C) f32
+    statistics, an optional (C,) f32 affine and a 0-d f32 ``sx > 0``."""
+    if x.device.type == "cpu":
+        return norm_act_quant_plain(x, mean, rstd, scale, bias, sx, act,
+                                    slope)
+    check_act(act, slope)
+    check_apply_args(x, mean, rstd, scale, bias, "norm_act_quant")
+    _check_vector(sx, (), x.device, "norm_act_quant: sx")
+    n, c, h, w = x.shape
+    y = torch.empty_like(x, memory_format=torch.channels_last)
+    vec = build.vector_width(c, x, y)
+    numel = x.numel()
+    blocks = grid_blocks(numel, vec)
+    partial = torch.empty((blocks,), dtype=torch.float32, device=x.device)
+    stream = build.stream_handle(x.device)
+    counter = _arrival_counter(x.device, stream)
+    amax = torch.empty((), dtype=torch.float32, device=x.device)
+    lib, fn = build.load("norm_act", "p2p_norm_act_quant")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+                 None if scale is None else scale.data_ptr(),
+                 None if bias is None else bias.data_ptr(), sx.data_ptr(),
+                 y.data_ptr(), partial.data_ptr(),
+                 counter.data_ptr(), amax.data_ptr(),
+                 build.DTYPE_CODES[x.dtype], numel, h * w * c, c, vec,
+                 ACTS.index(act), slope, blocks, THREADS, stream)
+    build.check(lib, err, "norm_act_quant")
+    norm_act_quant.launches += 1
+    return y, amax
+
+
+norm_act_quant.launches = 0

@@ -22,6 +22,18 @@ form saves its OUTPUT ``y`` (not the pre-activation) and masks ``g`` from
 it first: relu ``y > 0``, leaky ``y >= 0 ? g : slope·g`` (sign-preserving
 activations only); the residual's cotangent is that masked ``g``, cast to
 the residual's dtype.
+
+The quantize-fused epilogue (``instance_norm_act_quant``, counterpart of
+``p2p_tpu/ops/pallas/norm_act.py:instance_norm_act_quant`` with its
+``_in_act_quant`` VJP) returns ``(q, amax)``: #1, then #4 with a stored
+scale ``sx``; with ``use_kernel=False`` the JAX lax reference instead
+(two-pass mean and variance, plain PyTorch), under the same backward. Its
+backward is the straight-through law of the delayed-int8 path: the
+cotangent of q is w.r.t. the dequantized surrogate ``sx·q`` and passes
+clip/round unchanged; the activation mask comes from the recomputed
+pre-activation ``h = xhat·γ + β`` (relu ``h > 0``, leaky ``h >= 0``),
+since round() erased the sign near zero; then the closed form above.
+``sx`` and ``amax`` get no gradient.
 """
 
 from __future__ import annotations
@@ -32,7 +44,8 @@ import torch
 
 from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
     instance_norm_apply, instance_norm_stats)
-from p2p_tpu_torch.ops.cuda.norm_act import norm_act
+from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_quant, \
+    norm_act_quant_plain
 
 
 def _norm_backward(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
@@ -114,3 +127,59 @@ def instance_norm_act(x: torch.Tensor, scale: Optional[torch.Tensor] = None,
     the whole post-conv epilogue fused; the output has x's dtype (#1 +
     #3)."""
     return _InstanceNormAct.apply(x, scale, bias, residual, act, slope, eps)
+
+
+class _InstanceNormActQuant(torch.autograd.Function):
+    """#1 then #4 (``use_kernel``), or the lax reference; saves x, the
+    statistics and the affine."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, sx, act, slope, eps, use_kernel):
+        sx = sx.float().clamp_min(1e-12)
+        if use_kernel:
+            mean, rstd = instance_norm_stats(x, eps)
+            q, amax = norm_act_quant(x, mean, rstd, scale, bias, sx, act,
+                                     slope)
+        else:
+            x32 = x.float()
+            m = x32.mean(dim=(2, 3), keepdim=True)
+            var = (x32 - m).square().mean(dim=(2, 3), keepdim=True)
+            mean, rstd = m[:, :, 0, 0], torch.rsqrt(var + eps)[:, :, 0, 0]
+            q, amax = norm_act_quant_plain(x, mean, rstd, scale, bias, sx,
+                                           act, slope)
+        ctx.save_for_backward(x, mean, rstd, scale, bias)
+        ctx.act, ctx.slope = act, slope
+        ctx.mark_non_differentiable(amax)
+        return q, amax
+
+    @staticmethod
+    def backward(ctx, g, _g_amax):
+        x, mean, rstd, scale, bias = ctx.saved_tensors
+        g32 = g.float()
+        if ctx.act != "none":
+            xhat = (x.float() - mean[:, :, None, None]) * rstd[:, :, None,
+                                                               None]
+            h = xhat if scale is None else (
+                xhat * scale.float()[None, :, None, None]
+                + bias.float()[None, :, None, None])
+            if ctx.act == "relu":
+                g32 = torch.where(h > 0, g32, 0.0)
+            else:
+                g32 = torch.where(h >= 0, g32, ctx.slope * g32)
+        dx, dscale, dbias = _norm_backward(x, mean, rstd, scale, g32)
+        return dx, dscale, dbias, None, None, None, None, None
+
+
+def instance_norm_act_quant(x: torch.Tensor, sx: torch.Tensor,
+                            scale: Optional[torch.Tensor] = None,
+                            bias: Optional[torch.Tensor] = None,
+                            act: str = "none", slope: float = 0.2,
+                            eps: float = 1e-5, use_kernel: bool = True
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Quantize-fused ``act(instance_norm(x)·γ+β)`` of a channels_last
+    (N, C, H, W) tensor: ``(q, amax)``, q the activation clipped and
+    rounded onto the int8 grid with the stored scale ``sx`` (0-d f32),
+    carried in x's dtype, and amax its max |value| (0-d f32). Feed q to
+    ``ops.int8.int8_conv_pq`` with the same ``sx``."""
+    return _InstanceNormActQuant.apply(x, scale, bias, sx, act, slope, eps,
+                                       use_kernel)

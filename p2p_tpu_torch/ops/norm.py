@@ -21,7 +21,7 @@ from torch import nn
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y
 from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
 from p2p_tpu_torch.ops.instance_norm import instance_norm_act, \
-    instance_norm_fused
+    instance_norm_act_quant, instance_norm_fused
 
 EpilogueFn = Callable[..., torch.Tensor]
 # the kinds of make_norm / make_norm_act
@@ -111,12 +111,20 @@ def _epilogue(z: torch.Tensor, act: str, slope: float,
     return z
 
 
+def _refuse_quant(kind: str) -> None:
+    raise ValueError("quant_scale needs a stateless instance-family norm "
+                     f"with no residual (kind={kind!r})")
+
+
 class BatchNormAct(BatchNorm):
     """The ``"batch"`` kind of :func:`make_norm_act`: a BatchNorm whose
     call takes the epilogue's ``act``, ``slope`` and ``residual``."""
 
     def forward(self, y: torch.Tensor, act: str = "none", slope: float = 0.2,
-                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                residual: Optional[torch.Tensor] = None,
+                quant_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if quant_scale is not None:
+            _refuse_quant("batch")
         return _epilogue(super().forward(y), act, slope, residual)
 
 
@@ -152,17 +160,29 @@ def make_norm(kind: str, features: Optional[int] = None
 
 def make_norm_act(kind: str, features: Optional[int] = None) -> EpilogueFn:
     """The post-conv epilogue ``apply(y, act="none", slope=0.2,
-    residual=None)`` = act(norm(y) [+ residual]). ``pallas_instance``
-    fuses the chain into the kernels' normalize pass; ``"batch"`` is a
-    :class:`BatchNormAct` module (needs ``features``); the other kinds run
-    norm → residual add → activation in y's dtype, as the JAX reference
-    chain does."""
+    residual=None, quant_scale=None)`` = act(norm(y) [+ residual]).
+    ``pallas_instance`` fuses the chain into the kernels' normalize pass;
+    ``"batch"`` is a :class:`BatchNormAct` module (needs ``features``); the
+    other kinds run norm → residual add → activation in y's dtype, as the
+    JAX reference chain does. With ``quant_scale`` (a 0-d f32 stored
+    scale) the instance kinds return the quantize-fused ``(q, amax)``
+    (ops/instance_norm.py ``instance_norm_act_quant``: #1 + #4 for
+    ``pallas_instance``, the lax reference for ``instance``); it takes no
+    residual, and the other kinds refuse it."""
     if kind == "batch":
         return BatchNormAct(_need_features(kind, features))
     if kind == "pallas_instance":
         def apply_fused(y: torch.Tensor, act: str = "none",
                         slope: float = 0.2,
-                        residual: Optional[torch.Tensor] = None):
+                        residual: Optional[torch.Tensor] = None,
+                        quant_scale: Optional[torch.Tensor] = None):
+            if quant_scale is not None:
+                if residual is not None:
+                    raise ValueError(
+                        "quant_scale does not compose with residual (no "
+                        "quantized resblock tail in the zoo)")
+                return instance_norm_act_quant(y, quant_scale, act=act,
+                                               slope=slope)
             return instance_norm_act(y, residual=residual, act=act,
                                      slope=slope)
 
@@ -171,7 +191,13 @@ def make_norm_act(kind: str, features: Optional[int] = None) -> EpilogueFn:
     norm = make_norm(kind)
 
     def apply_ref(y: torch.Tensor, act: str = "none", slope: float = 0.2,
-                  residual: Optional[torch.Tensor] = None):
+                  residual: Optional[torch.Tensor] = None,
+                  quant_scale: Optional[torch.Tensor] = None):
+        if quant_scale is not None:
+            if kind != "instance" or residual is not None:
+                _refuse_quant(kind)
+            return instance_norm_act_quant(y, quant_scale, act=act,
+                                           slope=slope, use_kernel=False)
         return _epilogue(norm(y), act, slope, residual)
 
     return apply_ref

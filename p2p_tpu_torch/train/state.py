@@ -10,14 +10,23 @@ updates in place, and one ``torch.optim.Adam`` with a ``LambdaLR`` per
 network. Adam with β = (0.5, 0.999) and ε = 1e-8 is ``optax.adam``'s
 update, and the scheduler's count of applied updates is optax's count.
 The JAX state's ``lr_scale`` (the plateau policy's knob) has no
-counterpart: the port has the lambda policy only.
+counterpart: the port has the lambda policy only. With
+``OptimConfig.moment_dtype`` the optimizer is :class:`AdamLP` (``p2p_tpu/
+train/state.py:238 scale_by_adam_lp``): both moments stored in that dtype,
+the arithmetic in f32.
+
+Under ``int8_delayed`` the JAX state's ``quant_d`` collection is the
+``amax_x`` buffer of each of D's ``QuantConv``s; ``create_train_state``
+initializes them as flax init does, from one D forward on the sample
+batch's (input ‖ target) pair (:func:`init_amax`).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple, Union
+from typing import Dict, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -26,9 +35,11 @@ from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.models.registry import define_C, define_D, define_G, \
     init_weights
 from p2p_tpu_torch.models.vgg import VGG19Features, init_vgg19
+from p2p_tpu_torch.ops.int8 import QuantConv
 from p2p_tpu_torch.train.schedules import make_schedule
+from p2p_tpu_torch.utils.images import ingest
 
-Optimizer = Tuple[torch.optim.Adam, torch.optim.lr_scheduler.LambdaLR]
+Optimizer = Tuple[torch.optim.Optimizer, torch.optim.lr_scheduler.LambdaLR]
 
 
 @dataclasses.dataclass
@@ -56,28 +67,111 @@ def build_models(cfg: Config, train_dtype: Optional[torch.dtype] = None
             define_D(cfg.model, train_dtype), net_c)
 
 
+class AdamLP(torch.optim.Optimizer):
+    """Adam whose two moments are stored in ``moment_dtype`` while the
+    arithmetic runs in f32, in optax's order (``scale_by_adam_lp`` then
+    ``scale_by_learning_rate``): ``mu = β1·m + (1−β1)·g``, ``nu = β2·v +
+    (1−β2)·g²``, ``u = (mu / (1−β1^t)) / (sqrt(nu / (1−β2^t)) + ε)``,
+    ``p ← p − lr·u``, then the moments are stored rounded. The state keeps
+    torch's names (``step``, ``exp_avg``, ``exp_avg_sq``); ``lr`` follows a
+    ``LambdaLR``."""
+
+    def __init__(self, params, lr: float, betas: Tuple[float, float],
+                 eps: float = 1e-8,
+                 moment_dtype: torch.dtype = torch.bfloat16):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
+        self.moment_dtype = moment_dtype
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = [p for p in group["params"] if p.grad is not None]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            for p in params:
+                st = self.state[p]
+                if not st:
+                    st["step"] = 0
+                    st["exp_avg"] = torch.zeros_like(
+                        p, dtype=self.moment_dtype)
+                    st["exp_avg_sq"] = torch.zeros_like(
+                        p, dtype=self.moment_dtype)
+                st["step"] += 1
+            t = self.state[params[0]]["step"]
+            grads = [p.grad.float() for p in params]
+            ms = [self.state[p]["exp_avg"] for p in params]
+            vs = [self.state[p]["exp_avg_sq"] for p in params]
+            mu = [m.float() for m in ms]
+            torch._foreach_mul_(mu, b1)
+            torch._foreach_add_(mu, torch._foreach_mul(grads, 1 - b1))
+            nu = [v.float() for v in vs]
+            torch._foreach_mul_(nu, b2)
+            torch._foreach_add_(nu, torch._foreach_mul(
+                torch._foreach_mul(grads, grads), 1 - b2))
+            den = torch._foreach_div(nu, 1 - b2 ** t)
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, group["eps"])
+            upd = torch._foreach_div(mu, 1 - b1 ** t)
+            torch._foreach_div_(upd, den)
+            torch._foreach_mul_(upd, -group["lr"])
+            torch._foreach_add_(params, upd)
+            torch._foreach_copy_(ms, mu)
+            torch._foreach_copy_(vs, nu)
+
+
 def make_optimizers(cfg: Config, nets: List[nn.Module],
                     steps_per_epoch: int) -> List[Optimizer]:
-    """One Adam (the reference's lr and betas, ε 1e-8 as optax) with the
-    configured schedule per network."""
+    """One Adam (the reference's lr and betas, ε 1e-8 as optax; an
+    :class:`AdamLP` with ``moment_dtype``) with the configured schedule
+    per network."""
     schedule = make_schedule(cfg.optim, steps_per_epoch,
                              cfg.train.epoch_count)
+    betas = (cfg.optim.beta1, cfg.optim.beta2)
     out = []
     for net in nets:
-        opt = torch.optim.Adam(net.parameters(), lr=cfg.optim.lr,
-                               betas=(cfg.optim.beta1, cfg.optim.beta2),
-                               eps=1e-8)
+        if cfg.optim.moment_dtype:
+            opt = AdamLP(net.parameters(), lr=cfg.optim.lr, betas=betas,
+                         eps=1e-8, moment_dtype=getattr(
+                             torch, cfg.optim.moment_dtype))
+        else:
+            opt = torch.optim.Adam(net.parameters(), lr=cfg.optim.lr,
+                                   betas=betas, eps=1e-8)
         out.append((opt, torch.optim.lr_scheduler.LambdaLR(opt, schedule)))
     return out
 
 
+@torch.no_grad()
+def init_amax(net_d: nn.Module, pair: torch.Tensor) -> None:
+    """Set every stored activation scale (``amax_x``) of ``net_d`` as flax
+    init does: one D forward on ``pair``, in which each delayed
+    ``QuantConv`` first stores max|x| of its input (under a fused
+    epilogue: the epilogue's amax at sx = 1) and then runs with it."""
+    quants = [m for m in net_d.modules()
+              if isinstance(m, QuantConv) and m.delayed]
+    for m in quants:
+        m.init_amax = True
+    try:
+        net_d(pair)
+    finally:
+        for m in quants:
+            m.init_amax = False
+
+
 def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
                        train_dtype: Optional[torch.dtype] = None,
-                       device: Optional[Union[str, torch.device]] = None
+                       device: Optional[Union[str, torch.device]] = None,
+                       sample_batch: Optional[Dict[str, np.ndarray]] = None
                        ) -> TrainState:
     """The networks of ``cfg`` with the reference init drawn from ``seed``
     (G, then D, then C), as f32 masters on ``device`` (``cuda`` unless the
-    caller asks for the CPU) in channels_last, and fresh optimizers."""
+    caller asks for the CPU) in channels_last, and fresh optimizers. Under
+    ``int8_delayed`` the stored activation scales are initialized from
+    ``sample_batch`` (NHWC host arrays ``"input"`` and ``"target"``, as a
+    train step takes), which is then required."""
+    if cfg.model.int8_delayed and sample_batch is None:
+        raise ValueError("int8_delayed needs a sample_batch: the stored "
+                         "activation scales are initialized from it")
     dev = resolve_device(device)
     g, d, c = build_models(cfg, train_dtype)
     nets = [g, d] if c is None else [g, d, c]
@@ -85,10 +179,19 @@ def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
     for net in nets:
         init_weights(net, gen)
         net.to(dev, memory_format=torch.channels_last).train()
+    if cfg.model.int8_delayed:
+        init_amax(d, torch.cat([_image(sample_batch[k], dev)
+                                for k in ("input", "target")], dim=1))
     opts = make_optimizers(cfg, nets, steps_per_epoch)
     if c is None:
         return TrainState(0, g, d, None, *opts, None)
     return TrainState(0, g, d, c, *opts)
+
+
+def _image(x: np.ndarray, device: torch.device) -> torch.Tensor:
+    """An NHWC host batch as a channels_last f32 (N, C, H, W) tensor on
+    ``device``, normalized there (the step's ``to_device_image`` in f32)."""
+    return ingest(torch.as_tensor(x).to(device).permute(0, 3, 1, 2))
 
 
 def load_vgg19(seed: int = 190,

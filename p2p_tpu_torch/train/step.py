@@ -1,7 +1,8 @@
-"""The train step of the ``reference``, ``facades`` and ``pix2pixhd``
-presets and generator inference (counterparts of ``p2p_tpu/train/step.py:79
-single_forward_d_losses``, ``:140 make_g_loss_fn``, ``:209
-build_train_step`` and ``:940 make_infer_forward``).
+"""The train step of the ``reference``, ``facades``, ``facades_int8`` and
+``pix2pixhd`` presets and generator inference (counterparts of
+``p2p_tpu/train/step.py:79 single_forward_d_losses``, ``:140
+make_g_loss_fn``, ``:209 build_train_step`` and ``:940
+make_infer_forward``).
 
 ``build_train_step(cfg, vgg)`` returns ``step(state, batch) -> (state,
 metrics)`` in the order of the JAX step (``step.py:277-597``):
@@ -24,24 +25,28 @@ metrics)`` in the order of the JAX step (``step.py:277-597``):
    quantize_ste(net_c(real_b))``, the gradient reaching net_c through the
    straight-through quantizer; without one, ``loss_c`` is a 0-d zero.
 
-Running statistics and spectral ``u`` are buffers that each forward in
-training mode advances in place, so they move as the JAX collections are
-threaded: net_c's from its first run (the net_c branch reruns it from the
-step's starting statistics and drops that update, as the JAX branch reads
-``state.batch_stats_c``), G's twice (the G step, then the net_c branch:
-the stored value is the second; once without net_c), D's ``u`` once per D
-forward.
+Running statistics, spectral ``u`` and the delayed-int8 ``amax_x`` are
+buffers that each forward in training mode advances in place, so they
+move as the JAX collections are threaded: net_c's from its first run
+(the net_c branch reruns it from the step's starting statistics and drops
+that update, as the JAX branch reads ``state.batch_stats_c``), G's twice
+(the G step, then the net_c branch: the stored value is the second; once
+without net_c), D's ``u`` and ``amax_x`` once per D forward (fake, then
+real: the JAX ``dvars0 → dvars1 → dvars2``).
 
 The skip guard (``health.enabled``, ``step.py:442-481``): when the G or D
-loss is not finite, no optimizer steps and D's ``u`` and all running
-statistics return to the step's start; when the net_c loss is not finite,
-net_c does not step and the running statistics return to the start. The
-verdicts are read on the host (two synchronizations per step).
+loss is not finite, no optimizer steps and D's buffers (``u``,
+``amax_x``) and all running statistics return to the step's start; when
+the net_c loss is not finite, net_c does not step and the running
+statistics return to the start. The verdicts are read on the host (two
+synchronizations per step).
 
-Not ported, and refused by :func:`build_train_step`: generators other
-than ``expand``, ``unet`` and ``pix2pixhd``, norms the port does not have,
-the historical-fake pool, int8 QAT, the EMA generator, pipeline
-parallelism.
+int8 QAT runs on D's inner convs (``facades_int8``: ``int8``,
+``int8_delayed``, ``int8_fused_epilogue``). Not ported, and refused by
+:func:`build_train_step`: generators other than ``expand``, ``unet`` and
+``pix2pixhd``, norms the port does not have, int8 in G, the U-Net decoder,
+net_c, the stems or D's head, int8 under spectral norm, the historical-fake
+pool, the EMA generator, pipeline parallelism.
 """
 
 from __future__ import annotations
@@ -155,7 +160,12 @@ def _check_supported(cfg: Config) -> None:
     unported = {
         "a generator other than 'expand', 'unet' or 'pix2pixhd'":
             m.generator not in ("expand", "unet", "pix2pixhd"),
-        "int8 QAT": m.int8 or m.int8_delayed,
+        "int8_generator": m.int8 and m.int8_generator,
+        "int8_decoder": m.int8 and m.int8_decoder,
+        "int8_compression": m.int8 and m.int8_compression,
+        "int8_stem": m.int8 and m.int8_stem,
+        "int8_head": m.int8 and m.int8_head,
+        "int8 with spectral norm": m.int8 and m.use_spectral_norm,
         "the historical-fake pool": cfg.train.pool_size > 0,
         "the EMA generator": cfg.health.ema_decay is not None,
     }

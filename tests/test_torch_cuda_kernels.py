@@ -7,12 +7,20 @@ ragged widths, every F4 and the autograd function, and for the act-free
 normalize kernel (#2) the ExpandNetwork's shapes (C = 3 one element at a
 time), an affine, a misaligned view, its launch count and the two
 instance-norm autograd Functions (kernels forward, closed-form backward)
-against autograd of the plain chain.
+against autograd of the plain chain; for the quantize-fused epilogue (#4)
+the facades_int8 D's shapes and odd ones, bitwise against its plain
+version (q and amax) given the same statistics, with rounding ties, NaN
+propagation, a grid of many blocks, its launch count and its refusals;
+and every int8 contraction of that D (im2col + ``torch._int_mm``) exact
+against an f64 conv or product of the same int8 operands, and the int8
+conv Functions and the quantize-fused Function on the card against the
+CPU.
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
 Tolerance: f32 atol 1e-4 (order of partial sums); bf16 atol 1e-2 + rtol
-2⁻⁷ (one rounding of the stored value); #5's f32 sums within 1e-5 of the
+2⁻⁷ (one rounding of the stored value); #4 and the int8 contractions
+exact; #5's f32 sums within 1e-5 of the
 sum of |terms| (the same terms summed in two orders); #6's f32 output
 within 1e-4 + 1e-4 relative in both input types (bf16 products are exact
 in f32), #7's dx as the other outputs stored in its dtype. The plain
@@ -310,3 +318,207 @@ def test_instance_norm_functions_backward_on_the_card(no_tf32, act, res,
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
     torch.cuda.synchronize()
+
+
+# the facades_int8 D's #4 shapes (N, C, H, W), and odd ones: one element
+# per access, N > 1, a grid of many blocks
+QUANT_SHAPES = [(1, 128, 65, 65), (1, 256, 33, 33), (2, 24, 33, 17),
+                (4, 64, 128, 128)]
+
+
+def _quant_args(x, seed, affine, tie):
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_stats_plain)
+
+    c = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(seed)
+    mean, rstd = instance_norm_stats_plain(x)
+    if tie:     # binary grids: activations over 2^-4 hit rounding ties
+        mean, rstd = (mean * 16).round() / 16, (rstd * 4).round() / 4
+    scale = bias = None
+    if affine:
+        scale = ((torch.rand(c, generator=g, device=x.device) + 0.5) * 16
+                 ).round() / 16
+        bias = (torch.randn(c, generator=g, device=x.device) * 3).round() / 16
+    sx = torch.tensor(2.0 ** -4 if tie else 2.5 / 127.0, device=x.device)
+    return mean, rstd, scale, bias, sx
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", QUANT_SHAPES)
+@pytest.mark.parametrize("act", ["none", "relu", "leaky"])
+def test_norm_act_quant_is_bitwise_the_plain_version(cuda, dtype, shape,
+                                                     act):
+    from p2p_tpu_torch.ops.cuda.norm_act import (norm_act_quant,
+                                                 norm_act_quant_plain)
+
+    x = _x(shape, torch.float32, cuda, 20)
+    for affine in (False, True):
+        for tie in (False, True):
+            xx = ((x * 16).round() / 16 if tie else x).to(dtype)
+            mean, rstd, scale, bias, sx = _quant_args(xx, 21, affine, tie)
+            q, amax = norm_act_quant(xx, mean, rstd, scale, bias, sx, act)
+            pq, pamax = norm_act_quant_plain(xx, mean, rstd, scale, bias, sx,
+                                             act)
+            assert q.dtype == dtype and amax.shape == ()
+            assert q.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(q, pq), (affine, tie)
+            assert torch.equal(amax, pamax), (affine, tie)
+    torch.cuda.synchronize()
+
+
+def test_norm_act_quant_propagates_nan_and_counts_launches(cuda):
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_quant
+
+    x = _x((4, 64, 128, 128), torch.bfloat16, cuda, 22)
+    mean, rstd, _, _, sx = _quant_args(x, 23, False, False)
+    n0 = norm_act_quant.launches
+    a = norm_act_quant(x, mean, rstd, sx=sx, act="leaky")
+    b = norm_act_quant(x, mean, rstd, sx=sx, act="leaky")
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    x[3, 5, 127, 127] = float("nan")
+    _, amax = norm_act_quant(x, mean, rstd, sx=sx, act="leaky")
+    assert torch.isnan(amax)
+    _, after = norm_act_quant(x[:3], mean[:3], rstd[:3], sx=sx, act="leaky")
+    assert torch.isfinite(after)
+    assert norm_act_quant.launches - n0 == 4
+
+
+def test_norm_act_quant_leaves_its_arrival_counter_at_zero(cuda):
+    """Launches of other grid sizes, one after another and on a second
+    stream, each reduce their own amax: the last block sets the shared
+    counter back to 0."""
+    from p2p_tpu_torch.ops.cuda.norm_act import (_arrival_counter,
+                                                 norm_act_quant,
+                                                 norm_act_quant_plain)
+
+    side = torch.cuda.Stream(cuda)
+    for shape in ((4, 64, 128, 128), (1, 8, 4, 4), (1, 256, 33, 33)) * 2:
+        x = _x(shape, torch.float32, cuda, 26)
+        mean, rstd, _, _, sx = _quant_args(x, 27, False, False)
+        want = norm_act_quant_plain(x, mean, rstd, sx=sx, act="relu")[1]
+        assert torch.equal(norm_act_quant(x, mean, rstd, sx=sx,
+                                          act="relu")[1], want), shape
+        side.wait_stream(torch.cuda.current_stream(cuda))
+        with torch.cuda.stream(side):
+            got = norm_act_quant(x, mean, rstd, sx=sx, act="relu")[1]
+        torch.cuda.current_stream(cuda).wait_stream(side)
+        assert torch.equal(got, want), shape
+    torch.cuda.synchronize()
+    for stream in (torch.cuda.current_stream(cuda), side):
+        counter = _arrival_counter(x.device, stream.cuda_stream)
+        assert int(counter.item()) == 0
+
+
+def test_norm_act_quant_raises_on_what_it_does_not_take(cuda):
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_quant
+
+    x = _x((1, 8, 4, 4), torch.float32, cuda, 24)
+    mean, rstd, _, _, sx = _quant_args(x, 25, False, False)
+    with pytest.raises(ValueError, match="channels_last"):
+        norm_act_quant(x.contiguous(), mean, rstd, sx=sx)
+    with pytest.raises(ValueError, match="sx"):
+        norm_act_quant(x, mean, rstd, sx=sx.cpu())
+    with pytest.raises(ValueError, match="sx"):
+        norm_act_quant(x, mean, rstd, sx=sx.reshape(1))
+
+
+def _int8(shape, seed, device):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(-127, 128, shape, generator=g, device=device,
+                         dtype=torch.int8)
+
+
+# (x NHWC, w (kh, kw, I, O), strides, padding): the facades_int8 D's three
+# inner convs at 256², and the dgrad of the stride-1 one
+INT8_FORMS = [
+    ("forward 1", (1, 129, 129, 64), (4, 4, 64, 128), (2, 2), 2),
+    ("forward 2", (1, 65, 65, 128), (4, 4, 128, 256), (2, 2), 2),
+    ("forward 3", (1, 33, 33, 256), (4, 4, 256, 512), (1, 1), 2),
+    ("dgrad 3", (1, 34, 34, 512), (4, 4, 512, 256), (1, 1), 1),
+]
+
+
+@pytest.mark.parametrize("what,xs,ws,strides,pad", INT8_FORMS)
+def test_int8_conv_forms_are_exact_on_the_card(cuda, what, xs, ws, strides,
+                                               pad):
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.int8 import conv_i32
+
+    x8, w8 = _int8(xs, 30, cuda), _int8(ws, 31, cuda)
+    got = conv_i32(x8, w8, strides, (pad, pad))
+    want = F.conv2d(x8.double().permute(0, 3, 1, 2),
+                    w8.double().permute(3, 2, 0, 1), stride=strides,
+                    padding=pad).permute(0, 2, 3, 1)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.double(), want), what
+
+
+@pytest.mark.parametrize("xs,o,strides", [((1, 65, 65, 128), 256, (2, 2)),
+                                          ((1, 33, 33, 256), 512, (1, 1))])
+def test_int8_wgrad_is_exact_on_the_card(cuda, xs, o, strides):
+    """The int8 wgrad of inner convs 2 and 3: K = N·Ho·Wo = 1089, 1156."""
+    from p2p_tpu_torch.ops.int8 import im2col, int_mm
+
+    x8 = _int8(xs, 32, cuda)
+    rows, (ho, wo) = im2col(x8, (4, 4), strides, (2, 2))
+    g8 = _int8((ho * wo, o), 33, cuda)
+    got = int_mm(rows.t(), g8)
+    assert torch.equal(got.double(), rows.t().double() @ g8.double())
+
+
+def _cpu_and_card(fn, *tensors):
+    out = []
+    for dev in ("cpu", "cuda"):
+        ins = [t.detach().to(dev).requires_grad_(t.requires_grad)
+               if t.is_floating_point() else t.to(dev) for t in tensors]
+        if ins[0].dim() == 4:
+            ins[0] = ins[0].contiguous(memory_format=torch.channels_last
+                                       ).detach().requires_grad_()
+        y = fn(*ins)
+        ys = y if isinstance(y, tuple) else (y,)
+        g = torch.Generator().manual_seed(40)
+        up = torch.randn(ys[0].shape, generator=g).to(dev)
+        grads = torch.autograd.grad((ys[0].float() * up).sum(),
+                                    [t for t in ins if t.requires_grad])
+        out.append(([t.detach().cpu() for t in ys],
+                    [t.cpu() for t in grads]))
+    return out
+
+
+@pytest.mark.parametrize("strides", [(2, 2), (1, 1)])
+def test_int8_conv_ds_on_the_card_is_the_cpu_function(no_tf32, strides):
+    """Forward and the int8 gradient forms bitwise; the bf16 forms (stride
+    2's dgrad) within f32 sums of bf16 products in another order."""
+    from p2p_tpu_torch.ops.int8 import int8_conv_ds
+
+    g = torch.Generator().manual_seed(41)
+    x = torch.randn((1, 64, 33, 33), generator=g).requires_grad_()
+    w = (torch.randn((128, 64, 4, 4), generator=g) * 0.05).requires_grad_()
+    sx = torch.tensor(3.0 / 127.0)
+    (ycpu, gcpu), (ycard, gcard) = _cpu_and_card(
+        lambda a, b, s: int8_conv_ds(a, b, s, strides, 2), x, w, sx)
+    assert torch.equal(ycpu[0], ycard[0]) and torch.equal(ycpu[1], ycard[1])
+    assert torch.equal(gcpu[1], gcard[1])          # wgrad: 17² ≤ 4096 int8
+    if strides == (1, 1):
+        assert torch.equal(gcpu[0], gcard[0])
+    else:
+        torch.testing.assert_close(gcard[0], gcpu[0], atol=1e-5, rtol=1e-5)
+
+
+def test_instance_norm_act_quant_on_the_card_is_the_cpu_function(no_tf32):
+    """#1 + #4 forward against the CPU's plain route (q within one step
+    where the statistics' last bits move yc/sx across a tie, amax within
+    1e-6), the straight-through backward within f32 rounding."""
+    from p2p_tpu_torch.ops.instance_norm import instance_norm_act_quant
+
+    x = _x((1, 128, 65, 65), torch.float32, torch.device("cpu"), 42)
+    sx = torch.tensor(2.0 / 127.0)
+    (qc, gc), (qg, gg) = _cpu_and_card(
+        lambda a, s: instance_norm_act_quant(a, s, act="leaky"),
+        x.requires_grad_(), sx)
+    dq = (qc[0] - qg[0]).abs()
+    assert float(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
+    torch.testing.assert_close(qg[1], qc[1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(gg[0], gc[0], atol=1e-4, rtol=1e-4)

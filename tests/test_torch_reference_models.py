@@ -116,8 +116,30 @@ def test_compression_network_forward_gradient_and_stats():
     np.testing.assert_allclose(_nhwc(xt.grad), dxj, **TOL)
 
 
+@pytest.fixture
+def _one_thread_full_f32():
+    """Torch on one thread with full-precision f32 convs and matmuls, the
+    settings restored afterwards: the comparison does not depend on what
+    the test process carries (its thread count, a lowered f32 precision)."""
+    saved = (torch.get_num_threads(), torch.get_float32_matmul_precision())
+    torch.set_num_threads(1)
+    torch.set_float32_matmul_precision("highest")
+    yield
+    torch.set_num_threads(saved[0])
+    torch.set_float32_matmul_precision(saved[1])
+
+
+@pytest.mark.usefixtures("_one_thread_full_f32")
 @pytest.mark.parametrize("norm", ["batch", "instance"])
 def test_expand_network_forward_gradient_and_stat_updates(norm):
+    """Measured here (``batch``): the port's dx is the same at 1 to 8 torch
+    threads, max |dx − JAX| 3.5e-5 (0.12 of the band); 3.6e-5 at 12 to 32
+    threads. One run of the whole suite with 6 workers put 68 of the
+    3,072 elements of the port's dx outside the band (differences up to
+    7.2e-4; the JAX side unchanged), which runs of this file alone, of the
+    torch files under 6 workers and after tests/test_obs.py did not
+    repeat; so the test pins the settings a worker could carry instead of
+    widening the band."""
     x = _u((1, 32, 32, 3), 2, 0.0, 1.0)
     g = _u((1, 32, 32, 3), 3)
     tg = ExpandNetwork(ngf=8, n_blocks=2, norm=norm)
@@ -278,7 +300,7 @@ def test_lambda_schedule_matches_jax():
                 float(jsched(step)), rel=1e-6, abs=1e-12)
 
 
-@pytest.mark.parametrize("name", ["reference", "pix2pixhd"])
+@pytest.mark.parametrize("name", ["reference", "pix2pixhd", "facades_int8"])
 def test_presets_match_the_jax_presets(name):
     j, t = jconfig.get_preset(name), tconfig.get_preset(name)
     for section in ("model", "loss", "optim", "data", "train", "health"):
