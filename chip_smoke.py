@@ -21,7 +21,9 @@ to the CPU or to a plain version):
    activation/residual form, #2's C = 3 head on its one-element path; #5
    at the (M, C) shapes of the reference, facades and instance-norm train
    steps; #6 and #7 at the facades image head's shapes (N = 1, 2, 4
-   serving, N = 1 training); then, in f32, the gradients through the two
+   serving, N = 1 training); #6 also launched twice at each shape (the
+   same bits), and its bf16 time per shape printed beside its time before
+   the redesign; then, in f32, the gradients through the two
    instance-norm autograd Functions (kernels forward, closed-form
    backward) against autograd through the plain versions at the largest
    shapes of both instance-norm training paths;
@@ -138,6 +140,10 @@ LOSS_KEYS = ("loss_g", "loss_d", "loss_c", "g_gan", "g_feat", "g_vgg",
 # #6 and #7: z (f32) differs from the plain version only by the order of
 # f32 sums of 512 products of magnitude ~0.1; dx is stored in x's dtype
 HEAD_Z_TOL = (1e-4, 1e-4)
+# bf16 device µs per launch of #6 at the facades head (x N×128×128×128)
+# at N = 1, 2, 4 before its redesign (on the CUDA cores; PERF.md §6, NVIDIA
+# H100 80GB HBM3, 700.00 W), printed beside this run's times
+HEAD_BEFORE_US = {1: 45.0, 2: 72.9, 4: 132.1}
 # the facades train check: f32 steps through #5/#6/#7 vs through their
 # plain versions from one state and one dropout seed. Step 1 differs only
 # by the order of f32 sums (rtol 1e-4); from step 2 Adam's sign-like first
@@ -721,6 +727,9 @@ def subpixel_phase(device, fwd_launches, dx_launches):
                 pz = subpixel_head_fwd_plain(x, wt)
                 assert_close(f"subpixel_head_fwd {where}", z, pz,
                              *HEAD_Z_TOL)
+                if not torch.equal(subpixel_head_fwd(x, wt), z):
+                    raise AssertionError(f"subpixel_head_fwd {where}: two "
+                                         "launches differ")
                 dx = subpixel_head_dx(dz, wt)
                 pdx = subpixel_head_dx_plain(dz, wt)
                 assert_close(f"subpixel_head_dx {where}", dx, pdx, atol,
@@ -756,6 +765,14 @@ def subpixel_phase(device, fwd_launches, dx_launches):
           f"{TIMING_REPS} cold-L2 runs; tolerance passed):")
     for row in rows:
         print("  " + json.dumps(row))
+    print("#6 bf16 against its time before the redesign (device us per "
+          "launch; library: F.conv2d):")
+    for r in rows:
+        if r["kernel"] == "subpixel_head_fwd" and r["dtype"] == "bfloat16":
+            print(f"  N={r['n']}: {r['ms'] * 1e3:.2f} (before: "
+                  f"{HEAD_BEFORE_US.get(r['n'], 'not measured')}), bound "
+                  f"{r['bound_ms'] * 1e3:.3f}, library "
+                  f"{r['library_ms'] * 1e3:.2f}, {r['launches']} launches")
     return rows
 
 

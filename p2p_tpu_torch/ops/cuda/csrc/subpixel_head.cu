@@ -14,19 +14,46 @@
 // All tensors are NHWC in memory (the port's channels_last). F4 = 4 * the
 // head's output channels (12 for RGB) is a template parameter.
 //
-// Bound on the card. At the facades head (N=1, x 128x128x128 bf16, F4=12)
-// each kernel moves ~5.0 MB (x or dx 4.19 MB, z or dz 0.80 MB), 1.5 us at
-// 3.35 TB/s, and does ~0.2 GFLOP: the tensor cores would make it bytes
-// bound, but these kernels run their products on the CUDA cores in f32
-// (~67 TFLOP/s), where the FLOPs take ~3 us. A simple correct kernel
-// first; tensor cores (wgmma) are later work.
+// Bound on the card: bytes. At the facades head (N=1, x 128x128x128 bf16,
+// F4=12) each kernel moves ~5.0 MB (x or dx 4.19 MB, z or dz 0.80 MB),
+// 1.49 us at 3.35 TB/s, and does ~0.2 GFLOP, 0.2 us on the bf16 tensor
+// cores (989 TFLOP/s) but ~3 us on the CUDA cores in f32 (67 TFLOP/s).
 //
-// Design.
-// #6: a block computes 32 output positions of one output row with all F4
+// #6 in bf16: an implicit GEMM on the tensor cores. Each output row is a
+// (positions x 4C) . (4C x F4) product, so a block takes a column tile of
+// TW output positions over a band of output rows of one sample, and runs
+// mma.sync.m16n8k16 (bf16 x bf16 -> f32; two n8 tiles when F4 > 8). Two
+// warps share each m16 tile, one per input row (taps (0, *) and (1, *)),
+// each with one accumulator chain per tap, so that a warp's chain of
+// dependent MMAs is a quarter of the K depth; the four tap sums are added
+// in a fixed order. The grid is one wave (tc_plan: the widest tile of at
+// most kMaxTile positions whose shared memory fits a block, then bands of
+// output rows so that the blocks that fit an SM, one or two, fill the
+// card once), so:
+//   - the weight, zero-padded to C_p = C rounded up to 16 and to 8 or 16
+//     columns, is loaded once per block into shared memory as [k][24]
+//     (k = tap*C_p + c; 48-byte rows, so ldmatrix.trans reads the B
+//     operand without bank conflicts);
+//   - the input rows of the band sit in a ring of 3 row slots, each
+//     (TW+1) x C_p bf16 with a 16-byte pad per position (ldmatrix reads
+//     the A operand without bank conflicts): output row r reads padded
+//     rows r and r+1, and the load of row r+2 (cp.async, 16 bytes a copy,
+//     zero-filled outside x: the zero ring costs nothing) is in flight
+//     while row r computes. Each x row is loaded once per band, plus one
+//     halo row;
+//   - the f32 tile is staged in shared memory and stored as one
+//     contiguous run of z in 16-byte stores (only the valid positions and
+//     the F4 valid columns).
+// C % 8 != 0 or a misaligned x or w take element loads into the same
+// slots. The products of two bf16 values are exact in f32; only the
+// order of the f32 sums differs from the plain version.
+// #6 in f32: the CUDA cores, which keep full f32 products (TF32 would
+// keep about three decimal digits, and the f32 checks run with TF32 off).
+// A block computes 32 output positions of one output row with all F4
 //     channels. It stages the two input rows it reads (with the zero ring
 //     and the halo column, bounds-checked instead of padded in memory) in
-//     shared memory as f32, transposed to [row][c][col] so a warp reads 32
-//     consecutive columns of one channel, and the whole weight as f32
+//     shared memory, transposed to [row][c][col] so a warp reads 32
+//     consecutive columns of one channel, and the whole weight as
 //     [tap][c][F4], read as float4 broadcasts. The C reduction is split
 //     over 8 thread rows (one warp each, all lanes on one channel), each
 //     accumulating F4 sums in registers; the 8 partials are added in a
@@ -36,7 +63,8 @@
 //     registers; the two dz rows the strip reads (33 columns x F4, f32)
 //     sit in shared memory and every lane reads the same dz value
 //     (broadcast), so each output is 4*F4 register FMAs.
-// Neither kernel uses atomics: two runs give the same bits.
+// No kernel uses atomics, and every output sums its terms in a fixed
+// order: two runs give the same bits.
 
 #include "common.cuh"
 
@@ -126,6 +154,327 @@ __global__ void __launch_bounds__(kFwdCols * kFwdSplit)
     zrow[e] = s;
   }
 }
+
+// ---- #6 in bf16 on the tensor cores -------------------------------------
+
+constexpr int kRing = 3;      // input row slots: rows r, r+1 and r+2 loading
+constexpr int kRowPad = 8;    // bf16 pad per slot position (16 bytes)
+constexpr int kWStride = 24;  // bf16 per weight row: 16 columns + 16 bytes
+constexpr int kMaxTile = 192; // output positions per block (24 warps)
+// an H100's shared memory per block (the opt-in maximum) and per SM (less
+// the 1 KB the card reserves for each resident block)
+constexpr int kMaxSmem = 232448;
+constexpr int kSmSmem = 233472;
+
+// Dynamic shared memory of the tensor-core #6: the f32 output tile, the
+// ring of input row slots, the weight.
+__host__ __device__ inline int tc_smem_bytes(int tw, int cp, int f4) {
+  return 4 * tw * f4 + 2 * kRing * (tw + 1) * (cp + kRowPad) +
+         2 * 4 * cp * kWStride;
+}
+
+struct TcPlan {
+  int cp;         // channels padded to the MMA depth (16)
+  int tw;         // output positions per block (16 per two warps)
+  int col_tiles;  // blocks along W + 1
+  int smem;       // dynamic shared memory per block, bytes
+  int band = 1;   // output rows per block
+  int bands = 1;  // blocks along H + 1
+};
+
+// The widest column tile (a multiple of 16, at most kMaxTile) whose
+// shared memory fits a block (where not even 16 positions fit, the
+// 16-position plan, whose smem the caller refuses); then, for a launch
+// on sms SMs, bands of output rows so that the grid is one wave of the
+// blocks that fit an SM (one or two).
+inline TcPlan tc_plan(int wd, int c, int f4, int n = 1, int h = 0,
+                      int sms = 0) {
+  const int wo = wd + 1, ho = h + 1;
+  TcPlan p{(c + 15) / 16 * 16, 0, (wo + kMaxTile - 1) / kMaxTile, 0};
+  for (;; ++p.col_tiles) {
+    p.tw = (wo + 16 * p.col_tiles - 1) / (16 * p.col_tiles) * 16;
+    p.smem = tc_smem_bytes(p.tw, p.cp, f4);
+    if (p.smem <= kMaxSmem || p.tw == 16) break;
+  }
+  p.col_tiles = (wo + p.tw - 1) / p.tw;
+  const int per_sm = kSmSmem / (p.smem + 1024) >= 2 ? 2 : 1;
+  const int64_t tiles = static_cast<int64_t>(n) * p.col_tiles;
+  int64_t bands = (static_cast<int64_t>(sms) * per_sm + tiles - 1) / tiles;
+  bands = bands > ho ? ho : (bands < 1 ? 1 : bands);
+  p.band = static_cast<int>((ho + bands - 1) / bands);
+  p.bands = (ho + p.band - 1) / p.band;
+  return p;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16- and 8-byte asynchronous copies; src_bytes 0 writes zeros (the
+// source is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most one committed group is still in flight
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+// d += a (16x16, row) . b (16x8, col), bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// grid (bands, column tiles, N), TW/8 warps. Block (b, t, n) computes
+// output rows b*band .. +band-1 (clipped to H+1) at output columns
+// t*TW .. +TW-1 (clipped to W+1) of sample n. VEC: 16-byte copies of x
+// (C % 8 == 0, x 16-byte aligned) and 8-byte copies of w (w 8-byte
+// aligned); else element loads.
+template <int F4, bool VEC>
+__global__ void __launch_bounds__(kMaxTile * 4)
+    subpixel_fwd_tc_kernel(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           float* __restrict__ z, int h, int wd, int c,
+                           int cp, int tw, int band) {
+  constexpr int NT = F4 > 8 ? 2 : 1;  // n8 tiles
+  extern __shared__ __align__(16) unsigned char smem_tc[];
+  float* stage = reinterpret_cast<float*>(smem_tc);  // [tw][F4]
+  __nv_bfloat16* ring =
+      reinterpret_cast<__nv_bfloat16*>(smem_tc + 4 * tw * F4);
+  const int rs = cp + kRowPad;           // slot stride per position
+  const int slot = (tw + 1) * rs;        // elements per slot
+  __nv_bfloat16* ws = ring + kRing * slot;  // [4*cp][kWStride]
+
+  const int n = blockIdx.z;
+  const int s0 = blockIdx.y * tw;        // first output column
+  const int r0 = blockIdx.x * band;      // first output row
+  const int ho = h + 1, wo = wd + 1;
+  const int r1 = min(r0 + band, ho);     // reads padded rows r0 .. r1
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  // padded row P (x row P-1), padded columns s0 .. s0+tw (x columns
+  // s0-1 .. s0+tw-1), channels 0 .. cp-1, zeros outside x
+  auto load_row = [&](int P) {
+    __nv_bfloat16* dst = ring + (P % kRing) * slot;
+    const int xr = P - 1;
+    const bool row_ok = xr >= 0 && xr < h;
+    const __nv_bfloat16* xrow =
+        x + (static_cast<int64_t>(n) * h + (row_ok ? xr : 0)) * wd * c;
+    if (VEC) {
+      const int chunks = cp / 8;
+      for (int i = tid; i < (tw + 1) * chunks; i += nthreads) {
+        const int j = i / chunks, q = i - j * chunks;
+        const int xc = s0 + j - 1;
+        const bool ok = row_ok && xc >= 0 && xc < wd && q * 8 < c;
+        cp_async16(dst + j * rs + q * 8,
+                   ok ? xrow + static_cast<int64_t>(xc) * c + q * 8 : x, ok);
+      }
+    } else {
+      for (int i = tid; i < (tw + 1) * cp; i += nthreads) {
+        const int j = i / cp, cc = i - j * cp;
+        const int xc = s0 + j - 1;
+        const bool ok = row_ok && xc >= 0 && xc < wd && cc < c;
+        dst[j * rs + cc] = ok ? xrow[static_cast<int64_t>(xc) * c + cc] : zero;
+      }
+    }
+    cp_async_commit();
+  };
+
+  load_row(r0);
+  load_row(r0 + 1);
+  // the weight as the B operand: ws[tap*cp + cc][f], zero for cc >= c and
+  // f >= F4 (columns NT*8 .. kWStride-1 are never read)
+  if (VEC) {
+    constexpr int kChunks = NT * 2;  // 8-byte copies per row
+    for (int i = tid; i < 4 * cp * kChunks; i += nthreads) {
+      const int k = i / kChunks, q = i - k * kChunks;
+      const int tap = k / cp, cc = k - tap * cp;
+      const bool ok = cc < c && q * 4 < F4;
+      cp_async8(ws + k * kWStride + q * 4,
+                ok ? w + (static_cast<int64_t>(tap) * c + cc) * F4 + q * 4
+                   : w,
+                ok);
+    }
+    cp_async_commit();
+  } else {
+    for (int i = tid; i < 4 * cp * NT * 8; i += nthreads) {
+      const int k = i / (NT * 8), f = i - k * (NT * 8);
+      const int tap = k / cp, cc = k - tap * cp;
+      ws[k * kWStride + f] =
+          (cc < c && f < F4)
+              ? w[(static_cast<int64_t>(tap) * c + cc) * F4 + f]
+              : zero;
+    }
+  }
+
+  // warp w takes the 16 positions m0 .. m0+15 and the input row dh of
+  // the taps (dh, 0) and (dh, 1): the first tw/16 warps row r (dh = 0),
+  // the others row r + 1 (dh = 1), each with one accumulator chain per tap
+  const int mtiles = tw >> 4;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int dh = warp >= mtiles ? 1 : 0;
+  const int m0 = (warp - dh * mtiles) * 16;
+  const int g = lane >> 2, t = lane & 3;
+  // ldmatrix row addresses: A (x4) positions m0 + lane%16 (+1 for dw = 1)
+  // at k offset (lane/16)*8; B (x4 trans) k rows (lane/8 % 2)*8 + lane%8
+  // at column (lane/16)*8
+  const int a_pos = m0 + (lane & 15);
+  const int a_k = (lane >> 4) * 8;
+  const int b_k = ((lane >> 3) & 1) * 8 + (lane & 7);
+  const int b_n = (lane >> 4) * 8;
+  const __nv_bfloat16* b0 = ws + ((2 * dh) * cp + b_k) * kWStride + b_n;
+  const __nv_bfloat16* b1 = b0 + cp * kWStride;
+
+  for (int r = r0; r < r1; ++r) {
+    // slot (r+2) % 3 held row r-1, last read before the barrier that
+    // ended iteration r-1
+    if (r + 2 <= r1) {
+      load_row(r + 2);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait_all_but_one();   // rows r, r+1 (and the weight) are in
+    __syncthreads();
+
+    float acc[2][NT][4];
+#pragma unroll
+    for (int d = 0; d < 2; ++d)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[d][j][e] = 0.f;
+    const __nv_bfloat16* a0 =
+        ring + ((r + dh) % kRing) * slot + a_pos * rs + a_k;
+    const __nv_bfloat16* a1 = a0 + rs;   // dw = 1: the next position
+#pragma unroll 2
+    for (int kc = 0; kc < cp; kc += 16) {
+      uint32_t fa0[4], fa1[4];
+      ldmatrix_x4(fa0, a0 + kc);
+      ldmatrix_x4(fa1, a1 + kc);
+      if (NT == 2) {
+        uint32_t fb0[4], fb1[4];
+        ldmatrix_x4_trans(fb0, b0 + kc * kWStride);
+        ldmatrix_x4_trans(fb1, b1 + kc * kWStride);
+        mma_bf16(acc[0][0], fa0, fb0[0], fb0[1]);
+        mma_bf16(acc[0][NT - 1], fa0, fb0[2], fb0[3]);
+        mma_bf16(acc[1][0], fa1, fb1[0], fb1[1]);
+        mma_bf16(acc[1][NT - 1], fa1, fb1[2], fb1[3]);
+      } else {
+        uint32_t fb0[2], fb1[2];
+        ldmatrix_x2_trans(fb0, b0 + kc * kWStride);
+        ldmatrix_x2_trans(fb1, b1 + kc * kWStride);
+        mma_bf16(acc[0][0], fa0, fb0[0], fb0[1]);
+        mma_bf16(acc[1][0], fa1, fb1[0], fb1[1]);
+      }
+    }
+    // z = (taps (0,0) + (0,1)) + (taps (1,0) + (1,1)), in this order:
+    // accumulator (j, e) is position m0 + g (+8 for e >= 2), column
+    // 8j + 2t (+1 for odd e); F4 is even, so a column pair is all valid
+    // or all padding
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      if (dh == pass) {
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int col = 8 * j + 2 * t;
+          if (col < F4) {
+            float2* s_lo =
+                reinterpret_cast<float2*>(stage + (m0 + g) * F4 + col);
+            float2* s_hi =
+                reinterpret_cast<float2*>(stage + (m0 + g + 8) * F4 + col);
+            float2 lo = make_float2(acc[0][j][0] + acc[1][j][0],
+                                    acc[0][j][1] + acc[1][j][1]);
+            float2 hi = make_float2(acc[0][j][2] + acc[1][j][2],
+                                    acc[0][j][3] + acc[1][j][3]);
+            if (pass == 1) {
+              const float2 plo = *s_lo, phi = *s_hi;
+              lo = make_float2(plo.x + lo.x, plo.y + lo.y);
+              hi = make_float2(phi.x + hi.x, phi.y + hi.y);
+            }
+            *s_lo = lo;
+            *s_hi = hi;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    // the tile's valid positions are one contiguous run of z
+    const int valid = min(tw, wo - s0);
+    float4* zrow = reinterpret_cast<float4*>(
+        z + ((static_cast<int64_t>(n) * ho + r) * wo + s0) * F4);
+    const float4* srow = reinterpret_cast<const float4*>(stage);
+    for (int e = tid; e < valid * (F4 / 4); e += nthreads) zrow[e] = srow[e];
+  }
+}
+
+template <int F4>
+int launch_fwd_tc(const void* x, const void* w, float* z, int n, int h,
+                  int wd, int c, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TcPlan p = tc_plan(wd, c, F4, n, h, sms);
+  if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
+  const bool vec = c % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 8 == 0;
+  auto kernel = vec ? subpixel_fwd_tc_kernel<F4, true>
+                    : subpixel_fwd_tc_kernel<F4, false>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(p.bands, p.col_tiles, n);
+  kernel<<<grid, p.tw * 4, p.smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x),
+      static_cast<const __nv_bfloat16*>(w), z, h, wd, c, p.cp, p.tw, p.band);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- #7 ------------------------------------------------------------------
 
 template <typename T, int F4>
 __global__ void __launch_bounds__(kDxThreads)
@@ -222,14 +571,6 @@ int dispatch(int dtype, int f4, Args... args) {
 }
 
 template <typename T, int F4>
-struct Fwd {
-  static int run(const void* x, const void* w, float* z, int n, int h, int wd,
-                 int c, cudaStream_t s) {
-    return launch_fwd<T, F4>(x, w, z, n, h, wd, c, s);
-  }
-};
-
-template <typename T, int F4>
 struct Dx {
   static int run(const float* dz, const void* w, void* dx, int n, int h,
                  int wd, int c, cudaStream_t s) {
@@ -239,13 +580,30 @@ struct Dx {
 
 }  // namespace
 
-// #6. x: (N,H,W,C) and w: (2,2,C,F4) in dtype (p2p::DType); z: (N,H+1,W+1,
-// F4) f32. Returns the CUDA error of the launch (0 = success).
+// #6. x: (N,H,W,C) and w: (2,2,C,F4) in dtype (p2p::DType): bf16 on the
+// tensor cores, f32 on the CUDA cores; z: (N,H+1,W+1,F4) f32. Returns the
+// CUDA error of the launch (0 = success).
 extern "C" int p2p_subpixel_head_fwd(const void* x, const void* w, float* z,
                                      int dtype, int n, int h, int wd, int c,
                                      int f4, void* stream_ptr) {
-  return dispatch<Fwd>(dtype, f4, x, w, z, n, h, wd, c,
-                       static_cast<cudaStream_t>(stream_ptr));
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if (dtype == p2p::kBF16) {
+    switch (f4) {
+      case 4: return launch_fwd_tc<4>(x, w, z, n, h, wd, c, s);
+      case 8: return launch_fwd_tc<8>(x, w, z, n, h, wd, c, s);
+      case 12: return launch_fwd_tc<12>(x, w, z, n, h, wd, c, s);
+      case 16: return launch_fwd_tc<16>(x, w, z, n, h, wd, c, s);
+      default: return cudaErrorInvalidValue;
+    }
+  }
+  if (dtype != p2p::kF32) return cudaErrorInvalidValue;
+  switch (f4) {
+    case 4: return launch_fwd<float, 4>(x, w, z, n, h, wd, c, s);
+    case 8: return launch_fwd<float, 8>(x, w, z, n, h, wd, c, s);
+    case 12: return launch_fwd<float, 12>(x, w, z, n, h, wd, c, s);
+    case 16: return launch_fwd<float, 16>(x, w, z, n, h, wd, c, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // #7. dz: (N,H+1,W+1,F4) f32; w: (2,2,C,F4) and dx: (N,H,W,C) in dtype.
@@ -256,14 +614,17 @@ extern "C" int p2p_subpixel_head_dx(const float* dz, const void* w, void* dx,
                       static_cast<cudaStream_t>(stream_ptr));
 }
 
-// The dynamic shared memory #6 needs at channel count c (the wrapper checks
-// it against the card's limit before launching).
-extern "C" int p2p_subpixel_head_fwd_smem(int c, int f4) {
+// The dynamic shared memory per block of #6's launch in dtype at row
+// width wd and channel count c (the wrapper checks it against the card's
+// limit before launching); -1 for a dtype or F4 it does not take.
+extern "C" int p2p_subpixel_head_fwd_smem(int dtype, int wd, int c, int f4) {
+  if (f4 != 4 && f4 != 8 && f4 != 12 && f4 != 16) return -1;
+  if (dtype == p2p::kBF16) return tc_plan(wd, c, f4).smem;
+  if (dtype != p2p::kF32) return -1;
   switch (f4) {
     case 4: return sizeof(float) * fwd_smem_floats<4>(c);
     case 8: return sizeof(float) * fwd_smem_floats<8>(c);
     case 12: return sizeof(float) * fwd_smem_floats<12>(c);
-    case 16: return sizeof(float) * fwd_smem_floats<16>(c);
-    default: return -1;
+    default: return sizeof(float) * fwd_smem_floats<16>(c);
   }
 }

@@ -13,13 +13,22 @@ dtype) and, for dW, the library's conv weight gradient of the same conv on
 
 Replaces ``p2p_tpu/ops/pallas/subpixel_head.py:165 _fwd`` and ``:200
 _bwd`` (the dx ``pallas_call``). The kernels are
-``csrc/subpixel_head.cu``: about 5 MB and 0.2 GFLOP per call at the
-facades head, so bytes would bound them on tensor cores, but they run
-their tap products on the CUDA cores in f32, where the FLOPs take about
-twice as long as the bytes. #6 stages two input rows and the weight in
-shared memory and splits the channel sum over eight warps; #7 keeps each
-channel's weights in registers and reads the two dz rows it needs from
-shared memory. No atomics.
+``csrc/subpixel_head.cu``. Both are bound by bytes: about 5.0 MB per call
+at the facades head (x 128×128×128 bf16, F4 = 12, N = 1), 1.49 µs at
+3.35 TB/s, against 0.2 GFLOP, 0.2 µs on the bf16 tensor cores. #6 in bf16
+is an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16, bf16 ×
+bf16 → f32): a grid of one wave, each block with the zero-padded weight
+resident in shared memory as the B operand and a ring of three input-row
+slots over a band of output rows, the next row's ``cp.async`` load
+(zero-filled for the pad ring) in flight while the current one computes,
+and the f32 tile stored as one contiguous run of z. The launch plan and
+its shared memory are the CUDA source's (``p2p_subpixel_head_fwd_smem``
+reports the bytes). #6 in f32 keeps full f32 products on the CUDA cores
+(two input rows and the weight staged in shared memory, the channel sum
+split over eight warps): TF32 would keep about three decimal digits. #7
+keeps each channel's weights in registers and reads the two dz rows it
+needs from shared memory. No atomics, and a fixed order of sums: two
+runs give the same bits.
 
 On CPU tensors the wrappers compute the plain versions; on CUDA tensors
 they launch the kernels or raise.
@@ -83,23 +92,24 @@ def _check_weight(w: torch.Tensor, c: int, x: torch.Tensor,
 
 
 def subpixel_head_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """#6: z = conv(x, w, pad 1) in f32, channels_last (N, F4, H+1, W+1)."""
+    """#6: z = conv(x, w, pad 1) in f32, channels_last (N, F4, H+1, W+1):
+    on the tensor cores for bf16 operands, on the CUDA cores for f32."""
     if x.device.type == "cpu":
         return subpixel_head_fwd_plain(x, w)
     build.check_activation(x, "subpixel_head_fwd")
     n, c, h, wd = x.shape
     f4 = _check_weight(w, c, x, "subpixel_head_fwd")
+    code = build.DTYPE_CODES[x.dtype]
     lib, fn = build.load("subpixel_head", "p2p_subpixel_head_fwd")
-    smem = lib.p2p_subpixel_head_fwd_smem(c, f4)
+    smem = lib.p2p_subpixel_head_fwd_smem(code, wd, c, f4)
     if smem > _MAX_SMEM:
         raise ValueError(f"subpixel_head_fwd: C = {c} needs {smem} bytes of "
                          f"shared memory per block (at most {_MAX_SMEM})")
     z = torch.empty((n, f4, h + 1, wd + 1), device=x.device,
                     dtype=torch.float32, memory_format=torch.channels_last)
     with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(),
-                 build.DTYPE_CODES[x.dtype], n, h, wd, c, f4,
-                 build.stream_handle(x.device))
+        err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(), code, n, h, wd, c,
+                 f4, build.stream_handle(x.device))
     build.check(lib, err, "subpixel_head_fwd")
     subpixel_head_fwd.launches += 1
     return z

@@ -14,7 +14,11 @@ propagation, a grid of many blocks, its launch count and its refusals;
 and every int8 contraction of that D (im2col + ``torch._int_mm``) exact
 against an f64 conv or product of the same int8 operands, and the int8
 conv Functions and the quantize-fused Function on the card against the
-CPU.
+CPU. The tensor-core forward of the subpixel head (#6, bf16) and its
+f32 form at every F4, C = 5, 8, 40, 128 and 256, a ragged and a square
+head, N = 1, 2 and 3 (bands of one to four rows), every output written
+and bitwise repeatable, and its launch plan within an H100's shared
+memory for every C the head takes.
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
@@ -206,6 +210,63 @@ def test_subpixel_head_kernels_match_plain_versions(no_tf32, dtype, n, c, h,
                                subpixel_head_dx_plain(dz, wt).float(),
                                atol=atol, rtol=rtol)
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f4", [4, 8, 12, 16])
+@pytest.mark.parametrize("c", [5, 8, 40, 128, 256])
+def test_subpixel_head_fwd_every_f4_and_c(no_tf32, dtype, f4, c):
+    """#6 (tensor cores in bf16, CUDA cores in f32) against its plain
+    version within HEAD_Z_TOL at a ragged and a square head, N = 1, 2 and
+    3 (at C = 128, bands of 1, 2 and 3 rows, the last one clipped at
+    N = 2), and the same bits from a second launch; C = 5 takes element loads.
+    z is allocated where a NaN tensor of its size was just freed (the
+    caching allocator hands the block back), so an output no block wrote
+    shows."""
+    for n, h, w in ((1, 5, 37), (2, 128, 128), (3, 128, 128)):
+        x, wt, _ = _head(n, c, h, w, f4, dtype, no_tf32, c + f4 + n)
+        torch.full((n, f4, h + 1, w + 1), float("nan"), device=no_tf32)
+        z = subpixel_head_fwd(x, wt)
+        assert z.shape == (n, f4, h + 1, w + 1)
+        torch.testing.assert_close(z, subpixel_head_fwd_plain(x, wt),
+                                   atol=1e-4, rtol=1e-4)
+        assert torch.equal(subpixel_head_fwd(x, wt), z), (n, h, w)
+    torch.cuda.synchronize()
+
+
+def test_subpixel_head_fwd_takes_misaligned_operands(no_tf32):
+    """x and w views off their 16- and 8-byte alignment: element loads."""
+    x, wt, _ = _head(2, 64, 9, 20, 12, torch.bfloat16, no_tf32, 60)
+    xb = torch.empty(x.numel() + 1, dtype=x.dtype, device=no_tf32)
+    xm = xb[1:].view(2, 9, 20, 64).permute(0, 3, 1, 2)
+    xm.copy_(x)
+    wb = torch.empty(wt.numel() + 1, dtype=wt.dtype, device=no_tf32)
+    wm = wb[1:].view(wt.shape)
+    wm.copy_(wt)
+    assert xm.data_ptr() % 16 and wm.data_ptr() % 8
+    torch.testing.assert_close(subpixel_head_fwd(xm, wm),
+                               subpixel_head_fwd_plain(x, wt), atol=1e-4,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("f4", [4, 8, 12, 16])
+def test_subpixel_head_fwd_plan_fits_every_c_the_head_takes(cuda, f4):
+    """The head takes C = 2·ngf ≥ 16·F (U-Net, F = F4 / 4 output
+    channels): every such C up to 512 has a bf16 plan within an H100's
+    232,448 bytes per block at the widths of 256² to 2048² images (the
+    plan is the CUDA source's; its library reports the bytes); C = 1024
+    does not, and the wrapper raises."""
+    from p2p_tpu_torch.ops.cuda import build
+
+    lib = build.library("subpixel_head")
+    bf16 = build.DTYPE_CODES[torch.bfloat16]
+    for c in range(4 * f4, 513, 8):
+        for w in (128, 256, 512, 1024):
+            assert 0 < lib.p2p_subpixel_head_fwd_smem(bf16, w, c, f4) \
+                <= 232448, (c, w)
+    x, wt, _ = _head(1, 1024, 4, 4, f4, torch.bfloat16, cuda, 11)
+    with pytest.raises(ValueError, match="shared memory"):
+        subpixel_head_fwd(x, wt)
 
 
 def test_subpixel_head_kernels_are_reproducible_and_count_launches(cuda):
