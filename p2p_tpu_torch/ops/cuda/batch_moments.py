@@ -12,6 +12,8 @@ it is bound by device-memory bytes (xc read once, 2·C floats written; 3.35
 TB/s on an H100 SXM), so it reads xc in 16-byte vectors along C, splits M
 into chunks across blocks, and sums the per-chunk partials in a second
 short pass in a fixed order: no float atomics, the same bits on every run.
+The second launch is a programmatic dependent launch, which overlaps its
+start with the first; where one chunk covers M there is none.
 The TPU kernel's eligibility rules (VMEM block sizes) do not apply: every
 shape takes the kernel.
 
@@ -54,9 +56,11 @@ def batch_moments(xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                         f"(have {sorted(map(str, build.DTYPE_CODES))})")
     m, c = xc.shape
     g = stats_geometry(1, m, c, build.vector_width(c, xc))
-    part = torch.empty((2, g.num_p, c), device=xc.device, dtype=torch.float32)
     s1 = torch.empty((c,), device=xc.device, dtype=torch.float32)
     s2 = torch.empty_like(s1)
+    # one chunk: pass 1 writes the sums, and there is no second launch
+    part = (s1, s2) if g.num_p == 1 else torch.empty(
+        (2, g.num_p, c), device=xc.device, dtype=torch.float32)
     lib, fn = build.load("batch_moments")
     with torch.cuda.device(xc.device):
         err = fn(xc.data_ptr(), build.DTYPE_CODES[xc.dtype], m, c, g.vec,

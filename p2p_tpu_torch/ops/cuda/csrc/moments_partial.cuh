@@ -35,6 +35,10 @@ __global__ void moments_partial_kernel(const T* __restrict__ x,
                                        float* __restrict__ part_s1,
                                        float* __restrict__ part_s2,
                                        int64_t hw, int c, int64_t chunk) {
+  // a finalize launched as a programmatic dependent launch (the BatchNorm
+  // moments kernel's) may start now and wait for this grid's end; with any
+  // other launch this does nothing
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
   const int n = blockIdx.z;
   const int p = blockIdx.y;
   const int num_p = gridDim.y;
@@ -135,19 +139,21 @@ inline cudaError_t launch_moments_partial(const void* x, int dtype, int vec,
 
 constexpr int kFinalizeRows = 32;
 
-// Pass 2 for a block of (32, kFinalizeRows) threads over channels
-// blockIdx.x*32 .. +31 of sample blockIdx.y: sums the P partials of each
-// (n, c) in a fixed order. Every thread of the block must call it; it
-// returns true on the one thread (threadIdx.y == 0) of each valid channel,
-// which then holds the two column sums in *a and *b.
+// Pass 2 for a block of (WIDTH, kFinalizeRows) threads over channels
+// blockIdx.x*WIDTH .. +WIDTH-1 of sample blockIdx.y: sums the P partials of
+// each (n, c) in a fixed order, which does not depend on WIDTH. Every
+// thread of the block must call it; it returns true on the one thread
+// (threadIdx.y == 0) of each valid channel, which then holds the two
+// column sums in *a and *b.
+template <int WIDTH = 32>
 __device__ __forceinline__ bool sum_partials(const float* __restrict__ part_s1,
                                              const float* __restrict__ part_s2,
                                              int num_p, int c, float* a,
                                              float* b) {
-  __shared__ float sh1[kFinalizeRows][32];
-  __shared__ float sh2[kFinalizeRows][32];
+  __shared__ float sh1[kFinalizeRows][WIDTH];
+  __shared__ float sh2[kFinalizeRows][WIDTH];
   const int n = blockIdx.y;
-  const int cc = blockIdx.x * 32 + threadIdx.x;
+  const int cc = blockIdx.x * WIDTH + threadIdx.x;
   float s1 = 0.f, s2 = 0.f;
   if (cc < c) {
     for (int p = threadIdx.y; p < num_p; p += kFinalizeRows) {

@@ -1,18 +1,42 @@
 #!/usr/bin/env python3
-"""Device time per launch of kernels #1 (instance-norm statistics) and #6
-(the subpixel head's forward) from one checkout of the port, at the main
-paths' bf16 shapes, with a cold and with a warm L2 cache.
+"""Device time per launch of the port's norm and moments kernels and of the
+subpixel head's forward, from one checkout, at the main paths' bf16
+shapes, with a cold and with a warm L2 cache; and the comparison of such
+runs.
 
     python3 scripts/torch_kernel_times.py <checkout> [out.json]
+    python3 scripts/torch_kernel_times.py --compare a1.json b1.json \\
+        b2.json a2.json
 
 Imports ``p2p_tpu_torch`` from ``<checkout>`` (so two trees are compared
 by running this once per tree in one call on one card: A, B, B, A) and
-times ``instance_norm_stats(x)`` at every (N, H, W, C) of the main paths
-and ``subpixel_head_fwd(x, w)`` at the facades head (x N×128×128×128, F4 =
-12, N = 1, 2, 4). Cold: chip_smoke.py's Timer (the L2 cache evicted
-before every run, median of 20). Warm: the same without the eviction, so
-x is in L2 as it is right after the conv that wrote it on the main path.
+times, each at every shape and form the main paths launch it with (the
+launch counts chip_smoke.py's main paths make):
+- #1 ``instance_norm_stats(x)`` at every (N, H, W, C);
+- #3 ``norm_act``, #2 ``instance_norm_apply`` and #4 ``norm_act_quant``
+  at every (N, H, W, C, form) of chip_smoke.py's kernel phase, given the
+  plain statistics, each beside a yardstick that moves the same bytes in
+  one PyTorch elementwise kernel (``y.copy_(x)``, or ``torch.add(x, r,
+  out=y)`` where the form reads a residual);
+- #5 ``batch_moments`` at every (M, C) of the reference, facades, path A
+  and facades_int8 train steps, beside one read of the same bytes by
+  PyTorch's reduction (``x.sum(dtype=torch.float32)``);
+- #6 ``subpixel_head_fwd(x, w)`` at the facades head (x N×128×128×128,
+  F4 = 12, N = 1, 2, 4);
+- the timer's floor: one and two ``torch.cuda._sleep(1)`` launches;
+- with ``torch.profiler``, #5's launches at (4096, 128) and (65536, 64):
+  each kernel's mean device µs and the span from the first one's start to
+  the last one's end (cold L2).
+Cold: chip_smoke.py's Timer (the L2 cache evicted before every run,
+median of 20). Warm: the same without the eviction, so the inputs are in
+L2 as they are right after the op that wrote them on the main path.
 Prints and writes one JSON object; needs a card.
+
+``--compare`` reads such files (the order of the runs in the call) and
+prints, for each kernel, the launch-weighted sum of cold and warm µs of
+each run, each shape's times and the first run's yardstick, and every
+shape whose time in a later tree is more than 3% above its time in the
+first file's tree (runs of one tree averaged).
 """
 
 from __future__ import annotations
@@ -21,6 +45,7 @@ import collections
 import importlib.util
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -28,6 +53,7 @@ import sys
 import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROFILE_SHAPES = ((4096, 128), (65536, 64))
 
 
 def _module(name: str, path: str):
@@ -37,9 +63,10 @@ def _module(name: str, path: str):
     return mod
 
 
-def stats_launches(smoke):
-    """{(N, H, W, C): launches of #1 on the main paths}, as chip_smoke.py
-    (the module ``smoke``) counts them."""
+def norm_launches(smoke):
+    """{(N, H, W, C, form): launches of #2 ("apply"), #4 ("+quant") or #3
+    (the other forms) on the main paths}, as chip_smoke.py (the module
+    ``smoke``) counts them."""
     from p2p_tpu_torch.core.config import get_preset
 
     cfg = get_preset("pix2pixhd")
@@ -51,9 +78,37 @@ def stats_launches(smoke):
     norms = smoke.instance_launches(plan, a_plan, steps, hd_steps)
     for hh, ww, c, form in 2 * smoke.int8_d_plan(smoke.int8_config()):
         norms[(1, hh, ww, c, form)] += steps
+    return norms
+
+
+def stats_launches(smoke):
+    """{(N, H, W, C): launches of #1 on the main paths}: one before each
+    norm epilogue."""
     out = collections.Counter()
-    for (n, hh, ww, c, _), count in norms.items():
+    for (n, hh, ww, c, _), count in norm_launches(smoke).items():
         out[(n, hh, ww, c)] += count
+    return out
+
+
+def moments_launches(smoke):
+    """{(M, C): launches of #5 on the main paths}, as chip_smoke.py counts
+    them: the reference, facades and path A (net_c's BatchNorm twice)
+    train steps, the fused facades_int8 steps and those of the preset as
+    it is."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    ref = get_preset("reference")
+    fac = smoke.facades_config()
+    i8 = smoke.int8_config()
+    steps = smoke.TRAIN_WARMUP + smoke.TRAIN_STEPS
+    out = collections.Counter()
+    for shape in (smoke.batchnorm_plan(ref.model.ngf, ref.model.n_blocks,
+                                       *ref.image_hw)
+                  + smoke.facades_bn_plan(fac.model.ngf, *fac.image_hw)
+                  + [(ref.image_hw[0] * ref.image_hw[1], 64)] * 2):
+        out[shape] += steps
+    for shape in smoke.facades_bn_plan(i8.model.ngf, *i8.image_hw):
+        out[shape] += steps + smoke.INT8_AS_IS_STEPS
     return out
 
 
@@ -74,14 +129,55 @@ def warm_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def main(argv) -> int:
-    if not torch.cuda.is_available():
-        print("torch_kernel_times: no CUDA device", file=sys.stderr)
-        return 1
-    tree = os.path.abspath(argv[1])
+def both(timer, fn):
+    return {"cold_us": timer(fn) * 1e3, "warm_us": warm_ms(fn) * 1e3}
+
+
+def kernel_spans(timer, fn, reps: int = 20):
+    """torch.profiler over ``reps`` cold-L2 runs of ``fn``: the mean device
+    µs of each kernel ``fn`` launches, and of the span from the first
+    kernel's start to the last one's end; None where the profiler shows
+    no device kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            torch.cuda._sleep(2_000_000)
+            fn()
+        torch.cuda.synchronize()
+    skip = ("spin_kernel", "elementwise", "Fill", "Memset", "memset")
+    kernels = sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not any(s in e.name for s in skip)),
+        key=lambda e: e.time_range.start)
+    if not kernels or len(kernels) % reps:
+        return None
+    per = len(kernels) // reps
+    out = {"kernels": per, "span_us": statistics.mean(
+        kernels[i + per - 1].time_range.end - kernels[i].time_range.start
+        for i in range(0, len(kernels), per))}
+    for j in range(per):
+        runs = kernels[j::per]
+        name = re.search(r"(\w+)\s*[<(]", runs[0].name.replace(
+            "(anonymous namespace)", ""))
+        out[name.group(1) if name else runs[0].name] = statistics.mean(
+            e.time_range.end - e.time_range.start for e in runs)
+    return out
+
+
+def measure(tree: str) -> dict:
     sys.path.insert(0, tree)
-    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import \
-        instance_norm_stats
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_apply, instance_norm_stats, instance_norm_stats_plain)
+    from p2p_tpu_torch.ops.cuda.norm_act import (norm_act, norm_act_quant,
+                                                 norm_act_quant_plain)
     from p2p_tpu_torch.ops.cuda.subpixel_head import subpixel_head_fwd
 
     smoke = _module("smoke_here", os.path.join(HERE, "chip_smoke.py"))
@@ -91,22 +187,137 @@ def main(argv) -> int:
     out = {"tree": tree, "card": subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip(), "stats": {}, "head": {}}
+        text=True).stdout.strip(), "floor": {}, "stats": {}, "norm": {},
+        "moments": {}, "head": {}, "profile": {}}
+    out["floor"]["sleep1"] = both(timer, lambda: torch.cuda._sleep(1))
+    out["floor"]["sleep1x2"] = both(
+        timer, lambda: (torch.cuda._sleep(1), torch.cuda._sleep(1)))
     launches = stats_launches(smoke)
     for key in sorted(launches):
         n, h, w, c = key
         x = smoke.make_input(gen, n, c, h, w, torch.bfloat16, device)
         out["stats"]["x".join(map(str, key))] = {
             "launches": launches[key],
-            "cold_us": timer(lambda: instance_norm_stats(x)) * 1e3,
-            "warm_us": warm_ms(lambda: instance_norm_stats(x)) * 1e3}
+            **both(timer, lambda: instance_norm_stats(x))}
+    norms = norm_launches(smoke)
+    for key in sorted(norms):
+        n, h, w, c, form = key
+        x = smoke.make_input(gen, n, c, h, w, torch.bfloat16, device)
+        mean, rstd = instance_norm_stats_plain(x)
+        if form == "apply":
+            kernel, fn = "instance_norm_apply", (
+                lambda: instance_norm_apply(x, mean, rstd))
+        elif form.endswith("+quant"):
+            act = form.split("+")[0]
+            sx = norm_act_quant_plain(
+                x, mean, rstd, sx=torch.ones((), device=device),
+                act=act)[1] / 127.0
+            kernel, fn = "norm_act_quant", (
+                lambda: norm_act_quant(x, mean, rstd, sx=sx, act=act))
+        else:
+            act, _, res = form.partition("+")
+            r = smoke.make_input(gen, n, c, h, w, torch.bfloat16, device) \
+                if res else None
+            kernel, fn = "norm_act", (
+                lambda: norm_act(x, mean, rstd, residual=r, act=act))
+        # the same bytes moved by one PyTorch elementwise kernel: a copy
+        # (an add where the form reads a residual)
+        y = torch.empty_like(x)
+        copy = (lambda: torch.add(x, r, out=y)) if form.endswith(
+            "residual") else (lambda: y.copy_(x))
+        out["norm"][f"{'x'.join(map(str, key[:4]))} {form}"] = {
+            "kernel": kernel, "launches": norms[key], **both(timer, fn),
+            "copy": both(timer, copy)}
+    moments = moments_launches(smoke)
+    for m, c in sorted(moments):
+        x = (torch.randn((m, c), generator=gen, device=device)
+             + torch.linspace(-2.0, 2.0, c, device=device)).to(
+                 torch.bfloat16)
+        # one read of the same bytes by PyTorch's reduction kernel
+        out["moments"][f"{m}x{c}"] = {
+            "launches": moments[(m, c)],
+            **both(timer, lambda: batch_moments(x)),
+            "sum": both(timer, lambda: x.sum(dtype=torch.float32))}
+        if (m, c) in PROFILE_SHAPES:
+            out["profile"][f"{m}x{c}"] = kernel_spans(
+                timer, lambda: batch_moments(x))
     wt = (torch.randn((2, 2, 128, 12), generator=gen, device=device)
           * 0.05).to(torch.bfloat16)
     for n in (1, 2, 4):
         x = smoke.make_input(gen, n, 128, 128, 128, torch.bfloat16, device)
-        out["head"][str(n)] = {
-            "cold_us": timer(lambda: subpixel_head_fwd(x, wt)) * 1e3,
-            "warm_us": warm_ms(lambda: subpixel_head_fwd(x, wt)) * 1e3}
+        out["head"][str(n)] = both(timer, lambda: subpixel_head_fwd(x, wt))
+    return out
+
+
+def _groups(run):
+    """{kernel: {shape key: row}} of one run's rows that carry launches."""
+    out = collections.defaultdict(dict)
+    for key, row in run["stats"].items():
+        out["instance_norm_stats"][key] = row
+    for key, row in run["norm"].items():
+        out[row["kernel"]][key] = row
+    for key, row in run["moments"].items():
+        out["batch_moments"][key] = row
+    return out
+
+
+def compare(paths) -> int:
+    runs = []
+    for path in paths:
+        with open(path) as f:
+            runs.append(json.load(f))
+    groups = [_groups(r) for r in runs]
+    base = runs[0]["tree"]
+    print(f"card: {runs[0]['card']}")
+    print("runs: " + ", ".join(os.path.basename(r["tree"].rstrip("/"))
+                               or r["tree"] for r in runs))
+    print("floor (one, two _sleep(1)), cold/warm us: " + "; ".join(
+        f"{r['floor']['sleep1']['cold_us']:.2f}/"
+        f"{r['floor']['sleep1']['warm_us']:.2f}, "
+        f"{r['floor']['sleep1x2']['cold_us']:.2f}/"
+        f"{r['floor']['sleep1x2']['warm_us']:.2f}" for r in runs))
+    for kernel in sorted(groups[0]):
+        sums = [{k: sum(row[k] * row["launches"] for row in g[kernel].values())
+                 / 1e3 for k in ("cold_us", "warm_us")} for g in groups]
+        launches = sum(row["launches"] for row in groups[0][kernel].values())
+        print(f"{kernel} ({launches} launches) cold ms: "
+              + " ".join(f"{s['cold_us']:.4f}" for s in sums)
+              + "; warm ms: " + " ".join(f"{s['warm_us']:.4f}" for s in sums))
+        for key in sorted(groups[0][kernel]):
+            row = groups[0][kernel][key]
+            yard = row.get("copy") or row.get("sum")
+            print(f"  {key} ({row['launches']}): cold "
+                  + " ".join(f"{g[kernel][key]['cold_us']:.2f}"
+                             for g in groups) + " | warm "
+                  + " ".join(f"{g[kernel][key]['warm_us']:.2f}"
+                             for g in groups)
+                  + (f" | yardstick {yard['cold_us']:.2f} cold, "
+                     f"{yard['warm_us']:.2f} warm" if yard else ""))
+            mean = collections.defaultdict(list)
+            for r, g in zip(runs, groups):
+                mean[r["tree"]].append(g[kernel][key])
+            ref = {k: statistics.mean(row[k] for row in mean[base])
+                   for k in ("cold_us", "warm_us")}
+            for tree, rows in mean.items():
+                if tree == base:
+                    continue
+                for k in ("cold_us", "warm_us"):
+                    got = statistics.mean(row[k] for row in rows)
+                    if got > 1.03 * ref[k]:
+                        print(f"  slower: {key} {k} {got:.2f} against "
+                              f"{ref[k]:.2f}")
+    for r in runs:
+        print(f"profile {r['tree']}: {json.dumps(r['profile'])}")
+    return 0
+
+
+def main(argv) -> int:
+    if len(argv) > 1 and argv[1] == "--compare":
+        return compare(argv[2:])
+    if not torch.cuda.is_available():
+        print("torch_kernel_times: no CUDA device", file=sys.stderr)
+        return 1
+    out = measure(os.path.abspath(argv[1]))
     text = json.dumps(out)
     print(text)
     if len(argv) > 2:

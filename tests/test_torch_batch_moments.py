@@ -48,6 +48,9 @@ M_ODD = 3 * 97          # Pallas block 97; not a multiple of the port's chunks
 # the reference preset's (M, C) at 256², batch 1, ngf 32
 PATH_SHAPES = [(65536, 32), (16384, 64), (4096, 128), (65536, 3),
                (65536, 64)]
+# the facades U-Net's at 256², batch 1, ngf 64 (and facades_int8's)
+FACADES_SHAPES = [(16384, 64), (4096, 128), (1024, 256), (256, 512),
+                  (64, 512), (16, 512), (4, 512)]
 
 
 def _x(m, c, seed, dtype=np.float32):
@@ -205,3 +208,40 @@ def test_launch_geometry_covers_every_row_and_channel(m, c, vec_bytes):
     assert g.num_p * g.chunk >= m > (g.num_p - 1) * g.chunk
     assert g.cblocks * g.tx * g.vec >= c and g.tx * g.ty <= 256
     assert g.num_p * g.cblocks >= 64
+
+
+def _coverage(g, m, c):
+    """How often pass 1 of plan ``g`` reads each row and each channel,
+    following the kernel's index arithmetic: block (cb, p), thread (i, j)
+    reads rows p·chunk + j + k·ty below min((p + 1)·chunk, M) and channels
+    (cb·tx + i)·vec … + vec − 1 below C."""
+    rows = np.zeros(m, np.int64)
+    for p in range(g.num_p):
+        lo, hi = p * g.chunk, min((p + 1) * g.chunk, m)
+        for j in range(g.ty):
+            rows[lo + j:hi:g.ty] += 1
+    chans = np.zeros(c, np.int64)
+    for cb in range(g.cblocks):
+        for i in range(g.tx):
+            c0 = (cb * g.tx + i) * g.vec
+            chans[c0:min(c0 + g.vec, c)] += 1
+    return rows, chans
+
+
+@pytest.mark.parametrize("m,c", sorted(set(PATH_SHAPES + FACADES_SHAPES)))
+@pytest.mark.parametrize("elt", [2, 4])
+def test_launch_plan_reads_every_row_and_channel_once(m, c, elt):
+    """The plan of both launches at every BatchNorm shape of the train
+    steps, in bf16 and f32: pass 1 reads each row and each channel exactly
+    once, its grid is within CUDA's limits, and the (P, C) f32 partials
+    stay under a quarter of the input's bytes (two loads a thread at
+    least); none, and no second launch, where one chunk covers M, which is
+    so at the U-Net's two innermost levels."""
+    vec = 16 // elt if c % (16 // elt) == 0 else 1
+    g = stats_geometry(1, m, c, vec)
+    rows, chans = _coverage(g, m, c)
+    assert (rows == 1).all() and (chans == 1).all()
+    assert g.cblocks <= 2 ** 31 - 1 and g.num_p <= 65535
+    if g.num_p > 1:
+        assert 2 * 4 * g.num_p * c <= m * c * elt / 4
+    assert (g.num_p == 1) == (m <= 16)

@@ -1,11 +1,15 @@
 """The port's CUDA kernels against their plain versions on the card, at
 shapes chip_smoke.py does not reach: odd channel counts (one element per
 access), a misaligned view, N > 1, a residual with an affine, for the
-BatchNorm moments kernel (#5) ragged M, C = 3 and the autograd backward,
+BatchNorm moments kernel (#5) ragged M, C = 3, M = 1, many chunks, the
+same bits on a side stream and in a CUDA graph, and the autograd
+backward,
 for the subpixel head's forward (#6) and dx (#7) the path's shapes,
 ragged widths, every F4 and the autograd function, and for the act-free
 normalize kernel (#2) the ExpandNetwork's shapes (C = 3 one element at a
-time), an affine, a misaligned view, its launch count and the two
+time), an affine, a misaligned view, its launch count, #3 and #2 bitwise
+against their plain versions in every form at ragged pixel counts, C = 3
+and with a misaligned operand, and the two
 instance-norm autograd Functions (kernels forward, closed-form backward)
 against autograd of the plain chain; for the quantize-fused epilogue (#4)
 the facades_int8 D's shapes and odd ones, bitwise against its plain
@@ -23,8 +27,8 @@ Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
 Tolerance: f32 atol 1e-4 (order of partial sums); bf16 atol 1e-2 + rtol
-2⁻⁷ (one rounding of the stored value); #4 and the int8 contractions
-exact; #5's f32 sums within 1e-5 of the
+2⁻⁷ (one rounding of the stored value); #4, the int8 contractions and
+#3 and #2 in their every-form test exact; #5's f32 sums within 1e-5 of the
 sum of |terms| (the same terms summed in two orders); #6's f32 output
 within 1e-4 + 1e-4 relative in both input types (bf16 products are exact
 in f32), #7's dx as the other outputs stored in its dtype. The plain
@@ -149,7 +153,9 @@ def _assert_moments_close(got, want, x):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("m,c", [(1, 3), (291, 3), (1000, 8), (777, 128),
-                                 (4096, 128), (100, 24), (65536, 64)])
+                                 (4096, 128), (100, 24), (65536, 64),
+                                 (1, 512), (257, 512), (4097, 128),
+                                 (65539, 32), (65536, 3), (300001, 64)])
 def test_batch_moments_matches_plain_version(cuda, dtype, m, c):
     x = _rows(m, c, dtype, cuda, m + c)
     _assert_moments_close(batch_moments(x), batch_moments_plain(x), x)
@@ -168,6 +174,36 @@ def test_batch_moments_is_reproducible_counts_and_takes_a_misaligned_view(
     _assert_moments_close(batch_moments(xm), batch_moments_plain(xm), xm)
     with pytest.raises(ValueError, match="contiguous"):
         batch_moments(x.t())
+
+
+# one chunk (no second launch), partials + finalize, one element an access,
+# many chunks
+MOMENT_BITS_SHAPES = [(16, 512), (4096, 128), (65536, 64), (65536, 3),
+                      (300001, 64)]
+
+
+@pytest.mark.parametrize("m,c", MOMENT_BITS_SHAPES)
+def test_batch_moments_gives_the_same_bits_on_a_side_stream_and_in_a_graph(
+        cuda, m, c):
+    """Two runs, a run on a side stream and the replay of a CUDA graph that
+    captured the launches (the finalize's programmatic dependent launch
+    becomes a programmatic edge of the graph) give the same bits."""
+    x = _rows(m, c, torch.bfloat16, cuda, m + c)
+    a, b = batch_moments(x), batch_moments(x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        s = batch_moments(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g = batch_moments(x)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        for got in (b, s, g):
+            assert torch.equal(got[0], a[0]) and torch.equal(got[1], a[1])
+    _assert_moments_close(a, batch_moments_plain(x), x)
 
 
 def test_dual_moments_backward_on_the_card(cuda):
@@ -342,6 +378,62 @@ def test_instance_norm_apply_takes_a_misaligned_view(cuda):
                                atol=1e-4, rtol=0)
     with pytest.raises(ValueError, match="channels_last"):
         instance_norm_apply(x.contiguous(), mean, rstd)
+
+
+def _aligned_views(x):
+    """x as it is, and the same values in a channels_last view whose data
+    starts 4 bytes past a 16-byte boundary."""
+    n, c, h, w = x.shape
+    base = torch.empty(x.numel() + 8, dtype=x.dtype, device=x.device)
+    off = 4 // x.element_size()
+    xm = base[off:off + x.numel()].view(n, h, w, c).permute(0, 3, 1, 2)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16 and xm.is_contiguous(
+        memory_format=torch.channels_last)
+    return x, xm
+
+
+def _misaligned_f32(t):
+    base = torch.empty(t.numel() + 1, device=t.device)
+    v = base[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,where", [
+    ((2, 64, 33, 17), "x"), ((1, 128, 7, 9), "x"), ((1, 3, 40, 40), "x"),
+    ((2, 64, 33, 17), "misaligned x"), ((2, 64, 33, 17), "misaligned stats"),
+    ((1, 32, 29, 31), "misaligned residual")])
+def test_norm_act_and_apply_are_bitwise_the_plain_versions(cuda, dtype,
+                                                           shape, where):
+    """#3 in every act/residual/affine form and #2 with and without the
+    affine, bitwise against their plain versions: at ragged pixel counts
+    (the tiled pass's last rows), at C = 3 and with one misaligned operand
+    (the one-element pass)."""
+    x = _x(shape, dtype, cuda, 21)
+    r = _x(shape, dtype, cuda, 22)
+    c = shape[1]
+    g = torch.Generator(device=cuda).manual_seed(23)
+    scale = torch.randn(c, generator=g, device=cuda) * 0.1 + 1
+    bias = torch.randn(c, generator=g, device=cuda) * 0.1
+    mean, rstd = instance_norm_stats_plain(x)
+    if where == "misaligned x":
+        x = _aligned_views(x)[1]
+    elif where == "misaligned residual":
+        r = _aligned_views(r)[1]
+    elif where == "misaligned stats":
+        mean, rstd = _misaligned_f32(mean), _misaligned_f32(rstd)
+    for affine in ({}, {"scale": scale, "bias": bias}):
+        y = instance_norm_apply(x, mean, rstd, **affine)
+        assert torch.equal(y, instance_norm_apply_plain(x, mean, rstd,
+                                                        **affine))
+        for act in ("none", "relu", "leaky"):
+            for res in ({}, {"residual": r}):
+                y = norm_act(x, mean, rstd, act=act, **affine, **res)
+                want = norm_act_plain(x, mean, rstd, act=act, **affine, **res)
+                assert torch.equal(y, want), (act, affine.keys(), res.keys())
+    torch.cuda.synchronize()
 
 
 def _plain_chain(x, scale, bias, residual, act):
