@@ -18,7 +18,10 @@ to the CPU or to a plain version):
    instance-norm paths (the full-width pix2pixHD generator at each batch
    size serving uses, N = 1, 2, 4, and in training at N = 1; the
    instance-norm ``reference`` G and D at N = 1) and each
-   activation/residual form, #2's C = 3 head on its one-element path; #5
+   activation/residual form; #2 and #4 bitwise, alone and right after #1
+   (launched as ops/instance_norm.py launches them, x read before the
+   dependent launch's wait), each row with its path (#2's C = 3 head on
+   16-byte vectors across pixels) and its µs alone and as a site; #5
    at the (M, C) shapes of the reference, facades and instance-norm train
    steps; #6 and #7 at the facades image head's shapes (N = 1, 2, 4
    serving, N = 1 training); #6 also launched twice at each shape (the
@@ -376,10 +379,8 @@ def kernel_phase(device, launches):
     forms), in bf16 and f32, against their plain versions, with times."""
     import torch.nn.functional as F
 
-    from p2p_tpu_torch.ops.cuda import build
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
-        instance_norm_apply, instance_norm_apply_plain, instance_norm_stats,
-        instance_norm_stats_plain)
+        instance_norm_stats, instance_norm_stats_plain)
     from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_plain
 
     timer = Timer(device)
@@ -415,10 +416,8 @@ def kernel_phase(device, launches):
                                           count, where, form))
                     continue
                 if form == "apply":
-                    rows.append(apply_row(
-                        timer, x, pmean, prstd, common, count, where,
-                        instance_norm_apply, instance_norm_apply_plain,
-                        build.vector_width(c, x)))
+                    rows.append(apply_row(timer, x, pmean, prstd, common,
+                                          count, where))
                     continue
                 act, _, res = form.partition("+")
                 r = make_input(gen, n, c, h, w, dtype, device) if res \
@@ -443,17 +442,41 @@ def kernel_phase(device, launches):
     return rows
 
 
+def site_check(what, kernel, plain, x, **kw):
+    """#1 then ``kernel`` as ops/instance_norm.py launches them (x read
+    before the dependent launch's wait): its outputs bitwise ``plain``'s on
+    #1's statistics. Returns a callable that runs the site once."""
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_stats)
+
+    def site():
+        mean, rstd = instance_norm_stats(x)
+        return mean, rstd, kernel(x, mean, rstd, x_ready=True, **kw)
+
+    mean, rstd, got = site()
+    want = plain(x, mean, rstd, **kw)
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{what} after #1: not bitwise the plain "
+                                 f"version ({max_err(g, w):.3g})")
+    return site
+
+
 def quant_row(timer, x, mean, rstd, common, count, where, form):
     """#4 against its plain version at one shape, given the same
     statistics: q and amax bitwise, at the path's kind of scale (the
     activation's amax / 127) and at 2⁻⁴ on inputs from binary grids (whose
-    quotients hit rounding ties); then its times. The library yardstick is
-    ``F.instance_norm``, which computes the normalize alone (no activation,
-    quantize or amax)."""
+    quotients hit rounding ties), and right after #1 on #1's statistics;
+    then its times alone and as a site (#1 then #4). The library yardstick
+    is ``F.instance_norm``, which computes the normalize alone (no
+    activation, quantize or amax)."""
     import torch.nn.functional as F
 
     from p2p_tpu_torch.ops.cuda.norm_act import (norm_act_quant,
-                                                 norm_act_quant_plain)
+                                                 norm_act_quant_plain,
+                                                 plan_for)
 
     act = form.partition("+")[0]
     one = torch.ones((), device=x.device)
@@ -470,12 +493,16 @@ def quant_row(timer, x, mean, rstd, common, count, where, form):
                 f"norm_act_quant {where} {form}: not bitwise the plain "
                 f"version (q {max_err(q, pq):.3g}, amax "
                 f"{max_err(amax, pamax):.3g})")
+    site = site_check(f"norm_act_quant {where} {form}", norm_act_quant,
+                      norm_act_quant_plain, x, sx=sx, act=act)
     n, c = x.shape[:2]
     elt = x.element_size()
+    ms = timer(lambda: norm_act_quant(x, mean, rstd, sx=sx, act=act))
+    site_ms = timer(site)
     return dict(
-        kernel="norm_act_quant", **common, form=form, launches=count,
-        max_abs_err=0.0,
-        ms=timer(lambda: norm_act_quant(x, mean, rstd, sx=sx, act=act)),
+        kernel="norm_act_quant", **common, form=form,
+        path=plan_for(x, x, flat3=False).path, launches=count,
+        max_abs_err=0.0, ms=ms, us=ms * 1e3, site_us=site_ms * 1e3,
         plain_ms=timer(lambda: norm_act_quant_plain(x, mean, rstd, sx=sx,
                                                     act=act)),
         library_ms=timer(lambda: F.instance_norm(x)),
@@ -613,32 +640,51 @@ def int8_forms_phase(device):
     return rows
 
 
-def apply_row(timer, x, mean, rstd, common, count, where, kernel, plain,
-              vec):
-    """#2 against its plain version at one shape, with its times. The
-    library yardstick is ``F.batch_norm`` in inference mode on the (1, C,
-    H, W) tensor with ``running_var = rstd⁻² − ε``: the same function at
-    N = 1, the only N of #2's launches on the main path."""
+def apply_row(timer, x, mean, rstd, common, count, where):
+    """#2 against its plain version at one shape: bitwise, given the same
+    statistics and right after #1 on #1's statistics, with and without the
+    affine; on a vector path (16-byte vectors along C, or across pixels at
+    C = 3); then its times alone and as a site (#1 then #2). The library
+    yardstick is ``F.batch_norm`` in inference mode on the (1, C, H, W)
+    tensor with ``running_var = rstd⁻² − ε``: the same function at N = 1,
+    the only N of #2's launches on the main path."""
     import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_apply, instance_norm_apply_plain)
+    from p2p_tpu_torch.ops.cuda.norm_act import plan_for
 
     n, c = x.shape[:2]
     if n != 1:
         raise AssertionError(f"#2 at N={n}: its yardstick needs N = 1")
-    if c % (16 // x.element_size()) and vec != 1:
-        raise AssertionError(f"#2 {where}: C={c} must take one element "
-                             "per access")
-    atol, rtol = TOL[x.dtype]
-    y = kernel(x, mean, rstd)
-    py = plain(x, mean, rstd)
-    assert_close(f"instance_norm_apply {where}", y, py, atol, rtol)
+    path = plan_for(x, x).path
+    if path == "element":
+        raise AssertionError(f"#2 {where}: one element at a time on the "
+                             "main path")
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    affine = {"scale": torch.randn(c, generator=gen, device=x.device) * 0.1
+              + 1, "bias": torch.randn(c, generator=gen, device=x.device)
+              * 0.1}
+    sites = []
+    for kw in ({}, affine):
+        y = instance_norm_apply(x, mean, rstd, **kw)
+        if not torch.equal(y, instance_norm_apply_plain(x, mean, rstd,
+                                                        **kw)):
+            raise AssertionError(f"instance_norm_apply {where}: not bitwise "
+                                 "the plain version")
+        sites.append(site_check(f"instance_norm_apply {where}",
+                                instance_norm_apply,
+                                instance_norm_apply_plain, x, **kw))
     eps = 1e-5
     var = rstd[0].double().pow(-2).sub(eps).float()
     elt = x.element_size()
+    ms = timer(lambda: instance_norm_apply(x, mean, rstd))
+    site_ms = timer(sites[0])
     return dict(
-        kernel="instance_norm_apply", **common, form="apply", vec=vec,
-        launches=count, max_abs_err=max_err(y, py),
-        ms=timer(lambda: kernel(x, mean, rstd)),
-        plain_ms=timer(lambda: plain(x, mean, rstd)),
+        kernel="instance_norm_apply", **common, form="apply", path=path,
+        launches=count, max_abs_err=0.0, ms=ms, us=ms * 1e3,
+        site_us=site_ms * 1e3,
+        plain_ms=timer(lambda: instance_norm_apply_plain(x, mean, rstd)),
         library_ms=timer(lambda: F.batch_norm(
             x, mean[0], var, training=False, eps=eps)),
         **bound_row(2 * x.numel() * elt + 2 * n * c * 4, 2 * x.numel(),
@@ -1359,10 +1405,17 @@ def instance_plain_patches():
     return (mock.patch.object(seam, "instance_norm_stats",
                               instance_norm_stats_plain),
             mock.patch.object(seam, "instance_norm_apply",
-                              instance_norm_apply_plain),
+                              as_wrapper(instance_norm_apply_plain)),
             mock.patch.object(seam, "norm_act", norm_act_plain),
-            mock.patch.object(seam, "norm_act_quant", norm_act_quant_plain),
+            mock.patch.object(seam, "norm_act_quant",
+                              as_wrapper(norm_act_quant_plain)),
             mock.patch.object(norm, "batch_moments", batch_moments_plain))
+
+
+def as_wrapper(plain):
+    """``plain`` called as #2's and #4's wrappers are: ``x_ready`` (when
+    the kernel may read x before its wait) means nothing to it."""
+    return lambda *args, x_ready=False, **kwargs: plain(*args, **kwargs)
 
 
 def f32_route(cfg, batches, vgg, patches, want, route, seed=SEED):
@@ -1555,7 +1608,8 @@ def int8_f32_routes(cfg, batches, seed=SEED, deterministic=True):
         "#1 plain": ((stats1(),), norm_act_quant, only(
             batch_moments=INT8_PER_STEP["batch_moments"] * n, **fused)),
         "#1 #5 plain": ((stats1(), stats5()), norm_act_quant, only(**fused)),
-        "plain": (instance_plain_patches(), norm_act_quant_plain, only()),
+        "plain": (instance_plain_patches(), as_wrapper(norm_act_quant_plain),
+                  only()),
     }
     runs, qs = {}, {}
     saved = torch.backends.cudnn.deterministic
@@ -1854,6 +1908,15 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {sum(r[k] * v for r, v in sel):.4f}"
                           for k in ("ms", "bound_ms", "plain_ms",
                                     "library_ms")))
+    for kernel in ("instance_norm_apply", "norm_act_quant"):
+        sel = [r for r in rows if r["kernel"] == kernel
+               and r["dtype"] == "bfloat16"]
+        print(f"{kernel} (bf16, {sum(r['launches'] for r in sel)} "
+              "launches): alone ms "
+              f"{sum(r['us'] * r['launches'] for r in sel) / 1e3:.4f}, as "
+              "a site (#1 then it) ms "
+              f"{sum(r['site_us'] * r['launches'] for r in sel) / 1e3:.4f}; "
+              "paths " + ", ".join(sorted({r["path"] for r in sel})))
     print("per-kernel numbers are the main paths' bf16 launches (#1, #3: "
           f"pix2pixHD serving at {h}x{w}, path A ({steps} steps), path B "
           f"({hd_steps} steps) and facades int8 ({steps} steps) training; "

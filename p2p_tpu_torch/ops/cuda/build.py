@@ -45,9 +45,9 @@ SIGNATURES = {
         "p2p_norm_act": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
                          _F, _I, _I, _P),
         "p2p_instance_norm_apply": (_P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
-                                    _I, _I, _I, _P),
-        "p2p_norm_act_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                               _L, _L, _I, _I, _I, _F, _I, _I, _P)},
+                                    _I, _I, _I, _I, _I, _P),
+        "p2p_norm_act_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,
+                               _L, _I, _I, _I, _I, _F, _I, _I, _I, _P)},
     "batch_moments": {
         "p2p_batch_moments": (_P, _I, _L, _I, _I, _I, _I, _I, _I, _L, _P, _P,
                               _P, _P, _P)},

@@ -46,7 +46,7 @@ __global__ void __launch_bounds__(kFinalizeWidth * p2p::kFinalizeRows)
                          const float* __restrict__ part_s2,
                          float* __restrict__ s1, float* __restrict__ s2,
                          int num_p, int c) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
+  p2p::grid_dependency_wait();
   float a, b;
   if (!p2p::sum_partials<kFinalizeWidth>(part_s1, part_s2, num_p, c, &a,
                                          &b)) {
@@ -60,18 +60,10 @@ __global__ void __launch_bounds__(kFinalizeWidth * p2p::kFinalizeRows)
 cudaError_t launch_finalize(const float* part_s1, const float* part_s2,
                             float* s1, float* s2, int num_p, int c,
                             cudaStream_t stream) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((c + kFinalizeWidth - 1) / kFinalizeWidth);
-  cfg.blockDim = dim3(kFinalizeWidth, p2p::kFinalizeRows);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, sums_finalize_kernel, part_s1, part_s2, s1,
-                            s2, num_p, c);
+  return p2p::launch_dependent(
+      sums_finalize_kernel, dim3((c + kFinalizeWidth - 1) / kFinalizeWidth),
+      dim3(kFinalizeWidth, p2p::kFinalizeRows), stream, part_s1, part_s2, s1,
+      s2, num_p, c);
 }
 
 }  // namespace

@@ -29,6 +29,10 @@ __global__ void stats_finalize_kernel(const float* __restrict__ part_s1,
                                       float* __restrict__ mean,
                                       float* __restrict__ rstd, int num_p,
                                       int c, float count, float eps) {
+  // a launch after this one made as a programmatic dependent (#2's and
+  // #4's, norm_act.cu) may start now and wait for this grid's end; with an
+  // ordinary next launch (#3's) this does nothing
+  p2p::allow_dependents();
   float a, b;
   if (!p2p::sum_partials(part_s1, part_s2, num_p, c, &a, &b)) return;
   // separately rounded steps, no fused multiply-add: the variance of a

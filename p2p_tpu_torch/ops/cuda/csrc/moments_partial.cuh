@@ -35,10 +35,10 @@ __global__ void moments_partial_kernel(const T* __restrict__ x,
                                        float* __restrict__ part_s1,
                                        float* __restrict__ part_s2,
                                        int64_t hw, int c, int64_t chunk) {
-  // a finalize launched as a programmatic dependent launch (the BatchNorm
-  // moments kernel's) may start now and wait for this grid's end; with any
-  // other launch this does nothing
-  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  // a launch made as a programmatic dependent (the BatchNorm moments
+  // kernel's finalize) may start now and wait for this grid's end; with an
+  // ordinary next launch this does nothing
+  allow_dependents();
   const int n = blockIdx.z;
   const int p = blockIdx.y;
   const int num_p = gridDim.y;

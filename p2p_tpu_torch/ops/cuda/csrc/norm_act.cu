@@ -3,13 +3,12 @@
 // computed in f32 and stored in x's dtype; the residual is added before the
 // activation; act is none, relu or leaky(slope).
 //
-// Three entry points, one templated body:
+// Three entry points:
 // - p2p_norm_act replaces p2p_tpu/ops/pallas/norm_act.py:_norm_act_local
 //   (kernel bodies _norm_act_kernel and _norm_act_res_kernel);
 // - p2p_instance_norm_apply replaces
 //   p2p_tpu/ops/pallas/instance_norm_kernel.py:_norm_local (kernel body
-//   _norm_kernel), the act-free normalize pass: the body instantiated with
-//   no activation and no residual;
+//   _norm_kernel), the act-free normalize pass;
 // - p2p_norm_act_quant replaces norm_act.py:_norm_act_quant_local (kernel
 //   body _norm_act_quant_kernel), the quantize-fused epilogue of the
 //   delayed-int8 discriminator: after the activation, y is rounded through
@@ -21,28 +20,56 @@
 // affine are tiny and stay in L1/L2. On the 1024x512 pix2pixHD path the
 // largest epilogue (32 MB bf16 in, 32 MB out) needs at least ~20 us at
 // 3.35 TB/s; #2's largest launch on the instance-norm ExpandNetwork
-// (1x32x256x256 bf16, 4 MB in and out) at least 2.5 us. C = 3 (that
-// network's head) takes the one-element path. #4 on the facades_int8
-// discriminator moves 2.2 MB (1x128x65x65 bf16) and 1.1 MB (1x256x33x33).
+// (1x32x256x256 bf16, 4 MB in and out) at least 2.5 us. #4 on the
+// facades_int8 discriminator moves 2.2 MB (1x128x65x65 bf16) and 1.1 MB
+// (1x256x33x33).
 //
-// Design. A flat grid-stride pass over (N*H*W*C) in 16-byte vectors: in
-// channels_last every vector holds VEC neighbouring channels of one pixel,
-// so loads and stores are fully coalesced and one vector needs VEC
-// consecutive mean/rstd entries. The activation and the residual are
+// #3 (norm_act_kernel). A flat grid-stride pass over (N*H*W*C) in 16-byte
+// vectors: in channels_last every vector holds VEC neighbouring channels of
+// one pixel, so loads and stores are fully coalesced and one vector needs
+// VEC consecutive mean/rstd entries. The activation and the residual are
 // template parameters, so the inner loop carries no branch on them; the
 // affine is a runtime null check (it is absent everywhere on the serving
-// path, and uniform across the grid). The arithmetic uses the _rn
-// intrinsics, which nvcc never contracts, and __fmaf_rn for the affine, so
-// the result is bitwise the plain PyTorch version's; the quantize divides by
-// sx (IEEE division, no --use_fast_math) and rounds half to even (rintf),
-// as jnp.round and torch.round do.
+// path, and uniform across the grid).
 //
-// #4's amax: each block reduces its max|yc| (NaN-propagating, as jnp.max),
-// writes it to a partial slot, and the last block to arrive (counted by an
-// atomicAdd on a zeroed counter) reduces the partials in a fixed order into
-// the scalar and sets the counter back to 0 for the next launch on the
-// stream. Max is order-free, so every run gives the same bits; no float
-// atomics.
+// #2 and #4 (apply_kernel, quant_kernel). Their launches are small (1-4 MB)
+// and follow #1's finalize on the main path, so their time is the launch
+// and the first round trip to memory, not the bytes. Each is launched as a
+// programmatic dependent of whatever precedes it on the stream
+// (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks become
+// resident while that launch still runs and wait in griddepcontrol.wait
+// for its end. With EARLY (the wrapper's x_ready=True), a block issues its
+// loads of x before the wait, so they overlap the launch before it. The
+// host plan (ops/cuda/norm_act.py apply_plan) makes the grid one wave at
+// the main path's shapes: thread t of block b takes the vectors
+// (b*K + k)*256 + t, k < K, K in {1, 2, 4}, all loaded before the wait;
+// blocks beyond the first wave (larger callers) run after it. Element
+// indices are 32-bit (numel < 2^31), with no 64-bit division. Three paths:
+// - 16-byte vectors along C (C % VEC == 0, x and y 16-byte aligned);
+// - #2 at C = 3 (the ExpandNetwork's head): 16-byte vectors of consecutive
+//   elements across pixels, where H*W*C % VEC == 0 and x and y are 16-byte
+//   aligned (no vector spans two samples); a vector's first channel is its
+//   flat index mod 3, and the three statistics (and affine) of its sample
+//   sit in registers, rotated once to that phase;
+// - one element at a time otherwise.
+// #4's amax: every |yc| is non-negative or a NaN with its sign cleared, and
+// such floats order as their unsigned bits, a NaN above +inf; so each warp
+// takes the max of the bits (__reduce_max_sync), each block folds its warps
+// in shared memory and then into one 32-bit word with atomicMax, and takes
+// a ticket on the arrival counter beside it. The last block to arrive moves
+// the word to amax (a canonical NaN if it holds one) and sets the word and
+// the counter back to 0 for the next launch on the stream. Max is
+// order-free, so every run gives the same bits; no float atomics.
+//
+// Every kernel computes with the _rn intrinsics, which nvcc never
+// contracts, and __fmaf_rn for the affine, so the result is bitwise the
+// plain PyTorch version's; the quantize divides by sx (IEEE division, no
+// --use_fast_math) and rounds half to even (rintf), as jnp.round and
+// torch.round do.
+
+#include <string.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -101,88 +128,6 @@ __global__ void norm_act_kernel(const T* __restrict__ x,
       out.v[k] = p2p::from_f32<T>(f);
     }
     p2p::store_pack<T, VEC>(y + e, out);
-  }
-}
-
-// max that keeps a NaN from either side, as jnp.max does
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-
-// the block's nan_max of v, valid in thread 0 (blockDim.x <= 1024)
-__device__ float block_max(float v) {
-  __shared__ float warp_max[32];
-  for (int off = 16; off > 0; off >>= 1) {
-    v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
-  }
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_max[warp] = v;
-  __syncthreads();
-  const int warps = (blockDim.x + 31) >> 5;
-  v = threadIdx.x < warps ? warp_max[threadIdx.x] : 0.f;
-  if (warp == 0) {
-    for (int off = 16; off > 0; off >>= 1) {
-      v = nan_max(v, __shfl_down_sync(0xffffffffu, v, off));
-    }
-  }
-  __syncthreads();  // warp_max is reused by a second call
-  return v;
-}
-
-template <typename T, int VEC, int ACT>
-__global__ void norm_act_quant_kernel(
-    const T* __restrict__ x, const float* __restrict__ mean,
-    const float* __restrict__ rstd, const float* __restrict__ gamma,
-    const float* __restrict__ beta, const float* __restrict__ sx,
-    T* __restrict__ y, float* __restrict__ partial,
-    unsigned int* __restrict__ counter, float* __restrict__ amax,
-    int64_t total_vecs, int64_t hwc, int c, float slope) {
-  const float s = *sx;
-  float m = 0.f;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       v < total_vecs; v += stride) {
-    const int64_t e = v * VEC;
-    const int64_t n = e / hwc;
-    const int cc = static_cast<int>(e % c);
-    const Pack<T, VEC> xv = p2p::load_pack<T, VEC>(x + e);
-    const float* mu = mean + n * c + cc;
-    const float* rs = rstd + n * c + cc;
-    Pack<T, VEC> out;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      const float f = apply_one<ACT>(
-          p2p::to_f32(xv.v[k]), mu[k], rs[k],
-          gamma == nullptr ? nullptr : gamma + cc + k,
-          beta == nullptr ? nullptr : beta + cc + k, slope, 0.f, false);
-      // round through the activation dtype first, as y.astype(x.dtype)
-      const float yc = p2p::to_f32(p2p::from_f32<T>(f));
-      float q = rintf(__fdiv_rn(yc, s));
-      q = q < -127.f ? -127.f : (q > 127.f ? 127.f : q);  // keeps NaN
-      out.v[k] = p2p::from_f32<T>(q);
-      m = nan_max(m, fabsf(yc));
-    }
-    p2p::store_pack<T, VEC>(y + e, out);
-  }
-  m = block_max(m);
-  __shared__ bool last;
-  if (threadIdx.x == 0) {
-    partial[blockIdx.x] = m;
-    __threadfence();
-    last = atomicAdd(counter, 1u) == gridDim.x - 1;
-  }
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  float r = 0.f;
-  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += blockDim.x) {
-    r = nan_max(r, __ldcg(partial + b));
-  }
-  r = block_max(r);
-  if (threadIdx.x == 0) {
-    *amax = r;
-    *counter = 0u;  // every block has arrived: ready for the next launch
   }
 }
 
@@ -253,59 +198,284 @@ extern "C" int p2p_norm_act(const void* x, const void* res, const float* mean,
   return static_cast<int>(err);
 }
 
-// The act-free normalize pass y = (x - mean) * rstd * gamma + beta: the same
-// arguments as p2p_norm_act without the residual and the activation.
-extern "C" int p2p_instance_norm_apply(const void* x, const float* mean,
-                                       const float* rstd, const float* gamma,
-                                       const float* beta, void* y, int dtype,
-                                       int64_t numel, int64_t hwc, int c,
-                                       int vec, int blocks, int threads,
-                                       void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaErrorInvalidValue;
-#define P2P_APPLY(T, V)                                                     \
-  err = launch<T, V, kNone, false>(x, nullptr, mean, rstd, gamma, beta, y,  \
-                                   numel, hwc, c, 0.f, blocks, threads,     \
-                                   stream)
-  if (dtype == p2p::kF32 && vec == 4) {
-    P2P_APPLY(float, 4);
-  } else if (dtype == p2p::kF32 && vec == 1) {
-    P2P_APPLY(float, 1);
-  } else if (dtype == p2p::kBF16 && vec == 8) {
-    P2P_APPLY(__nv_bfloat16, 8);
-  } else if (dtype == p2p::kBF16 && vec == 1) {
-    P2P_APPLY(__nv_bfloat16, 1);
-  }
-#undef P2P_APPLY
-  return static_cast<int>(err);
-}
 
 namespace {
 
+constexpr int kApplyThreads = 256;   // threads of a #2 or #4 block
+constexpr int kResidentBlocks = 8;   // blocks an SM holds at K = 1 (2,048
+                                     // threads: one wave, the host plan)
+
+// paths of #2 and #4 (ops/cuda/norm_act.py APPLY_PATHS)
+enum ApplyPath : int { kChannels = 0, kFlat3 = 1, kElement = 2 };
+
+// What every #2 and #4 launch reads besides x, and its extent.
+struct Epilogue {
+  const float* mean;  // (N, C)
+  const float* rstd;  // (N, C)
+  const float* gamma; // (C,) or null, with beta
+  const float* beta;
+  uint32_t total_vecs;
+  uint32_t hwc;       // H*W*C
+  uint32_t c;
+  float slope;
+};
+
+// Thread t of block b takes the vectors (b*K + k)*kApplyThreads + t, k < K.
+//
+// The rule of #2's and #4's dependent launches: before griddepcontrol.wait
+// a block reads only x and writes nothing. Every write (y, amax, the
+// arrival counter and the max word) and every read of the statistics, the
+// affine and sx come after it. The wait returns once the launch before
+// this one on the stream has ended and its stores are visible. Reading x
+// before the wait needs x complete before that launch began, that is, a
+// launch before that does not write x; the caller says so with EARLY
+// (ops/cuda/norm_act.py x_ready=True; ops/instance_norm.py launches #1 of
+// the same x right before):
+// - after #1's finalize, which lets dependents start at its top: it was
+//   launched in stream order after #1's pass 1, and pass 1 after the kernel
+//   that wrote x, so x was written and visible before the finalize began;
+//   the finalize writes only mean and rstd, read after the wait;
+// - after #5's single-launch pass 1 (moments_partial.cuh, which lets
+//   dependents start at its top): an ordinary launch that writes only its
+//   sums, so the same holds;
+// - after any PyTorch kernel, which never lets dependents start early:
+//   these blocks start only once all of its blocks have ended, and x
+//   written by the kernels before it is visible. Its own stores are made
+//   visible only by the wait, so EARLY is off unless the launch before is
+//   known not to write x.
+// No kernel of the port that writes an activation lets dependents start
+// early, and #2 and #4 do not at all, so a launch after them starts only
+// once they have ended.
+//
+// With EARLY, each thread's K vectors are loaded before the wait as raw
+// 16-byte words (an index past the end reloads the last vector, so there is
+// no branch), and unpacked after it: the loads stay in flight across the
+// wait and the statistics' loads are issued right after it. Without EARLY,
+// x is loaded after the wait beside the statistics, in one round trip.
+template <typename T, int VEC>
+using Raw = std::conditional_t<sizeof(T) * VEC == 16, uint4, Pack<T, VEC>>;
+
+template <typename T, int VEC, int K, bool EARLY>
+struct XLoads {
+  const T* __restrict__ x;
+  Raw<T, VEC> r[K];
+
+  __device__ __forceinline__ static Raw<T, VEC> load(const T* p) {
+    return *reinterpret_cast<const Raw<T, VEC>*>(p);
+  }
+
+  // issues the loads of x (EARLY), then waits for the launch before
+  __device__ __forceinline__ void load_then_wait(uint32_t first,
+                                                 uint32_t total_vecs) {
+    if constexpr (EARLY) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const uint32_t v = min(first + k * kApplyThreads, total_vecs - 1);
+        r[k] = load(x + size_t{v} * VEC);
+      }
+    }
+    p2p::grid_dependency_wait();
+  }
+
+  // vector v, the k-th of this thread
+  __device__ __forceinline__ Pack<T, VEC> at(int k, uint32_t v) const {
+    Raw<T, VEC> raw;
+    if constexpr (EARLY) {
+      raw = r[k];
+    } else {
+      raw = load(x + size_t{v} * VEC);
+    }
+    Pack<T, VEC> p;
+    memcpy(&p, &raw, sizeof(p));
+    return p;
+  }
+};
+
+// f[k] = act((x - mu) * rs [* gamma + beta]) of the elements of vector v:
+// VEC consecutive channels of one pixel (VEC = 1: one element)
 template <typename T, int VEC, int ACT>
-cudaError_t launch_quant(const void* x, const float* mean, const float* rstd,
-                         const float* gamma, const float* beta,
-                         const float* sx, void* y, float* partial,
-                         unsigned int* counter, float* amax, int64_t numel,
-                         int64_t hwc, int c, float slope, int blocks,
-                         int threads, cudaStream_t stream) {
-  norm_act_quant_kernel<T, VEC, ACT><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), mean, rstd, gamma, beta, sx,
-      static_cast<T*>(y), partial, counter, amax, numel / VEC, hwc, c, slope);
-  return cudaGetLastError();
+__device__ __forceinline__ void normalize_channels(const Pack<T, VEC>& xv,
+                                                   uint32_t v,
+                                                   const Epilogue& e,
+                                                   float (&f)[VEC]) {
+  const uint32_t i = v * VEC;
+  const uint32_t cc = i % e.c;
+  const uint32_t o = i / e.hwc * e.c + cc;
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    f[k] = apply_one<ACT>(p2p::to_f32(xv.v[k]), e.mean[o + k], e.rstd[o + k],
+                          e.gamma == nullptr ? nullptr : e.gamma + cc + k,
+                          e.beta == nullptr ? nullptr : e.beta + cc + k,
+                          e.slope, 0.f, false);
+  }
+}
+
+// the same at C = 3 over the flat array: element k of vector v has channel
+// (v*VEC + k) % 3, and all VEC elements lie in one sample (H*W*3 % VEC == 0)
+template <typename T, int VEC, int ACT>
+__device__ __forceinline__ void normalize_flat3(const Pack<T, VEC>& xv,
+                                                uint32_t v, const Epilogue& e,
+                                                float (&f)[VEC]) {
+  const uint32_t i = v * VEC;
+  const uint32_t o = i / e.hwc * 3;
+  const uint32_t phase = i % 3;
+  float mu[3], rs[3], g[3], b[3];  // rotated so that [k % 3] is element k's
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const uint32_t ch = phase + j < 3 ? phase + j : phase + j - 3;
+    mu[j] = e.mean[o + ch];
+    rs[j] = e.rstd[o + ch];
+    if (e.gamma != nullptr) {
+      g[j] = e.gamma[ch];
+      b[j] = e.beta[ch];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) {
+    f[k] = apply_one<ACT>(p2p::to_f32(xv.v[k]), mu[k % 3], rs[k % 3],
+                          e.gamma == nullptr ? nullptr : g + k % 3,
+                          e.beta == nullptr ? nullptr : b + k % 3, e.slope,
+                          0.f, false);
+  }
+}
+
+template <typename T, int VEC, int K, bool FLAT3, bool EARLY>
+__global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
+    apply_kernel(const T* __restrict__ x, T* __restrict__ y, Epilogue e) {
+  const uint32_t first = blockIdx.x * (K * kApplyThreads) + threadIdx.x;
+  XLoads<T, VEC, K, EARLY> xs{x};
+  xs.load_then_wait(first, e.total_vecs);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t v = first + k * kApplyThreads;
+    if (v >= e.total_vecs) break;
+    float f[VEC];
+    if constexpr (FLAT3) {
+      normalize_flat3<T, VEC, kNone>(xs.at(k, v), v, e, f);
+    } else {
+      normalize_channels<T, VEC, kNone>(xs.at(k, v), v, e, f);
+    }
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) out.v[j] = p2p::from_f32<T>(f[j]);
+    p2p::store_pack<T, VEC>(y + size_t{v} * VEC, out);
+  }
+}
+
+// sync[0] counts the blocks that have arrived, sync[1] holds the max of the
+// bits of |yc| over the blocks that have; both are 0 before the launch and
+// after it
+template <typename T, int VEC, int K, int ACT, bool EARLY>
+__global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
+    quant_kernel(const T* __restrict__ x, const float* __restrict__ sx,
+                 T* __restrict__ y, unsigned int* __restrict__ sync,
+                 float* __restrict__ amax, Epilogue e) {
+  const uint32_t first = blockIdx.x * (K * kApplyThreads) + threadIdx.x;
+  XLoads<T, VEC, K, EARLY> xs{x};
+  xs.load_then_wait(first, e.total_vecs);
+  __shared__ unsigned int block_bits;
+  if (threadIdx.x == 0) block_bits = 0u;
+  const float s = *sx;
+  unsigned int bits = 0u;  // |yc| is >= 0 or a NaN with its sign cleared
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t v = first + k * kApplyThreads;
+    if (v >= e.total_vecs) break;
+    float f[VEC];
+    normalize_channels<T, VEC, ACT>(xs.at(k, v), v, e, f);
+    Pack<T, VEC> out;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      // round through the activation dtype first, as y.astype(x.dtype)
+      const float yc = p2p::to_f32(p2p::from_f32<T>(f[j]));
+      float q = rintf(__fdiv_rn(yc, s));
+      q = q < -127.f ? -127.f : (q > 127.f ? 127.f : q);  // keeps NaN
+      out.v[j] = p2p::from_f32<T>(q);
+      bits = max(bits, __float_as_uint(fabsf(yc)));
+    }
+    p2p::store_pack<T, VEC>(y + size_t{v} * VEC, out);
+  }
+  bits = __reduce_max_sync(0xffffffffu, bits);
+  __syncthreads();  // block_bits is 0
+  if ((threadIdx.x & 31) == 0) atomicMax(&block_bits, bits);
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  atomicMax(sync + 1, block_bits);
+  __threadfence();
+  if (atomicAdd(sync, 1u) != gridDim.x - 1) return;
+  // every block has folded its max into the word: move it out, leave 0s
+  __threadfence();
+  const unsigned int m = atomicExch(sync + 1, 0u);
+  *amax = __uint_as_float(m > 0x7f800000u ? 0x7fffffffu : m);
+  sync[0] = 0u;
+}
+
+// checks what p2p_instance_norm_apply and p2p_norm_act_quant take (the
+// grid must cover every vector), and fills in the launch's extent; the
+// vector width follows path and dtype
+cudaError_t make_epilogue(const float* mean, const float* rstd,
+                          const float* gamma, const float* beta, int dtype,
+                          int64_t numel, int64_t hwc, int c, int path,
+                          int per_thread, int blocks, int threads,
+                          float slope, int* vec, Epilogue* e) {
+  if (threads != kApplyThreads || numel <= 0 || numel >= (int64_t{1} << 31) ||
+      hwc <= 0 || c <= 0 || numel % hwc || hwc % c ||
+      (dtype != p2p::kF32 && dtype != p2p::kBF16) || path < kChannels ||
+      path > kElement || (gamma == nullptr) != (beta == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  *vec = path == kElement ? 1 : (dtype == p2p::kF32 ? 4 : 8);
+  if ((path == kChannels && c % *vec) ||
+      (path == kFlat3 && (c != 3 || hwc % *vec)) ||
+      int64_t{blocks} * per_thread * kApplyThreads < numel / *vec) {
+    return cudaErrorInvalidValue;
+  }
+  *e = Epilogue{mean, rstd, gamma, beta, static_cast<uint32_t>(numel / *vec),
+                static_cast<uint32_t>(hwc), static_cast<uint32_t>(c), slope};
+  return cudaSuccess;
+}
+
+template <typename T, int VEC, bool FLAT3, bool EARLY>
+cudaError_t launch_apply(int per_thread, int blocks, cudaStream_t stream,
+                         const void* x, void* y, const Epilogue& e) {
+#define P2P_APPLY(K)                                                    \
+  return p2p::launch_dependent(apply_kernel<T, VEC, K, FLAT3, EARLY>,   \
+                               dim3(blocks), dim3(kApplyThreads), stream, \
+                               static_cast<const T*>(x),                \
+                               static_cast<T*>(y), e)
+  if (per_thread == 1) P2P_APPLY(1);
+  if (per_thread == 2) P2P_APPLY(2);
+  if (per_thread == 4) P2P_APPLY(4);
+#undef P2P_APPLY
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int VEC, int ACT, bool EARLY>
+cudaError_t launch_quant(int per_thread, int blocks, cudaStream_t stream,
+                         const void* x, const float* sx, void* y,
+                         unsigned int* sync, float* amax, const Epilogue& e) {
+#define P2P_QUANT(K)                                                    \
+  return p2p::launch_dependent(quant_kernel<T, VEC, K, ACT, EARLY>,     \
+                               dim3(blocks), dim3(kApplyThreads), stream, \
+                               static_cast<const T*>(x), sx,            \
+                               static_cast<T*>(y), sync, amax, e)
+  if (per_thread == 1) P2P_QUANT(1);
+  if (per_thread == 2) P2P_QUANT(2);
+  if (per_thread == 4) P2P_QUANT(4);
+#undef P2P_QUANT
+  return cudaErrorInvalidValue;
 }
 
 template <typename T, int VEC>
-cudaError_t dispatch_quant(int act, const void* x, const float* mean,
-                           const float* rstd, const float* gamma,
-                           const float* beta, const float* sx, void* y,
-                           float* partial, unsigned int* counter, float* amax,
-                           int64_t numel, int64_t hwc, int c, float slope,
-                           int blocks, int threads, cudaStream_t stream) {
-#define P2P_QUANT(A)                                                          \
-  return launch_quant<T, VEC, A>(x, mean, rstd, gamma, beta, sx, y, partial, \
-                                 counter, amax, numel, hwc, c, slope, blocks, \
-                                 threads, stream)
+cudaError_t dispatch_quant(int act, int early, int per_thread, int blocks,
+                           cudaStream_t stream, const void* x,
+                           const float* sx, void* y, unsigned int* sync,
+                           float* amax, const Epilogue& e) {
+#define P2P_QUANT(A)                                                       \
+  return early ? launch_quant<T, VEC, A, true>(per_thread, blocks, stream, \
+                                               x, sx, y, sync, amax, e)    \
+               : launch_quant<T, VEC, A, false>(per_thread, blocks, stream, \
+                                                x, sx, y, sync, amax, e)
   if (act == kNone) P2P_QUANT(kNone);
   if (act == kRelu) P2P_QUANT(kRelu);
   if (act == kLeaky) P2P_QUANT(kLeaky);
@@ -315,34 +485,80 @@ cudaError_t dispatch_quant(int act, const void* x, const float* mean,
 
 }  // namespace
 
-// The quantize-fused epilogue: the arguments of p2p_norm_act without the
-// residual, plus sx (one f32 on the device, > 0), partial (blocks f32
-// scratch), counter (one unsigned int on the device, 0 before the launch
-// and left 0 after it) and amax (one f32 out). y holds q in x's dtype. threads must be
-// a multiple of 32.
+// The act-free normalize pass y = (x - mean) * rstd * gamma + beta (#2),
+// launched as a programmatic dependent. x, y: (N, H*W, C) in memory
+// (channels_last), dtype p2p::DType, numel < 2^31; mean/rstd: (N, C) f32;
+// gamma/beta: (C,) f32 or both null. path: kChannels (C % vec == 0, x and y
+// 16-byte aligned), kFlat3 (C = 3, H*W*C % vec == 0, x and y 16-byte
+// aligned) or kElement; per_thread in {1, 2, 4}; threads 256; early: read x
+// before the grid-dependency wait (the rule above). Returns the launch's
+// CUDA error (0 = success).
+extern "C" int p2p_instance_norm_apply(const void* x, const float* mean,
+                                       const float* rstd, const float* gamma,
+                                       const float* beta, void* y, int dtype,
+                                       int64_t numel, int64_t hwc, int c,
+                                       int path, int per_thread, int blocks,
+                                       int threads, int early,
+                                       void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Epilogue e;
+  int vec;
+  cudaError_t err = make_epilogue(mean, rstd, gamma, beta, dtype, numel, hwc,
+                                  c, path, per_thread, blocks, threads, 0.f,
+                                  &vec, &e);
+  if (err != cudaSuccess) return static_cast<int>(err);
+#define P2P_APPLY(T, V, F)                                                \
+  err = early ? launch_apply<T, V, F, true>(per_thread, blocks, stream, x, \
+                                            y, e)                         \
+              : launch_apply<T, V, F, false>(per_thread, blocks, stream, x, \
+                                             y, e)
+  if (dtype == p2p::kF32) {
+    if (path == kChannels) P2P_APPLY(float, 4, false);
+    if (path == kFlat3) P2P_APPLY(float, 4, true);
+    if (path == kElement) P2P_APPLY(float, 1, false);
+  } else {
+    if (path == kChannels) P2P_APPLY(__nv_bfloat16, 8, false);
+    if (path == kFlat3) P2P_APPLY(__nv_bfloat16, 8, true);
+    if (path == kElement) P2P_APPLY(__nv_bfloat16, 1, false);
+  }
+#undef P2P_APPLY
+  return static_cast<int>(err);
+}
+
+// The quantize-fused epilogue (#4), launched as a programmatic dependent:
+// the arguments of p2p_instance_norm_apply (path kChannels or kElement)
+// plus sx (one f32 on the device, > 0), sync (two unsigned ints on the
+// device, 0 before the launch and left 0 after it: the arrival counter and
+// the max word of the stream), amax (one f32 out), act and slope. y holds
+// q in x's dtype.
 extern "C" int p2p_norm_act_quant(const void* x, const float* mean,
                                   const float* rstd, const float* gamma,
                                   const float* beta, const float* sx, void* y,
-                                  float* partial, unsigned int* counter,
-                                  float* amax, int dtype, int64_t numel,
-                                  int64_t hwc, int c, int vec, int act,
-                                  float slope, int blocks, int threads,
+                                  unsigned int* sync, float* amax, int dtype,
+                                  int64_t numel, int64_t hwc, int c, int path,
+                                  int per_thread, int act, float slope,
+                                  int blocks, int threads, int early,
                                   void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = cudaErrorInvalidValue;
-#define P2P_DQ(T, V)                                                        \
-  err = dispatch_quant<T, V>(act, x, mean, rstd, gamma, beta, sx, y, partial, \
-                             counter, amax, numel, hwc, c, slope, blocks,   \
-                             threads, stream)
+  Epilogue e;
+  int vec;
+  cudaError_t err = make_epilogue(mean, rstd, gamma, beta, dtype, numel, hwc,
+                                  c, path, per_thread, blocks, threads,
+                                  slope, &vec, &e);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (path == kFlat3) return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == p2p::kF32 && vec == 4) {
-    P2P_DQ(float, 4);
-  } else if (dtype == p2p::kF32 && vec == 1) {
-    P2P_DQ(float, 1);
-  } else if (dtype == p2p::kBF16 && vec == 8) {
-    P2P_DQ(__nv_bfloat16, 8);
-  } else if (dtype == p2p::kBF16 && vec == 1) {
-    P2P_DQ(__nv_bfloat16, 1);
+    err = dispatch_quant<float, 4>(act, early, per_thread, blocks, stream, x,
+                                   sx, y, sync, amax, e);
+  } else if (dtype == p2p::kF32) {
+    err = dispatch_quant<float, 1>(act, early, per_thread, blocks, stream, x,
+                                   sx, y, sync, amax, e);
+  } else if (vec == 8) {
+    err = dispatch_quant<__nv_bfloat16, 8>(act, early, per_thread, blocks,
+                                           stream, x, sx, y, sync, amax, e);
+  } else {
+    err = dispatch_quant<__nv_bfloat16, 1>(act, early, per_thread, blocks,
+                                           stream, x, sx, y, sync, amax, e);
   }
-#undef P2P_DQ
   return static_cast<int>(err);
 }

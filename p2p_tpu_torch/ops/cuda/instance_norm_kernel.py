@@ -16,11 +16,13 @@ short pass in a fixed order: no float atomics, the same bits on every run.
 ``instance_norm_apply(x, mean, rstd, scale, bias)`` (#2) is the act-free
 normalize pass ``y = (x − mean)·rstd·γ + β``, computed in f32 and stored
 in x's dtype. It replaces ``instance_norm_kernel.py:_norm_local`` (kernel
-body ``_norm_kernel``). Like #3 it is bound by bytes (x read once, y
-written once), so it is #3's flat pass of 16-byte vectors along C with a
-one-element fallback (C = 3 at the ExpandNetwork's head): the
-``p2p_instance_norm_apply`` entry point of ``csrc/norm_act.cu``
-instantiates #3's body with no activation and no residual.
+body ``_norm_kernel``): the ``p2p_instance_norm_apply`` entry point of
+``csrc/norm_act.cu``. Like #3 it is bound by bytes (x read once, y written
+once), but its launches are small and follow #1's finalize, so it is
+launched as a programmatic dependent of the launch before it, in one wave
+of 16-byte vectors (``norm_act.apply_plan``: along C, across pixels at
+C = 3, the ExpandNetwork's head, or one element at a time), and with
+``x_ready=True`` reads x before it waits for #1 to end.
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises.
@@ -33,8 +35,8 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from p2p_tpu_torch.ops.cuda import build
-from p2p_tpu_torch.ops.cuda.norm_act import THREADS, affine_fma, \
-    check_apply_args, grid_blocks
+from p2p_tpu_torch.ops.cuda.norm_act import APPLY_PATHS, THREADS, \
+    affine_fma, check_apply_args, plan_for
 
 REPLACES = "p2p_tpu/ops/pallas/instance_norm_kernel.py:79 (_stats_local)"
 SOURCE = "p2p_tpu_torch/ops/cuda/csrc/instance_norm_stats.cu"
@@ -122,24 +124,28 @@ def instance_norm_apply_plain(x: torch.Tensor, mean: torch.Tensor,
 def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor,
                         rstd: torch.Tensor,
                         scale: Optional[torch.Tensor] = None,
-                        bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                        bias: Optional[torch.Tensor] = None, *,
+                        x_ready: bool = False) -> torch.Tensor:
     """``(x − mean)·rstd·γ + β`` in x's dtype, for (N, C) f32 statistics
-    and an optional (C,) f32 affine."""
+    and an optional (C,) f32 affine. ``x_ready=True`` says that the
+    launch just before this one on the stream does not write x (so x was
+    complete before it began; #1 of this x, as in
+    ``ops/instance_norm.py``): the kernel then reads x before it waits for
+    that launch to end."""
     if x.device.type == "cpu":
         return instance_norm_apply_plain(x, mean, rstd, scale, bias)
     check_apply_args(x, mean, rstd, scale, bias, "instance_norm_apply")
     n, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    vec = build.vector_width(c, x, y)
-    numel = x.numel()
+    plan = plan_for(x, y)
     lib, fn = build.load("norm_act", "p2p_instance_norm_apply")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                  None if scale is None else scale.data_ptr(),
                  None if bias is None else bias.data_ptr(), y.data_ptr(),
-                 build.DTYPE_CODES[x.dtype], numel, h * w * c, c, vec,
-                 grid_blocks(numel, vec), THREADS,
-                 build.stream_handle(x.device))
+                 build.DTYPE_CODES[x.dtype], x.numel(), h * w * c, c,
+                 APPLY_PATHS.index(plan.path), plan.per_thread, plan.blocks,
+                 THREADS, int(x_ready), build.stream_handle(x.device))
     build.check(lib, err, "instance_norm_apply")
     instance_norm_apply.launches += 1
     return y

@@ -22,10 +22,21 @@ without a residual, its value rounded through x's dtype (``yc``), then
 tensor on x's device (never read on the host). It replaces
 ``norm_act.py:_norm_act_quant_local`` (kernel body
 ``_norm_act_quant_kernel``): the ``p2p_norm_act_quant`` entry point of the
-same library, #3's body with the quantize and a block-then-last-block
-amax reduction after it. The blocks count their arrivals on one counter
-per device and stream, which the last block sets back to 0, so a launch
-needs no fill before it.
+same library. Each block folds its max|yc| into one 32-bit word with
+``atomicMax`` on the float's bits and takes a ticket on an arrival counter
+beside it; the last block moves the word to amax. Word and counter are one
+pair per device and stream, which the last block sets back to 0, so a
+launch needs no fill before it.
+
+#4 and #2 (``instance_norm_kernel.instance_norm_apply``, the same
+library's ``p2p_instance_norm_apply``) are launched as programmatic
+dependents of the launch before them and share one launch plan,
+``apply_plan``: one wave of 256-thread blocks at the main path's shapes,
+16-byte vectors along C, across pixels at C = 3 (#2 only), or one element
+at a time. With ``x_ready=True`` (the launch just before on the stream
+does not write x: ``ops/instance_norm.py`` launches #1 of the same x right
+before) each block issues its loads of x before it waits for that launch
+to end (the rule is in ``csrc/norm_act.cu``).
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises.
@@ -34,7 +45,7 @@ it launches its kernel or raises.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,8 +57,14 @@ REPLACES_QUANT = "p2p_tpu/ops/pallas/norm_act.py:277 (_norm_act_quant_local)"
 ACTS = ("none", "relu", "leaky")
 
 THREADS = 256
+SMS = 132                  # an H100's streaming multiprocessors
+RESIDENT_THREADS = 2048    # threads an SM holds
 # grid-stride cap: 132 SMs × 8 resident blocks of 256 threads × 4 rounds
-_MAX_BLOCKS = 132 * 8 * 4
+_MAX_BLOCKS = SMS * 8 * 4
+# paths of #2 and #4 (csrc/norm_act.cu ApplyPath): 16-byte vectors along C,
+# 16-byte vectors over the flat array at C = 3, one element at a time
+APPLY_PATHS = ("channels", "flat3", "element")
+PER_THREAD = (1, 2, 4)
 
 
 def check_act(act: str, slope: float) -> None:
@@ -117,6 +134,54 @@ def grid_blocks(numel: int, vec: int) -> int:
     return max(1, min(-(-numel // (vec * THREADS)), _MAX_BLOCKS))
 
 
+class ApplyPlan(NamedTuple):
+    path: str        # one of APPLY_PATHS
+    vec: int         # elements a load
+    per_thread: int  # K: thread t of block b takes the vectors
+                     # (b·K + k)·THREADS + t, k < K
+    blocks: int
+
+
+def apply_plan(numel: int, hwc: int, c: int, element_size: int,
+               aligned: bool, flat3: bool = True) -> ApplyPlan:
+    """Launch plan of #2 and #4 over an (N, H, W, C) activation of
+    ``numel`` elements (``hwc`` = H·W·C) whose x and y are 16-byte aligned
+    when ``aligned``. The path: 16-byte vectors along C where C divides
+    into them; else, with ``flat3`` (#2), 16-byte vectors over the flat
+    array where C = 3 and H·W·C divides into them (no vector spans two
+    samples); else one element at a time. Then the fewest vectors a thread,
+    K in ``PER_THREAD``, that fit the grid into one wave of
+    ``SMS × RESIDENT_THREADS`` threads, so every block is resident and
+    issues its loads before the wait; beyond 4 a wave, K = 4 and the blocks
+    past the first wave run after it."""
+    vec = 16 // element_size
+    if aligned and c % vec == 0:
+        path = "channels"
+    elif aligned and flat3 and c == 3 and hwc % vec == 0:
+        path = "flat3"
+    else:
+        path, vec = "element", 1
+    vecs = numel // vec
+    wave = SMS * RESIDENT_THREADS
+    per_thread = next((k for k in PER_THREAD if vecs <= k * wave),
+                      PER_THREAD[-1])
+    return ApplyPlan(path, vec, per_thread,
+                     -(-vecs // (per_thread * THREADS)))
+
+
+def plan_for(x: torch.Tensor, y: torch.Tensor, flat3: bool = True
+             ) -> ApplyPlan:
+    """``apply_plan`` of a channels_last x and its output y; raises at
+    2³¹ elements or more (the kernels index in 32 bits)."""
+    _, c, h, w = x.shape
+    if x.numel() >= 2 ** 31:
+        raise ValueError(f"{tuple(x.shape)}: #2 and #4 take fewer than 2^31 "
+                         "elements")
+    return apply_plan(x.numel(), h * w * c, c, x.element_size(),
+                      x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
+                      flat3)
+
+
 def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
              scale: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None,
@@ -177,20 +242,26 @@ def norm_act_quant_plain(x: torch.Tensor, mean: torch.Tensor,
 
 @functools.cache
 def _arrival_counter(device: torch.device, stream: int) -> torch.Tensor:
-    """The zeroed block-arrival counter of #4's launches on ``stream``:
-    the launches on one stream run in order, and each leaves it at 0."""
-    return torch.zeros((1,), dtype=torch.int32, device=device)
+    """The zeroed pair of #4's launches on ``stream``: the block-arrival
+    counter and the word that holds the max of the bits of |yc|. The
+    launches on one stream run in order, and each leaves both at 0."""
+    return torch.zeros((2,), dtype=torch.int32, device=device)
 
 
 def norm_act_quant(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                    scale: Optional[torch.Tensor] = None,
                    bias: Optional[torch.Tensor] = None,
                    sx: Optional[torch.Tensor] = None,
-                   act: str = "none", slope: float = 0.2
+                   act: str = "none", slope: float = 0.2, *,
+                   x_ready: bool = False
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``q = clip(round(act((x − mean)·rstd·γ + β) in x's dtype / sx),
     ±127)`` in x's dtype and ``max|act(...)|`` (0-d f32), for (N, C) f32
-    statistics, an optional (C,) f32 affine and a 0-d f32 ``sx > 0``."""
+    statistics, an optional (C,) f32 affine and a 0-d f32 ``sx > 0``.
+    ``x_ready=True`` says that the launch just before this one on the
+    stream does not write x (so x was complete before it began; #1 of this
+    x, as in ``ops/instance_norm.py``): the kernel then reads x before it
+    waits for that launch to end."""
     if x.device.type == "cpu":
         return norm_act_quant_plain(x, mean, rstd, scale, bias, sx, act,
                                     slope)
@@ -199,22 +270,20 @@ def norm_act_quant(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
     _check_vector(sx, (), x.device, "norm_act_quant: sx")
     n, c, h, w = x.shape
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    vec = build.vector_width(c, x, y)
-    numel = x.numel()
-    blocks = grid_blocks(numel, vec)
-    partial = torch.empty((blocks,), dtype=torch.float32, device=x.device)
+    plan = plan_for(x, y, flat3=False)
     stream = build.stream_handle(x.device)
-    counter = _arrival_counter(x.device, stream)
+    sync = _arrival_counter(x.device, stream)
     amax = torch.empty((), dtype=torch.float32, device=x.device)
     lib, fn = build.load("norm_act", "p2p_norm_act_quant")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
                  None if scale is None else scale.data_ptr(),
                  None if bias is None else bias.data_ptr(), sx.data_ptr(),
-                 y.data_ptr(), partial.data_ptr(),
-                 counter.data_ptr(), amax.data_ptr(),
-                 build.DTYPE_CODES[x.dtype], numel, h * w * c, c, vec,
-                 ACTS.index(act), slope, blocks, THREADS, stream)
+                 y.data_ptr(), sync.data_ptr(), amax.data_ptr(),
+                 build.DTYPE_CODES[x.dtype], x.numel(), h * w * c, c,
+                 APPLY_PATHS.index(plan.path), plan.per_thread,
+                 ACTS.index(act), slope, plan.blocks, THREADS,
+                 int(x_ready), stream)
     build.check(lib, err, "norm_act_quant")
     norm_act_quant.launches += 1
     return y, amax

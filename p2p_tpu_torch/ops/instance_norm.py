@@ -76,7 +76,8 @@ class _InstanceNorm(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps):
         mean, rstd = instance_norm_stats(x, eps)
         ctx.save_for_backward(x, mean, rstd, scale)
-        return instance_norm_apply(x, mean, rstd, scale, bias)
+        return instance_norm_apply(x, mean, rstd, scale, bias,
+                                   x_ready=True)
 
     @staticmethod
     def backward(ctx, g):
@@ -139,7 +140,7 @@ class _InstanceNormActQuant(torch.autograd.Function):
         if use_kernel:
             mean, rstd = instance_norm_stats(x, eps)
             q, amax = norm_act_quant(x, mean, rstd, scale, bias, sx, act,
-                                     slope)
+                                     slope, x_ready=True)
         else:
             x32 = x.float()
             m = x32.mean(dim=(2, 3), keepdim=True)

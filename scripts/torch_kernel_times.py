@@ -17,32 +17,38 @@ launch counts chip_smoke.py's main paths make):
   at every (N, H, W, C, form) of chip_smoke.py's kernel phase, given the
   plain statistics, each beside a yardstick that moves the same bytes in
   one PyTorch elementwise kernel (``y.copy_(x)``, or ``torch.add(x, r,
-  out=y)`` where the form reads a residual);
+  out=y)`` where the form reads a residual); #2 and #4 also as a site, #1
+  then the kernel, as ``ops/instance_norm.py`` launches them (with
+  ``x_ready=True`` where the tree's wrapper takes it);
 - #5 ``batch_moments`` at every (M, C) of the reference, facades, path A
   and facades_int8 train steps, beside one read of the same bytes by
   PyTorch's reduction (``x.sum(dtype=torch.float32)``);
 - #6 ``subpixel_head_fwd(x, w)`` at the facades head (x N×128×128×128,
   F4 = 12, N = 1, 2, 4);
 - the timer's floor: one and two ``torch.cuda._sleep(1)`` launches;
-- with ``torch.profiler``, #5's launches at (4096, 128) and (65536, 64):
-  each kernel's mean device µs and the span from the first one's start to
-  the last one's end (cold L2).
+- with ``torch.profiler``, #5's launches at (4096, 128) and (65536, 64),
+  and the sites of #2 at 1×256×256×32 and #4 at 1×65×65×128: each
+  kernel's mean device µs and the span from the first one's start to the
+  last one's end (cold L2; a dependent launch that starts before the
+  launch it follows has ended shows as a span shorter than the sum).
 Cold: chip_smoke.py's Timer (the L2 cache evicted before every run,
 median of 20). Warm: the same without the eviction, so the inputs are in
 L2 as they are right after the op that wrote them on the main path.
 Prints and writes one JSON object; needs a card.
 
 ``--compare`` reads such files (the order of the runs in the call) and
-prints, for each kernel, the launch-weighted sum of cold and warm µs of
-each run, each shape's times and the first run's yardstick, and every
-shape whose time in a later tree is more than 3% above its time in the
-first file's tree (runs of one tree averaged).
+prints, for each kernel and for the sites of #2 and #4, the
+launch-weighted sum of cold and warm µs of each run, each shape's times
+and the first run's yardstick, and every shape whose time in a later tree
+is more than 3% above its time in the first file's tree (runs of one tree
+averaged).
 """
 
 from __future__ import annotations
 
 import collections
 import importlib.util
+import inspect
 import json
 import os
 import re
@@ -54,6 +60,7 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_SHAPES = ((4096, 128), (65536, 64))
+PROFILE_SITES = ("1x256x256x32 apply", "1x65x65x128 leaky+quant")
 
 
 def _module(name: str, path: str):
@@ -171,6 +178,20 @@ def kernel_spans(timer, fn, reps: int = 20):
     return out
 
 
+def _site(stats, kernel, x, **kw):
+    """#1 then ``kernel`` on x, as ops/instance_norm.py launches them:
+    ``x_ready=True`` where the tree's wrapper takes it (x read before the
+    dependent launch's wait)."""
+    if "x_ready" in inspect.signature(kernel).parameters:
+        kw["x_ready"] = True
+
+    def run():
+        mean, rstd = stats(x)
+        kernel(x, mean, rstd, **kw)
+
+    return run
+
+
 def measure(tree: str) -> dict:
     sys.path.insert(0, tree)
     from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
@@ -204,9 +225,11 @@ def measure(tree: str) -> dict:
         n, h, w, c, form = key
         x = smoke.make_input(gen, n, c, h, w, torch.bfloat16, device)
         mean, rstd = instance_norm_stats_plain(x)
+        site = None
         if form == "apply":
             kernel, fn = "instance_norm_apply", (
                 lambda: instance_norm_apply(x, mean, rstd))
+            site = _site(instance_norm_stats, instance_norm_apply, x)
         elif form.endswith("+quant"):
             act = form.split("+")[0]
             sx = norm_act_quant_plain(
@@ -214,6 +237,8 @@ def measure(tree: str) -> dict:
                 act=act)[1] / 127.0
             kernel, fn = "norm_act_quant", (
                 lambda: norm_act_quant(x, mean, rstd, sx=sx, act=act))
+            site = _site(instance_norm_stats, norm_act_quant, x, sx=sx,
+                         act=act)
         else:
             act, _, res = form.partition("+")
             r = smoke.make_input(gen, n, c, h, w, torch.bfloat16, device) \
@@ -225,9 +250,13 @@ def measure(tree: str) -> dict:
         y = torch.empty_like(x)
         copy = (lambda: torch.add(x, r, out=y)) if form.endswith(
             "residual") else (lambda: y.copy_(x))
-        out["norm"][f"{'x'.join(map(str, key[:4]))} {form}"] = {
+        name = f"{'x'.join(map(str, key[:4]))} {form}"
+        out["norm"][name] = {
             "kernel": kernel, "launches": norms[key], **both(timer, fn),
-            "copy": both(timer, copy)}
+            "copy": both(timer, copy),
+            **({"site": both(timer, site)} if site else {})}
+        if name in PROFILE_SITES:
+            out["profile"][f"site {name}"] = kernel_spans(timer, site)
     moments = moments_launches(smoke)
     for m, c in sorted(moments):
         x = (torch.randn((m, c), generator=gen, device=device)
@@ -256,6 +285,9 @@ def _groups(run):
         out["instance_norm_stats"][key] = row
     for key, row in run["norm"].items():
         out[row["kernel"]][key] = row
+        if "site" in row:
+            out[f"{row['kernel']} site (#1 then it)"][key] = {
+                "launches": row["launches"], **row["site"]}
     for key, row in run["moments"].items():
         out["batch_moments"][key] = row
     return out

@@ -22,13 +22,19 @@ CPU. The tensor-core forward of the subpixel head (#6, bf16) and its
 f32 form at every F4, C = 5, 8, 40, 128 and 256, a ragged and a square
 head, N = 1, 2 and 3 (bands of one to four rows), every output written
 and bitwise repeatable, and its launch plan within an H100's shared
-memory for every C the head takes.
+memory for every C the head takes. #2 and #4 as the main path launches
+them (programmatic dependents of #1's finalize, x read before the wait):
+bitwise their plain versions on #1's statistics over 50 launches back to
+back at every path shape, with a PyTorch kernel writing x right before
+each #1, and replayed in a CUDA graph; #2 at C = 3 on 16-byte vectors
+across pixels where H·W·3 divides into them; #4 with NaN, ±inf and −0 in
+x, its arrival counter and max word left at 0.
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
 Tolerance: f32 atol 1e-4 (order of partial sums); bf16 atol 1e-2 + rtol
-2⁻⁷ (one rounding of the stored value); #4, the int8 contractions and
-#3 and #2 in their every-form test exact; #5's f32 sums within 1e-5 of the
+2⁻⁷ (one rounding of the stored value); #4, the int8 contractions, #2
+and #4 after #1, and #3 and #2 in their every-form test exact; #5's f32 sums within 1e-5 of the
 sum of |terms| (the same terms summed in two orders); #6's f32 output
 within 1e-4 + 1e-4 relative in both input types (bf16 products are exact
 in f32), #7's dx as the other outputs stored in its dtype. The plain
@@ -560,7 +566,53 @@ def test_norm_act_quant_leaves_its_arrival_counter_at_zero(cuda):
     torch.cuda.synchronize()
     for stream in (torch.cuda.current_stream(cuda), side):
         counter = _arrival_counter(x.device, stream.cuda_stream)
-        assert int(counter.item()) == 0
+        assert counter.tolist() == [0, 0]      # the counter and the max word
+
+
+def _special(x, kind):
+    """x with NaN, ±inf or −0 written into some elements."""
+    x = x.clone(memory_format=torch.channels_last)
+    flat = x.permute(0, 2, 3, 1).reshape(-1)
+    values = {"nan": (float("nan"), 1.0), "inf": (float("inf"),
+                                                  float("-inf")),
+              "negzero": (-0.0, -0.0)}[kind]
+    flat[7::97] = values[0]
+    flat[50::131] = values[1]
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["nan", "inf", "negzero"])
+def test_norm_act_quant_special_values_and_a_clean_next_launch(cuda, dtype,
+                                                               kind):
+    """NaN, ±inf and −0 in x: q as the plain version's (NaN where it has
+    one), amax NaN, +inf or the plain amax; the arrival counter and the max
+    word are 0 after the launch, so the next launch's amax does not see
+    this one's."""
+    from p2p_tpu_torch.ops.cuda.norm_act import (_arrival_counter,
+                                                 norm_act_quant,
+                                                 norm_act_quant_plain)
+
+    clean = _x((1, 128, 65, 65), dtype, cuda, 28)
+    mean, rstd, _, _, sx = _quant_args(clean, 29, False, False)
+    if kind == "negzero":       # yc = −0 where x = −0: mean 0, rstd 1
+        mean, rstd = torch.zeros_like(mean), torch.ones_like(rstd)
+    x = _special(clean, kind)
+    q, amax = norm_act_quant(x, mean, rstd, sx=sx, act="leaky")
+    pq, pamax = norm_act_quant_plain(x, mean, rstd, sx=sx, act="leaky")
+    torch.testing.assert_close(q, pq, atol=0, rtol=0, equal_nan=True)
+    if kind == "nan":
+        assert torch.isnan(amax) and torch.isnan(pamax)
+    else:
+        assert torch.equal(amax, pamax)
+        assert (kind == "inf") == bool(torch.isinf(amax))
+    sync = _arrival_counter(x.device, torch.cuda.current_stream(
+        cuda).cuda_stream)
+    assert sync.tolist() == [0, 0]
+    _, after = norm_act_quant(clean, mean, rstd, sx=sx, act="leaky")
+    assert torch.equal(after, norm_act_quant_plain(clean, mean, rstd, sx=sx,
+                                                   act="leaky")[1])
+    assert bool(torch.isfinite(after))
 
 
 def test_norm_act_quant_raises_on_what_it_does_not_take(cuda):
@@ -675,3 +727,140 @@ def test_instance_norm_act_quant_on_the_card_is_the_cpu_function(no_tf32):
     assert float(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
     torch.testing.assert_close(qg[1], qc[1], rtol=1e-6, atol=0)
     torch.testing.assert_close(gg[0], gc[0], atol=1e-4, rtol=1e-4)
+
+
+# the main path's sites of #2 (path A's ExpandNetwork) and #4 (the
+# facades_int8 D): (kernel, (N, C, H, W))
+SITES = [("apply", (1, 32, 256, 256)), ("apply", (1, 64, 128, 128)),
+         ("apply", (1, 128, 64, 64)), ("apply", (1, 3, 256, 256)),
+         ("quant", (1, 128, 65, 65)), ("quant", (1, 256, 33, 33))]
+
+
+def _site_args(kernel, x, rep):
+    """Keyword arguments of rep ``rep`` of a site: odd reps with an affine,
+    #4 with its scale and the facades D's leaky activation."""
+    c = x.shape[1]
+    g = torch.Generator(device=x.device).manual_seed(40 + rep % 2)
+    kw = {}
+    if rep % 2:
+        kw = {"scale": torch.randn(c, generator=g, device=x.device) * 0.1 + 1,
+              "bias": torch.randn(c, generator=g, device=x.device) * 0.1}
+    if kernel == "quant":
+        kw.update(sx=torch.tensor(2.5 / 127.0, device=x.device), act="leaky")
+    return kw
+
+
+def _site(kernel, x, kw):
+    """#1, then #2 or #4 as ops/instance_norm.py launches them (x read
+    before the wait): (mean, rstd, outputs)."""
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_quant
+
+    mean, rstd = instance_norm_stats(x)
+    if kernel == "apply":
+        return mean, rstd, (instance_norm_apply(x, mean, rstd, x_ready=True,
+                                                **kw),)
+    return mean, rstd, norm_act_quant(x, mean, rstd, x_ready=True, **kw)
+
+
+def _plain_site(kernel, x, mean, rstd, kw):
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_quant_plain
+
+    if kernel == "apply":
+        return (instance_norm_apply_plain(x, mean, rstd, **kw),)
+    return norm_act_quant_plain(x, mean, rstd, **kw)
+
+
+def _assert_site_runs(kernel, sources, runs):
+    """Each run (rep, mean, rstd, outputs) bitwise the plain version on the
+    kernel's own statistics of the x it was given (``sources[rep % 2]``),
+    and those statistics those of #1 on that x."""
+    for rep, mean, rstd, outs in runs:
+        x = sources[rep % 2]
+        want_mean, want_rstd = instance_norm_stats(x)
+        assert torch.equal(mean, want_mean) and torch.equal(rstd, want_rstd)
+        want = _plain_site(kernel, x, mean, rstd, _site_args(kernel, x, rep))
+        for got, w in zip(outs, want):
+            assert torch.equal(got, w), (rep, kernel)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("writer", ["none", "torch"])
+@pytest.mark.parametrize("kernel,shape", SITES)
+def test_apply_and_quant_after_stats_are_bitwise_over_50_launches(
+        cuda, dtype, writer, kernel, shape):
+    """#2 and #4 launched right after #1's finalize, reading x before the
+    wait, 50 times back to back: bitwise their plain versions on the same
+    statistics every time. With writer "torch" a PyTorch kernel writes x
+    immediately before each #1, alternating between two inputs, so a read
+    of x before it was complete shows as a mismatch."""
+    sources = (_x(shape, dtype, cuda, 30), _x(shape, dtype, cuda, 31))
+    x = sources[0].clone(memory_format=torch.channels_last)
+    runs = []
+    for rep in range(50):
+        if writer == "torch":
+            x.copy_(sources[rep % 2])
+        kw = _site_args(kernel, x, rep)
+        runs.append((rep, *_site(kernel, x, kw)))
+    if writer == "none":
+        sources = (x, x)
+    _assert_site_runs(kernel, sources, runs)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel,shape", SITES)
+def test_apply_and_quant_after_stats_replay_in_a_cuda_graph(cuda, dtype,
+                                                            kernel, shape):
+    """The same site captured in a CUDA graph (the dependent launch becomes
+    a programmatic edge) and replayed 10 times, x rewritten between
+    replays: bitwise the plain version each time."""
+    sources = (_x(shape, dtype, cuda, 32), _x(shape, dtype, cuda, 33))
+    x = sources[0].clone(memory_format=torch.channels_last)
+    kw = _site_args(kernel, x, 1)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        _site(kernel, x, kw)            # loads the library, makes #4's pair
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        mean, rstd, outs = _site(kernel, x, kw)
+    runs = []
+    for rep in range(10):
+        x.copy_(sources[rep % 2])
+        graph.replay()
+        runs.append((rep, mean.clone(), rstd.clone(),
+                     tuple(o.clone() for o in outs)))
+    torch.cuda.synchronize()
+    for rep, m, r, o in runs:
+        x = sources[rep % 2]
+        assert torch.equal(m, instance_norm_stats(x)[0])
+        for got, w in zip(o, _plain_site(kernel, x, m, r, kw)):
+            assert torch.equal(got, w), rep
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 3, 256, 256), (2, 3, 4, 4),
+                                   (3, 3, 16, 17), (1, 3, 5, 7)])
+def test_apply_at_c3_takes_the_vector_path_where_it_can(cuda, dtype, shape):
+    """#2 at C = 3 reads 16-byte vectors across pixels where H·W·3 divides
+    into them (N > 1: one sample a vector), one element at a time where it
+    does not (5·7·3 = 105), and is bitwise its plain version either way,
+    with and without the affine."""
+    from p2p_tpu_torch.ops.cuda.norm_act import plan_for
+
+    x = _x(shape, dtype, cuda, 34)
+    n, c, h, w = shape
+    vec = 16 // x.element_size()
+    want = "flat3" if (h * w * c) % vec == 0 else "element"
+    assert plan_for(x, torch.empty_like(x)).path == want
+    mean, rstd = instance_norm_stats_plain(x)
+    g = torch.Generator(device=cuda).manual_seed(35)
+    scale = torch.randn(c, generator=g, device=cuda) * 0.1 + 1
+    bias = torch.randn(c, generator=g, device=cuda) * 0.1
+    for kw in ({}, {"scale": scale, "bias": bias}):
+        for x_ready in (False, True):
+            y = instance_norm_apply(x, mean, rstd, x_ready=x_ready, **kw)
+            assert torch.equal(y, instance_norm_apply_plain(x, mean, rstd,
+                                                            **kw))
+    torch.cuda.synchronize()
