@@ -18,10 +18,11 @@ to the CPU or to a plain version):
    instance-norm paths (the full-width pix2pixHD generator at each batch
    size serving uses, N = 1, 2, 4, and in training at N = 1; the
    instance-norm ``reference`` G and D at N = 1) and each
-   activation/residual form; #2 and #4 bitwise, alone and right after #1
-   (launched as ops/instance_norm.py launches them, x read before the
-   dependent launch's wait), each row with its path (#2's C = 3 head on
-   16-byte vectors across pixels) and its µs alone and as a site; #5
+   activation/residual form; #2, #3 and #4 bitwise, alone and right
+   after #1 (launched as ops/instance_norm.py launches them, x and #3's
+   residual read before the dependent launch's wait), each row with its
+   path (#2's C = 3 head on 16-byte vectors across pixels) and its µs
+   alone and as a site; #5
    at the (M, C) shapes of the reference, facades and instance-norm train
    steps; #6 and #7 at the facades image head's shapes (N = 1, 2, 4
    serving, N = 1 training); #6 also launched twice at each shape (the
@@ -375,13 +376,11 @@ def instance_launches(plan, a_plan, a_steps: int, b_steps: int):
 
 
 def kernel_phase(device, launches):
-    """#1, #2 and #3 at every (N, shape) of ``launches`` (and each of its
-    forms), in bf16 and f32, against their plain versions, with times."""
-    import torch.nn.functional as F
-
+    """#1, #2, #3 and #4 at every (N, shape) of ``launches`` (and each of
+    its forms), in bf16 and f32, against their plain versions, with
+    times."""
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
         instance_norm_stats, instance_norm_stats_plain)
-    from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_plain
 
     timer = Timer(device)
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -391,7 +390,6 @@ def kernel_phase(device, launches):
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         elt = torch.tensor([], dtype=dtype).element_size()
-        atol, rtol = TOL[dtype]
         for (n, h, w, c), forms in sorted(by_shape.items()):
             where = f"{str(dtype)[6:]} N={n} {h}x{w}x{c}"
             x = make_input(gen, n, c, h, w, dtype, device)
@@ -419,22 +417,10 @@ def kernel_phase(device, launches):
                     rows.append(apply_row(timer, x, pmean, prstd, common,
                                           count, where))
                     continue
-                act, _, res = form.partition("+")
-                r = make_input(gen, n, c, h, w, dtype, device) if res \
-                    else None
-                y = norm_act(x, pmean, prstd, residual=r, act=act)
-                py = norm_act_plain(x, pmean, prstd, residual=r, act=act)
-                assert_close(f"norm_act {where} {form}", y, py, atol, rtol)
-                rows.append(dict(
-                    kernel="norm_act", **common, form=form, launches=count,
-                    max_abs_err=max_err(y, py),
-                    ms=timer(lambda: norm_act(x, pmean, prstd, residual=r,
-                                              act=act)),
-                    plain_ms=timer(lambda: norm_act_plain(
-                        x, pmean, prstd, residual=r, act=act)),
-                    library_ms=timer(lambda: F.instance_norm(x)),
-                    **bound_row(numel * elt * (3 if res else 2)
-                                + 2 * n * c * 4, 4 * numel, dtype)))
+                r = make_input(gen, n, c, h, w, dtype, device) \
+                    if form.endswith("+residual") else None
+                rows.append(norm_act_row(timer, x, r, pmean, prstd, common,
+                                         count, where, form))
     print("kernel phase (#1, #2, #3, #4; device ms, median of "
           f"{TIMING_REPS} cold-L2 runs; tolerance passed):")
     for row in rows:
@@ -462,6 +448,48 @@ def site_check(what, kernel, plain, x, **kw):
             raise AssertionError(f"{what} after #1: not bitwise the plain "
                                  f"version ({max_err(g, w):.3g})")
     return site
+
+
+def norm_act_row(timer, x, r, mean, rstd, common, count, where, form):
+    """#3 against its plain version at one shape and form (``r`` the
+    residual, or None): bitwise, given the same statistics and right after
+    #1 on #1's statistics (x and the residual read before the dependent
+    launch's wait), with and without the affine; then its times alone and
+    as a site (#1 then #3). The library yardstick is ``F.instance_norm``,
+    which computes the normalize alone (no activation or residual)."""
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.cuda.norm_act import (norm_act, norm_act_plain,
+                                                 plan_for)
+
+    n, c = x.shape[:2]
+    act = form.partition("+")[0]
+    gen = torch.Generator(device=x.device).manual_seed(SEED)
+    affine = {"scale": torch.randn(c, generator=gen, device=x.device) * 0.1
+              + 1, "bias": torch.randn(c, generator=gen, device=x.device)
+              * 0.1}
+    sites = []
+    for kw in ({}, affine):
+        y = norm_act(x, mean, rstd, residual=r, act=act, **kw)
+        if not torch.equal(y, norm_act_plain(x, mean, rstd, residual=r,
+                                             act=act, **kw)):
+            raise AssertionError(f"norm_act {where} {form}: not bitwise the "
+                                 "plain version")
+        sites.append(site_check(f"norm_act {where} {form}", norm_act,
+                                norm_act_plain, x, residual=r, act=act,
+                                **kw))
+    elt = x.element_size()
+    ms = timer(lambda: norm_act(x, mean, rstd, residual=r, act=act))
+    site_ms = timer(sites[0])
+    return dict(
+        kernel="norm_act", **common, form=form,
+        path=plan_for(x, x, flat3=False, residual=r).path, launches=count,
+        max_abs_err=0.0, ms=ms, us=ms * 1e3, site_us=site_ms * 1e3,
+        plain_ms=timer(lambda: norm_act_plain(x, mean, rstd, residual=r,
+                                              act=act)),
+        library_ms=timer(lambda: F.instance_norm(x)),
+        **bound_row(x.numel() * elt * (2 if r is None else 3)
+                    + 2 * n * c * 4, 4 * x.numel(), x.dtype))
 
 
 def quant_row(timer, x, mean, rstd, common, count, where, form):
@@ -950,7 +978,8 @@ def slice_phase(device, card, profile: bool):
         y_kernel, _, _ = eng32.infer_batch({"input": reqs[:n32]})
         with mock.patch.object(seam, "instance_norm_stats",
                                instance_norm_stats_plain), \
-                mock.patch.object(seam, "norm_act", norm_act_plain):
+                mock.patch.object(seam, "norm_act",
+                                  as_wrapper(norm_act_plain)):
             mid = launch_counts()
             y_plain, _, _ = eng32.infer_batch({"input": reqs[:n32]})
         after = launch_counts()
@@ -1406,15 +1435,15 @@ def instance_plain_patches():
                               instance_norm_stats_plain),
             mock.patch.object(seam, "instance_norm_apply",
                               as_wrapper(instance_norm_apply_plain)),
-            mock.patch.object(seam, "norm_act", norm_act_plain),
+            mock.patch.object(seam, "norm_act", as_wrapper(norm_act_plain)),
             mock.patch.object(seam, "norm_act_quant",
                               as_wrapper(norm_act_quant_plain)),
             mock.patch.object(norm, "batch_moments", batch_moments_plain))
 
 
 def as_wrapper(plain):
-    """``plain`` called as #2's and #4's wrappers are: ``x_ready`` (when
-    the kernel may read x before its wait) means nothing to it."""
+    """``plain`` called as #2's, #3's and #4's wrappers are: ``x_ready``
+    (when the kernel may read x before its wait) means nothing to it."""
     return lambda *args, x_ready=False, **kwargs: plain(*args, **kwargs)
 
 
@@ -1908,7 +1937,7 @@ def main(argv=None) -> int:
               + ", ".join(f"{k} {sum(r[k] * v for r, v in sel):.4f}"
                           for k in ("ms", "bound_ms", "plain_ms",
                                     "library_ms")))
-    for kernel in ("instance_norm_apply", "norm_act_quant"):
+    for kernel in ("instance_norm_apply", "norm_act", "norm_act_quant"):
         sel = [r for r in rows if r["kernel"] == kernel
                and r["dtype"] == "bfloat16"]
         print(f"{kernel} (bf16, {sum(r['launches'] for r in sel)} "

@@ -43,7 +43,7 @@ SIGNATURES = {
                                     _L, _P, _P, _P, _P, _F, _P)},
     "norm_act": {
         "p2p_norm_act": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
-                         _F, _I, _I, _P),
+                         _I, _F, _I, _I, _I, _P),
         "p2p_instance_norm_apply": (_P, _P, _P, _P, _P, _P, _I, _L, _L, _I,
                                     _I, _I, _I, _I, _I, _P),
         "p2p_norm_act_quant": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _L,

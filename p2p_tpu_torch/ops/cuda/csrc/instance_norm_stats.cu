@@ -19,20 +19,32 @@
 // (ops/cuda/instance_norm_kernel.py stats_geometry) picks the vector width,
 // block shape and P so that both ends of the path's shapes fill the card:
 // channel blocks at (16, 32, 1024), pixel chunks at (512, 1024, 32).
+//
+// The launches are one chain of programmatic dependent launches. Pass 1 is
+// an ordinary launch: the launch before it is the conv that writes x, which
+// never lets dependents start early, so pass 1 starts once x is complete.
+// It lets dependents start at its top, and the finalize is launched as its
+// dependent (p2p::launch_dependent): its blocks become resident while pass
+// 1 runs and wait in griddepcontrol.wait, before any read of a partial, for
+// pass 1's end. The finalize too lets dependents start at its top, so the
+// epilogue launched after it (#2, #3 or #4, norm_act.cu) becomes resident
+// in the same way. The partials are summed in the same fixed order as with
+// two ordinary launches, so mean and rstd keep the same bits.
 
 #include "moments_partial.cuh"
 
 namespace {
 
-__global__ void stats_finalize_kernel(const float* __restrict__ part_s1,
-                                      const float* __restrict__ part_s2,
-                                      float* __restrict__ mean,
-                                      float* __restrict__ rstd, int num_p,
-                                      int c, float count, float eps) {
-  // a launch after this one made as a programmatic dependent (#2's and
-  // #4's, norm_act.cu) may start now and wait for this grid's end; with an
-  // ordinary next launch (#3's) this does nothing
+__global__ void __launch_bounds__(32 * p2p::kFinalizeRows)
+    stats_finalize_kernel(const float* __restrict__ part_s1,
+                          const float* __restrict__ part_s2,
+                          float* __restrict__ mean, float* __restrict__ rstd,
+                          int num_p, int c, float count, float eps) {
+  // the epilogue launched after this one as a programmatic dependent (#2,
+  // #3 or #4, norm_act.cu) may start now and wait for this grid's end
   p2p::allow_dependents();
+  // every block waits for pass 1's end before it reads a partial
+  p2p::grid_dependency_wait();
   float a, b;
   if (!p2p::sum_partials(part_s1, part_s2, num_p, c, &a, &b)) return;
   // separately rounded steps, no fused multiply-add: the variance of a
@@ -51,6 +63,7 @@ __global__ void stats_finalize_kernel(const float* __restrict__ part_s1,
 // x: (N, H*W, C) in memory (channels_last), dtype p2p::DType; vec is 16 bytes
 // worth of elements (C % vec == 0 and x 16-byte aligned) or 1.
 // part_s1/part_s2: (N, num_p, C) f32 scratch; mean/rstd: (N, C) f32.
+// Pass 1 is an ordinary launch, the finalize its programmatic dependent.
 // Returns the first CUDA error of the two launches (0 = success).
 extern "C" int p2p_instance_norm_stats(
     const void* x, int dtype, int n, int64_t hw, int c, int vec, int tx,
@@ -61,9 +74,8 @@ extern "C" int p2p_instance_norm_stats(
       x, dtype, vec, part_s1, part_s2, n, hw, c, tx, ty, cblocks, num_p, chunk,
       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((c + 31) / 32, n);
-  const dim3 block(32, p2p::kFinalizeRows);
-  stats_finalize_kernel<<<grid, block, 0, stream>>>(
-      part_s1, part_s2, mean, rstd, num_p, c, static_cast<float>(hw), eps);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(p2p::launch_dependent(
+      stats_finalize_kernel, dim3((c + 31) / 32, n),
+      dim3(32, p2p::kFinalizeRows), stream, part_s1, part_s2, mean, rstd,
+      num_p, c, static_cast<float>(hw), eps));
 }

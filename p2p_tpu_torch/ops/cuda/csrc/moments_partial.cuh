@@ -35,9 +35,9 @@ __global__ void moments_partial_kernel(const T* __restrict__ x,
                                        float* __restrict__ part_s1,
                                        float* __restrict__ part_s2,
                                        int64_t hw, int c, int64_t chunk) {
-  // a launch made as a programmatic dependent (the BatchNorm moments
-  // kernel's finalize) may start now and wait for this grid's end; with an
-  // ordinary next launch this does nothing
+  // a launch made as a programmatic dependent (the finalize of the
+  // BatchNorm moments or of the instance-norm statistics) may start now and
+  // wait for this grid's end; with an ordinary next launch this does nothing
   allow_dependents();
   const int n = blockIdx.z;
   const int p = blockIdx.y;

@@ -24,28 +24,34 @@
 // facades_int8 discriminator moves 2.2 MB (1x128x65x65 bf16) and 1.1 MB
 // (1x256x33x33).
 //
-// #3 (norm_act_kernel). A flat grid-stride pass over (N*H*W*C) in 16-byte
-// vectors: in channels_last every vector holds VEC neighbouring channels of
+// #2, #3 and #4 (apply_kernel for #2 and #3, quant_kernel for #4). Their
+// launches follow #1's finalize on the main path, and most are small
+// (876 of #3's 1,064 launches move at most 4.2 MB; #2's 1-4 MB), so their
+// time is the launch and the first round trip to memory, not the bytes.
+// Each is launched as a programmatic dependent of whatever precedes it on
+// the stream (cudaLaunchAttributeProgrammaticStreamSerialization): its
+// blocks become resident while that launch still runs and wait in
+// griddepcontrol.wait for its end. With EARLY (the wrapper's
+// x_ready=True), a block issues its loads of x, and of the residual where
+// #3 has one, before the wait, so they overlap the launches before it. The
+// host plan (ops/cuda/norm_act.py apply_plan) makes the grid one wave up
+// to a wave's worth of vectors: thread t of block b takes the vectors
+// (b*K + k)*256 + t, k < K, all loaded before the wait; beyond that the
+// blocks past the first wave run after it. #2 and #4 take K in {1, 2, 4},
+// the fewest that fit one wave, else 4. #3 takes K = 1: at K = 4 it held
+// 71-95 registers, so no more of its vectors fit one wave, and its 16-134
+// MB launches (160 of 1,064), which stream at the bytes' rate, ran 5-8%
+// slower than the grid-stride pass it replaces. Where a warp's vectors
+// span 32 groups of channels (C >= 32*VEC) #3 also reads the statistics as
+// 16-byte words (normalize_channels' WIDE, chosen on the host). In
+// channels_last every 16-byte vector holds VEC neighbouring channels of
 // one pixel, so loads and stores are fully coalesced and one vector needs
 // VEC consecutive mean/rstd entries. The activation and the residual are
 // template parameters, so the inner loop carries no branch on them; the
-// affine is a runtime null check (it is absent everywhere on the serving
-// path, and uniform across the grid).
-//
-// #2 and #4 (apply_kernel, quant_kernel). Their launches are small (1-4 MB)
-// and follow #1's finalize on the main path, so their time is the launch
-// and the first round trip to memory, not the bytes. Each is launched as a
-// programmatic dependent of whatever precedes it on the stream
-// (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks become
-// resident while that launch still runs and wait in griddepcontrol.wait
-// for its end. With EARLY (the wrapper's x_ready=True), a block issues its
-// loads of x before the wait, so they overlap the launch before it. The
-// host plan (ops/cuda/norm_act.py apply_plan) makes the grid one wave at
-// the main path's shapes: thread t of block b takes the vectors
-// (b*K + k)*256 + t, k < K, K in {1, 2, 4}, all loaded before the wait;
-// blocks beyond the first wave (larger callers) run after it. Element
-// indices are 32-bit (numel < 2^31), with no 64-bit division. Three paths:
-// - 16-byte vectors along C (C % VEC == 0, x and y 16-byte aligned);
+// affine is a runtime null check (absent everywhere on the serving path,
+// and uniform across the grid). Element indices are 32-bit (numel < 2^31),
+// with no 64-bit division. Three paths:
+// - 16-byte vectors along C (C % VEC == 0; x, y and r 16-byte aligned);
 // - #2 at C = 3 (the ExpandNetwork's head): 16-byte vectors of consecutive
 //   elements across pixels, where H*W*C % VEC == 0 and x and y are 16-byte
 //   aligned (no vector spans two samples); a vector's first channel is its
@@ -98,117 +104,16 @@ __device__ __forceinline__ float apply_one(float xv, float mu, float rs,
   return f;
 }
 
-template <typename T, int VEC, int ACT, bool RES>
-__global__ void norm_act_kernel(const T* __restrict__ x,
-                                const T* __restrict__ res,
-                                const float* __restrict__ mean,
-                                const float* __restrict__ rstd,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta,
-                                T* __restrict__ y, int64_t total_vecs,
-                                int64_t hwc, int c, float slope) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       v < total_vecs; v += stride) {
-    const int64_t e = v * VEC;
-    const int64_t n = e / hwc;
-    const int cc = static_cast<int>(e % c);
-    const Pack<T, VEC> xv = p2p::load_pack<T, VEC>(x + e);
-    Pack<T, VEC> rv;
-    if (RES) rv = p2p::load_pack<T, VEC>(res + e);
-    const float* mu = mean + n * c + cc;
-    const float* rs = rstd + n * c + cc;
-    Pack<T, VEC> out;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) {
-      float f = apply_one<ACT>(p2p::to_f32(xv.v[k]), mu[k], rs[k],
-                               gamma == nullptr ? nullptr : gamma + cc + k,
-                               beta == nullptr ? nullptr : beta + cc + k,
-                               slope, RES ? p2p::to_f32(rv.v[k]) : 0.f, RES);
-      out.v[k] = p2p::from_f32<T>(f);
-    }
-    p2p::store_pack<T, VEC>(y + e, out);
-  }
-}
-
-template <typename T, int VEC, int ACT, bool RES>
-cudaError_t launch(const void* x, const void* res, const float* mean,
-                   const float* rstd, const float* gamma, const float* beta,
-                   void* y, int64_t numel, int64_t hwc, int c, float slope,
-                   int blocks, int threads, cudaStream_t stream) {
-  norm_act_kernel<T, VEC, ACT, RES><<<blocks, threads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(res), mean, rstd, gamma,
-      beta, static_cast<T*>(y), numel / VEC, hwc, c, slope);
-  return cudaGetLastError();
-}
-
-template <typename T, int VEC>
-cudaError_t dispatch_act(int act, bool has_res, const void* x,
-                         const void* res, const float* mean, const float* rstd,
-                         const float* gamma, const float* beta, void* y,
-                         int64_t numel, int64_t hwc, int c, float slope,
-                         int blocks, int threads, cudaStream_t stream) {
-#define P2P_LAUNCH(A, R)                                                     \
-  return launch<T, VEC, A, R>(x, res, mean, rstd, gamma, beta, y, numel, hwc, \
-                              c, slope, blocks, threads, stream)
-  if (has_res) {
-    if (act == kNone) P2P_LAUNCH(kNone, true);
-    if (act == kRelu) P2P_LAUNCH(kRelu, true);
-    if (act == kLeaky) P2P_LAUNCH(kLeaky, true);
-  } else {
-    if (act == kNone) P2P_LAUNCH(kNone, false);
-    if (act == kRelu) P2P_LAUNCH(kRelu, false);
-    if (act == kLeaky) P2P_LAUNCH(kLeaky, false);
-  }
-#undef P2P_LAUNCH
-  return cudaErrorInvalidValue;
-}
-
-}  // namespace
-
-// x, res, y: (N, H*W, C) in memory (channels_last), dtype p2p::DType; res may
-// be null. mean/rstd: (N, C) f32; gamma/beta: (C,) f32 or both null.
-// vec is 16 bytes worth of elements (C % vec == 0, all tensors 16-byte
-// aligned) or 1. Returns the launch's CUDA error (0 = success).
-extern "C" int p2p_norm_act(const void* x, const void* res, const float* mean,
-                            const float* rstd, const float* gamma,
-                            const float* beta, void* y, int dtype, int64_t numel,
-                            int64_t hwc, int c, int vec, int act, float slope,
-                            int blocks, int threads, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const bool has_res = res != nullptr;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == p2p::kF32 && vec == 4) {
-    err = dispatch_act<float, 4>(act, has_res, x, res, mean, rstd, gamma, beta,
-                                 y, numel, hwc, c, slope, blocks, threads,
-                                 stream);
-  } else if (dtype == p2p::kF32 && vec == 1) {
-    err = dispatch_act<float, 1>(act, has_res, x, res, mean, rstd, gamma, beta,
-                                 y, numel, hwc, c, slope, blocks, threads,
-                                 stream);
-  } else if (dtype == p2p::kBF16 && vec == 8) {
-    err = dispatch_act<__nv_bfloat16, 8>(act, has_res, x, res, mean, rstd,
-                                         gamma, beta, y, numel, hwc, c, slope,
-                                         blocks, threads, stream);
-  } else if (dtype == p2p::kBF16 && vec == 1) {
-    err = dispatch_act<__nv_bfloat16, 1>(act, has_res, x, res, mean, rstd,
-                                         gamma, beta, y, numel, hwc, c, slope,
-                                         blocks, threads, stream);
-  }
-  return static_cast<int>(err);
-}
-
-
-namespace {
-
-constexpr int kApplyThreads = 256;   // threads of a #2 or #4 block
+constexpr int kApplyThreads = 256;   // threads of a #2, #3 or #4 block
 constexpr int kResidentBlocks = 8;   // blocks an SM holds at K = 1 (2,048
                                      // threads: one wave, the host plan)
 
-// paths of #2 and #4 (ops/cuda/norm_act.py APPLY_PATHS)
+// paths of #2, #3 and #4 (ops/cuda/norm_act.py APPLY_PATHS; kFlat3 is
+// #2's alone)
 enum ApplyPath : int { kChannels = 0, kFlat3 = 1, kElement = 2 };
 
-// What every #2 and #4 launch reads besides x, and its extent.
+// What every #2, #3 and #4 launch reads besides x (and #3's residual),
+// and its extent.
 struct Epilogue {
   const float* mean;  // (N, C)
   const float* rstd;  // (N, C)
@@ -222,91 +127,142 @@ struct Epilogue {
 
 // Thread t of block b takes the vectors (b*K + k)*kApplyThreads + t, k < K.
 //
-// The rule of #2's and #4's dependent launches: before griddepcontrol.wait
-// a block reads only x and writes nothing. Every write (y, amax, the
-// arrival counter and the max word) and every read of the statistics, the
-// affine and sx come after it. The wait returns once the launch before
-// this one on the stream has ended and its stores are visible. Reading x
-// before the wait needs x complete before that launch began, that is, a
-// launch before that does not write x; the caller says so with EARLY
-// (ops/cuda/norm_act.py x_ready=True; ops/instance_norm.py launches #1 of
-// the same x right before):
-// - after #1's finalize, which lets dependents start at its top: it was
-//   launched in stream order after #1's pass 1, and pass 1 after the kernel
-//   that wrote x, so x was written and visible before the finalize began;
-//   the finalize writes only mean and rstd, read after the wait;
-// - after #5's single-launch pass 1 (moments_partial.cuh, which lets
-//   dependents start at its top): an ordinary launch that writes only its
-//   sums, so the same holds;
-// - after any PyTorch kernel, which never lets dependents start early:
-//   these blocks start only once all of its blocks have ended, and x
-//   written by the kernels before it is visible. Its own stores are made
-//   visible only by the wait, so EARLY is off unless the launch before is
-//   known not to write x.
-// No kernel of the port that writes an activation lets dependents start
-// early, and #2 and #4 do not at all, so a launch after them starts only
-// once they have ended.
+// The rule of the dependent launches of #2, #3 and #4: before
+// griddepcontrol.wait a block reads only x and #3's residual r, and writes
+// nothing. Every write (y, amax, the arrival counter and the max word) and
+// every read of the statistics, the affine and sx come after it. The wait
+// returns once the launch before this one on the stream has ended and its
+// stores are visible. Reading x and r before the wait needs both complete
+// before that launch began, that is, no launch that may still run writes
+// them; the caller says so with EARLY (ops/cuda/norm_act.py x_ready=True;
+// ops/instance_norm.py launches #1 of the same x right before). The chain
+// on the main path is #1's pass 1, then #1's finalize, then the epilogue:
+// - pass 1 is an ordinary launch, so it begins only once the launch
+//   before it, the conv that writes x, has ended and its stores are
+//   visible; r (the ResidualBlock's input, models/expand.py and
+//   models/resnet_gen.py) was written before the block's convs, so before
+//   that. Pass 1 lets dependents start at its top and writes only its
+//   partials;
+// - the finalize is pass 1's programmatic dependent: it may begin while
+//   pass 1 runs, lets dependents start at its top, waits before it reads a
+//   partial, and writes only mean and rstd;
+// - the epilogue is the finalize's dependent: it may begin while pass 1
+//   still runs. x and r were complete and visible before pass 1 began, and
+//   no launch of the chain writes them, so they may be read at once; mean
+//   and rstd are read after the wait, which returns once the finalize has
+//   ended, and the finalize ends only after pass 1 has.
+// After #5's single-launch pass 1 (moments_partial.cuh, an ordinary launch
+// that lets dependents start at its top and writes only its sums) the same
+// holds. After any PyTorch kernel, which never lets dependents start
+// early, these blocks start only once all of its blocks have ended, and x
+// written by the kernels before it is visible; its own stores are made
+// visible only by the wait, so EARLY is off unless the launch before is
+// known not to write x or r. No kernel of the port that writes an
+// activation lets dependents start early, and #2, #3 and #4 do not at all,
+// so a launch after them starts only once they have ended.
 //
-// With EARLY, each thread's K vectors are loaded before the wait as raw
-// 16-byte words (an index past the end reloads the last vector, so there is
-// no branch), and unpacked after it: the loads stay in flight across the
-// wait and the statistics' loads are issued right after it. Without EARLY,
-// x is loaded after the wait beside the statistics, in one round trip.
+// With EARLY, each thread's K vectors of x (and of r) are loaded before the
+// wait as raw 16-byte words (an index past the end reloads the last
+// vector, so there is no branch), and unpacked after it: the loads stay in
+// flight across the wait and the statistics' loads are issued right after
+// it. Without EARLY, x and r are loaded after the wait beside the
+// statistics, in one round trip.
 template <typename T, int VEC>
 using Raw = std::conditional_t<sizeof(T) * VEC == 16, uint4, Pack<T, VEC>>;
 
-template <typename T, int VEC, int K, bool EARLY>
+// x's loads, and with RES the residual's, of one thread
+template <typename T, int VEC, int K, bool RES, bool EARLY>
 struct XLoads {
   const T* __restrict__ x;
-  Raw<T, VEC> r[K];
+  const T* __restrict__ res;  // read only with RES
+  Raw<T, VEC> xr[K];
+  Raw<T, VEC> rr[RES ? K : 1];
 
   __device__ __forceinline__ static Raw<T, VEC> load(const T* p) {
     return *reinterpret_cast<const Raw<T, VEC>*>(p);
   }
 
-  // issues the loads of x (EARLY), then waits for the launch before
+  __device__ __forceinline__ static Pack<T, VEC> unpack(const Raw<T, VEC>& w) {
+    Pack<T, VEC> p;
+    memcpy(&p, &w, sizeof(p));
+    return p;
+  }
+
+  // issues the loads of x and r (EARLY), then waits for the launch before
   __device__ __forceinline__ void load_then_wait(uint32_t first,
                                                  uint32_t total_vecs) {
     if constexpr (EARLY) {
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const uint32_t v = min(first + k * kApplyThreads, total_vecs - 1);
-        r[k] = load(x + size_t{v} * VEC);
+        const size_t o =
+            size_t{min(first + k * kApplyThreads, total_vecs - 1)} * VEC;
+        xr[k] = load(x + o);
+        if constexpr (RES) rr[k] = load(res + o);
       }
     }
     p2p::grid_dependency_wait();
   }
 
-  // vector v, the k-th of this thread
+  // vector v of x, the k-th of this thread
   __device__ __forceinline__ Pack<T, VEC> at(int k, uint32_t v) const {
-    Raw<T, VEC> raw;
     if constexpr (EARLY) {
-      raw = r[k];
+      return unpack(xr[k]);
     } else {
-      raw = load(x + size_t{v} * VEC);
+      return unpack(load(x + size_t{v} * VEC));
     }
-    Pack<T, VEC> p;
-    memcpy(&p, &raw, sizeof(p));
-    return p;
+  }
+
+  // the same vector of r (RES)
+  __device__ __forceinline__ Pack<T, VEC> res_at(int k, uint32_t v) const {
+    if constexpr (EARLY) {
+      return unpack(rr[RES ? k : 0]);
+    } else {
+      return unpack(load(res + size_t{v} * VEC));
+    }
   }
 };
 
-// f[k] = act((x - mu) * rs [* gamma + beta]) of the elements of vector v:
-// VEC consecutive channels of one pixel (VEC = 1: one element)
-template <typename T, int VEC, int ACT>
+// out = p[0..VEC) as 16-byte words (p 16-byte aligned)
+template <int VEC>
+__device__ __forceinline__ void load_words(const float* p, float (&out)[VEC]) {
+  static_assert(VEC % 4 == 0, "whole 16-byte words");
+#pragma unroll
+  for (int j = 0; j < VEC; j += 4) {
+    const float4 w = *reinterpret_cast<const float4*>(p + j);
+    out[j] = w.x;
+    out[j + 1] = w.y;
+    out[j + 2] = w.z;
+    out[j + 3] = w.w;
+  }
+}
+
+// f[k] = act((x - mu) * rs [* gamma + beta] [+ r]) of the elements of
+// vector v: VEC consecutive channels of one pixel (VEC = 1: one element);
+// rv is read only with RES. With WIDE (#3, where mean and rstd are 16-byte
+// aligned and a warp's 32 vectors lie in 32 groups of channels, C >=
+// 32*VEC, so that one load of a float of each touches 8 cache lines) the
+// statistics are read as 16-byte words
+template <typename T, int VEC, int ACT, bool RES, bool WIDE = false>
 __device__ __forceinline__ void normalize_channels(const Pack<T, VEC>& xv,
+                                                   const Pack<T, VEC>& rv,
                                                    uint32_t v,
                                                    const Epilogue& e,
                                                    float (&f)[VEC]) {
   const uint32_t i = v * VEC;
   const uint32_t cc = i % e.c;
   const uint32_t o = i / e.hwc * e.c + cc;
+  float mu[VEC], rs[VEC];
+  if constexpr (WIDE) {
+    load_words<VEC>(e.mean + o, mu);
+    load_words<VEC>(e.rstd + o, rs);
+  }
 #pragma unroll
   for (int k = 0; k < VEC; ++k) {
-    f[k] = apply_one<ACT>(p2p::to_f32(xv.v[k]), e.mean[o + k], e.rstd[o + k],
+    f[k] = apply_one<ACT>(p2p::to_f32(xv.v[k]), WIDE ? mu[k] : e.mean[o + k],
+                          WIDE ? rs[k] : e.rstd[o + k],
                           e.gamma == nullptr ? nullptr : e.gamma + cc + k,
                           e.beta == nullptr ? nullptr : e.beta + cc + k,
-                          e.slope, 0.f, false);
+                          e.slope, RES ? p2p::to_f32(rv.v[k]) : 0.f, RES);
   }
 }
 
@@ -339,11 +295,20 @@ __device__ __forceinline__ void normalize_flat3(const Pack<T, VEC>& xv,
   }
 }
 
-template <typename T, int VEC, int K, bool FLAT3, bool EARLY>
-__global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
-    apply_kernel(const T* __restrict__ x, T* __restrict__ y, Epilogue e) {
+// #2 (ACT kNone, no RES, not WIDE) and #3 (K = 1). With RES and WIDE a
+// thread holds x's and r's words across the wait beside 16-byte words of
+// the statistics, which spills at 32 registers (8 blocks an SM), so it asks
+// for 4 blocks an SM
+template <typename T, int VEC, int K, bool FLAT3, int ACT, bool RES,
+          bool EARLY, bool WIDE>
+__global__ void __launch_bounds__(kApplyThreads,
+                                  kResidentBlocks / K /
+                                      (RES && WIDE ? 2 : 1))
+    apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                 T* __restrict__ y, Epilogue e) {
+  static_assert(!FLAT3 || (ACT == kNone && !RES), "C = 3 is #2's path");
   const uint32_t first = blockIdx.x * (K * kApplyThreads) + threadIdx.x;
-  XLoads<T, VEC, K, EARLY> xs{x};
+  XLoads<T, VEC, K, RES, EARLY> xs{x, res};
   xs.load_then_wait(first, e.total_vecs);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
@@ -352,8 +317,12 @@ __global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
     float f[VEC];
     if constexpr (FLAT3) {
       normalize_flat3<T, VEC, kNone>(xs.at(k, v), v, e, f);
+    } else if constexpr (RES) {
+      normalize_channels<T, VEC, ACT, true, WIDE>(xs.at(k, v),
+                                                  xs.res_at(k, v), v, e, f);
     } else {
-      normalize_channels<T, VEC, kNone>(xs.at(k, v), v, e, f);
+      const Pack<T, VEC> xv = xs.at(k, v);
+      normalize_channels<T, VEC, ACT, false, WIDE>(xv, xv, v, e, f);
     }
     Pack<T, VEC> out;
 #pragma unroll
@@ -371,7 +340,7 @@ __global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
                  T* __restrict__ y, unsigned int* __restrict__ sync,
                  float* __restrict__ amax, Epilogue e) {
   const uint32_t first = blockIdx.x * (K * kApplyThreads) + threadIdx.x;
-  XLoads<T, VEC, K, EARLY> xs{x};
+  XLoads<T, VEC, K, false, EARLY> xs{x, nullptr};
   xs.load_then_wait(first, e.total_vecs);
   __shared__ unsigned int block_bits;
   if (threadIdx.x == 0) block_bits = 0u;
@@ -382,7 +351,8 @@ __global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
     const uint32_t v = first + k * kApplyThreads;
     if (v >= e.total_vecs) break;
     float f[VEC];
-    normalize_channels<T, VEC, ACT>(xs.at(k, v), v, e, f);
+    const Pack<T, VEC> xv = xs.at(k, v);
+    normalize_channels<T, VEC, ACT, false>(xv, xv, v, e, f);
     Pack<T, VEC> out;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
@@ -410,9 +380,9 @@ __global__ void __launch_bounds__(kApplyThreads, kResidentBlocks / K)
   sync[0] = 0u;
 }
 
-// checks what p2p_instance_norm_apply and p2p_norm_act_quant take (the
-// grid must cover every vector), and fills in the launch's extent; the
-// vector width follows path and dtype
+// checks what p2p_instance_norm_apply, p2p_norm_act and p2p_norm_act_quant
+// take (the grid must cover every vector), and fills in the launch's
+// extent; the vector width follows path and dtype
 cudaError_t make_epilogue(const float* mean, const float* rstd,
                           const float* gamma, const float* beta, int dtype,
                           int64_t numel, int64_t hwc, int c, int path,
@@ -438,15 +408,50 @@ cudaError_t make_epilogue(const float* mean, const float* rstd,
 template <typename T, int VEC, bool FLAT3, bool EARLY>
 cudaError_t launch_apply(int per_thread, int blocks, cudaStream_t stream,
                          const void* x, void* y, const Epilogue& e) {
-#define P2P_APPLY(K)                                                    \
-  return p2p::launch_dependent(apply_kernel<T, VEC, K, FLAT3, EARLY>,   \
-                               dim3(blocks), dim3(kApplyThreads), stream, \
-                               static_cast<const T*>(x),                \
-                               static_cast<T*>(y), e)
+#define P2P_APPLY(K)                                                        \
+  return p2p::launch_dependent(                                             \
+      apply_kernel<T, VEC, K, FLAT3, kNone, false, EARLY, false>,           \
+      dim3(blocks), dim3(kApplyThreads), stream, static_cast<const T*>(x),  \
+      static_cast<const T*>(nullptr), static_cast<T*>(y), e)
   if (per_thread == 1) P2P_APPLY(1);
   if (per_thread == 2) P2P_APPLY(2);
   if (per_thread == 4) P2P_APPLY(4);
 #undef P2P_APPLY
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, int VEC, int ACT, bool RES>
+cudaError_t launch_norm_act(int early, bool wide, int blocks,
+                            cudaStream_t stream, const void* x,
+                            const void* res, void* y, const Epilogue& e) {
+#define P2P_NORM_ACT(E, W)                                                  \
+  return p2p::launch_dependent(                                             \
+      apply_kernel<T, VEC, 1, false, ACT, RES, E, W>, dim3(blocks),         \
+      dim3(kApplyThreads), stream, static_cast<const T*>(x),                \
+      static_cast<const T*>(res), static_cast<T*>(y), e)
+  if constexpr (VEC % 4 == 0) {
+    if (wide && early) P2P_NORM_ACT(true, true);
+    if (wide) P2P_NORM_ACT(false, true);
+  }
+  if (early) P2P_NORM_ACT(true, false);
+  P2P_NORM_ACT(false, false);
+#undef P2P_NORM_ACT
+}
+
+template <typename T, int VEC>
+cudaError_t dispatch_norm_act(int act, int early, bool wide, int blocks,
+                              cudaStream_t stream, const void* x,
+                              const void* res, void* y, const Epilogue& e) {
+#define P2P_NORM_ACT(A)                                                     \
+  return res != nullptr                                                     \
+             ? launch_norm_act<T, VEC, A, true>(early, wide, blocks, stream, \
+                                                x, res, y, e)               \
+             : launch_norm_act<T, VEC, A, false>(early, wide, blocks,       \
+                                                 stream, x, res, y, e)
+  if (act == kNone) P2P_NORM_ACT(kNone);
+  if (act == kRelu) P2P_NORM_ACT(kRelu);
+  if (act == kLeaky) P2P_NORM_ACT(kLeaky);
+#undef P2P_NORM_ACT
   return cudaErrorInvalidValue;
 }
 
@@ -507,7 +512,7 @@ extern "C" int p2p_instance_norm_apply(const void* x, const float* mean,
                                   c, path, per_thread, blocks, threads, 0.f,
                                   &vec, &e);
   if (err != cudaSuccess) return static_cast<int>(err);
-#define P2P_APPLY(T, V, F)                                                \
+#define P2P_APPLY(T, V, F)                                                  \
   err = early ? launch_apply<T, V, F, true>(per_thread, blocks, stream, x, \
                                             y, e)                         \
               : launch_apply<T, V, F, false>(per_thread, blocks, stream, x, \
@@ -522,6 +527,47 @@ extern "C" int p2p_instance_norm_apply(const void* x, const float* mean,
     if (path == kElement) P2P_APPLY(__nv_bfloat16, 1, false);
   }
 #undef P2P_APPLY
+  return static_cast<int>(err);
+}
+
+// The fused epilogue y = act((x - mean) * rstd * gamma + beta [+ res]) (#3),
+// launched as a programmatic dependent: the arguments of
+// p2p_instance_norm_apply (path kChannels or kElement, with kChannels res
+// too 16-byte aligned; per_thread 1) plus res ((N, H*W, C) in x's dtype, or
+// null), act (Act) and slope; early: read x and res before the wait.
+extern "C" int p2p_norm_act(const void* x, const void* res, const float* mean,
+                            const float* rstd, const float* gamma,
+                            const float* beta, void* y, int dtype,
+                            int64_t numel, int64_t hwc, int c, int path,
+                            int per_thread, int act, float slope, int blocks,
+                            int threads, int early, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  Epilogue e;
+  int vec;
+  cudaError_t err = make_epilogue(mean, rstd, gamma, beta, dtype, numel, hwc,
+                                  c, path, per_thread, blocks, threads,
+                                  slope, &vec, &e);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (path == kFlat3 || per_thread != 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the statistics as 16-byte words (normalize_channels' WIDE)
+  const bool wide = path == kChannels && c >= 32 * vec &&
+                    ((reinterpret_cast<uintptr_t>(mean) |
+                      reinterpret_cast<uintptr_t>(rstd)) & 15) == 0;
+  if (dtype == p2p::kF32 && vec == 4) {
+    err = dispatch_norm_act<float, 4>(act, early, wide, blocks, stream, x,
+                                      res, y, e);
+  } else if (dtype == p2p::kF32) {
+    err = dispatch_norm_act<float, 1>(act, early, wide, blocks, stream, x,
+                                      res, y, e);
+  } else if (vec == 8) {
+    err = dispatch_norm_act<__nv_bfloat16, 8>(act, early, wide, blocks,
+                                              stream, x, res, y, e);
+  } else {
+    err = dispatch_norm_act<__nv_bfloat16, 1>(act, early, wide, blocks,
+                                              stream, x, res, y, e);
+  }
   return static_cast<int>(err);
 }
 

@@ -9,10 +9,11 @@ or ``"leaky"`` (slope > 0); the affine is optional.
 
 Replaces ``p2p_tpu/ops/pallas/norm_act.py:_norm_act_local`` (kernel bodies
 ``_norm_act_kernel`` and ``_norm_act_res_kernel``). The kernel is
-``csrc/norm_act.cu``: it is bound by device-memory bytes (x and the
-residual read once, y written once; 3.35 TB/s on an H100 SXM), so it is
-one flat pass of 16-byte vector loads and stores along C, with the
-activation and the residual compiled in as template parameters.
+``csrc/norm_act.cu`` (``p2p_norm_act``): it is bound by device-memory
+bytes (x and the residual read once, y written once; 3.35 TB/s on an H100
+SXM), so it moves 16-byte vectors along C, with the activation and the
+residual compiled in as template parameters; most of its launches on the
+main path are small, so it is launched as #2 and #4 are (below).
 
 ``norm_act_quant(x, mean, rstd, scale, bias, sx, act, slope)`` (#4) is the
 quantize-fused form of the delayed-int8 discriminator: the same epilogue
@@ -28,15 +29,16 @@ beside it; the last block moves the word to amax. Word and counter are one
 pair per device and stream, which the last block sets back to 0, so a
 launch needs no fill before it.
 
-#4 and #2 (``instance_norm_kernel.instance_norm_apply``, the same
+#3, #4 and #2 (``instance_norm_kernel.instance_norm_apply``, the same
 library's ``p2p_instance_norm_apply``) are launched as programmatic
 dependents of the launch before them and share one launch plan,
-``apply_plan``: one wave of 256-thread blocks at the main path's shapes,
-16-byte vectors along C, across pixels at C = 3 (#2 only), or one element
-at a time. With ``x_ready=True`` (the launch just before on the stream
-does not write x: ``ops/instance_norm.py`` launches #1 of the same x right
-before) each block issues its loads of x before it waits for that launch
-to end (the rule is in ``csrc/norm_act.cu``).
+``apply_plan``: one wave of 256-thread blocks up to a wave's worth of
+vectors, 16-byte vectors along C, across pixels at C = 3 (#2 only), or one
+element at a time. With ``x_ready=True`` (no launch that may still run
+writes x or the residual: ``ops/instance_norm.py`` launches #1 of the same
+x right before, whose finalize is a dependent of its pass 1) each block
+issues its loads of x, and of #3's residual, before it waits for that
+launch to end (the rule is in ``csrc/norm_act.cu``).
 
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises.
@@ -59,12 +61,16 @@ ACTS = ("none", "relu", "leaky")
 THREADS = 256
 SMS = 132                  # an H100's streaming multiprocessors
 RESIDENT_THREADS = 2048    # threads an SM holds
-# grid-stride cap: 132 SMs × 8 resident blocks of 256 threads × 4 rounds
-_MAX_BLOCKS = SMS * 8 * 4
-# paths of #2 and #4 (csrc/norm_act.cu ApplyPath): 16-byte vectors along C,
-# 16-byte vectors over the flat array at C = 3, one element at a time
+# paths of #2, #3 and #4 (csrc/norm_act.cu ApplyPath): 16-byte vectors along
+# C, 16-byte vectors over the flat array at C = 3 (#2), one element at a
+# time
 APPLY_PATHS = ("channels", "flat3", "element")
 PER_THREAD = (1, 2, 4)
+# #3's vectors a thread: at K = 4 its kernel took 71-95 registers (two or
+# three blocks an SM), so one wave of its blocks held no more vectors than
+# at K = 1, and its 16-134 MB launches ran 5-8% slower than the grid-stride
+# pass it replaced (PERF.md §6); the kernel takes K = 1 only
+NORM_ACT_MAX_PER_THREAD = 1
 
 
 def check_act(act: str, slope: float) -> None:
@@ -115,7 +121,7 @@ def _check_vector(t: torch.Tensor, shape, device, what: str) -> None:
 def check_apply_args(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                      scale: Optional[torch.Tensor],
                      bias: Optional[torch.Tensor], what: str) -> None:
-    """What the normalize kernels take (this one and #2's): a channels_last
+    """What the normalize kernels take (#2, #3 and #4): a channels_last
     CUDA x, (N, C) f32 statistics and an optional (C,) f32 affine on its
     device. Raises on anything else."""
     build.check_activation(x, what)
@@ -129,11 +135,6 @@ def check_apply_args(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
         _check_vector(bias, (c,), x.device, f"{what}: bias")
 
 
-def grid_blocks(numel: int, vec: int) -> int:
-    """Blocks of the flat grid-stride pass: one vector per thread, capped."""
-    return max(1, min(-(-numel // (vec * THREADS)), _MAX_BLOCKS))
-
-
 class ApplyPlan(NamedTuple):
     path: str        # one of APPLY_PATHS
     vec: int         # elements a load
@@ -143,17 +144,19 @@ class ApplyPlan(NamedTuple):
 
 
 def apply_plan(numel: int, hwc: int, c: int, element_size: int,
-               aligned: bool, flat3: bool = True) -> ApplyPlan:
-    """Launch plan of #2 and #4 over an (N, H, W, C) activation of
-    ``numel`` elements (``hwc`` = H·W·C) whose x and y are 16-byte aligned
-    when ``aligned``. The path: 16-byte vectors along C where C divides
-    into them; else, with ``flat3`` (#2), 16-byte vectors over the flat
-    array where C = 3 and H·W·C divides into them (no vector spans two
-    samples); else one element at a time. Then the fewest vectors a thread,
-    K in ``PER_THREAD``, that fit the grid into one wave of
-    ``SMS × RESIDENT_THREADS`` threads, so every block is resident and
-    issues its loads before the wait; beyond 4 a wave, K = 4 and the blocks
-    past the first wave run after it."""
+               aligned: bool, flat3: bool = True,
+               max_per_thread: int = PER_THREAD[-1]) -> ApplyPlan:
+    """Launch plan of #2, #3 and #4 over an (N, H, W, C) activation of
+    ``numel`` elements (``hwc`` = H·W·C) whose x and y (and #3's residual)
+    are 16-byte aligned when ``aligned``. The path: 16-byte vectors along
+    C where C divides into them; else, with ``flat3`` (#2), 16-byte
+    vectors over the flat array where C = 3 and H·W·C divides into them
+    (no vector spans two samples); else one element at a time. Then the
+    fewest vectors a thread, K in ``PER_THREAD`` up to ``max_per_thread``,
+    that fit the grid into one wave of ``SMS × RESIDENT_THREADS`` threads,
+    so every block is resident and issues its loads before the wait;
+    beyond that, K = ``max_per_thread`` and the blocks past the first wave
+    run after it."""
     vec = 16 // element_size
     if aligned and c % vec == 0:
         path = "channels"
@@ -163,49 +166,54 @@ def apply_plan(numel: int, hwc: int, c: int, element_size: int,
         path, vec = "element", 1
     vecs = numel // vec
     wave = SMS * RESIDENT_THREADS
-    per_thread = next((k for k in PER_THREAD if vecs <= k * wave),
-                      PER_THREAD[-1])
+    ks = [k for k in PER_THREAD if k <= max_per_thread]
+    per_thread = next((k for k in ks if vecs <= k * wave), ks[-1])
     return ApplyPlan(path, vec, per_thread,
                      -(-vecs // (per_thread * THREADS)))
 
 
-def plan_for(x: torch.Tensor, y: torch.Tensor, flat3: bool = True
-             ) -> ApplyPlan:
-    """``apply_plan`` of a channels_last x and its output y; raises at
-    2³¹ elements or more (the kernels index in 32 bits)."""
+def plan_for(x: torch.Tensor, y: torch.Tensor, flat3: bool = True,
+             residual: Optional[torch.Tensor] = None,
+             max_per_thread: int = PER_THREAD[-1]) -> ApplyPlan:
+    """``apply_plan`` of a channels_last x, its output y and #3's residual
+    (None without one); raises at 2³¹ elements or more (the kernels index
+    in 32 bits)."""
     _, c, h, w = x.shape
     if x.numel() >= 2 ** 31:
-        raise ValueError(f"{tuple(x.shape)}: #2 and #4 take fewer than 2^31 "
-                         "elements")
+        raise ValueError(f"{tuple(x.shape)}: #2, #3 and #4 take fewer than "
+                         "2^31 elements")
+    tensors = (x, y) if residual is None else (x, y, residual)
     return apply_plan(x.numel(), h * w * c, c, x.element_size(),
-                      x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0,
-                      flat3)
+                      all(t.data_ptr() % 16 == 0 for t in tensors), flat3,
+                      max_per_thread)
 
 
 def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
              scale: Optional[torch.Tensor] = None,
              bias: Optional[torch.Tensor] = None,
              residual: Optional[torch.Tensor] = None,
-             act: str = "none", slope: float = 0.2) -> torch.Tensor:
-    """``act((x − mean)·rstd·γ + β [+ residual])`` in x's dtype."""
+             act: str = "none", slope: float = 0.2, *,
+             x_ready: bool = False) -> torch.Tensor:
+    """``act((x − mean)·rstd·γ + β [+ residual])`` in x's dtype.
+    ``x_ready=True`` says that no launch that may still run writes x or the
+    residual (the launch just before this one on the stream is #1 of this
+    x, as in ``ops/instance_norm.py``): the kernel then reads both before
+    it waits for that launch to end."""
     if x.device.type == "cpu":
         return norm_act_plain(x, mean, rstd, scale, bias, residual, act,
                               slope)
     check_act(act, slope)
     check_apply_args(x, mean, rstd, scale, bias, "norm_act")
     n, c, h, w = x.shape
-    tensors = [x]
     if residual is not None:
         build.check_activation(residual, "norm_act residual")
         if residual.shape != x.shape or residual.dtype != x.dtype \
                 or residual.device != x.device:
             raise ValueError("norm_act: residual must match x in shape, "
                              "dtype and device")
-        tensors.append(residual)
     y = torch.empty_like(x, memory_format=torch.channels_last)
-    tensors.append(y)
-    vec = build.vector_width(c, *tensors)
-    numel = x.numel()
+    plan = plan_for(x, y, flat3=False, residual=residual,
+                    max_per_thread=NORM_ACT_MAX_PER_THREAD)
     lib, fn = build.load("norm_act", "p2p_norm_act")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(),
@@ -213,10 +221,10 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                  mean.data_ptr(), rstd.data_ptr(),
                  None if scale is None else scale.data_ptr(),
                  None if bias is None else bias.data_ptr(),
-                 y.data_ptr(), build.DTYPE_CODES[x.dtype], numel,
-                 h * w * c, c, vec, ACTS.index(act), slope,
-                 grid_blocks(numel, vec), THREADS,
-                 build.stream_handle(x.device))
+                 y.data_ptr(), build.DTYPE_CODES[x.dtype], x.numel(),
+                 h * w * c, c, APPLY_PATHS.index(plan.path),
+                 plan.per_thread, ACTS.index(act), slope, plan.blocks,
+                 THREADS, int(x_ready), build.stream_handle(x.device))
     build.check(lib, err, "norm_act")
     norm_act.launches += 1
     return y

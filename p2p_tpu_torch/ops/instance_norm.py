@@ -92,7 +92,8 @@ class _InstanceNormAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, residual, act, slope, eps):
         mean, rstd = instance_norm_stats(x, eps)
-        y = norm_act(x, mean, rstd, scale, bias, residual, act, slope)
+        y = norm_act(x, mean, rstd, scale, bias, residual, act, slope,
+                     x_ready=True)
         ctx.save_for_backward(x, mean, rstd, scale, y)
         ctx.act, ctx.slope = act, slope
         ctx.res_dtype = None if residual is None else residual.dtype

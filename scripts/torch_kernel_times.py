@@ -17,9 +17,9 @@ launch counts chip_smoke.py's main paths make):
   at every (N, H, W, C, form) of chip_smoke.py's kernel phase, given the
   plain statistics, each beside a yardstick that moves the same bytes in
   one PyTorch elementwise kernel (``y.copy_(x)``, or ``torch.add(x, r,
-  out=y)`` where the form reads a residual); #2 and #4 also as a site, #1
-  then the kernel, as ``ops/instance_norm.py`` launches them (with
-  ``x_ready=True`` where the tree's wrapper takes it);
+  out=y)`` where the form reads a residual); each also as a site, #1 then
+  the kernel (with its residual), as ``ops/instance_norm.py`` launches
+  them (with ``x_ready=True`` where the tree's wrapper takes it);
 - #5 ``batch_moments`` at every (M, C) of the reference, facades, path A
   and facades_int8 train steps, beside one read of the same bytes by
   PyTorch's reduction (``x.sum(dtype=torch.float32)``);
@@ -27,17 +27,19 @@ launch counts chip_smoke.py's main paths make):
   F4 = 12, N = 1, 2, 4);
 - the timer's floor: one and two ``torch.cuda._sleep(1)`` launches;
 - with ``torch.profiler``, #5's launches at (4096, 128) and (65536, 64),
-  and the sites of #2 at 1×256×256×32 and #4 at 1×65×65×128: each
-  kernel's mean device µs and the span from the first one's start to the
-  last one's end (cold L2; a dependent launch that starts before the
-  launch it follows has ended shows as a span shorter than the sum).
+  and the sites of #2 at 1×256×256×32, #4 at 1×65×65×128 and #3 at
+  1×64×64×128 relu+residual and 1×256×512×64 relu: each kernel's mean
+  device µs (#1's pass 1 and finalize apart) and the span from the first
+  one's start to the last one's end (cold L2; a dependent launch that
+  starts before the launch it follows has ended shows as a span shorter
+  than the sum).
 Cold: chip_smoke.py's Timer (the L2 cache evicted before every run,
 median of 20). Warm: the same without the eviction, so the inputs are in
 L2 as they are right after the op that wrote them on the main path.
 Prints and writes one JSON object; needs a card.
 
 ``--compare`` reads such files (the order of the runs in the call) and
-prints, for each kernel and for the sites of #2 and #4, the
+prints, for each kernel and for the sites of #2, #3 and #4, the
 launch-weighted sum of cold and warm µs of each run, each shape's times
 and the first run's yardstick, and every shape whose time in a later tree
 is more than 3% above its time in the first file's tree (runs of one tree
@@ -60,7 +62,8 @@ import torch
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROFILE_SHAPES = ((4096, 128), (65536, 64))
-PROFILE_SITES = ("1x256x256x32 apply", "1x65x65x128 leaky+quant")
+PROFILE_SITES = ("1x256x256x32 apply", "1x65x65x128 leaky+quant",
+                 "1x64x64x128 relu+residual", "1x256x512x64 relu")
 
 
 def _module(name: str, path: str):
@@ -225,7 +228,6 @@ def measure(tree: str) -> dict:
         n, h, w, c, form = key
         x = smoke.make_input(gen, n, c, h, w, torch.bfloat16, device)
         mean, rstd = instance_norm_stats_plain(x)
-        site = None
         if form == "apply":
             kernel, fn = "instance_norm_apply", (
                 lambda: instance_norm_apply(x, mean, rstd))
@@ -245,6 +247,8 @@ def measure(tree: str) -> dict:
                 if res else None
             kernel, fn = "norm_act", (
                 lambda: norm_act(x, mean, rstd, residual=r, act=act))
+            site = _site(instance_norm_stats, norm_act, x, residual=r,
+                         act=act)
         # the same bytes moved by one PyTorch elementwise kernel: a copy
         # (an add where the form reads a residual)
         y = torch.empty_like(x)
@@ -253,8 +257,7 @@ def measure(tree: str) -> dict:
         name = f"{'x'.join(map(str, key[:4]))} {form}"
         out["norm"][name] = {
             "kernel": kernel, "launches": norms[key], **both(timer, fn),
-            "copy": both(timer, copy),
-            **({"site": both(timer, site)} if site else {})}
+            "copy": both(timer, copy), "site": both(timer, site)}
         if name in PROFILE_SITES:
             out["profile"][f"site {name}"] = kernel_spans(timer, site)
     moments = moments_launches(smoke)
@@ -285,9 +288,8 @@ def _groups(run):
         out["instance_norm_stats"][key] = row
     for key, row in run["norm"].items():
         out[row["kernel"]][key] = row
-        if "site" in row:
-            out[f"{row['kernel']} site (#1 then it)"][key] = {
-                "launches": row["launches"], **row["site"]}
+        out[f"{row['kernel']} site (#1 then it)"][key] = {
+            "launches": row["launches"], **row["site"]}
     for key, row in run["moments"].items():
         out["batch_moments"][key] = row
     return out

@@ -26,15 +26,21 @@ memory for every C the head takes. #2 and #4 as the main path launches
 them (programmatic dependents of #1's finalize, x read before the wait):
 bitwise their plain versions on #1's statistics over 50 launches back to
 back at every path shape, with a PyTorch kernel writing x right before
-each #1, and replayed in a CUDA graph; #2 at C = 3 on 16-byte vectors
-across pixels where H·W·3 divides into them; #4 with NaN, ±inf and −0 in
-x, its arrival counter and max word left at 0.
+each #1, and replayed in a CUDA graph; #3 as the main path launches it
+(a programmatic dependent of #1's finalize, x and the residual read before
+the wait) the same way, with a PyTorch kernel writing x and the residual
+right before each #1, at path shapes of every form and one of more than a
+wave; #1 (its finalize a programmatic dependent of its pass 1) the same
+bits for the same input over 50 launches on alternating inputs; #2 at C = 3
+on 16-byte vectors across pixels where H·W·3 divides into them; #4 with
+NaN, ±inf and −0 in x, its arrival counter and max word left at 0.
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
 Tolerance: f32 atol 1e-4 (order of partial sums); bf16 atol 1e-2 + rtol
 2⁻⁷ (one rounding of the stored value); #4, the int8 contractions, #2
-and #4 after #1, and #3 and #2 in their every-form test exact; #5's f32 sums within 1e-5 of the
+and #4 after #1, #3 after #1, and #3 and #2 in their every-form test
+exact; #5's f32 sums within 1e-5 of the
 sum of |terms| (the same terms summed in two orders); #6's f32 output
 within 1e-4 + 1e-4 relative in both input types (bf16 products are exact
 in f32), #7's dx as the other outputs stored in its dtype. The plain
@@ -864,3 +870,129 @@ def test_apply_at_c3_takes_the_vector_path_where_it_can(cuda, dtype, shape):
             assert torch.equal(y, instance_norm_apply_plain(x, mean, rstd,
                                                             **kw))
     torch.cuda.synchronize()
+
+
+# #3's sites on the main paths: (form, (N, C, H, W)): path A's residual
+# block, pix2pixHD G1's residual block at N = 4, the D's leaky epilogue,
+# pix2pixHD's 1/2-resolution relu (K = 4 in one wave) and its local
+# residual block at N = 2 (more than one wave)
+NORM_ACT_SITES = [("relu+residual", (1, 128, 64, 64)),
+                  ("none+residual", (4, 1024, 16, 32)),
+                  ("leaky", (1, 256, 33, 33)), ("relu", (1, 64, 256, 512)),
+                  ("none+residual", (2, 64, 256, 512))]
+
+
+def _norm_act_args(form, x, r, rep):
+    """Keyword arguments of #3 in ``form`` (r the residual where it has
+    one), odd reps with an affine."""
+    act, _, res = form.partition("+")
+    kw = {"act": act, "residual": r if res else None}
+    if rep % 2:
+        c = x.shape[1]
+        g = torch.Generator(device=x.device).manual_seed(41)
+        kw.update(scale=torch.randn(c, generator=g, device=x.device) * 0.1
+                  + 1, bias=torch.randn(c, generator=g, device=x.device)
+                  * 0.1)
+    return kw
+
+
+def _norm_act_site(x, kw):
+    """#1, then #3 as ops/instance_norm.py launches them (x and the
+    residual read before the wait): (mean, rstd, y, kwargs)."""
+    mean, rstd = instance_norm_stats(x)
+    return mean, rstd, norm_act(x, mean, rstd, x_ready=True, **kw), kw
+
+
+def _assert_norm_act_runs(xs, rs, runs):
+    """Each run (i, mean, rstd, y, kwargs) bitwise the plain version on its
+    own statistics of the x and r it was given (``xs[i]``, ``rs[i]``), and
+    those statistics #1's on that x."""
+    for i, mean, rstd, y, kw in runs:
+        want_mean, want_rstd = instance_norm_stats(xs[i])
+        assert torch.equal(mean, want_mean) and torch.equal(rstd, want_rstd)
+        if kw["residual"] is not None:
+            kw = dict(kw, residual=rs[i])
+        assert torch.equal(y, norm_act_plain(xs[i], mean, rstd, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("writer", ["none", "torch"])
+@pytest.mark.parametrize("form,shape", NORM_ACT_SITES)
+def test_norm_act_after_stats_is_bitwise_over_50_launches(cuda, dtype,
+                                                          writer, form,
+                                                          shape):
+    """#3 launched right after #1's finalize, reading x and the residual
+    before the wait, 50 times back to back: bitwise its plain version on
+    the same statistics every time. With writer "torch" PyTorch kernels
+    write the residual and x immediately before each #1, alternating
+    between two inputs each, so a read of either before it was complete
+    shows as a mismatch."""
+    xs = (_x(shape, dtype, cuda, 50), _x(shape, dtype, cuda, 51))
+    rs = (_x(shape, dtype, cuda, 52), _x(shape, dtype, cuda, 53))
+    x = xs[0].clone(memory_format=torch.channels_last)
+    r = rs[0].clone(memory_format=torch.channels_last)
+    runs = []
+    for rep in range(50):
+        if writer == "torch":
+            r.copy_(rs[rep % 2])
+            x.copy_(xs[rep % 2])
+        runs.append((rep % 2,
+                     *_norm_act_site(x, _norm_act_args(form, x, r, rep))))
+    if writer == "none":
+        xs, rs = (x, x), (r, r)
+    _assert_norm_act_runs(xs, rs, runs)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form,shape", NORM_ACT_SITES)
+def test_norm_act_after_stats_replays_in_a_cuda_graph(cuda, dtype, form,
+                                                      shape):
+    """#1 then #3 captured in a CUDA graph (both dependent launches become
+    programmatic edges) and replayed 10 times, x and the residual rewritten
+    between replays: bitwise the plain version each time."""
+    xs = (_x(shape, dtype, cuda, 54), _x(shape, dtype, cuda, 55))
+    rs = (_x(shape, dtype, cuda, 56), _x(shape, dtype, cuda, 57))
+    x = xs[0].clone(memory_format=torch.channels_last)
+    r = rs[0].clone(memory_format=torch.channels_last)
+    kw = _norm_act_args(form, x, r, 1)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        _norm_act_site(x, kw)               # loads the library
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        mean, rstd, y, _ = _norm_act_site(x, kw)
+    runs = []
+    for rep in range(10):
+        r.copy_(rs[rep % 2])
+        x.copy_(xs[rep % 2])
+        graph.replay()
+        runs.append((rep % 2, mean.clone(), rstd.clone(), y.clone(), kw))
+    torch.cuda.synchronize()
+    _assert_norm_act_runs(xs, rs, runs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1, 32, 512, 1024), (4, 1024, 16, 32),
+                                   (1, 128, 64, 64), (1, 3, 256, 256)])
+def test_stats_gives_the_same_bits_over_50_launches(cuda, dtype, shape):
+    """#1 with its finalize a programmatic dependent of its pass 1, run 50
+    times back to back on two alternating inputs (a PyTorch kernel writes x
+    right before each): the same bits for the same input every time, and
+    within the stats tolerance of the plain version."""
+    sources = (_x(shape, dtype, cuda, 60), _x(shape, dtype, cuda, 61))
+    x = sources[0].clone(memory_format=torch.channels_last)
+    runs = []
+    for rep in range(50):
+        x.copy_(sources[rep % 2])
+        runs.append(instance_norm_stats(x))
+    torch.cuda.synchronize()
+    for rep, (mean, rstd) in enumerate(runs):
+        assert torch.equal(mean, runs[rep % 2][0]), rep
+        assert torch.equal(rstd, runs[rep % 2][1]), rep
+    for i in (0, 1):
+        pmean, prstd = instance_norm_stats_plain(sources[i])
+        torch.testing.assert_close(runs[i][0], pmean, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(runs[i][1], prstd, atol=1e-4, rtol=1e-4)

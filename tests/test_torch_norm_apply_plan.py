@@ -1,14 +1,19 @@
-"""The launch plan of kernels #2 (instance-norm apply) and #4 (the
-quantize-fused epilogue), and the property #4's amax tail relies on, on the
-CPU with no JAX and no card.
+"""The launch plan of kernels #2 (instance-norm apply), #3 (the fused
+norm-act epilogue) and #4 (the quantize-fused epilogue), and the property
+#4's amax tail relies on, on the CPU with no JAX and no card.
 
-``apply_plan`` (``p2p_tpu_torch/ops/cuda/norm_act.py``) sizes both
-dependent launches: at every shape of the main path it must fit one wave of
-an H100 (every block resident, so every load of x is issued before the
-grid-dependency wait), thread t of block b must take the vectors
-(b·K + k)·256 + t, k < K, so that every vector is covered exactly once, and
+``apply_plan`` (``p2p_tpu_torch/ops/cuda/norm_act.py``) sizes the three
+dependent launches: at every shape of #2 and #4 on the main path it must
+fit one wave of an H100 (every block resident, so every load of x is issued
+before the grid-dependency wait), and so must #3 wherever its vectors fit
+one wave of threads taking one each; beyond that #3 still takes one a
+thread and its later blocks run after the first wave. Thread t of block b
+must
+take the vectors (b·K + k)·256 + t, k < K, so that every vector is covered
+exactly once, at every #3 shape of the main paths up to 4×512×1024×32;
 #2 at C = 3 must read 16-byte vectors across pixels exactly where H·W·C
-divides into them and x and y are aligned. #4 folds every block's max|yc|
+divides into them and x and y are aligned, and #3 must read 16-byte
+vectors only where its residual is aligned too. #4 folds every block's max|yc|
 into one 32-bit word with ``atomicMax`` on the float's bits: for floats
 that are non-negative or NaN with the sign cleared, the max of the bits is
 the max of the floats, a NaN above +inf; checked here in numpy on random f32
@@ -24,8 +29,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from p2p_tpu_torch.ops.cuda.norm_act import (  # noqa: E402
-    APPLY_PATHS, PER_THREAD, RESIDENT_THREADS, SMS, THREADS, apply_plan,
-    plan_for)
+    APPLY_PATHS, NORM_ACT_MAX_PER_THREAD, PER_THREAD, RESIDENT_THREADS, SMS,
+    THREADS, apply_plan, plan_for)
 
 WAVE_BLOCKS = SMS * RESIDENT_THREADS // THREADS
 ELEMENT_SIZES = {"f32": 4, "bf16": 2}
@@ -34,6 +39,28 @@ ELEMENT_SIZES = {"f32": 4, "bf16": 2}
 PATH_SITES = [("apply", 256, 256, 32), ("apply", 128, 128, 64),
               ("apply", 64, 64, 128), ("apply", 256, 256, 3),
               ("quant", 65, 65, 128), ("quant", 33, 33, 256)]
+# (N, H, W, C, form) of #3 on the main paths (pix2pixHD serving at N = 1,
+# 2, 4, path A, path B and the facades_int8 D), as chip_smoke.py counts
+# them
+NORM_ACT_SITES = [
+    (1, 9, 9, 256, "leaky"), (1, 10, 10, 512, "leaky"),
+    (1, 16, 32, 1024, "none+residual"), (1, 16, 32, 1024, "relu"),
+    (1, 17, 17, 128, "leaky"), (1, 17, 17, 256, "leaky"),
+    (1, 18, 18, 512, "leaky"), (1, 32, 64, 512, "relu"),
+    (1, 33, 33, 128, "leaky"), (1, 33, 33, 256, "leaky"),
+    (1, 34, 34, 512, "leaky"), (1, 64, 64, 128, "relu"),
+    (1, 64, 64, 128, "relu+residual"), (1, 64, 128, 256, "relu"),
+    (1, 65, 65, 128, "leaky"), (1, 128, 256, 128, "relu"),
+    (1, 256, 512, 64, "none+residual"), (1, 256, 512, 64, "relu"),
+    (1, 512, 1024, 32, "relu"),
+    (2, 16, 32, 1024, "none+residual"), (2, 16, 32, 1024, "relu"),
+    (2, 32, 64, 512, "relu"), (2, 64, 128, 256, "relu"),
+    (2, 128, 256, 128, "relu"), (2, 256, 512, 64, "none+residual"),
+    (2, 256, 512, 64, "relu"), (2, 512, 1024, 32, "relu"),
+    (4, 16, 32, 1024, "none+residual"), (4, 16, 32, 1024, "relu"),
+    (4, 32, 64, 512, "relu"), (4, 64, 128, 256, "relu"),
+    (4, 128, 256, 128, "relu"), (4, 256, 512, 64, "none+residual"),
+    (4, 256, 512, 64, "relu"), (4, 512, 1024, 32, "relu")]
 
 
 def _smoke():
@@ -55,17 +82,35 @@ def test_path_sites_are_the_main_paths():
     assert sites == set(PATH_SITES)
 
 
+def test_norm_act_sites_are_the_main_paths():
+    from p2p_tpu_torch.core.config import get_preset
+
+    smoke = _smoke()
+    cfg = get_preset("pix2pixhd")
+    plan = smoke.epilogue_plan(cfg.model.ngf, cfg.model.n_blocks, 3,
+                               *cfg.image_hw)
+    a_plan = smoke.path_a_step_plan(smoke.instance_config())
+    sites = {key for key in smoke.instance_launches(plan, a_plan, 1, 1)
+             if key[4] != "apply"}
+    sites |= {(1, h, w, c, form) for h, w, c, form
+              in smoke.int8_d_plan(smoke.int8_config())
+              if not form.endswith("+quant")}
+    assert sorted(sites) == NORM_ACT_SITES
+
+
 def _plan(kernel, n, h, w, c, dtype, aligned=True):
     return apply_plan(n * h * w * c, h * w * c, c, ELEMENT_SIZES[dtype],
-                      aligned, flat3=kernel == "apply")
+                      aligned, flat3=kernel == "apply",
+                      max_per_thread=NORM_ACT_MAX_PER_THREAD
+                      if kernel == "norm_act" else max(PER_THREAD))
 
 
 def _covered(plan, numel):
     """How often each vector index is taken by the kernel's mapping."""
     vecs = numel // plan.vec
-    b = np.arange(plan.blocks, dtype=np.int64)[:, None, None]
-    k = np.arange(plan.per_thread, dtype=np.int64)[None, :, None]
-    t = np.arange(THREADS, dtype=np.int64)[None, None, :]
+    b = np.arange(plan.blocks, dtype=np.int32)[:, None, None]
+    k = np.arange(plan.per_thread, dtype=np.int32)[None, :, None]
+    t = np.arange(THREADS, dtype=np.int32)[None, None, :]
     v = ((b * plan.per_thread + k) * THREADS + t).ravel()
     return vecs, np.bincount(v[v < vecs], minlength=vecs)
 
@@ -83,6 +128,21 @@ def test_plan_is_one_wave_covering_every_vector_once_at_path_shapes(
     assert vecs * plan.vec == h * w * c
     assert hits.min() == hits.max() == 1
     # no block that takes no vector at all
+    assert (plan.blocks - 1) * plan.per_thread * THREADS < vecs
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("n,h,w,c,form", NORM_ACT_SITES)
+def test_norm_act_plan_at_every_main_path_shape(n, h, w, c, form, dtype):
+    """#3: 16-byte vectors along C, one a thread; one wave wherever the
+    vectors fit one wave of threads, more blocks beyond it; every vector
+    covered exactly once."""
+    plan = _plan("norm_act", n, h, w, c, dtype)
+    assert (plan.path, plan.vec) == ("channels", 16 // ELEMENT_SIZES[dtype])
+    assert plan.per_thread == NORM_ACT_MAX_PER_THREAD == 1
+    vecs, hits = _covered(plan, n * h * w * c)
+    assert (plan.blocks <= WAVE_BLOCKS) == (vecs <= SMS * RESIDENT_THREADS)
+    assert hits.min() == hits.max() == 1
     assert (plan.blocks - 1) * plan.per_thread * THREADS < vecs
 
 
@@ -139,6 +199,25 @@ def test_plan_for_reads_alignment_and_refuses_2_to_the_31_elements():
         memory_format=torch.channels_last)
     with pytest.raises(ValueError, match="2\\^31"):
         plan_for(big, big)
+
+
+@pytest.mark.parametrize("misaligned", ["none", "x", "y", "residual"])
+def test_plan_for_takes_vectors_only_where_the_residual_is_aligned(
+        misaligned):
+    """#3's plan: 16-byte vectors along C only where x, y and the residual
+    all start on a 16-byte boundary; one element at a time otherwise."""
+    def tensor(off):
+        base = torch.zeros(off + 2 * 16 * 6 * 5, dtype=torch.bfloat16)
+        return base[off:].view(2, 6, 5, 16).permute(0, 3, 1, 2)
+
+    x, y, r = (tensor(1 if misaligned == which else 0)
+               for which in ("x", "y", "residual"))
+    assert all(t.is_contiguous(memory_format=torch.channels_last)
+               for t in (x, y, r))
+    want = "channels" if misaligned == "none" else "element"
+    assert plan_for(x, y, flat3=False, residual=r).path == want
+    assert plan_for(x, y, flat3=False).path == (
+        "element" if misaligned in ("x", "y") else "channels")
 
 
 def _abs_values(kind, rng):
