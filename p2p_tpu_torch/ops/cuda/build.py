@@ -54,7 +54,8 @@ SIGNATURES = {
     "subpixel_head": {
         "p2p_subpixel_head_fwd": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
         "p2p_subpixel_head_dx": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-        "p2p_subpixel_head_fwd_smem": (_I, _I, _I, _I)},
+        "p2p_subpixel_head_fwd_smem": (_I, _I, _I, _I),
+        "p2p_subpixel_head_dx_smem": (_I, _I, _I, _I)},
 }
 
 

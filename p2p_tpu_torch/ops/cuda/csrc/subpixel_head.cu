@@ -18,6 +18,8 @@
 // F4=12) each kernel moves ~5.0 MB (x or dx 4.19 MB, z or dz 0.80 MB),
 // 1.49 us at 3.35 TB/s, and does ~0.2 GFLOP, 0.2 us on the bf16 tensor
 // cores (989 TFLOP/s) but ~3 us on the CUDA cores in f32 (67 TFLOP/s).
+// #7 in bf16 does three times #6's tensor-core work (dz in three pieces,
+// below): 0.6 GFLOP, 0.6 us, still under the bytes bound.
 //
 // #6 in bf16: an implicit GEMM on the tensor cores. Each output row is a
 // (positions x 4C) . (4C x F4) product, so a block takes a column tile of
@@ -58,11 +60,49 @@
 //     over 8 thread rows (one warp each, all lanes on one channel), each
 //     accumulating F4 sums in registers; the 8 partials are added in a
 //     fixed order and stored as one contiguous run of the output row.
-// #7: a block computes 32 dx positions of one row for up to 128 channels,
-//     one channel per thread. Each thread holds its 4*F4 weights in
-//     registers; the two dz rows the strip reads (33 columns x F4, f32)
-//     sit in shared memory and every lane reads the same dz value
-//     (broadcast), so each output is 4*F4 register FMAs.
+// #7 in bf16: an implicit GEMM on the tensor cores with M = dx positions,
+// N = channels and K = the four taps x F4, k = tap*F4 + f (K = 16, 32, 48
+// or 64: no k16 step is padded): A[s][k] = dz[r+1-dh][s+1-dw][f] and
+// B[k][c] = w[dh][dw][c][f]. w is bf16 but dz f32, so each dz value is cut
+// into three bf16 pieces, v = hi + mid + lo exactly: hi is v with its low
+// 16 bits cleared (v rounded toward zero to bf16), mid the same of the
+// remainder v - hi (exact in f32), and lo = v - hi - mid, which has at
+// most 8 significant bits and so is a bf16 as it is (for |v| above about
+// 2^-110; below, lo is an f32 subnormal and its bf16 is off by less than
+// 2^-133). A piece times a bf16 weight is exact in f32, so
+// mma.sync.m16n8k16 (bf16 x bf16 -> f32) forms the plain f32 version's
+// products; per k16 step the lo, mid and hi
+// products go into the same accumulators in that order, the steps in
+// order of k, so only the order of the f32 sums differs, and two runs
+// give the same bits. Cutting toward zero keeps hi finite for every
+// finite v; a dz of +-inf or NaN gives a NaN remainder, so dx is NaN where
+// the plain version gives +-inf or NaN: non-finite exactly where it is.
+// A block takes a band of dx rows of one sample over a tile of TW
+// positions and all C channels; the grid is one wave (dx_plan, planned as
+// tc_plan), so:
+//   - w is loaded once per block into shared memory as B, rows [c][k] of
+//     K + 8 bf16 (the 16-byte pad lets ldmatrix read them without bank
+//     conflicts);
+//   - the band's dz rows sit as f32 in a ring of 3 row slots of TW + 1
+//     positions (cp.async, 16 bytes a copy, zero-filled past dz's last
+//     column): dx row r reads dz rows r and r+1, and dz row r+2 loads
+//     while row r computes;
+//   - a block's tile is at most 64 positions; a warp takes an m16 tile of
+//     positions over 64 channels (8 n8 accumulator tiles, 32 f32
+//     registers), so the facades head at N = 1 runs 256 one-row blocks,
+//     two an SM; it builds its A fragments from the f32 slots, two floats
+//     a register, cutting them into the three pieces as it loads them, and
+//     its B fragments with ldmatrix;
+//   - the f32 tile is rounded once to bf16 into shared memory and stored
+//     as one contiguous run of the dx row in 16-byte stores (only the
+//     valid positions and channels).
+// C % 8 != 0 or a misaligned dz or w take element loads and stores
+// through the same shared memory.
+// #7 in f32: the CUDA cores. A block computes 32 dx positions of one row
+//     for up to 128 channels, one channel per thread. Each thread holds its
+//     4*F4 weights in registers; the two dz rows the strip reads (33
+//     columns x F4, f32) sit in shared memory and every lane reads the same
+//     dz value (broadcast), so each output is 4*F4 register FMAs.
 // No kernel uses atomics, and every output sums its terms in a fixed
 // order: two runs give the same bits.
 
@@ -182,27 +222,38 @@ struct TcPlan {
   int bands = 1;  // blocks along H + 1
 };
 
-// The widest column tile (a multiple of 16, at most kMaxTile) whose
-// shared memory fits a block (where not even 16 positions fit, the
-// 16-position plan, whose smem the caller refuses); then, for a launch
-// on sms SMs, bands of output rows so that the grid is one wave of the
-// blocks that fit an SM (one or two).
-inline TcPlan tc_plan(int wd, int c, int f4, int n = 1, int h = 0,
-                      int sms = 0) {
-  const int wo = wd + 1, ho = h + 1;
-  TcPlan p{(c + 15) / 16 * 16, 0, (wo + kMaxTile - 1) / kMaxTile, 0};
+// The widest column tile (a multiple of 16, at most max_tile) over cols
+// output columns whose shared memory smem(tw) fits a block (where not even
+// 16 positions fit, the 16-position plan, whose smem the caller refuses);
+// then, for a launch on sms SMs, bands of the rows output rows so that the
+// grid is one wave of the blocks that fit an SM (one or two).
+template <typename Smem>
+inline TcPlan plan_wave(int cols, int rows, int max_tile, Smem smem, int n,
+                        int sms) {
+  TcPlan p{0, 0, (cols + max_tile - 1) / max_tile, 0};
   for (;; ++p.col_tiles) {
-    p.tw = (wo + 16 * p.col_tiles - 1) / (16 * p.col_tiles) * 16;
-    p.smem = tc_smem_bytes(p.tw, p.cp, f4);
+    p.tw = (cols + 16 * p.col_tiles - 1) / (16 * p.col_tiles) * 16;
+    p.smem = smem(p.tw);
     if (p.smem <= kMaxSmem || p.tw == 16) break;
   }
-  p.col_tiles = (wo + p.tw - 1) / p.tw;
+  p.col_tiles = (cols + p.tw - 1) / p.tw;
   const int per_sm = kSmSmem / (p.smem + 1024) >= 2 ? 2 : 1;
   const int64_t tiles = static_cast<int64_t>(n) * p.col_tiles;
   int64_t bands = (static_cast<int64_t>(sms) * per_sm + tiles - 1) / tiles;
-  bands = bands > ho ? ho : (bands < 1 ? 1 : bands);
-  p.band = static_cast<int>((ho + bands - 1) / bands);
-  p.bands = (ho + p.band - 1) / p.band;
+  bands = bands > rows ? rows : (bands < 1 ? 1 : bands);
+  p.band = static_cast<int>((rows + bands - 1) / bands);
+  p.bands = (rows + p.band - 1) / p.band;
+  return p;
+}
+
+// #6's plan: W + 1 output columns, H + 1 output rows
+inline TcPlan tc_plan(int wd, int c, int f4, int n = 1, int h = 0,
+                      int sms = 0) {
+  const int cp = (c + 15) / 16 * 16;
+  TcPlan p = plan_wave(
+      wd + 1, h + 1, kMaxTile,
+      [&](int tw) { return tc_smem_bytes(tw, cp, f4); }, n, sms);
+  p.cp = cp;
   return p;
 }
 
@@ -474,13 +525,277 @@ int launch_fwd_tc(const void* x, const void* w, float* z, int n, int h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- #7 ------------------------------------------------------------------
+// ---- #7 in bf16 on the tensor cores ------------------------------------
 
-template <typename T, int F4>
+constexpr int kDxMaxTile = 64;  // dx positions per block (4 m16 tiles)
+constexpr int kDxSlice = 64;    // channels per warp (8 n8 tiles)
+constexpr int kDxWarps = 8;     // warps per block (at most)
+
+// f32 per position in a dz row slot: F4, or 24 at F4 = 16 (the A loads of
+// a half-warp then hit every bank once)
+__host__ __device__ constexpr int dx_pos_stride(int f4) {
+  return f4 == 16 ? 24 : f4;
+}
+
+// Dynamic shared memory of the tensor-core #7: the ring of dz row slots
+// (f32), the weight as B ([c][4*F4 + 8] bf16, C rounded up to 16) and the
+// bf16 dx tile ([tw][C16 + 8]).
+inline int dx_smem_bytes(int tw, int c, int f4) {
+  const int c16 = (c + 15) / 16 * 16;
+  return 4 * kRing * (tw + 1) * dx_pos_stride(f4) + 2 * c16 * (4 * f4 + 8) +
+         2 * tw * (c16 + 8);
+}
+
+// #7's plan: W dx columns, H dx rows (h >= 1)
+inline TcPlan dx_plan(int wd, int c, int f4, int n = 1, int h = 1,
+                      int sms = 0) {
+  TcPlan p = plan_wave(
+      wd, h, kDxMaxTile, [&](int tw) { return dx_smem_bytes(tw, c, f4); }, n,
+      sms);
+  p.cp = (c + 15) / 16 * 16;
+  return p;
+}
+
+// A pair of f32 values as three bf16x2 pieces, v = hi + mid + lo exactly
+// (lower k in the low half): hi is v cut toward zero to bf16 (its high 16
+// bits), mid the same of the remainder v - hi, which is exact in f32, and
+// lo = v - hi - mid, whose low 16 bits are zero.
+__device__ __forceinline__ void split3(float2 v, uint32_t& lo, uint32_t& mid,
+                                       uint32_t& hi) {
+  const uint32_t ux = __float_as_uint(v.x), uy = __float_as_uint(v.y);
+  hi = __byte_perm(ux, uy, 0x7632);
+  const float rx = v.x - __uint_as_float(ux & 0xffff0000u);
+  const float ry = v.y - __uint_as_float(uy & 0xffff0000u);
+  const uint32_t urx = __float_as_uint(rx), ury = __float_as_uint(ry);
+  mid = __byte_perm(urx, ury, 0x7632);
+  const float sx = rx - __uint_as_float(urx & 0xffff0000u);
+  const float sy = ry - __uint_as_float(ury & 0xffff0000u);
+  lo = __byte_perm(__float_as_uint(sx), __float_as_uint(sy), 0x7632);
+}
+
+// grid (bands, column tiles, N), 32 * min(items, kDxWarps) threads, where
+// an item is one m16 tile of the block's positions over one slice of
+// kDxSlice channels. Block (b, t, n) computes dx rows b*band .. +band-1
+// (clipped to H) at columns t*TW .. +TW-1 (clipped to W) of sample n, all
+// C channels. VEC: 16-byte copies of dz, 8-byte copies of w and 16-byte
+// stores of dx (C % 8 == 0, dz and dx 16-byte and w 8-byte aligned); else
+// element loads and stores.
+template <int F4, bool VEC>
+__global__ void __launch_bounds__(kDxWarps * 32, 2)
+    subpixel_dx_tc_kernel(const float* __restrict__ dz,
+                          const __nv_bfloat16* __restrict__ w,
+                          __nv_bfloat16* __restrict__ dx, int h, int wd,
+                          int c, int tw, int band) {
+  constexpr int K = 4 * F4;              // GEMM depth: k = tap*F4 + f
+  constexpr int PS = dx_pos_stride(F4);  // f32 per slot position
+  constexpr int BS = K + 8;              // bf16 per B row
+  extern __shared__ __align__(16) unsigned char smem_dx[];
+  float* ring = reinterpret_cast<float*>(smem_dx);
+  const int slot = (tw + 1) * PS;        // f32 per dz row slot
+  const int c16 = (c + 15) & ~15;
+  __nv_bfloat16* bs = reinterpret_cast<__nv_bfloat16*>(ring + kRing * slot);
+  __nv_bfloat16* stage = bs + c16 * BS;  // [tw][ss]
+  const int ss = c16 + 8;
+
+  const int n = blockIdx.z;
+  const int s0 = blockIdx.y * tw;        // first dx column
+  const int r0 = blockIdx.x * band;      // first dx row
+  const int r1 = min(r0 + band, h);      // reads dz rows r0 .. r1
+  const int ho = h + 1, wo = wd + 1;
+  const int tid = threadIdx.x;
+  const int nthreads = blockDim.x;
+  const __nv_bfloat16 zero = __float2bfloat16(0.f);
+
+  // the weight as the B operand: bs[cc][tap*F4 + f] = w[tap][cc][f], zero
+  // for cc >= c; read in w's order
+  if (VEC) {
+    constexpr int kQuads = F4 / 4;       // 8-byte copies per (tap, cc)
+    for (int i = tid; i < 4 * c16 * kQuads; i += nthreads) {
+      const int row = i / kQuads, q = i - row * kQuads;
+      const int tap = row / c16, cc = row - tap * c16;
+      const bool ok = cc < c;
+      cp_async8(bs + cc * BS + tap * F4 + 4 * q,
+                ok ? w + (static_cast<int64_t>(tap) * c + cc) * F4 + 4 * q
+                   : w,
+                ok);
+    }
+  } else {
+    for (int i = tid; i < 4 * c16 * F4; i += nthreads) {
+      const int row = i / F4, f = i - row * F4;
+      const int tap = row / c16, cc = row - tap * c16;
+      bs[cc * BS + tap * F4 + f] =
+          cc < c ? w[(static_cast<int64_t>(tap) * c + cc) * F4 + f] : zero;
+    }
+  }
+  cp_async_commit();
+
+  // dz row zr, columns s0 .. s0+tw, zeros past dz's last column
+  auto load_row = [&](int zr) {
+    float* dst = ring + (zr % kRing) * slot;
+    const float* zrow = dz + (static_cast<int64_t>(n) * ho + zr) * wo * F4;
+    if (VEC) {
+      constexpr int kChunks = F4 / 4;
+      for (int i = tid; i < (tw + 1) * kChunks; i += nthreads) {
+        const int j = i / kChunks, q = i - j * kChunks;
+        const bool ok = s0 + j < wo;
+        cp_async16(dst + j * PS + 4 * q,
+                   ok ? zrow + (s0 + j) * F4 + 4 * q : dz, ok);
+      }
+    } else {
+      for (int i = tid; i < (tw + 1) * F4; i += nthreads) {
+        const int j = i / F4, f = i - j * F4;
+        dst[j * PS + f] = s0 + j < wo ? zrow[(s0 + j) * F4 + f] : 0.f;
+      }
+    }
+    cp_async_commit();
+  };
+  load_row(r0);
+  load_row(r0 + 1);
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nwarps = nthreads >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int mtiles = tw >> 4;
+  const int items = mtiles * ((c16 + kDxSlice - 1) / kDxSlice);
+  // A: this lane's k = 8q + 2t, 8q + 2t + 1 of chunk q lie in one tap (F4
+  // is even): its f32 offset in the slot at position g (column g + 1 - dw);
+  // the chunk's dz row is r + 1 - dh, dh = 8q >= 2*F4 (2*F4 is a multiple
+  // of 8, so a chunk never spans two dz rows)
+  int aoff[K / 8];
+#pragma unroll
+  for (int q = 0; q < K / 8; ++q) {
+    const int k = 8 * q + 2 * t;
+    const int tap = k / F4;
+    aoff[q] = (g + 1 - (tap & 1)) * PS + k - tap * F4;
+  }
+  // B (ldmatrix x4 of [n][k] rows): n8 tiles 2jp and 2jp + 1, k halves
+  const int b_row = (lane & 7) + ((lane >> 4) << 3);
+  const int b_k = ((lane >> 3) & 1) * 8;
+  const int valid = min(tw, wd - s0);
+
+  for (int r = r0; r < r1; ++r) {
+    // slot (r+2) % 3 held dz row r-1, last read before the barrier that
+    // ended iteration r-1's products
+    if (r + 2 <= r1) {
+      load_row(r + 2);
+    } else {
+      cp_async_commit();
+    }
+    cp_async_wait_all_but_one();   // the weight and dz rows r, r+1 are in
+    __syncthreads();
+
+    const float* z0 = ring + ((r + 1) % kRing) * slot;  // dh = 0
+    const float* z1 = ring + (r % kRing) * slot;        // dh = 1
+    for (int item = warp; item < items; item += nwarps) {
+      const int mt = item % mtiles;
+      const int nb = (item / mtiles) * kDxSlice;         // first channel
+      const int pairs = min(kDxSlice, c16 - nb) >> 4;    // n8 tile pairs
+      float acc[kDxSlice / 8][4];
+#pragma unroll
+      for (int j = 0; j < kDxSlice / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < K / 16; ++ks) {
+        // A fragments of this k16 step: [piece: lo, mid, hi][register]
+        uint32_t a[3][4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = 2 * ks + half;
+          const float* za =
+              (8 * q >= 2 * F4 ? z1 : z0) + mt * 16 * PS + aoff[q];
+          split3(*reinterpret_cast<const float2*>(za), a[0][2 * half],
+                 a[1][2 * half], a[2][2 * half]);
+          split3(*reinterpret_cast<const float2*>(za + 8 * PS),
+                 a[0][2 * half + 1], a[1][2 * half + 1], a[2][2 * half + 1]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < kDxSlice / 16; ++jp) {
+          if (jp < pairs) {
+            uint32_t b[4];
+            ldmatrix_x4(b, bs + (nb + 16 * jp + b_row) * BS + 16 * ks + b_k);
+#pragma unroll
+            for (int piece = 0; piece < 3; ++piece) {
+              mma_bf16(acc[2 * jp], a[piece], b[0], b[1]);
+              mma_bf16(acc[2 * jp + 1], a[piece], b[2], b[3]);
+            }
+          }
+        }
+      }
+      // round once to bf16 into the tile: accumulator (j, e) is position
+      // mt*16 + g (+8 for e >= 2), channel nb + 8j + 2t (+1 for odd e)
+      __nv_bfloat16* st = stage + (mt * 16 + g) * ss + nb + 2 * t;
+#pragma unroll
+      for (int j = 0; j < kDxSlice / 8; ++j) {
+        if (j < 2 * pairs) {
+          *reinterpret_cast<__nv_bfloat162*>(st + 8 * j) =
+              __floats2bfloat162_rn(acc[j][0], acc[j][1]);
+          *reinterpret_cast<__nv_bfloat162*>(st + 8 * ss + 8 * j) =
+              __floats2bfloat162_rn(acc[j][2], acc[j][3]);
+        }
+      }
+    }
+    __syncthreads();
+
+    // the tile's valid positions are one contiguous run of the dx row;
+    // (j, q) walks the tile with the run's index i
+    __nv_bfloat16* out =
+        dx + ((static_cast<int64_t>(n) * h + r) * wd + s0) * c;
+    const int per = VEC ? c >> 3 : c;    // stores per position
+    const int dj = nthreads / per, dq = nthreads - dj * per;
+    int j = tid / per, q = tid - j * per;
+    for (int i = tid; i < valid * per; i += nthreads) {
+      if (VEC) {
+        *reinterpret_cast<uint4*>(out + 8 * i) =
+            *reinterpret_cast<const uint4*>(stage + j * ss + 8 * q);
+      } else {
+        out[i] = stage[j * ss + q];
+      }
+      j += dj;
+      q += dq;
+      if (q >= per) {
+        q -= per;
+        ++j;
+      }
+    }
+  }
+}
+
+template <int F4>
+int launch_dx_tc(const float* dz, const void* w, void* dx, int n, int h,
+                 int wd, int c, cudaStream_t stream) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const TcPlan p = dx_plan(wd, c, F4, n, h, sms);
+  if (p.smem > kMaxSmem) return cudaErrorInvalidValue;
+  const bool vec = c % 8 == 0 && reinterpret_cast<uintptr_t>(dz) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 8 == 0;
+  auto kernel = vec ? subpixel_dx_tc_kernel<F4, true>
+                    : subpixel_dx_tc_kernel<F4, false>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             p.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = (p.tw / 16) * ((p.cp + kDxSlice - 1) / kDxSlice);
+  const dim3 grid(p.bands, p.col_tiles, n);
+  kernel<<<grid, 32 * (items < kDxWarps ? items : kDxWarps), p.smem,
+           stream>>>(dz, static_cast<const __nv_bfloat16*>(w),
+                     static_cast<__nv_bfloat16*>(dx), h, wd, c, p.tw,
+                     p.band);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- #7 in f32 -------------------------------------------------------------
+
+template <int F4>
 __global__ void __launch_bounds__(kDxThreads)
-    subpixel_dx_kernel(const float* __restrict__ dz, const T* __restrict__ w,
-                       T* __restrict__ dx, int h, int wd, int c,
-                       int cblocks) {
+    subpixel_dx_kernel(const float* __restrict__ dz,
+                       const float* __restrict__ w, float* __restrict__ dx,
+                       int h, int wd, int c, int cblocks) {
   __shared__ __align__(16) float dzs[2][kDxCols + 1][F4];
   const int n = blockIdx.z / cblocks;
   const int cc = (blockIdx.z % cblocks) * blockDim.x + threadIdx.x;
@@ -505,13 +820,13 @@ __global__ void __launch_bounds__(kDxThreads)
     for (int tap = 0; tap < 4; ++tap)
 #pragma unroll
       for (int f = 0; f < F4; ++f)
-        wreg[tap][f] = p2p::to_f32(w[(tap * c + cc) * F4 + f]);
+        wreg[tap][f] = w[(tap * c + cc) * F4 + f];
   }
   __syncthreads();
   if (cc >= c) return;
 
   const int valid = min(kDxCols, wd - s0);
-  T* out = dx + ((static_cast<int64_t>(n) * h + r) * wd + s0) * c + cc;
+  float* out = dx + ((static_cast<int64_t>(n) * h + r) * wd + s0) * c + cc;
   for (int t = 0; t < valid; ++t) {
     float acc = 0.f;
 #pragma unroll
@@ -521,7 +836,7 @@ __global__ void __launch_bounds__(kDxThreads)
 #pragma unroll
       for (int f = 0; f < F4; ++f) acc = fmaf(dv[f], wreg[tap][f], acc);
     }
-    out[static_cast<int64_t>(t) * c] = p2p::from_f32<T>(acc);
+    out[static_cast<int64_t>(t) * c] = acc;
   }
 }
 
@@ -541,42 +856,17 @@ int launch_fwd(const void* x, const void* w, float* z, int n, int h, int wd,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int F4>
+template <int F4>
 int launch_dx(const float* dz, const void* w, void* dx, int n, int h, int wd,
               int c, cudaStream_t stream) {
   const int threads = c < kDxThreads ? (c + 31) / 32 * 32 : kDxThreads;
   const int cblocks = (c + threads - 1) / threads;
   const dim3 grid((wd + kDxCols - 1) / kDxCols, h, n * cblocks);
-  subpixel_dx_kernel<T, F4><<<grid, threads, 0, stream>>>(
-      dz, static_cast<const T*>(w), static_cast<T*>(dx), h, wd, c, cblocks);
+  subpixel_dx_kernel<F4><<<grid, threads, 0, stream>>>(
+      dz, static_cast<const float*>(w), static_cast<float*>(dx), h, wd, c,
+      cblocks);
   return static_cast<int>(cudaGetLastError());
 }
-
-// dtype x F4 dispatch: F4 in {4, 8, 12, 16} (1-4 output channels)
-template <template <typename, int> class Launch, typename... Args>
-int dispatch(int dtype, int f4, Args... args) {
-  const bool bf16 = dtype == p2p::kBF16;
-  if (dtype != p2p::kF32 && !bf16) return cudaErrorInvalidValue;
-  switch (f4) {
-    case 4: return bf16 ? Launch<__nv_bfloat16, 4>::run(args...)
-                        : Launch<float, 4>::run(args...);
-    case 8: return bf16 ? Launch<__nv_bfloat16, 8>::run(args...)
-                        : Launch<float, 8>::run(args...);
-    case 12: return bf16 ? Launch<__nv_bfloat16, 12>::run(args...)
-                         : Launch<float, 12>::run(args...);
-    case 16: return bf16 ? Launch<__nv_bfloat16, 16>::run(args...)
-                         : Launch<float, 16>::run(args...);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
-template <typename T, int F4>
-struct Dx {
-  static int run(const float* dz, const void* w, void* dx, int n, int h,
-                 int wd, int c, cudaStream_t s) {
-    return launch_dx<T, F4>(dz, w, dx, n, h, wd, c, s);
-  }
-};
 
 }  // namespace
 
@@ -606,12 +896,30 @@ extern "C" int p2p_subpixel_head_fwd(const void* x, const void* w, float* z,
   }
 }
 
-// #7. dz: (N,H+1,W+1,F4) f32; w: (2,2,C,F4) and dx: (N,H,W,C) in dtype.
+// #7. dz: (N,H+1,W+1,F4) f32; w: (2,2,C,F4) and dx: (N,H,W,C) in dtype:
+// bf16 on the tensor cores, f32 on the CUDA cores.
 extern "C" int p2p_subpixel_head_dx(const float* dz, const void* w, void* dx,
                                     int dtype, int n, int h, int wd, int c,
                                     int f4, void* stream_ptr) {
-  return dispatch<Dx>(dtype, f4, dz, w, dx, n, h, wd, c,
-                      static_cast<cudaStream_t>(stream_ptr));
+  cudaStream_t s = static_cast<cudaStream_t>(stream_ptr);
+  if ((dtype != p2p::kBF16 && dtype != p2p::kF32) ||
+      (f4 != 4 && f4 != 8 && f4 != 12 && f4 != 16))
+    return cudaErrorInvalidValue;
+  if (n == 0 || h == 0 || wd == 0 || c == 0) return cudaSuccess;
+  if (dtype == p2p::kBF16) {
+    switch (f4) {
+      case 4: return launch_dx_tc<4>(dz, w, dx, n, h, wd, c, s);
+      case 8: return launch_dx_tc<8>(dz, w, dx, n, h, wd, c, s);
+      case 12: return launch_dx_tc<12>(dz, w, dx, n, h, wd, c, s);
+      default: return launch_dx_tc<16>(dz, w, dx, n, h, wd, c, s);
+    }
+  }
+  switch (f4) {
+    case 4: return launch_dx<4>(dz, w, dx, n, h, wd, c, s);
+    case 8: return launch_dx<8>(dz, w, dx, n, h, wd, c, s);
+    case 12: return launch_dx<12>(dz, w, dx, n, h, wd, c, s);
+    default: return launch_dx<16>(dz, w, dx, n, h, wd, c, s);
+  }
 }
 
 // The dynamic shared memory per block of #6's launch in dtype at row
@@ -627,4 +935,11 @@ extern "C" int p2p_subpixel_head_fwd_smem(int dtype, int wd, int c, int f4) {
     case 12: return sizeof(float) * fwd_smem_floats<12>(c);
     default: return sizeof(float) * fwd_smem_floats<16>(c);
   }
+}
+
+// The same for #7's launch (0 in f32: its shared memory is static).
+extern "C" int p2p_subpixel_head_dx_smem(int dtype, int wd, int c, int f4) {
+  if (f4 != 4 && f4 != 8 && f4 != 12 && f4 != 16) return -1;
+  if (dtype == p2p::kBF16) return dx_plan(wd, c, f4).smem;
+  return dtype == p2p::kF32 ? 0 : -1;
 }

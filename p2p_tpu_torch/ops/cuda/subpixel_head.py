@@ -14,10 +14,11 @@ dtype) and, for dW, the library's conv weight gradient of the same conv on
 Replaces ``p2p_tpu/ops/pallas/subpixel_head.py:165 _fwd`` and ``:200
 _bwd`` (the dx ``pallas_call``). The kernels are
 ``csrc/subpixel_head.cu``. Both are bound by bytes: about 5.0 MB per call
-at the facades head (x 128×128×128 bf16, F4 = 12, N = 1), 1.49 µs at
-3.35 TB/s, against 0.2 GFLOP, 0.2 µs on the bf16 tensor cores. #6 in bf16
-is an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16, bf16 ×
-bf16 → f32): a grid of one wave, each block with the zero-padded weight
+at the facades head (x or dx 128×128×128 bf16, F4 = 12, N = 1), 1.49 µs
+at 3.35 TB/s, against 0.2 GFLOP, 0.2 µs on the bf16 tensor cores (#7 in
+bf16 does three times that, 0.6 µs: still under the bytes bound). #6 in
+bf16 is an implicit GEMM on the tensor cores (``mma.sync`` m16n8k16, bf16
+× bf16 → f32): a grid of one wave, each block with the zero-padded weight
 resident in shared memory as the B operand and a ring of three input-row
 slots over a band of output rows, the next row's ``cp.async`` load
 (zero-filled for the pad ring) in flight while the current one computes,
@@ -25,10 +26,28 @@ and the f32 tile stored as one contiguous run of z. The launch plan and
 its shared memory are the CUDA source's (``p2p_subpixel_head_fwd_smem``
 reports the bytes). #6 in f32 keeps full f32 products on the CUDA cores
 (two input rows and the weight staged in shared memory, the channel sum
-split over eight warps): TF32 would keep about three decimal digits. #7
+split over eight warps): TF32 would keep about three decimal digits.
+
+#7 in bf16 is the same kind of implicit GEMM: M = dx positions, N = C,
+K = the four taps × F4 (``k = tap·F4 + f``, 16 to 64, never padded). A
+block takes a band of dx rows of one sample over a tile of positions and
+all C channels, in a grid of one wave: the bf16 weight resident in shared
+memory as B, the two f32 dz rows a dx row reads in a ring of three
+``cp.async`` row slots (the next one loading while the current row
+computes), tiles of at most 64 positions, one warp per m16 tile of
+positions over 64 channels, and the tile rounded once to bf16 and stored
+as one contiguous run of the dx row in 16-byte stores. dz is f32, so each
+value is cut into three bf16 pieces as the A fragments are built, ``v = hi + mid + lo`` exactly (hi and mid cut
+toward zero from v and from the remainder, lo what is left, at most 8
+significant bits). Each piece times a bf16 weight is exact in f32, so the
+kernel forms the plain version's products; per k16 step the lo, mid and hi
+products go into the same f32 accumulators in that order, the steps in
+order of k. Only the order of the f32 sums differs from the plain version.
+A dz of ±inf or NaN makes dx NaN where the plain version gives ±inf or
+NaN. ``p2p_subpixel_head_dx_smem`` reports its shared memory. #7 in f32
 keeps each channel's weights in registers and reads the two dz rows it
-needs from shared memory. No atomics, and a fixed order of sums: two
-runs give the same bits.
+needs from shared memory on the CUDA cores. No atomics, and a fixed order
+of sums: two runs give the same bits.
 
 On CPU tensors the wrappers compute the plain versions; on CUDA tensors
 they launch the kernels or raise.
@@ -117,7 +136,8 @@ def subpixel_head_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def subpixel_head_dx(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """#7: dx of the conv from an f32 channels_last dz (N, F4, H+1, W+1),
-    channels_last (N, C, H, W) in w's dtype (the forward's x dtype)."""
+    channels_last (N, C, H, W) in w's dtype (the forward's x dtype): on
+    the tensor cores for a bf16 weight, on the CUDA cores for f32."""
     if dz.device.type == "cpu":
         return subpixel_head_dx_plain(dz, w)
     build.check_activation(dz, "subpixel_head_dx")
@@ -131,13 +151,17 @@ def subpixel_head_dx(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                          f"(2, 2, C, {f4}) f32/bf16 tensor on {dz.device}, "
                          f"got {w.dtype} {tuple(w.shape)} on {w.device}")
     c = w.shape[2]
+    code = build.DTYPE_CODES[w.dtype]
+    lib, fn = build.load("subpixel_head", "p2p_subpixel_head_dx")
+    smem = lib.p2p_subpixel_head_dx_smem(code, wo - 1, c, f4)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"subpixel_head_dx: C = {c} needs {smem} bytes of "
+                         f"shared memory per block (at most {_MAX_SMEM})")
     dx = torch.empty((n, c, ho - 1, wo - 1), device=dz.device, dtype=w.dtype,
                      memory_format=torch.channels_last)
-    lib, fn = build.load("subpixel_head", "p2p_subpixel_head_dx")
     with torch.cuda.device(dz.device):
-        err = fn(dz.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                 build.DTYPE_CODES[w.dtype], n, ho - 1, wo - 1, c, f4,
-                 build.stream_handle(dz.device))
+        err = fn(dz.data_ptr(), w.data_ptr(), dx.data_ptr(), code, n, ho - 1,
+                 wo - 1, c, f4, build.stream_handle(dz.device))
     build.check(lib, err, "subpixel_head_dx")
     subpixel_head_dx.launches += 1
     return dx

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Device time per launch of the port's norm and moments kernels and of the
-subpixel head's forward, from one checkout, at the main paths' bf16
-shapes, with a cold and with a warm L2 cache; and the comparison of such
-runs.
+subpixel head's forward and input gradient, from one checkout, at the
+main paths' bf16 shapes, with a cold and with a warm L2 cache; and the
+comparison of such runs.
 
     python3 scripts/torch_kernel_times.py <checkout> [out.json]
     python3 scripts/torch_kernel_times.py --compare a1.json b1.json \\
@@ -23,11 +23,15 @@ launch counts chip_smoke.py's main paths make):
 - #5 ``batch_moments`` at every (M, C) of the reference, facades, path A
   and facades_int8 train steps, beside one read of the same bytes by
   PyTorch's reduction (``x.sum(dtype=torch.float32)``);
-- #6 ``subpixel_head_fwd(x, w)`` at the facades head (x N×128×128×128,
-  F4 = 12, N = 1, 2, 4);
+- #6 ``subpixel_head_fwd(x, w)`` and #7 ``subpixel_head_dx(dz, w)`` at
+  the facades head (x N×128×128×128, dz N×12×129×129 f32, F4 = 12, N = 1,
+  2, 4), #6 beside ``F.conv2d``, #7 beside ``torch.nn.grad.conv2d_input``
+  and beside a yardstick of about its bytes in one PyTorch kernel (dx's
+  4.19 MB a sample written in bf16 from an f32 read of one value per 8
+  channels, 1.05 MB a sample, against #7's 0.80 MB of dz);
 - the timer's floor: one and two ``torch.cuda._sleep(1)`` launches;
 - with ``torch.profiler``, #5's launches at (4096, 128) and (65536, 64),
-  and the sites of #2 at 1×256×256×32, #4 at 1×65×65×128 and #3 at
+  #6 and #7 at N = 1, and the sites of #2 at 1×256×256×32, #4 at 1×65×65×128 and #3 at
   1×64×64×128 relu+residual and 1×256×512×64 relu: each kernel's mean
   device µs (#1's pass 1 and finalize apart) and the span from the first
   one's start to the last one's end (cold L2; a dependent launch that
@@ -39,7 +43,8 @@ L2 as they are right after the op that wrote them on the main path.
 Prints and writes one JSON object; needs a card.
 
 ``--compare`` reads such files (the order of the runs in the call) and
-prints, for each kernel and for the sites of #2, #3 and #4, the
+prints, for each kernel (#6 and #7 weighted by their launches on the main
+paths, so N = 2 and 4 count 0 for #7) and for the sites of #2, #3 and #4, the
 launch-weighted sum of cold and warm µs of each run, each shape's times
 and the first run's yardstick, and every shape whose time in a later tree
 is more than 3% above its time in the first file's tree (runs of one tree
@@ -122,6 +127,15 @@ def moments_launches(smoke):
     return out
 
 
+def head_launches(smoke):
+    """({N: launches of #6}, {N: launches of #7}) on the main paths, as
+    chip_smoke.py counts them: #6 once a facades forward (serving at N =
+    1, 2, 4 and each facades train step), #7 once a facades train step."""
+    steps = smoke.TRAIN_WARMUP + smoke.TRAIN_STEPS
+    fwd = smoke.main_path_forwards() + collections.Counter({1: steps})
+    return fwd, collections.Counter({1: steps})
+
+
 def warm_ms(fn, reps: int = 20) -> float:
     """Device ms of ``fn`` with its inputs left in L2 by the runs before."""
     for _ in range(3):
@@ -202,7 +216,8 @@ def measure(tree: str) -> dict:
         instance_norm_apply, instance_norm_stats, instance_norm_stats_plain)
     from p2p_tpu_torch.ops.cuda.norm_act import (norm_act, norm_act_quant,
                                                  norm_act_quant_plain)
-    from p2p_tpu_torch.ops.cuda.subpixel_head import subpixel_head_fwd
+    from p2p_tpu_torch.ops.cuda.subpixel_head import (subpixel_head_dx,
+                                                      subpixel_head_fwd)
 
     smoke = _module("smoke_here", os.path.join(HERE, "chip_smoke.py"))
     device = torch.device("cuda")
@@ -212,7 +227,7 @@ def measure(tree: str) -> dict:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], check=True, capture_output=True,
         text=True).stdout.strip(), "floor": {}, "stats": {}, "norm": {},
-        "moments": {}, "head": {}, "profile": {}}
+        "moments": {}, "head": {}, "head_dx": {}, "profile": {}}
     out["floor"]["sleep1"] = both(timer, lambda: torch.cuda._sleep(1))
     out["floor"]["sleep1x2"] = both(
         timer, lambda: (torch.cuda._sleep(1), torch.cuda._sleep(1)))
@@ -273,11 +288,35 @@ def measure(tree: str) -> dict:
         if (m, c) in PROFILE_SHAPES:
             out["profile"][f"{m}x{c}"] = kernel_spans(
                 timer, lambda: batch_moments(x))
-    wt = (torch.randn((2, 2, 128, 12), generator=gen, device=device)
+    fwd_launches, dx_launches = head_launches(smoke)
+    c, f4 = 128, 12
+    wt = (torch.randn((2, 2, c, f4), generator=gen, device=device)
           * 0.05).to(torch.bfloat16)
+    w_oihw = wt.permute(3, 2, 0, 1).contiguous()
     for n in (1, 2, 4):
-        x = smoke.make_input(gen, n, 128, 128, 128, torch.bfloat16, device)
-        out["head"][str(n)] = both(timer, lambda: subpixel_head_fwd(x, wt))
+        x = smoke.make_input(gen, n, c, 128, 128, torch.bfloat16, device)
+        dz = smoke.make_input(gen, n, f4, 129, 129, torch.float32, device)
+        dz_in = dz.to(torch.bfloat16)
+        out["head"][str(n)] = {
+            "launches": fwd_launches[n],
+            **both(timer, lambda: subpixel_head_fwd(x, wt)),
+            "library": both(timer, lambda: torch.nn.functional.conv2d(
+                x, w_oihw, padding=1))}
+        # dx's bytes written in bf16 from one f32 read per 8 channels
+        y = torch.empty(x.numel() // 8, 8, dtype=torch.bfloat16,
+                        device=device)
+        src = torch.randn((x.numel() // 8, 1), generator=gen, device=device)
+        out["head_dx"][str(n)] = {
+            "launches": dx_launches[n],
+            **both(timer, lambda: subpixel_head_dx(dz, wt)),
+            "copy": both(timer, lambda: y.copy_(src.expand(-1, 8))),
+            "library": both(timer, lambda: torch.nn.grad.conv2d_input(
+                x.shape, w_oihw, dz_in, padding=1))}
+        if n == 1:
+            out["profile"]["head N=1"] = kernel_spans(
+                timer, lambda: subpixel_head_fwd(x, wt))
+            out["profile"]["head_dx N=1"] = kernel_spans(
+                timer, lambda: subpixel_head_dx(dz, wt))
     return out
 
 
@@ -292,6 +331,10 @@ def _groups(run):
             "launches": row["launches"], **row["site"]}
     for key, row in run["moments"].items():
         out["batch_moments"][key] = row
+    for key, row in run["head"].items():
+        out["subpixel_head_fwd"][f"N={key}"] = row
+    for key, row in run["head_dx"].items():
+        out["subpixel_head_dx"][f"N={key}"] = row
     return out
 
 
@@ -320,13 +363,16 @@ def compare(paths) -> int:
         for key in sorted(groups[0][kernel]):
             row = groups[0][kernel][key]
             yard = row.get("copy") or row.get("sum")
+            lib = row.get("library")
             print(f"  {key} ({row['launches']}): cold "
                   + " ".join(f"{g[kernel][key]['cold_us']:.2f}"
                              for g in groups) + " | warm "
                   + " ".join(f"{g[kernel][key]['warm_us']:.2f}"
                              for g in groups)
                   + (f" | yardstick {yard['cold_us']:.2f} cold, "
-                     f"{yard['warm_us']:.2f} warm" if yard else ""))
+                     f"{yard['warm_us']:.2f} warm" if yard else "")
+                  + (f" | library {lib['cold_us']:.2f} cold, "
+                     f"{lib['warm_us']:.2f} warm" if lib else ""))
             mean = collections.defaultdict(list)
             for r, g in zip(runs, groups):
                 mean[r["tree"]].append(g[kernel][key])

@@ -22,7 +22,12 @@ CPU. The tensor-core forward of the subpixel head (#6, bf16) and its
 f32 form at every F4, C = 5, 8, 40, 128 and 256, a ragged and a square
 head, N = 1, 2 and 3 (bands of one to four rows), every output written
 and bitwise repeatable, and its launch plan within an H100's shared
-memory for every C the head takes. #2 and #4 as the main path launches
+memory for every C the head takes. The tensor-core dx of the subpixel
+head (#7, bf16; dz cut into three bf16 pieces): a sum that cancels down
+to the last bits of dz exact, NaN, ±inf and −0 in dz non-finite exactly
+where the plain version is, every F4 at C = 5, 8, 40, 128 and 256 with
+every output written and bitwise repeatable, misaligned dz and w, and its
+launch plan within an H100's shared memory. #2 and #4 as the main path launches
 them (programmatic dependents of #1's finalize, x read before the wait):
 bitwise their plain versions on #1's statistics over 50 launches back to
 back at every path shape, with a PyTorch kernel writing x right before
@@ -43,10 +48,14 @@ and #4 after #1, #3 after #1, and #3 and #2 in their every-form test
 exact; #5's f32 sums within 1e-5 of the
 sum of |terms| (the same terms summed in two orders); #6's f32 output
 within 1e-4 + 1e-4 relative in both input types (bf16 products are exact
-in f32), #7's dx as the other outputs stored in its dtype. The plain
-versions run with TF32 off.
+in f32), #7's dx in f32 as the other f32 outputs and in bf16 within
+``HEAD_DX_TOL``. The plain versions run with TF32 off.
 """
 
+import importlib.util
+from pathlib import Path
+
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -68,6 +77,18 @@ from p2p_tpu_torch.ops.cuda.subpixel_head import (  # noqa: E402
 pytestmark = pytest.mark.gpu
 
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0 ** -7)}
+
+
+def _smoke_head_dx_tol():
+    """chip_smoke.py's band for #7 in bf16 (where it is derived)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_tol", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.HEAD_DX_TOL
+
+
+HEAD_DX_TOL = _smoke_head_dx_tol()
 
 
 @pytest.fixture
@@ -253,7 +274,7 @@ def test_subpixel_head_kernels_match_plain_versions(no_tf32, dtype, n, c, h,
     dx = subpixel_head_dx(dz, wt)
     assert dx.dtype == dtype and dx.shape == x.shape
     assert dx.is_contiguous(memory_format=torch.channels_last)
-    atol, rtol = TOL[dtype]
+    atol, rtol = HEAD_DX_TOL if dtype == torch.bfloat16 else TOL[dtype]
     torch.testing.assert_close(dx.float(),
                                subpixel_head_dx_plain(dz, wt).float(),
                                atol=atol, rtol=rtol)
@@ -315,6 +336,123 @@ def test_subpixel_head_fwd_plan_fits_every_c_the_head_takes(cuda, f4):
     x, wt, _ = _head(1, 1024, 4, 4, f4, torch.bfloat16, cuda, 11)
     with pytest.raises(ValueError, match="shared memory"):
         subpixel_head_fwd(x, wt)
+
+
+def _dx_close(dx, dz, wt):
+    atol, rtol = HEAD_DX_TOL if wt.dtype == torch.bfloat16 else TOL[wt.dtype]
+    torch.testing.assert_close(dx.float(),
+                               subpixel_head_dx_plain(dz, wt).float(),
+                               atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f4", [4, 8, 12, 16])
+@pytest.mark.parametrize("c", [5, 8, 40, 128, 256])
+def test_subpixel_head_dx_every_f4_and_c(no_tf32, dtype, f4, c):
+    """#7 against its plain version at a ragged and a square head, N = 1,
+    2 and 3 (bands of one or two rows), and the same bits from a second
+    launch; C = 5 and 40 leave n8 tiles past C, C = 256 takes four
+    64-channel slices a tile. dx is allocated where a NaN tensor of its
+    size was just freed, so an output no block wrote shows."""
+    for n, h, w in ((1, 5, 37), (2, 128, 128), (3, 128, 128)):
+        _, wt, dz = _head(n, c, h, w, f4, dtype, no_tf32, c + f4 + n)
+        torch.full((n, c, h, w), float("nan"), dtype=dtype, device=no_tf32)
+        dx = subpixel_head_dx(dz, wt)
+        assert dx.shape == (n, c, h, w)
+        _dx_close(dx, dz, wt)
+        assert torch.equal(subpixel_head_dx(dz, wt), dx), (n, h, w)
+    torch.cuda.synchronize()
+
+
+def test_subpixel_head_dx_keeps_every_bit_of_dz(no_tf32):
+    """w = +1 on tap (0, 0) and -1 on tap (1, 1) of one (c, f) per
+    channel, so dx[r, s, c] = dz[r+1, s+1, f] - dz[r, s, f]; dz = b·(1 +
+    (i + j)·2^-21) with b of 2 significant bits, exact in f32, so every dx
+    is b·2^-20, which a bf16 holds: it lives in the last 4 bits of dz's 24,
+    which a two-piece bf16 split drops. dx must be that exactly, as the
+    plain version gives it with TF32 off."""
+    n, c, h, w, f4 = 2, 24, 9, 33, 12
+    wt = torch.zeros((2, 2, c, f4), dtype=torch.bfloat16)
+    for cc in range(c):
+        wt[0, 0, cc, cc % f4] = 1.0
+        wt[1, 1, cc, cc % f4] = -1.0
+    rng = np.random.default_rng(3)
+    b = rng.choice([-3.0, -1.5, -0.75, 0.75, 1.5, 3.0], size=(n, 1, 1, f4))
+    ij = np.arange(h + 1)[:, None, None] + np.arange(w + 1)[None, :, None]
+    dz64 = b * (1.0 + ij * 2.0 ** -21)
+    assert np.array_equal(dz64.astype(np.float32).astype(np.float64), dz64)
+    dz = torch.from_numpy(dz64.astype(np.float32)).permute(0, 3, 1, 2).to(
+        no_tf32)
+    wt = wt.to(no_tf32)
+    want = torch.from_numpy(np.broadcast_to(
+        b[..., [cc % f4 for cc in range(c)]] * 2.0 ** -20,
+        (n, h, w, c)).astype(np.float32)).permute(0, 3, 1, 2).to(
+            device=no_tf32, dtype=torch.bfloat16)
+    dx = subpixel_head_dx(dz, wt)
+    assert torch.equal(dx, want)
+    assert torch.equal(subpixel_head_dx_plain(dz, wt), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_subpixel_head_dx_is_non_finite_where_the_plain_version_is(
+        no_tf32, dtype):
+    """NaN, +inf, -inf and -0 in dz (a -0 row too), and zeros in w (inf ·
+    0 is NaN): dx is non-finite exactly where the plain version's is (the
+    bf16 kernel may give NaN where it gives ±inf: the remainder inf - inf
+    is NaN), and elsewhere within the band."""
+    _, wt, dz = _head(2, 40, 9, 20, 12, dtype, no_tf32, 21)
+    wt[0, 1, 3, :] = 0
+    wt[1, 0, :, 5] = 0
+    v = dz.permute(0, 2, 3, 1)             # NHWC view of the same memory
+    v[0, 3, 4, 5] = float("nan")
+    v[0, 7, 7, 0] = float("inf")
+    v[1, 2, 10, 11] = float("-inf")
+    v[1, 8, 3, 5] = float("inf")
+    v[0, 5, 5, 2] = -0.0
+    v[1, 4] = -0.0
+    dx = subpixel_head_dx(dz, wt).float()
+    pdx = subpixel_head_dx_plain(dz, wt).float()
+    bad = ~torch.isfinite(pdx)
+    assert 0 < int(bad.sum()) < bad.numel()
+    assert torch.equal(~torch.isfinite(dx), bad)
+    atol, rtol = HEAD_DX_TOL if dtype == torch.bfloat16 else TOL[dtype]
+    torch.testing.assert_close(dx[~bad], pdx[~bad], atol=atol, rtol=rtol)
+
+
+def test_subpixel_head_dx_takes_misaligned_operands(no_tf32):
+    """dz and w views off their 16- and 4-byte alignment, each alone and
+    both: element loads and stores."""
+    _, wt, dz = _head(2, 64, 9, 20, 12, torch.bfloat16, no_tf32, 61)
+    zb = torch.empty(dz.numel() + 1, dtype=dz.dtype, device=no_tf32)
+    dzm = zb[1:].view(2, 10, 21, 12).permute(0, 3, 1, 2)
+    dzm.copy_(dz)
+    wb = torch.empty(wt.numel() + 1, dtype=wt.dtype, device=no_tf32)
+    wm = wb[1:].view(wt.shape)
+    wm.copy_(wt)
+    assert dzm.data_ptr() % 16 and wm.data_ptr() % 4
+    want = subpixel_head_dx(dz, wt)
+    for d, ww in ((dzm, wt), (dz, wm), (dzm, wm)):
+        got = subpixel_head_dx(d, ww)
+        _dx_close(got, dz, wt)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("f4", [4, 8, 12, 16])
+def test_subpixel_head_dx_plan_fits_every_c_the_head_takes(cuda, f4):
+    """Every C up to 1024 has a bf16 #7 plan within an H100's 232,448
+    bytes per block at the widths of 256² to 2048² images (the plan is the
+    CUDA source's); C = 4096 does not, and the wrapper raises."""
+    from p2p_tpu_torch.ops.cuda import build
+
+    lib = build.library("subpixel_head")
+    bf16 = build.DTYPE_CODES[torch.bfloat16]
+    for c in range(4 * f4, 1025, 8):
+        for w in (128, 256, 512, 1024):
+            assert 0 < lib.p2p_subpixel_head_dx_smem(bf16, w, c, f4) \
+                <= 232448, (c, w)
+    _, wt, dz = _head(1, 4096, 4, 4, f4, torch.bfloat16, cuda, 11)
+    with pytest.raises(ValueError, match="shared memory"):
+        subpixel_head_dx(dz, wt)
 
 
 def test_subpixel_head_kernels_are_reproducible_and_count_launches(cuda):
