@@ -1,0 +1,156 @@
+"""Inference CLI (counterpart of ``p2p_tpu/cli/infer.py``): batched
+generator inference over the test split from a training checkpoint.
+
+    python -m p2p_tpu_torch.cli.infer --preset reference \\
+        --data_root <dataset root> --workdir <run dir> [--metrics] \\
+        [--step N] [--device cuda|cpu]
+
+G (and net_c, for a preset with a compression net) are restored from the
+newest step under ``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` whose
+files verify (or exactly ``--step``), reading no discriminator or optimizer
+file, and served through the engine (serve/engine.py) on f32 masters at
+``--dtype``. One PNG per test image, named after it, goes to ``--out``
+(default ``<workdir>/<result_dir>/<dataset>``). ``--metrics`` prints
+``psnr_mean=… psnr_max=… ssim_mean=… ssim_max=…`` over every test image;
+``--stats`` the engine's timing as a JSON line. The card is the default
+device; flags of features the port lacks are refused by name (exit 2).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+
+from p2p_tpu_torch.cli import add_unported, apply_overrides, refuse_unported
+
+UNPORTED = (
+    ("ema_decay", None, {"type": float}), ("mesh", None, {"type": str}),
+    ("tp_min_ch", None, {"type": int}),
+    ("compilation_cache", None, {"type": str}),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="p2p_tpu_torch inference")
+    p.add_argument("--preset", type=str, default="reference")
+    p.add_argument("--name", type=str, default=None,
+                   help="training name (checkpoint subdir; default preset)")
+    p.add_argument("--dataset", type=str, default=None)
+    p.add_argument("--direction", type=str, default=None,
+                   choices=["a2b", "b2a"])
+    p.add_argument("--device", type=str, default=None,
+                   help="'cuda' (default) or 'cpu'")
+    p.add_argument("--cuda", action="store_true",
+                   help="run on the card (the default)")
+    p.add_argument("--step", type=int, default=None,
+                   help="checkpoint step to load (default: newest intact)")
+    p.add_argument("--data_root", type=str, default=None)
+    p.add_argument("--workdir", type=str, default=".")
+    p.add_argument("--out", type=str, default=None,
+                   help="output dir (default <workdir>/result/<dataset>)")
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--ngf", type=int, default=None)
+    p.add_argument("--ndf", type=int, default=None,
+                   help="accepted and not needed: only G and net_c are "
+                        "restored")
+    p.add_argument("--n_blocks", type=int, default=None)
+    p.add_argument("--upsample_mode", type=str, default=None,
+                   choices=["deconv"])
+    p.add_argument("--pool_size", type=int, default=None,
+                   help="accepted and not needed: only G and net_c are "
+                        "restored")
+    p.add_argument("--metrics", action="store_true",
+                   help="also print mean/max PSNR and SSIM vs the targets")
+    p.add_argument("--buckets", type=str, default=None,
+                   help="comma-separated batch buckets warmed at start "
+                        "(default: the test batch size)")
+    p.add_argument("--dtype", type=str, default="bf16",
+                   choices=["bf16", "f32"])
+    p.add_argument("--io_threads", type=int, default=4,
+                   help="PNG encode worker threads")
+    p.add_argument("--stats", action="store_true",
+                   help="print the engine's timing breakdown as JSON")
+    add_unported(p, UNPORTED)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    rc = refuse_unported(args, UNPORTED)
+    if rc:
+        return rc
+    if args.cuda and args.device not in (None, "cuda"):
+        print("--cuda contradicts --device", file=sys.stderr)
+        return 2
+    for flag in ("ndf", "pool_size"):
+        if getattr(args, flag) is not None:
+            print(f"note: --{flag} is not needed: only G and net_c are "
+                  "restored", file=sys.stderr)
+
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.data.pipeline import PairedImageDataset, make_loader
+    from p2p_tpu_torch.models.registry import define_C, define_G
+    from p2p_tpu_torch.serve.engine import InferenceEngine
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = get_preset(args.preset)
+    cfg = cfg.replace(
+        name=args.name or cfg.name,
+        data=apply_overrides(cfg.data, dataset=args.dataset,
+                             direction=args.direction,
+                             test_batch_size=args.batch_size,
+                             image_size=args.image_size),
+        model=apply_overrides(cfg.model, ngf=args.ngf,
+                              n_blocks=args.n_blocks,
+                              upsample_mode=args.upsample_mode))
+    root = args.data_root or os.path.join(cfg.data.root, cfg.data.dataset)
+    try:
+        ds = PairedImageDataset(
+            root, "test", cfg.data.direction, cfg.data.image_size,
+            cfg.data.image_width,
+            dtype="uint8" if cfg.data.uint8_pipeline else "float32")
+    except (RuntimeError, FileNotFoundError) as e:
+        print(f"no test images under {root}: {e}", file=sys.stderr)
+        return 1
+
+    net_g = define_G(cfg.model, image_hw=cfg.image_hw)
+    net_c = define_C(cfg.model) if cfg.model.use_compression_net else None
+    ckpt = CheckpointManager(os.path.join(
+        args.workdir, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
+    try:
+        step = ckpt.restore_nets(net_g, net_c, step=args.step)
+    except FileNotFoundError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    bs = cfg.data.test_batch_size
+    buckets = ([int(b) for b in args.buckets.split(",")] if args.buckets
+               else [bs])
+    engine = InferenceEngine(
+        cfg, net_g, buckets=buckets, dtype=args.dtype, device=args.device,
+        net_c=net_c, with_metrics=args.metrics, io_workers=args.io_threads)
+    out_dir = args.out or os.path.join(args.workdir, cfg.train.result_dir,
+                                       cfg.data.dataset)
+    os.makedirs(out_dir, exist_ok=True)
+    loader = make_loader(ds, bs, shuffle=False, num_epochs=1,
+                         drop_remainder=False)
+    stats, metrics = engine.run(
+        loader, names=[os.path.splitext(n)[0] + ".png" for n in ds.names],
+        out_dir=out_dir, collect_metrics=args.metrics)
+    print(f"wrote {stats.n_images} predictions (checkpoint step {step}) "
+          f"to {out_dir}")
+    if args.metrics:
+        psnrs, ssims = metrics["psnr"], metrics["ssim"]
+        print(f"psnr_mean={np.mean(psnrs):.4f} psnr_max={np.max(psnrs):.4f} "
+              f"ssim_mean={np.mean(ssims):.4f} ssim_max={np.max(ssims):.4f}")
+    if args.stats:
+        print(json.dumps({"kind": "serve_stats", **stats.as_dict()}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

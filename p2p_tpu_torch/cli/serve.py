@@ -16,13 +16,14 @@ and quarantine come with later slices.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import sys
 import time
 
 import numpy as np
+
+from p2p_tpu_torch.cli import apply_overrides
 
 IMG_EXTENSIONS = (".png",)
 
@@ -62,19 +63,15 @@ def default_buckets(max_batch: int):
     return tuple(sorted(set(out)))
 
 
-def _override(obj, **kw):
-    return dataclasses.replace(
-        obj, **{k: v for k, v in kw.items() if v is not None})
-
-
 def build_config(args):
     from p2p_tpu_torch.core.config import get_preset
 
     cfg = get_preset(args.preset)
     return cfg.replace(
-        model=_override(cfg.model, ngf=args.ngf, n_blocks=args.n_blocks),
-        data=_override(cfg.data, image_size=args.image_size,
-                       image_width=args.image_width))
+        model=apply_overrides(cfg.model, ngf=args.ngf,
+                              n_blocks=args.n_blocks),
+        data=apply_overrides(cfg.data, image_size=args.image_size,
+                             image_width=args.image_width))
 
 
 def load_request(path: str, h: int, w: int) -> np.ndarray:

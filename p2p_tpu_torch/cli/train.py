@@ -1,0 +1,171 @@
+"""Training CLI (counterpart of ``p2p_tpu/cli/train.py``): the JAX flag
+names, unset flags inheriting from ``--preset``:
+
+    python -m p2p_tpu_torch.cli.train --preset reference \\
+        --data_root <dataset root> --workdir <run dir> [--nepoch 200] \\
+        [--epochsave 20] [--device cuda|cpu]
+
+It resumes from the newest intact checkpoint under
+``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` when there is one, then
+trains to ``--nepoch`` (train/loop.py ``Trainer``). The card is the
+default device; the CPU runs only with ``--device cpu``. A flag of the JAX
+CLI whose feature the port does not have (meshes, scan steps, the health
+ladder's knobs, telemetry sinks, pix2pixHD phases, …) is refused by name
+with exit code 2 unless it is left at its default.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from p2p_tpu_torch.cli import add_unported, apply_overrides, refuse_unported
+
+_TRUE = {"action": "store_true"}
+_BOOL = {"action": argparse.BooleanOptionalAction}
+UNPORTED = (
+    ("mesh", None, {"type": str}), ("tp_min_ch", 512, {"type": int}),
+    ("fsdp_params", False, _TRUE), ("int8_generator", False, _TRUE),
+    ("int8_stem", False, _TRUE), ("int8_head", False, _TRUE),
+    ("int8_compression", False, _TRUE), ("pp_overlap", False, _BOOL),
+    ("compilation_cache", None, {"type": str}), ("elastic", True, _BOOL),
+    ("cast_on_restore", False, _BOOL),
+    ("recalibrate_steps", 0, {"type": int}),
+    ("ema_decay", None, {"type": float}),
+    ("max_rollbacks", 3, {"type": int}),
+    ("spike_zscore", 6.0, {"type": float}),
+    ("cooldown_steps", 20, {"type": int}),
+    ("health_window", 32, {"type": int}), ("check_finite", False, _TRUE),
+    ("nan_sentinel", False, _TRUE), ("grad_norms", False, _TRUE),
+    ("tensorboard", False, _TRUE), ("prom_textfile", None, {"type": str}),
+    ("lr_decay_iters", 50, {"type": int}), ("threads", 4, {"type": int}),
+    ("lambda_sobel", 0.0, {"type": float}),
+    ("sobel_warmup_epochs", 0, {"type": int}),
+    ("lambda_angular", 0.0, {"type": float}),
+    ("grad_clip", 0.0, {"type": float}), ("pool_size", 0, {"type": int}),
+    ("save_masks", False, _TRUE), ("eval_fid", False, _TRUE),
+    ("scan_steps", 1, {"type": int}), ("phase", None, {"type": str}),
+    ("init_g1_from", None, {"type": str}),
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(description="p2p_tpu_torch training")
+    p.add_argument("--preset", type=str, default="reference")
+    p.add_argument("--data_root", type=str, default=None,
+                   help="dataset root (default <data.root>/<dataset>)")
+    p.add_argument("--workdir", type=str, default=".",
+                   help="checkpoints, samples and metrics land here")
+    p.add_argument("--device", type=str, default=None,
+                   help="'cuda' (default) or 'cpu'")
+    p.add_argument("--cuda", action="store_true",
+                   help="run on the card (the default)")
+    p.add_argument("--image_width", type=int, default=None)
+    p.add_argument("--image_size", type=int, default=None)
+    p.add_argument("--n_blocks", type=int, default=None)
+    p.add_argument("--upsample_mode", type=str, default=None,
+                   choices=["deconv"],
+                   help="U-Net decoder upsampling (only deconv is ported)")
+    p.add_argument("--augment", action="store_true", default=None)
+    p.add_argument("--int8", action="store_true", default=None)
+    p.add_argument("--int8_delayed", action=argparse.BooleanOptionalAction,
+                   default=None)
+    p.add_argument("--int8_fused_epilogue", action="store_true",
+                   default=None)
+    p.add_argument("--norm_d", type=str, default=None,
+                   choices=["none", "instance", "pallas_instance"])
+    p.add_argument("--thin_head", action="store_true", default=None)
+    p.add_argument("--legacy_layout", action="store_true", default=None)
+    p.add_argument("--health", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="the in-step skip guard (on by default)")
+    p.add_argument("--dataset", type=str, default=None)
+    p.add_argument("--name", type=str, default=None)
+    p.add_argument("--epoch_count", type=int, default=None)
+    p.add_argument("--nepoch", type=int, default=None)
+    p.add_argument("--niter", type=int, default=None)
+    p.add_argument("--niter_decay", type=int, default=None)
+    p.add_argument("--epochsave", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--test_batch_size", type=int, default=None)
+    p.add_argument("--direction", type=str, default=None,
+                   choices=["a2b", "b2a"])
+    p.add_argument("--input_nc", type=int, default=None)
+    p.add_argument("--output_nc", type=int, default=None)
+    p.add_argument("--ngf", type=int, default=None)
+    p.add_argument("--ndf", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--lr_policy", type=str, default=None,
+                   choices=["lambda"], help="only lambda is ported")
+    p.add_argument("--beta1", type=float, default=None)
+    p.add_argument("--moment_dtype", type=str, default=None)
+    p.add_argument("--seed", type=int, default=None)
+    p.add_argument("--lamb", type=float, default=None, help="L1 weight")
+    p.add_argument("--lambda_vgg", type=float, default=None)
+    p.add_argument("--lambda_feat", type=float, default=None)
+    p.add_argument("--lambda_tv", type=float, default=None)
+    p.add_argument("--log_every", type=int, default=None)
+    add_unported(p, UNPORTED)
+    return p
+
+
+def config_from_flags(args: argparse.Namespace):
+    """The preset, overridden by every flag that was set."""
+    import dataclasses
+
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset(args.preset)
+    over = apply_overrides
+    model = over(cfg.model, input_nc=args.input_nc, output_nc=args.output_nc,
+                 ngf=args.ngf, ndf=args.ndf, n_blocks=args.n_blocks,
+                 upsample_mode=args.upsample_mode, int8=args.int8,
+                 int8_delayed=args.int8_delayed,
+                 int8_fused_epilogue=args.int8_fused_epilogue,
+                 legacy_layout=args.legacy_layout, thin_head=args.thin_head,
+                 norm_d=args.norm_d)
+    loss = over(cfg.loss, lambda_l1=args.lamb, lambda_vgg=args.lambda_vgg,
+                lambda_feat=args.lambda_feat, lambda_tv=args.lambda_tv)
+    optim = over(cfg.optim, lr=args.lr, lr_policy=args.lr_policy,
+                 beta1=args.beta1, niter=args.niter,
+                 niter_decay=args.niter_decay,
+                 moment_dtype=args.moment_dtype)
+    data = over(cfg.data, dataset=args.dataset, direction=args.direction,
+                batch_size=args.batch_size, image_size=args.image_size,
+                image_width=args.image_width,
+                test_batch_size=args.test_batch_size, augment=args.augment)
+    if args.image_size is not None and args.image_width is None \
+            and data.image_width is not None:
+        # a square --image_size overrides a rectangular preset wholesale
+        data = dataclasses.replace(data, image_width=None)
+    train = over(cfg.train, nepoch=args.nepoch, epoch_count=args.epoch_count,
+                 epoch_save=args.epochsave, seed=args.seed,
+                 log_every=args.log_every)
+    health = over(cfg.health, enabled=args.health)
+    return cfg.replace(name=args.name or cfg.name, model=model, loss=loss,
+                       optim=optim, data=data, train=train, health=health)
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    rc = refuse_unported(args, UNPORTED)
+    if rc:
+        return rc
+    if args.cuda and args.device not in (None, "cuda"):
+        print("--cuda contradicts --device", file=sys.stderr)
+        return 2
+    cfg = config_from_flags(args)
+
+    from p2p_tpu_torch.train.loop import Trainer
+
+    trainer = Trainer(cfg, data_root=args.data_root, workdir=args.workdir,
+                      device=args.device)
+    if trainer.maybe_resume():
+        print(f"resumed at epoch {trainer.epoch} (step "
+              f"{trainer.state.step})", flush=True)
+    trainer.fit()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,7 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
-fields the serving paths and the ``reference``, ``facades``,
-``facades_int8`` and ``pix2pixhd`` train steps read. Field names, defaults
+fields the serving paths, the ``reference``, ``facades``,
+``facades_int8`` and ``pix2pixhd`` train steps, the data pipeline and the
+trainer (train/loop.py) read. Field names, defaults
 and the preset values are those of the JAX package, so one preset name
 means one model in both. A few fields name machinery the port does not
 have yet (the fake pool, the int8 generator, stem and head, EMA); the
@@ -110,11 +111,15 @@ class OptimConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
+    root: str = "dataset"
     dataset: str = "facades"
+    direction: str = "b2a"           # which of a/ and b/ is the input
     image_size: int = 256
     image_width: Optional[int] = None  # None → square
     batch_size: int = 1
     test_batch_size: int = 1
+    # the paired resize-286 / random-crop / flip of the train split
+    augment: bool = False
     # requests travel host → device as uint8 and are normalized on the
     # device (utils/images.ingest)
     uint8_pipeline: bool = True
@@ -122,9 +127,16 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
+    nepoch: int = 200
     epoch_count: int = 1             # 1-based epoch label of step 0
-    # seeds the per-step dropout noise (with the step number)
+    epoch_save: int = 20             # checkpoint every this many epochs
+    # seeds the trainer's weight init, each epoch's shuffle and crops
+    # (seed + epoch) and the per-step dropout noise (with the step number)
     seed: int = 123
+    # per-step "train" records in the metrics JSONL (each one a host sync)
+    log_every: int = 50
+    checkpoint_dir: str = "checkpoint"
+    result_dir: str = "result"
     # bf16 compute on f32 master parameters (core/dtypes.py)
     mixed_precision: bool = True
     # not ported: the historical-fake pool

@@ -1,0 +1,215 @@
+"""Input pipeline: paired-image loading → host batches → device prefetch
+(counterpart of ``p2p_tpu/data/pipeline.py``).
+
+- :class:`PairedImageDataset`: ``<root>/<split>/a/<name>`` paired with
+  ``b/<name>``, decoded by the port's PNG reader, resized bicubic to the
+  target size when it differs (Pillow's bytes, utils/images.py), and
+  normalized to [-1, 1] or kept uint8; the direction swap, the optional
+  286/256 crop-and-flip augmentation and the decode memo.
+- :func:`make_loader`: the JAX package's in-process loader (its fallback
+  when Grain is absent), order for order: one ``np.random.default_rng(seed)``
+  shuffles ``arange(n)`` once per epoch, :func:`shard_epoch_indices` cuts
+  the epoch, consecutive items stack into batches. Grain and its worker
+  processes are not ported.
+- :func:`device_prefetch`: pinned host buffers and ``non_blocking`` copies
+  to the card one batch ahead of the consumer.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+from typing import Dict, Iterator, Optional, Union
+
+import numpy as np
+import torch
+
+from p2p_tpu_torch.data.generate import is_image_file, read_png
+from p2p_tpu_torch.utils.images import resize_bicubic
+
+
+def load_image(path: str, h: int, w: int, as_uint8: bool = False
+               ) -> np.ndarray:
+    """Decode, resize to (h, w) only when the size differs, then float32
+    [-1, 1] by ``(x − 127.5)·(1/127.5)`` (the expression of the JAX
+    package and of ``utils/images.ingest``), or the uint8 bytes with
+    ``as_uint8``."""
+    arr = read_png(path)
+    if arr.shape[:2] != (h, w):
+        arr = resize_bicubic(arr, h, w)
+    if as_uint8:
+        return arr
+    return ((arr.astype(np.float32) - np.float32(127.5))
+            * np.float32(1.0 / 127.5))
+
+
+class PairedImageDataset:
+    """Random-access paired dataset; items are dicts of HWC images,
+    float32 [-1, 1] by default, uint8 with ``dtype="uint8"`` (normalized
+    on the device by the steps). ``direction="b2a"`` makes ``b/`` the
+    input. With ``augment`` each pair is loaded at 286/256 of the size,
+    cropped at one random offset and flipped with probability 1/2, both a
+    pure function of ``(aug_seed, index)``; the trainer sets ``aug_seed``
+    once per epoch. Decoded images are memoized (before augmentation)
+    when the split fits in 4 GB (``cache="auto"``)."""
+
+    def __init__(self, root: str, split: str = "train",
+                 direction: str = "b2a", image_size: int = 256,
+                 image_width: Optional[int] = None, augment: bool = False,
+                 aug_seed: int = 0, cache: Union[bool, str] = "auto",
+                 dtype: str = "float32"):
+        self.a_dir = os.path.join(root, split, "a")
+        self.b_dir = os.path.join(root, split, "b")
+        self.direction = direction
+        self.h = image_size
+        self.w = image_width or image_size
+        self.augment = augment
+        self.aug_seed = aug_seed
+        self.names = sorted(f for f in os.listdir(self.a_dir)
+                            if is_image_file(f))
+        if not self.names:
+            raise RuntimeError(f"no images in {self.a_dir}")
+        if dtype not in ("float32", "uint8"):
+            raise ValueError(f"dtype must be float32|uint8, got {dtype!r}")
+        self.as_uint8 = dtype == "uint8"
+        if cache == "auto":
+            lh = (self.h * 286 // 256) if augment else self.h
+            lw = (self.w * 286 // 256) if augment else self.w
+            bpp = 1 if self.as_uint8 else 4
+            cache = len(self.names) * lh * lw * 3 * bpp * 2 <= 4 << 30
+        self.cache_enabled = bool(cache)
+        self._memo: Dict = {}
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def _load(self, path: str, h: Optional[int] = None,
+              w: Optional[int] = None) -> np.ndarray:
+        h = h or self.h
+        w = w or self.w
+        if not self.cache_enabled:
+            return load_image(path, h, w, self.as_uint8)
+        key = (path, h, w)
+        hit = self._memo.get(key)
+        if hit is None:
+            hit = load_image(path, h, w, self.as_uint8)
+            hit.setflags(write=False)
+            self._memo[key] = hit
+        return hit
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        idx = idx.__index__()
+        name = self.names[idx]
+        if self.augment:
+            lh = self.h * 286 // 256
+            lw = self.w * 286 // 256
+            a = self._load(os.path.join(self.a_dir, name), lh, lw)
+            b = self._load(os.path.join(self.b_dir, name), lh, lw)
+            rng = np.random.default_rng((0x9E3779B9, self.aug_seed, idx))
+            oy = int(rng.integers(0, lh - self.h + 1))
+            ox = int(rng.integers(0, lw - self.w + 1))
+            a = a[oy:oy + self.h, ox:ox + self.w]
+            b = b[oy:oy + self.h, ox:ox + self.w]
+            if rng.random() < 0.5:
+                a, b = a[:, ::-1], b[:, ::-1]
+            a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        else:
+            a = self._load(os.path.join(self.a_dir, name))
+            b = self._load(os.path.join(self.b_dir, name))
+        if self.direction == "a2b":
+            return {"input": a, "target": b}
+        return {"input": b, "target": a}
+
+
+def shard_epoch_indices(idx: np.ndarray, batch_size: int,
+                        skip_batches: int = 0, drop_remainder: bool = True,
+                        skip_samples: int = 0) -> list:
+    """One epoch's shuffled index vector → the batch-aligned, post-skip
+    slice the epoch consumes: the JAX package's arithmetic
+    (``pipeline.py:257 shard_epoch_indices``) for its one process
+    (``n_proc = 1``, ``pid = 0``; the port runs one process).
+    ``skip_batches`` drops the first batches; ``skip_samples`` drops the
+    permutation prefix ``[0, S)`` and, with ``drop_remainder``, keeps
+    ``len//batch_size − ceil(S/batch_size)`` batches."""
+    idx = np.asarray(idx)
+    if skip_batches and skip_samples:
+        raise ValueError("pass skip_batches OR skip_samples, not both")
+    if skip_samples > 0:
+        s = int(skip_samples)
+        n_b = max(0, len(idx) // batch_size - -(-s // batch_size))
+        idx = idx[s:]
+        if drop_remainder:
+            idx = idx[:n_b * batch_size]
+    elif skip_batches > 0:
+        idx = idx[skip_batches * batch_size:]
+    return list(idx)
+
+
+def _stacked(ds, batch_size: int, indices, drop_remainder: bool):
+    """Consecutive items of ``indices`` stacked into batches."""
+    end = (len(indices) - batch_size + 1 if drop_remainder
+           else len(indices))
+    for i in range(0, end, batch_size):
+        items = [ds[j] for j in indices[i:i + batch_size]]
+        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+def make_loader(dataset: PairedImageDataset, batch_size: int,
+                shuffle: bool = True, seed: int = 0,
+                num_epochs: Optional[int] = 1, drop_remainder: bool = True,
+                skip_batches: int = 0, skip_samples: int = 0
+                ) -> Iterator[Dict[str, np.ndarray]]:
+    """Host batches of ``dataset`` for ``num_epochs`` epochs (forever with
+    None), in the JAX fallback loader's order: ``default_rng(seed)``
+    shuffles ``arange(len)`` at the start of every epoch;
+    ``skip_batches``/``skip_samples`` apply to the first epoch only."""
+    rng = np.random.default_rng(seed)
+    epoch = 0
+    skip = max(0, int(skip_batches))
+    skip_s = max(0, int(skip_samples))
+    while num_epochs is None or epoch < num_epochs:
+        idx = np.arange(len(dataset))
+        if shuffle:
+            rng.shuffle(idx)
+        local = shard_epoch_indices(idx, batch_size, skip_batches=skip,
+                                    drop_remainder=drop_remainder,
+                                    skip_samples=skip_s)
+        skip = skip_s = 0
+        yield from _stacked(dataset, batch_size, local, drop_remainder)
+        epoch += 1
+
+
+def device_prefetch(iterator, device: Union[str, torch.device]):
+    """Host batches (dicts of numpy arrays) → dicts of tensors on
+    ``device``, one batch ahead of the consumer. On the
+    card each array is copied into pinned host memory and sent with a
+    ``non_blocking`` copy on the current stream, so the copy overlaps the
+    work queued before it and the steps that read the batch are ordered
+    after it; each pinned buffer is kept until an event recorded after its
+    copy has completed. On the CPU the batches pass through as they are."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield from iterator
+        return
+    queue = collections.deque()
+    in_flight = collections.deque()      # (event, pinned buffers)
+
+    def put(batch):
+        pinned = {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                  for k, v in batch.items()}
+        out = {k: t.to(device, non_blocking=True) for k, t in pinned.items()}
+        event = torch.cuda.Event()
+        event.record()
+        in_flight.append((event, pinned))
+        while in_flight and in_flight[0][0].query():
+            in_flight.popleft()
+        return out
+
+    for batch in iterator:
+        queue.append(put(batch))
+        if len(queue) == 2:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()
+    for event, _ in in_flight:
+        event.synchronize()

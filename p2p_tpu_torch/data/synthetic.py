@@ -1,6 +1,7 @@
 """Synthetic paired data (counterpart of ``p2p_tpu/data/synthetic.py:21
-_synthetic_image`` and ``:71 synthetic_batch``, with
-``p2p_tpu/data/generate.py:33 compress_uint8``), numpy only.
+_synthetic_image``, ``:46 make_synthetic_dataset`` and ``:71
+synthetic_batch``, with ``p2p_tpu/data/generate.py:33 compress_uint8``),
+numpy and the port's PNG writer only.
 
 Procedural RGB images (smooth gradients, rectangles and disks) and their
 bit-depth-quantized copies, the same draws from the same seed as the JAX
@@ -14,9 +15,12 @@ label map in Cityscapes class colours and its rendering, 512×1024.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+
+from p2p_tpu_torch.utils.images import encode_png
 
 
 def compress_uint8(img: np.ndarray, bits: int = 3) -> np.ndarray:
@@ -49,6 +53,28 @@ def _synthetic_image(rng: np.random.Generator, size: Tuple[int, int]
         mask = (yy - cy) ** 2 + (xx - cx) ** 2 < r ** 2
         img[mask] = rng.uniform(0, 1, 3)
     return (img * 255).astype(np.uint8)
+
+
+def make_synthetic_dataset(out_dir: str, n_train: int = 8, n_test: int = 4,
+                           size: int = 64, bits: int = 3, seed: int = 0
+                           ) -> str:
+    """Write ``<out_dir>/{train,test}/{a,b}/synth_<i>.png``: procedural
+    images in ``a/`` and their quantized copies in ``b/``, the same images
+    as the JAX package draws from the same seed (the PNG bytes may differ,
+    the pixels do not). Returns ``out_dir``."""
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("test", n_test)):
+        a_dir = os.path.join(out_dir, split, "a")
+        b_dir = os.path.join(out_dir, split, "b")
+        os.makedirs(a_dir, exist_ok=True)
+        os.makedirs(b_dir, exist_ok=True)
+        for i in range(n):
+            img = _synthetic_image(rng, (size, size))
+            name = f"synth_{i:04d}.png"
+            for d, arr in ((a_dir, img), (b_dir, compress_uint8(img, bits))):
+                with open(os.path.join(d, name), "wb") as f:
+                    f.write(encode_png(arr))
+    return out_dir
 
 
 def synthetic_batch(batch_size: int = 1, size: int = 64, bits: int = 3,

@@ -8,7 +8,12 @@ trunk is frozen. Its convs compute in the promoted type of input and
 weight (flax ``dtype=None``): the f32 weights make it f32 even on a bf16
 input, as in the JAX step.
 
-No pretrained weights are in the repository and none can be fetched, so
+The weights are found as the JAX package finds them
+(``p2p_tpu/models/vgg.py:78 vgg19_npz_path``): an ``.npz`` of HWIO
+``<conv>_kernel`` and ``<conv>_bias`` arrays at ``$P2P_TPU_VGG19_NPZ``, or
+at ``p2p_tpu_torch/assets/vgg19.npz`` (:func:`load_vgg19_npz`); unlike
+the JAX lookup, a ``$P2P_TPU_VGG19_NPZ`` that names no file raises. No such
+file is in the repository and none can be fetched, so without one
 :func:`init_vgg19` draws the JAX package's distribution (flax
 ``lecun_normal``: a normal truncated at 2σ, variance 1/fan_in, zero bias)
 from a seed; the CPU tests carry the JAX package's own fixed-seed draw
@@ -17,8 +22,10 @@ across with ``convert.py`` instead.
 
 from __future__ import annotations
 
-from typing import List
+import os
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -84,4 +91,41 @@ def init_vgg19(vgg: VGG19Features, generator: torch.Generator
                                   generator=generator)
             m.weight.copy_(w * std)
             m.bias.zero_()
+    return vgg
+
+
+_DEFAULT_ASSET = os.path.join(os.path.dirname(__file__), "..", "assets",
+                              "vgg19.npz")
+
+
+def vgg19_npz_path() -> Optional[str]:
+    """The pretrained-weights file: ``$P2P_TPU_VGG19_NPZ``, which must
+    exist when it is set, else the package asset when it exists, else
+    None (the fixed-seed draw)."""
+    p = os.environ.get("P2P_TPU_VGG19_NPZ")
+    if p is not None:
+        if not os.path.exists(p):
+            raise FileNotFoundError(
+                f"P2P_TPU_VGG19_NPZ={p!r}: no such file")
+        return p
+    return _DEFAULT_ASSET if os.path.exists(_DEFAULT_ASSET) else None
+
+
+@torch.no_grad()
+def load_vgg19_npz(vgg: VGG19Features, path: str) -> VGG19Features:
+    """Every conv's ``<name>_kernel`` (HWIO) and ``<name>_bias`` from the
+    ``.npz`` at ``path``."""
+    with np.load(path, allow_pickle=False) as data:
+        for name, ch in _CFG:
+            if name == "M":
+                continue
+            conv = getattr(vgg, name)
+            kernel = np.asarray(data[f"{name}_kernel"], np.float32)
+            if kernel.shape[-1] != ch:
+                raise ValueError(f"{path}: {name}_kernel has shape "
+                                 f"{kernel.shape}, want {ch} outputs")
+            conv.weight.copy_(torch.from_numpy(kernel.transpose(3, 2, 0, 1)
+                                               .copy()))
+            conv.bias.copy_(torch.from_numpy(
+                np.asarray(data[f"{name}_bias"], np.float32)))
     return vgg

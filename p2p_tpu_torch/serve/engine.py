@@ -11,9 +11,16 @@ next batch's compute. :meth:`InferenceEngine.run` reports a fenced timing
 breakdown (``torch.cuda.synchronize``), so img/s is measured, not
 asserted. ``dtype="bf16"`` (the default, as in the JAX engine) serves the
 generator in bf16: the served-only families (pix2pixHD, ResNet) as a bf16
-copy; the trained families (U-Net, ExpandNetwork) as they train, f32
-parameters and BatchNorm statistics computing in bf16 (``define_G(cfg,
-dtype)``, the JAX serving forward's ``train_dtype``).
+copy; the trained families (U-Net, ExpandNetwork) and net_c as they
+train, f32 parameters and BatchNorm statistics computing in bf16
+(``define_G(cfg, dtype)``, the JAX serving forward's ``train_dtype``).
+
+A preset with a compression net (``reference``) is served with its net_c:
+each request then carries its ``target``, and G runs on ``quantize(net_c(
+target))``, as the reference's eval does. With ``with_metrics`` every
+request is scored (per-image PSNR/SSIM against its target), and
+:meth:`InferenceEngine.run` collects the scores with
+``collect_metrics=True``.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from torch import nn
 from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import resolve_dtype
-from p2p_tpu_torch.models.registry import COMPUTE_DTYPE_GENERATORS, define_G
+from p2p_tpu_torch.models.registry import (COMPUTE_DTYPE_GENERATORS,
+                                           define_C, define_G)
 from p2p_tpu_torch.serve.io import (AsyncImageWriter, chunk_batch, pad_batch,
                                     pick_bucket)
 from p2p_tpu_torch.train.step import make_infer_forward
@@ -65,16 +73,21 @@ class InferenceEngine:
 
     ``generator`` is the port's generator for ``cfg`` (any device and
     dtype; the engine serves its own copy on ``device`` in ``dtype``, in
-    channels_last). ``buckets`` are the batch sizes warmed up at start
-    (default: ``cfg.data.test_batch_size``). ``device`` defaults to
-    ``cuda`` and raises when there is none; pass ``"cpu"`` to serve with
-    the plain PyTorch versions of the kernels.
+    channels_last), ``net_c`` its compression net, required when the
+    preset has one and served the same way. ``buckets`` are the batch
+    sizes warmed up at start (default: ``cfg.data.test_batch_size``).
+    ``device`` defaults to ``cuda`` and raises when there is none; pass
+    ``"cpu"`` to serve with the plain PyTorch versions of the kernels.
+    ``with_metrics`` scores every request against its ``target``;
+    ``io_workers`` is the number of PNG writer threads.
     """
 
     def __init__(self, cfg: Config, generator: nn.Module,
                  buckets: Optional[Sequence[int]] = None,
                  dtype: Optional[str] = "bf16",
-                 device: Union[str, torch.device, None] = None):
+                 device: Union[str, torch.device, None] = None,
+                 net_c: Optional[nn.Module] = None,
+                 with_metrics: bool = False, io_workers: int = IO_WORKERS):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
@@ -82,9 +95,24 @@ class InferenceEngine:
             int(b) for b in (buckets or (cfg.data.test_batch_size,)))))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad buckets {self.buckets}")
+        use_c = cfg.model.use_compression_net
+        if use_c != (net_c is not None):
+            raise ValueError(f"preset {cfg.name!r} "
+                             + ("needs its net_c" if use_c
+                                else "has no compression net"))
         self.model = self._serving_copy(generator).to(
             device=self.device, memory_format=torch.channels_last).eval()
-        self._fwd = make_infer_forward(cfg, self.dtype)
+        self.net_c = None
+        if use_c:
+            self.net_c = self._copy_into(
+                define_C(cfg.model, self._compute_dtype()), net_c).to(
+                device=self.device, memory_format=torch.channels_last).eval()
+        self.with_metrics = with_metrics
+        self.io_workers = io_workers
+        # the batch keys each request must carry
+        self._keys = ("input",) + (("target",) if use_c or with_metrics
+                                   else ())
+        self._fwd = make_infer_forward(cfg, self.dtype, with_metrics)
         h, w = cfg.image_hw
         self._input_shape = (h, w, cfg.model.input_nc)
         self._input_dtype = (np.uint8 if cfg.data.uint8_pipeline
@@ -92,14 +120,20 @@ class InferenceEngine:
         self._warm: set = set()
         self.n_warmups = 0
 
+    def _compute_dtype(self) -> Optional[torch.dtype]:
+        return None if self.dtype == torch.float32 else self.dtype
+
+    @staticmethod
+    def _copy_into(model: nn.Module, trained: nn.Module) -> nn.Module:
+        model.load_state_dict(trained.state_dict(), strict=True)
+        return model
+
     def _serving_copy(self, generator: nn.Module) -> nn.Module:
         m = self.cfg.model
         if m.generator not in COMPUTE_DTYPE_GENERATORS:
             return copy.deepcopy(generator).to(dtype=self.dtype)
-        compute = None if self.dtype == torch.float32 else self.dtype
-        model = define_G(m, compute, self.cfg.image_hw)
-        model.load_state_dict(generator.state_dict(), strict=True)
-        return model
+        return self._copy_into(
+            define_G(m, self._compute_dtype(), self.cfg.image_hw), generator)
 
     def synchronize(self) -> None:
         """Wait for the device's queued work (a no-op on the CPU)."""
@@ -111,23 +145,26 @@ class InferenceEngine:
         for b in self.buckets:
             if b not in self._warm:
                 zeros = np.zeros((b,) + self._input_shape, self._input_dtype)
-                self._fwd(self.model, {"input": zeros})
+                self._fwd(self.model, {k: zeros for k in self._keys},
+                          self.net_c)
                 self._warm.add(b)
                 self.n_warmups += 1
         self.synchronize()
         return self
 
     def infer_batch(self, host_batch: Dict[str, np.ndarray]):
-        """Pad one NHWC host batch to its bucket and dispatch (asynchronous
-        on the card). Returns ``(pred, metrics, n_real)`` with ``pred`` an
-        NHWC device tensor; rows from ``n_real`` on are padding."""
+        """Pad one NHWC host batch (``input``, and ``target`` with a
+        compression net or metrics) to its bucket and dispatch
+        (asynchronous on the card). Returns ``(pred, metrics, n_real)``
+        with ``pred`` an NHWC device tensor and ``metrics`` per-image
+        device vectors; rows from ``n_real`` on are padding."""
         if not self._warm:
             self.warmup()
         n = host_batch["input"].shape[0]
         padded, n_real = pad_batch(
-            {"input": np.asarray(host_batch["input"])},
+            {k: np.asarray(host_batch[k]) for k in self._keys},
             pick_bucket(n, self.buckets))
-        pred, metrics = self._fwd(self.model, padded)
+        pred, metrics = self._fwd(self.model, padded, self.net_c)
         return pred, metrics, n_real
 
     def stream(self, host_batches: Iterable[Dict[str, np.ndarray]]
@@ -146,19 +183,29 @@ class InferenceEngine:
 
     def run(self, host_batches: Iterable[Dict[str, np.ndarray]],
             names: Optional[Sequence[str]] = None,
-            out_dir: Optional[str] = None) -> Tuple[ServeStats, Dict]:
+            out_dir: Optional[str] = None,
+            collect_metrics: bool = False
+            ) -> Tuple[ServeStats, Dict[str, List[float]]]:
         """Serve every batch: bucket → dispatch → threaded fetch + PNG
         write. ``names[i]`` names the i-th real image's file under
         ``out_dir`` (default ``<i>.png``); with ``out_dir=None`` nothing is
-        written. Returns ``(stats, metrics)``; metrics are empty in this
-        slice."""
+        written. Returns ``(stats, metrics)``: with ``collect_metrics`` (an
+        engine built ``with_metrics``) ``metrics`` maps ``psnr`` and
+        ``ssim`` to one float per real image, in order, fetched after the
+        last batch; otherwise it is empty."""
+        if collect_metrics and not self.with_metrics:
+            raise ValueError("collect_metrics needs an engine built "
+                             "with_metrics=True")
         self.warmup()
-        writer = AsyncImageWriter(IO_WORKERS) if out_dir else None
+        writer = AsyncImageWriter(self.io_workers) if out_dir else None
         stats = ServeStats(buckets=self.buckets, n_warmups=self.n_warmups)
+        pending: List[Tuple[Dict[str, torch.Tensor], int]] = []
         t0 = time.perf_counter()
         n_saved = 0
         try:
-            for pred, _, n_real in self.stream(host_batches):
+            for pred, metrics, n_real in self.stream(host_batches):
+                if collect_metrics:
+                    pending.append((metrics, n_real))
                 if writer is not None:
                     paths: List[str] = []
                     for _ in range(n_real):
@@ -183,4 +230,9 @@ class InferenceEngine:
         stats.device_img_per_sec = stats.n_images / stats.infer_sec
         stats.overlap_sec = max(
             0.0, stats.infer_sec + stats.encode_sec - stats.wall_sec)
-        return stats, {}
+        out: Dict[str, List[float]] = {}
+        if pending:
+            for k in pending[0][0]:
+                out[k] = torch.cat([m[k][:n] for m, n in pending]).float(
+                    ).cpu().tolist()
+        return stats, out

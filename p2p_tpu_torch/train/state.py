@@ -34,7 +34,8 @@ from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.models.registry import define_C, define_D, define_G, \
     init_weights
-from p2p_tpu_torch.models.vgg import VGG19Features, init_vgg19
+from p2p_tpu_torch.models.vgg import (VGG19Features, init_vgg19,
+                                      load_vgg19_npz, vgg19_npz_path)
 from p2p_tpu_torch.ops.int8 import QuantConv
 from p2p_tpu_torch.train.schedules import make_schedule
 from p2p_tpu_torch.utils.images import ingest
@@ -81,6 +82,16 @@ class AdamLP(torch.optim.Optimizer):
                  moment_dtype: torch.dtype = torch.bfloat16):
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps))
         self.moment_dtype = moment_dtype
+
+    def load_state_dict(self, state_dict) -> None:
+        """torch's load casts floating state to the parameter's dtype: the
+        moments go back to ``moment_dtype`` (exact, as they were stored
+        in it)."""
+        super().load_state_dict(state_dict)
+        for st in self.state.values():
+            for k in ("exp_avg", "exp_avg_sq"):
+                if k in st:
+                    st[k] = st[k].to(self.moment_dtype)
 
     @torch.no_grad()
     def step(self, closure=None):
@@ -197,9 +208,14 @@ def _image(x: np.ndarray, device: torch.device) -> torch.Tensor:
 def load_vgg19(seed: int = 190,
                device: Optional[Union[str, torch.device]] = None,
                imagenet_norm: bool = False) -> VGG19Features:
-    """The frozen VGG19 trunk with random weights from ``seed``
-    (models/vgg.py init_vgg19), on ``device`` in channels_last."""
-    vgg = init_vgg19(VGG19Features(imagenet_norm),
-                     torch.Generator().manual_seed(seed))
+    """The frozen VGG19 trunk on ``device`` in channels_last: the
+    pretrained ``.npz`` when there is one (models/vgg.py
+    vgg19_npz_path), else random weights from ``seed`` (init_vgg19)."""
+    path = vgg19_npz_path()
+    if path is not None:
+        vgg = load_vgg19_npz(VGG19Features(imagenet_norm), path)
+    else:
+        vgg = init_vgg19(VGG19Features(imagenet_norm),
+                         torch.Generator().manual_seed(seed))
     return vgg.to(resolve_device(device),
                   memory_format=torch.channels_last).eval()

@@ -1,8 +1,8 @@
 """The train step of the ``reference``, ``facades``, ``facades_int8`` and
-``pix2pixhd`` presets and generator inference (counterparts of
-``p2p_tpu/train/step.py:79 single_forward_d_losses``, ``:140
-make_g_loss_fn``, ``:209 build_train_step`` and ``:940
-make_infer_forward``).
+``pix2pixhd`` presets, generator inference and the eval step (counterparts
+of ``p2p_tpu/train/step.py:79 single_forward_d_losses``, ``:140
+make_g_loss_fn``, ``:209 build_train_step``, ``:940 make_infer_forward``
+and ``:995 build_eval_step``).
 
 ``build_train_step(cfg, vgg)`` returns ``step(state, batch) -> (state,
 metrics)`` in the order of the JAX step (``step.py:277-597``):
@@ -62,6 +62,7 @@ from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
 from p2p_tpu_torch.losses.gan import gan_loss
 from p2p_tpu_torch.losses.l1 import l1_loss
+from p2p_tpu_torch.losses.metrics import psnr, ssim
 from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
 from p2p_tpu_torch.models.patchgan import check_norm_d
 from p2p_tpu_torch.ops.norm import NORM_KINDS
@@ -70,32 +71,77 @@ from p2p_tpu_torch.ops.tv import total_variation_loss
 from p2p_tpu_torch.train.state import TrainState
 from p2p_tpu_torch.utils.images import ingest
 
-InferFn = Callable[[nn.Module, Dict[str, np.ndarray]],
-                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+InferFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 Metrics = Dict[str, torch.Tensor]
 
 
 def make_infer_forward(cfg: Config, dtype: Optional[torch.dtype] = None,
                        with_metrics: bool = False) -> InferFn:
-    """``fwd(generator, batch) -> (pred, metrics)``. ``batch["input"]`` is
-    an NHWC host batch (uint8 [0, 255] or float [-1, 1]); it goes to the
-    generator's device, is normalized there and cast to ``dtype``, and
-    runs as a channels_last (N, C, H, W) tensor. ``pred`` is NHWC on the
-    device; ``metrics`` is empty."""
-    if with_metrics:
-        raise NotImplementedError("PSNR/SSIM are not ported yet")
-    if cfg.model.use_compression_net:
-        raise NotImplementedError(
-            "presets with a compression net are not ported yet")
+    """``fwd(generator, batch, net_c=None) -> (pred, metrics)``, the one
+    inference definition of the eval step and the serving engine. The
+    batch holds NHWC host arrays or device tensors (uint8 [0, 255] or
+    float [-1, 1]); each goes to the generator's device, is normalized
+    there and cast to ``dtype``, and runs as a channels_last (N, C, H, W)
+    tensor. With a compression net G runs on ``quantize(net_c(target),
+    quant_bits)`` and the stored input is unused (the reference's eval);
+    without one, on ``batch["input"]``. The networks run as they are
+    given: eval mode reads BatchNorm's running statistics, so no moments
+    kernel is launched. ``pred`` is NHWC on the device; with
+    ``with_metrics``, ``metrics`` holds per-image ``psnr`` and ``ssim``
+    vectors against ``batch["target"]``, else it is empty."""
+    bits = cfg.model.quant_bits
+    use_c = cfg.model.use_compression_net
 
-    def fwd(generator: nn.Module, batch: Dict[str, np.ndarray]):
+    def fwd(generator: nn.Module, batch: Dict[str, np.ndarray],
+            net_c: Optional[nn.Module] = None):
         device = next(generator.parameters()).device
-        x = to_device_image(batch["input"], device, dtype)
+        if use_c and net_c is None:
+            raise ValueError(f"preset {cfg.name!r} has a compression net: "
+                             "pass net_c")
         with torch.inference_mode():
-            pred = generator(x)
-        return pred.permute(0, 2, 3, 1), {}
+            real_b = (to_device_image(batch["target"], device, dtype)
+                      if use_c or with_metrics else None)
+            if use_c:
+                g_in = compressed_input(net_c, real_b, bits)
+            else:
+                g_in = to_device_image(batch["input"], device, dtype)
+            pred = generator(g_in).permute(0, 2, 3, 1)
+            metrics = {}
+            if with_metrics:
+                real_b = real_b.permute(0, 2, 3, 1)
+                metrics = {"psnr": psnr(real_b, pred, per_image=True),
+                           "ssim": ssim(real_b, pred, per_image=True)}
+        return pred, metrics
 
     return fwd
+
+
+def compressed_input(net_c: nn.Module, real_b: torch.Tensor, bits: int
+                     ) -> torch.Tensor:
+    """G's input at inference: ``quantize(net_c(real_b), bits)``, the
+    round with no straight-through gradient."""
+    return quantize(net_c(real_b), bits)
+
+
+def build_eval_step(cfg: Config, dtype: Optional[torch.dtype] = None):
+    """``eval_step(state, batch) -> (pred, metrics)``, the trainer's
+    per-epoch eval: :func:`make_infer_forward` with metrics on the train
+    state's G and net_c, both switched to eval mode for the call and back
+    after it."""
+    fwd = make_infer_forward(cfg, dtype, with_metrics=True)
+
+    def eval_step(state: TrainState, batch: Dict[str, np.ndarray]):
+        nets = [n for n in (state.net_g, state.net_c) if n is not None]
+        modes = [n.training for n in nets]
+        for n in nets:
+            n.eval()
+        try:
+            return fwd(state.net_g, batch, state.net_c)
+        finally:
+            for n, mode in zip(nets, modes):
+                n.train(mode)
+
+    return eval_step
 
 
 def to_device_image(x: np.ndarray, device: torch.device,

@@ -1,8 +1,8 @@
 """Image helpers (counterpart of ``p2p_tpu/utils/images.py:15 ingest`` and
 ``:39 to_uint8_img``), a PNG writer and reader built on the standard
-library (zlib + struct), and the bicubic resize of
-``p2p_tpu/data/pipeline.py:56-58 load_image``, so serving reads its
-requests and writes its outputs without Pillow.
+library (zlib + struct), and Pillow's bicubic resize of
+``p2p_tpu/data/pipeline.py:56-58 load_image`` in numpy, byte for byte, so
+serving and the data pipeline read and write images without Pillow.
 """
 
 from __future__ import annotations
@@ -13,7 +13,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 # 1/127.5 rounded to f32 once: the scalar the JAX package multiplies by
 _INV_127_5 = float(np.float32(1.0 / 127.5))
@@ -191,13 +190,63 @@ def decode_png(data: bytes) -> np.ndarray:
     return np.ascontiguousarray(img[:, :, :3])
 
 
+# fixed-point fraction bits of Pillow's 8-bit resampling weights
+_PRECISION_BITS = 32 - 8 - 2
+
+
+def _bicubic(x: np.ndarray) -> np.ndarray:
+    """Pillow's bicubic kernel (a = −0.5), support 2."""
+    a = -0.5
+    x = np.abs(x)
+    return np.where(x < 1.0, ((a + 2.0) * x - (a + 3.0)) * x * x + 1,
+                    np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
+
+
+def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of Pillow's ``ImagingResample`` (``precompute_coeffs``,
+    ``normalize_coeffs_8bpc`` and the 8-bit inner loop) along ``axis`` of
+    a uint8 (H, W, C) image: f64 weights of the kernel widened by the
+    downscale factor, normalized to sum 1 in the kernel's order, rounded
+    to 22-bit fixed point, then integer sums rounded at the half and
+    clamped to 0..255."""
+    in_size = img.shape[axis]
+    scale = in_size / out_size
+    filterscale = max(scale, 1.0)
+    support = 2.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum((center - support + 0.5).astype(np.int64), 0)
+    count = np.minimum((center + support + 0.5).astype(np.int64),
+                       in_size) - xmin
+    taps = np.arange(ksize)
+    w = _bicubic((taps[None, :] + xmin[:, None] - center[:, None] + 0.5)
+                 / filterscale)
+    w = np.where(taps[None, :] < count[:, None], w, 0.0)
+    total = np.zeros(out_size)
+    for k in range(ksize):            # Pillow's order of the f64 sum
+        total += w[:, k]
+    w = np.where(total[:, None] != 0.0,
+                 w / np.where(total != 0.0, total, 1.0)[:, None], w)
+    fixed = (w * (1 << _PRECISION_BITS)
+             + np.where(w < 0, -0.5, 0.5)).astype(np.int64)
+    idx = np.minimum(xmin[:, None] + taps[None, :], in_size - 1)
+    src = np.take(img.astype(np.int64), idx, axis=axis)
+    if axis == 1:                      # (H, out, k, C)
+        acc = (src * fixed[None, :, :, None]).sum(axis=2)
+    else:                              # (out, k, W, C)
+        acc = (src * fixed[:, :, None, None]).sum(axis=1)
+    acc += 1 << (_PRECISION_BITS - 1)
+    return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
 def resize_bicubic(img: np.ndarray, h: int, w: int) -> np.ndarray:
-    """uint8 (H, W, C) → uint8 (h, w, C), bicubic with antialiasing (Pillow's
-    ``Image.BICUBIC`` resize, which the JAX ``load_image`` uses). As
-    Pillow does, the width is resized first and the intermediate image is
-    rounded and clamped to uint8 before the height is resized."""
-    x = torch.from_numpy(np.array(img, np.float32)).permute(2, 0, 1)[None]
-    for size in ((x.shape[2], w), (h, w)):
-        x = F.interpolate(x, size=size, mode="bicubic", align_corners=False,
-                          antialias=True).round().clamp(0, 255)
-    return x[0].permute(1, 2, 0).to(torch.uint8).numpy()
+    """uint8 (H, W, C) → uint8 (h, w, C) with the same bytes as Pillow's
+    ``Image.resize((w, h), Image.BICUBIC)``, which the JAX ``load_image``
+    uses: the width is resampled first, then the height, each pass only
+    where the size changes (:func:`_resample_axis`)."""
+    out = np.asarray(img, np.uint8)
+    if out.shape[1] != w:
+        out = _resample_axis(out, 1, w)
+    if out.shape[0] != h:
+        out = _resample_axis(out, 0, h)
+    return np.ascontiguousarray(out)

@@ -39,6 +39,9 @@ wave; #1 (its finalize a programmatic dependent of its pass 1) the same
 bits for the same input over 50 launches on alternating inputs; #2 at C = 3
 on 16-byte vectors across pixels where H·W·3 divides into them; #4 with
 NaN, ±inf and −0 in x, its arrival counter and max word left at 0.
+SSIM (``losses/metrics.ssim``, the eval's metric) on the card: exactly 1
+for an image against itself, and within 1e-5 of a float64 numpy SSIM
+(its window sums on the CUDA cores are exact integers, so no TF32 enters).
 Runs only where there is a CUDA device (``-m gpu`` on the card); skips
 elsewhere.
 
@@ -79,16 +82,16 @@ pytestmark = pytest.mark.gpu
 TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-2, 2.0 ** -7)}
 
 
-def _smoke_head_dx_tol():
-    """chip_smoke.py's band for #7 in bf16 (where it is derived)."""
+def _smoke():
+    """chip_smoke.py (where #7's bf16 band and the float64 SSIM are)."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_tol", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.HEAD_DX_TOL
+    return mod
 
 
-HEAD_DX_TOL = _smoke_head_dx_tol()
+HEAD_DX_TOL = _smoke().HEAD_DX_TOL
 
 
 @pytest.fixture
@@ -1134,3 +1137,25 @@ def test_stats_gives_the_same_bits_over_50_launches(cuda, dtype, shape):
         pmean, prstd = instance_norm_stats_plain(sources[i])
         torch.testing.assert_close(runs[i][0], pmean, atol=1e-4, rtol=1e-4)
         torch.testing.assert_close(runs[i][1], prstd, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("size", [32, 256])
+def test_ssim_on_the_card_is_exact_for_equal_images_and_matches_float64(
+        cuda, size):
+    from p2p_tpu_torch.data.synthetic import synthetic_batch
+    from p2p_tpu_torch.losses.metrics import ssim, to_uint8_space
+
+    b = synthetic_batch(3, size, seed=size)
+    t = torch.from_numpy(b["target"]).to(cuda)
+    p = torch.from_numpy(b["input"]).to(cuda)
+    noisy = torch.clamp(t + 0.05 * torch.randn(
+        t.shape, device=cuda, generator=torch.Generator(cuda).manual_seed(1)),
+        -1, 1)
+    assert bool((ssim(t, t, per_image=True) == 1.0).all())
+    assert float(ssim(t, t)) == 1.0
+    ssim_f64 = _smoke().ssim_f64
+    for pred in (p, noisy):
+        got = ssim(t, pred, per_image=True).cpu().numpy()
+        want = ssim_f64(to_uint8_space(t).cpu().numpy(),
+                        to_uint8_space(pred).cpu().numpy())
+        assert np.abs(got - want).max() <= 1e-5, (got, want)
