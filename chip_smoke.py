@@ -96,7 +96,30 @@ to the CPU or to a plain version):
    image; SSIM(x, x) exactly 1 and SSIM on the card within
    ``SSIM_F64_TOL`` of a float64 numpy SSIM; the loop's ms/step beside
    the step alone (phase 4), eval ms per image and infer img/s;
-11. a ``{"kernels": [...]}`` line, then the last line
+11. HTTP serving: two full-width pix2pixhd checkpoints (``create_train_state``
+   at seeds 0 and 1, saved as steps 1 and 2 by the port's
+   ``CheckpointManager``); ``ServeApp`` + ``run_server`` in a thread with
+   tenants ``hd`` (pix2pixhd, step 1) and ``ref`` (phase 10's reference
+   run, step 4), buckets (1, 2, 4), bf16, cuDNN deterministic; 8 client
+   threads send 32 synthetic PNGs a tenant (512×1024 and 256², seed 0),
+   then 8 more a tenant, sent on in turn while both tenants hot-swap (hd
+   to step 2, ref to step 8) until both reloads answer (512 requests at
+   most); a reload of a copy of hd's step 2 with a corrupted ``net_g``
+   must answer 409 and leave the probe's image as it was; a non-PNG body
+   422, an unknown tenant 404; ``/healthz`` both tenants at their new
+   steps with no new warm-up; ``/metrics`` the clients' count of 200s;
+   the drain returns 0. Every 200 is held against an in-process
+   ``engine_from_checkpoint`` engine serving the same group of bodies at
+   the allowed steps (``HTTP_LEVELS_BAND`` uint8 levels); #1 and #3
+   exactly 36 a pix2pixHD forward (warm-ups, dispatched groups, the
+   swap's warm forward) and nothing else. Then ``cli.serve --http`` as a
+   subprocess (4 requests, SIGTERM: exit 0 within the drain timeout, one
+   summary) and watch mode with ``--max_requests 4`` (PNGs copied in
+   while it runs: 4 outputs, exit 0). Printed per tenant: requests
+   served, img/s over the traffic window, client latency p50/p99/max,
+   mean bucket occupancy, padded images and the responder's encode
+   seconds, beside phase 3's directory-mode img/s;
+12. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -113,7 +136,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
+import urllib.request
 from unittest import mock
 
 import numpy as np
@@ -239,6 +265,19 @@ LOOP_STEPS = LOOP_EPOCHS * LOOP_SOURCES[0]
 LOOP_PSNR_BAND, LOOP_SSIM_BAND = 0.01, 1e-4
 # SSIM on the card (f32, window sums on the CUDA cores) against float64
 SSIM_F64_TOL = 1e-5
+# the HTTP serving phase (slice 7): tenants hd (pix2pixhd) and ref
+# (reference), HTTP_REQUESTS each from HTTP_CLIENTS client threads, then
+# HTTP_RELOAD_REQUESTS distinct bodies each, sent on in turn until both
+# tenants' hot-swaps have answered, HTTP_RELOAD_STREAM_CAP at most
+HTTP_CLIENTS = 8
+HTTP_REQUESTS = 32
+HTTP_RELOAD_REQUESTS = 8
+HTTP_RELOAD_STREAM_CAP = 512
+HTTP_CLI_REQUESTS = 4
+# each 200 against the in-process engine_from_checkpoint engine's output
+# for the same bodies in the same group (the same padded bucket batch),
+# cuDNN deterministic on both: the same bits, so 0 uint8 levels
+HTTP_LEVELS_BAND = 0
 # its f32 kernels-vs-plain check (cuDNN deterministic): given the plain
 # statistics of #1 and #5, #3 and #4 are bitwise their plain versions and
 # the backward is the same code, so both steps' losses are equal (rel diff
@@ -1964,9 +2003,11 @@ def read_records(path: str):
         return [json.loads(line) for line in f]
 
 
-def loop_phase(device, card, step_median: float, step_host: float):
+def loop_phase(device, card, step_median: float, step_host: float,
+               tmp: str):
     """The reference loop through its CLIs (phase 10): generate, train 2
-    epochs, infer. Returns the launch counts of the training run."""
+    epochs, infer, in ``tmp`` (the caller keeps its checkpoints for phase
+    11). Returns the launch counts of the training run."""
     from p2p_tpu_torch.cli import generate_dataset, infer, train
     from p2p_tpu_torch.core.config import get_preset
     from p2p_tpu_torch.data.synthetic import make_synthetic_dataset
@@ -1980,129 +2021,128 @@ def loop_phase(device, card, step_median: float, step_host: float):
     m = cfg.model
     per_step = len(batchnorm_plan(m.ngf, m.n_blocks, h, w))
     n_train, n_test = LOOP_SOURCES
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
-        src, data, work, out = (os.path.join(tmp, d)
-                                for d in ("src", "data", "work", "pred"))
-        t0 = time.perf_counter()
-        make_synthetic_dataset(src, n_train, n_test, size=2 * h, seed=SEED)
-        for split in ("train", "test"):
-            rc = generate_dataset.main([
-                "--dataset_path", os.path.join(src, split, "a"),
-                "--target_dataset_folder", data, "--split", split,
-                "--crop_size", str(h), "--max_patches", "1"])
-            if rc:
-                raise AssertionError(f"generate_dataset {split}: exit {rc}")
-        names = sorted(os.listdir(os.path.join(data, "test", "a")))
-        if (len(os.listdir(os.path.join(data, "train", "a"))),
-                len(names)) != LOOP_SOURCES:
-            raise AssertionError("the generated splits are not 4 and 2")
-        print(f"loop: generated {n_train} train and {n_test} test pairs of "
-              f"{h}x{w} from {sum(LOOP_SOURCES)} sources of {2 * h}x{2 * w} "
-              f"in {time.perf_counter() - t0:.2f}s", flush=True)
-        ssim_check(device, data)
-
-        wall = collections.defaultdict(list)
-        eval_launches = []
-        train_epoch, evaluate = Trainer.train_epoch, Trainer.evaluate
-        save = CheckpointManager.save
-
-        def timed_save(self, *a, **kw):
-            t = time.perf_counter()
-            res = save(self, *a, **kw)
-            wall["save"].append(time.perf_counter() - t)
-            return res
-
-        def timed_train_epoch(self, *a, **kw):
-            wall["host"].append(host_yardstick_ms())
-            with timed_step_calls(self) as calls:
-                t = time.perf_counter()
-                res = train_epoch(self, *a, **kw)
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-            wall["train"].append(t1 - t)
-            wall["calls"].append(calls)
-            wall["split"].append(loop_split(calls, t, t1))
-            return res
-
-        def timed_evaluate(self, *a, **kw):
-            before = batch_moments.launches
-            t = time.perf_counter()
-            res = evaluate(self, *a, **kw)
-            torch.cuda.synchronize()
-            wall["eval"].append(time.perf_counter() - t)
-            eval_launches.append(batch_moments.launches - before)
-            return res
-
-        common = ["--preset", "reference", "--data_root", data,
-                  "--workdir", work]
-        reset_launch_counts()
-        t0 = time.perf_counter()
-        with mock.patch.object(Trainer, "train_epoch", timed_train_epoch), \
-                mock.patch.object(Trainer, "evaluate", timed_evaluate), \
-                mock.patch.object(CheckpointManager, "save", timed_save):
-            rc = train.main(common + ["--nepoch", str(LOOP_EPOCHS),
-                                      "--epochsave", "1"])
-        train_wall = time.perf_counter() - t0
-        counts = launch_counts()
+    src, data, work, out = (os.path.join(tmp, d)
+                            for d in ("src", "data", "work", "pred"))
+    t0 = time.perf_counter()
+    make_synthetic_dataset(src, n_train, n_test, size=2 * h, seed=SEED)
+    for split in ("train", "test"):
+        rc = generate_dataset.main([
+            "--dataset_path", os.path.join(src, split, "a"),
+            "--target_dataset_folder", data, "--split", split,
+            "--crop_size", str(h), "--max_patches", "1"])
         if rc:
-            raise AssertionError(f"cli.train: exit {rc}")
-        want = only(batch_moments=per_step * LOOP_STEPS)
-        print(f"loop: cli.train {LOOP_EPOCHS} epochs x {n_train} steps in "
-              f"{train_wall:.2f}s; launches {counts} (want {want}); #5 "
-              f"launches in each eval: {eval_launches}", flush=True)
-        if counts != want or eval_launches != [0] * LOOP_EPOCHS:
-            raise AssertionError("loop launch counts")
+            raise AssertionError(f"generate_dataset {split}: exit {rc}")
+    names = sorted(os.listdir(os.path.join(data, "test", "a")))
+    if (len(os.listdir(os.path.join(data, "train", "a"))),
+            len(names)) != LOOP_SOURCES:
+        raise AssertionError("the generated splits are not 4 and 2")
+    print(f"loop: generated {n_train} train and {n_test} test pairs of "
+          f"{h}x{w} from {sum(LOOP_SOURCES)} sources of {2 * h}x{2 * w} "
+          f"in {time.perf_counter() - t0:.2f}s", flush=True)
+    ssim_check(device, data)
 
-        records = read_records(os.path.join(work, "metrics_reference.jsonl"))
-        epochs = [r for r in records if r["kind"] == "epoch"]
-        evals = [r for r in records if r["kind"] == "eval"]
-        if [r["epoch"] for r in epochs] != [1.0, 2.0] or \
-                [r["epoch"] for r in evals] != [1.0, 2.0]:
-            raise AssertionError(f"records: {records}")
-        for r in epochs + evals:
-            if not all(np.isfinite(v) for v in r.values()
-                       if isinstance(v, float)):
-                raise AssertionError(f"non-finite record {r}")
-        for r in epochs:
-            print("loop: epoch record " + json.dumps(
-                {k: v for k, v in r.items() if k != "ts"}))
-        ckpt = CheckpointManager(os.path.join(
-            work, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
-        steps = ckpt.all_steps()
-        bad = {s: ckpt.verify(s) for s in steps}
-        print(f"loop: checkpoints at steps {steps}, manifest problems {bad}")
-        if steps != [n_train, LOOP_STEPS] or any(bad.values()):
-            raise AssertionError("loop checkpoints")
+    wall = collections.defaultdict(list)
+    eval_launches = []
+    train_epoch, evaluate = Trainer.train_epoch, Trainer.evaluate
+    save = CheckpointManager.save
 
-        before = launch_counts()
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = infer.main(common + ["--metrics", "--stats", "--out", out])
-        text = buf.getvalue()
-        print("\n".join("loop: infer: " + line
-                        for line in text.splitlines()))
-        if rc or launch_counts() != before:
-            raise AssertionError(f"cli.infer: exit {rc}, launches "
-                                 f"{launch_counts()} after {before}")
-        line = next(x for x in text.splitlines()
-                    if x.startswith("psnr_mean="))
-        got = {k: float(v) for k, v in
-               (kv.split("=") for kv in line.split())}
-        stats = json.loads(next(x for x in text.splitlines()
-                                if x.startswith('{"kind": "serve_stats"')))
-        last = evals[-1]
-        diffs = {k: abs(got[k] - last[k]) for k in got}
-        print(f"loop: infer vs the last eval record: {diffs} (bands "
-              f"{LOOP_PSNR_BAND} dB, {LOOP_SSIM_BAND})")
-        for k, d in diffs.items():
-            if not d <= (LOOP_PSNR_BAND if k.startswith("psnr")
-                         else LOOP_SSIM_BAND):
-                raise AssertionError(f"infer {k} {got[k]} vs eval {last[k]}")
-        for name in names:
-            with open(os.path.join(out, name), "rb") as f:
-                img = decode_png(f.read())
-            if img.shape != (h, w, 3):
-                raise AssertionError(f"{name}: {img.shape}")
+    def timed_save(self, *a, **kw):
+        t = time.perf_counter()
+        res = save(self, *a, **kw)
+        wall["save"].append(time.perf_counter() - t)
+        return res
+
+    def timed_train_epoch(self, *a, **kw):
+        wall["host"].append(host_yardstick_ms())
+        with timed_step_calls(self) as calls:
+            t = time.perf_counter()
+            res = train_epoch(self, *a, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        wall["train"].append(t1 - t)
+        wall["calls"].append(calls)
+        wall["split"].append(loop_split(calls, t, t1))
+        return res
+
+    def timed_evaluate(self, *a, **kw):
+        before = batch_moments.launches
+        t = time.perf_counter()
+        res = evaluate(self, *a, **kw)
+        torch.cuda.synchronize()
+        wall["eval"].append(time.perf_counter() - t)
+        eval_launches.append(batch_moments.launches - before)
+        return res
+
+    common = ["--preset", "reference", "--data_root", data,
+              "--workdir", work]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with mock.patch.object(Trainer, "train_epoch", timed_train_epoch), \
+            mock.patch.object(Trainer, "evaluate", timed_evaluate), \
+            mock.patch.object(CheckpointManager, "save", timed_save):
+        rc = train.main(common + ["--nepoch", str(LOOP_EPOCHS),
+                                  "--epochsave", "1"])
+    train_wall = time.perf_counter() - t0
+    counts = launch_counts()
+    if rc:
+        raise AssertionError(f"cli.train: exit {rc}")
+    want = only(batch_moments=per_step * LOOP_STEPS)
+    print(f"loop: cli.train {LOOP_EPOCHS} epochs x {n_train} steps in "
+          f"{train_wall:.2f}s; launches {counts} (want {want}); #5 "
+          f"launches in each eval: {eval_launches}", flush=True)
+    if counts != want or eval_launches != [0] * LOOP_EPOCHS:
+        raise AssertionError("loop launch counts")
+
+    records = read_records(os.path.join(work, "metrics_reference.jsonl"))
+    epochs = [r for r in records if r["kind"] == "epoch"]
+    evals = [r for r in records if r["kind"] == "eval"]
+    if [r["epoch"] for r in epochs] != [1.0, 2.0] or \
+            [r["epoch"] for r in evals] != [1.0, 2.0]:
+        raise AssertionError(f"records: {records}")
+    for r in epochs + evals:
+        if not all(np.isfinite(v) for v in r.values()
+                   if isinstance(v, float)):
+            raise AssertionError(f"non-finite record {r}")
+    for r in epochs:
+        print("loop: epoch record " + json.dumps(
+            {k: v for k, v in r.items() if k != "ts"}))
+    ckpt = CheckpointManager(os.path.join(
+        work, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
+    steps = ckpt.all_steps()
+    bad = {s: ckpt.verify(s) for s in steps}
+    print(f"loop: checkpoints at steps {steps}, manifest problems {bad}")
+    if steps != [n_train, LOOP_STEPS] or any(bad.values()):
+        raise AssertionError("loop checkpoints")
+
+    before = launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = infer.main(common + ["--metrics", "--stats", "--out", out])
+    text = buf.getvalue()
+    print("\n".join("loop: infer: " + line
+                    for line in text.splitlines()))
+    if rc or launch_counts() != before:
+        raise AssertionError(f"cli.infer: exit {rc}, launches "
+                             f"{launch_counts()} after {before}")
+    line = next(x for x in text.splitlines()
+                if x.startswith("psnr_mean="))
+    got = {k: float(v) for k, v in
+           (kv.split("=") for kv in line.split())}
+    stats = json.loads(next(x for x in text.splitlines()
+                            if x.startswith('{"kind": "serve_stats"')))
+    last = evals[-1]
+    diffs = {k: abs(got[k] - last[k]) for k in got}
+    print(f"loop: infer vs the last eval record: {diffs} (bands "
+          f"{LOOP_PSNR_BAND} dB, {LOOP_SSIM_BAND})")
+    for k, d in diffs.items():
+        if not d <= (LOOP_PSNR_BAND if k.startswith("psnr")
+                     else LOOP_SSIM_BAND):
+            raise AssertionError(f"infer {k} {got[k]} vs eval {last[k]}")
+    for name in names:
+        with open(os.path.join(out, name), "rb") as f:
+            img = decode_png(f.read())
+        if img.shape != (h, w, 3):
+            raise AssertionError(f"{name}: {img.shape}")
     def ms(values, scale):
         return ", ".join(f"{scale * v:.2f}" for v in values)
 
@@ -2128,6 +2168,489 @@ def loop_phase(device, card, step_median: float, step_host: float):
               f"{step_host:.2f}, {wall['host'][e] / step_host:.3f}x)",
               flush=True)
     return counts
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms inside (ROADMAP Queue C: a card
+    check that compares two runs must set it)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def http_post(base: str, path: str, data: bytes, timeout: float = 300):
+    req = urllib.request.Request(base + path, data=data, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def http_get(base: str, path: str):
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        return r.status, r.read()
+
+
+def run_clients(base: str, jobs, n_threads: int):
+    """POST each ``(alias, index, body)`` of the iterable ``jobs`` to its
+    tenant from ``n_threads`` client threads, taking the jobs in order.
+    Returns one ``(alias, index, status, response, t_start, t_end)`` a
+    job, in the jobs' order."""
+    jobs = iter(jobs)
+    out = {}
+    taken = iter(range(1 << 62))
+    lock = threading.Lock()
+
+    def client():
+        while True:
+            with lock:
+                job, k = next(jobs, None), next(taken)
+            if job is None:
+                return
+            alias, i, body = job
+            t0 = time.perf_counter()
+            status, resp = http_post(base, f"/v1/{alias}/translate", body)
+            out[k] = (alias, i, status, resp, t0, time.perf_counter())
+
+    threads = [threading.Thread(target=client) for _ in range(n_threads)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return [out[k] for k in sorted(out)]
+
+
+def percentile(values, q: float) -> float:
+    """The q-quantile by linear interpolation (numpy's default)."""
+    return float(np.percentile(np.asarray(values), 100 * q))
+
+
+def hd_checkpoints(cfg, ckpt_dir: str) -> None:
+    """Steps 1 and 2 of a full-width pix2pixhd run: ``create_train_state``
+    at seeds 0 and 1, saved by the port's ``CheckpointManager``."""
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+    from p2p_tpu_torch.train.state import create_train_state
+
+    mgr = CheckpointManager(ckpt_dir)
+    for step, seed in ((1, 0), (2, 1)):
+        state = create_train_state(cfg, seed)
+        mgr.save(step, state, 0)
+        del state
+    torch.cuda.empty_cache()
+
+
+def served_images(cfg, ckpt_dir: str, step: int, groups):
+    """``{image bytes: [uint8 outputs]}``: each recorded group served again
+    by an in-process ``engine_from_checkpoint`` engine at ``step``, as the
+    server served it (the same rows, so the same padded bucket batch)."""
+    from p2p_tpu_torch.serve.engine import engine_from_checkpoint
+    from p2p_tpu_torch.serve.io import to_host
+    from p2p_tpu_torch.utils.images import to_uint8_img
+
+    engine, _ = engine_from_checkpoint(cfg, ckpt_dir, step=step,
+                                       buckets=BUCKETS)
+    out = collections.defaultdict(list)
+    for g in groups:
+        pred, _, n = engine.infer_batch({k: g for k in engine.batch_keys})
+        arr = to_host(pred[:n])
+        for row in range(n):
+            out[g[row].tobytes()].append(to_uint8_img(arr[row]))
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def levels_apart(got: np.ndarray, candidates) -> int:
+    """The fewest uint8 levels by which ``got`` differs from one of
+    ``candidates`` at its worst pixel (256 with none)."""
+    return min((int(np.abs(got.astype(np.int16) - c.astype(np.int16)).max())
+                for c in candidates), default=256)
+
+
+def add_serving_launches(rows, plan, forwards) -> None:
+    """Add ``forwards`` ({batch size: pix2pixHD forwards}) to the bf16
+    rows of #1 and #3 that weight the ``kernels`` line: one of each per
+    epilogue of ``plan`` a forward."""
+    by_key = {(r["kernel"], r["n"], tuple(r["shape"]), r["form"]): r
+              for r in rows if r["dtype"] == "bfloat16"}
+    for n, count in forwards.items():
+        for h, w, c, act, res in plan:
+            by_key[("instance_norm_stats", n, (h, w, c), "-")][
+                "launches"] += count
+            by_key[("norm_act", n, (h, w, c), form_of(act, res))][
+                "launches"] += count
+
+
+def cli_subprocess(cmd, until: str, timeout: float = 600):
+    """Start ``cmd`` from the checkout's root and read its output until a
+    line holds ``until``; returns ``(process, lines)``. The process is
+    killed if that line does not come within ``timeout`` seconds."""
+    proc = subprocess.Popen(cmd, cwd=os.path.dirname(os.path.abspath(
+        __file__)), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    killer = threading.Timer(timeout, proc.kill)
+    killer.start()
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if until in line:
+                return proc, lines
+    finally:
+        killer.cancel()
+    proc.wait()
+    raise AssertionError(f"{cmd[2]} exited {proc.returncode} before "
+                         f"{until!r}:\n" + "\n".join(lines[-40:]))
+
+
+def finish(proc, lines, timeout: float):
+    """Wait for ``proc`` (killing it after ``timeout`` s); returns its exit
+    code and all its output lines."""
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+    return proc.returncode, lines + out.splitlines()
+
+
+def summaries_in(lines):
+    return [json.loads(x) for x in lines
+            if x.startswith('{"kind": "serve_summary"')]
+
+
+def cli_phase(ref_work: str, ref_step: int, tmp: str, bodies,
+              shape) -> None:
+    """``cli.serve`` as subprocesses on the ``reference`` checkpoint: HTTP
+    (HTTP_CLI_REQUESTS requests, then SIGTERM: exit 0 within the drain
+    timeout, one summary) and watch mode (PNGs copied in while it runs,
+    ``--max_requests``: every output written, exit 0)."""
+    import signal
+
+    from p2p_tpu_torch.utils.images import decode_png
+
+    drain = 30.0
+    serve = [sys.executable, "-m", "p2p_tpu_torch.cli.serve",
+             "--workdir", ref_work, "--buckets", "1,2,4"]
+    proc, lines = cli_subprocess(
+        serve + ["--http", "127.0.0.1:0", "--drain_timeout", str(drain),
+                 "--tenant", f"alias=ref,preset=reference,step={ref_step}"],
+        "serving 1 tenant(s)")
+    try:
+        port = int(lines[-1].split("http://127.0.0.1:")[1].split()[0])
+        got = run_clients(f"http://127.0.0.1:{port}",
+                          [("ref", i, bodies[i])
+                           for i in range(HTTP_CLI_REQUESTS)], 2)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc, lines = finish(proc, lines, drain + 30)
+        took = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    codes = [g[2] for g in got]
+    shapes = {decode_png(g[3]).shape for g in got if g[2] == 200}
+    summaries = summaries_in(lines)
+    print(f"http: cli.serve --http subprocess: codes {codes}, shapes "
+          f"{shapes}, exit {rc} {took:.2f}s after SIGTERM (drain timeout "
+          f"{drain:.0f}s), summaries {summaries}", flush=True)
+    if codes != [200] * HTTP_CLI_REQUESTS or shapes != {shape} \
+            or rc != 0 or took > drain or len(summaries) != 1 \
+            or summaries[0]["served"] != HTTP_CLI_REQUESTS:
+        raise AssertionError("cli.serve --http:\n" + "\n".join(lines[-40:]))
+
+    watch = os.path.join(tmp, "watch")
+    os.makedirs(watch)
+    proc, lines = cli_subprocess(
+        serve + ["--preset", "reference", "--step", str(ref_step),
+                 "--input_dir", watch, "--max_requests",
+                 str(HTTP_CLI_REQUESTS), "--poll_ms", "50",
+                 "--linger_ms", "20"], "buckets warmed")
+    try:
+        for i in range(HTTP_CLI_REQUESTS):
+            part = os.path.join(watch, f".part{i}")
+            with open(part, "wb") as f:
+                f.write(bodies[i])
+            os.replace(part, os.path.join(watch, f"w{i}.png"))
+            time.sleep(0.1)
+        rc, lines = finish(proc, lines, 120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    outs = sorted(os.listdir(watch + "_out"))
+    shapes = set()
+    for name in outs:
+        with open(os.path.join(watch + "_out", name), "rb") as f:
+            shapes.add(decode_png(f.read()).shape)
+    summaries = summaries_in(lines)
+    print(f"http: cli.serve watch mode: exit {rc}, outputs {outs} "
+          f"{shapes}, summary {summaries}", flush=True)
+    if rc != 0 or outs != [f"w{i}.png" for i in range(HTTP_CLI_REQUESTS)] \
+            or shapes != {shape} or len(summaries) != 1 \
+            or summaries[0]["written"] != HTTP_CLI_REQUESTS:
+        raise AssertionError("cli.serve watch mode:\n"
+                             + "\n".join(lines[-40:]))
+
+
+def http_phase(card: str, ref_work: str, ref_steps, tmp: str,
+               dir_img_s: float):
+    """Phase 11: the HTTP service with two tenants restored from the
+    port's checkpoints (full-width pix2pixhd ``hd`` and the phase-10
+    ``reference`` run ``ref``), continuous batching, hot-swap of both under
+    traffic, a rejected reload, the status ladder, the drain; then the
+    CLI as subprocesses. Returns ``(launch counts, hd forwards by batch
+    size)``."""
+    import shutil
+
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.obs import MetricsRegistry
+    from p2p_tpu_torch.resilience import PreemptionGuard
+    from p2p_tpu_torch.serve.io import pick_bucket
+    from p2p_tpu_torch.serve.server import ServeApp, run_server
+    from p2p_tpu_torch.serve.tenancy import Tenant, checkpoint_dir
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+    from p2p_tpu_torch.utils.images import decode_png, encode_png
+
+    cfgs = {"hd": get_preset("pix2pixhd"), "ref": get_preset("reference")}
+    dirs = {"hd": checkpoint_dir(cfgs["hd"], os.path.join(tmp, "hd")),
+            "ref": checkpoint_dir(cfgs["ref"], ref_work)}
+    steps = {"hd": (1, 2), "ref": tuple(ref_steps)}
+    t0 = time.perf_counter()
+    hd_checkpoints(cfgs["hd"], dirs["hd"])
+    t_ckpt = time.perf_counter() - t0
+    # distinct bodies: HTTP_REQUESTS + HTTP_RELOAD_REQUESTS a tenant, and
+    # one probe for the rejected reload
+    n_img = HTTP_REQUESTS + HTTP_RELOAD_REQUESTS + 1
+    rng = np.random.default_rng(SEED)
+    imgs, bodies = {}, {}
+    for alias in ("hd", "ref"):
+        h, w = cfgs[alias].image_hw
+        imgs[alias] = rng.integers(0, 256, (n_img, h, w, 3), dtype=np.uint8)
+        bodies[alias] = [encode_png(im) for im in imgs[alias]]
+    index = {a: {im.tobytes(): i for i, im in enumerate(imgs[a])}
+             for a in imgs}
+    print(f"http: two pix2pixhd checkpoints in {t_ckpt:.1f}s; "
+          f"{n_img} request PNGs a tenant", flush=True)
+
+    reg = MetricsRegistry()
+    app = ServeApp(registry=reg, io_threads=4, max_queue=32, linger_ms=5.0,
+                   max_attempts=2, retry_delay_ms=50.0)
+    t0 = time.perf_counter()
+    for alias in ("hd", "ref"):
+        app.add_tenant(Tenant(alias, cfgs[alias], dirs[alias],
+                              step=steps[alias][0], registry=reg,
+                              buckets=BUCKETS))
+    print(f"http: tenants restored in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    groups = {"hd": [], "ref": []}
+
+    def recording(alias):
+        infer_batch = app.tenants.get(alias).engine.infer_batch
+
+        def record(batch):
+            groups[alias].append(np.array(batch["input"]))
+            return infer_batch(batch)
+
+        return record
+
+    guard = PreemptionGuard(registry=reg)
+    ready = threading.Event()
+    result = {}
+    reset_launch_counts()
+    with cudnn_deterministic(), \
+            mock.patch.object(app.tenants.get("hd").engine, "infer_batch",
+                              recording("hd")), \
+            mock.patch.object(app.tenants.get("ref").engine, "infer_batch",
+                              recording("ref")):
+        server = threading.Thread(target=lambda: result.update(
+            rc=run_server(app, "127.0.0.1", 0, guard=guard,
+                          ready_event=ready)))
+        server.start()
+        try:
+            if not ready.wait(600):
+                raise AssertionError("the server did not come up")
+            base = f"http://127.0.0.1:{app.httpd.server_address[1]}"
+            wave1 = run_clients(base, [(a, i, bodies[a][i])
+                                       for i in range(HTTP_REQUESTS)
+                                       for a in ("hd", "ref")],
+                                HTTP_CLIENTS)
+            # both tenants hot-swap while 8 requests each are in flight
+            reloads = {}
+
+            def reload(alias, step):
+                # whatever ends the reload ends the stream below; a
+                # dropped connection is a failed reload, not a hang
+                try:
+                    reloads[alias] = http_post(
+                        base, "/admin/reload", json.dumps(
+                            {"tenant": alias, "step": step}).encode())
+                except Exception as e:
+                    reloads[alias] = (None, repr(e))
+
+            def during_reloads():
+                """The reload bodies, tenants alternating, at least
+                HTTP_RELOAD_REQUESTS a tenant and on until both reloads
+                have answered or HTTP_RELOAD_STREAM_CAP were sent."""
+                k = 0
+                while k < HTTP_RELOAD_STREAM_CAP and (
+                        k < 2 * HTTP_RELOAD_REQUESTS or len(reloads) < 2):
+                    a = ("hd", "ref")[k % 2]
+                    i = HTTP_REQUESTS + (k // 2) % HTTP_RELOAD_REQUESTS
+                    yield a, i, bodies[a][i]
+                    k += 1
+
+            window = {}
+            threads = [threading.Thread(target=lambda: window.update(
+                got=run_clients(base, during_reloads(), HTTP_CLIENTS)))] + [
+                threading.Thread(target=reload, args=(a, steps[a][1]))
+                for a in ("hd", "ref")]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            if len(window["got"]) >= HTTP_RELOAD_STREAM_CAP:
+                raise AssertionError(
+                    f"the reloads answered only after "
+                    f"{HTTP_RELOAD_STREAM_CAP} requests: {reloads}")
+            # a reload of a copy of hd's step whose net_g is corrupted: 409,
+            # and the same body gives the same image before and after
+            probe = n_img - 1
+            before = http_post(base, "/v1/hd/translate", bodies["hd"][probe])
+            mgr = CheckpointManager(dirs["hd"])
+            bad = steps["hd"][1] + 1
+            shutil.copytree(mgr.step_dir(steps["hd"][1]), mgr.step_dir(bad))
+            with open(os.path.join(mgr.step_dir(bad), "net_g.pt"),
+                      "r+b") as f:
+                f.seek(os.path.getsize(f.name) // 2)
+                byte = f.read(1)
+                f.seek(-1, os.SEEK_CUR)
+                f.write(bytes([byte[0] ^ 0xFF]))
+            rejected = http_post(base, "/admin/reload", json.dumps(
+                {"tenant": "hd", "step": bad}).encode())
+            after = http_post(base, "/v1/hd/translate", bodies["hd"][probe])
+            not_png = http_post(base, "/v1/hd/translate", b"not a png")
+            unknown = http_post(base, "/v1/ghost/translate",
+                                bodies["ref"][0])
+            health = json.loads(http_get(base, "/healthz")[1])
+            metrics = http_get(base, "/metrics")[1].decode()
+        finally:
+            guard.request()
+            server.join(600)
+    counts = launch_counts()
+    summaries = {s["tenant"]: s for s in app.summaries()}
+
+    # what the server did
+    every = wave1 + window["got"] + [("hd", probe) + before + (0, 0),
+                                     ("hd", probe) + after + (0, 0)]
+    ok = collections.Counter(a for a, _, st, *_ in every if st == 200)
+    bad_codes = [(a, i, st) for a, i, st, *_ in every if st != 200]
+    print(f"http: reloads {reloads}; rejected reload {rejected}; non-PNG "
+          f"{not_png[0]}, unknown tenant {unknown[0]}; 200s {dict(ok)}, "
+          f"others {bad_codes}; healthz {health}; summaries {summaries}",
+          flush=True)
+    want_metric = {a: f'serve_http_requests_total{{code="200",tenant="{a}"}} '
+                      f'{float(ok[a])}' for a in ok}
+    fails = []
+    if result.get("rc") != 0:
+        fails.append(f"run_server returned {result.get('rc')}")
+    if bad_codes:
+        fails.append(f"non-200 translate answers {bad_codes}")
+    if any(reloads[a][0] != 200 for a in reloads) or rejected[0] != 409:
+        fails.append("reload codes")
+    if (not_png[0], unknown[0]) != (422, 404):
+        fails.append("the 422/404 ladder")
+    if set(health.get("tenants", {})) != {"hd", "ref"} or any(
+            health["tenants"][a]["step"] != steps[a][1]
+            or health["tenants"][a]["n_warmups"] != len(BUCKETS)
+            for a in ("hd", "ref")):
+        fails.append("healthz steps or warm-ups")
+    if any(summaries[a]["n_warmups"] != len(BUCKETS)
+           or summaries[a]["hot_swaps"] != 1 for a in summaries):
+        fails.append("warm-ups moved or swaps miscounted")
+    for a, line in want_metric.items():
+        if line not in metrics.splitlines():
+            fails.append(f"/metrics lacks {line!r}")
+    if before[1] != after[1]:
+        fails.append("the probe's image changed across the rejected reload")
+
+    # every 200 against the in-process engine, group by group
+    want = {a: {s: served_images(cfgs[a], dirs[a], s, groups[a])
+                for s in steps[a]} for a in ("hd", "ref")}
+    apart = collections.defaultdict(list)
+    moved = collections.Counter()
+    for phase, got, allowed in (
+            ("wave", wave1, lambda a: steps[a][:1]),
+            ("reload", window["got"], lambda a: steps[a]),
+            ("probe", [("hd", probe) + before + (0, 0),
+                       ("hd", probe) + after + (0, 0)],
+             lambda a: steps[a][1:])):
+        for a, i, st, resp, *_ in got:
+            if st != 200:
+                continue  # failed above as a non-200 answer
+            img = decode_png(resp)
+            if img.shape != imgs[a][i].shape:
+                fails.append(f"{a} {i}: shape {img.shape}")
+                continue
+            key = imgs[a][i].tobytes()
+            by_step = {s: levels_apart(img, want[a][s][key])
+                       for s in allowed(a)}
+            best = min(by_step, key=by_step.get)
+            apart[phase].append(by_step[best])
+            if phase == "reload":
+                moved[(a, best)] += 1
+            if by_step[best] > HTTP_LEVELS_BAND:
+                fails.append(f"{phase} {a} {i}: {by_step} levels from "
+                             f"steps {list(by_step)}")
+    print(f"http: responses vs the in-process engine, worst uint8 levels "
+          f"apart: " + ", ".join(f"{p} {max(v)} over {len(v)}"
+                                 for p, v in apart.items())
+          + f" (band {HTTP_LEVELS_BAND}); during the reload, responses by "
+          f"(tenant, step): {dict(moved)}", flush=True)
+
+    # launches: #1 and #3 36 times an hd forward (warm-ups, dispatched
+    # groups, the swap's warm forward), nothing else
+    forwards = collections.Counter({b: 1 for b in BUCKETS})
+    for g in groups["hd"]:
+        forwards[pick_bucket(len(g), BUCKETS)] += 1
+    forwards[min(BUCKETS)] += summaries["hd"]["hot_swaps"]
+    n_fwd = sum(forwards.values())
+    want_counts = only(instance_norm_stats=NORMS_PER_FORWARD * n_fwd,
+                       norm_act=NORMS_PER_FORWARD * n_fwd)
+    print(f"http: launches {counts} over {n_fwd} hd forwards by batch size "
+          f"{dict(forwards)} (want {want_counts})", flush=True)
+    if counts != want_counts:
+        fails.append(f"launch counts {counts} != {want_counts}")
+    if fails:
+        raise AssertionError("http phase: " + "; ".join(fails))
+
+    span = max(g[5] for g in wave1) - min(g[4] for g in wave1)
+    print(f"http: wave of {len(wave1)} requests over both tenants: "
+          f"{len(wave1) / span:.3f} img/s end to end in {span:.3f}s",
+          flush=True)
+    for a in ("hd", "ref"):
+        mine = [g for g in wave1 if g[0] == a]
+        lat = [1e3 * (g[5] - g[4]) for g in mine]
+        window = max(g[5] for g in mine) - min(g[4] for g in mine)
+        s = summaries[a]
+        # one wave of noise PNGs: a smoke reading, too few requests for
+        # a tail percentile, so p50 and max only
+        print(f"http: {a}: {s['served']} served; wave of {HTTP_REQUESTS}: "
+              f"{len(lat) / window:.3f} img/s end to end over its window; "
+              f"client latency p50 {percentile(lat, 0.5):.2f}, "
+              f"max {max(lat):.2f} ms; occupancy mean "
+              f"{s['batch_occupancy_mean']}, padded {s['padded_images']}; "
+              f"responder encode {s['encode_sec']:.3f}s; directory mode "
+              f"(phase 3) {dir_img_s:.3f} img/s; on {card}", flush=True)
+    cli_phase(ref_work, steps["ref"][0], tmp, bodies["ref"],
+              imgs["ref"].shape[1:])
+    return counts, forwards
 
 
 def main(argv=None) -> int:
@@ -2214,7 +2737,7 @@ def main(argv=None) -> int:
             + subpixel_phase(device, head_fwd, head_dx))
     int8_forms_phase(device)
     backward_phase(device, a_plan, plan)
-    serve_counts, _, _ = slice_phase(device, card, args.profile)
+    serve_counts, serve_stats, _ = slice_phase(device, card, args.profile)
     train_counts, train_med, train_host = train_phase(device, card,
                                                       args.profile)
     fac_serve_counts, _, _ = facades_serving_phase(device, card,
@@ -2224,11 +2747,17 @@ def main(argv=None) -> int:
     b_counts, _, _ = instance_b_phase(device, card, args.profile, b_per_step)
     i8_counts, i8_as_is_counts, _, _ = int8_train_phase(device, card,
                                                          args.profile)
-    loop_counts = loop_phase(device, card, train_med, train_host)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
+        loop_counts = loop_phase(device, card, train_med, train_host, tmp)
+        http_counts, http_forwards = http_phase(
+            card, os.path.join(tmp, "work"), (LOOP_SOURCES[0], LOOP_STEPS),
+            tmp, serve_stats.img_per_sec)
+    # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3
+    add_serving_launches(rows, plan, http_forwards)
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
               fac_train_counts, a_counts, b_counts, i8_counts,
-              i8_as_is_counts, loop_counts):
+              i8_as_is_counts, loop_counts, http_counts):
         counts.update(c)
 
     kernels = []
@@ -2307,7 +2836,9 @@ def main(argv=None) -> int:
               f"{sum(r['site_us'] * r['launches'] for r in sel) / 1e3:.4f}; "
               "paths " + ", ".join(sorted({r["path"] for r in sel})))
     print("per-kernel numbers are the main paths' bf16 launches (#1, #3: "
-          f"pix2pixHD serving at {h}x{w}, path A ({steps} steps), path B "
+          f"pix2pixHD serving at {h}x{w} (phase 3, and the HTTP phase's "
+          f"{sum(http_forwards.values())} forwards), path A ({steps} "
+          f"steps), path B "
           f"({hd_steps} steps) and facades int8 ({steps} steps) training; "
           f"#2: path A; #4: facades int8; #5: {steps} reference, facades, "
           f"path A and facades int8 train steps, {INT8_AS_IS_STEPS} of "

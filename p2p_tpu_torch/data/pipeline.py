@@ -25,22 +25,40 @@ import numpy as np
 import torch
 
 from p2p_tpu_torch.data.generate import is_image_file, read_png
-from p2p_tpu_torch.utils.images import resize_bicubic
+from p2p_tpu_torch.utils.images import decode_png, resize_bicubic
 
 
-def load_image(path: str, h: int, w: int, as_uint8: bool = False
-               ) -> np.ndarray:
-    """Decode, resize to (h, w) only when the size differs, then float32
-    [-1, 1] by ``(x − 127.5)·(1/127.5)`` (the expression of the JAX
-    package and of ``utils/images.ingest``), or the uint8 bytes with
-    ``as_uint8``."""
-    arr = read_png(path)
+def _fit(arr: np.ndarray, h: int, w: int, as_uint8: bool) -> np.ndarray:
+    """Resize to (h, w) only when the size differs, then float32 [-1, 1]
+    by ``(x − 127.5)·(1/127.5)`` (the expression of the JAX package and of
+    ``utils/images.ingest``), or the uint8 bytes with ``as_uint8``."""
     if arr.shape[:2] != (h, w):
         arr = resize_bicubic(arr, h, w)
     if as_uint8:
         return arr
     return ((arr.astype(np.float32) - np.float32(127.5))
             * np.float32(1.0 / 127.5))
+
+
+def load_image(path: str, h: int, w: int, as_uint8: bool = False
+               ) -> np.ndarray:
+    """Decode a PNG file, then resize and normalize (:func:`_fit`)."""
+    return _fit(read_png(path), h, w, as_uint8)
+
+
+def load_image_bytes(data: bytes, h: int, w: int, as_uint8: bool = False
+                     ) -> np.ndarray:
+    """:func:`load_image` over an in-memory body (counterpart of
+    ``p2p_tpu/data/pipeline.py:70``, the HTTP request body). The port
+    decodes PNG only (its stdlib reader; no Pillow on the card): any other
+    body raises ``ValueError`` naming that decoder."""
+    try:
+        arr = decode_png(bytes(data))
+    except ValueError as e:
+        raise ValueError(f"request body is not a PNG this decoder reads "
+                         f"(the port's stdlib PNG decoder, PNG only): {e}"
+                         ) from None
+    return _fit(arr, h, w, as_uint8)
 
 
 class PairedImageDataset:

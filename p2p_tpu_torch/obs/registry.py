@@ -1,0 +1,244 @@
+"""Process-wide metrics registry (counterpart of
+``p2p_tpu/obs/registry.py:29-386``): counters, gauges, histograms and EWMA
+rates keyed by (name, tags), thread-safe, with the JAX package's names,
+bucket bounds and snapshot fields, so one series reads the same from
+either package.
+
+Ported: the four metric kinds, :class:`MetricsRegistry` (get-or-create
+factories, ``snapshot``, ``kinds``, ``total``) and the process default
+(:func:`get_registry` / :func:`set_registry`). Not ported yet: record
+sinks (JSONL, stdout, TensorBoard, Prometheus textfile) and the cross-host
+``aggregate``; :meth:`MetricsRegistry.record` and ``flush`` are no-ops
+until sinks come.
+"""
+
+from __future__ import annotations
+
+import bisect
+import math
+import threading
+import time
+from typing import Any, Dict, Iterable, Optional, Tuple
+
+Tags = Tuple[Tuple[str, str], ...]
+
+
+def _tags_key(tags: Dict[str, Any]) -> Tags:
+    return tuple(sorted((k, str(v)) for k, v in tags.items()))
+
+
+class Counter:
+    """Monotonic count (events, images, retries)."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, tags: Tags = ()):
+        self.name, self.tags = name, tags
+        self._value = 0.0
+        self._lock = threading.Lock()
+
+    def inc(self, n: float = 1.0) -> None:
+        with self._lock:
+            self._value += n
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"value": self._value}
+
+
+class Gauge:
+    """Last-written level (queue depth, pool fill)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, tags: Tags = ()):
+        self.name, self.tags = name, tags
+        self._value = float("nan")
+
+    def set(self, v: float) -> None:
+        self._value = float(v)
+
+    @property
+    def value(self) -> float:
+        return self._value
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"value": self._value}
+
+
+class Histogram:
+    """Streaming distribution over fixed log-spaced buckets (default 1 µs
+    .. ~1000 s in half-decade steps). count/sum/min/max are exact,
+    quantiles bucket-resolution estimates."""
+
+    kind = "histogram"
+    DEFAULT_BOUNDS = tuple(10.0 ** (e / 2.0) for e in range(-12, 7))
+
+    def __init__(self, name: str, tags: Tags = (),
+                 bounds: Optional[Iterable[float]] = None):
+        self.name, self.tags = name, tags
+        self.bounds = (tuple(bounds) if bounds is not None
+                       else self.DEFAULT_BOUNDS)
+        self.buckets = [0] * (len(self.bounds) + 1)  # last = +inf overflow
+        self.count = 0
+        self.sum = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self._lock = threading.Lock()
+
+    def observe(self, v: float) -> None:
+        v = float(v)
+        i = bisect.bisect_left(self.bounds, v)
+        with self._lock:
+            self.buckets[i] += 1
+            self.count += 1
+            self.sum += v
+            self.min = min(self.min, v)
+            self.max = max(self.max, v)
+
+    @property
+    def mean(self) -> float:
+        return self.sum / self.count if self.count else float("nan")
+
+    def quantile(self, q: float) -> float:
+        """Upper bound of the bucket holding the q-th observation."""
+        if not self.count:
+            return float("nan")
+        target = q * self.count
+        seen = 0
+        for i, n in enumerate(self.buckets):
+            seen += n
+            if seen >= target:
+                return self.bounds[i] if i < len(self.bounds) else self.max
+        return self.max
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"count": float(self.count), "sum": self.sum,
+                "min": self.min, "max": self.max,
+                "p50": self.quantile(0.5), "p99": self.quantile(0.99)}
+
+
+class EWMARate:
+    """Exponentially weighted event rate: ``mark(n)`` credits n events,
+    the rate is an EWMA of per-interval rates with a half-life in
+    seconds. Locked: the HTTP handlers mark from many threads."""
+
+    kind = "ewma"
+
+    def __init__(self, name: str, tags: Tags = (), halflife_s: float = 30.0,
+                 clock=time.monotonic):
+        self.name, self.tags = name, tags
+        self.halflife_s = halflife_s
+        self._clock = clock
+        self._rate = float("nan")
+        self._t_last: Optional[float] = None
+        self._lock = threading.Lock()
+
+    def mark(self, n: float = 1.0) -> None:
+        now = self._clock()
+        with self._lock:
+            if self._t_last is None:
+                self._t_last = now
+                return
+            dt = max(now - self._t_last, 1e-9)
+            self._t_last = now
+            inst = n / dt
+            if math.isnan(self._rate):
+                self._rate = inst
+            else:
+                alpha = 1.0 - 0.5 ** (dt / self.halflife_s)
+                self._rate += alpha * (inst - self._rate)
+
+    @property
+    def rate(self) -> float:
+        return self._rate
+
+    def snapshot(self) -> Dict[str, float]:
+        return {"rate": self._rate}
+
+
+def _key(name: str, tags: Tags) -> str:
+    return name + ("{" + ",".join(f"{k}={v}" for k, v in tags) + "}"
+                   if tags else "")
+
+
+class MetricsRegistry:
+    """Metric factory: ``counter/gauge/histogram/ewma(name, **tags)``
+    get or create a metric (idempotent per (name, tags), safe in hot
+    loops); ``snapshot()`` and ``kinds()`` expose the state to the
+    Prometheus formatter (obs/sinks.py)."""
+
+    def __init__(self):
+        self._metrics: Dict[Tuple[str, Tags], Any] = {}
+        self._lock = threading.Lock()
+
+    def _get(self, cls, name: str, tags: Dict[str, Any], **kw):
+        key = (name, _tags_key(tags))
+        with self._lock:
+            m = self._metrics.get(key)
+            if m is None:
+                m = cls(name, key[1], **kw)
+                self._metrics[key] = m
+            return m
+
+    def counter(self, name: str, **tags) -> Counter:
+        return self._get(Counter, name, tags)
+
+    def gauge(self, name: str, **tags) -> Gauge:
+        return self._get(Gauge, name, tags)
+
+    def histogram(self, name: str, bounds=None, **tags) -> Histogram:
+        return self._get(Histogram, name, tags, bounds=bounds)
+
+    def ewma(self, name: str, halflife_s: float = 30.0, **tags) -> EWMARate:
+        return self._get(EWMARate, name, tags, halflife_s=halflife_s)
+
+    def record(self, payload: Dict[str, Any], force: bool = False) -> None:
+        """A structured record for the sinks; none is ported yet, so it
+        goes nowhere."""
+
+    def flush(self) -> None:
+        """Flush the sinks (none yet)."""
+
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        with self._lock:
+            items = list(self._metrics.items())
+        return {_key(name, tags): m.snapshot() for (name, tags), m in items}
+
+    def kinds(self) -> Dict[str, str]:
+        with self._lock:
+            items = list(self._metrics.items())
+        return {_key(name, tags): m.kind for (name, tags), m in items}
+
+    def total(self, name: str) -> float:
+        """A counter's value summed over all its tag variants."""
+        with self._lock:
+            items = list(self._metrics.items())
+        return sum(m.value for (n, _), m in items
+                   if n == name and m.kind == "counter")
+
+
+_default_registry: Optional[MetricsRegistry] = None
+_default_lock = threading.Lock()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide default registry (created on first use)."""
+    global _default_registry
+    with _default_lock:
+        if _default_registry is None:
+            _default_registry = MetricsRegistry()
+        return _default_registry
+
+
+def set_registry(reg: Optional[MetricsRegistry]
+                 ) -> Optional[MetricsRegistry]:
+    """Swap the process default (tests); returns the previous one."""
+    global _default_registry
+    with _default_lock:
+        prev = _default_registry
+        _default_registry = reg
+        return prev

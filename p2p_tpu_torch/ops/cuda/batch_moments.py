@@ -68,7 +68,7 @@ def batch_moments(xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                  part[1].data_ptr(), s1.data_ptr(), s2.data_ptr(),
                  build.stream_handle(xc.device))
     build.check(lib, err, "batch_moments")
-    batch_moments.launches += 1
+    build.count_launch(batch_moments)
     return s1, s2
 
 

@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Optional
@@ -109,10 +110,20 @@ def build_all() -> Dict[str, float]:
     return seconds
 
 
-@functools.cache
+_LOAD_LOCK = threading.Lock()
+_LAUNCH_LOCK = threading.Lock()
+
+
 def library(name: str) -> ctypes.CDLL:
     """Kernel library ``name`` (built on first use), with the argtypes of
-    its entry points set."""
+    its entry points set. Locked: serving threads may make the first
+    call together."""
+    with _LOAD_LOCK:
+        return _library(name)
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
     path = _library_path(name, find_nvcc())
     if not path.exists():
         build_all()
@@ -133,6 +144,13 @@ def load(name: str, fn_name: Optional[str] = None):
     if fn_name is None:
         (fn_name,) = SIGNATURES[name]
     return lib, getattr(lib, fn_name)
+
+
+def count_launch(wrapper) -> None:
+    """Count one launch of ``wrapper``'s kernel (``wrapper.launches``),
+    under a lock: serving launches from several threads at once."""
+    with _LAUNCH_LOCK:
+        wrapper.launches += 1
 
 
 def check(lib, err: int, what: str) -> None:

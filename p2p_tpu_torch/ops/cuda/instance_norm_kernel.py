@@ -102,7 +102,7 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5
                  part[0].data_ptr(), part[1].data_ptr(), mean.data_ptr(),
                  rstd.data_ptr(), eps, build.stream_handle(x.device))
     build.check(lib, err, "instance_norm_stats")
-    instance_norm_stats.launches += 1
+    build.count_launch(instance_norm_stats)
     return mean, rstd
 
 
@@ -147,7 +147,7 @@ def instance_norm_apply(x: torch.Tensor, mean: torch.Tensor,
                  APPLY_PATHS.index(plan.path), plan.per_thread, plan.blocks,
                  THREADS, int(x_ready), build.stream_handle(x.device))
     build.check(lib, err, "instance_norm_apply")
-    instance_norm_apply.launches += 1
+    build.count_launch(instance_norm_apply)
     return y
 
 

@@ -226,7 +226,7 @@ def norm_act(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                  plan.per_thread, ACTS.index(act), slope, plan.blocks,
                  THREADS, int(x_ready), build.stream_handle(x.device))
     build.check(lib, err, "norm_act")
-    norm_act.launches += 1
+    build.count_launch(norm_act)
     return y
 
 
@@ -293,7 +293,7 @@ def norm_act_quant(x: torch.Tensor, mean: torch.Tensor, rstd: torch.Tensor,
                  ACTS.index(act), slope, plan.blocks, THREADS,
                  int(x_ready), stream)
     build.check(lib, err, "norm_act_quant")
-    norm_act_quant.launches += 1
+    build.count_launch(norm_act_quant)
     return y, amax
 
 

@@ -130,7 +130,7 @@ def subpixel_head_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = fn(x.data_ptr(), w.data_ptr(), z.data_ptr(), code, n, h, wd, c,
                  f4, build.stream_handle(x.device))
     build.check(lib, err, "subpixel_head_fwd")
-    subpixel_head_fwd.launches += 1
+    build.count_launch(subpixel_head_fwd)
     return z
 
 
@@ -163,7 +163,7 @@ def subpixel_head_dx(dz: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         err = fn(dz.data_ptr(), w.data_ptr(), dx.data_ptr(), code, n, ho - 1,
                  wo - 1, c, f4, build.stream_handle(dz.device))
     build.check(lib, err, "subpixel_head_dx")
-    subpixel_head_dx.launches += 1
+    build.count_launch(subpixel_head_dx)
     return dx
 
 

@@ -21,6 +21,12 @@ target))``, as the reference's eval does. With ``with_metrics`` every
 request is scored (per-image PSNR/SSIM against its target), and
 :meth:`InferenceEngine.run` collects the scores with
 ``collect_metrics=True``.
+
+The served G and net_c are one bundle that a forward reads once, and
+:meth:`InferenceEngine.swap_state` replaces it whole (checkpoint hot-swap,
+serve/tenancy.py), so no request runs a new G on an old net_c.
+:func:`engine_from_checkpoint` builds an engine from the port's own
+checkpoints, reading only G and net_c.
 """
 
 from __future__ import annotations
@@ -28,8 +34,8 @@ from __future__ import annotations
 import copy
 import dataclasses
 import time
-from typing import (Any, Dict, Iterable, Iterator, List, Optional, Sequence,
-                    Tuple, Union)
+from typing import (Any, Dict, Iterable, Iterator, List, NamedTuple,
+                    Optional, Sequence, Tuple, Union)
 
 import numpy as np
 import torch
@@ -45,6 +51,13 @@ from p2p_tpu_torch.serve.io import (AsyncImageWriter, chunk_batch, pad_batch,
 from p2p_tpu_torch.train.step import make_infer_forward
 
 IO_WORKERS = 4   # writer threads: device→host fetch + PNG encode
+
+
+class Served(NamedTuple):
+    """The modules a forward runs: G and net_c (None without one)."""
+
+    model: nn.Module
+    net_c: Optional[nn.Module]
 
 
 @dataclasses.dataclass
@@ -100,13 +113,7 @@ class InferenceEngine:
             raise ValueError(f"preset {cfg.name!r} "
                              + ("needs its net_c" if use_c
                                 else "has no compression net"))
-        self.model = self._serving_copy(generator).to(
-            device=self.device, memory_format=torch.channels_last).eval()
-        self.net_c = None
-        if use_c:
-            self.net_c = self._copy_into(
-                define_C(cfg.model, self._compute_dtype()), net_c).to(
-                device=self.device, memory_format=torch.channels_last).eval()
+        self._served = self._serving_bundle(generator, net_c)
         self.with_metrics = with_metrics
         self.io_workers = io_workers
         # the batch keys each request must carry
@@ -119,6 +126,33 @@ class InferenceEngine:
                              else np.float32)
         self._warm: set = set()
         self.n_warmups = 0
+
+    @property
+    def model(self) -> nn.Module:
+        return self._served.model
+
+    @property
+    def net_c(self) -> Optional[nn.Module]:
+        return self._served.net_c
+
+    @property
+    def batch_keys(self) -> Tuple[str, ...]:
+        """The batch keys each request must carry."""
+        return self._keys
+
+    def _serving_bundle(self, generator: nn.Module,
+                        net_c: Optional[nn.Module]) -> Served:
+        """The engine's own copies of G and net_c on its device, in
+        channels_last and eval mode."""
+        def place(m: nn.Module) -> nn.Module:
+            return m.to(device=self.device,
+                        memory_format=torch.channels_last).eval()
+
+        c = None
+        if net_c is not None:
+            c = place(self._copy_into(
+                define_C(self.cfg.model, self._compute_dtype()), net_c))
+        return Served(place(self._serving_copy(generator)), c)
 
     def _compute_dtype(self) -> Optional[torch.dtype]:
         return None if self.dtype == torch.float32 else self.dtype
@@ -140,17 +174,53 @@ class InferenceEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _zeros(self, bucket: int) -> Dict[str, np.ndarray]:
+        zeros = np.zeros((bucket,) + self._input_shape, self._input_dtype)
+        return {k: zeros for k in self._keys}
+
     def warmup(self) -> "InferenceEngine":
         """One forward per bucket not yet warmed (idempotent)."""
         for b in self.buckets:
             if b not in self._warm:
-                zeros = np.zeros((b,) + self._input_shape, self._input_dtype)
-                self._fwd(self.model, {k: zeros for k in self._keys},
-                          self.net_c)
+                served = self._served
+                self._fwd(served.model, self._zeros(b), served.net_c)
                 self._warm.add(b)
                 self.n_warmups += 1
         self.synchronize()
         return self
+
+    def swap_state(self, new_g: nn.Module,
+                   new_c: Optional[nn.Module] = None,
+                   warm: bool = True) -> None:
+        """Serve ``new_g`` (and ``new_c``) in place of the live weights
+        (counterpart of ``p2p_tpu/serve/engine.py:202-253``):
+
+        1. raises ``ValueError`` when their state_dict keys or shapes
+           differ from the live bundle's; the old weights keep serving
+           (dtypes need not match: the serving copy casts to the engine's
+           dtype, as at construction);
+        2. builds the new serving copies on the device, never loading
+           into the live modules;
+        3. with ``warm``, runs one zero batch through the smallest warmed
+           bucket and synchronizes, so the new weights have run before
+           any request sees them (no new warm-up is counted);
+        4. swaps the bundle reference: a forward in flight finishes on the
+           old bundle, the next one reads the new.
+        """
+        live = self._served
+        if (new_c is None) != (live.net_c is None):
+            raise ValueError("hot-swap rejected: "
+                             + ("net_c missing" if new_c is None
+                                else "this preset has no net_c"))
+        for old, new in zip(live, (new_g, new_c)):
+            if old is not None:
+                _check_swappable(old.state_dict(), new.state_dict())
+        served = self._serving_bundle(new_g, new_c)
+        if warm and self._warm:
+            self._fwd(served.model, self._zeros(min(self._warm)),
+                      served.net_c)
+            self.synchronize()
+        self._served = served
 
     def infer_batch(self, host_batch: Dict[str, np.ndarray]):
         """Pad one NHWC host batch (``input``, and ``target`` with a
@@ -164,7 +234,8 @@ class InferenceEngine:
         padded, n_real = pad_batch(
             {k: np.asarray(host_batch[k]) for k in self._keys},
             pick_bucket(n, self.buckets))
-        pred, metrics = self._fwd(self.model, padded, self.net_c)
+        served = self._served      # one read: G and net_c of one version
+        pred, metrics = self._fwd(served.model, padded, served.net_c)
         return pred, metrics, n_real
 
     def stream(self, host_batches: Iterable[Dict[str, np.ndarray]]
@@ -236,3 +307,45 @@ class InferenceEngine:
                 out[k] = torch.cat([m[k][:n] for m, n in pending]).float(
                     ).cpu().tolist()
         return stats, out
+
+
+def _check_swappable(live: Dict[str, torch.Tensor],
+                     new: Dict[str, torch.Tensor]) -> None:
+    """Raise ``ValueError`` at the first key or shape by which ``new``
+    differs from ``live``."""
+    if list(live) != list(new):
+        missing = sorted(set(live) - set(new))
+        extra = sorted(set(new) - set(live))
+        raise ValueError(f"hot-swap rejected: keys differ (missing "
+                         f"{missing[:3]}, unexpected {extra[:3]})")
+    for k, t in live.items():
+        if new[k].shape != t.shape:
+            raise ValueError(
+                f"hot-swap rejected: {k} is {tuple(new[k].shape)}, the "
+                f"serving weights have {tuple(t.shape)}")
+
+
+def serving_restore_template(cfg: Config
+                             ) -> Tuple[nn.Module, Optional[nn.Module]]:
+    """The modules a serving restore fills (counterpart of
+    ``p2p_tpu/serve/engine.py:359``): G, and net_c when the preset has one,
+    as the trainer builds them (f32 masters; the serving dtype is the
+    engine's)."""
+    m = cfg.model
+    return (define_G(m, image_hw=cfg.image_hw),
+            define_C(m) if m.use_compression_net else None)
+
+
+def engine_from_checkpoint(cfg: Config, ckpt_dir: str,
+                           step: Optional[int] = None, **engine_kw
+                           ) -> Tuple[InferenceEngine, int]:
+    """G (and net_c) restored from the newest step under ``ckpt_dir``
+    whose files verify (or exactly ``step``), reading no discriminator or
+    optimizer file (``CheckpointManager.restore_nets``), served by a new
+    engine (``engine_kw``: buckets, dtype, device, ...). Returns
+    ``(engine, step)``."""
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+
+    net_g, net_c = serving_restore_template(cfg)
+    step = CheckpointManager(ckpt_dir).restore_nets(net_g, net_c, step)
+    return InferenceEngine(cfg, net_g, net_c=net_c, **engine_kw), step

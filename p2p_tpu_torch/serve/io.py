@@ -1,5 +1,5 @@
 """Serving host I/O (counterpart of ``p2p_tpu/serve/io.py``): batch
-bucketing and threaded, atomic PNG output.
+bucketing, threaded atomic PNG output, and PNG response bodies.
 
 :func:`pick_bucket` + :func:`pad_batch` round every request batch up to
 one of a few batch sizes warmed up at start; padding repeats the last row
@@ -7,7 +7,10 @@ and is sliced off, so it never reaches an output (instance norm is per
 sample, so padded rows cannot perturb real ones). :class:`AsyncImageWriter`
 moves the device→host copy and the PNG encode to a thread pool, so they
 overlap the next batch's compute; every file is written to a temp name
-and renamed into place, so a reader never sees a torn PNG.
+and renamed into place, so a reader never sees a torn PNG, under the
+retry policy with a ``serve_write`` chaos seam. :func:`encode_png` is the
+HTTP frontend's response body, encoded by the port's stdlib PNG writer:
+its bytes may differ from Pillow's, its decoded pixels may not.
 """
 
 from __future__ import annotations
@@ -21,7 +24,12 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from p2p_tpu_torch.utils.images import save_img
+from p2p_tpu_torch.resilience.chaos import chaos_point
+from p2p_tpu_torch.resilience.retry import RetryPolicy, retry_call
+from p2p_tpu_torch.utils import images
+
+# quick retries: a worker holds a whole prediction batch while it waits
+WRITE_POLICY = RetryPolicy(max_attempts=3, base_delay=0.05, max_delay=0.5)
 
 
 def save_img_atomic(arr, path: str) -> None:
@@ -31,7 +39,8 @@ def save_img_atomic(arr, path: str) -> None:
     d, base = os.path.split(path)
     tmp = os.path.join(d, f".tmp.{os.getpid()}.{base}")
     try:
-        save_img(arr, tmp)
+        chaos_point("serve_write")
+        images.save_img(arr, tmp)
         os.replace(tmp, path)
     except BaseException:
         try:
@@ -39,6 +48,13 @@ def save_img_atomic(arr, path: str) -> None:
         except OSError:
             pass
         raise
+
+
+def encode_png(arr) -> bytes:
+    """One prediction image ([-1, 1] float HWC) as PNG bytes, with the
+    uint8 conversion of ``save_img``: the pixels of the file the directory
+    frontend writes for the same prediction."""
+    return images.encode_png(images.to_uint8_img(arr))
 
 
 def pick_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -86,29 +102,47 @@ class AsyncImageWriter:
     rows. At most ``max_pending`` batches wait; a further submit blocks on
     the oldest, so a backlog of encodes cannot pin unbounded device
     memory. ``drain()`` waits for everything and raises the first worker
-    error. ``encode_sec`` sums the workers' time."""
+    error. ``encode_sec`` sums the workers' time.
 
-    def __init__(self, workers: int = 4, max_pending: Optional[int] = None):
+    Each write is retried (``WRITE_POLICY``, seam ``serve_write``). With
+    ``fail_fast=False`` (the serving frontend) a write that exhausts its
+    retries goes to ``write_errors`` as ``(path, error)`` and the batch
+    goes on, so one bad output path never stops a server; with
+    ``fail_fast=True`` (offline inference) ``drain()`` raises it."""
+
+    def __init__(self, workers: int = 4, max_pending: Optional[int] = None,
+                 fail_fast: bool = True):
         self._pool = ThreadPoolExecutor(max_workers=max(1, workers),
                                         thread_name_prefix="p2p-serve-io")
         self.max_pending = (max_pending if max_pending is not None
                             else 4 * max(1, workers))
+        self.fail_fast = fail_fast
         self._futures: List[Future] = []
         self._lock = threading.Lock()
         self.n_written = 0
         self.encode_sec = 0.0
+        self.write_errors: List[Tuple[str, BaseException]] = []
 
     def _write_batch(self, pred: Any, paths: Sequence[str]) -> None:
         t0 = time.perf_counter()
         arr = to_host(pred)
+        n_ok = 0
         for i, path in enumerate(paths):
             d = os.path.dirname(path)
             if d:
                 os.makedirs(d, exist_ok=True)
-            save_img_atomic(arr[i], path)
+            try:
+                retry_call(save_img_atomic, arr[i], path,
+                           policy=WRITE_POLICY, seam="serve_write")
+                n_ok += 1
+            except BaseException as e:
+                if self.fail_fast:
+                    raise
+                with self._lock:
+                    self.write_errors.append((path, e))
         dt = time.perf_counter() - t0
         with self._lock:
-            self.n_written += len(paths)
+            self.n_written += n_ok
             self.encode_sec += dt
 
     def submit_batch(self, pred: Any, paths: Sequence[str]) -> None:

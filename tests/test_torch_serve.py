@@ -192,7 +192,8 @@ def test_cli_serve_once_on_cpu_writes_one_png_per_input(served, tmp_path,
     (in_dir / "notes.txt").write_text("not an image")
     out_dir = tmp_path / "out"
     rc = main(["--input_dir", str(in_dir), "--out", str(out_dir), "--once",
-               "--weights", weights, "--device", "cpu", "--ngf", "8",
+               "--weights", weights, "--preset", "pix2pixhd",
+               "--device", "cpu", "--ngf", "8",
                "--n_blocks", "1", "--image_size", str(H), "--image_width",
                str(W), "--max_batch", "2", "--dtype", "f32"])
     assert rc == 0
