@@ -119,7 +119,34 @@ to the CPU or to a plain version):
    served, img/s over the traffic window, client latency p50/p99/max,
    mean bucket occupancy, padded images and the responder's encode
    seconds, beside phase 3's directory-mode img/s;
-12. a ``{"kernels": [...]}`` line, then the last line
+12. slice 8: (b) ``edges2shoes_dp`` at batch 64, 256², bf16: 2 warm-up
+   and 4 timed steps with finite losses and exactly 13 #5 a step, img/s,
+   the device's busy share of one profiled step and the peak memory; then
+   the f32 (TF32 off, cuDNN deterministic) 2-step check through #5 against
+   its plain version from one state (bands ``E2S_STEP1_RTOL``,
+   ``E2S_LATER_RTOL`` from ``scripts/torch_edges2shoes_f32_spread.py``);
+   (c) ``cityscapes_spatial`` at 256×512, batch 4, bf16: 2 + 4 steps,
+   finite losses, no kernel launched, ms/step and peak memory; (d) the
+   trainer options on ``facades`` (pool 50, EMA 0.999, clip 1.0, the
+   plateau policy): 8 bf16 steps on a ring filled first, D fed a stored
+   pair on at least one, one step at lr_scale 0.2 changing every
+   parameter by 0.2 × the change at 1, an EMA at decay 0 bitwise G, a
+   checkpoint with EMA, pool and plateau scale restored bitwise, and
+   ``engine_from_checkpoint(..., ema_decay)`` serving 0 uint8 levels from
+   an engine built from the EMA's weights (cuDNN deterministic); (e) the
+   U-Net's forms at 256², one bf16 step each: ``upsample_mode``
+   subpixel and resize and ``thin_stem`` (the plain stem conv; 13 #5),
+   ``norm`` instance (no kernel) and pallas_instance (13 #1 + 13 #2); (a)
+   pix2pixHD's
+   coarse-to-fine schedule through the CLIs: ``cli.generate_dataset``
+   cuts 4 train and 1 test pair of 512×1024 out of synthetic 1024²
+   sources, ``cli.train --phase global`` one epoch of G1 at 512×256
+   (27 #1 + 27 #3 a step and an eval forward), ``cli.train --phase
+   full`` one epoch at 1024×512 (36 + 36) with G1 grafted in, every
+   grafted leaf bitwise phase 1's checkpoint, the image head dropped,
+   ms/step and peak memory of each phase. The kernel phases hold #1, #2,
+   #3 and #5 at these paths' shapes too;
+13. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -292,6 +319,38 @@ INT8_SAME_STATS_RTOL = 0.0
 # #4's elementwise operations per element (normalize 2, activation, the
 # cast, the divide, round, clip, |.|, max)
 QUANT_OPS_PER_ELEMENT = 9
+# slice 8. (a) pix2pixHD coarse-to-fine through the CLIs: train and test
+# pairs of 512x1024 cut from synthetic 1024² sources, one epoch a phase
+C2F_SOURCES = (4, 1)
+# (b) edges2shoes_dp at batch 64: 2 + 4 bf16 steps, then the f32
+# kernels-vs-plain check (2 steps, cuDNN deterministic). Its bands follow
+# PR 11's rule (1e-4 where #5's largest relative difference from the plain
+# route is at most half of it, else 2.5× the larger of #5's and the f64
+# sums', rounded up to 1, 2 or 5 × 10^-n) from
+# scripts/torch_edges2shoes_f32_spread.py over 8 seeds on an H100 (NVIDIA
+# H100 80GB HBM3, 700.00 W): #5 at most 1.13e-7 at step 1 and 1.30e-6 at
+# step 2, the f64 sums 1.13e-7 and 2.28e-6, so both bands are 1e-4
+E2S_WARMUP, E2S_STEPS = 2, 4
+E2S_STEP1_RTOL, E2S_LATER_RTOL = 1e-4, 1e-4
+# (c) cityscapes_spatial at 256x512, batch 4: 2 + 4 bf16 steps
+CITY_WARMUP, CITY_STEPS = 2, 4
+# (d) the trainer options on facades: bf16 steps with the pool (its ring
+# filled first, so each step may swap with a stored pair at 1/2), the EMA,
+# the clip and the plateau policy; then 2 steps with the EMA at decay 0
+# and 2 from one state at lr_scale 1 and OPTIONS_LR_SCALE
+OPTIONS_STEPS = 8
+OPTIONS_ALL_STEPS = OPTIONS_STEPS + 4
+OPTIONS_LR_SCALE = 0.2
+# the update at lr_scale s against s × the update at 1, per element: the
+# two roundings of p + u (each at most half an ulp of |p| ≤ 2^-23·|p|),
+# and 1e-5 of the update for the scaled Adam step's own roundings
+OPTIONS_LR_PARAM_ULPS, OPTIONS_LR_RTOL = 2.4e-7, 1e-5
+# (e) the U-Net's forms, one bf16 step each at 256²
+UNET_FORMS = {"subpixel": {"upsample_mode": "subpixel"},
+              "resize": {"upsample_mode": "resize"},
+              "thin_stem": {"thin_stem": True},
+              "instance": {"norm": "instance"},
+              "pallas_instance": {"norm": "pallas_instance"}}
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -1108,12 +1167,13 @@ def tf32_off():
          torch.backends.cuda.matmul.allow_tf32) = saved
 
 
-def profile_call(what: str, fn) -> None:
-    """torch.profiler over one call: device time by kernel, then the
-    call's wall time, the device's busy time and the kernel launches."""
+def profiled(fn):
+    """torch.profiler over one call: ``(table, wall ms, device busy ms,
+    kernel launches)``, the table ``key_averages()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
@@ -1121,13 +1181,20 @@ def profile_call(what: str, fn) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t) * 1e3
     table = prof.key_averages()
-    print(table.table(sort_by="cuda_time_total", row_limit=30))
     # the table's own "Self CUDA time total": device events only
     busy = sum(e.self_device_time_total for e in table
                if e.device_type == DeviceType.CUDA
                and not e.is_user_annotation) / 1e3
     launches = sum(e.count for e in table
                    if e.key.startswith("cudaLaunchKernel"))
+    return table, wall, busy, launches
+
+
+def profile_call(what: str, fn) -> None:
+    """torch.profiler over one call: device time by kernel, then the
+    call's wall time, the device's busy time and the kernel launches."""
+    table, wall, busy, launches = profiled(fn)
+    print(table.table(sort_by="cuda_time_total", row_limit=30))
     print(f"profile {what}: wall {wall:.3f} ms (profiler on), device busy "
           f"{busy:.3f} ms ({100 * busy / wall:.1f}% of the wall), "
           f"{launches} kernel launches")
@@ -2653,6 +2720,481 @@ def http_phase(card: str, ref_work: str, ref_steps, tmp: str,
     return counts, forwards
 
 
+def g1_plan(ngf: int, n_blocks: int, h: int, w: int):
+    """(H, W, C, act, residual) of every norm epilogue of one
+    GlobalGenerator forward alone (pix2pixHD's phase 1) on an (h, w)
+    input: the first 27 of a full generator's at twice the size
+    (models/pix2pixhd.py)."""
+    plan = epilogue_plan(ngf, n_blocks, 3, 2 * h, 2 * w)
+    return plan[:1 + 4 + 2 * n_blocks + 4]
+
+
+def unet_norm_plan(ngf: int, h: int, w: int, num_downs: int = 8):
+    """(H, W, C, "apply") of every norm of one U-Net forward with
+    ``norm="pallas_instance"`` (#1 + #2 each; models/unet.py): encoder
+    levels 1…num_downs−2, then decoder levels num_downs−1…1."""
+    feats = [min(ngf * 2 ** i, ngf * 8) for i in range(num_downs)]
+    enc = [(h >> (i + 1), w >> (i + 1), feats[i], "apply")
+           for i in range(1, num_downs - 1)]
+    dec = [(h >> i, w >> i, feats[i - 1], "apply")
+           for i in reversed(range(1, num_downs))]
+    return enc + dec
+
+
+def epoch_records(path: str, n_epochs: int):
+    """The ``epoch`` records of a metrics file: ``n_epochs`` of them, every
+    number finite."""
+    epochs = [r for r in read_records(path) if r["kind"] == "epoch"]
+    if len(epochs) != n_epochs or not all(
+            np.isfinite(v) for r in epochs for v in r.values()
+            if isinstance(v, float)):
+        raise AssertionError(f"{path}: epoch records {epochs}")
+    return epochs
+
+
+def coarse_to_fine_phase(device, card, tmp: str, per_image):
+    """pix2pixHD's coarse-to-fine schedule through its CLIs (slice 8, a):
+    ``cli.generate_dataset`` cuts 1024×512 pairs out of synthetic 1024²
+    sources; ``cli.train --phase global`` trains G1 alone at 512×256 for
+    one epoch; ``cli.train --phase full`` trains the full generator at
+    1024×512 for one epoch with G1 grafted in from phase 1's checkpoint:
+    every grafted leaf bitwise the checkpoint's, the image head dropped,
+    the epoch records finite, ``per_image[phase]`` launches of #1 and of
+    #3 per train step and per eval forward (batch 1). Returns the launch
+    counts."""
+    from p2p_tpu_torch.cli import generate_dataset, train
+    from p2p_tpu_torch.data.synthetic import make_synthetic_dataset
+    from p2p_tpu_torch.train import graft
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+
+    n_train, n_test = C2F_SOURCES
+    src, data, work = (os.path.join(tmp, d) for d in ("c2f_src", "c2f_data",
+                                                       "c2f_work"))
+    t0 = time.perf_counter()
+    make_synthetic_dataset(src, n_train, n_test, size=1024, seed=SEED)
+    for split in ("train", "test"):
+        rc = generate_dataset.main([
+            "--dataset_path", os.path.join(src, split, "a"),
+            "--target_dataset_folder", data, "--split", split,
+            "--crop_size", "512", "--crop_width", "1024",
+            "--max_patches", "1"])
+        if rc:
+            raise AssertionError(f"generate_dataset {split}: exit {rc}")
+    print(f"coarse-to-fine: generated {n_train} train and {n_test} test "
+          f"pairs of 512x1024 in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    common = ["--preset", "pix2pixhd", "--data_root", data, "--workdir",
+              work, "--nepoch", "1", "--epochsave", "1"]
+    seen = {}
+    graft_into = graft.graft_into
+
+    def record(net_g, g1_params, verbose=True):
+        graft_into(net_g, g1_params, verbose)
+        seen.update({k: p.detach().cpu().clone()
+                     for k, p in net_g.named_parameters()})
+
+    counts = collections.Counter()
+    for phase, name in (("global", "pix2pixhd_g1"), ("full", "pix2pixhd")):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with mock.patch.object(graft, "graft_into", record), \
+                contextlib.redirect_stdout(buf):
+            rc = train.main(common + ["--phase", phase])
+        wall = time.perf_counter() - t0
+        text = buf.getvalue()
+        print("\n".join(f"coarse-to-fine {phase}: {line}"
+                        for line in text.splitlines()[-6:]))
+        if rc:
+            raise AssertionError(f"cli.train --phase {phase}: exit {rc}")
+        got = launch_counts()
+        n = per_image[phase] * (n_train + n_test)
+        want = only(instance_norm_stats=n, norm_act=n)
+        (epoch,) = epoch_records(os.path.join(work, f"metrics_{name}.jsonl"),
+                                 1)
+        peak = torch.cuda.max_memory_allocated(device)
+        print(f"coarse-to-fine {phase}: {name}, {n_train} steps + {n_test} "
+              f"eval forwards in {wall:.2f}s; loss_g {epoch['loss_g']:.4f}, "
+              f"loss_d {epoch['loss_d']:.4f}; {1e3 / epoch['img_per_sec']:.2f}"
+              f" ms/step (the record's steps 2-{n_train}, the loader's PNG "
+              f"decode and bicubic resize on the host included); peak device "
+              f"memory {peak / 2 ** 30:.2f} GiB; launches {got} (want "
+              f"{want}); on {card}", flush=True)
+        if got != want:
+            raise AssertionError(f"coarse-to-fine {phase}: launches {got}")
+        counts.update(got)
+    g1_dir = os.path.join(work, "checkpoint", "cityscapes_hd",
+                          "pix2pixhd_g1")
+    mgr = CheckpointManager(g1_dir)
+    saved = mgr.read(mgr.latest_step(), ["net_g"])["net_g"]
+    head = sorted(k for k in saved if k.startswith("ConvLayer_5."))
+    grafted = [k for k in saved if k not in head]
+    if not head or not grafted or len(seen) == 0:
+        raise AssertionError("coarse-to-fine: nothing grafted")
+    bad = [k for k in grafted if not torch.equal(seen[f"global.{k}"],
+                                                 saved[k])]
+    dropped_line = "1 head leaves dropped (global.ConvLayer_5)"
+    if bad or any(f"global.{k}" in seen for k in head) \
+            or dropped_line not in text:
+        raise AssertionError(f"coarse-to-fine graft: differs at {bad[:3]}")
+    print(f"coarse-to-fine: {len(grafted)} G1 leaves grafted bitwise from "
+          f"phase 1's step {mgr.latest_step()}, head {head} dropped",
+          flush=True)
+    return counts
+
+
+def e2s_f32_routes(cfg, batches, seed, routes):
+    """f32 (TF32 off, cuDNN deterministic) ``edges2shoes_dp`` steps on
+    ``batches`` from the state of ``seed``, once per route of BatchNorm's
+    moments: ``"kernel"`` (#5), ``"plain"`` or ``"f64"``
+    (:func:`moments_f64`). Returns ``{route: per-step losses}``."""
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments_plain
+
+    per_step = len(facades_bn_plan(cfg.model.ngf, *cfg.image_hw))
+    swap = {"kernel": None, "plain": batch_moments_plain, "f64": moments_f64}
+    runs = {}
+    with cudnn_deterministic():
+        for route in routes:
+            patches = ((mock.patch.object(norm, "batch_moments",
+                                          swap[route]),)
+                       if swap[route] else ())
+            n = len(batches) if route == "kernel" else 0
+            runs[route] = f32_route(cfg, batches, None, patches,
+                                    only(batch_moments=per_step * n), route,
+                                    seed)
+    return runs
+
+
+def e2s_batches(cfg, n_steps: int, seed: int):
+    from p2p_tpu_torch.data.synthetic import synthetic_facades_batch
+
+    bs = cfg.data.batch_size
+    host = synthetic_facades_batch(n_steps * bs, cfg.image_hw[0], seed=seed)
+    return [{k: v[i * bs:(i + 1) * bs] for k, v in host.items()}
+            for i in range(n_steps)]
+
+
+def edges2shoes_phase(device, card, profile: bool):
+    """``edges2shoes_dp`` at batch 64 (slice 8, b): 2 warm-up and 4 timed
+    bf16 steps with finite losses and exactly 13 #5 per step, the device's
+    busy share of a step and the peak memory; then the f32 kernels-vs-plain
+    check within ``E2S_STEP1_RTOL`` / ``E2S_LATER_RTOL``."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = get_preset("edges2shoes_dp")
+    h, w = cfg.image_hw
+    per_step = len(facades_bn_plan(cfg.model.ngf, h, w))
+    n_steps = E2S_WARMUP + E2S_STEPS
+    batches = e2s_batches(cfg, n_steps, SEED)
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    step = build_train_step(cfg, None, dtype)
+    what = "edges2shoes_dp train"
+    print(f"{what}: {h}x{w}, batch {cfg.data.batch_size}, {dtype}, ngf "
+          f"{cfg.model.ngf}, dropout {cfg.model.use_dropout}, one device",
+          flush=True)
+    counts, med = bf16_train_run(
+        what, state, step, batches, E2S_WARMUP,
+        only(batch_moments=per_step * n_steps), FACADES_LOSS_KEYS, card,
+        profile)
+    peak = torch.cuda.max_memory_allocated(device)
+    before = launch_counts()
+    _, wall, busy, launches = profiled(lambda: step(state, batches[0]))
+    counts = {k: counts[k] + launch_counts()[k] - before[k] for k in counts}
+    print(f"{what}: peak device memory {peak / 2 ** 30:.2f} GiB; one "
+          f"profiled step: wall {wall:.2f} ms (profiler on), device busy "
+          f"{busy:.2f} ms ({100 * busy / wall:.1f}% of that wall, "
+          f"{100 * busy / med:.1f}% of the median step), {launches} kernel "
+          f"launches; median {med:.2f} ms/step, "
+          f"{cfg.data.batch_size * 1e3 / med:.1f} img/s; on {card}",
+          flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    runs = e2s_f32_routes(cfg, batches[:TRAIN_F32_STEPS], SEED,
+                          ("kernel", "plain"))
+    worst = 0.0
+    for i, (lk, lp) in enumerate(zip(runs["kernel"], runs["plain"])):
+        rtol = E2S_STEP1_RTOL if i == 0 else E2S_LATER_RTOL
+        for k in FACADES_LOSS_KEYS:
+            rel = abs(lk[k] - lp[k]) / abs(lp[k])
+            worst = max(worst, rel)
+            if not rel <= rtol:
+                raise AssertionError(f"f32 edges2shoes step {i + 1} {k}: "
+                                     f"kernel {lk[k]} vs plain {lp[k]} "
+                                     f"(rtol {rtol})")
+    print(f"{what}: f32 (TF32 off, cuDNN deterministic) "
+          f"{TRAIN_F32_STEPS} steps through #5 vs its plain version, same "
+          f"state and dropout seed: losses max rel diff {worst:.3g} (step 1 "
+          f"limit {E2S_STEP1_RTOL}, step 2 {E2S_LATER_RTOL})", flush=True)
+    return counts, n_steps + 1
+
+
+def cityscapes_phase(device, card, profile: bool):
+    """``cityscapes_spatial`` at 256×512, batch 4, bf16 (slice 8, c): the
+    ResnetGenerator with plain instance norms, the 3-scale spectral-norm D
+    and VGG19: 2 warm-up and 4 timed steps with finite losses and no
+    kernel launched; ms/step and the peak memory."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_hd_batch
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = get_preset("cityscapes_spatial")
+    h, w = cfg.image_hw
+    bs = cfg.data.batch_size
+    n_steps = CITY_WARMUP + CITY_STEPS
+    host = synthetic_hd_batch(n_steps * bs, h, w, seed=SEED)
+    batches = [{k: v[i * bs:(i + 1) * bs] for k, v in host.items()}
+               for i in range(n_steps)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    step = build_train_step(cfg, load_vgg19(device=device), dtype)
+    what = "cityscapes_spatial train"
+    print(f"{what}: {h}x{w}, batch {bs}, {dtype}, resnet G ngf "
+          f"{cfg.model.ngf} with {cfg.model.n_blocks} blocks, norm "
+          f"{cfg.model.norm} (plain PyTorch: no kernel), {cfg.model.num_D} "
+          "D scales, one device", flush=True)
+    counts, med = bf16_train_run(
+        what, state, step, batches, CITY_WARMUP, only(),
+        ("loss_g", "loss_d", "g_gan", "g_feat", "g_vgg", "g_tv"), card,
+        profile)
+    peak = torch.cuda.max_memory_allocated(device)
+    print(f"{what}: peak device memory {peak / 2 ** 30:.2f} GiB; median "
+          f"{med:.2f} ms/step, {bs * 1e3 / med:.2f} img/s; on {card}",
+          flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def options_lr_scale_check(cfg, step, batch, dtype) -> float:
+    """One ``step`` from one fresh state at lr_scale 1 and at
+    OPTIONS_LR_SCALE, cuDNN deterministic: every parameter change of G and
+    D at the scale must be OPTIONS_LR_SCALE times the change at 1, within
+    OPTIONS_LR_PARAM_ULPS of |p| + OPTIONS_LR_RTOL of the change. Returns
+    the largest error as a share of its band; raises past 1 or when
+    nothing moved."""
+    from p2p_tpu_torch.train.state import create_train_state
+
+    deltas, starts = [], None
+    with cudnn_deterministic():
+        for scale in (1.0, OPTIONS_LR_SCALE):
+            st = create_train_state(cfg, SEED, train_dtype=dtype)
+            st.lr_scale = scale
+            params = [*st.net_g.parameters(), *st.net_d.parameters()]
+            before = [p.detach().clone() for p in params]
+            st, _ = step(st, batch)
+            deltas.append([p.detach() - b for p, b in zip(params, before)])
+            starts = before
+            del st
+    worst, moved = 0.0, False
+    for p0, d1, ds in zip(starts, *deltas):
+        want = OPTIONS_LR_SCALE * d1
+        band = OPTIONS_LR_PARAM_ULPS * p0.abs() + OPTIONS_LR_RTOL * want.abs()
+        err = (ds - want).abs()
+        worst = max(worst, float((err / band.clamp_min(1e-30)).max()))
+        moved = moved or bool((d1 != 0).any())
+    if not moved or worst > 1.0:
+        raise AssertionError(f"options: lr_scale {OPTIONS_LR_SCALE} update "
+                             f"{worst:.3g} of its band from the scaled "
+                             f"update at 1 (moved {moved})")
+    return worst
+
+
+def options_phase(device, card):
+    """The trainer options at full width on ``facades`` (slice 8, d):
+    ``pool_size=50``, ``ema_decay=0.999``, ``grad_clip=1.0`` and
+    ``lr_policy="plateau"`` (its controller fed each step's loss_g as an
+    epoch's) for OPTIONS_STEPS bf16 steps (13 #5 each), with the ring
+    first filled with 50 real pairs, so that D is fed a stored pair on at
+    least one step (each query is watched: its output is a slot of the
+    old ring, not the incoming pair); one step from one state at lr_scale
+    1 and at OPTIONS_LR_SCALE, whose parameter changes differ by that
+    factor; an EMA at decay 0 bitwise G after 2 steps; a checkpoint with
+    the EMA, the pool and the plateau scale restored bitwise into a state
+    of another seed; and
+    ``engine_from_checkpoint(..., ema_decay)`` serving, cuDNN
+    deterministic, the same uint8 images as an engine built from G with the
+    EMA's parameters, on one group of bodies. Returns the launch counts
+    (train steps only; serving runs no kernel)."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_facades_batch
+    from p2p_tpu_torch.models.registry import define_G
+    from p2p_tpu_torch.serve.engine import (InferenceEngine,
+                                            engine_from_checkpoint)
+    from p2p_tpu_torch.serve.io import to_host
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+    from p2p_tpu_torch.train.schedules import PlateauController
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step, to_device_image
+    from p2p_tpu_torch.utils import pool as pool_lib
+    from p2p_tpu_torch.utils.images import to_uint8_img
+
+    base = get_preset("facades")
+    cfg = base.replace(
+        optim=dataclasses.replace(base.optim, grad_clip=1.0,
+                                  lr_policy="plateau"),
+        train=dataclasses.replace(base.train, pool_size=50),
+        health=dataclasses.replace(base.health, ema_decay=0.999))
+    h, w = cfg.image_hw
+    per_step = len(facades_bn_plan(cfg.model.ngf, h, w))
+    host = synthetic_facades_batch(OPTIONS_STEPS, h, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(OPTIONS_STEPS)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    reset_launch_counts()
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    step = build_train_step(cfg, None, dtype)
+    pool_size = state.pool.shape[0]
+    fill = synthetic_facades_batch(pool_size, h, seed=SEED + 3)
+    state.pool.copy_(torch.cat(
+        [to_device_image(fill[k], device, torch.float32)
+         for k in ("input", "target")], dim=1).permute(0, 2, 3, 1))
+    state.pool_n.fill_(pool_size)
+    stored_steps = []
+    query = pool_lib.device_pool_query
+
+    def watched_query(pool, pool_n, pairs, generator):
+        out, new_pool, new_n = query(pool, pool_n, pairs, generator)
+        from_ring = (pool.to(out.dtype) == out[:1]).flatten(1).all(1).any()
+        stored_steps.append(bool(from_ring) and not torch.equal(out, pairs))
+        return out, new_pool, new_n
+
+    plateau = PlateauController()
+    with mock.patch.object(pool_lib, "device_pool_query", watched_query):
+        for i, b in enumerate(batches):
+            state, m = step(state, b)
+            losses = {k: float(m[k]) for k in FACADES_LOSS_KEYS + (
+                "nonfinite_g", "nonfinite_d", "health_ok")}
+            if not all(np.isfinite(v) for v in losses.values()) \
+                    or losses["health_ok"] != 1.0:
+                raise AssertionError(f"options step {i + 1}: {losses}")
+            state.lr_scale = plateau.update(losses["loss_g"])
+            print(f"options: step {i + 1} {json.dumps(losses)}, D fed a "
+                  f"stored pair {bool(stored_steps[-1])}, lr_scale "
+                  f"{state.lr_scale}", flush=True)
+    n_stored = sum(stored_steps)
+    moved = max(float((state.ema_g[k] - p.detach()).abs().max())
+                for k, p in state.net_g.named_parameters())
+    if int(state.pool_n) != pool_size or n_stored == 0 \
+            or len(stored_steps) != OPTIONS_STEPS or not moved > 0:
+        raise AssertionError(f"options: pool_n {int(state.pool_n)}, D fed "
+                             f"a stored pair on {n_stored} of "
+                             f"{len(stored_steps)} steps, EMA moved {moved}")
+    lr_ratio = options_lr_scale_check(cfg, step, batches[0], dtype)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ema_") as ck:
+        mgr = CheckpointManager(ck)
+        mgr.save(state.step, state, 1)
+        fresh = create_train_state(cfg, SEED + 1, train_dtype=dtype)
+        mgr.restore(fresh)
+        same = (fresh.lr_scale == state.lr_scale
+                and torch.equal(fresh.pool, state.pool)
+                and torch.equal(fresh.pool_n, state.pool_n)
+                and all(torch.equal(fresh.ema_g[k], v)
+                        for k, v in state.ema_g.items())
+                and all(torch.equal(a, b) for a, b in zip(
+                    fresh.net_g.state_dict().values(),
+                    state.net_g.state_dict().values())))
+        if not same:
+            raise AssertionError("options: the checkpoint did not restore "
+                                 "bitwise")
+        del fresh
+        bodies = synthetic_facades_batch(4, h, seed=SEED + 7)["input"]
+        with cudnn_deterministic():
+            served, _ = engine_from_checkpoint(cfg, ck, buckets=(4,))
+            want_g = define_G(cfg.model, image_hw=cfg.image_hw)
+            want_g.load_state_dict({**{k: v.cpu() for k, v in
+                                       state.net_g.state_dict().items()},
+                                    **{k: v.cpu() for k, v in
+                                       state.ema_g.items()}})
+            ref = InferenceEngine(cfg, want_g, buckets=(4,))
+            outs = [np.stack([to_uint8_img(img) for img in to_host(
+                e.infer_batch({"input": bodies})[0])]) for e in (served, ref)]
+        levels = int(np.abs(outs[0].astype(np.int16)
+                            - outs[1].astype(np.int16)).max())
+        if levels != 0:
+            raise AssertionError(f"options: EMA serving {levels} levels off")
+        del served, ref
+    zero = cfg.replace(health=dataclasses.replace(cfg.health, ema_decay=0.0))
+    st0 = create_train_state(zero, SEED, train_dtype=dtype)
+    stp0 = build_train_step(zero, None, dtype)
+    for b in batches[:2]:
+        st0, _ = stp0(st0, b)
+    if not all(torch.equal(st0.ema_g[k], p)
+               for k, p in st0.net_g.named_parameters()):
+        raise AssertionError("options: the EMA at decay 0 is not G")
+    counts = launch_counts()
+    want = only(batch_moments=per_step * OPTIONS_ALL_STEPS)
+    print(f"options: pool 50 (filled; D fed a stored pair on {n_stored} of "
+          f"{OPTIONS_STEPS} steps), EMA 0.999 (moved up to {moved:.3g} from "
+          f"G), clip 1.0, plateau; the update at lr_scale "
+          f"{OPTIONS_LR_SCALE} within {lr_ratio:.3g} of its band from "
+          f"{OPTIONS_LR_SCALE} x the update at 1; checkpoint restored "
+          f"bitwise; EMA serving "
+          f"equal to the EMA weights' engine at 0 uint8 levels; EMA at "
+          f"decay 0 bitwise G; launches {counts} (want {want}); on {card}",
+          flush=True)
+    if counts != want:
+        raise AssertionError(f"options: launches {counts}")
+    del state, step, st0, stp0
+    torch.cuda.empty_cache()
+    return counts
+
+
+def unet_forms_phase(device, card):
+    """The U-Net's forms at 256² (slice 8, e): one bf16 step each of
+    ``upsample_mode`` subpixel and resize and ``thin_stem`` (13 #5 each),
+    ``norm="instance"`` (no kernel) and ``"pallas_instance"`` (#1 + #2 at
+    each of its 13 norms), finite losses, exact launches. Returns the
+    launch counts."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_facades_batch
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step
+
+    fac = get_preset("facades")
+    counts = collections.Counter()
+    for form, kw in UNET_FORMS.items():
+        cfg = fac.replace(model=dataclasses.replace(fac.model, **kw))
+        h, w = cfg.image_hw
+        n_norms = len(facades_bn_plan(cfg.model.ngf, h, w))
+        want = {"instance": only(),
+                "pallas_instance": only(instance_norm_stats=n_norms,
+                                        instance_norm_apply=n_norms)}.get(
+            form, only(batch_moments=n_norms))
+        dtype = train_dtype(cfg.train.mixed_precision)
+        state = create_train_state(cfg, SEED, train_dtype=dtype)
+        step = build_train_step(cfg, None, dtype)
+        batch = synthetic_facades_batch(1, h, seed=SEED)
+        reset_launch_counts()
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        got = launch_counts()
+        losses = {k: float(m[k]) for k in FACADES_LOSS_KEYS}
+        print(f"unet forms: {form} {json.dumps(losses)}, first step "
+              f"{ms:.1f} ms, launches {got} (want {want})", flush=True)
+        if got != want or not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"unet form {form}: {losses}, {got}")
+        counts.update(got)
+        del state, step
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -2727,11 +3269,40 @@ def main(argv=None) -> int:
     # the loop phase's train steps are main-path launches of #5 too
     for shape in bn_plan:
         bn_launches[shape] += LOOP_STEPS
+    # slice 8: G1 alone at 256x512 (phase 1) and the full generator
+    # (phase 2) per train step and eval forward of the coarse-to-fine
+    # phase; edges2shoes_dp's 13 BatchNorms at batch 64; the options'
+    # facades steps; the U-Net forms
+    g1 = g1_plan(cfg.model.ngf, cfg.model.n_blocks, h // 2, w // 2)
+    if len(g1) != 27:
+        raise AssertionError(f"G1 plan has {len(g1)} epilogues (want 27)")
+    c2f_per_image = {"global": len(g1), "full": NORMS_PER_FORWARD}
+    c2f_images = sum(C2F_SOURCES)
+    e2s = get_preset("edges2shoes_dp")
+    e2s_bs = e2s.data.batch_size
+    e2s_plan = [(e2s_bs * m, c) for m, c in facades_bn_plan(
+        e2s.model.ngf, *e2s.image_hw)]
+    e2s_steps = E2S_WARMUP + E2S_STEPS + 1       # and one profiled step
+    u_plan = unet_norm_plan(fac.model.ngf, *fac.image_hw)
+    if len(e2s_plan) != 13 or len(u_plan) != 13:
+        raise AssertionError("edges2shoes_dp / U-Net norm plans")
+    for shape in e2s_plan:
+        bn_launches[shape] += e2s_steps
+    bn_forms = sum(f not in ("instance", "pallas_instance")
+                   for f in UNET_FORMS)
+    for shape in fac_bn_plan:
+        bn_launches[shape] += OPTIONS_ALL_STEPS + bn_forms
     head_fwd = main_path_forwards() + collections.Counter({1: steps})
     head_dx = collections.Counter({1: steps})
     norm_launches = instance_launches(plan, a_plan, steps, hd_steps)
     for hh, ww, c, form in i8_plan:
         norm_launches[(1, hh, ww, c, form)] += steps
+    for hh, ww, c, act, res in g1:
+        norm_launches[(1, hh, ww, c, form_of(act, res))] += c2f_images
+    for hh, ww, c, act, res in plan:
+        norm_launches[(1, hh, ww, c, form_of(act, res))] += c2f_images
+    for hh, ww, c, form in u_plan:
+        norm_launches[(1, hh, ww, c, form)] += 1
     rows = (kernel_phase(device, norm_launches)
             + moments_phase(device, bn_launches)
             + subpixel_phase(device, head_fwd, head_dx))
@@ -2747,17 +3318,26 @@ def main(argv=None) -> int:
     b_counts, _, _ = instance_b_phase(device, card, args.profile, b_per_step)
     i8_counts, i8_as_is_counts, _, _ = int8_train_phase(device, card,
                                                          args.profile)
+    e2s_counts, n_e2s = edges2shoes_phase(device, card, args.profile)
+    if n_e2s != e2s_steps:
+        raise AssertionError(f"edges2shoes_dp ran {n_e2s} steps")
+    city_counts = cityscapes_phase(device, card, args.profile)
+    options_counts = options_phase(device, card)
+    forms_counts = unet_forms_phase(device, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
         loop_counts = loop_phase(device, card, train_med, train_host, tmp)
         http_counts, http_forwards = http_phase(
             card, os.path.join(tmp, "work"), (LOOP_SOURCES[0], LOOP_STEPS),
             tmp, serve_stats.img_per_sec)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_c2f_") as tmp:
+        c2f_counts = coarse_to_fine_phase(device, card, tmp, c2f_per_image)
     # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3
     add_serving_launches(rows, plan, http_forwards)
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
               fac_train_counts, a_counts, b_counts, i8_counts,
-              i8_as_is_counts, loop_counts, http_counts):
+              i8_as_is_counts, loop_counts, http_counts, e2s_counts,
+              city_counts, options_counts, forms_counts, c2f_counts):
         counts.update(c)
 
     kernels = []
@@ -2796,6 +3376,14 @@ def main(argv=None) -> int:
     for hh, ww, c, act, res in plan:
         b_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
         b_keys[("norm_act", 1, (hh, ww, c), form_of(act, res))] += 1
+    g1_keys = collections.Counter()
+    for hh, ww, c, act, res in g1:
+        g1_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
+        g1_keys[("norm_act", 1, (hh, ww, c), form_of(act, res))] += 1
+    u_keys = collections.Counter()
+    for hh, ww, c, form in u_plan:
+        u_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
+        u_keys[("instance_norm_apply", 1, (hh, ww, c), form)] += 1
     i8_keys = collections.Counter()
     for hh, ww, c, form in i8_plan:
         i8_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
@@ -2820,7 +3408,16 @@ def main(argv=None) -> int:
             *[(f"#{i} per facades int8 train step", name,
                {k[1:]: v for k, v in i8_keys.items() if k[0] == name})
               for i, name in ((1, "instance_norm_stats"), (3, "norm_act"),
-                              (4, "norm_act_quant"))]):
+                              (4, "norm_act_quant"))],
+            *[(f"#{i} per pix2pixHD phase-1 (G1) train step", name,
+               {k[1:]: v for k, v in g1_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"), (3, "norm_act"))],
+            ("#5 per edges2shoes_dp train step (batch 64)", "batch_moments",
+             collections.Counter((1, shape, "-") for shape in e2s_plan)),
+            *[(f"#{i} per pallas_instance U-Net train step", name,
+               {k[1:]: v for k, v in u_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"),
+                              (2, "instance_norm_apply"))]):
         sel = [(bf16[(kernel,) + key], v) for key, v in keys.items()]
         print(f"{what} (bf16, {sum(v for _, v in sel)} launches): "
               + ", ".join(f"{k} {sum(r[k] * v for r, v in sel):.4f}"
@@ -2839,13 +3436,18 @@ def main(argv=None) -> int:
           f"pix2pixHD serving at {h}x{w} (phase 3, and the HTTP phase's "
           f"{sum(http_forwards.values())} forwards), path A ({steps} "
           f"steps), path B "
-          f"({hd_steps} steps) and facades int8 ({steps} steps) training; "
-          f"#2: path A; #4: facades int8; #5: {steps} reference, facades, "
+          f"({hd_steps} steps) and facades int8 ({steps} steps) training, "
+          f"and the coarse-to-fine CLIs' {c2f_images} steps and eval "
+          f"forwards a phase; "
+          f"#2: path A and the pallas_instance U-Net step; #4: facades "
+          f"int8; #5: {steps} reference, facades, "
           f"path A and facades int8 train steps, {INT8_AS_IS_STEPS} of "
-          f"facades_int8 as it is and the loop's {LOOP_STEPS} reference "
-          f"steps; #6: facades serving and training; #7: "
-          "facades training): per-(N, shape, form) device times weighted by "
-          "launches")
+          f"facades_int8 as it is, the loop's {LOOP_STEPS} reference "
+          f"steps, {e2s_steps} edges2shoes_dp steps at batch {e2s_bs}, "
+          f"{OPTIONS_ALL_STEPS} facades steps with the trainer options and "
+          f"{bn_forms} U-Net form steps; #6: facades serving and training; "
+          "#7: facades training): per-(N, shape, form) device times "
+          "weighted by launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

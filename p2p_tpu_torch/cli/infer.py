@@ -9,7 +9,8 @@ G (and net_c, for a preset with a compression net) are restored from the
 newest step under ``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` whose
 files verify (or exactly ``--step``), reading no discriminator or optimizer
 file, and served through the engine (serve/engine.py) on f32 masters at
-``--dtype``. One PNG per test image, named after it, goes to ``--out``
+``--dtype``; with ``--ema_decay`` G's parameters are the step's EMA
+generator. One PNG per test image, named after it, goes to ``--out``
 (default ``<workdir>/<result_dir>/<dataset>``). ``--metrics`` prints
 ``psnr_mean=… psnr_max=… ssim_mean=… ssim_max=…`` over every test image;
 ``--stats`` the engine's timing as a JSON line. The card is the default
@@ -28,8 +29,7 @@ import numpy as np
 from p2p_tpu_torch.cli import add_unported, apply_overrides, refuse_unported
 
 UNPORTED = (
-    ("ema_decay", None, {"type": float}), ("mesh", None, {"type": str}),
-    ("tp_min_ch", None, {"type": int}),
+    ("mesh", None, {"type": str}), ("tp_min_ch", None, {"type": int}),
     ("compilation_cache", None, {"type": str}),
 )
 
@@ -60,7 +60,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "restored")
     p.add_argument("--n_blocks", type=int, default=None)
     p.add_argument("--upsample_mode", type=str, default=None,
-                   choices=["deconv"])
+                   choices=["deconv", "subpixel", "resize"])
     p.add_argument("--pool_size", type=int, default=None,
                    help="accepted and not needed: only G and net_c are "
                         "restored")
@@ -75,6 +75,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PNG encode worker threads")
     p.add_argument("--stats", action="store_true",
                    help="print the engine's timing breakdown as JSON")
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="the checkpoint was trained with --ema_decay: "
+                        "restore the EMA generator weights and infer with "
+                        "the SMOOTHED G (bitwise == raw at decay 0)")
     add_unported(p, UNPORTED)
     return p
 
@@ -96,7 +100,8 @@ def main(argv=None) -> int:
     from p2p_tpu_torch.data.pipeline import PairedImageDataset, make_loader
     from p2p_tpu_torch.models.registry import define_C, define_G
     from p2p_tpu_torch.serve.engine import InferenceEngine
-    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+    from p2p_tpu_torch.train.checkpoint import (CheckpointCorrupt,
+                                                CheckpointManager)
 
     cfg = get_preset(args.preset)
     cfg = cfg.replace(
@@ -107,7 +112,8 @@ def main(argv=None) -> int:
                              image_size=args.image_size),
         model=apply_overrides(cfg.model, ngf=args.ngf,
                               n_blocks=args.n_blocks,
-                              upsample_mode=args.upsample_mode))
+                              upsample_mode=args.upsample_mode),
+        health=apply_overrides(cfg.health, ema_decay=args.ema_decay))
     root = args.data_root or os.path.join(cfg.data.root, cfg.data.dataset)
     try:
         ds = PairedImageDataset(
@@ -123,8 +129,9 @@ def main(argv=None) -> int:
     ckpt = CheckpointManager(os.path.join(
         args.workdir, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
     try:
-        step = ckpt.restore_nets(net_g, net_c, step=args.step)
-    except FileNotFoundError as e:
+        step = ckpt.restore_nets(net_g, net_c, step=args.step,
+                                 ema=args.ema_decay is not None)
+    except (FileNotFoundError, CheckpointCorrupt) as e:
         print(str(e), file=sys.stderr)
         return 1
     bs = cfg.data.test_batch_size

@@ -30,13 +30,14 @@ one ``serve_summary`` line per tenant.
 
 G (and net_c) are restored from the newest intact step under
 ``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` (or exactly ``--step``),
-reading no discriminator or optimizer file. In directory mode
-``--weights g.npz`` (flax generator variables, ``convert.save_npz``)
-serves G from that file instead. Requests are PNGs (the port's stdlib
-decoder; no Pillow), resized bicubic to the preset's size. A preset with
+reading no discriminator or optimizer file; with ``--ema_decay`` (or the
+tenant key ``ema_decay=``) G's parameters are the step's EMA generator. In
+directory mode ``--weights g.npz`` (flax generator variables,
+``convert.save_npz``) serves G from that file instead. Requests are PNGs
+(the port's stdlib decoder; no Pillow), resized bicubic to the preset's size. A preset with
 a compression net serves the request image as its target. The card is
-the default device (``--device cpu`` to serve on the CPU); flags and
-tenant keys of features the port lacks are refused by name (exit 2).
+the default device (``--device cpu`` to serve on the CPU); flags of
+features the port lacks are refused by name (exit 2).
 """
 
 from __future__ import annotations
@@ -51,14 +52,14 @@ from p2p_tpu_torch.cli import add_unported, apply_overrides, refuse_unported
 from p2p_tpu_torch.serve.frontend import default_buckets
 
 UNPORTED = (
-    ("ema_decay", None, {"type": float}), ("mesh", None, {"type": str}),
-    ("tp_min_ch", None, {"type": int}),
+    ("mesh", None, {"type": str}), ("tp_min_ch", None, {"type": int}),
     ("compilation_cache", None, {"type": str}),
 )
 TENANT_KEYS = {"alias", "preset", "name", "dataset", "step", "image_size",
-               "image_width", "ngf", "n_blocks"}
-# tenant keys of the JAX CLI the port does not have yet
-UNPORTED_TENANT_KEYS = {"ema_decay"}
+               "image_width", "ngf", "n_blocks", "ema_decay"}
+# the tenant keys that take a number, and its type
+_NUMERIC_KEYS = {"step": int, "image_size": int, "image_width": int,
+                 "ngf": int, "n_blocks": int, "ema_decay": float}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -100,6 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "two up to --max_batch)")
     p.add_argument("--dtype", type=str, default="bf16",
                    choices=["bf16", "f32"])
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="the checkpoint was trained with --ema_decay: "
+                        "restore the EMA generator weights and serve the "
+                        "SMOOTHED G (bitwise == raw at decay 0)")
     p.add_argument("--io_threads", type=int, default=4,
                    help="PNG encode threads")
     p.add_argument("--http", type=str, default=None, metavar="HOST:PORT",
@@ -152,26 +157,30 @@ def _build_config(args, overrides=None):
             image_size=get("image_size", int, args.image_size),
             image_width=get("image_width", int, args.image_width)),
         model=apply_overrides(cfg.model, ngf=get("ngf", int, args.ngf),
-                              n_blocks=get("n_blocks", int, args.n_blocks)))
+                              n_blocks=get("n_blocks", int, args.n_blocks)),
+        health=apply_overrides(
+            cfg.health, ema_decay=get("ema_decay", float, args.ema_decay)))
 
 
 def _parse_tenant_spec(spec: str):
     """'alias=hd,preset=pix2pixhd,step=2' → (alias, {key: value}).
-    Raises ``ValueError`` on an unknown key; ``NotImplementedError`` on a
-    key of a feature the port lacks."""
+    Raises ``ValueError`` on an unknown key or a value that is not a
+    number where one is wanted."""
     kv = {}
     for part in spec.split(","):
         part = part.strip()
         if not part:
             continue
         k, eq, v = part.partition("=")
-        if eq and k in UNPORTED_TENANT_KEYS:
-            raise NotImplementedError(
-                f"--tenant key {k}= is not ported yet (the PyTorch port "
-                "does not have this feature)")
         if not eq or k not in TENANT_KEYS:
             raise ValueError(f"bad --tenant entry {part!r} (allowed keys: "
                              f"{sorted(TENANT_KEYS)})")
+        if k in _NUMERIC_KEYS:
+            try:
+                _NUMERIC_KEYS[k](v)
+            except ValueError:
+                raise ValueError(f"bad --tenant value {k}={v!r} (wants "
+                                 f"{_NUMERIC_KEYS[k].__name__})") from None
         kv[k] = v
     alias = kv.pop("alias", None) or kv.get("name") or kv.get("preset")
     if not alias:
@@ -272,6 +281,10 @@ def main(argv=None) -> int:
         return rc
     buckets = ([int(b) for b in args.buckets.split(",")] if args.buckets
                else default_buckets(args.max_batch))
+    if args.weights and args.ema_decay is not None:
+        print("--ema_decay serves a checkpoint's EMA generator; --weights "
+              "holds one generator and no EMA", file=sys.stderr)
+        return 2
     if args.http:
         if args.weights:
             print("--weights serves directory mode only: HTTP tenants are "

@@ -8,9 +8,16 @@ names, unset flags inheriting from ``--preset``:
 It resumes from the newest intact checkpoint under
 ``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` when there is one, then
 trains to ``--nepoch`` (train/loop.py ``Trainer``). The card is the
-default device; the CPU runs only with ``--device cpu``. A flag of the JAX
-CLI whose feature the port does not have (meshes, scan steps, the health
-ladder's knobs, telemetry sinks, pix2pixHD phases, …) is refused by name
+default device; the CPU runs only with ``--device cpu``.
+
+pix2pixHD's coarse-to-fine schedule: ``--phase global`` trains G1 alone
+(``pix2pixhd_global``) at half the resolution, with its checkpoints under
+``<name>_g1``; ``--phase full`` then trains the whole generator with G1's
+weights grafted in from that run's newest step (or from
+``--init_g1_from``) when it starts fresh (train/graft.py).
+
+A flag of the JAX CLI whose feature the port does not have (meshes, scan
+steps, the health ladder's knobs, telemetry sinks, …) is refused by name
 with exit code 2 unless it is left at its default.
 """
 
@@ -20,6 +27,7 @@ import argparse
 import sys
 
 from p2p_tpu_torch.cli import add_unported, apply_overrides, refuse_unported
+from p2p_tpu_torch.train.schedules import LR_POLICIES
 
 _TRUE = {"action": "store_true"}
 _BOOL = {"action": argparse.BooleanOptionalAction}
@@ -31,21 +39,18 @@ UNPORTED = (
     ("compilation_cache", None, {"type": str}), ("elastic", True, _BOOL),
     ("cast_on_restore", False, _BOOL),
     ("recalibrate_steps", 0, {"type": int}),
-    ("ema_decay", None, {"type": float}),
     ("max_rollbacks", 3, {"type": int}),
     ("spike_zscore", 6.0, {"type": float}),
     ("cooldown_steps", 20, {"type": int}),
     ("health_window", 32, {"type": int}), ("check_finite", False, _TRUE),
     ("nan_sentinel", False, _TRUE), ("grad_norms", False, _TRUE),
     ("tensorboard", False, _TRUE), ("prom_textfile", None, {"type": str}),
-    ("lr_decay_iters", 50, {"type": int}), ("threads", 4, {"type": int}),
+    ("threads", 4, {"type": int}),
     ("lambda_sobel", 0.0, {"type": float}),
     ("sobel_warmup_epochs", 0, {"type": int}),
     ("lambda_angular", 0.0, {"type": float}),
-    ("grad_clip", 0.0, {"type": float}), ("pool_size", 0, {"type": int}),
     ("save_masks", False, _TRUE), ("eval_fid", False, _TRUE),
-    ("scan_steps", 1, {"type": int}), ("phase", None, {"type": str}),
-    ("init_g1_from", None, {"type": str}),
+    ("scan_steps", 1, {"type": int}),
 )
 
 
@@ -64,8 +69,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--image_size", type=int, default=None)
     p.add_argument("--n_blocks", type=int, default=None)
     p.add_argument("--upsample_mode", type=str, default=None,
-                   choices=["deconv"],
-                   help="U-Net decoder upsampling (only deconv is ported)")
+                   choices=["deconv", "subpixel", "resize"],
+                   help="U-Net decoder upsampling")
     p.add_argument("--augment", action="store_true", default=None)
     p.add_argument("--int8", action="store_true", default=None)
     p.add_argument("--int8_delayed", action=argparse.BooleanOptionalAction,
@@ -96,7 +101,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--ndf", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
     p.add_argument("--lr_policy", type=str, default=None,
-                   choices=["lambda"], help="only lambda is ported")
+                   choices=list(LR_POLICIES),
+                   help="lambda|step|plateau|cosine")
+    p.add_argument("--lr_decay_iters", type=int, default=None,
+                   help="the step policy's period in epochs")
     p.add_argument("--beta1", type=float, default=None)
     p.add_argument("--moment_dtype", type=str, default=None)
     p.add_argument("--seed", type=int, default=None)
@@ -105,6 +113,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lambda_feat", type=float, default=None)
     p.add_argument("--lambda_tv", type=float, default=None)
     p.add_argument("--log_every", type=int, default=None)
+    p.add_argument("--ema_decay", type=float, default=None,
+                   help="EMA generator decay (e.g. 0.999): the state "
+                        "carries smoothed G weights, eval/serve use them "
+                        "(0 = EMA tracks raw params exactly — the parity "
+                        "mode; unset = off)")
+    p.add_argument("--grad_clip", type=float, default=None,
+                   help="global-norm gradient clipping (0 = off; guards "
+                        "per-sample-norm backward blowups on degenerate "
+                        "images — see train/state.py)")
+    p.add_argument("--pool_size", type=int, default=None,
+                   help="historical-fake pool fed to D (reference "
+                        "ImagePool(0) = passthrough); >0 enables a "
+                        "device-side ring buffer")
+    p.add_argument("--phase", choices=["global", "full"], default=None,
+                   help="pix2pixHD coarse-to-fine schedule: 'global' trains "
+                        "G1 alone at half resolution (checkpoints under "
+                        "<name>_g1); 'full' trains the enhancer-wrapped "
+                        "generator with the phase-1 G1 weights grafted in")
+    p.add_argument("--init_g1_from", type=str, default=None,
+                   help="explicit phase-1 checkpoint dir for --phase full "
+                        "(default: checkpoint/<dataset>/<name>_g1)")
     add_unported(p, UNPORTED)
     return p
 
@@ -127,9 +156,9 @@ def config_from_flags(args: argparse.Namespace):
     loss = over(cfg.loss, lambda_l1=args.lamb, lambda_vgg=args.lambda_vgg,
                 lambda_feat=args.lambda_feat, lambda_tv=args.lambda_tv)
     optim = over(cfg.optim, lr=args.lr, lr_policy=args.lr_policy,
-                 beta1=args.beta1, niter=args.niter,
-                 niter_decay=args.niter_decay,
-                 moment_dtype=args.moment_dtype)
+                 lr_decay_iters=args.lr_decay_iters, beta1=args.beta1,
+                 niter=args.niter, niter_decay=args.niter_decay,
+                 grad_clip=args.grad_clip, moment_dtype=args.moment_dtype)
     data = over(cfg.data, dataset=args.dataset, direction=args.direction,
                 batch_size=args.batch_size, image_size=args.image_size,
                 image_width=args.image_width,
@@ -140,10 +169,17 @@ def config_from_flags(args: argparse.Namespace):
         data = dataclasses.replace(data, image_width=None)
     train = over(cfg.train, nepoch=args.nepoch, epoch_count=args.epoch_count,
                  epoch_save=args.epochsave, seed=args.seed,
-                 log_every=args.log_every)
-    health = over(cfg.health, enabled=args.health)
-    return cfg.replace(name=args.name or cfg.name, model=model, loss=loss,
-                       optim=optim, data=data, train=train, health=health)
+                 log_every=args.log_every, pool_size=args.pool_size)
+    health = over(cfg.health, enabled=args.health, ema_decay=args.ema_decay)
+    cfg = cfg.replace(name=args.name or cfg.name, model=model, loss=loss,
+                      optim=optim, data=data, train=train, health=health)
+    if args.phase == "global":
+        # coarse-to-fine phase 1, after the flags: an explicit --image_size
+        # or --name is halved or suffixed as phase 2 expects to find it
+        from p2p_tpu_torch.train.graft import g1_phase_config
+
+        cfg = g1_phase_config(cfg)
+    return cfg
 
 
 def main(argv=None) -> int:
@@ -163,6 +199,11 @@ def main(argv=None) -> int:
     if trainer.maybe_resume():
         print(f"resumed at epoch {trainer.epoch} (step "
               f"{trainer.state.step})", flush=True)
+    elif args.phase == "full":
+        from p2p_tpu_torch.train.graft import load_and_graft_g1
+
+        load_and_graft_g1(trainer.state, cfg, workdir=args.workdir,
+                          g1_dir=args.init_g1_from)
     trainer.fit()
     return 0
 

@@ -165,7 +165,11 @@ def load_train_state(state, flax_state: Mapping[str, Any]):
     ``_c`` fields None or absent for a state without net_c, ``quant_d``
     for a D without delayed int8). Every parameter and buffer
     must be present, and nothing else; the optimizers stay fresh, as the
-    JAX state's are at creation."""
+    JAX state's are at creation. The optional fields ``ema_g`` (a params
+    tree of G), ``pool``, ``pool_n`` and ``lr_scale`` are carried into the
+    state's EMA, fake pool and plateau scale, which must exist in the port's
+    state when given (and the other way round)."""
+    _load_extras(state, flax_state)
     for net, fields in ((state.net_g, ("params_g", "batch_stats_g")),
                         (state.net_d, ("params_d", "spectral_d",
                                        "quant_d")),
@@ -178,6 +182,41 @@ def load_train_state(state, flax_state: Mapping[str, Any]):
             continue
         load_flax(net, *(t for t in trees if t is not None))
     return state
+
+
+def _load_extras(state, flax_state: Mapping[str, Any]) -> None:
+    """``ema_g``, ``pool``, ``pool_n`` and ``lr_scale`` of a JAX state."""
+    for name in ("ema_g", "pool"):
+        theirs, ours = flax_state.get(name), getattr(state, name)
+        if (theirs is None) != (ours is None):
+            raise ValueError(f"{name}: the JAX state "
+                             f"{'lacks' if theirs is None else 'has'} it, "
+                             "the port's state does not agree")
+    with torch.no_grad():
+        if state.ema_g is not None:
+            ema = state_from_flax(flax_state["ema_g"], module=state.net_g)
+            if set(ema) != set(state.ema_g):
+                raise ValueError("ema_g: leaves differ from G's parameters")
+            for k, t in state.ema_g.items():
+                t.copy_(ema[k])
+        if state.pool is not None:
+            state.pool.copy_(torch.from_numpy(np.array(
+                flax_state["pool"], dtype=np.float32)))
+            state.pool_n.fill_(int(np.asarray(flax_state["pool_n"])))
+    if flax_state.get("lr_scale") is not None:
+        state.lr_scale = float(np.asarray(flax_state["lr_scale"]))
+
+
+def graft_flax_g1(net_g: torch.nn.Module, g1_params: Mapping[str, Any],
+                  verbose: bool = True) -> torch.nn.Module:
+    """Seed the port's full pix2pixHD generator ``net_g`` with a JAX
+    ``pix2pixhd_global`` parameter tree (phase 1 of the coarse-to-fine
+    schedule) through train/graft.py's ``graft_global_into_full``: G1's
+    image head is dropped, every other leaf must match."""
+    from p2p_tpu_torch.train.graft import graft_into
+
+    graft_into(net_g, state_from_flax(g1_params), verbose)
+    return net_g
 
 
 def load_generator(generator: torch.nn.Module, npz_path: str

@@ -1,11 +1,11 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
-fields the serving paths, the ``reference``, ``facades``,
-``facades_int8`` and ``pix2pixhd`` train steps, the data pipeline and the
-trainer (train/loop.py) read. Field names, defaults
+fields the serving paths, the train steps of the registered presets, the
+data pipeline and the trainer (train/loop.py) read. Field names, defaults
 and the preset values are those of the JAX package, so one preset name
 means one model in both. A few fields name machinery the port does not
-have yet (the fake pool, the int8 generator, stem and head, EMA); the
-train step reads them only to raise.
+have yet (the int8 generator, stem and head); the train step reads them
+only to raise. The presets run on one device: the JAX presets' meshes
+have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -46,8 +46,9 @@ class ModelConfig:
     norm_d: str = "none"
     # U-Net: dropout 0.5 on three decoder levels in training
     use_dropout: bool = False
-    # U-Net decoder upsample: "deconv" (ConvTranspose k4 s2) is ported;
-    # "subpixel" and "resize" raise
+    # U-Net decoder upsample: "deconv" (ConvTranspose k4 s2), "subpixel"
+    # (k2-s1 conv to 4·F channels + shifted interleave, bias kept) or
+    # "resize" (nearest ×2 + reflect-padded k3 conv)
     upsample_mode: str = "deconv"
     # keep the conv biases in front of norms (dead: the norm cancels them)
     legacy_layout: bool = False
@@ -56,6 +57,10 @@ class ModelConfig:
     # Hopper kernels #6 (forward) and #7 (dx)
     thin_head: bool = False
     head_pallas: bool = False
+    # the JAX U-Net's k4-s2 RGB stem (down0) as im2col patches + one
+    # matmul, a TPU rewrite of the same conv with the same parameters;
+    # the port's stem is the one nn.Conv2d either way (models/unet.py)
+    thin_stem: bool = False
     # int8 QAT (ops/int8.py): the discriminator's inner convs as int8 ×
     # int8 → int32 products with dynamic per-tensor activation scales;
     # with int8_delayed the activation scale is a stored amax (a buffer
@@ -99,11 +104,15 @@ class OptimConfig:
     lr: float = 2e-4
     beta1: float = 0.5
     beta2: float = 0.999
-    lr_policy: str = "lambda"        # the port has the lambda policy only
+    lr_policy: str = "lambda"        # lambda | step | plateau | cosine
     niter: int = 100                 # epochs at constant lr
     niter_decay: int = 100           # epochs of linear decay to 0
+    lr_decay_iters: int = 50         # step policy period (epochs)
     # False is the reference's bug: its optimizer_c never trains net_c
     train_compression_net: bool = True
+    # global-norm gradient clipping of each optimizer's gradients, after
+    # their non-finite entries are zeroed (0 = off, the reference)
+    grad_clip: float = 0.0
     # storage dtype of both Adam moments (None = f32); the arithmetic stays
     # f32 (train/state.py AdamLP)
     moment_dtype: Optional[str] = None
@@ -139,7 +148,8 @@ class TrainConfig:
     result_dir: str = "result"
     # bf16 compute on f32 master parameters (core/dtypes.py)
     mixed_precision: bool = True
-    # not ported: the historical-fake pool
+    # the historical-fake pool of concatenated (input ‖ fake) pairs fed to
+    # D (utils/pool.py; 0 = passthrough, the reference)
     pool_size: int = 0
 
 
@@ -148,7 +158,9 @@ class HealthConfig:
     # the in-step skip guard: a step whose G, D or C loss is not finite
     # leaves parameters, optimizer state and running statistics unchanged
     enabled: bool = True
-    # not ported: the EMA generator (None = off)
+    # the EMA generator: smoothed copies of G's parameters, updated after
+    # each applied G step, evaluated and served in G's place (None = off;
+    # 0 = a copy of G)
     ema_decay: Optional[float] = None
 
 
@@ -234,6 +246,38 @@ _register(
         loss=LossConfig(lambda_tv=0.0),
         data=DataConfig(dataset="cityscapes_hd", image_size=512,
                         image_width=1024, batch_size=1),
+    )
+)
+
+
+# edges2shoes at 256², batch 64: the facades U-Net and PatchGAN. The JAX
+# preset's data-parallel MeshSpec(data=-1) comes with slice 11; here the
+# whole batch runs on one device.
+_register(
+    Config(
+        name="edges2shoes_dp",
+        model=ModelConfig(generator="unet", ngf=64, num_D=1, n_layers_D=3,
+                          use_spectral_norm=False,
+                          use_compression_net=False, use_dropout=True),
+        loss=LossConfig(lambda_feat=0.0, lambda_vgg=0.0, lambda_tv=0.0,
+                        lambda_l1=100.0),
+        data=DataConfig(dataset="edges2shoes", image_size=256,
+                        batch_size=64),
+    )
+)
+
+# Cityscapes labels→photo at 256×512, batch 4: the 9-block ResnetGenerator
+# with plain instance norms and the 3-scale spectral-norm D, LSGAN + 10·FM
+# + 10·VGG19 + 1·TV. The JAX preset's MeshSpec(data=-1, spatial=2) comes
+# with slice 11; here it runs on one device.
+_register(
+    Config(
+        name="cityscapes_spatial",
+        model=ModelConfig(generator="resnet", ngf=64, norm="instance",
+                          use_compression_net=False),
+        loss=LossConfig(lambda_l1=0.0),
+        data=DataConfig(dataset="cityscapes", image_size=256,
+                        image_width=512, batch_size=4),
     )
 )
 

@@ -1,15 +1,25 @@
 """The pix2pix U-Net generator (counterpart of ``p2p_tpu/models/unet.py:37
-UNetGenerator``) in its ``"deconv"`` upsample mode.
+UNetGenerator``).
 
 ``num_downs`` stride-2 k4 encoder convs (LeakyReLU(0.2) before each but
 the first), widths ngf → 8·ngf (capped), a skip at every level; the
-decoder mirrors them with ReLU → ConvTranspose(k4, s2) → norm, concatenates
-``[y, skip]`` and ends in tanh. The outermost and innermost levels carry
-no norm, and with a norm the conv biases in front of it are dropped (they
-are cancelled exactly; ``legacy_layout`` keeps them). With ``thin_head``
-the image head ``up0`` is the subpixel form (ops/conv.py
-``SubpixelDeconv``), when ``16·out_channels ≤`` its input width; with
-``head_pallas`` as well, its conv runs through the Hopper kernels #6/#7.
+decoder mirrors them with ReLU → a ×2 upsample → norm, concatenates
+``[y, skip]`` and ends in tanh. The upsample is ``upsample_mode``'s:
+``"deconv"`` ConvTranspose(k4, s2), ``"subpixel"`` the k2-s1 conv to 4·F
+channels + shifted interleave (ops/conv.py ``SubpixelDeconv``, its bias
+kept at every level: after the interleave it is a per-phase offset that a
+norm does not cancel), ``"resize"`` nearest ×2 + reflect-padded k3 conv
+(``UpsampleConvLayer``). The outermost and innermost levels carry no
+norm, and with a norm the conv biases in front of it are dropped (they
+are cancelled exactly; ``legacy_layout`` keeps them). The norm is any
+kind of ops/norm.py: ``"pallas_instance"`` runs #1 + #2 at each of them.
+With ``thin_head`` the deconv image head ``up0`` is the subpixel form,
+when ``16·out_channels ≤`` its input width; with ``head_pallas`` as well,
+its conv runs through the Hopper kernels #6/#7. The config's
+``thin_stem`` selects the JAX package's im2col form of the RGB stem
+``down0``, an exact rewrite of the same conv for the TPU's matrix unit
+with the same parameters; here the stem is the one ``nn.Conv2d`` either
+way, so the option does not reach this module.
 
 The JAX module clamps the depth to the factor-of-2 content of the input's
 H and W when it traces; here the depth is fixed at construction from the
@@ -34,7 +44,8 @@ import torch
 from torch import nn
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y, tanh_y
-from p2p_tpu_torch.ops.conv import SubpixelDeconv, cast_conv
+from p2p_tpu_torch.ops.conv import (SubpixelDeconv, UpsampleConvLayer,
+                                    cast_conv)
 from p2p_tpu_torch.ops.norm import make_norm
 
 DROPOUT_RATE = 0.5
@@ -72,19 +83,13 @@ class UNetGenerator(nn.Module):
                  norm: str = "batch", use_dropout: bool = False,
                  upsample_mode: str = "deconv", legacy_layout: bool = False,
                  thin_head: bool = False, head_pallas: bool = False,
-                 int8: bool = False, thin_stem: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 int8: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        if upsample_mode in ("subpixel", "resize"):
-            raise NotImplementedError(
-                f"U-Net upsample_mode {upsample_mode!r} is not ported yet")
-        if upsample_mode != "deconv":
+        if upsample_mode not in ("deconv", "subpixel", "resize"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}; "
                              "expected 'deconv', 'subpixel', or 'resize'")
         if int8:
             raise NotImplementedError("the U-Net's int8 path is not ported")
-        if thin_stem:
-            raise NotImplementedError("the U-Net's thin_stem is not ported")
         if head_pallas and (not thin_head or legacy_layout):
             raise ValueError(
                 "head_pallas requires thin_head (the subpixel head form) "
@@ -108,16 +113,22 @@ class UNetGenerator(nn.Module):
         cin = in_channels
         for i, f in enumerate(feats):
             norm_after = 0 < i < nd - 1
-            setattr(self, f"down{i}", nn.Conv2d(
-                cin, f, 4, stride=2, padding=1,
-                bias=not (normed and norm_after)))
+            bias = not (normed and norm_after)
+            setattr(self, f"down{i}",
+                    nn.Conv2d(cin, f, 4, stride=2, padding=1, bias=bias))
             if norm_after:
                 mk(i, f)
             cin = f
         for i in reversed(range(nd)):
             f = out_channels if i == 0 else feats[i - 1]
             cin = feats[i] if i == nd - 1 else 2 * feats[i]
-            if i == 0 and thin_head and not legacy_layout \
+            if upsample_mode == "subpixel":
+                up = SubpixelDeconv(cin, f, dtype=dtype)
+            elif upsample_mode == "resize":
+                up = UpsampleConvLayer(cin, f, 3, upsample=2,
+                                       use_bias=not (normed and i > 0),
+                                       dtype=dtype)
+            elif i == 0 and thin_head and not legacy_layout \
                     and 16 * f <= cin:
                 up = SubpixelDeconv(cin, f, pallas=head_pallas, dtype=dtype)
             else:
@@ -155,7 +166,7 @@ class UNetGenerator(nn.Module):
         for i in reversed(range(nd)):
             y = relu_y(y)
             up = getattr(self, f"up{i}")
-            y = up(y) if isinstance(up, SubpixelDeconv) \
+            y = up(y) if isinstance(up, (SubpixelDeconv, UpsampleConvLayer)) \
                 else cast_conv(up, y, self.dtype)
             if i > 0:
                 y = self.norms[nd + i](y)

@@ -9,12 +9,13 @@ hands to cuDNN on the card, as XLA computed these convolutions outside
 any Pallas kernel; so are the U-Net's strided and transposed convs. The
 one Pallas conv of the JAX package, the subpixel head's
 (``SubpixelDeconv(pallas=True)``), runs through the Hopper kernels #6/#7.
-The JAX package's dispatch forms (``PatchesConv`` :253, ``ThinHeadConv``
-:375 and ``_NearestUp2Conv`` :583, gated at ``_THIN_DISPATCH_MIN_PIXELS``
-:76) are exact rewrites of this same convolution for the TPU's matrix
-unit, with the same ``Conv_0/kernel`` parameters, so here they are this
-one conv. Parameter names follow the flax tree (``conv`` holds
-``Conv_0``), which keeps convert.py a direct mapping.
+The JAX package's automatic dispatch forms (``ThinHeadConv`` :375 and
+``_NearestUp2Conv`` :583, gated at ``_THIN_DISPATCH_MIN_PIXELS`` :76) and
+its opt-in ``PatchesConv`` (:253, the U-Net's ``thin_stem``) are exact
+rewrites of this same convolution for the TPU's matrix unit, with the
+same kernel parameters, so here they are this one conv. Parameter names
+follow the flax tree (``conv`` holds ``Conv_0``), which keeps convert.py
+a direct mapping.
 
 ``dtype`` is flax's ``dtype=``: the conv's input, weight and bias are cast
 to it (bf16 compute on f32 master weights in training); ``None`` computes

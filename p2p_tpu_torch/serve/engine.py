@@ -342,10 +342,14 @@ def engine_from_checkpoint(cfg: Config, ckpt_dir: str,
     """G (and net_c) restored from the newest step under ``ckpt_dir``
     whose files verify (or exactly ``step``), reading no discriminator or
     optimizer file (``CheckpointManager.restore_nets``), served by a new
-    engine (``engine_kw``: buckets, dtype, device, ...). Returns
+    engine (``engine_kw``: buckets, dtype, device, ...). With
+    ``cfg.health.ema_decay`` set the engine serves the smoothed G: the
+    step's EMA parameters (which it must carry) with G's own running
+    statistics, bitwise the raw G when it was trained at decay 0. Returns
     ``(engine, step)``."""
     from p2p_tpu_torch.train.checkpoint import CheckpointManager
 
     net_g, net_c = serving_restore_template(cfg)
-    step = CheckpointManager(ckpt_dir).restore_nets(net_g, net_c, step)
+    step = CheckpointManager(ckpt_dir).restore_nets(
+        net_g, net_c, step, ema=cfg.health.ema_decay is not None)
     return InferenceEngine(cfg, net_g, net_c=net_c, **engine_kw), step

@@ -14,7 +14,9 @@ router reads.
    gigabytes for pix2pixHD, under live traffic). A missing checkpoint, a
    missing or unreadable manifest, a CRC mismatch or a shape mismatch
    raises :class:`HotSwapRejected`, and the old weights keep serving. A
-   step that was named is never replaced by an older one;
+   step that was named is never replaced by an older one. With
+   ``ema_decay`` set in the tenant's config G's parameters are the step's
+   EMA generator, as at construction;
 2. ``InferenceEngine.swap_state``: the new copies on the device, one warm
    forward through a warmed bucket (no new warm-up), then one reference
    swap; forwards in flight finish on the old weights.
@@ -103,7 +105,8 @@ class Tenant:
                                          f"{self.ckpt_dir}")
             net_g, net_c = serving_restore_template(self.cfg)
             try:
-                mgr.restore_nets(net_g, net_c, step=target)
+                mgr.restore_nets(net_g, net_c, step=target,
+                                 ema=self.cfg.health.ema_decay is not None)
             except (OSError, ValueError, RuntimeError, KeyError) as e:
                 raise self._reject(target, f"restore failed: {e!r}") from e
             try:

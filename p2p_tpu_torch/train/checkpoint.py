@@ -13,7 +13,12 @@ needs (inference reads ``net_g`` and ``net_c``, as the JAX params-only
   ``u``, the delayed-int8 ``amax_x``);
 - ``opt_g.pt``, ``opt_d.pt``, ``opt_c.pt``: each optimizer's state_dict
   (Adam or ``AdamLP`` moments and counts) with its ``LambdaLR``'s;
-- ``progress.pt``: the step and the epoch label;
+- ``ema_g.pt``: the EMA generator's parameters, when the state carries
+  one (``HealthConfig.ema_decay``);
+- ``pool.pt``: the historical-fake ring ``pool`` and its count
+  ``pool_n``, when the state carries them (``TrainConfig.pool_size``);
+- ``progress.pt``: the step, the epoch label and ``lr_scale`` (the
+  plateau policy's scale);
 - ``manifest.json``: for every file its CRC32, and for every tensor in it
   its CRC32 over the logical-order bytes (``t.contiguous()``, whatever
   the memory format), shape and dtype.
@@ -47,6 +52,8 @@ from p2p_tpu_torch.train.state import TrainState
 
 NETS = ("net_g", "net_d", "net_c")
 OPTS = ("opt_g", "opt_d", "opt_c")
+EMA = "ema_g"
+POOL = "pool"
 PROGRESS = "progress"
 MANIFEST = "manifest.json"
 
@@ -97,6 +104,22 @@ def _opt_state(opt) -> Dict[str, Any]:
             "scheduler": scheduler.state_dict()}
 
 
+def _copy_exact(live: Dict[str, torch.Tensor],
+                saved: Dict[str, torch.Tensor], what: str) -> None:
+    """Copy ``saved`` into the tensors of ``live`` (same names, shapes and
+    dtypes, else ``ValueError``)."""
+    if set(live) != set(saved):
+        raise ValueError(f"{what}: the checkpoint holds "
+                         f"{sorted(set(saved) ^ set(live))[:3]} where the "
+                         "state differs")
+    for k, t in live.items():
+        if saved[k].shape != t.shape or saved[k].dtype != t.dtype:
+            raise ValueError(f"{what}/{k}: {tuple(saved[k].shape)} "
+                             f"{saved[k].dtype} in the checkpoint, "
+                             f"{tuple(t.shape)} {t.dtype} in the state")
+        t.copy_(saved[k])
+
+
 class CheckpointManager:
     """Steps of one run under ``directory``; the newest ``max_to_keep``
     are kept (all with None)."""
@@ -127,8 +150,9 @@ class CheckpointManager:
         final = self.step_dir(step)
         if os.path.exists(final):
             return False
-        fields: Dict[str, Any] = {PROGRESS: {"step": int(step),
-                                             "epoch": int(epoch)}}
+        fields: Dict[str, Any] = {PROGRESS: {
+            "step": int(step), "epoch": int(epoch),
+            "lr_scale": float(state.lr_scale)}}
         for name in NETS:
             net = getattr(state, name)
             if net is not None:
@@ -137,6 +161,10 @@ class CheckpointManager:
             opt = getattr(state, name)
             if opt is not None:
                 fields[name] = _opt_state(opt)
+        if state.ema_g is not None:
+            fields[EMA] = dict(state.ema_g)
+        if state.pool is not None:
+            fields[POOL] = {"pool": state.pool, "pool_n": state.pool_n}
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -235,7 +263,8 @@ class CheckpointManager:
         """Load the whole state in place from the newest intact step (or
         exactly ``step``); returns ``(step, epoch)`` and sets
         ``state.step``."""
-        names = [n for n in NETS + OPTS if getattr(state, n) is not None]
+        names = [n for n in NETS + OPTS + (EMA, POOL)
+                 if getattr(state, n) is not None]
         s, fields = self._restore(step, names + [PROGRESS])
         for name in NETS:
             if name in fields:
@@ -246,16 +275,28 @@ class CheckpointManager:
                 optimizer, scheduler = getattr(state, name)
                 optimizer.load_state_dict(fields[name]["optimizer"])
                 scheduler.load_state_dict(fields[name]["scheduler"])
+        with torch.no_grad():
+            if EMA in fields:
+                _copy_exact(state.ema_g, fields[EMA], EMA)
+            if POOL in fields:
+                _copy_exact({"pool": state.pool, "pool_n": state.pool_n},
+                            fields[POOL], POOL)
         state.step = int(fields[PROGRESS]["step"])
+        state.lr_scale = float(fields[PROGRESS].get("lr_scale", 1.0))
         return s, int(fields[PROGRESS]["epoch"])
 
     def restore_nets(self, net_g: nn.Module, net_c: Optional[nn.Module],
-                     step: Optional[int] = None) -> int:
+                     step: Optional[int] = None, ema: bool = False) -> int:
         """Load G (and net_c) only from the newest step whose ``net_g``
-        (and ``net_c``) verify, or exactly ``step``; reads no other file.
-        Returns the step."""
-        names = ["net_g"] + (["net_c"] if net_c is not None else [])
+        (and ``net_c``) verify, or exactly ``step``; reads no optimizer or
+        discriminator file. With ``ema`` G's parameters are the step's
+        EMA generator (``ema_g``, which must be there) and its buffers
+        its own. Returns the step."""
+        names = (["net_g"] + (["net_c"] if net_c is not None else [])
+                 + ([EMA] if ema else []))
         s, fields = self._restore(step, names)
+        if ema:
+            fields["net_g"] = {**fields["net_g"], **fields[EMA]}
         net_g.load_state_dict(fields["net_g"], strict=True)
         if net_c is not None:
             net_c.load_state_dict(fields["net_c"], strict=True)

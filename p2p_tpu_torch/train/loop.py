@@ -16,17 +16,26 @@ writes the first batch's ``e{epoch}_{input,target,pred,comp}.png`` under
 workdir receives the JAX trainer's ``{"kind": "epoch", ...}`` and
 ``{"kind": "eval", ...}`` records under the same keys.
 
+With ``lr_policy="plateau"`` a :class:`~p2p_tpu_torch.train.schedules.
+PlateauController` is fed each epoch's ``loss_g`` after the epoch record
+and before the checkpoint; its scale is the state's ``lr_scale``, which
+multiplies every update, is saved with the checkpoint and seeds the
+controller on resume. The logged ``lr`` includes it. With an EMA
+generator (``ema_decay``) the eval scores the EMA weights (bitwise G's
+at decay 0).
+
 Not ported yet: the health ladder (the in-step skip guard is the train
 step's), preemption, exact-step and elastic resume, obs, scan steps,
-meshes, the EMA generator, FID and the plateau policy.
+meshes and FID.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
-from typing import Dict, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -36,9 +45,11 @@ from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import train_dtype
 from p2p_tpu_torch.data.pipeline import (PairedImageDataset, device_prefetch,
                                          make_loader)
-from p2p_tpu_torch.train.checkpoint import CheckpointManager
-from p2p_tpu_torch.train.schedules import make_schedule
-from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+from p2p_tpu_torch.train.checkpoint import (CheckpointCorrupt,
+                                            CheckpointManager)
+from p2p_tpu_torch.train.schedules import PlateauController, make_schedule
+from p2p_tpu_torch.train.state import (TrainState, create_train_state,
+                                       load_vgg19)
 from p2p_tpu_torch.train.step import (build_eval_step, build_train_step,
                                       compressed_input, to_device_image)
 from p2p_tpu_torch.utils.images import ingest, save_img
@@ -97,6 +108,24 @@ def mask_skipped(metrics: Dict[str, torch.Tensor]
             for k, v in metrics.items()}
 
 
+@contextlib.contextmanager
+def eval_weights(state: TrainState) -> Iterator[None]:
+    """G's parameters are the EMA's for the duration, when the state
+    carries one (the JAX ``eval_state_of``); its buffers stay G's."""
+    if state.ema_g is None:
+        yield
+        return
+    params = dict(state.net_g.named_parameters())
+    raw = {k: p.data for k, p in params.items()}
+    try:
+        for k, p in params.items():
+            p.data = state.ema_g[k]
+        yield
+    finally:
+        for k, p in params.items():
+            p.data = raw[k]
+
+
 class Trainer:
     """Train ``cfg`` on ``<data_root>/{train,test}/{a,b}/`` (default
     ``<cfg.data.root>/<cfg.data.dataset>``) on one device (``cuda`` unless
@@ -136,6 +165,8 @@ class Trainer:
             workdir, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
         self.logger = MetricsLogger(metrics_path(workdir, cfg.name),
                                     cfg.train.log_every)
+        self.plateau = (PlateauController()
+                        if cfg.optim.lr_policy == "plateau" else None)
         self.epoch = cfg.train.epoch_count
         self._resume_skip = 0
         self._samples_seen = 0     # this process's, for the train records
@@ -147,7 +178,19 @@ class Trainer:
         one was restored."""
         if self.ckpt.latest_step() is None:
             return False
-        step, _ = self.ckpt.restore(self.state)
+        try:
+            step, _ = self.ckpt.restore(self.state)
+        except CheckpointCorrupt as e:
+            if self.cfg.health.ema_decay is not None:
+                raise RuntimeError(
+                    "restore failed with --ema_decay set: if these "
+                    "checkpoints were saved WITHOUT the EMA generator, "
+                    "resume without --ema_decay (EMA can only start on a "
+                    f"fresh run); underlying: {e}") from e
+            raise
+        if self.plateau is not None:
+            # the scale only ever falls: a resume keeps the reductions
+            self.plateau.scale = self.state.lr_scale
         done, mid = divmod(step, self.steps_per_epoch)
         # a step inside an epoch (the dataset or the batch changed under
         # the checkpoint) resumes that epoch after its first `mid` batches
@@ -167,11 +210,13 @@ class Trainer:
 
     # ------------------------------------------------------------- train
     def current_lr(self) -> float:
-        """G's learning rate of the last applied step (the value the JAX
-        state's ``inject_hyperparams`` holds)."""
+        """G's effective learning rate of the last applied step: the
+        schedule's value (the JAX state's ``inject_hyperparams``) times the
+        plateau scale."""
         _, scheduler = self.state.opt_g
         return (scheduler.base_lrs[0]
-                * scheduler.lr_lambdas[0](max(scheduler.last_epoch - 1, 0)))
+                * scheduler.lr_lambdas[0](max(scheduler.last_epoch - 1, 0))
+                * self.state.lr_scale)
 
     def train_epoch(self, seed: Optional[int] = None,
                     skip_batches: int = 0) -> Dict[str, float]:
@@ -226,7 +271,8 @@ class Trainer:
         ssims: List[torch.Tensor] = []
         saved = False
         for batch in device_prefetch(loader, self.device):
-            pred, metrics = self.eval_step(self.state, batch)
+            with eval_weights(self.state):
+                pred, metrics = self.eval_step(self.state, batch)
             psnrs.append(metrics["psnr"])
             ssims.append(metrics["ssim"])
             if save_samples and not saved:
@@ -283,6 +329,8 @@ class Trainer:
             record.update(self.evaluate(save_samples=True))
             history.append(record)
             self.logger.log({"kind": "epoch", **record}, force=True)
+            if self.plateau is not None and "loss_g" in record:
+                self.state.lr_scale = self.plateau.update(record["loss_g"])
             if self.epoch % cfg.train.epoch_save == 0 \
                     or self.epoch == nepoch:
                 self.ckpt.save(self.state.step, self.state, self.epoch)

@@ -9,11 +9,20 @@ spectral-norm ``u`` (flax ``spectral``) are buffers that a train step
 updates in place, and one ``torch.optim.Adam`` with a ``LambdaLR`` per
 network. Adam with β = (0.5, 0.999) and ε = 1e-8 is ``optax.adam``'s
 update, and the scheduler's count of applied updates is optax's count.
-The JAX state's ``lr_scale`` (the plateau policy's knob) has no
-counterpart: the port has the lambda policy only. With
+``lr_scale`` is the JAX state's host-controlled multiplier of every update
+(the ``plateau`` policy's scale; 1 otherwise). With
 ``OptimConfig.moment_dtype`` the optimizer is :class:`AdamLP` (``p2p_tpu/
 train/state.py:238 scale_by_adam_lp``): both moments stored in that dtype,
-the arithmetic in f32.
+the arithmetic in f32. With ``OptimConfig.grad_clip`` each optimizer's
+gradients first have their non-finite entries zeroed and are then clipped
+to that global norm (:func:`clip_grads_`, optax's ``_zero_nonfinite`` then
+``clip_by_global_norm``).
+
+With ``TrainConfig.pool_size`` the state carries the historical-fake ring
+``pool`` (P, H, W, C) in the images' dtype and its fill count ``pool_n``
+(utils/pool.py); with ``HealthConfig.ema_decay`` it carries ``ema_g``,
+smoothed f32 copies of G's parameters (not of its running statistics),
+seeded with the initial parameters and moved by :func:`ema_update_`.
 
 Under ``int8_delayed`` the JAX state's ``quant_d`` collection is the
 ``amax_x`` buffer of each of D's ``QuantConv``s; ``create_train_state``
@@ -52,6 +61,10 @@ class TrainState:
     opt_g: Optimizer
     opt_d: Optimizer
     opt_c: Optional[Optimizer]
+    lr_scale: float = 1.0
+    pool: Optional[torch.Tensor] = None
+    pool_n: Optional[torch.Tensor] = None
+    ema_g: Optional[Dict[str, torch.Tensor]] = None
 
     @property
     def device(self) -> torch.device:
@@ -131,6 +144,42 @@ class AdamLP(torch.optim.Optimizer):
             torch._foreach_copy_(vs, nu)
 
 
+@torch.no_grad()
+def clip_grads_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
+    """In place, optax's ``chain(_zero_nonfinite(), clip_by_global_norm(
+    max_norm))``: every non-finite entry set to 0, then with the global
+    norm ‖g‖ of what remains, g unchanged when ‖g‖ < max_norm, else
+    ``g / ‖g‖ · max_norm`` (two roundings, no ε: not torch's
+    ``clip_grad_norm_``). Returns the number of entries zeroed (0-d
+    int32). No host sync."""
+    if not grads:
+        return torch.zeros((), dtype=torch.int32)
+    zeroed = []
+    for g in grads:
+        bad = ~torch.isfinite(g)
+        zeroed.append(bad.sum(dtype=torch.int32))
+        g.masked_fill_(bad, 0.0)
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
+    return sum(zeroed)
+
+
+@torch.no_grad()
+def ema_update_(ema: Dict[str, torch.Tensor], net: nn.Module,
+                decay: float) -> None:
+    """``e ← e·d + p·(1−d)`` for each of ``net``'s parameters, in the
+    EMA's dtype (the JAX ``ema_update``): at d = 0 the EMA equals the
+    parameters bitwise."""
+    names = list(ema)
+    params = dict(net.named_parameters())
+    es = [ema[k] for k in names]
+    ps = [params[k].detach().to(ema[k].dtype) for k in names]
+    torch._foreach_mul_(es, float(decay))
+    torch._foreach_add_(es, torch._foreach_mul(ps, 1.0 - float(decay)))
+
+
 def make_optimizers(cfg: Config, nets: List[nn.Module],
                     steps_per_epoch: int) -> List[Optimizer]:
     """One Adam (the reference's lr and betas, ε 1e-8 as optax; an
@@ -195,8 +244,17 @@ def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
                                 for k in ("input", "target")], dim=1))
     opts = make_optimizers(cfg, nets, steps_per_epoch)
     if c is None:
-        return TrainState(0, g, d, None, *opts, None)
-    return TrainState(0, g, d, c, *opts)
+        opts.append(None)
+    pool = pool_n = None
+    if cfg.train.pool_size > 0:
+        h, w = cfg.image_hw
+        pool = torch.zeros((cfg.train.pool_size, h, w, cfg.model.input_nc
+                            + cfg.model.output_nc),
+                           dtype=train_dtype or torch.float32, device=dev)
+        pool_n = torch.zeros((), dtype=torch.int32, device=dev)
+    ema = ({k: p.detach().clone() for k, p in g.named_parameters()}
+           if cfg.health.ema_decay is not None else None)
+    return TrainState(0, g, d, c, *opts, pool=pool, pool_n=pool_n, ema_g=ema)
 
 
 def _image(x: np.ndarray, device: torch.device) -> torch.Tensor:

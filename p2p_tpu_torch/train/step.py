@@ -1,5 +1,5 @@
-"""The train step of the ``reference``, ``facades``, ``facades_int8`` and
-``pix2pixhd`` presets, generator inference and the eval step (counterparts
+"""The train step of the registered presets, generator inference and the
+eval step (counterparts
 of ``p2p_tpu/train/step.py:79 single_forward_d_losses``, ``:140
 make_g_loss_fn``, ``:209 build_train_step``, ``:940 make_infer_forward``
 and ``:995 build_eval_step``).
@@ -17,9 +17,17 @@ metrics)`` in the order of the JAX step (``step.py:277-597``):
    and the G loss (gradient through D to fake_b only: the reference's
    ``zero_grad`` before the D step), then D(real); the pairs are
    concatenated on channels whatever ``split_d_pairs`` says (the JAX
-   split stem computes the same function, models/patchgan.py);
+   split stem computes the same function, models/patchgan.py). With the
+   historical-fake pool (``pool_size > 0``) D's fake branch takes the
+   pooled concatenated pair instead (utils/pool.py, draws from a
+   generator seeded from ``(seed, step)``), so the step keeps the
+   reference's three D forwards: D(pooled) and D(real) for the D loss,
+   then D(real_a ‖ fake_b) for the G loss, gradient to fake_b only;
 4. the G loss: GAN + feature matching + VGG + TV + L1 per the config;
-5. G's update, then D's;
+5. G's update, then D's, each scaled by ``state.lr_scale`` and, with
+   ``grad_clip``, on gradients with their non-finite entries zeroed and
+   clipped to that global norm (train/state.py ``clip_grads_``); then the
+   EMA generator, when carried, moves towards the updated G;
 6. with a compression net, the net_c branch against the UPDATED G:
    MSE(G(cq), real_b) + λ_vgg·VGG(cq, real_b), ``cq =
    quantize_ste(net_c(real_b))``, the gradient reaching net_c through the
@@ -35,18 +43,21 @@ without net_c), D's ``u`` and ``amax_x`` once per D forward (fake, then
 real: the JAX ``dvars0 → dvars1 → dvars2``).
 
 The skip guard (``health.enabled``, ``step.py:442-481``): when the G or D
-loss is not finite, no optimizer steps and D's buffers (``u``,
-``amax_x``) and all running statistics return to the step's start; when
-the net_c loss is not finite, net_c does not step and the running
-statistics return to the start. The verdicts are read on the host (two
-synchronizations per step).
+loss is not finite, no optimizer steps, D's buffers (``u``, ``amax_x``)
+and all running statistics return to the step's start, and the pool, its
+count and the EMA keep their values of the step's start (the step holds
+their new values until the verdict); when the net_c loss is not finite,
+net_c does not step and the running statistics return to the start. The
+verdicts are read on the host (two synchronizations per step). With
+``grad_clip`` the metrics also count the non-finite gradient entries the
+clip zeroed (``nonfinite_g``, ``nonfinite_d`` and, with net_c,
+``nonfinite_c``), on a step the guard dropped too, as JAX counts them.
 
 int8 QAT runs on D's inner convs (``facades_int8``: ``int8``,
 ``int8_delayed``, ``int8_fused_epilogue``). Not ported, and refused by
-:func:`build_train_step`: generators other than ``expand``, ``unet`` and
-``pix2pixhd``, norms the port does not have, int8 in G, the U-Net decoder,
-net_c, the stems or D's head, int8 under spectral norm, the historical-fake
-pool, the EMA generator, pipeline parallelism.
+:func:`build_train_step`: norms the port does not have, int8 in G, the
+U-Net decoder, net_c, the stems or D's head, int8 under spectral norm,
+pipeline parallelism. ``split_d_pairs`` with the pool raises, as in JAX.
 """
 
 from __future__ import annotations
@@ -68,8 +79,12 @@ from p2p_tpu_torch.models.patchgan import check_norm_d
 from p2p_tpu_torch.ops.norm import NORM_KINDS
 from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
 from p2p_tpu_torch.ops.tv import total_variation_loss
-from p2p_tpu_torch.train.state import TrainState
+from p2p_tpu_torch.train.state import (TrainState, clip_grads_,
+                                       ema_update_)
+from p2p_tpu_torch.utils import pool as pool_lib
 from p2p_tpu_torch.utils.images import ingest
+
+GENERATORS = ("expand", "unet", "pix2pixhd", "pix2pixhd_global", "resnet")
 
 InferFn = Callable[..., Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
 Metrics = Dict[str, torch.Tensor]
@@ -203,17 +218,20 @@ def _check_supported(cfg: Config) -> None:
         raise ValueError(f"norm {m.norm!r} is not a norm of the port "
                          f"(have {NORM_KINDS})")
     check_norm_d(m.norm_d)
+    if m.generator not in GENERATORS:
+        raise ValueError(f"unknown generator {m.generator!r} (have "
+                         f"{GENERATORS})")
+    if m.split_d_pairs and cfg.train.pool_size > 0:
+        raise ValueError(
+            "split_d_pairs is incompatible with pool_size > 0 (the fake "
+            "pool stores concatenated pairs); set one of them off")
     unported = {
-        "a generator other than 'expand', 'unet' or 'pix2pixhd'":
-            m.generator not in ("expand", "unet", "pix2pixhd"),
         "int8_generator": m.int8 and m.int8_generator,
         "int8_decoder": m.int8 and m.int8_decoder,
         "int8_compression": m.int8 and m.int8_compression,
         "int8_stem": m.int8 and m.int8_stem,
         "int8_head": m.int8 and m.int8_head,
         "int8 with spectral norm": m.int8 and m.use_spectral_norm,
-        "the historical-fake pool": cfg.train.pool_size > 0,
-        "the EMA generator": cfg.health.ema_decay is not None,
     }
     missing = [k for k, v in unported.items() if v]
     if missing:
@@ -239,12 +257,28 @@ class _Snapshot:
                 b.copy_(p.view_as(b))
 
 
-def _apply(opt, grads_ok: bool) -> None:
+def _grads(opt) -> List[torch.Tensor]:
+    return [p.grad for g in opt[0].param_groups for p in g["params"]
+            if p.grad is not None]
+
+
+def _apply(opt, grads_ok: bool, clip: float = 0.0,
+           lr_scale: float = 1.0) -> Optional[torch.Tensor]:
+    """One update of ``opt`` = (optimizer, scheduler) unless the guard
+    dropped the step: the gradients clipped (``clip > 0``), the
+    scheduler's lr times ``lr_scale``, then the scheduler's step. Returns
+    the clip's count of non-finite entries (None without a clip)."""
     optimizer, scheduler = opt
+    zeroed = clip_grads_(_grads(opt), clip) if clip > 0 else None
     if grads_ok:
+        if lr_scale != 1.0:
+            for group, lr in zip(optimizer.param_groups,
+                                 scheduler.get_last_lr()):
+                group["lr"] = lr * lr_scale
         optimizer.step()
         scheduler.step()
     optimizer.zero_grad(set_to_none=True)
+    return zeroed
 
 
 def _finite(*losses: torch.Tensor) -> bool:
@@ -263,9 +297,8 @@ def dropout_generator(seed: int, step: int, device: torch.device
 
 def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
                      train_dtype: Optional[torch.dtype] = None):
-    """``step(state, batch) -> (state, metrics)`` for ``cfg`` (the
-    ``reference``, ``facades`` and ``pix2pixhd`` paths); ``vgg`` is the
-    frozen VGG19 trunk (needed
+    """``step(state, batch) -> (state, metrics)`` for ``cfg``; ``vgg`` is
+    the frozen VGG19 trunk (needed
     when ``lambda_vgg > 0``), ``train_dtype`` the dtype the images enter
     in (bf16 under mixed precision, None for f32). ``batch`` holds NHWC
     host arrays ``"input"`` and ``"target"``; ``state`` is advanced in
@@ -284,6 +317,9 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
                          "cfg.loss.vgg_imagenet_norm")
     g_losses = make_g_loss_fn(cfg, vgg)
     guard = cfg.health.enabled
+    use_pool = cfg.train.pool_size > 0
+    ema_decay = cfg.health.ema_decay
+    clip = cfg.optim.grad_clip
 
     def step(state: TrainState, batch: Dict[str, np.ndarray]
              ) -> Tuple[TrainState, Metrics]:
@@ -309,11 +345,23 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         else:
             g_input = real_a
 
-        # ---- 2-4. G, one D(fake) forward for both losses, G loss --------
+        # ---- 2-4. G, D's forwards, G loss ---------------------------------
         fake_b = g_forward(g_input)
-        loss_d, pred_fake, pred_real = single_forward_d_losses(
-            net_d, torch.cat([real_a, fake_b], dim=1),
-            torch.cat([real_a, real_b], dim=1), L.gan_mode)
+        real_pair = torch.cat([real_a, real_b], dim=1)
+        if use_pool:
+            pooled, pool1, pool_n1 = pool_lib.device_pool_query(
+                state.pool, state.pool_n,
+                torch.cat([real_a, fake_b.detach()], dim=1).permute(
+                    0, 2, 3, 1),
+                pool_lib.pool_generator(cfg.train.seed, state.step,
+                                        state.device))
+            loss_d, _, pred_real = single_forward_d_losses(
+                net_d, pooled.permute(0, 3, 1, 2), real_pair, L.gan_mode)
+            pred_fake = net_d(torch.cat([real_a, fake_b], dim=1))
+        else:
+            loss_d, pred_fake, pred_real = single_forward_d_losses(
+                net_d, torch.cat([real_a, fake_b], dim=1), real_pair,
+                L.gan_mode)
         real_feats = target_features(vgg, real_b) if need_vgg else None
         loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_b,
                                  real_feats)
@@ -321,10 +369,17 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
 
         # ---- 5. G then D updates, unless the guard drops the step --------
         ok = _finite(loss_g, loss_d) if guard else True
-        _apply(state.opt_g, ok)
-        _apply(state.opt_d, ok)
+        counts = {"nonfinite_g": _apply(state.opt_g, ok, clip,
+                                         state.lr_scale),
+                  "nonfinite_d": _apply(state.opt_d, ok, clip,
+                                         state.lr_scale)}
         if not ok:
             snap_u.restore()
+        else:
+            if use_pool:
+                state.pool, state.pool_n = pool1, pool_n1
+            if ema_decay is not None:
+                ema_update_(state.ema_g, net_g, ema_decay)
 
         # ---- 6. net_c branch against the updated G -----------------------
         ok_all = ok
@@ -337,7 +392,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             ok_all = ok and (_finite(loss_c) if guard else True)
             if cfg.optim.train_compression_net:
                 loss_c.backward(inputs=list(net_c.parameters()))
-                _apply(state.opt_c, ok_all)
+                counts["nonfinite_c"] = _apply(state.opt_c, ok_all, clip,
+                                               state.lr_scale)
         else:
             loss_c = torch.zeros((), device=state.device)
         if not ok_all:
@@ -346,7 +402,9 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         state.step += 1
         metrics = {"loss_d": loss_d, "loss_g": loss_g.detach(),
                    "loss_c": loss_c.detach(),
-                   **{k: v.detach() for k, v in parts.items()}}
+                   **{k: v.detach() for k, v in parts.items()},
+                   **{k: v.to(state.device, torch.float32)
+                      for k, v in counts.items() if v is not None}}
         if guard:
             metrics["health_ok"] = torch.tensor(float(ok_all),
                                                 device=state.device)

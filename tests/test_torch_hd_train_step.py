@@ -231,11 +231,12 @@ def test_split_stem_pair_path_equals_concat(jax_split_d, channels_last):
 
 
 def test_split_pairs_with_a_fake_pool_raise():
-    """JAX refuses split pairs with the fake pool; the port, which has no
-    pool, refuses the pool whatever split_d_pairs says."""
+    """JAX refuses split pairs with the fake pool (the pool stores
+    concatenated pairs); so does the port, whose preset sets split pairs
+    although its D always takes them concatenated."""
     cfg = _small(get_preset("pix2pixhd"))
     assert cfg.model.split_d_pairs
-    with pytest.raises(NotImplementedError, match="historical-fake pool"):
+    with pytest.raises(ValueError, match="split_d_pairs is incompatible"):
         build_train_step(cfg.replace(train=dataclasses.replace(
             cfg.train, pool_size=4)))
 

@@ -286,7 +286,7 @@ def test_cli_generate_train_infer(tmp_path, capsys):
              open(os.path.join(work, "metrics_reference.jsonl"))
              if '"eval"' in line]
     assert [e["epoch"] for e in evals] == [1.0, 2.0]
-    assert infer.main(common + ["--ema_decay", "0.9"]) == 2
+    assert infer.main(common + ["--mesh", "1,1,1"]) == 2
     capsys.readouterr()
     out = str(tmp_path / "pred")
     assert infer.main(common + ["--device", "cpu", "--metrics", "--out",

@@ -741,13 +741,14 @@ def test_cli_http_subprocess_serves_hot_swaps_and_drains(runs):
     (["--http", "127.0.0.1:0", "--tenant", "alias=x,bogus=1"], "bogus"),
     (["--http", "127.0.0.1:0", "--tenant", "noequals"], "noequals"),
     (["--http", "127.0.0.1:0", "--tenant", "step=3"], "alias"),
-    (["--http", "127.0.0.1:0", "--tenant", "alias=x,ema_decay=0.999"],
+    (["--http", "127.0.0.1:0", "--tenant", "alias=x,ema_decay=high"],
      "ema_decay"),
     (["--http", "localhost"], "HOST:PORT"),
     (["--http", "127.0.0.1:0", "--weights", "g.npz"], "--weights"),
     (["--once"], "--input_dir"),
     (["--input_dir", "x", "--mesh", "1,1,1"], "--mesh"),
-    (["--input_dir", "x", "--ema_decay", "0.99"], "--ema_decay"),
+    (["--input_dir", "x", "--weights", "g.npz", "--ema_decay", "0.99"],
+     "--ema_decay"),
     (["--input_dir", "x", "--tp_min_ch", "8"], "--tp_min_ch"),
     (["--http", "127.0.0.1:0", "--compilation_cache", "c"],
      "--compilation_cache"),

@@ -210,16 +210,16 @@ def test_without_guard_or_net_c_training():
 
 def test_step_refuses_what_is_not_ported():
     cfg = _small(get_preset("reference"))
-    for bad in (dataclasses.replace(cfg.model, int8=True),
-                dataclasses.replace(cfg.model, generator="resnet")):
-        with pytest.raises(NotImplementedError):
+    for bad, what in (
+            (dataclasses.replace(cfg.model, int8=True), "int8 with spectral"),
+            (dataclasses.replace(cfg.model, int8=True, int8_generator=True,
+                                 use_spectral_norm=False), "int8_generator")):
+        with pytest.raises(NotImplementedError, match=what):
             build_train_step(cfg.replace(model=bad))
-    with pytest.raises(NotImplementedError, match="pool"):
-        build_train_step(cfg.replace(train=dataclasses.replace(
-            cfg.train, pool_size=4)))
-    with pytest.raises(NotImplementedError, match="EMA"):
-        build_train_step(cfg.replace(health=dataclasses.replace(
-            cfg.health, ema_decay=0.999)))
+    with pytest.raises(ValueError, match="split_d_pairs is incompatible"):
+        build_train_step(cfg.replace(
+            model=dataclasses.replace(cfg.model, split_d_pairs=True),
+            train=dataclasses.replace(cfg.train, pool_size=4)))
     with pytest.raises(ValueError, match="norm_d"):
         create_train_state(cfg.replace(model=dataclasses.replace(
             cfg.model, norm_d="batch")), device="cpu")

@@ -8,6 +8,7 @@ moment starting at 0, both optax and ``torch.optim.Adam`` hold
 gradient on either side, without a second forward.
 """
 
+import contextlib
 import os
 from unittest import mock
 
@@ -15,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import torch
 
 from p2p_tpu.models.vgg import load_vgg19_params
 from p2p_tpu.train.state import create_train_state as jax_create
@@ -25,7 +27,37 @@ from p2p_tpu_torch.train.state import create_train_state
 from p2p_tpu_torch.train.step import build_train_step
 
 FIELDS = ("params_g", "batch_stats_g", "params_d", "spectral_d",
-          "params_c", "batch_stats_c")
+          "params_c", "batch_stats_c", "ema_g", "pool", "pool_n",
+          "lr_scale")
+POOL_SALT = 0x705501
+
+
+def jax_pool_draws(seed, step, n, p_size):
+    """The draws of the JAX step's pool query at ``step``
+    (``p2p_tpu/train/step.py``: ``fold_in(key(seed ^ 0x705501), step)``,
+    split into the index and the swap key)."""
+    key = jax.random.fold_in(jax.random.key(seed ^ POOL_SALT), step)
+    k_idx, k_swap = jax.random.split(key)
+    return (torch.from_numpy(np.array(jax.random.randint(
+        k_idx, (n,), 0, p_size, jnp.int32))),
+        torch.from_numpy(np.array(jax.random.uniform(k_swap, (n,)) > 0.5)))
+
+
+@contextlib.contextmanager
+def jax_pool_draws_fed(seed):
+    """The port's pool queries take the JAX step's draws: its generator
+    stands for the step it was made for."""
+    from p2p_tpu_torch.utils import pool as pool_lib
+
+    def query(pool, pool_n, pairs, step):
+        idx, swap = jax_pool_draws(seed, step, pairs.shape[0],
+                                   pool.shape[0])
+        return pool_lib.pool_query_draws(pool, pool_n, pairs, idx, swap)
+
+    with mock.patch.object(pool_lib, "pool_generator",
+                           lambda s, step, dev: step), \
+            mock.patch.object(pool_lib, "device_pool_query", query):
+        yield
 
 
 def np_tree(tree):
@@ -70,12 +102,13 @@ def jax_start(jcfg, sample_batch, vgg=True):
 
 
 def run_both(jcfg, tcfg, batches, keys, start, jax_dtype=None,
-             torch_dtype=None):
+             torch_dtype=None, keep_states=False):
     """len(batches) steps of both packages from one JAX state ``start``
     (:func:`jax_start`), converted into the port. The JAX side runs its
     Pallas kernels in interpret mode with their custom VJPs. Returns the
     per-step metrics of each and the step-1 gradients of G and D of each
-    (JAX's converted to the port's names)."""
+    (JAX's converted to the port's names); with ``keep_states`` also both
+    final states, ``(jax, port)``."""
     # the JAX step donates its state: step a copy
     js = jax.tree_util.tree_map(jnp.array, start[0])
     with mock.patch.dict(os.environ, {"P2P_TPU_FORCE_PALLAS": "1"}):
@@ -91,9 +124,12 @@ def run_both(jcfg, tcfg, batches, keys, start, jax_dtype=None,
                                        torch_dtype)
     want = {"g": state_from_flax(jax_grads["g"], module=ts.net_g),
             "d": state_from_flax(jax_grads["d"], module=ts.net_d)}
-    return dict(jax=jax_metrics, port=port_metrics, grads={
+    out = dict(jax=jax_metrics, port=port_metrics, grads={
         net: (grads[net], {k: 2.0 * v for k, v in want[net].items()})
         for net in grads})
+    if keep_states:
+        out["states"] = (js, ts)
+    return out
 
 
 def run_port(tcfg, batches, keys, start, torch_dtype=None):
@@ -111,7 +147,8 @@ def run_port(tcfg, batches, keys, start, torch_dtype=None):
     tstep = build_train_step(tcfg, tvgg, torch_dtype)
     metrics, grads = [], None
     for b in batches:
-        ts, m = tstep(ts, b)
+        with jax_pool_draws_fed(tcfg.train.seed):
+            ts, m = tstep(ts, b)
         metrics.append({k: float(m[k]) for k in keys})
         if grads is None:
             grads = {"g": port_grads(ts.net_g, ts.opt_g),
