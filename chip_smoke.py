@@ -146,7 +146,30 @@ to the CPU or to a plain version):
    grafted leaf bitwise phase 1's checkpoint, the image head dropped,
    ms/step and peak memory of each phase. The kernel phases hold #1, #2,
    #3 and #5 at these paths' shapes too;
-13. a ``{"kernels": [...]}`` line, then the last line
+13. slice 9, the rest of int8: (e) ``QuantConvTranspose`` k4 s2 at (1,
+   512, 16, 16) → 256 on integer grids, forward and both gradients exact
+   against the f64 transposed conv; (a) ``facades_int8_full`` as
+   registered at 256² (int8 U-Net encoder and decoder, int8 net_c, D's
+   int8 inner convs and kn2row head, stored scales, bf16 Adam moments):
+   every int8 form at its shapes (encoder k4 s2 and subpixel k2 at levels
+   1–7, the kn2row head's forward and wgrad, net_c's k5, k3 and k3-s2
+   convs) exact against f64 on random int8 operands; the f32 (TF32 off,
+   cuDNN deterministic) one-step check through #5 against its plain
+   version (``I8F_STEP1_RTOL``, ``I8F_AFTER_RTOL``); 2 + 6 bf16 steps with
+   finite losses, exactly 28 #5 a step, every stored scale of G, D and C
+   finite and moved, ms/step and peak memory; (b) its checkpoint
+   (``CheckpointManager``) served by ``engine_from_checkpoint`` with G and
+   net_c: 4 requests each 0 uint8 levels from the eval step (cuDNN
+   deterministic), no kernel launched, every scale bitwise the same after
+   them; ``cli.serve --once`` over a directory and ``cli.infer --metrics``
+   exit 0 with every output; (c) path A with every int8 form (G's trunk,
+   net_c, the 3-scale spectral-norm D's stem, fused epilogues and kn2row
+   head): 2 bf16 steps with exactly 66 #1, 12 #2, 42 #3, 12 #4 and 2 #5 a
+   step and every scale moved (the kernel phase holds #4 bitwise at its
+   spectral-norm sites); (d) ``pix2pixhd`` with int8 trunks at 1024×512:
+   one bf16 step and one served forward, 36 #1 + 36 #3 each, the scales
+   moved by the step and bitwise after the forward;
+14. a ``{"kernels": [...]}`` line, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -351,6 +374,19 @@ UNET_FORMS = {"subpixel": {"upsample_mode": "subpixel"},
               "thin_stem": {"thin_stem": True},
               "instance": {"norm": "instance"},
               "pallas_instance": {"norm": "pallas_instance"}}
+# slice 9. (a) facades_int8_full at 256²: the f32 check's one step
+# through #5 against its plain version (cuDNN deterministic), then 2 + 6
+# bf16 steps; (b) its checkpoint served for I8F_SERVE_REQUESTS requests.
+# The bands, set before the first run on the card: #5's last bits move the
+# BatchNorms' outputs in front of G's int8 convs, and their quantizers
+# flip q where a value sits at a rounding tie, as facades_int8's D does
+# (INT8_STEP1_RTOL); loss_c follows G's first Adam update (its sign-like
+# first step), as INT8_LATER_RTOL
+I8F_STEPS, I8F_F32_STEPS, I8F_SERVE_REQUESTS = 8, 1, 4
+I8F_STEP1_RTOL, I8F_AFTER_RTOL = 1e-3, 1e-2
+# (c) path A with every int8 form: 2 bf16 steps; (d) pix2pixhd int8: one
+# bf16 step and one served forward
+A8_STEPS = 2
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -693,13 +729,14 @@ def int8_config():
 
 
 def int8_d_plan(cfg):
-    """(H, W, C, form) of every epilogue of one D forward of the fused
-    facades_int8 path: #4 ("leaky+quant") before inner convs 2 and 3, #3
+    """(H, W, C, form) of every epilogue of one D forward of a fused int8
+    path: in each scale #4 ("leaky+quant") before inner convs 2 and 3, #3
     after inner conv 3; #1 before each."""
     m = cfg.model
     plan = d_norm_plan(m.ndf, m.n_layers_D, m.num_D, *cfg.image_hw)
-    return ([(h, w, c, "leaky+quant") for h, w, c, _ in plan[:-1]]
-            + [plan[-1]])
+    n = m.n_layers_D
+    return [(h, w, c, "leaky" if i % n == n - 1 else "leaky+quant")
+            for i, (h, w, c, _) in enumerate(plan)]
 
 
 def int8_forms_phase(device):
@@ -3195,6 +3232,442 @@ def unet_forms_phase(device, card):
     return counts
 
 
+def int8_full_config():
+    """Slice 9 (a): ``facades_int8_full`` as registered."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    return get_preset("facades_int8_full")
+
+
+def int8_full_bn_plan(cfg):
+    """(M, C) of every BatchNorm of one facades_int8_full train step at
+    batch 1: the U-Net's 13 twice (the G step and the net_c branch), net_c's
+    one twice (its run for G's input and the net_c branch)."""
+    h, w = cfg.image_hw
+    return 2 * facades_bn_plan(cfg.model.ngf, h, w) + 2 * [(h * w, 64)]
+
+
+def path_a8_config():
+    """Slice 9 (c): path A (``reference`` with pallas_instance norms in G
+    and D) with every int8 form: G's trunk, net_c, D's spectral-norm inner
+    convs fed by the quantize-fused epilogue, its stem and kn2row head, all
+    with stored scales."""
+    cfg = instance_config()
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, int8=True, int8_delayed=True, int8_generator=True,
+        int8_compression=True, int8_stem=True, int8_head=True,
+        int8_fused_epilogue=True))
+
+
+def path_a8_step_plan(cfg):
+    """(H, W, C, form) of every instance norm of one path-A int8 train
+    step: path A's, with #4 ("leaky+quant") in place of #3 before inner
+    convs 2 and 3 of each scale, in the fake and the real D forward."""
+    m = cfg.model
+    h, w = cfg.image_hw
+    return (2 * expand_norm_plan(m.ngf, m.n_blocks, h, w, m.output_nc)
+            + 2 * int8_d_plan(cfg))
+
+
+def hd_int8_config():
+    """Slice 9 (d): ``pix2pixhd`` with its G's residual blocks (G1's trunk
+    and the enhancer's) on the delayed-int8 path."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset("pix2pixhd")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, int8=True, int8_delayed=True, int8_generator=True))
+
+
+def exact_forms(device):
+    """Every int8 form of facades_int8_full at its 256² shapes, on random
+    int8 operands: the im2col + ``_int_mm`` result equal to an f64 conv (or
+    product) of the same operands. The U-Net's encoder QuantConv k4 s2 p1
+    and QuantSubpixelDeconv (k2 s1 p1 to 4F) at levels 1–7, D's kn2row
+    head (forward, and its wgrad pad(Q(x))ᵀ·Q(pz)), net_c's k5, k3 and
+    k3-s2 ConvLayers (zero padding 0 after the reflect pad). Returns the
+    number of forms checked."""
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.int8 import conv_i32, im2col, int_mm
+
+    cfg = int8_full_config()
+    m = cfg.model
+    h = cfg.image_hw[0]
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def i8(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device=device,
+                             dtype=torch.int8)
+
+    feats = [min(m.ngf * 2 ** i, m.ngf * 8) for i in range(8)]
+    # (name, x NHWC, w HWIO, stride, padding)
+    forms = [(f"down{i}", (1, h >> i, h >> i, feats[i - 1]),
+              (4, 4, feats[i - 1], feats[i]), 2, 1) for i in range(1, 8)]
+    forms += [(f"up{i}", (1, h >> (i + 1), h >> (i + 1),
+                          feats[i] * (1 if i == 7 else 2)),
+               (2, 2, feats[i] * (1 if i == 7 else 2), 4 * feats[i - 1]),
+               1, 1) for i in range(1, 8)]
+    # D: the head's input is inner conv 3's output (35 - 1 = 34 rows)
+    d_in = d_norm_plan(m.ndf, m.n_layers_D, m.num_D, h, h)[-1]
+    forms.append(("head", (1, d_in[0], d_in[1], d_in[2]), (4, 4, d_in[2], 1),
+                  1, 2))
+    forms += [("net_c k5", (1, h + 4, h + 4, 3), (5, 5, 3, 64), 1, 0),
+              ("net_c k3", (1, h + 2, h + 2, 64), (3, 3, 64, 64), 1, 0),
+              ("net_c k3-s2", (1, h + 2, h + 2, 64), (3, 3, 64, 12), 2, 0)]
+    n = 0
+    for name, xs, ws, s, p in forms:
+        x8, w8 = i8(*xs), i8(*ws)
+        y = conv_i32(x8, w8, (s, s), p)
+        want = F.conv2d(x8.double().permute(0, 3, 1, 2),
+                        w8.double().permute(3, 2, 0, 1), stride=s,
+                        padding=p).permute(0, 2, 3, 1)
+        if y.dtype != torch.int32 or not torch.equal(y.double(), want):
+            raise AssertionError(f"int8 {name} forward: not exact against "
+                                 "the f64 conv")
+        n += 1
+        if name == "head":
+            # kn2row wgrad: the padded int8 input against Q(pz), pz the
+            # im2col of the cotangent padded k - 1
+            k = ws[0]
+            gq = i8(1, y.shape[1], y.shape[2], 1)
+            pz, _ = im2col(gq, (k, k), (1, 1), k - 1)
+            xp = F.pad(x8, (0, 0, p, p, p, p)).reshape(-1, xs[3])
+            dw = int_mm(xp.t(), pz)
+            if not torch.equal(dw.double(), xp.t().double() @ pz.double()):
+                raise AssertionError("int8 head kn2row wgrad: not exact "
+                                     "against the f64 product")
+            n += 1
+    return n
+
+
+def conv_transpose_check(device):
+    """(e) QuantConvTranspose k4 s2 'SAME' at a U-Net decoder shape, (1,
+    512, 16, 16) → 256, on integer grids where quantization is lossless:
+    the forward and both gradients exactly the f64 transposed conv's (the
+    int8 forward and dgrad: exact int32 products; the bf16 wgrad on x̂:
+    exact products of integers, f32 sums below 2^24)."""
+    from p2p_tpu_torch.ops.int8 import QuantConvTranspose
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def grid(shape, scale, channel_dim=None):
+        v = torch.randint(-127, 128, shape, generator=gen, device=device
+                          ).float()
+        idx = [0] * len(shape)
+        if channel_dim is not None:
+            idx[channel_dim] = slice(None)
+        v[tuple(idx)] = 127.0
+        return v * scale
+
+    m = QuantConvTranspose(512, 256).to(device)
+    with torch.no_grad():
+        m.weight.copy_(grid(tuple(m.weight.shape), 0.25, channel_dim=1))
+        m.bias.zero_()
+    x = grid((1, 512, 16, 16), 0.5).contiguous(
+        memory_format=torch.channels_last).requires_grad_()
+    x64 = x.detach().double().requires_grad_()
+    w64 = m.weight.detach().double().requires_grad_()
+    with tf32_off():
+        y = m(x)
+        y64 = torch.nn.functional.conv_transpose2d(x64, w64, stride=2,
+                                                   padding=1)
+        g = grid(tuple(y.shape), 2.0)
+        y.backward(g)
+        y64.backward(g.double())
+    for what, got, want in (("forward", y, y64), ("dgrad", x.grad, x64.grad),
+                            ("wgrad", m.weight.grad, w64.grad)):
+        if not torch.equal(got.double(), want):
+            raise AssertionError(f"QuantConvTranspose {what}: not exact "
+                                 f"({max_err(got.double(), want):.3g})")
+    print(f"slice 9 (e): QuantConvTranspose (1, 512, 16, 16) -> "
+          f"{tuple(y.shape)}: forward, dgrad (int8) and wgrad (bf16 on "
+          "x_hat) exact against the f64 transposed conv", flush=True)
+
+
+def _scales(*nets):
+    """``{name: stored scale}`` of the nets' int8 modules (names prefixed
+    by the net's position)."""
+    return {f"{i}.{k}": v.detach().clone()
+            for i, n in enumerate(nets) if n is not None
+            for k, v in n.named_buffers() if k.endswith("amax_x")}
+
+
+def _image_scale(name: str) -> bool:
+    """A scale whose input holds an image itself: net_c's k5 stem reads
+    the target, D's stem the pair with the input image, both in [-1, 1],
+    whose saturated pixels keep max|x| at 1 every step."""
+    rel = name.split(".", 1)[1]
+    return rel == "ConvLayer_0.conv.amax_x" or (
+        rel.startswith("scale") and rel.endswith("._PlainConv_0.conv.amax_x"))
+
+
+def _check_scales(what, before, after, moved):
+    """Every stored scale finite and positive; with ``moved`` "every" each
+    moved (but those that read an image, which stay at its max 1), with
+    "some" at least one, with "none" each bitwise the same."""
+    if list(before) != list(after) or not after:
+        raise AssertionError(f"{what}: scales {list(before)} -> "
+                             f"{list(after)}")
+    still, pinned, changed = [], [], []
+    for k, a in before.items():
+        b = after[k]
+        if not bool(torch.isfinite(b)) or float(b) <= 0:
+            raise AssertionError(f"{what}: stored scale {k} is {float(b)}")
+        if not torch.equal(a, b):
+            changed.append(k)
+        elif _image_scale(k) and float(b) == 1.0:
+            pinned.append(k)
+        else:
+            still.append(k)
+    bad = {"every": still, "some": [] if changed else still,
+           "none": changed}[moved]
+    if bad:
+        raise AssertionError(f"{what}: stored scales "
+                             + ("moved" if moved == "none" else
+                                "did not move") + f": {bad}")
+
+
+def int8_full_phase(device, card, profile, tmp):
+    """Slice 9 (a) and (b): facades_int8_full at 256², its int8 forms exact
+    against f64, the f32 (TF32 off, cuDNN deterministic) one-step check
+    through #5 against its plain version, I8F_STEPS bf16 steps (finite
+    losses, every scale of G, D and C finite and moved, #5 as planned, ms
+    per step and peak memory); then serving its checkpoint with frozen
+    scales: ``engine_from_checkpoint`` against the eval step (0 uint8
+    levels, cuDNN deterministic), the scales bitwise after the requests,
+    ``cli.serve --once`` over a directory and ``cli.infer --metrics``."""
+    from p2p_tpu_torch.cli import infer as infer_cli
+    from p2p_tpu_torch.cli import serve as serve_cli
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import (make_synthetic_dataset,
+                                              synthetic_facades_batch)
+    from p2p_tpu_torch.serve.engine import engine_from_checkpoint
+    from p2p_tpu_torch.serve.tenancy import checkpoint_dir
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_eval_step, build_train_step
+    from p2p_tpu_torch.utils.images import to_uint8_img
+
+    cfg = int8_full_config()
+    m = cfg.model
+    h, w = cfg.image_hw
+    what = "slice 9 (a) facades_int8_full"
+    t0 = time.perf_counter()
+    n_forms = exact_forms(device)
+    print(f"{what}: {n_forms} int8 forms at the preset's shapes exact "
+          f"against f64 ({time.perf_counter() - t0:.1f}s)", flush=True)
+    host = synthetic_facades_batch(I8F_STEPS, h, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(I8F_STEPS)]
+    bn = int8_full_bn_plan(cfg)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {route: f32_route(
+            cfg, batches[:I8F_F32_STEPS], None, patches, only(
+                batch_moments=n * len(bn) * I8F_F32_STEPS), route)
+            for route, patches, n in (
+                ("kernel", (), 1), ("plain", instance_plain_patches(), 0))}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    worst = {}
+    for i, (lk, lp) in enumerate(zip(runs["kernel"], runs["plain"])):
+        for k in FACADES_LOSS_KEYS + ("loss_c",):
+            rel = abs(lk[k] - lp[k]) / abs(lp[k])
+            worst[k] = max(worst.get(k, 0.0), rel)
+    print(f"{what}: f32 (TF32 off, cuDNN deterministic) {I8F_F32_STEPS} "
+          f"step through #5 vs its plain version, losses rel diff "
+          f"{json.dumps(worst)} (limits {I8F_STEP1_RTOL} before the "
+          f"update, {I8F_AFTER_RTOL} for loss_c, after G's)", flush=True)
+    bad = [k for k, rel in worst.items() if not rel <= (
+        I8F_AFTER_RTOL if k == "loss_c" else I8F_STEP1_RTOL)]
+    if bad:
+        raise AssertionError(f"{what}: f32 kernel vs plain {bad}: {worst}")
+
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, SEED, train_dtype=dtype,
+                               sample_batch=batches[0])
+    step = build_train_step(cfg, None, dtype)
+    nets = (state.net_g, state.net_d, state.net_c)
+    s0 = _scales(*nets)
+    print(f"{what}: {h}x{w}, batch 1, {dtype}, ngf {m.ngf}, ndf {m.ndf}, "
+          f"dropout {m.use_dropout}, Adam moments {cfg.optim.moment_dtype}, "
+          f"{len(s0)} stored scales (G {len(_scales(state.net_g))}, D "
+          f"{len(_scales(state.net_d))}, C {len(_scales(state.net_c))}); "
+          f"built in {time.perf_counter() - t0:.1f}s", flush=True)
+    # the profiled step comes after the scales' check: it steps again
+    counts, med = bf16_train_run(
+        what, state, step, batches, TRAIN_WARMUP,
+        only(batch_moments=len(bn) * I8F_STEPS),
+        FACADES_LOSS_KEYS + ("loss_c",), card, False)
+    peak = torch.cuda.max_memory_allocated(device)
+    _check_scales(what + " training", s0, _scales(*nets), moved="every")
+    if profile:
+        profile_call(f"{what} step", lambda: step(state, batches[0]))
+    print(f"{what}: peak device memory {peak / 2 ** 30:.2f} GiB; every "
+          f"stored scale of G, D and C finite, positive and moved over "
+          f"{I8F_STEPS} steps", flush=True)
+
+    # (b) frozen-scale serving of this state's checkpoint
+    what = "slice 9 (b) frozen-scale serving"
+    work = os.path.join(tmp, "int8_full")
+    ckpt = checkpoint_dir(cfg, work)
+    CheckpointManager(ckpt).save(state.step, state, epoch=1)
+    eval_step = build_eval_step(cfg, dtype)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        engine, got_step = engine_from_checkpoint(cfg, ckpt, buckets=(1,),
+                                                  dtype="bf16")
+        served = _scales(engine.model, engine.net_c)
+        levels = 0
+        reset_launch_counts()
+        for b in batches[:I8F_SERVE_REQUESTS]:
+            pred, _, _ = engine.infer_batch(b)
+            want, _ = eval_step(state, b)
+            levels = max(levels, int(np.abs(
+                to_uint8_img(pred[0].float().cpu().numpy()).astype(int)
+                - to_uint8_img(want[0].float().cpu().numpy()).astype(int)
+            ).max()))
+        launched = launch_counts()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    _check_scales(what, served, _scales(engine.model, engine.net_c),
+                  moved="none")
+    trained = _scales(state.net_g, state.net_c)
+    if not all(torch.equal(a, b) for a, b in zip(served.values(),
+                                                 trained.values())):
+        raise AssertionError(f"{what}: served scales differ from the "
+                             "trained state's")
+    print(f"{what}: engine_from_checkpoint step {got_step}, "
+          f"{I8F_SERVE_REQUESTS} requests against the eval step: "
+          f"{levels} uint8 levels apart; every stored scale of G and C "
+          f"bitwise after the requests; launches {launched}", flush=True)
+    if levels != 0 or any(launched.values()):
+        raise AssertionError(f"{what}: {levels} levels, launches {launched}")
+    del engine, state, step
+    torch.cuda.empty_cache()
+    data = make_synthetic_dataset(os.path.join(tmp, "int8_data"), n_train=0,
+                                  n_test=2, size=h)
+    req = os.path.join(tmp, "int8_requests")
+    os.makedirs(req)
+    for name in sorted(os.listdir(os.path.join(data, "test", "b"))):
+        with open(os.path.join(data, "test", "b", name), "rb") as src, \
+                open(os.path.join(req, name), "wb") as dst:
+            dst.write(src.read())
+    out = os.path.join(tmp, "int8_served")
+    common = ["--preset", cfg.name, "--workdir", work]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc_serve = serve_cli.main(common + ["--once", "--input_dir", req,
+                                            "--out", out])
+        rc_infer = infer_cli.main(common + ["--data_root", data,
+                                            "--metrics"])
+    lines = buf.getvalue().strip().splitlines()
+    print("\n".join(f"{what}: cli: {line}" for line in lines[-3:]))
+    n_out = len(os.listdir(out)) if os.path.isdir(out) else 0
+    if rc_serve != 0 or rc_infer != 0 or n_out != len(os.listdir(req)):
+        raise AssertionError(f"{what}: cli.serve exit {rc_serve} with "
+                             f"{n_out} outputs, cli.infer exit {rc_infer}")
+    print(f"{what}: cli.serve --once --preset {cfg.name}: exit 0, {n_out} "
+          f"outputs; cli.infer --metrics: exit 0", flush=True)
+    return counts, med, peak
+
+
+def path_a8_phase(device, card, profile, per_step):
+    """Slice 9 (c): path A with every int8 form, A8_STEPS bf16 steps with
+    finite losses, #1-#5 as planned and every stored scale moved."""
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_batch
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = path_a8_config()
+    h, w = cfg.image_hw
+    host = synthetic_batch(A8_STEPS, h, cfg.model.quant_bits, seed=SEED,
+                           width=w)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(A8_STEPS)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    t0 = time.perf_counter()
+    state = create_train_state(cfg, SEED, train_dtype=dtype,
+                               sample_batch=batches[0])
+    step = build_train_step(cfg, load_vgg19(device=device), dtype)
+    nets = (state.net_g, state.net_d, state.net_c)
+    s0 = _scales(*nets)
+    what = "slice 9 (c) path A int8"
+    print(f"{what}: reference, norm={cfg.model.norm}, norm_d="
+          f"{cfg.model.norm_d}, int8 in G, C and the 3-scale spectral-norm "
+          f"D (stem, fused epilogues, kn2row head), {len(s0)} stored scales; "
+          f"{h}x{w}, {dtype}; built in {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    counts, _ = bf16_train_run(
+        what, state, step, batches, 1,
+        only(**{k: v * A8_STEPS for k, v in per_step.items()}), LOSS_KEYS,
+        card, False)
+    _check_scales(what, s0, _scales(*nets), moved="some")
+    if profile:
+        profile_call(f"{what} step", lambda: step(state, batches[0]))
+    del state, step
+    torch.cuda.empty_cache()
+    return counts
+
+
+def hd_int8_phase(device, card, profile, per_forward):
+    """Slice 9 (d): pix2pixhd with its int8 trunks at 1024x512: one bf16
+    step (its scales move) and one served forward with frozen scales (bitwise
+    after it), each with ``per_forward`` launches."""
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_hd_batch
+    from p2p_tpu_torch.serve.engine import InferenceEngine
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = hd_int8_config()
+    h, w = cfg.image_hw
+    batch = synthetic_hd_batch(1, h, w, seed=SEED)
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.reset_peak_memory_stats(device)
+    # scales set on another image than the step's, so that every one moves
+    state = create_train_state(cfg, SEED, train_dtype=dtype,
+                               sample_batch=synthetic_hd_batch(
+                                   1, h, w, seed=SEED + 1))
+    step = build_train_step(cfg, load_vgg19(device=device), dtype)
+    s0 = _scales(state.net_g)
+    what = "slice 9 (d) pix2pixhd int8"
+    counts, _ = bf16_train_run(
+        what, state, step, [batch], 0,
+        only(**per_forward), HD_LOSS_KEYS, card, False)
+    _check_scales(what + " training", s0, _scales(state.net_g),
+                  moved="every")
+    if profile:
+        profile_call(f"{what} step", lambda: step(state, batch))
+    peak = torch.cuda.max_memory_allocated(device)
+    engine = InferenceEngine(cfg, state.net_g, buckets=(1,), dtype="bf16")
+    served = _scales(engine.model)
+    engine.warmup()
+    reset_launch_counts()
+    pred, _, _ = engine.infer_batch(batch)
+    torch.cuda.synchronize()
+    serve_counts = launch_counts()
+    _check_scales(what + " serving", served, _scales(engine.model),
+                  moved="none")
+    if serve_counts != only(**per_forward) or not bool(
+            torch.isfinite(pred).all()):
+        raise AssertionError(f"{what} serving: launches {serve_counts}")
+    print(f"{what}: {len(s0)} stored scales moved in training, bitwise in "
+          f"serving (f32 in the bf16 copy); served forward launches "
+          f"{serve_counts}; peak device memory {peak / 2 ** 30:.2f} GiB",
+          flush=True)
+    del state, step, engine
+    torch.cuda.empty_cache()
+    return collections.Counter(counts) + collections.Counter(serve_counts)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -3292,6 +3765,28 @@ def main(argv=None) -> int:
                    for f in UNET_FORMS)
     for shape in fac_bn_plan:
         bn_launches[shape] += OPTIONS_ALL_STEPS + bn_forms
+    # slice 9: facades_int8_full's 28 #5 a step; path A int8 (#4 in place
+    # of #3 before D's inner convs 2 and 3 of each scale); pix2pixhd int8's
+    # step and served forward (36 #1 + 36 #3 each)
+    i8f = int8_full_config()
+    i8f_bn = int8_full_bn_plan(i8f)
+    if len(i8f_bn) != 28:
+        raise AssertionError(f"facades_int8_full plan has {len(i8f_bn)} #5")
+    for shape in i8f_bn:
+        bn_launches[shape] += I8F_STEPS
+    a8 = path_a8_config()
+    a8_plan = path_a8_step_plan(a8)
+    a8_forms = collections.Counter(
+        "apply" if f == "apply" else "quant" if f.endswith("+quant")
+        else "act" for *_, f in a8_plan)
+    a8_per_step = dict(instance_norm_stats=len(a8_plan),
+                       instance_norm_apply=a8_forms["apply"],
+                       norm_act=a8_forms["act"],
+                       norm_act_quant=a8_forms["quant"], batch_moments=2)
+    if (len(a8_plan), a8_forms["apply"], a8_forms["act"],
+            a8_forms["quant"]) != (66, 12, 42, 12):
+        raise AssertionError(f"path A int8 plan: {a8_per_step}")
+    bn_launches[net_c_bn] += 2 * A8_STEPS
     head_fwd = main_path_forwards() + collections.Counter({1: steps})
     head_dx = collections.Counter({1: steps})
     norm_launches = instance_launches(plan, a_plan, steps, hd_steps)
@@ -3303,6 +3798,10 @@ def main(argv=None) -> int:
         norm_launches[(1, hh, ww, c, form_of(act, res))] += c2f_images
     for hh, ww, c, form in u_plan:
         norm_launches[(1, hh, ww, c, form)] += 1
+    for hh, ww, c, form in a8_plan:
+        norm_launches[(1, hh, ww, c, form)] += A8_STEPS
+    for hh, ww, c, act, res in plan:
+        norm_launches[(1, hh, ww, c, form_of(act, res))] += 2
     rows = (kernel_phase(device, norm_launches)
             + moments_phase(device, bn_launches)
             + subpixel_phase(device, head_fwd, head_dx))
@@ -3318,6 +3817,11 @@ def main(argv=None) -> int:
     b_counts, _, _ = instance_b_phase(device, card, args.profile, b_per_step)
     i8_counts, i8_as_is_counts, _, _ = int8_train_phase(device, card,
                                                          args.profile)
+    conv_transpose_check(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as tmp:
+        i8f_counts, _, _ = int8_full_phase(device, card, args.profile, tmp)
+    a8_counts = path_a8_phase(device, card, args.profile, a8_per_step)
+    hd8_counts = hd_int8_phase(device, card, args.profile, b_per_step)
     e2s_counts, n_e2s = edges2shoes_phase(device, card, args.profile)
     if n_e2s != e2s_steps:
         raise AssertionError(f"edges2shoes_dp ran {n_e2s} steps")
@@ -3337,7 +3841,8 @@ def main(argv=None) -> int:
     for c in (serve_counts, train_counts, fac_serve_counts,
               fac_train_counts, a_counts, b_counts, i8_counts,
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
-              city_counts, options_counts, forms_counts, c2f_counts):
+              city_counts, options_counts, forms_counts, c2f_counts,
+              i8f_counts, a8_counts, hd8_counts):
         counts.update(c)
 
     kernels = []
@@ -3380,6 +3885,12 @@ def main(argv=None) -> int:
     for hh, ww, c, act, res in g1:
         g1_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
         g1_keys[("norm_act", 1, (hh, ww, c), form_of(act, res))] += 1
+    a8_keys = collections.Counter()
+    for hh, ww, c, form in a8_plan:
+        a8_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
+        name = ("instance_norm_apply" if form == "apply" else
+                "norm_act_quant" if form.endswith("+quant") else "norm_act")
+        a8_keys[(name, 1, (hh, ww, c), form)] += 1
     u_keys = collections.Counter()
     for hh, ww, c, form in u_plan:
         u_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
@@ -3412,6 +3923,13 @@ def main(argv=None) -> int:
             *[(f"#{i} per pix2pixHD phase-1 (G1) train step", name,
                {k[1:]: v for k, v in g1_keys.items() if k[0] == name})
               for i, name in ((1, "instance_norm_stats"), (3, "norm_act"))],
+            ("#5 per facades_int8_full train step", "batch_moments",
+             collections.Counter((1, shape, "-") for shape in i8f_bn)),
+            *[(f"#{i} per path A int8 train step", name,
+               {k[1:]: v for k, v in a8_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"),
+                              (2, "instance_norm_apply"), (3, "norm_act"),
+                              (4, "norm_act_quant"))],
             ("#5 per edges2shoes_dp train step (batch 64)", "batch_moments",
              collections.Counter((1, shape, "-") for shape in e2s_plan)),
             *[(f"#{i} per pallas_instance U-Net train step", name,
@@ -3446,8 +3964,11 @@ def main(argv=None) -> int:
           f"steps, {e2s_steps} edges2shoes_dp steps at batch {e2s_bs}, "
           f"{OPTIONS_ALL_STEPS} facades steps with the trainer options and "
           f"{bn_forms} U-Net form steps; #6: facades serving and training; "
-          "#7: facades training): per-(N, shape, form) device times "
-          "weighted by launches")
+          "#7: facades training; slice 9: #5 in "
+          f"{I8F_STEPS} facades_int8_full steps, #1-#5 in {A8_STEPS} path "
+          "A int8 steps (#4 at its spectral-norm sites), #1 and #3 in "
+          "pix2pixhd int8's step and served forward): per-(N, shape, form) "
+          "device times weighted by launches")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,9 +33,7 @@ _TRUE = {"action": "store_true"}
 _BOOL = {"action": argparse.BooleanOptionalAction}
 UNPORTED = (
     ("mesh", None, {"type": str}), ("tp_min_ch", 512, {"type": int}),
-    ("fsdp_params", False, _TRUE), ("int8_generator", False, _TRUE),
-    ("int8_stem", False, _TRUE), ("int8_head", False, _TRUE),
-    ("int8_compression", False, _TRUE), ("pp_overlap", False, _BOOL),
+    ("fsdp_params", False, _TRUE), ("pp_overlap", False, _BOOL),
     ("compilation_cache", None, {"type": str}), ("elastic", True, _BOOL),
     ("cast_on_restore", False, _BOOL),
     ("recalibrate_steps", 0, {"type": int}),
@@ -72,7 +70,22 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["deconv", "subpixel", "resize"],
                    help="U-Net decoder upsampling")
     p.add_argument("--augment", action="store_true", default=None)
-    p.add_argument("--int8", action="store_true", default=None)
+    p.add_argument("--int8", action="store_true", default=None,
+                   help="int8 QAT for the discriminator's inner convs "
+                        "(ops/int8.py); --int8_generator extends it to G")
+    p.add_argument("--int8_generator", action="store_true", default=None,
+                   help="extend --int8 to the generator: the U-Net "
+                        "encoder, the ResNet-family residual trunks")
+    p.add_argument("--int8_stem", action="store_true", default=None,
+                   help="extend the int8 path to the 3/6-channel input "
+                        "stems (U-Net down0, PatchGAN stage 0)")
+    p.add_argument("--int8_head", action="store_true", default=None,
+                   help="discriminator logits head on the int8 kn2row "
+                        "path (ops/int8.py int8_kn2row_conv); the U-Net "
+                        "image head always stays in the compute dtype")
+    p.add_argument("--int8_compression", action="store_true", default=None,
+                   help="CompressionNetwork (net_c) convs on the int8 "
+                        "path, with stored scales under --int8_delayed")
     p.add_argument("--int8_delayed", action=argparse.BooleanOptionalAction,
                    default=None)
     p.add_argument("--int8_fused_epilogue", action="store_true",
@@ -150,6 +163,9 @@ def config_from_flags(args: argparse.Namespace):
                  ngf=args.ngf, ndf=args.ndf, n_blocks=args.n_blocks,
                  upsample_mode=args.upsample_mode, int8=args.int8,
                  int8_delayed=args.int8_delayed,
+                 int8_generator=args.int8_generator,
+                 int8_stem=args.int8_stem, int8_head=args.int8_head,
+                 int8_compression=args.int8_compression,
                  int8_fused_epilogue=args.int8_fused_epilogue,
                  legacy_layout=args.legacy_layout, thin_head=args.thin_head,
                  norm_d=args.norm_d)

@@ -29,11 +29,20 @@ Adams) has empty ``batch_stats`` and no net_c. Flax's ``_SplitStemConv``
 keeps its stem kernel whole, so a JAX D on split pairs has the tree of the
 port's D, which always takes concatenated pairs.
 
-A delayed-int8 discriminator's ``quant`` collection (the JAX state's
-``quant_d``) holds one 0-d ``amax_x`` per quantized conv, under the conv's
-``Conv_0``; it is the buffer of the port's ``QuantConv`` at the same path:
+A delayed-int8 network's ``quant`` collection (the JAX state's
+``quant_g``, ``quant_d`` and ``quant_c``) holds one 0-d ``amax_x`` per
+quantized conv, at the conv's own path; it is the buffer of the port's
+int8 module there (a ``QuantConv`` named ``down{i}``, the ``Conv_0`` of a
+``ConvLayer``, of a ``_PlainConv``'s ``QuantConv`` or ``KN2RowConv`` and
+of a ``QuantSubpixelDeconv``, a ``SpectralConv`` itself):
 
     scale0/_PlainConv_2/Conv_0/amax_x () → scale0._PlainConv_2.conv.amax_x
+    up3/Conv_0/amax_x () → up3.conv.amax_x
+    scale0/SpectralConv_1/amax_x () → scale0.SpectralConv_1.amax_x
+
+A ``QuantSubpixelDeconv``'s (2, 2, C, 4F) kernel stays HWIO, as
+``SubpixelDeconv``'s; a ``QuantConvTranspose``'s is flipped into
+``nn.ConvTranspose2d``'s layout, as ``ConvTranspose``'s.
 
 An ``.npz`` file holds one array per leaf under its ``/``-joined path (a
 generator's parameters and running statistics side by side).
@@ -160,20 +169,23 @@ def load_flax(net: torch.nn.Module, *trees: Mapping[str, Any]
 def load_train_state(state, flax_state: Mapping[str, Any]):
     """Load a JAX ``TrainState``'s networks into the port's ``state``
     (train/state.py): ``flax_state`` maps the JAX field names
-    ``params_g``, ``batch_stats_g``, ``params_d``, ``spectral_d``,
-    ``quant_d``, ``params_c`` and ``batch_stats_c`` to numpy trees (the
-    ``_c`` fields None or absent for a state without net_c, ``quant_d``
-    for a D without delayed int8). Every parameter and buffer
+    ``params_g``, ``batch_stats_g``, ``quant_g``, ``params_d``,
+    ``spectral_d``, ``quant_d``, ``params_c``, ``batch_stats_c`` and
+    ``quant_c`` to numpy trees (the ``_c`` fields None or absent for a
+    state without net_c, the ``quant_`` ones for a network without
+    delayed int8). Every parameter and buffer
     must be present, and nothing else; the optimizers stay fresh, as the
     JAX state's are at creation. The optional fields ``ema_g`` (a params
     tree of G), ``pool``, ``pool_n`` and ``lr_scale`` are carried into the
     state's EMA, fake pool and plateau scale, which must exist in the port's
     state when given (and the other way round)."""
     _load_extras(state, flax_state)
-    for net, fields in ((state.net_g, ("params_g", "batch_stats_g")),
+    for net, fields in ((state.net_g, ("params_g", "batch_stats_g",
+                                       "quant_g")),
                         (state.net_d, ("params_d", "spectral_d",
                                        "quant_d")),
-                        (state.net_c, ("params_c", "batch_stats_c"))):
+                        (state.net_c, ("params_c", "batch_stats_c",
+                                       "quant_c"))):
         trees = [flax_state.get(f) for f in fields]
         if net is None:
             if any(trees):

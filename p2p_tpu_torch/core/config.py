@@ -2,10 +2,8 @@
 fields the serving paths, the train steps of the registered presets, the
 data pipeline and the trainer (train/loop.py) read. Field names, defaults
 and the preset values are those of the JAX package, so one preset name
-means one model in both. A few fields name machinery the port does not
-have yet (the int8 generator, stem and head); the train step reads them
-only to raise. The presets run on one device: the JAX presets' meshes
-have no counterpart here yet.
+means one model in both. The presets run on one device: the JAX presets'
+meshes have no counterpart here yet.
 """
 
 from __future__ import annotations
@@ -61,10 +59,11 @@ class ModelConfig:
     # matmul, a TPU rewrite of the same conv with the same parameters;
     # the port's stem is the one nn.Conv2d either way (models/unet.py)
     thin_stem: bool = False
-    # int8 QAT (ops/int8.py): the discriminator's inner convs as int8 ×
-    # int8 → int32 products with dynamic per-tensor activation scales;
-    # with int8_delayed the activation scale is a stored amax (a buffer
-    # ``amax_x`` per conv, updated by each training-mode forward)
+    # int8 QAT (ops/int8.py): the discriminator's inner convs (spectral-
+    # normed or not) as int8 × int8 → int32 products with dynamic
+    # per-tensor activation scales; with int8_delayed the activation scale
+    # is a stored amax (a buffer ``amax_x`` per conv, updated by each
+    # training-mode forward, read frozen in eval mode)
     int8: bool = False
     int8_delayed: bool = False
     # with int8 + int8_delayed + an instance-family norm_d: each inner
@@ -72,9 +71,10 @@ class ModelConfig:
     # [instance norm + LeakyReLU + clip/round + amax] epilogue (#1 + #4
     # under "pallas_instance")
     int8_fused_epilogue: bool = False
-    # not ported (the train step refuses them by name): int8 on the stems,
-    # on D's logits head (the int8 kn2row head), in G, in the U-Net
-    # decoder and in net_c
+    # with int8: the input stems (U-Net down0 under int8_generator, D's
+    # concatenated 6-channel stem), D's logits head on the int8 kn2row
+    # path, G (the U-Net encoder; the ResNet-family residual trunks), the
+    # U-Net decoder (QuantSubpixelDeconv, with int8_generator) and net_c
     int8_stem: bool = False
     int8_head: bool = False
     int8_generator: bool = False
@@ -280,6 +280,24 @@ _register(
                         image_width=512, batch_size=4),
     )
 )
+
+
+def int8_full_coverage(cfg: Config) -> Config:
+    """Full-model delayed int8 on top of ``cfg`` (``p2p_tpu/core/config.py:
+    541 int8_full_coverage``): int8 in G, its decoder, D's head and net_c
+    (which it switches on); the stems stay off, as the U-Net image
+    head."""
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, int8=True, int8_delayed=True, int8_generator=True,
+        int8_decoder=True, int8_head=True, use_compression_net=True,
+        int8_compression=True))
+
+
+# facades_int8 with every int8 knob but the stems: U-Net encoder and
+# decoder, D's kn2row head and net_c on the delayed-int8 path, bf16 Adam
+# moments, batch 1 at 256²
+_register(int8_full_coverage(_PRESETS["facades_int8"]).replace(
+    name="facades_int8_full"))
 
 
 def get_preset(name: str) -> Config:

@@ -7,7 +7,10 @@ residual blocks → long skip + LeakyReLU(0.2) → [up×2 conv 4ngf→2ngf,
 up×2 conv 2ngf→ngf], norm + PReLU each → conv k9 ngf→out → norm → tanh.
 Every conv is followed by a norm, so no conv carries a bias (JAX
 ``ub = legacy_layout or norm == "none"``). One PReLU scalar serves every
-call site. Submodule names follow the flax tree.
+call site. Submodule names follow the flax tree. With ``int8`` the
+residual blocks' k3-s1 convs run on the int8 path (``ConvLayer(int8=
+True)``, stored scales under ``int8_delayed``); the stem, the stride-2
+downs, the upsample convs and the head stay in the compute dtype.
 """
 
 from __future__ import annotations
@@ -28,14 +31,15 @@ class ResidualBlock(nn.Module):
     """conv-norm-relu-conv-norm + identity, relu after the add."""
 
     def __init__(self, features: int, norm: str = "batch",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False):
         super().__init__()
         ub = norm == "none"
-        self.ConvLayer_0 = ConvLayer(features, features, 3, use_bias=ub,
-                                     dtype=dtype)
+        q = dict(use_bias=ub, dtype=dtype, int8=int8,
+                 int8_delayed=int8_delayed)
+        self.ConvLayer_0 = ConvLayer(features, features, 3, **q)
         self.BatchNorm_0 = make_norm_act(norm, features)
-        self.ConvLayer_1 = ConvLayer(features, features, 3, use_bias=ub,
-                                     dtype=dtype)
+        self.ConvLayer_1 = ConvLayer(features, features, 3, **q)
         self.BatchNorm_1 = make_norm_act(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -46,7 +50,8 @@ class ResidualBlock(nn.Module):
 class ExpandNetwork(nn.Module):
     def __init__(self, in_channels: int = 3, ngf: int = 32,
                  n_blocks: int = 9, out_channels: int = 3,
-                 norm: str = "batch", dtype: Optional[torch.dtype] = None):
+                 norm: str = "batch", dtype: Optional[torch.dtype] = None,
+                 int8: bool = False, int8_delayed: bool = False):
         super().__init__()
         ub = norm == "none"
         self.n_blocks = n_blocks
@@ -59,7 +64,8 @@ class ExpandNetwork(nn.Module):
             setattr(self, f"BatchNorm_{i}", make_norm(norm, f))
         for i in range(n_blocks):
             setattr(self, f"ResidualBlock_{i}",
-                    ResidualBlock(ngf * 4, norm=norm, dtype=dtype))
+                    ResidualBlock(ngf * 4, norm=norm, dtype=dtype, int8=int8,
+                                  int8_delayed=int8_delayed))
         ups = [(ngf * 4, ngf * 2, 3, 2), (ngf * 2, ngf, 3, 2),
                (ngf, out_channels, 9, 0)]
         for i, (cin, f, k, up) in enumerate(ups):

@@ -10,7 +10,7 @@ the k4 s1 head to one channel. Every conv pads with 2 zeros and carries a
 bias; widths double from ``ndf`` up to 512. The norms are stateless and
 affine-free, so the parameter tree does not depend on ``norm``. The
 forward returns every stage's output (the feature-matching taps), or only
-the head's without ``get_interm_feat``. The JAX head's kn2row form
+the head's without ``get_interm_feat``. The JAX head's bf16 kn2row form
 (``_PlainConv`` → ``KN2RowConv``) is an exact rewrite of this one conv, so
 here it is a plain conv.
 
@@ -27,15 +27,17 @@ times; results come finest first and scale i is named
 int8 (``p2p_tpu/models/patchgan.py:99-277``): with ``int8`` the three
 inner convs are ``ops.int8.QuantConv`` (``conv`` of ``_PlainConv_{1,2,3}``,
 so the state dict keeps its keys, plus ``conv.amax_x`` under
-``int8_delayed``); the stem and the head stay plain. With
-``int8_fused_epilogue`` (needs ``int8_delayed`` and an instance-family
-norm) inner conv 1 takes its input raw, inner convs 2 and 3 take the
-previous conv's raw output through the quantize-fused epilogue
-``norm + LeakyReLU + clip/round + amax`` (#1 + #4 under
-``"pallas_instance"``), and their feature taps are the dequantized
-surrogate ``sx·q``; the last inner epilogue stays unfused. Not ported, and
-refused by name: ``int8_stem``, ``int8_head`` (the int8 kn2row head) and
-int8 under spectral norm.
+``int8_delayed``), or, under spectral norm, ``SpectralConv(int8=True)``
+(only w/σ is quantized). ``int8_stem`` quantizes the concatenated
+6-channel stem; ``int8_head`` runs the logits head on the int8 kn2row
+path (``QuantKN2RowConv``) when it is thin (stride 1, 16·features ≤ its
+input width), else as a ``QuantConv``. With ``int8_fused_epilogue``
+(needs ``int8_delayed`` and an instance-family norm) inner conv 1 takes
+its input raw, inner convs 2 and 3 take the previous conv's raw output
+through the quantize-fused epilogue ``norm + LeakyReLU + clip/round +
+amax`` (#1 + #4 under ``"pallas_instance"``), spectral-normed or not, and
+their feature taps are the dequantized surrogate ``sx·q``; the last inner
+epilogue stays unfused.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ from torch import nn
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y
 from p2p_tpu_torch.ops.conv import cast_conv
-from p2p_tpu_torch.ops.int8 import QuantConv
+from p2p_tpu_torch.ops.int8 import QuantConv, QuantKN2RowConv
 from p2p_tpu_torch.ops.norm import make_norm_act
 from p2p_tpu_torch.ops.spectral_norm import SpectralConv
 
@@ -72,7 +74,9 @@ def avg_pool_downsample(x: torch.Tensor) -> torch.Tensor:
 
 class _PlainConv(nn.Module):
     """k4 conv with zero padding 2 and a bias (the flax ``_PlainConv``,
-    whose ``Conv_0`` is ``conv`` here); with ``int8`` a ``QuantConv``."""
+    whose ``Conv_0`` is ``conv`` here); with ``int8`` a
+    ``QuantKN2RowConv`` when thin (stride 1, 16·features ≤ in_channels),
+    else a ``QuantConv``."""
 
     def __init__(self, in_channels: int, features: int, stride: int,
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
@@ -82,7 +86,10 @@ class _PlainConv(nn.Module):
         super().__init__()
         self.dtype = dtype
         self.int8 = int8
-        if int8:
+        if int8 and stride == 1 and 16 * features <= in_channels:
+            self.conv = QuantKN2RowConv(in_channels, features, 4, 2,
+                                        dtype=dtype, delayed=int8_delayed)
+        elif int8:
             self.conv = QuantConv(in_channels, features, 4, stride=stride,
                                   padding=2, dtype=dtype,
                                   delayed=int8_delayed, epilogue=epilogue,
@@ -97,17 +104,6 @@ class _PlainConv(nn.Module):
         return cast_conv(self.conv, x, self.dtype)
 
 
-def _check_int8(int8: bool, int8_stem: bool, int8_head: bool,
-                use_spectral_norm: bool) -> None:
-    unported = {"int8_stem": int8_stem, "int8_head (the int8 kn2row head)":
-                int8_head, "int8 under spectral norm": use_spectral_norm}
-    missing = [k for k, v in unported.items() if int8 and v]
-    if missing:
-        raise NotImplementedError(
-            f"the port's discriminator does not have {', '.join(missing)} "
-            "yet")
-
-
 class NLayerDiscriminator(nn.Module):
     def __init__(self, in_channels: int = 6, ndf: int = 64,
                  n_layers: int = 3, use_spectral_norm: bool = True,
@@ -117,7 +113,6 @@ class NLayerDiscriminator(nn.Module):
                  int8_head: bool = False, int8_fused_epilogue: bool = False):
         super().__init__()
         check_norm_d(norm)
-        _check_int8(int8, int8_stem, int8_head, use_spectral_norm)
         self.fused_q = int8 and int8_delayed and int8_fused_epilogue
         if self.fused_q and norm not in ("instance", "pallas_instance"):
             raise ValueError(
@@ -131,18 +126,22 @@ class NLayerDiscriminator(nn.Module):
             nf = min(nf * 2, 512)
             widths.append((nf, 2))
         widths.append((min(nf * 2, 512), 1))
-        mods = [_PlainConv(in_channels, ndf, 2, dtype)]
+        mods = [_PlainConv(in_channels, ndf, 2, dtype, int8 and int8_stem,
+                           int8_delayed)]
         cin = ndf
         for i, (f, stride) in enumerate(widths):
+            ep = self._quant_epilogue if self.fused_q and i else None
             if use_spectral_norm:
-                mods.append(SpectralConv(cin, f, 4, stride=stride, padding=2,
-                                         dtype=dtype))
+                mods.append(SpectralConv(
+                    cin, f, 4, stride=stride, padding=2, dtype=dtype,
+                    int8=int8, int8_delayed=int8_delayed, epilogue=ep,
+                    epilogue_tap=ep is not None))
             else:
-                ep = self._quant_epilogue if self.fused_q and i else None
                 mods.append(_PlainConv(cin, f, stride, dtype, int8,
                                        int8_delayed, ep, ep is not None))
             cin = f
-        mods.append(_PlainConv(cin, 1, 1, dtype))
+        mods.append(_PlainConv(cin, 1, 1, dtype, int8 and int8_head,
+                               int8_delayed))
         # flax names each module by its type and creation order
         count = collections.Counter()
         self.stages = []

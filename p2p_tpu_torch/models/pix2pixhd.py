@@ -9,7 +9,8 @@ adds them to its own half-resolution features, runs ``n_blocks_local``
 residual blocks and one upsample back to full resolution. The enhancer
 runs at ``ngf // 2``. G1 is registered under the name ``"global"``, as in
 the flax tree. ``dtype`` is the convs' compute dtype on f32 masters, as
-in training (models/resnet_gen.py).
+in training (models/resnet_gen.py). ``int8`` puts G1's trunk and the
+enhancer's residual blocks on the int8 path (models/resnet_gen.py).
 """
 
 from __future__ import annotations
@@ -30,12 +31,14 @@ def GlobalGenerator(in_channels: int = 3, ngf: int = 64,
                     out_channels: int = 3, n_blocks: int = 9,
                     norm: str = "instance",
                     return_features: bool = False,
-                    dtype: Optional[torch.dtype] = None) -> ResnetGenerator:
+                    dtype: Optional[torch.dtype] = None, int8: bool = False,
+                    int8_delayed: bool = False) -> ResnetGenerator:
     """G1: the ResnetGenerator configured as pix2pixHD's global net."""
     return ResnetGenerator(
         in_channels=in_channels, ngf=ngf, n_blocks=n_blocks,
         out_channels=out_channels, n_downsampling=4, norm=norm,
-        max_features=1024, return_features=return_features, dtype=dtype)
+        max_features=1024, return_features=return_features, dtype=dtype,
+        int8=int8, int8_delayed=int8_delayed)
 
 
 class Pix2PixHDGenerator(nn.Module):
@@ -44,7 +47,8 @@ class Pix2PixHDGenerator(nn.Module):
     def __init__(self, in_channels: int = 3, ngf: int = 64,
                  out_channels: int = 3, n_blocks_global: int = 9,
                  n_blocks_local: int = 3, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False):
         super().__init__()
         self.na = make_norm_act(norm)
         self.n_blocks_local = n_blocks_local
@@ -52,14 +56,16 @@ class Pix2PixHDGenerator(nn.Module):
         ngf_local = ngf // 2
         self.add_module("global", GlobalGenerator(
             in_channels=in_channels, ngf=ngf, n_blocks=n_blocks_global,
-            norm=norm, return_features=True, dtype=dtype))
+            norm=norm, return_features=True, dtype=dtype, int8=int8,
+            int8_delayed=int8_delayed))
         self.ConvLayer_0 = ConvLayer(in_channels, ngf_local, 7, use_bias=ub,
                                      dtype=dtype)
         self.ConvLayer_1 = ConvLayer(ngf_local, ngf, 3, stride=2,
                                      use_bias=ub, dtype=dtype)
         for i in range(n_blocks_local):
             setattr(self, f"ResnetBlock_{i}",
-                    ResnetBlock(ngf, norm=norm, dtype=dtype))
+                    ResnetBlock(ngf, norm=norm, dtype=dtype, int8=int8,
+                                int8_delayed=int8_delayed))
         self.UpsampleConvLayer_0 = UpsampleConvLayer(
             ngf, ngf_local, 3, upsample=2, use_bias=ub, dtype=dtype)
         self.ConvLayer_2 = ConvLayer(ngf_local, out_channels, 7, dtype=dtype)

@@ -6,7 +6,10 @@ weight init.
 on f32 parameters and statistics). The ResNet-family generators
 (``pix2pixhd``, ``pix2pixhd_global``, ``resnet``) take one in training;
 the serving engine serves them as a whole-model cast copy built without
-one (serve/engine.py).
+one (serve/engine.py). The int8 flags follow the JAX registry: G takes
+``int8 and int8_generator`` (the U-Net only with ``upsample_mode ==
+"deconv"``), net_c ``int8 and int8_compression``, D ``int8`` with its
+stem and head knobs; all take ``int8_delayed``.
 """
 
 from __future__ import annotations
@@ -31,12 +34,14 @@ def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
              image_hw: Optional[Tuple[int, int]] = None) -> nn.Module:
     """The generator ``cfg.generator`` names, on the CPU in f32.
     ``image_hw`` is the input size, which fixes the U-Net's depth."""
+    q = dict(int8=cfg.int8 and cfg.int8_generator,
+             int8_delayed=cfg.int8_delayed)
     if cfg.generator == "expand":
         from p2p_tpu_torch.models.expand import ExpandNetwork
 
         return ExpandNetwork(
             in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
-            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype)
+            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype, **q)
     if cfg.generator == "unet":
         from p2p_tpu_torch.models.unet import UNetGenerator
 
@@ -49,37 +54,40 @@ def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
             use_dropout=cfg.use_dropout, upsample_mode=cfg.upsample_mode,
             legacy_layout=cfg.legacy_layout, thin_head=cfg.thin_head,
             head_pallas=cfg.head_pallas,
-            int8=(cfg.int8 and cfg.int8_generator
-                  and cfg.upsample_mode == "deconv"), dtype=dtype)
+            int8=q["int8"] and cfg.upsample_mode == "deconv",
+            int8_decoder=cfg.int8_decoder, int8_delayed=cfg.int8_delayed,
+            int8_stem=cfg.int8_stem, dtype=dtype)
     if cfg.generator == "pix2pixhd":
         from p2p_tpu_torch.models.pix2pixhd import Pix2PixHDGenerator
 
         return Pix2PixHDGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf,
             out_channels=cfg.output_nc, n_blocks_global=cfg.n_blocks,
-            norm=cfg.norm, dtype=dtype)
+            norm=cfg.norm, dtype=dtype, **q)
     if cfg.generator == "pix2pixhd_global":
         from p2p_tpu_torch.models.pix2pixhd import GlobalGenerator
 
         return GlobalGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf,
             out_channels=cfg.output_nc, n_blocks=cfg.n_blocks,
-            norm=cfg.norm, dtype=dtype)
+            norm=cfg.norm, dtype=dtype, **q)
     if cfg.generator == "resnet":
         from p2p_tpu_torch.models.resnet_gen import ResnetGenerator
 
         return ResnetGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
-            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype)
+            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype, **q)
     raise ValueError(f"generator {cfg.generator!r} is not ported yet")
 
 
 def define_C(cfg: ModelConfig, dtype: Optional[torch.dtype] = None
              ) -> nn.Module:
-    """net_c, the compression pre-filter."""
+    """net_c, the compression pre-filter (int8 with ``int8_compression``)."""
     from p2p_tpu_torch.models.compression import CompressionNetwork
 
-    return CompressionNetwork(in_channels=cfg.input_nc, dtype=dtype)
+    return CompressionNetwork(in_channels=cfg.input_nc, dtype=dtype,
+                              int8=cfg.int8 and cfg.int8_compression,
+                              int8_delayed=cfg.int8_delayed)
 
 
 def define_D(cfg: ModelConfig, dtype: Optional[torch.dtype] = None

@@ -10,7 +10,10 @@ JAX default layout; with ``norm="none"`` they do. Submodule names follow
 the flax parameter tree. ``dtype`` is the convs' compute dtype on f32
 masters (flax ``dtype=``), as in training; served as a whole-model cast
 copy (serve/engine.py), the networks take none and compute in their
-weights' dtype.
+weights' dtype. With ``int8`` the residual blocks' k3-s1 convs run on the
+int8 path (``ConvLayer(int8=True)``, stored scales under
+``int8_delayed``); the stem, the stride-2 downs, the upsample convs and
+the head stay as they are.
 """
 
 from __future__ import annotations
@@ -29,14 +32,15 @@ class ResnetBlock(nn.Module):
     """reflectpad-conv-norm-relu-reflectpad-conv-norm + identity."""
 
     def __init__(self, features: int, norm: str = "instance",
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False):
         super().__init__()
         ub = norm == "none"
         self.na = make_norm_act(norm)
-        self.ConvLayer_0 = ConvLayer(features, features, 3, use_bias=ub,
-                                     dtype=dtype)
-        self.ConvLayer_1 = ConvLayer(features, features, 3, use_bias=ub,
-                                     dtype=dtype)
+        q = dict(use_bias=ub, dtype=dtype, int8=int8,
+                 int8_delayed=int8_delayed)
+        self.ConvLayer_0 = ConvLayer(features, features, 3, **q)
+        self.ConvLayer_1 = ConvLayer(features, features, 3, **q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = self.na(self.ConvLayer_0(x), act="relu")
@@ -53,7 +57,8 @@ class ResnetGenerator(nn.Module):
                  n_downsampling: int = 2, norm: str = "instance",
                  max_features: Optional[int] = None,
                  return_features: bool = False,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False):
         super().__init__()
         self.na = make_norm_act(norm)
         self.n_downsampling = n_downsampling
@@ -72,7 +77,8 @@ class ResnetGenerator(nn.Module):
             c = f
         for i in range(n_blocks):
             setattr(self, f"ResnetBlock_{i}",
-                    ResnetBlock(c, norm=norm, dtype=dtype))
+                    ResnetBlock(c, norm=norm, dtype=dtype, int8=int8,
+                                int8_delayed=int8_delayed))
         for j, i in enumerate(reversed(range(n_downsampling))):
             f = min(ngf * 2 ** i, cap)
             setattr(self, f"UpsampleConvLayer_{j}", UpsampleConvLayer(

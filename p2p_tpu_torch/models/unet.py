@@ -21,6 +21,15 @@ its conv runs through the Hopper kernels #6/#7. The config's
 with the same parameters; here the stem is the one ``nn.Conv2d`` either
 way, so the option does not reach this module.
 
+int8 (``p2p_tpu/models/unet.py:113-207``): with ``int8`` the encoder
+convs ``down{i}``, i > 0, are ``ops.int8.QuantConv`` k4 s2 p1 (their
+biases dropped in front of a norm, as the plain ones), ``int8_stem`` adds
+``down0``; ``int8_decoder`` makes ``up{i}``, i > 0, a
+``QuantSubpixelDeconv`` (bias kept, as the subpixel form's), while the
+image head ``up0`` keeps its form; ``int8_delayed`` gives each of them a
+stored scale ``amax_x``. The registry passes ``int8`` only with
+``upsample_mode == "deconv"``, as the JAX registry does.
+
 The JAX module clamps the depth to the factor-of-2 content of the input's
 H and W when it traces; here the depth is fixed at construction from the
 image size (:func:`unet_levels`), and a forward on another size raises.
@@ -46,6 +55,7 @@ from torch import nn
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y, tanh_y
 from p2p_tpu_torch.ops.conv import (SubpixelDeconv, UpsampleConvLayer,
                                     cast_conv)
+from p2p_tpu_torch.ops.int8 import QuantConv, QuantSubpixelDeconv
 from p2p_tpu_torch.ops.norm import make_norm
 
 DROPOUT_RATE = 0.5
@@ -83,13 +93,13 @@ class UNetGenerator(nn.Module):
                  norm: str = "batch", use_dropout: bool = False,
                  upsample_mode: str = "deconv", legacy_layout: bool = False,
                  thin_head: bool = False, head_pallas: bool = False,
-                 int8: bool = False, dtype: Optional[torch.dtype] = None):
+                 int8: bool = False, int8_decoder: bool = False,
+                 int8_delayed: bool = False, int8_stem: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         if upsample_mode not in ("deconv", "subpixel", "resize"):
             raise ValueError(f"unknown upsample_mode {upsample_mode!r}; "
                              "expected 'deconv', 'subpixel', or 'resize'")
-        if int8:
-            raise NotImplementedError("the U-Net's int8 path is not ported")
         if head_pallas and (not thin_head or legacy_layout):
             raise ValueError(
                 "head_pallas requires thin_head (the subpixel head form) "
@@ -114,8 +124,12 @@ class UNetGenerator(nn.Module):
         for i, f in enumerate(feats):
             norm_after = 0 < i < nd - 1
             bias = not (normed and norm_after)
-            setattr(self, f"down{i}",
-                    nn.Conv2d(cin, f, 4, stride=2, padding=1, bias=bias))
+            if int8 and (i > 0 or int8_stem):
+                down = QuantConv(cin, f, 4, stride=2, padding=1, bias=bias,
+                                 dtype=dtype, delayed=int8_delayed)
+            else:
+                down = nn.Conv2d(cin, f, 4, stride=2, padding=1, bias=bias)
+            setattr(self, f"down{i}", down)
             if norm_after:
                 mk(i, f)
             cin = f
@@ -128,6 +142,9 @@ class UNetGenerator(nn.Module):
                 up = UpsampleConvLayer(cin, f, 3, upsample=2,
                                        use_bias=not (normed and i > 0),
                                        dtype=dtype)
+            elif int8 and int8_decoder and i > 0:
+                up = QuantSubpixelDeconv(cin, f, dtype=dtype,
+                                         delayed=int8_delayed)
             elif i == 0 and thin_head and not legacy_layout \
                     and 16 * f <= cin:
                 up = SubpixelDeconv(cin, f, pallas=head_pallas, dtype=dtype)
@@ -159,14 +176,17 @@ class UNetGenerator(nn.Module):
         for i in range(nd):
             if i > 0:
                 y = leaky_relu_y(y, 0.2)
-            y = cast_conv(getattr(self, f"down{i}"), y, self.dtype)
+            down = getattr(self, f"down{i}")
+            y = down(y) if isinstance(down, QuantConv) \
+                else cast_conv(down, y, self.dtype)
             if self.norms[i] is not None:
                 y = self.norms[i](y)
             skips.append(y)
         for i in reversed(range(nd)):
             y = relu_y(y)
             up = getattr(self, f"up{i}")
-            y = up(y) if isinstance(up, (SubpixelDeconv, UpsampleConvLayer)) \
+            y = up(y) if isinstance(up, (SubpixelDeconv, UpsampleConvLayer,
+                                         QuantSubpixelDeconv)) \
                 else cast_conv(up, y, self.dtype)
             if i > 0:
                 y = self.norms[nd + i](y)

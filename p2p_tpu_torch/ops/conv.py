@@ -17,6 +17,9 @@ same kernel parameters, so here they are this one conv. Parameter names
 follow the flax tree (``conv`` holds ``Conv_0``), which keeps convert.py
 a direct mapping.
 
+``ConvLayer(int8=True)`` (``p2p_tpu/ops/conv.py:116-145``) runs its conv
+on the int8 path of ops/int8.py.
+
 ``dtype`` is flax's ``dtype=``: the conv's input, weight and bias are cast
 to it (bf16 compute on f32 master weights in training); ``None`` computes
 in the promoted type of input and weight.
@@ -63,19 +66,35 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
 
 
 class ConvLayer(nn.Module):
-    """ReflectionPad(k//2) + conv, no norm or activation."""
+    """ReflectionPad(k//2) + conv, no norm or activation. With ``int8``
+    the conv is an ``ops.int8.QuantConv`` with zero padding 0 (stored
+    scales with ``int8_delayed``) and the reflect pad stays outside; the
+    state dict gains only ``conv.amax_x``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int = 1, use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False):
         super().__init__()
         self.pad = kernel_size // 2
         self.dtype = dtype
-        self.conv = nn.Conv2d(in_channels, features, kernel_size,
-                              stride=stride, bias=use_bias)
+        self.int8 = int8
+        if int8:
+            # ops/int8.py builds on this module's SubpixelConv
+            from p2p_tpu_torch.ops.int8 import QuantConv
+
+            self.conv = QuantConv(in_channels, features, kernel_size,
+                                  stride=stride, padding=0, bias=use_bias,
+                                  dtype=dtype, delayed=int8_delayed)
+        else:
+            self.conv = nn.Conv2d(in_channels, features, kernel_size,
+                                  stride=stride, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return cast_conv(self.conv, reflect_pad_2d(x, self.pad), self.dtype)
+        x = reflect_pad_2d(x, self.pad)
+        if self.int8:
+            return self.conv(x)
+        return cast_conv(self.conv, x, self.dtype)
 
 
 class UpsampleConvLayer(nn.Module):

@@ -6,15 +6,25 @@ One power-iteration step per call on the kernel viewed as (out, kh·kw·in),
 the JAX package's column order; ``u`` is a buffer (the flax ``spectral``
 collection) that a call in training mode advances in place, and ``u``/``v``
 take no gradient, while σ = uᵀWv carries the gradient to W.
+
+With ``int8`` (``p2p_tpu/ops/spectral_norm.py:91-160``) the power
+iteration and the ``u`` update run exactly as in the plain path and only
+the normalized kernel w/σ meets the int8 conv (ops/int8.py), in the three
+forms of ``QuantConv``: dynamic, stored-scale (``int8_delayed``, an
+``amax_x`` buffer) and the quantize-fused input ``epilogue``, whose tap
+is the dequantized surrogate (:class:`~p2p_tpu_torch.ops.int8.QuantScale`
+holds that plumbing for both).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from p2p_tpu_torch.ops.int8 import CONV_FORMS, QuantScale
 
 
 def l2normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
@@ -35,13 +45,18 @@ def spectral_normalize(w_mat: torch.Tensor, u: torch.Tensor,
     return sigma, u, v
 
 
-class SpectralConv(nn.Module):
+class SpectralConv(QuantScale, nn.Module):
     """Zero-padded conv with spectral weight norm. Parameters ``weight``
-    (OIHW) and ``bias``, buffer ``u``; ``dtype`` as in ops/conv.py."""
+    (OIHW) and ``bias``, buffer ``u`` (and ``amax_x`` with ``int8`` and
+    ``int8_delayed``); ``dtype`` as in ops/conv.py. With ``epilogue_tap``
+    the forward returns ``(y, tap)``."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int = 1, padding: int = 0, use_bias: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, int8: bool = False,
+                 int8_delayed: bool = False,
+                 epilogue: Optional[Callable] = None,
+                 epilogue_tap: bool = False):
         super().__init__()
         self.stride = stride
         self.padding = padding
@@ -50,6 +65,8 @@ class SpectralConv(nn.Module):
             features, in_channels, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
         self.register_buffer("u", l2normalize(torch.ones(features)))
+        self.int8 = int8
+        self._init_scale(int8 and int8_delayed, epilogue, epilogue_tap)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = self.weight
@@ -61,5 +78,11 @@ class SpectralConv(nn.Module):
                 self.u.copy_(u)
         dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
-        return F.conv2d(x.to(dt), (w / sigma).to(dt), bias, self.stride,
-                        self.padding)
+        if not self.int8:
+            return F.conv2d(x.to(dt), (w / sigma).to(dt), bias, self.stride,
+                            self.padding)
+        y, tap = self.quant_conv(x, (w / sigma).to(dt), CONV_FORMS,
+                                 (self.stride, self.stride), self.padding)
+        if bias is not None:
+            y = y + bias.to(y.dtype).view(1, -1, 1, 1)
+        return (y, tap) if self.epilogue_tap else y

@@ -14,6 +14,9 @@ generator in bf16: the served-only families (pix2pixHD, ResNet) as a bf16
 copy; the trained families (U-Net, ExpandNetwork) and net_c as they
 train, f32 parameters and BatchNorm statistics computing in bf16
 (``define_G(cfg, dtype)``, the JAX serving forward's ``train_dtype``).
+A delayed-int8 checkpoint is served with its stored activation scales
+frozen (the networks run in eval mode, which reads ``amax_x`` and writes
+nothing), in f32 in either kind of copy.
 
 A preset with a compression net (``reference``) is served with its net_c:
 each request then carries its ``target``, and G runs on ``quantize(net_c(
@@ -46,6 +49,7 @@ from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import resolve_dtype
 from p2p_tpu_torch.models.registry import (COMPUTE_DTYPE_GENERATORS,
                                            define_C, define_G)
+from p2p_tpu_torch.ops.int8 import stored_scales
 from p2p_tpu_torch.serve.io import (AsyncImageWriter, chunk_batch, pad_batch,
                                     pick_bucket)
 from p2p_tpu_torch.train.step import make_infer_forward
@@ -165,7 +169,13 @@ class InferenceEngine:
     def _serving_copy(self, generator: nn.Module) -> nn.Module:
         m = self.cfg.model
         if m.generator not in COMPUTE_DTYPE_GENERATORS:
-            return copy.deepcopy(generator).to(dtype=self.dtype)
+            served = copy.deepcopy(generator).to(dtype=self.dtype)
+            # the stored int8 scales stay f32, as they were trained
+            with torch.no_grad():
+                for s, t in zip(stored_scales(served),
+                                stored_scales(generator)):
+                    s.data = t.detach().to(s.device, torch.float32).clone()
+            return served
         return self._copy_into(
             define_G(m, self._compute_dtype(), self.cfg.image_hw), generator)
 

@@ -10,7 +10,9 @@ needs (inference reads ``net_g`` and ``net_c``, as the JAX params-only
 
 - ``net_g.pt``, ``net_d.pt``, ``net_c.pt``: each network's state_dict,
   parameters and buffers (BatchNorm running statistics, spectral-norm
-  ``u``, the delayed-int8 ``amax_x``);
+  ``u``, the delayed-int8 ``amax_x`` of G, D and net_c: the JAX
+  ``quant_g``, ``quant_d`` and ``quant_c``, which ``restore_nets`` brings
+  back with G and net_c for serving);
 - ``opt_g.pt``, ``opt_d.pt``, ``opt_c.pt``: each optimizer's state_dict
   (Adam or ``AdamLP`` moments and counts) with its ``LambdaLR``'s;
 - ``ema_g.pt``: the EMA generator's parameters, when the state carries

@@ -24,10 +24,13 @@ With ``TrainConfig.pool_size`` the state carries the historical-fake ring
 smoothed f32 copies of G's parameters (not of its running statistics),
 seeded with the initial parameters and moved by :func:`ema_update_`.
 
-Under ``int8_delayed`` the JAX state's ``quant_d`` collection is the
-``amax_x`` buffer of each of D's ``QuantConv``s; ``create_train_state``
-initializes them as flax init does, from one D forward on the sample
-batch's (input ‖ target) pair (:func:`init_amax`).
+Under ``int8_delayed`` the JAX state's ``quant_g``, ``quant_d`` and
+``quant_c`` collections are the ``amax_x`` buffers of G's, D's and net_c's
+int8 modules (ops/int8.py ``stored_scales``); ``create_train_state``
+initializes them as flax init does (:func:`init_amax`): G and net_c from
+one forward each on the sample batch's ``input`` in eval mode (flax's
+``train=False``: BatchNorm reads its fresh running statistics, no
+dropout), D from one forward on the (input ‖ target) pair.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from p2p_tpu_torch.models.registry import define_C, define_D, define_G, \
     init_weights
 from p2p_tpu_torch.models.vgg import (VGG19Features, init_vgg19,
                                       load_vgg19_npz, vgg19_npz_path)
-from p2p_tpu_torch.ops.int8 import QuantConv
+from p2p_tpu_torch.ops.int8 import quant_modules
 from p2p_tpu_torch.train.schedules import make_schedule
 from p2p_tpu_torch.utils.images import ingest
 
@@ -202,20 +205,26 @@ def make_optimizers(cfg: Config, nets: List[nn.Module],
 
 
 @torch.no_grad()
-def init_amax(net_d: nn.Module, pair: torch.Tensor) -> None:
-    """Set every stored activation scale (``amax_x``) of ``net_d`` as flax
-    init does: one D forward on ``pair``, in which each delayed
-    ``QuantConv`` first stores max|x| of its input (under a fused
-    epilogue: the epilogue's amax at sx = 1) and then runs with it."""
-    quants = [m for m in net_d.modules()
-              if isinstance(m, QuantConv) and m.delayed]
+def init_amax(net: nn.Module, x: torch.Tensor, train: bool = True) -> None:
+    """Set every stored activation scale (``amax_x``) of ``net`` as flax
+    init does: one forward on ``x`` (in training mode, or in eval mode
+    with ``train=False``), in which each int8 module with a stored scale
+    first stores max|x| of its own input (under a fused epilogue: the
+    epilogue's amax at sx = 1) and then runs with it. ``net`` is left in
+    its mode."""
+    quants = quant_modules(net)
+    if not quants:
+        return
+    mode = net.training
+    net.train(train)
     for m in quants:
         m.init_amax = True
     try:
-        net_d(pair)
+        net(x)
     finally:
         for m in quants:
             m.init_amax = False
+        net.train(mode)
 
 
 def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
@@ -240,8 +249,12 @@ def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
         init_weights(net, gen)
         net.to(dev, memory_format=torch.channels_last).train()
     if cfg.model.int8_delayed:
-        init_amax(d, torch.cat([_image(sample_batch[k], dev)
-                                for k in ("input", "target")], dim=1))
+        x = _image(sample_batch["input"], dev)
+        init_amax(g, x, train=False)
+        init_amax(d, torch.cat([x, _image(sample_batch["target"], dev)],
+                               dim=1))
+        if c is not None:
+            init_amax(c, x, train=False)
     opts = make_optimizers(cfg, nets, steps_per_epoch)
     if c is None:
         opts.append(None)

@@ -35,29 +35,37 @@ metrics)`` in the order of the JAX step (``step.py:277-597``):
 
 Running statistics, spectral ``u`` and the delayed-int8 ``amax_x`` are
 buffers that each forward in training mode advances in place, so they
-move as the JAX collections are threaded: net_c's from its first run
-(the net_c branch reruns it from the step's starting statistics and drops
-that update, as the JAX branch reads ``state.batch_stats_c``), G's twice
-(the G step, then the net_c branch: the stored value is the second; once
-without net_c), D's ``u`` and ``amax_x`` once per D forward (fake, then
-real: the JAX ``dvars0 → dvars1 → dvars2``).
+move as the JAX collections are threaded: net_c's statistics and scales
+from its first run (the net_c branch reruns it from the step's starting
+buffers and drops that update, as the JAX branch reads
+``state.batch_stats_c`` and ``state.quant_c``), G's statistics twice (the
+G step, then the net_c branch: the stored value is the second; once
+without net_c), G's scales once (the net_c branch reads the updated
+``quant_g1`` and drops its own proposal), D's ``u`` and ``amax_x`` once
+per D forward (fake, then real: the JAX ``dvars0 → dvars1 → dvars2``).
 
 The skip guard (``health.enabled``, ``step.py:442-481``): when the G or D
-loss is not finite, no optimizer steps, D's buffers (``u``, ``amax_x``)
-and all running statistics return to the step's start, and the pool, its
-count and the EMA keep their values of the step's start (the step holds
-their new values until the verdict); when the net_c loss is not finite,
-net_c does not step and the running statistics return to the start. The
-verdicts are read on the host (two synchronizations per step). With
-``grad_clip`` the metrics also count the non-finite gradient entries the
-clip zeroed (``nonfinite_g``, ``nonfinite_d`` and, with net_c,
-``nonfinite_c``), on a step the guard dropped too, as JAX counts them.
+loss is not finite, no optimizer steps, D's buffers (``u``, ``amax_x``),
+G's scales and all running statistics return to the step's start, and
+the pool, its count and the EMA keep their values of the step's start
+(the step holds their new values until the verdict); when the net_c loss
+is not finite, net_c does not step and the running statistics and
+net_c's scales return to the start. The verdicts are read on the host
+(two synchronizations per step). With ``grad_clip`` the metrics also
+count the non-finite gradient entries the clip zeroed (``nonfinite_g``,
+``nonfinite_d`` and, with net_c, ``nonfinite_c``), on a step the guard
+dropped too, as JAX counts them.
 
-int8 QAT runs on D's inner convs (``facades_int8``: ``int8``,
-``int8_delayed``, ``int8_fused_epilogue``). Not ported, and refused by
-:func:`build_train_step`: norms the port does not have, int8 in G, the
-U-Net decoder, net_c, the stems or D's head, int8 under spectral norm,
-pipeline parallelism. ``split_d_pairs`` with the pool raises, as in JAX.
+int8 QAT runs wherever the config puts it (``p2p_tpu/train/step.py:
+223-300``): D's inner convs (``int8``), under spectral norm too, with the
+quantize-fused epilogue (``int8_fused_epilogue``), D's stem and logits
+head (``int8_stem``, ``int8_head``), G (``int8_generator``: the U-Net
+encoder and, with ``int8_decoder``, its decoder; the ResNet-family
+trunks) and net_c (``int8_compression``), with dynamic or stored
+(``int8_delayed``) activation scales. The eval step and the serving
+forward run the networks in eval mode, which reads the stored scales
+frozen. :func:`build_train_step` refuses norms the port does not have,
+and ``split_d_pairs`` with the pool, as JAX does.
 """
 
 from __future__ import annotations
@@ -76,6 +84,7 @@ from p2p_tpu_torch.losses.l1 import l1_loss
 from p2p_tpu_torch.losses.metrics import psnr, ssim
 from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
 from p2p_tpu_torch.models.patchgan import check_norm_d
+from p2p_tpu_torch.ops.int8 import stored_scales
 from p2p_tpu_torch.ops.norm import NORM_KINDS
 from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
 from p2p_tpu_torch.ops.tv import total_variation_loss
@@ -225,18 +234,6 @@ def _check_supported(cfg: Config) -> None:
         raise ValueError(
             "split_d_pairs is incompatible with pool_size > 0 (the fake "
             "pool stores concatenated pairs); set one of them off")
-    unported = {
-        "int8_generator": m.int8 and m.int8_generator,
-        "int8_decoder": m.int8 and m.int8_decoder,
-        "int8_compression": m.int8 and m.int8_compression,
-        "int8_stem": m.int8 and m.int8_stem,
-        "int8_head": m.int8 and m.int8_head,
-        "int8 with spectral norm": m.int8 and m.use_spectral_norm,
-    }
-    missing = [k for k, v in unported.items() if v]
-    if missing:
-        raise NotImplementedError(
-            f"the port's train step does not have {', '.join(missing)} yet")
 
 
 class _Snapshot:
@@ -326,10 +323,16 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         net_g, net_d, net_c = state.net_g, state.net_d, state.net_c
         real_a = to_device_image(batch["input"], state.device, train_dtype)
         real_b = to_device_image(batch["target"], state.device, train_dtype)
+        # G's scales follow the G/D verdict, its statistics and all of
+        # net_c's buffers the verdict with the net_c loss (JAX quant_g1
+        # against bs_g2, bs_c1 and quant_c1)
+        scales_g = stored_scales(net_g)
+        ids_g = {id(b) for b in scales_g}
         stats = [b for net in (net_g, net_c) if net is not None
-                 for b in net.buffers()]
+                 for b in net.buffers() if id(b) not in ids_g]
         snap_stats = _Snapshot(stats) if guard else None
-        snap_u = _Snapshot(list(net_d.buffers())) if guard else None
+        snap_u = (_Snapshot(list(net_d.buffers()) + scales_g) if guard
+                  else None)
         gen = (dropout_generator(cfg.train.seed, state.step, state.device)
                if use_dropout else None)
 
@@ -385,7 +388,10 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         ok_all = ok
         if use_c:
             cq = quant(functional_call(net_c, stats_c0, (real_b,)), bits)
+            # G reads its updated scales and drops this run's proposal
+            snap_g = _Snapshot(scales_g)
             fake_ac = g_forward(cq)
+            snap_g.restore()
             loss_c = ((fake_ac.float() - real_b.float()) ** 2).mean()
             if need_vgg:
                 loss_c = loss_c + vgg_loss(vgg, cq, real_feats) * L.lambda_vgg

@@ -1159,3 +1159,84 @@ def test_ssim_on_the_card_is_exact_for_equal_images_and_matches_float64(
         want = ssim_f64(to_uint8_space(t).cpu().numpy(),
                         to_uint8_space(pred).cpu().numpy())
         assert np.abs(got - want).max() <= 1e-5, (got, want)
+
+
+def test_quantize_epilogue_behind_a_spectral_conv_on_the_card(no_tf32):
+    """#1 + #4 as path A int8's D launches them: the fused input epilogue
+    of a spectral-norm int8 conv (65² × 128 → 256, k4 s2), one #4 launch a
+    forward; against the same module on the CPU (the plain versions) the
+    stored amax and ``u`` within 1e-6, q (the tap over sx) within one step
+    on under 1e-3 of its elements (the statistics' last bits move yc/sx
+    across a tie), the conv's output within the quanta those flips move."""
+    import copy
+
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act_quant
+    from p2p_tpu_torch.ops.int8 import scale_of
+    from p2p_tpu_torch.ops.norm import make_norm_act
+    from p2p_tpu_torch.ops.spectral_norm import (SpectralConv,
+                                                 spectral_normalize)
+
+    na = make_norm_act("pallas_instance")
+    conv = SpectralConv(128, 256, 4, stride=2, padding=2, int8=True,
+                        int8_delayed=True, epilogue=lambda y, sx: na(
+                            y, act="leaky", slope=0.2, quant_scale=sx),
+                        epilogue_tap=True)
+    g = torch.Generator().manual_seed(43)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, 0.02, generator=g)
+        conv.amax_x.fill_(3.0)
+    x = torch.randn((1, 128, 65, 65), generator=g)
+    sx = scale_of(torch.tensor(3.0))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        m = copy.deepcopy(conv).to(dev).train()
+        before = norm_act_quant.launches
+        y, tap = m(x.to(dev).contiguous(memory_format=torch.channels_last))
+        out[dev] = (y.detach().cpu(), torch.round(tap.detach().cpu() / sx),
+                    m.amax_x.cpu(), m.u.cpu(),
+                    norm_act_quant.launches - before)
+    (yc, qc, ac, uc, nc), (yg, qg, ag, ug, ng) = out["cpu"], out["cuda"]
+    assert (nc, ng) == (0, 1)
+    dq = (qc - qg).abs()
+    assert float(dq.max()) <= 1 and float((dq > 0).float().mean()) < 1e-3
+    torch.testing.assert_close(ag, ac, rtol=1e-6, atol=0)
+    torch.testing.assert_close(ug, uc, rtol=0, atol=1e-6)
+    # each flip moves an output by at most sx·max|w/σ| (plus the
+    # dequantization's own rounding)
+    w = conv.weight
+    sigma = spectral_normalize(w.permute(0, 2, 3, 1).reshape(w.shape[0], -1),
+                               conv.u)[0]
+    bound = (int((dq > 0).sum()) + 1) * float(sx) * float(
+        (w / sigma).detach().abs().max())
+    assert float((yg - yc).abs().max()) <= bound
+
+
+def test_batch_moments_under_the_int8_net_c_of_a_unet_preset(no_tf32):
+    """#5 at net_c's BatchNorm in ``facades_int8_full`` (int8 convs, 256²:
+    M = 65,536, C = 64): one launch a training forward, and the running
+    statistics it leaves within f32 rounding of the plain version's."""
+    from unittest import mock
+
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.models.registry import define_C, init_weights
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.ops.cuda.batch_moments import (batch_moments,
+                                                      batch_moments_plain)
+
+    net = define_C(get_preset("facades_int8_full").model)
+    init_weights(net, torch.Generator().manual_seed(44))
+    net = net.to(no_tf32, memory_format=torch.channels_last).train()
+    x = _x((1, 3, 256, 256), torch.float32, no_tf32, 44).clamp(-1, 1)
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    before = batch_moments.launches
+    with torch.no_grad():
+        net(x)
+    assert batch_moments.launches - before == 1
+    got = {k: v.clone() for k, v in net.state_dict().items()}
+    net.load_state_dict(state)
+    with torch.no_grad(), mock.patch.object(norm, "batch_moments",
+                                            batch_moments_plain):
+        net(x)
+    want = net.state_dict()
+    for k in ("BatchNorm_0.mean", "BatchNorm_0.var"):
+        torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)

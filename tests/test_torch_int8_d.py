@@ -17,7 +17,8 @@
   largest entry, the taps within 2.5e-6 (0.46% of one tap's q moved by
   one step), amax within 1.6e-7 relative; the bands are 1e-5 of each
   tensor's largest entry and 1e-6 relative.
-- Eval mode leaves ``amax_x`` alone; the refusals of the later int8 slice.
+- Eval mode leaves ``amax_x`` alone; the forms an earlier port refused
+  (``int8_stem``, ``int8_head``, int8 under spectral norm) build and run.
 """
 
 import os
@@ -35,7 +36,8 @@ from p2p_tpu.models.patchgan import NLayerDiscriminator as JaxD  # noqa: E402
 from p2p_tpu_torch.convert import state_from_flax  # noqa: E402
 from p2p_tpu_torch.models.patchgan import (  # noqa: E402
     MultiscaleDiscriminator, NLayerDiscriminator)
-from p2p_tpu_torch.ops.int8 import QuantConv  # noqa: E402
+from p2p_tpu_torch.ops.int8 import QuantConv, QuantKN2RowConv  # noqa: E402
+from p2p_tpu_torch.ops.spectral_norm import SpectralConv  # noqa: E402
 from p2p_tpu_torch.train.state import init_amax  # noqa: E402
 
 KW = dict(ndf=8, n_layers=3, use_spectral_norm=False, int8=True,
@@ -183,8 +185,27 @@ def test_int8_modules_and_state_keys():
     (dict(use_spectral_norm=True), "spectral norm"),
 ])
 def test_the_later_int8_slice_is_refused_by_name(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        NLayerDiscriminator(6, **dict(KW, **kw), norm="pallas_instance")
+    """The forms an earlier port refused by name (``match``) now build
+    their quantized modules, each with a stored scale set by
+    ``init_amax``, and a forward and backward run."""
+    d = NLayerDiscriminator(6, **dict(KW, **kw), norm="pallas_instance")
+    torch.manual_seed(0)
+    for p in d.parameters():
+        torch.nn.init.normal_(p, 0.0, 0.05)
+    d.to(memory_format=torch.channels_last).train()
+    name, kind = {"int8_stem": ("_PlainConv_0.conv", QuantConv),
+                  "int8_head": ("_PlainConv_4.conv", QuantKN2RowConv),
+                  "spectral norm": ("SpectralConv_1", SpectralConv)}[match]
+    mod = d.get_submodule(name)
+    assert isinstance(mod, kind) and hasattr(mod, "amax_x")
+    x = _t4(_x(3, 32)).requires_grad_()
+    init_amax(d, x.detach())
+    amax = _amax(d)
+    assert all(float(v) > 0 for v in amax.values())
+    feats = d(x)
+    sum(f.float().square().mean() for f in feats).backward()
+    assert all(torch.isfinite(f).all() for f in feats)
+    assert torch.isfinite(x.grad).all() and float(x.grad.abs().max()) > 0
 
 
 def test_fused_epilogue_needs_an_instance_norm():

@@ -3,7 +3,8 @@
 inner convs 2 and 3 of the delayed-int8 PatchGAN) against the JAX step on
 the CPU, and the pieces it adds: ``AdamLP`` (bf16-stored Adam moments),
 the ``amax_x`` init of ``create_train_state``, the registry's int8 wiring
-and the refusals of the later int8 slice.
+and the forms an earlier port refused by name (each now builds and
+trains a step).
 
 One JAX ``create_train_state`` of the preset shrunk to ngf 32, ndf 16 at
 64², dropout off (the two packages' random streams differ), takes 3 f32
@@ -57,8 +58,11 @@ from p2p_tpu_torch.models.registry import define_G  # noqa: E402
 from p2p_tpu_torch.ops import instance_norm as tin  # noqa: E402
 from p2p_tpu_torch.train.state import AdamLP, create_train_state, \
     init_amax  # noqa: E402
+from p2p_tpu_torch.ops.int8 import (QuantConv, QuantKN2RowConv,  # noqa: E402
+                                    QuantSubpixelConv, quant_modules)
+from p2p_tpu_torch.ops.spectral_norm import SpectralConv  # noqa: E402
 from p2p_tpu_torch.train.step import build_train_step  # noqa: E402
-from torch_step_parity import jax_start, np_tree  # noqa: E402
+from torch_step_parity import jax_start, load_adam, np_tree  # noqa: E402
 
 SIZE = 64
 N_STEPS = 3
@@ -92,23 +96,6 @@ def _amax(net):
             if k.endswith("amax_x")}
 
 
-def _load_adam(opt, net, jopt):
-    """The count and moments of the Adam inside an optax state into the
-    port's optimizer of ``net``."""
-    leaves = jax.tree_util.tree_leaves(
-        jopt, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
-    (adam,) = [s for s in leaves if isinstance(s, optax.ScaleByAdamState)]
-    count = int(adam.count)
-    if count == 0:
-        return
-    mu, nu = (state_from_flax(np_tree(t), module=net)
-              for t in (adam.mu, adam.nu))
-    for k, p in net.named_parameters():
-        opt.state[p] = {"step": count,
-                        "exp_avg": mu[k].to(opt.moment_dtype),
-                        "exp_avg_sq": nu[k].to(opt.moment_dtype)}
-
-
 def _port_step(tcfg, jstate, batch, sample):
     """One port step from the JAX state ``jstate``: (metrics, amax, state)."""
     ts = create_train_state(tcfg, device="cpu", sample_batch=sample)
@@ -116,7 +103,7 @@ def _port_step(tcfg, jstate, batch, sample):
                                for f in FIELDS})
     for net, opt, jopt in ((ts.net_g, ts.opt_g, jstate.opt_g),
                            (ts.net_d, ts.opt_d, jstate.opt_d)):
-        _load_adam(opt[0], net, jopt)
+        load_adam(opt[0], net, jopt)
     ts.step = int(jstate.step)
     ts, m = build_train_step(tcfg)(ts, batch)
     return {k: float(m[k]) for k in KEYS}, _amax(ts.net_d), ts
@@ -256,9 +243,11 @@ def test_preset_builds_bf16_moments_and_the_bf16_unet():
     assert type(g8) is type(g)
     assert {k: v.shape for k, v in g8.state_dict().items()} == {
         k: v.shape for k, v in g.state_dict().items()}
-    with pytest.raises(NotImplementedError, match="int8"):
-        define_G(dataclasses.replace(cfg.model, int8_generator=True), None,
-                 cfg.image_hw)
+    g8q = define_G(dataclasses.replace(cfg.model, int8_generator=True),
+                   None, cfg.image_hw)
+    assert not isinstance(g8q.down0, QuantConv)
+    assert all(isinstance(getattr(g8q, f"down{i}"), QuantConv)
+               for i in range(1, g8q.num_downs))
     small = _small(cfg, fused=False)
     ts = create_train_state(small, device="cpu",
                             sample_batch=_batches(1)[0])
@@ -271,11 +260,28 @@ def test_preset_builds_bf16_moments_and_the_bf16_unet():
                                   "int8_compression", "int8_stem",
                                   "int8_head", "use_spectral_norm"])
 def test_the_later_int8_slice_is_refused_by_name(flag):
-    cfg = _small(get_preset("facades_int8"))
+    """Each flag an earlier port refused by name now builds its quantized
+    modules, with stored scales from ``create_train_state``, and a train
+    step runs with finite losses and moves them."""
+    cfg = _small(get_preset("facades_int8"), fused=False)
     cfg = cfg.replace(model=dataclasses.replace(cfg.model, **{flag: True}))
-    name = "spectral norm" if flag == "use_spectral_norm" else flag
-    with pytest.raises(NotImplementedError, match=name):
-        build_train_step(cfg)
+    if flag in ("int8_decoder", "int8_compression"):
+        cfg = cfg.replace(model=dataclasses.replace(
+            cfg.model, int8_generator=True, use_compression_net=True,
+            ngf=8, ndf=8))
+    b = _batches(1)[0]
+    ts = create_train_state(cfg, device="cpu", sample_batch=b)
+    net = {"int8_generator": ts.net_g, "int8_decoder": ts.net_g,
+           "int8_compression": ts.net_c}.get(flag, ts.net_d)
+    kinds = {"int8_generator": QuantConv, "int8_decoder": QuantSubpixelConv,
+             "int8_compression": QuantConv, "int8_stem": QuantConv,
+             "int8_head": QuantKN2RowConv, "use_spectral_norm": SpectralConv}
+    mods = [m for m in quant_modules(net) if type(m) is kinds[flag]]
+    assert mods and all(float(m.amax_x) > 0 for m in mods)
+    before = [float(m.amax_x) for m in mods]
+    ts, m = build_train_step(cfg)(ts, b)
+    assert all(np.isfinite(float(v)) for v in m.values())
+    assert [float(q.amax_x) for q in mods] != before
 
 
 @pytest.mark.parametrize("fused", [True, False])

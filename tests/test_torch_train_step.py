@@ -210,12 +210,6 @@ def test_without_guard_or_net_c_training():
 
 def test_step_refuses_what_is_not_ported():
     cfg = _small(get_preset("reference"))
-    for bad, what in (
-            (dataclasses.replace(cfg.model, int8=True), "int8 with spectral"),
-            (dataclasses.replace(cfg.model, int8=True, int8_generator=True,
-                                 use_spectral_norm=False), "int8_generator")):
-        with pytest.raises(NotImplementedError, match=what):
-            build_train_step(cfg.replace(model=bad))
     with pytest.raises(ValueError, match="split_d_pairs is incompatible"):
         build_train_step(cfg.replace(
             model=dataclasses.replace(cfg.model, split_d_pairs=True),

@@ -178,8 +178,6 @@ def test_refused_options():
     _, tcfg = _cfgs(head_pallas=True)
     with pytest.raises(ValueError, match="head_pallas requires thin_head"):
         define_G(tcfg.model, None, (H, W))
-    with pytest.raises(NotImplementedError, match="int8"):
-        unet.UNetGenerator(ngf=8, image_hw=(H, W), int8=True)
     with pytest.raises(ValueError, match="upsample_mode 'bilinear'"):
         unet.UNetGenerator(ngf=8, image_hw=(H, W), upsample_mode="bilinear")
     with pytest.raises(ValueError, match="image_hw"):

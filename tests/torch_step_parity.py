@@ -73,6 +73,24 @@ def adam_mu(opt_state):
     return np_tree(adam.mu)
 
 
+def load_adam(opt, net, jopt):
+    """The count and moments of the Adam inside the optax state ``jopt``
+    into the port's optimizer ``opt`` of ``net`` (an ``AdamLP`` keeps its
+    moment dtype)."""
+    leaves = jax.tree_util.tree_leaves(
+        jopt, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+    (adam,) = [s for s in leaves if isinstance(s, optax.ScaleByAdamState)]
+    count = int(adam.count)
+    if count == 0:
+        return
+    mu, nu = (state_from_flax(np_tree(t), module=net)
+              for t in (adam.mu, adam.nu))
+    dt = getattr(opt, "moment_dtype", torch.float32)
+    for k, p in net.named_parameters():
+        opt.state[p] = {"step": count, "exp_avg": mu[k].to(dt),
+                        "exp_avg_sq": nu[k].to(dt)}
+
+
 def port_grads(net, opt):
     """``{name: 2·exp_avg}`` of a port network after its first step."""
     state = opt[0].state
