@@ -169,8 +169,38 @@ to the CPU or to a plain version):
    spectral-norm sites); (d) ``pix2pixhd`` with int8 trunks at 1024×512:
    one bf16 step and one served forward, 36 #1 + 36 #3 each, the scales
    moved by the step and bitwise after the forward;
-14. a ``{"kernels": [...]}`` line, then the last line
-   ``{"ok": true, "device": {...}}``.
+14. slice 10, preemptible self-healing training, on phase 10's
+   ``reference`` data (full width, bf16 on f32 masters, 2 epochs of 4
+   steps, an eval and a checkpoint an epoch), every run through
+   ``cli.train`` in process unless named: (a) two uninterrupted runs and
+   one preempted at step 6 (``P2P_CHAOS=elastic@6``: exit 75, the step-6
+   checkpoint, its sidecar with ``batches_done`` 2, a ``preempt``
+   record), all cuDNN deterministic, then its relaunch (exit 0): it
+   resumes at epoch 2, batch 2 (a ``resume`` record), its live state
+   after the restore bitwise the step as saved (the manifest's CRC32s),
+   it reads exactly the uninterrupted run's last 2 train samples, and its
+   losses of steps 7-8 and its final networks (parameters and buffers)
+   lie within the bands
+   ``band_of`` sets from the two uninterrupted runs' difference
+   (``RES_BAND_FACTOR``; bitwise where they are bitwise); then a
+   ``cli.train`` subprocess sent SIGTERM after its first ``train`` record
+   exits 75 with a sidecar, and its relaunch exits 0; (b) the ladder:
+   ``RES_LADDER_NAN`` with ``--cooldown_steps 8 --max_rollbacks 1`` skips,
+   cools down, rolls back to the marked step 4 (``rollback`` and
+   ``health_summary`` records), logs the rerun epoch's ``lr`` times
+   ``cooldown_factor`` and exits 0; ``RES_GIVEUP_NAN`` exits 76 after one
+   rollback; (c) the records (``manifest`` with the card's backend block,
+   ``epoch``, ``eval``, ``memory`` with the card's bytes, ``preempt``,
+   ``resume``, ``rollback``, ``health_summary``), ``trace_reference.json``
+   with ``epoch``, ``evaluate``, ``train_dispatch`` and
+   ``checkpoint_save`` spans, the ``--prom_textfile`` file parsed,
+   ``--check_finite --nan_sentinel --grad_norms`` on a healthy epoch with
+   no event and finite gradient norms, no unexpected kernel build after
+   the first epoch; (d) exactly 50 #5 launches a train step in every run,
+   none in eval; (e) the loop's ms/step with health and obs on, beside
+   phase 10's;
+15. the script's total seconds, a ``{"kernels": [...]}`` line, then the
+   last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -181,7 +211,10 @@ import contextlib
 import dataclasses
 import io
 import json
+import math
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -328,6 +361,27 @@ HTTP_CLI_REQUESTS = 4
 # for the same bodies in the same group (the same padded bucket batch),
 # cuDNN deterministic on both: the same bits, so 0 uint8 levels
 HTTP_LEVELS_BAND = 0
+# the slice-10 phase (preemption, exact resume, the recovery ladder and
+# the training telemetry) on phase 10's reference data: 2 epochs of 4
+# steps. Preempted in process at step 6 (the elastic chaos seam); the
+# ladder: NaN observed at steps 6-8 (skip, cooldown, rollback to the
+# marked step 4) with a post-rollback cooldown that outlives the rerun
+# epoch, then NaN at every step from 5 (one rollback, then exit 76)
+RES_STOP = 6
+RES_PREEMPT = f"elastic@{RES_STOP}"
+RES_LADDER_NAN = "nan@6x3"
+RES_GIVEUP_NAN = "nan@5x1000"
+RES_COOLDOWN_STEPS = 8
+RES_MAX_ROLLBACKS = 1
+# the resume bands (ROADMAP Queue C's rule): 2.5x the largest difference
+# between any two of three resumes of one step-6 checkpoint (cuDNN
+# deterministic), for the losses of steps 7-8 and for each network's
+# final parameters over their update from step 6, rounded up to 1, 2 or
+# 5 x 10^-n; bitwise where the resumes are bitwise equal. A resume at
+# RES_PLANTED_LR times the learning rate (the cooldown factor: a cooldown
+# carried across the resume) must fall outside them
+RES_BAND_FACTOR = 2.5
+RES_PLANTED_LR = 0.1
 # its f32 kernels-vs-plain check (cuDNN deterministic): given the plain
 # statistics of #1 and #5, #3 and #4 are bitwise their plain versions and
 # the backward is the same code, so both steps' losses are equal (rel diff
@@ -2271,7 +2325,7 @@ def loop_phase(device, card, step_median: float, step_host: float,
               f"x; host yardstick {wall['host'][e]:.2f} ms (phase 4 "
               f"{step_host:.2f}, {wall['host'][e] / step_host:.3f}x)",
               flush=True)
-    return counts
+    return counts, [round(1e3 * t / n_train, 2) for t in wall["train"]]
 
 
 @contextlib.contextmanager
@@ -2284,6 +2338,520 @@ def cudnn_deterministic():
         yield
     finally:
         torch.backends.cudnn.deterministic = saved
+
+
+def band_of(spread: float) -> float:
+    """ROADMAP Queue C's rule: RES_BAND_FACTOR x ``spread`` rounded up to
+    1, 2 or 5 x 10^-n; 0 (bitwise) when the spread is 0."""
+    if spread == 0:
+        return 0.0
+    x = RES_BAND_FACTOR * spread
+    e = math.floor(math.log10(x))
+    return next(m * 10.0 ** e for m in (1, 2, 5, 10) if m * 10.0 ** e >= x)
+
+
+def manifest_tensors(step_dir: str):
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        return {k: v["tensors"] for k, v in json.load(f)["files"].items()}
+
+
+def live_is_saved(tr, step: int) -> bool:
+    """Every tensor of the trainer's live state has the CRC32, shape and
+    dtype the step's manifest recorded when it was saved."""
+    from p2p_tpu_torch.train.checkpoint import tensor_checksums
+
+    man = manifest_tensors(tr.ckpt.step_dir(step))
+    for name in ("net_g", "net_d", "net_c"):
+        net = getattr(tr.state, name)
+        if net is not None and tensor_checksums(net.state_dict()) != \
+                man[f"{name}.pt"]:
+            return False
+    for name in ("opt_g", "opt_d", "opt_c"):
+        opt = getattr(tr.state, name)
+        if opt is not None and tensor_checksums(
+                {"optimizer": opt[0].state_dict(),
+                 "scheduler": opt[1].state_dict()}) != man[f"{name}.pt"]:
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def watched_trainer():
+    """For the duration, ``cli.train``'s trainers report into the dict
+    yielded: train steps run, the train split's item indices in the order
+    read, #5 launches in each eval, seconds and steps of each
+    ``train_epoch`` (device synchronized at its end), the build
+    watchdog's counts when ``fit`` removes its hooks and, after a resume,
+    whether the live state is bitwise the restored step's as saved."""
+    from p2p_tpu_torch.data import pipeline
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
+    from p2p_tpu_torch.train import loop
+
+    seen = {"steps": 0, "reads": [], "eval_launches": [], "epochs": [],
+            "builds": [], "restored": []}
+    tr_cls = loop.Trainer
+    build_step, evaluate = loop.build_train_step, tr_cls.evaluate
+    train_epoch, close = tr_cls.train_epoch, loop.close_trainer_obs
+    resume, getitem = tr_cls.maybe_resume, pipeline.PairedImageDataset.\
+        __getitem__
+
+    def counting_build(*a, **kw):
+        step = build_step(*a, **kw)
+
+        def counted(state, batch):
+            seen["steps"] += 1
+            return step(state, batch)
+
+        return counted
+
+    def watched_evaluate(self, *a, **kw):
+        before = batch_moments.launches
+        res = evaluate(self, *a, **kw)
+        seen["eval_launches"].append(batch_moments.launches - before)
+        return res
+
+    def watched_epoch(self, *a, **kw):
+        n0, t = seen["steps"], time.perf_counter()
+        res = train_epoch(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["epochs"].append((time.perf_counter() - t, seen["steps"] - n0))
+        return res
+
+    def watched_close(tr):
+        w = tr.retrace
+        seen["builds"].append((w.compiles, w.cache_hits, w.unexpected,
+                               w.armed))
+        close(tr)
+
+    def watched_resume(self):
+        ok = resume(self)
+        if ok:
+            step = self.ckpt.last_restored_step
+            seen["restored"].append((step, live_is_saved(self, step)))
+        return ok
+
+    def reading(self, idx):
+        if os.path.basename(os.path.dirname(self.a_dir)) == "train":
+            seen["reads"].append(int(idx))
+        return getitem(self, idx)
+
+    with mock.patch.object(loop, "build_train_step", counting_build), \
+            mock.patch.object(tr_cls, "evaluate", watched_evaluate), \
+            mock.patch.object(tr_cls, "train_epoch", watched_epoch), \
+            mock.patch.object(loop, "close_trainer_obs", watched_close), \
+            mock.patch.object(tr_cls, "maybe_resume", watched_resume), \
+            mock.patch.object(pipeline.PairedImageDataset, "__getitem__",
+                              reading):
+        yield seen
+
+
+def res_train(what: str, args, want_rc: int, per_step: int,
+              chaos: str = None, within=None):
+    """One in-process ``cli.train`` run (its output kept, not printed),
+    inside the context ``within`` if given: the exit code as wanted,
+    exactly ``per_step`` #5 launches a train step run and none else (none
+    in eval), no unexpected kernel build after the first epoch. Returns
+    what ``watched_trainer`` saw and the output."""
+    from p2p_tpu_torch.cli import train
+    from p2p_tpu_torch.resilience import ChaosMonkey, install_chaos
+
+    reset_launch_counts()
+    buf = io.StringIO()
+    install_chaos(ChaosMonkey.from_spec(chaos) if chaos else None)
+    try:
+        with watched_trainer() as seen, contextlib.redirect_stdout(buf), \
+                (within or contextlib.nullcontext()):
+            rc = train.main(args)
+    finally:
+        install_chaos(None)
+    out = buf.getvalue()
+    counts = launch_counts()
+    want = only(batch_moments=per_step * seen["steps"])
+    print(f"slice 10: {what}: exit {rc} (want {want_rc}), "
+          f"{seen['steps']} train steps, #5 launches "
+          f"{counts['batch_moments']} (want {want['batch_moments']}), #5 in "
+          f"each eval {seen['eval_launches']}; builds (compiles, cache "
+          f"hits, unexpected, armed) {seen['builds']}", flush=True)
+    if rc != want_rc:
+        raise AssertionError(f"{what}: exit {rc}:\n{out[-4000:]}")
+    if counts != want or any(seen["eval_launches"]):
+        raise AssertionError(f"{what}: launches {counts}, want {want}")
+    if any(unexpected for _, _, unexpected, _ in seen["builds"]):
+        raise AssertionError(f"{what}: unexpected kernel builds")
+    seen["out"] = out
+    return seen
+
+
+def prom_samples(path: str):
+    """``{sample: value}`` of a Prometheus textfile."""
+    samples = {}
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if line and not line.startswith("#"):
+                name, value = line.rsplit(" ", 1)
+                samples[name] = float(value)
+    return samples
+
+
+def run_records(work: str):
+    return read_records(os.path.join(work, "metrics_reference.jsonl"))
+
+
+def step_losses(records):
+    """``{step: {loss: value}}`` of the ``train`` records."""
+    return {int(r["step"]): {k: r[k] for k in LOSS_KEYS if k in r}
+            for r in records if r["kind"] == "train"}
+
+
+def loss_spread(a, b, steps) -> float:
+    return max(abs(a[s][k] - b[s][k]) / max(abs(a[s][k]), 1e-12)
+               for s in steps for k in a[s])
+
+
+RES_NETS = ("net_g", "net_d", "net_c")
+# the buffers of the networks' state (the BatchNorms' running statistics,
+# spectral norm's power-iteration vector), which move whatever the
+# learning rate: the update a resume is held to is the parameters'
+RES_BUFFERS = ("mean", "var", "u")
+
+
+def net_tensors(ckpt: str, step: int):
+    """``{network: {name: tensor}}`` of the parameters of a checkpoint's
+    step (its buffers left out)."""
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager, _tensors
+
+    got = CheckpointManager(ckpt).read(step, list(RES_NETS))
+    return {n: {k: t for k, t in _tensors(got[n])
+                if k.rsplit(".", 1)[-1] not in RES_BUFFERS}
+            for n in RES_NETS}
+
+
+def update_spread(base, a, b):
+    """How far apart two runs that continued from one checkpoint end,
+    against how far they moved: for each network, ||b - a|| / ||a - base||
+    over all its float tensors as one vector (inf where an integer tensor
+    of ``a`` and ``b`` differs), each argument a ``net_tensors``. Returns
+    ``{network: distance}``."""
+    rel = {}
+    for name, ta in a.items():
+        tb, t0 = b[name], base[name]
+        if ta.keys() != tb.keys():
+            raise AssertionError(f"{name}: the checkpoints hold different "
+                                 "tensors")
+        diff = moved = 0.0
+        for k, x in ta.items():
+            if not x.is_floating_point():
+                if not torch.equal(x, tb[k]):
+                    diff = math.inf
+                continue
+            x = x.double()
+            diff += float(((tb[k].double() - x) ** 2).sum())
+            moved += float(((x - t0[k].double()) ** 2).sum())
+        rel[name] = math.sqrt(diff) / max(math.sqrt(moved), 1e-30)
+    return rel
+
+
+@contextlib.contextmanager
+def saving_at(step: int, copies):
+    """For the duration, the trainer saves its checkpoint and sidecar at
+    host step ``step`` and trains on (a preemption's save without the
+    stop), and copies its checkpoint directory and sidecars as they then
+    are to each directory of ``copies``."""
+    from p2p_tpu_torch.train import loop
+
+    poll = loop.poll_preempt
+
+    def polling(tr):
+        if tr._host_step == step:
+            loop.save_trainer_ckpt(tr)
+            for d in copies:
+                for suffix in ("", ".aux"):
+                    shutil.copytree(tr.ckpt.directory + suffix, d + suffix)
+        return poll(tr)
+
+    with mock.patch.object(loop, "poll_preempt", polling):
+        yield
+
+
+@contextlib.contextmanager
+def resuming_at_lr(factor: float):
+    """For the duration, a resume restores the learning-rate scale times
+    ``factor`` (a planted fault: a cooldown carried across the resume)."""
+    from p2p_tpu_torch.train import loop
+
+    resume = loop.Trainer.maybe_resume
+
+    def planted(tr):
+        ok = resume(tr)
+        tr._base_lr_scale *= factor
+        tr.state.lr_scale = tr._applied_lr_scale = tr._base_lr_scale
+        return ok
+
+    with mock.patch.object(loop.Trainer, "maybe_resume", planted):
+        yield
+
+
+def resilience_phase(device, card, tmp: str, loop_ms):
+    """Slice 10 on phase 10's reference data (4 + 2 pairs of 256²,
+    full width, bf16 on f32 masters), every run through ``cli.train``.
+    Returns ``{"batch_moments": n}``, the #5 launches of its train
+    steps."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+
+    cfg = get_preset("reference")
+    m = cfg.model
+    per_step = len(batchnorm_plan(m.ngf, m.n_blocks, *cfg.image_hw))
+    data = os.path.join(tmp, "data")
+    base = os.path.join(tmp, "slice10")
+
+    def args(name, *extra):
+        return ["--preset", "reference", "--data_root", data, "--workdir",
+                os.path.join(base, name), "--nepoch", "2", "--epochsave",
+                "1", "--log_every", "1", *extra]
+
+    def ckpt_dir(name):
+        return os.path.join(base, name, cfg.train.checkpoint_dir,
+                            cfg.data.dataset, cfg.name)
+
+    t_phase = time.perf_counter()
+    steps = 0
+    # ---- (a) exact resume, cuDNN deterministic. The uninterrupted run
+    # saves at step 6 as a preemption would and trains on; four runs
+    # resume copies of that step-6 checkpoint: r1, r2 and r3 (their
+    # largest pairwise spread sets the bands, the uninterrupted run is
+    # held against r1) and rf, with a planted fault the bands must catch.
+    # The run preempted at step 6 and its resume hold the position.
+    resumes = {n: ckpt_dir(n) for n in ("r1", "r2", "r3", "rf")}
+    with cudnn_deterministic():
+        u = res_train("uninterrupted run (saved at step 6 as a preemption "
+                      "saves, trained on)", args(
+                          "u", "--prom_textfile",
+                          os.path.join(base, "u", "p2p.prom")),
+                      0, per_step,
+                      within=saving_at(RES_STOP, list(resumes.values())))
+        pre = res_train("preempted run (P2P_CHAOS=" + RES_PREEMPT + ")",
+                        args("p"), 75, per_step, chaos=RES_PREEMPT)
+        res = res_train("the resumed run", args("p"), 0, per_step)
+        rs = {n: res_train(f"resume {n} of the uninterrupted run's step "
+                           f"{RES_STOP}" + (
+                               f" (planted: lr scale x {RES_PLANTED_LR})"
+                               if n == "rf" else ""),
+                           args(n), 0, per_step,
+                           within=(resuming_at_lr(RES_PLANTED_LR)
+                                   if n == "rf" else None))
+              for n in resumes}
+    steps += sum(r["steps"] for r in (u, pre, res, *rs.values()))
+    rec_u = run_records(os.path.join(base, "u"))
+    rec_p = run_records(os.path.join(base, "p"))
+    tail_steps = tuple(range(RES_STOP + 1, LOOP_STEPS + 1))
+    losses = {"u": step_losses(rec_u)}
+    losses.update((n, step_losses(run_records(os.path.join(base, n))))
+                  for n in resumes)
+    if sorted(losses["u"]) != list(range(1, LOOP_STEPS + 1)) or any(
+            sorted(losses[n]) != list(tail_steps) for n in resumes):
+        raise AssertionError("the runs' train records")
+    t0 = net_tensors(ckpt_dir("u"), RES_STOP)
+    nets = {"u": net_tensors(ckpt_dir("u"), LOOP_STEPS)}
+    nets.update((n, net_tensors(d, LOOP_STEPS)) for n, d in resumes.items())
+
+    def apart(a, b):
+        """The losses' largest relative difference over steps 7-8, and
+        each network's final distance over its update."""
+        return (loss_spread(losses[a], losses[b], tail_steps),
+                update_spread(t0, nets[a], nets[b]))
+
+    pairs = {f"{a}-{b}": apart(a, b)
+             for a, b in (("r1", "r2"), ("r1", "r3"), ("r2", "r3"))}
+    spread = (max(lo for lo, _ in pairs.values()),
+              {k: max(d[k] for _, d in pairs.values()) for k in RES_NETS})
+    band = (band_of(spread[0]), {k: band_of(v) for k, v in spread[1].items()})
+    got, bad = apart("u", "r1"), apart("u", "rf")
+
+    def within(d):
+        return d[0] <= band[0] and all(d[1][k] <= band[1][k]
+                                       for k in RES_NETS)
+
+    def show(d):
+        return (f"losses {d[0]:.3g}, "
+                + ", ".join(f"{k} {v:.3g}" for k, v in d[1].items()))
+
+    mgr = CheckpointManager(ckpt_dir("p"))
+    aux = mgr.restore_aux(RES_STOP)
+    preempts = [r for r in rec_p if r["kind"] == "preempt"]
+    resumed = [r for r in rec_p if r["kind"] == "resume"]
+    tail = u["reads"][RES_STOP:]
+    print(f"slice 10 (a): from step {RES_STOP}, the resumes apart by "
+          f"(losses of steps {tail_steps}, relative; each network's final "
+          f"parameters over their update from step {RES_STOP}): "
+          + "; ".join(f"{k} {show(d)}" for k, d in pairs.items())
+          + f"; bands {show(band)} (0 = bitwise); the uninterrupted run "
+          f"against r1 {show(got)}; against the planted fault rf "
+          f"{show(bad)}; restored (step, bitwise as saved) "
+          f"{[rs[n]['restored'] for n in resumes]}", flush=True)
+    print(f"slice 10 (a): preempted at step {pre['steps']}, checkpoints "
+          f"after the resume {mgr.all_steps()}, step {RES_STOP}'s sidecar "
+          f"{aux}, preempt records "
+          f"{[(r['step'], r['signum']) for r in preempts]}; the resume "
+          f"record "
+          f"{[(r['step'], r['epoch'], r['batches_done']) for r in resumed]}"
+          f", restored {res['restored']}, read {res['reads']} against the "
+          f"uninterrupted tail {tail}", flush=True)
+    if pre["steps"] != RES_STOP or mgr.all_steps() != [4, RES_STOP,
+                                                        LOOP_STEPS] \
+            or aux is None \
+            or aux["batches_done"] != 2 or aux["epoch"] != 2 \
+            or [r["step"] for r in preempts] != [RES_STOP]:
+        raise AssertionError("the preempted run")
+    if pre["reads"][:RES_STOP] != u["reads"][:RES_STOP] \
+            or res["reads"] != tail \
+            or res["restored"] != [(RES_STOP, True)] or res["steps"] != 2 \
+            or [(r["step"], r["epoch"], r["batches_done"])
+                for r in resumed] != [(RES_STOP, 2, 2)]:
+        raise AssertionError("the resumed run's position or restore")
+    if any(r["restored"] != [(RES_STOP, True)] or r["reads"] != tail
+           for r in rs.values()):
+        raise AssertionError("the resumes of the uninterrupted run")
+    if not within(got):
+        raise AssertionError(f"resume outside its bands: {show(got)}")
+    if within(bad):
+        raise AssertionError("the bands pass a resume at the wrong "
+                             "learning rate")
+
+    # ---- a real SIGTERM after the first train record of a subprocess, a
+    # fresh process whose build watchdog sees #5's library reused
+    s_prom = os.path.join(base, "s", "p2p.prom")
+    proc, lines = cli_subprocess(
+        [sys.executable, "-m", "p2p_tpu_torch.cli.train", *args("s"),
+         "--prom_textfile", s_prom],
+        until="kind=train", timeout=600)
+    proc.send_signal(signal.SIGTERM)
+    rc, lines = finish(proc, lines, 300)
+    smgr = CheckpointManager(ckpt_dir("s"))
+    s_step = smgr.latest_step()
+    s_aux = smgr.restore_aux(s_step) if s_step is not None else None
+    s_builds = {k: prom_samples(s_prom).get(k) for k in (
+        "xla_compiles", "persistent_cache_hits", "unexpected_recompiles")}
+    print(f"slice 10 (a): SIGTERM subprocess: exit {rc}, checkpoint "
+          f"{s_step}, sidecar {s_aux}, its build watchdog {s_builds}; last "
+          f"line: {lines[-1]}", flush=True)
+    if rc != 75 or s_aux is None or s_aux["step"] != s_step:
+        raise AssertionError("the SIGTERM run:\n" + "\n".join(lines[-30:]))
+    if s_builds != {"xla_compiles": None, "persistent_cache_hits": 1.0,
+                    "unexpected_recompiles": None}:
+        raise AssertionError("the SIGTERM run's build watchdog")
+    relaunch = res_train("SIGTERM relaunch", args("s"), 0, per_step)
+    steps += relaunch["steps"]
+    if relaunch["steps"] != LOOP_STEPS - s_step:
+        raise AssertionError("the SIGTERM relaunch's steps")
+
+    # ---- (b) the recovery ladder
+    ladder = res_train(
+        f"ladder ({RES_LADDER_NAN}, --cooldown_steps {RES_COOLDOWN_STEPS}, "
+        f"--max_rollbacks {RES_MAX_ROLLBACKS})",
+        args("l", "--cooldown_steps", str(RES_COOLDOWN_STEPS),
+             "--max_rollbacks", str(RES_MAX_ROLLBACKS)),
+        0, per_step, chaos=RES_LADDER_NAN)
+    giveup = res_train(
+        f"give-up ({RES_GIVEUP_NAN}, --max_rollbacks {RES_MAX_ROLLBACKS})",
+        args("g", "--max_rollbacks", str(RES_MAX_ROLLBACKS)),
+        76, per_step, chaos=RES_GIVEUP_NAN)
+    steps += ladder["steps"] + giveup["steps"]
+    rec_l = run_records(os.path.join(base, "l"))
+    rec_g = run_records(os.path.join(base, "g"))
+
+    def actions(recs):
+        return [r["action"] for r in recs
+                if r["kind"] == "health" and "action" in r]
+
+    epochs_l = [r for r in rec_l if r["kind"] == "epoch"]
+    rollbacks = [(r["step"], r["target_step"]) for r in rec_l
+                 if r["kind"] == "rollback"]
+    summ_l = [r for r in rec_l if r["kind"] == "health_summary"]
+    summ_g = [r for r in rec_g if r["kind"] == "health_summary"]
+    print(f"slice 10 (b): ladder actions {actions(rec_l)}, rollbacks "
+          f"(step, target) {rollbacks}, epoch lr "
+          f"{[r['lr'] for r in epochs_l]}, summary {summ_l}; give-up "
+          f"actions {actions(rec_g)}, summary {summ_g}, "
+          f"'{[x for x in giveup['out'].splitlines() if x.startswith('diverged')]}'",
+          flush=True)
+    if actions(rec_l) != ["skip", "cooldown", "rollback"] \
+            or rollbacks != [(8, 4)] or [r["epoch"] for r in epochs_l] \
+            != [1, 2] or ladder["steps"] != 12 or len(summ_l) != 1 \
+            or summ_l[0]["health_rollbacks_total"] != 1 \
+            or not math.isclose(epochs_l[1]["lr"],
+                                cfg.health.cooldown_factor
+                                * epochs_l[0]["lr"], rel_tol=1e-6):
+        raise AssertionError("the ladder run")
+    if actions(rec_g) != ["skip", "cooldown", "rollback", "rollback",
+                          "skip", "cooldown", "giveup"] \
+            or len(summ_g) != 1 or "(exit 76)" not in giveup["out"]:
+        raise AssertionError("the give-up run")
+
+    # ---- (c) telemetry: the debug taps on a healthy epoch, the records,
+    # the span trace, the Prometheus textfile, the manifest
+    taps = res_train("--check_finite --nan_sentinel --grad_norms",
+                     args("t", "--nepoch", "1", "--check_finite",
+                          "--nan_sentinel", "--grad_norms"), 0, per_step)
+    steps += taps["steps"]
+    rec_t = run_records(os.path.join(base, "t"))
+    norms = [r[k] for r in rec_t if r["kind"] == "train"
+             for k in ("grad_norm_g", "grad_norm_d", "grad_norm_c")]
+    bad_t = [r for r in rec_t if r["kind"] in ("sentinel", "nonfinite")]
+    kinds = {r["kind"] for recs in (rec_u, rec_p, rec_l) for r in recs}
+    memory = [r for r in rec_u if r["kind"] == "memory"]
+    man = [r for r in rec_u if r["kind"] == "manifest"][0]
+    with open(os.path.join(base, "u", "trace_reference.json")) as f:
+        trace = json.load(f)
+    spans = collections.Counter(e["name"] for e in trace["traceEvents"]
+                                if e.get("ph") == "X")
+    samples = prom_samples(os.path.join(base, "u", "p2p.prom"))
+    print(f"slice 10 (c): record kinds {sorted(kinds)}; memory records "
+          f"{[{k: r[k] for k in ('bytes_in_use', 'peak_bytes_in_use', 'bytes_limit', 'largest_alloc_size')} for r in memory]}"
+          f"; manifest backend {man['backend']}; spans {dict(spans)}; "
+          f"Prometheus textfile {len(samples)} samples, dispatch_secs_count "
+          f"{samples.get('dispatch_secs_count')}; taps run: {len(norms)} "
+          f"grad norms, all finite {all(map(math.isfinite, norms))}, "
+          f"sentinel/nonfinite records {bad_t}", flush=True)
+    want_kinds = {"manifest", "epoch", "eval", "memory", "preempt",
+                  "resume", "rollback", "health_summary", "health", "train"}
+    if not want_kinds <= kinds or len(memory) != 2 \
+            or not all(r["bytes_in_use"] > 0 and r["peak_bytes_in_use"] > 0
+                       for r in memory) \
+            or man["backend"].get("platform") != "gpu" \
+            or not {"epoch", "evaluate", "train_dispatch",
+                    "checkpoint_save"} <= set(spans) \
+            or samples.get("dispatch_secs_count") != LOOP_STEPS \
+            or len(norms) != 3 * LOOP_SOURCES[0] \
+            or not all(map(math.isfinite, norms)) or bad_t:
+        raise AssertionError("slice 10 telemetry")
+    # in process the libraries are loaded already, so these watchdogs see
+    # no build and no reuse; the SIGTERM subprocess's saw its reuse
+    if not all(armed for *_, armed in u["builds"] + ladder["builds"]):
+        raise AssertionError("the build watchdog was not armed")
+
+    # ---- (e) the loop's ms/step with health and obs on
+    def ms(seen):
+        return [1e3 * sec / n for sec, n in seen["epochs"] if n]
+
+    print(f"slice 10 (e): loop ms/step by host clock over each epoch's "
+          f"training (device synchronized at the end), a record a step: "
+          f"the uninterrupted run {ms(u)} (its second epoch holds the step-"
+          f"{RES_STOP} save), the SIGTERM relaunch {ms(relaunch)}, with the "
+          f"debug taps {ms(taps)}; phase 10's "
+          f"loop in this call, a record every {cfg.train.log_every} steps, "
+          f"{loop_ms} (health and obs on in both); the phase "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}", flush=True)
+    return {"batch_moments": per_step * steps}
+
+
+def add_moment_launches(rows, plan, steps: int) -> None:
+    """Add ``steps`` reference train steps to the bf16 #5 rows that weight
+    the ``kernels`` line: one launch at each shape of ``plan`` a step."""
+    by_key = {(r["kernel"], r["n"], tuple(r["shape"]), r["form"]): r
+              for r in rows if r["dtype"] == "bfloat16"}
+    for shape in plan:
+        by_key[("batch_moments", 1, tuple(shape), "-")]["launches"] += steps
 
 
 def http_post(base: str, path: str, data: bytes, timeout: float = 300):
@@ -3673,6 +4241,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler table of one forward")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
@@ -3829,20 +4398,25 @@ def main(argv=None) -> int:
     options_counts = options_phase(device, card)
     forms_counts = unet_forms_phase(device, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_loop_") as tmp:
-        loop_counts = loop_phase(device, card, train_med, train_host, tmp)
+        loop_counts, loop_ms = loop_phase(device, card, train_med,
+                                          train_host, tmp)
         http_counts, http_forwards = http_phase(
             card, os.path.join(tmp, "work"), (LOOP_SOURCES[0], LOOP_STEPS),
             tmp, serve_stats.img_per_sec)
+        res_counts = resilience_phase(device, card, tmp, loop_ms)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_c2f_") as tmp:
         c2f_counts = coarse_to_fine_phase(device, card, tmp, c2f_per_image)
-    # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3
+    # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3,
+    # the slice-10 phase's reference steps of #5
     add_serving_launches(rows, plan, http_forwards)
+    add_moment_launches(rows, bn_plan,
+                        res_counts["batch_moments"] // len(bn_plan))
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
               fac_train_counts, a_counts, b_counts, i8_counts,
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
               city_counts, options_counts, forms_counts, c2f_counts,
-              i8f_counts, a8_counts, hd8_counts):
+              i8f_counts, a8_counts, hd8_counts, res_counts):
         counts.update(c)
 
     kernels = []
@@ -3963,12 +4537,16 @@ def main(argv=None) -> int:
           f"facades_int8 as it is, the loop's {LOOP_STEPS} reference "
           f"steps, {e2s_steps} edges2shoes_dp steps at batch {e2s_bs}, "
           f"{OPTIONS_ALL_STEPS} facades steps with the trainer options and "
-          f"{bn_forms} U-Net form steps; #6: facades serving and training; "
+          f"{bn_forms} U-Net form steps, the slice-10 phase's "
+          f"{res_counts['batch_moments'] // len(bn_plan)} reference steps; "
+          f"#6: facades serving and training; "
           "#7: facades training; slice 9: #5 in "
           f"{I8F_STEPS} facades_int8_full steps, #1-#5 in {A8_STEPS} path "
           "A int8 steps (#4 at its spectral-norm sites), #1 and #3 in "
           "pix2pixhd int8's step and served forward): per-(N, shape, form) "
           "device times weighted by launches")
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+          f"kernels' build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

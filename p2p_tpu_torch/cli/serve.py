@@ -36,8 +36,10 @@ directory mode ``--weights g.npz`` (flax generator variables,
 ``convert.save_npz``) serves G from that file instead. Requests are PNGs
 (the port's stdlib decoder; no Pillow), resized bicubic to the preset's size. A preset with
 a compression net serves the request image as its target. The card is
-the default device (``--device cpu`` to serve on the CPU); flags of
-features the port lacks are refused by name (exit 2).
+the default device (``--device cpu`` to serve on the CPU);
+``--compilation_cache DIR`` builds the CUDA kernel libraries into (and
+reuses them from) DIR (core/cache.py); flags of features the port lacks
+are refused by name (exit 2).
 """
 
 from __future__ import annotations
@@ -53,7 +55,6 @@ from p2p_tpu_torch.serve.frontend import default_buckets
 
 UNPORTED = (
     ("mesh", None, {"type": str}), ("tp_min_ch", None, {"type": int}),
-    ("compilation_cache", None, {"type": str}),
 )
 TENANT_KEYS = {"alias", "preset", "name", "dataset", "step", "image_size",
                "image_width", "ngf", "n_blocks", "ema_decay"}
@@ -107,6 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "SMOOTHED G (bitwise == raw at decay 0)")
     p.add_argument("--io_threads", type=int, default=4,
                    help="PNG encode threads")
+    p.add_argument("--compilation_cache", type=str, default=None,
+                   metavar="DIR",
+                   help="directory the CUDA kernel libraries are built "
+                        "into and reused from")
     p.add_argument("--http", type=str, default=None, metavar="HOST:PORT",
                    help="serve over HTTP instead of a watched directory")
     p.add_argument("--tenant", action="append", default=None,
@@ -279,6 +284,12 @@ def main(argv=None) -> int:
     rc = refuse_unported(args, UNPORTED)
     if rc:
         return rc
+    if args.compilation_cache:
+        # the kernel libraries are built into (and reused from) this
+        # directory (core/cache.py), before any is loaded
+        from p2p_tpu_torch.core.cache import enable_compilation_cache
+
+        enable_compilation_cache(args.compilation_cache)
     buckets = ([int(b) for b in args.buckets.split(",")] if args.buckets
                else default_buckets(args.max_batch))
     if args.weights and args.ema_decay is not None:

@@ -6,9 +6,19 @@ names, unset flags inheriting from ``--preset``:
         [--epochsave 20] [--device cuda|cpu]
 
 It resumes from the newest intact checkpoint under
-``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` when there is one, then
-trains to ``--nepoch`` (train/loop.py ``Trainer``). The card is the
-default device; the CPU runs only with ``--device cpu``.
+``<workdir>/<checkpoint_dir>/<dataset>/<name>/`` when there is one (at the
+exact next sample, from its iterator sidecar), then trains to
+``--nepoch`` (train/loop.py ``Trainer``). The card is the default device;
+the CPU runs only with ``--device cpu``.
+
+Exit codes, as the JAX CLI's: 0 done; 75 preempted (SIGTERM/SIGINT, or
+``P2P_CHAOS=elastic@N``) after an exact-step checkpoint: relaunch with the
+same flags to resume; 76 diverged, the recovery ladder exhausted
+(``--max_rollbacks``): do not relaunch unchanged; 2 a flag the port does
+not have. ``--tensorboard`` writes event files under
+``<workdir>/tb/<name>/`` where the ``tensorboard`` package is installed
+(else a note, and the run goes on); ``--prom_textfile PATH`` keeps the
+run's registry in Prometheus text format at PATH.
 
 pix2pixHD's coarse-to-fine schedule: ``--phase global`` trains G1 alone
 (``pix2pixhd_global``) at half the resolution, with its checkpoints under
@@ -16,9 +26,10 @@ pix2pixHD's coarse-to-fine schedule: ``--phase global`` trains G1 alone
 weights grafted in from that run's newest step (or from
 ``--init_g1_from``) when it starts fresh (train/graft.py).
 
-A flag of the JAX CLI whose feature the port does not have (meshes, scan
-steps, the health ladder's knobs, telemetry sinks, …) is refused by name
-with exit code 2 unless it is left at its default.
+A flag of the JAX CLI whose feature the port does not have (meshes,
+elastic resume across topologies, Grain's loader threads, scan steps, the
+losses and eval of slice 12, …) is refused by name with exit code 2
+unless it is left at its default.
 """
 
 from __future__ import annotations
@@ -34,15 +45,9 @@ _BOOL = {"action": argparse.BooleanOptionalAction}
 UNPORTED = (
     ("mesh", None, {"type": str}), ("tp_min_ch", 512, {"type": int}),
     ("fsdp_params", False, _TRUE), ("pp_overlap", False, _BOOL),
-    ("compilation_cache", None, {"type": str}), ("elastic", True, _BOOL),
+    ("elastic", True, _BOOL),
     ("cast_on_restore", False, _BOOL),
     ("recalibrate_steps", 0, {"type": int}),
-    ("max_rollbacks", 3, {"type": int}),
-    ("spike_zscore", 6.0, {"type": float}),
-    ("cooldown_steps", 20, {"type": int}),
-    ("health_window", 32, {"type": int}), ("check_finite", False, _TRUE),
-    ("nan_sentinel", False, _TRUE), ("grad_norms", False, _TRUE),
-    ("tensorboard", False, _TRUE), ("prom_textfile", None, {"type": str}),
     ("threads", 4, {"type": int}),
     ("lambda_sobel", 0.0, {"type": float}),
     ("sobel_warmup_epochs", 0, {"type": int}),
@@ -144,6 +149,35 @@ def build_parser() -> argparse.ArgumentParser:
                         "G1 alone at half resolution (checkpoints under "
                         "<name>_g1); 'full' trains the enhancer-wrapped "
                         "generator with the phase-1 G1 weights grafted in")
+    p.add_argument("--compilation_cache", type=str, default=None,
+                   help="directory the CUDA kernel libraries are built "
+                        "into and reused from (core/cache.py)")
+    p.add_argument("--max_rollbacks", type=int, default=None,
+                   help="recovery-ladder rollbacks before exit 76 "
+                        "(default 3)")
+    p.add_argument("--spike_zscore", type=float, default=None,
+                   help="divergence sentinel: robust z-score of a spike "
+                        "(default 6.0)")
+    p.add_argument("--cooldown_steps", type=int, default=None,
+                   help="ladder rung 2: steps at cooldown_factor x LR "
+                        "(default 20)")
+    p.add_argument("--health_window", type=int, default=None,
+                   help="sentinel window of healthy steps (default 32)")
+    p.add_argument("--check_finite", action="store_true", default=None,
+                   help="read every step's metrics on the host; a "
+                        "non-finite one is recorded, then raises (a fence)")
+    p.add_argument("--nan_sentinel", action="store_true", default=None,
+                   help="per-leaf NaN/Inf counts of every step's metrics, "
+                        "read one step late (no fence)")
+    p.add_argument("--grad_norms", action="store_true", default=None,
+                   help="grad_norm_g / grad_norm_d in the step metrics")
+    p.add_argument("--tensorboard", action="store_true",
+                   help="also write TensorBoard event files under "
+                        "<workdir>/tb/<name>/")
+    p.add_argument("--prom_textfile", type=str, default=None,
+                   help="keep the run's metrics in Prometheus text format "
+                        "at this path (node_exporter's textfile "
+                        "collector)")
     p.add_argument("--init_g1_from", type=str, default=None,
                    help="explicit phase-1 checkpoint dir for --phase full "
                         "(default: checkpoint/<dataset>/<name>_g1)")
@@ -185,10 +219,18 @@ def config_from_flags(args: argparse.Namespace):
         data = dataclasses.replace(data, image_width=None)
     train = over(cfg.train, nepoch=args.nepoch, epoch_count=args.epoch_count,
                  epoch_save=args.epochsave, seed=args.seed,
-                 log_every=args.log_every, pool_size=args.pool_size)
-    health = over(cfg.health, enabled=args.health, ema_decay=args.ema_decay)
+                 log_every=args.log_every, pool_size=args.pool_size,
+                 compilation_cache_dir=args.compilation_cache)
+    debug = over(cfg.debug, check_finite=args.check_finite,
+                 nan_sentinel=args.nan_sentinel, grad_norms=args.grad_norms)
+    health = over(cfg.health, enabled=args.health, ema_decay=args.ema_decay,
+                  max_rollbacks=args.max_rollbacks,
+                  spike_zscore=args.spike_zscore,
+                  cooldown_steps=args.cooldown_steps,
+                  window=args.health_window)
     cfg = cfg.replace(name=args.name or cfg.name, model=model, loss=loss,
-                      optim=optim, data=data, train=train, health=health)
+                      optim=optim, data=data, train=train, health=health,
+                      debug=debug)
     if args.phase == "global":
         # coarse-to-fine phase 1, after the flags: an explicit --image_size
         # or --name is halved or suffixed as phase 2 expects to find it
@@ -208,20 +250,58 @@ def main(argv=None) -> int:
         return 2
     cfg = config_from_flags(args)
 
+    from p2p_tpu_torch.resilience import (DIVERGED_EXIT_CODE,
+                                          PREEMPTED_EXIT_CODE,
+                                          DivergenceError, Preempted)
     from p2p_tpu_torch.train.loop import Trainer
 
     trainer = Trainer(cfg, data_root=args.data_root, workdir=args.workdir,
                       device=args.device)
-    if trainer.maybe_resume():
-        print(f"resumed at epoch {trainer.epoch} (step "
-              f"{trainer.state.step})", flush=True)
-    elif args.phase == "full":
-        from p2p_tpu_torch.train.graft import load_and_graft_g1
+    try:
+        attach_sinks(trainer, args)
+        if trainer.maybe_resume():
+            print(f"resumed at epoch {trainer.epoch} (step "
+                  f"{trainer.state.step})", flush=True)
+        elif args.phase == "full":
+            from p2p_tpu_torch.train.graft import load_and_graft_g1
 
-        load_and_graft_g1(trainer.state, cfg, workdir=args.workdir,
-                          g1_dir=args.init_g1_from)
-    trainer.fit()
+            load_and_graft_g1(trainer.state, cfg, workdir=args.workdir,
+                              g1_dir=args.init_g1_from)
+        trainer.fit()
+    except Preempted as p:
+        # the exact step is on disk: "re-run these flags" resumes it
+        print(f"preempted: checkpoint saved at step {p.step} — "
+              f"relaunch with identical flags to resume "
+              f"(exit {PREEMPTED_EXIT_CODE})", flush=True)
+        return PREEMPTED_EXIT_CODE
+    except DivergenceError as d:
+        # rolled back max_rollbacks times and diverged again: relaunching
+        # the same flags would diverge again
+        print(f"diverged: {d} (exit {DIVERGED_EXIT_CODE})", flush=True)
+        trainer.logger.registry.flush()
+        return DIVERGED_EXIT_CODE
+    finally:
+        # the sinks (the JSONL file, a last Prometheus export)
+        trainer.logger.close()
     return 0
+
+
+def attach_sinks(trainer, args: argparse.Namespace) -> None:
+    """The optional sinks of ``--tensorboard`` and ``--prom_textfile``."""
+    import os
+
+    from p2p_tpu_torch.obs import PrometheusTextfileSink, TensorBoardSink
+
+    reg = trainer.logger.registry
+    if args.tensorboard:
+        try:
+            reg.add_sink(TensorBoardSink(
+                os.path.join(args.workdir, "tb", trainer.cfg.name)))
+        except ImportError as e:
+            print(f"note: --tensorboard unavailable ({e}); continuing "
+                  "with JSONL/stdout only", file=sys.stderr)
+    if args.prom_textfile:
+        reg.add_sink(PrometheusTextfileSink(args.prom_textfile, reg))
 
 
 if __name__ == "__main__":

@@ -151,17 +151,52 @@ class TrainConfig:
     # the historical-fake pool of concatenated (input ‖ fake) pairs fed to
     # D (utils/pool.py; 0 = passthrough, the reference)
     pool_size: int = 0
+    # the directory the CUDA kernel libraries are built into and reused
+    # from (core/cache.py; None = build/torch_ext/ of the checkout)
+    compilation_cache_dir: Optional[str] = None
+    # torch.autograd's anomaly mode: the backward op that first makes a
+    # NaN raises with the forward's trace (a debugging tool, slow)
+    debug_nans: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
 class HealthConfig:
-    # the in-step skip guard: a step whose G, D or C loss is not finite
-    # leaves parameters, optimizer state and running statistics unchanged
+    # the in-step skip guard (a step whose G, D or C loss is not finite
+    # leaves parameters, optimizer state and running statistics
+    # unchanged) and the trainer's divergence sentinel and recovery ladder
+    # (resilience/health.py)
     enabled: bool = True
+    # sentinel: robust z-score over the last `window` healthy steps per
+    # watched loss; a spike when |z| > spike_zscore, diverged when a
+    # watched value is not finite; the EWMA (alpha) recenters the window
+    window: int = 32
+    spike_zscore: float = 6.0
+    ewma_alpha: float = 0.1
+    # ladder rung 2: the learning rate times cooldown_factor for
+    # cooldown_steps observed steps
+    cooldown_steps: int = 20
+    cooldown_factor: float = 0.1
+    # ladder rung 3: rollbacks to the last eval-validated checkpoint before
+    # the run gives up with exit code 76
+    max_rollbacks: int = 3
+    # a healthy streak this long resets the ladder to rung 0
+    reset_after: int = 16
     # the EMA generator: smoothed copies of G's parameters, updated after
     # each applied G step, evaluated and served in G's place (None = off;
     # 0 = a copy of G)
     ema_decay: Optional[float] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class DebugConfig:
+    # the trainer reads every step's metrics on the host, writes a
+    # kind="nonfinite" record for a non-finite one and raises (a fence)
+    check_finite: bool = False
+    # per-leaf NaN/Inf counts of every step's metrics, read one step late
+    # from a pinned host buffer (obs/taps.py; no fence)
+    nan_sentinel: bool = False
+    # grad_norm_g / grad_norm_d (and grad_norm_c) in the step's metrics
+    grad_norms: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,6 +208,7 @@ class Config:
     data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
     health: HealthConfig = HealthConfig()
+    debug: DebugConfig = DebugConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)

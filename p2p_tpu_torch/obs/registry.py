@@ -5,11 +5,10 @@ bucket bounds and snapshot fields, so one series reads the same from
 either package.
 
 Ported: the four metric kinds, :class:`MetricsRegistry` (get-or-create
-factories, ``snapshot``, ``kinds``, ``total``) and the process default
-(:func:`get_registry` / :func:`set_registry`). Not ported yet: record
-sinks (JSONL, stdout, TensorBoard, Prometheus textfile) and the cross-host
-``aggregate``; :meth:`MetricsRegistry.record` and ``flush`` are no-ops
-until sinks come.
+factories, ``snapshot``, ``kinds``, ``total``, the record bus that fans
+structured records out to its sinks: obs/sinks.py) and the process
+default (:func:`get_registry` / :func:`set_registry`). The cross-host
+``aggregate`` comes with meshes (slice 11).
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import bisect
 import math
 import threading
 import time
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 Tags = Tuple[Tuple[str, str], ...]
 
@@ -169,10 +168,12 @@ class MetricsRegistry:
     """Metric factory: ``counter/gauge/histogram/ewma(name, **tags)``
     get or create a metric (idempotent per (name, tags), safe in hot
     loops); ``snapshot()`` and ``kinds()`` expose the state to the
-    Prometheus formatter (obs/sinks.py)."""
+    Prometheus formatter (obs/sinks.py); ``record`` fans structured
+    records out to the attached sinks."""
 
     def __init__(self):
         self._metrics: Dict[Tuple[str, Tags], Any] = {}
+        self._sinks: List[Any] = []
         self._lock = threading.Lock()
 
     def _get(self, cls, name: str, tags: Dict[str, Any], **kw):
@@ -196,12 +197,42 @@ class MetricsRegistry:
     def ewma(self, name: str, halflife_s: float = 30.0, **tags) -> EWMARate:
         return self._get(EWMARate, name, tags, halflife_s=halflife_s)
 
+    # the sink list changes under the lock; every fan-out iterates a
+    # snapshot, so a sink attached while records flow from another thread
+    # (the signal guard's flush helper) cannot break the iteration
+    def add_sink(self, sink) -> None:
+        with self._lock:
+            self._sinks.append(sink)
+
+    def remove_sink(self, sink) -> None:
+        with self._lock:
+            if sink in self._sinks:
+                self._sinks.remove(sink)
+
+    @property
+    def sinks(self) -> Tuple[Any, ...]:
+        with self._lock:
+            return tuple(self._sinks)
+
     def record(self, payload: Dict[str, Any], force: bool = False) -> None:
-        """A structured record for the sinks; none is ported yet, so it
-        goes nowhere."""
+        """Fan a structured record (a flat dict with a ``kind`` field) out
+        to every sink. Numbers and 0-d tensors become host floats here, so
+        no sink holds a device tensor; a ``ts`` wall-clock stamp is
+        added."""
+        rec = {k: (float(v) if hasattr(v, "item")
+                   or isinstance(v, (int, float)) else v)
+               for k, v in payload.items()}
+        rec.setdefault("ts", round(time.time(), 3))
+        for s in self.sinks:
+            s.write(rec, force=force)
 
     def flush(self) -> None:
-        """Flush the sinks (none yet)."""
+        for s in self.sinks:
+            s.flush()
+
+    def close(self) -> None:
+        for s in self.sinks:
+            s.close()
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
         with self._lock:

@@ -4,9 +4,13 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, loaded with :mod:`ctypes`. There is
 no PyTorch header in the sources, so a build takes seconds. The libraries go
 to ``build/torch_ext/`` at the root of the checkout (listed in
-``.gitignore``), named by a hash of their sources and flags, so a changed
-source is rebuilt and an unchanged one is reused. The first use of any
-kernel builds all of them, one ``nvcc`` per source, all started together.
+``.gitignore``), or to the directory ``core/cache.enable_compilation_cache``
+names (``--compilation_cache``), named by a hash of their sources and
+flags, so a changed source is rebuilt and an unchanged one is reused. The
+first use of any kernel builds all of them, one ``nvcc`` per source, all
+started together. Each build and each reuse of a built library is an
+event for the listeners of :func:`add_build_listener` (the build
+watchdog, obs/watchdogs.py).
 """
 
 from __future__ import annotations
@@ -20,9 +24,11 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
+
+from p2p_tpu_torch.core.cache import compilation_cache_dir
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
@@ -71,12 +77,44 @@ def find_nvcc() -> str:
     return nvcc
 
 
+_listeners: List[Callable[[str, str, float], None]] = []
+_LISTEN_LOCK = threading.Lock()
+
+
+def add_build_listener(fn: Callable[[str, str, float], None]) -> None:
+    """Call ``fn(event, library, seconds)`` on every ``"compile"`` (an
+    ``nvcc`` build) and ``"cache_hit"`` (a built library reused)."""
+    with _LISTEN_LOCK:
+        if fn not in _listeners:
+            _listeners.append(fn)
+
+
+def remove_build_listener(fn) -> None:
+    with _LISTEN_LOCK:
+        if fn in _listeners:
+            _listeners.remove(fn)
+
+
+def _emit(event: str, name: str, seconds: float = 0.0) -> None:
+    with _LISTEN_LOCK:
+        listeners = list(_listeners)
+    for fn in listeners:
+        fn(event, name, seconds)
+
+
+def build_dir() -> Path:
+    """Where the libraries are built and reused from: the compilation
+    cache directory when one is enabled, else ``build/torch_ext/``."""
+    d = compilation_cache_dir()
+    return Path(d) if d else BUILD_DIR
+
+
 def _library_path(name: str, nvcc: str) -> Path:
     h = hashlib.sha256()
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all() -> Dict[str, float]:
@@ -84,7 +122,7 @@ def build_all() -> Dict[str, float]:
     Returns ``{name: seconds}`` for the libraries built by this call;
     raises ``RuntimeError`` with the compiler's output if one fails."""
     nvcc = find_nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir().mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in KERNELS:
         out = _library_path(name, nvcc)
@@ -105,6 +143,7 @@ def build_all() -> Dict[str, float]:
             failures.append(f"nvcc failed for {name}.cu:\n{log}")
             continue
         os.replace(tmp, out)
+        _emit("compile", name, seconds[name])
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds
@@ -125,7 +164,9 @@ def library(name: str) -> ctypes.CDLL:
 @functools.cache
 def _library(name: str) -> ctypes.CDLL:
     path = _library_path(name, find_nvcc())
-    if not path.exists():
+    if path.exists():
+        _emit("cache_hit", name)
+    else:
         build_all()
     lib = ctypes.CDLL(str(path))
     for fn_name, argtypes in SIGNATURES[name].items():

@@ -1,23 +1,37 @@
-"""Fault tolerance (counterpart of ``p2p_tpu/resilience``), as far as
-serving needs it: graceful shutdown (:mod:`.preempt`), retry with backoff
-(:mod:`.retry`), fault injection (:mod:`.chaos`) and the bounded request
-queue with quarantine (:mod:`.queue`). The training health ladder, the
-elastic reshape and the exit codes 75/76 come later."""
+"""Fault tolerance (counterpart of ``p2p_tpu/resilience``): graceful
+shutdown and preemption with exit code 75 (:mod:`.preempt`), the training
+health sentinel and recovery ladder with exit code 76 (:mod:`.health`),
+retry with backoff (:mod:`.retry`), fault injection (:mod:`.chaos`) and
+the bounded request queue with quarantine (:mod:`.queue`). The elastic
+reshape (``reshape.py``) comes with meshes (slice 11)."""
 
 from p2p_tpu_torch.resilience.chaos import (
     ChaosMonkey,
     FaultInjected,
     chaos_point,
+    get_chaos,
     install as install_chaos,
     parse_spec,
 )
-from p2p_tpu_torch.resilience.preempt import PreemptionGuard
+from p2p_tpu_torch.resilience.health import (
+    DIVERGED_EXIT_CODE,
+    DivergenceError,
+    DivergenceSentinel,
+    RecoveryLadder,
+    TrainingHealth,
+)
+from p2p_tpu_torch.resilience.preempt import (
+    PREEMPTED_EXIT_CODE,
+    Preempted,
+    PreemptionGuard,
+)
 from p2p_tpu_torch.resilience.queue import (
     BoundedRequestQueue,
     Quarantine,
     Request,
 )
 from p2p_tpu_torch.resilience.retry import (
+    CKPT_POLICY,
     DEFAULT_POLICY,
     RetryPolicy,
     retry_call,
@@ -26,14 +40,23 @@ from p2p_tpu_torch.resilience.retry import (
 
 __all__ = [
     "BoundedRequestQueue",
+    "CKPT_POLICY",
     "ChaosMonkey",
     "DEFAULT_POLICY",
+    "DIVERGED_EXIT_CODE",
+    "DivergenceError",
+    "DivergenceSentinel",
     "FaultInjected",
+    "PREEMPTED_EXIT_CODE",
+    "Preempted",
     "PreemptionGuard",
+    "RecoveryLadder",
+    "TrainingHealth",
     "Quarantine",
     "Request",
     "RetryPolicy",
     "chaos_point",
+    "get_chaos",
     "install_chaos",
     "parse_spec",
     "retry_call",

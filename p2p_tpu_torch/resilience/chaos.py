@@ -156,6 +156,13 @@ def install(monkey: Optional[ChaosMonkey]) -> Optional[ChaosMonkey]:
         return prev
 
 
+def get_chaos() -> Optional[ChaosMonkey]:
+    """The armed monkey (armed from ``P2P_CHAOS`` on first use), or
+    None."""
+    _maybe_arm_from_env()
+    return _active
+
+
 def _maybe_arm_from_env() -> None:
     """Arm from ``P2P_CHAOS`` once, on first use."""
     global _active, _env_checked

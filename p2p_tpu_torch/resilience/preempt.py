@@ -1,11 +1,14 @@
 """Graceful shutdown on SIGTERM/SIGINT (counterpart of
-``p2p_tpu/resilience/preempt.py:50-176``, the single-process part of
-``PreemptionGuard``): the handlers only set a flag and run the flush
-hooks; the serving loop (``serve/server.run_server``) polls
-:attr:`PreemptionGuard.requested` and drains. A second signal restores
-the old handler and re-delivers it, so a wedged process can still be
-killed. Not ported yet: the multi-host ``should_stop`` agreement and the
-train loop's exit code 75."""
+``p2p_tpu/resilience/preempt.py``, its single-process part): the handlers
+only set a flag and run the flush hooks; the serving loop
+(``serve/server.run_server``) polls :attr:`PreemptionGuard.requested` and
+drains, the train loop polls :meth:`PreemptionGuard.should_stop` at step
+boundaries, saves an exact-step checkpoint with its iterator sidecar and
+raises :class:`Preempted`, which ``cli/train.py`` turns into
+:data:`PREEMPTED_EXIT_CODE` (75, ``EX_TEMPFAIL``: "re-run me"). A second
+signal restores the old handler and re-delivers it, so a wedged process
+can still be killed. The multi-host agreement of ``should_stop`` comes
+with meshes (slice 11); one process polls its own flag."""
 
 from __future__ import annotations
 
@@ -13,6 +16,21 @@ import os
 import signal
 import threading
 from typing import Callable, List, Optional
+
+#: Exit code meaning "preempted after a clean checkpoint — resume me".
+#: 75 is BSD EX_TEMPFAIL ("temporary failure; user is invited to retry").
+PREEMPTED_EXIT_CODE = 75
+
+
+class Preempted(RuntimeError):
+    """Raised by the train loop after a preemption-triggered save."""
+
+    def __init__(self, step: int, signum: Optional[int] = None):
+        self.step = step
+        self.signum = signum
+        name = signal.Signals(signum).name if signum else "request"
+        super().__init__(
+            f"preempted ({name}): checkpoint saved at step {step}")
 
 
 class PreemptionGuard:
@@ -22,8 +40,12 @@ class PreemptionGuard:
 
     SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
-    def __init__(self, registry=None):
+    def __init__(self, registry=None, sync_every: int = 16):
         self._registry = registry
+        # the JAX guard's cadence of its cross-host agreement; one process
+        # has nothing to agree with, so it only rides along in the
+        # signature
+        self.sync_every = max(1, int(sync_every))
         self._requested = False
         self._signum: Optional[int] = None
         self._old = {}
@@ -102,6 +124,10 @@ class PreemptionGuard:
         """Set the flag programmatically."""
         self._signum = signum
         self._requested = True
+
+    def should_stop(self) -> bool:
+        """Poll at a step boundary: the local flag (one process)."""
+        return self._requested
 
     @property
     def requested(self) -> bool:

@@ -45,6 +45,8 @@ class RetryPolicy:
 
 
 DEFAULT_POLICY = RetryPolicy()
+# checkpoint writes and reads: a slower backoff for filesystem blips
+CKPT_POLICY = RetryPolicy(max_attempts=4, base_delay=0.2, max_delay=5.0)
 
 
 def retry_call(fn: Callable, *args, policy: RetryPolicy = DEFAULT_POLICY,

@@ -1,7 +1,8 @@
 """Checkpoints of the port's train state (counterpart of the single-process
 parts of ``p2p_tpu/train/checkpoint.py``: ``CheckpointManager.save``,
-``restore``, ``latest_step``, ``max_to_keep``, ``CheckpointCorrupt`` and
-the per-array CRC32 manifest of ``:138 _leaf_checksums``).
+``restore``, ``latest_step``, ``max_to_keep``, ``CheckpointCorrupt``, the
+per-array CRC32 manifest of ``:138 _leaf_checksums``, the iterator-state
+sidecar, ``mark_good`` and the retry and chaos seams).
 
 A step is a directory ``<directory>/<step>/`` with one ``torch.save``
 file per top-level field of the state, so a reader loads only what it
@@ -26,16 +27,29 @@ needs (inference reads ``net_g`` and ``net_c``, as the JAX params-only
   the memory format), shape and dtype.
 
 A step is written into a temporary directory that is renamed into place,
-so a torn save never becomes the newest step. :meth:`CheckpointManager.
-restore` walks the steps from the newest down and takes the first whose
-files and tensors match the manifest; when none does it raises
-:class:`CheckpointCorrupt`. Loads use ``torch.load(..., weights_only=True)``
-and go through ``load_state_dict`` into the live modules and optimizers,
-which keep their device and channels_last layout.
+so a torn save never becomes the newest step; the write is retried on
+transient failures (``CKPT_POLICY``, seam ``ckpt_save``).
+:meth:`CheckpointManager.restore` walks the steps from the newest down
+and takes the first whose files and tensors match the manifest, counting
+each step it passes over (``ckpt_corrupt_total``, a ``kind="ckpt_corrupt"``
+record); when none does it raises :class:`CheckpointCorrupt`. An
+explicitly named step falls back to no older one unless ``fallback=True``
+(the rollback path). Loads use ``torch.load(..., weights_only=True)`` and
+go through ``load_state_dict`` into the live modules and optimizers,
+which keep their device and channels_last layout. The chaos seams
+``ckpt_save``, ``ckpt_restore`` and ``ckpt_corrupt`` fail a save, a read
+or a verification on demand (``P2P_CHAOS``).
 
-Not ported yet: the iterator-state sidecar, exact-step (mid-epoch)
-resume, ``mark_good`` and rollback, the quant-template reconciliation and
-the retry and chaos seams.
+Beside the steps, ``<directory>.aux/`` holds JSON sidecars, each written
+to a temporary file that is renamed into place: ``<step>.json``, the
+iterator state the trainer saves with every step (epoch, batches done,
+samples seen, the shuffle's seed jitter, the base LR scale and the
+topology: exact-step resume, train/loop.py ``save_trainer_ckpt``), and
+``<step>.good.json``, the eval-validated mark the recovery ladder rolls
+back to. A sidecar that does not parse reads as missing and is counted
+(``aux_corrupt_total``, a ``kind="aux_corrupt"`` record). The
+quant-template reconciliation of pre-drain JAX checkpoints has no
+counterpart: every port checkpoint carries every scale.
 """
 
 from __future__ import annotations
@@ -50,6 +64,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from p2p_tpu_torch.resilience.chaos import FaultInjected, chaos_point
+from p2p_tpu_torch.resilience.retry import CKPT_POLICY, retry_call
 from p2p_tpu_torch.train.state import TrainState
 
 NETS = ("net_g", "net_d", "net_c")
@@ -124,15 +140,26 @@ def _copy_exact(live: Dict[str, torch.Tensor],
 
 class CheckpointManager:
     """Steps of one run under ``directory``; the newest ``max_to_keep``
-    are kept (all with None)."""
+    are kept (all with None). Retry, corruption and sidecar counters go
+    to ``registry`` (the process default when None)."""
 
-    def __init__(self, directory: str, max_to_keep: Optional[int] = None):
+    def __init__(self, directory: str, max_to_keep: Optional[int] = None,
+                 registry=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
-        # the step the last restore returned (older than the newest when
-        # the newest failed its checksums)
+        self._registry = registry
+        self._aux_dir = self.directory + ".aux"
+        # the step the last restore returned (older than the one asked for
+        # when that one failed its checksums)
         self.last_restored_step: Optional[int] = None
+
+    def _reg(self):
+        if self._registry is None:
+            from p2p_tpu_torch.obs import get_registry
+
+            self._registry = get_registry()
+        return self._registry
 
     def all_steps(self) -> List[int]:
         return sorted(int(n) for n in os.listdir(self.directory)
@@ -168,9 +195,24 @@ class CheckpointManager:
         if state.pool is not None:
             fields[POOL] = {"pool": state.pool, "pool_n": state.pool_n}
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
+
+        def _save():
+            chaos_point("ckpt_save", step=int(step))
+            self._write_step(tmp, final, int(step), fields)
+
+        retry_call(_save, policy=CKPT_POLICY, seam="ckpt_save",
+                   registry=self._reg())
+        self._prune()
+        return True
+
+    @staticmethod
+    def _write_step(tmp: str, final: str, step: int,
+                    fields: Dict[str, Any]) -> None:
+        """Write ``fields`` and their manifest into ``tmp``, then rename it
+        to ``final``; a failure leaves no temporary directory behind."""
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        manifest = {"step": int(step), "algo": "crc32", "files": {}}
+        manifest = {"step": step, "algo": "crc32", "files": {}}
         try:
             for name, obj in fields.items():
                 buf = io.BytesIO()
@@ -191,8 +233,6 @@ class CheckpointManager:
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
             raise
-        self._prune()
-        return True
 
     def _prune(self) -> None:
         if self.max_to_keep is None:
@@ -235,39 +275,67 @@ class CheckpointManager:
             return [f"{type(e).__name__}: {e}"]
         return []
 
-    def _restore(self, step: Optional[int], names: Sequence[str]
+    def _note_corrupt(self, step: int, reason: str) -> None:
+        reg = self._reg()
+        reg.counter("ckpt_corrupt_total").inc()
+        reg.record({"kind": "ckpt_corrupt", "step": int(step),
+                    "reason": reason[:500]}, force=True)
+        print(f"WARNING: checkpoint step {step} failed integrity "
+              f"({reason}) — falling back to the previous intact step",
+              flush=True)
+
+    def _restore(self, step: Optional[int], names: Sequence[str],
+                 fallback: Optional[bool] = None
                  ) -> Tuple[int, Dict[str, Any]]:
         """The newest step at or below ``step`` (the newest of all with
-        None) whose ``names`` verify, with those fields. A named step
-        falls back to no older one."""
+        None) whose ``names`` verify, with those fields. ``fallback``
+        (default: only when no step is named) lets a step that fails its
+        checks give way to the next older one; each failure is counted."""
+        if fallback is None:
+            fallback = step is None
         steps = self.all_steps()
         if step is not None:
             if int(step) not in steps:
                 raise FileNotFoundError(f"no checkpoint at step {step} "
                                         f"(have {steps})")
-            steps = [int(step)]
+            steps = [s for s in steps if s <= int(step)]
+        if not fallback:
+            steps = steps[-1:]
         if not steps:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         tried, last = [], None
+
+        def _read(s: int) -> Dict[str, Any]:
+            chaos_point("ckpt_restore", step=s)
+            return self.read(s, names)
+
         for s in reversed(steps):
             tried.append(s)
             try:
-                fields = self.read(s, names)
+                fields = retry_call(_read, s, policy=CKPT_POLICY,
+                                    seam="ckpt_restore",
+                                    registry=self._reg())
+                chaos_point("ckpt_corrupt", step=s)
+            except FaultInjected as e:
+                last = f"step {s}: {e}"
+                self._note_corrupt(s, f"<chaos:{e.seam}>")
+                continue
             except (OSError, ValueError, RuntimeError) as e:
                 last = f"step {s}: {type(e).__name__}: {e}"
+                self._note_corrupt(s, f"{type(e).__name__}: {e}")
                 continue
             self.last_restored_step = s
             return s, fields
         raise CheckpointCorrupt(self.directory, tried, last)
 
-    def restore(self, state: TrainState, step: Optional[int] = None
-                ) -> Tuple[int, int]:
+    def restore(self, state: TrainState, step: Optional[int] = None,
+                fallback: Optional[bool] = None) -> Tuple[int, int]:
         """Load the whole state in place from the newest intact step (or
-        exactly ``step``); returns ``(step, epoch)`` and sets
-        ``state.step``."""
+        ``step``; with ``fallback=True`` the newest intact step at or
+        below it); returns ``(step, epoch)`` and sets ``state.step``."""
         names = [n for n in NETS + OPTS + (EMA, POOL)
                  if getattr(state, n) is not None]
-        s, fields = self._restore(step, names + [PROGRESS])
+        s, fields = self._restore(step, names + [PROGRESS], fallback)
         for name in NETS:
             if name in fields:
                 getattr(state, name).load_state_dict(fields[name],
@@ -286,6 +354,74 @@ class CheckpointManager:
         state.step = int(fields[PROGRESS]["step"])
         state.lr_scale = float(fields[PROGRESS].get("lr_scale", 1.0))
         return s, int(fields[PROGRESS]["epoch"])
+
+    # -- last-good tracking (the recovery ladder's rollback target) -------
+    def mark_good(self, step: int) -> None:
+        """Mark ``step`` eval-validated: the recovery ladder rolls back to
+        the newest marked step."""
+        self._write_aux_json(f"{int(step)}.good.json", {"step": int(step)})
+
+    def last_good_step(self) -> Optional[int]:
+        """The newest ``mark_good`` step still on disk, else None."""
+        steps = set(self.all_steps())
+        try:
+            names = os.listdir(self._aux_dir)
+        except OSError:
+            return None
+        good = []
+        for n in names:
+            stem = n.split(".", 1)[0]
+            if n.endswith(".good.json") and stem.isdigit() \
+                    and int(stem) in steps:
+                good.append(int(stem))
+        return max(good) if good else None
+
+    # -- iterator-state sidecar (exact-step resume) -----------------------
+    def _write_aux_json(self, name: str, payload: Dict[str, Any]) -> None:
+        """Write a JSON sidecar to a temporary file renamed into place (a
+        kill mid-write leaves no torn sidecar), retried as a save."""
+        os.makedirs(self._aux_dir, exist_ok=True)
+        path = os.path.join(self._aux_dir, name)
+        tmp = path + f".tmp.{os.getpid()}"
+
+        def _write():
+            with open(tmp, "w") as f:
+                json.dump(payload, f)
+            os.replace(tmp, path)
+
+        retry_call(_write, policy=CKPT_POLICY, seam="ckpt_save",
+                   registry=self._reg())
+
+    def _read_aux_json(self, name: str) -> Optional[Dict[str, Any]]:
+        """A sidecar, or None when it is absent or does not parse; a
+        corrupt one is counted (``aux_corrupt_total``, a
+        ``kind="aux_corrupt"`` record) and the resume falls back to the
+        position the step counter gives."""
+        path = os.path.join(self._aux_dir, name)
+        if not os.path.exists(path):
+            return None
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (json.JSONDecodeError, UnicodeDecodeError) as exc:
+            reg = self._reg()
+            reg.counter("aux_corrupt_total").inc()
+            reg.record({"kind": "aux_corrupt", "file": name,
+                        "reason": repr(exc)[:200]}, force=True)
+            print(f"WARNING: checkpoint sidecar {name} is corrupt "
+                  f"({exc}) — treating as missing (resume falls back to "
+                  "step-derived position)", flush=True)
+            return None
+        except OSError:
+            return None
+
+    def save_aux(self, step: int, payload: Dict[str, Any]) -> None:
+        """Write the iterator-state sidecar of ``step``."""
+        self._write_aux_json(f"{int(step)}.json", payload)
+
+    def restore_aux(self, step: int) -> Optional[Dict[str, Any]]:
+        """The sidecar saved with ``step``, or None."""
+        return self._read_aux_json(f"{int(step)}.json")
 
     def restore_nets(self, net_g: nn.Module, net_c: Optional[nn.Module],
                      step: Optional[int] = None, ema: bool = False) -> int:

@@ -1,50 +1,95 @@
-"""The trainer: epochs of train steps, per-epoch eval and checkpoints
-(counterpart of the single-device core of ``p2p_tpu/train/loop.py:853
-Trainer``: ``__init__``, ``train_epoch``, ``evaluate``, ``maybe_resume``
-and ``fit``).
+"""The trainer: epochs of train steps, per-epoch eval and checkpoints,
+preemption with exact-step resume, the recovery ladder and the training
+telemetry (counterpart of the single-device core of
+``p2p_tpu/train/loop.py``: ``Trainer`` with ``maybe_resume``,
+``train_epoch``, ``evaluate`` and ``fit``, and the helpers both JAX
+trainers share).
 
-Each epoch shuffles the train split with ``default_rng(seed + epoch)``
-(and crops with ``aug_seed = seed + epoch``), runs one train step per
-batch with the batches sent to the card one ahead (data/pipeline.py), and
-keeps the metrics as device-side running sums fetched once at the epoch's
-end, so the only host syncs of a step are the skip guard's two (and one
-per ``log_every`` steps for the ``train`` record). The eval scores every
-test image (per-image PSNR/SSIM in eval mode, no moments kernel) and
-writes the first batch's ``e{epoch}_{input,target,pred,comp}.png`` under
-``<workdir>/<result_dir>/<dataset>/``. A checkpoint is saved every
-``epoch_save`` epochs and at the last one. ``metrics_<name>.jsonl`` in the
-workdir receives the JAX trainer's ``{"kind": "epoch", ...}`` and
-``{"kind": "eval", ...}`` records under the same keys.
+Each epoch shuffles the train split with ``default_rng(seed + epoch +
+jitter)`` (and crops with ``aug_seed`` = the same sum; the jitter moves
+only after a rollback), runs one train step per batch with the batches
+sent to the card one ahead (data/pipeline.py), and keeps the metrics as
+device-side running sums fetched once at the epoch's end. The eval scores
+every test image (per-image PSNR/SSIM in eval mode, no moments kernel)
+and writes the first batch's ``e{epoch}_{input,target,pred,comp}.png``
+under ``<workdir>/<result_dir>/<dataset>/``. A checkpoint is saved every
+``epoch_save`` epochs and at the last one, with its iterator sidecar, and
+marked good when its eval's PSNR is finite. ``metrics_<name>.jsonl`` in
+the workdir receives the JAX trainer's records under the same keys
+(``manifest``, ``train``, ``epoch``, ``eval``, ``memory``, ``preempt``,
+``resume``, ``health``, ``rollback``, ``health_summary``, ...), through
+the registry's sinks (obs/sinks.py).
+
+Host syncs of a step: the skip guard's two (train/step.py), one per
+``log_every`` steps for the ``train`` record, and the divergence
+sentinel's read of the previous step's metrics, which were copied to a
+pinned host buffer behind a CUDA event and are complete by then (the
+guard synchronized past them), so it waits on nothing.
+
+Preemption: ``fit`` installs a :class:`~p2p_tpu_torch.resilience.
+PreemptionGuard` (SIGTERM/SIGINT → flag) unless the caller injected one;
+each step boundary polls it, behind the ``elastic`` chaos seam
+(``P2P_CHAOS=elastic@N`` preempts at step N). A preemption saves the
+exact step and its sidecar (epoch, batches done, samples seen, aug seed,
+seed jitter, the base LR scale, the topology) and raises
+:class:`~p2p_tpu_torch.resilience.Preempted`, which ``cli/train.py``
+turns into exit code 75; ``maybe_resume`` re-enters the epoch at the next
+unconsumed sample (``make_loader(skip_samples=)``), so the resumed run
+ends bitwise where an uninterrupted one ends on the same device
+(tests/test_torch_resume.py).
+
+Self-healing (``cfg.health``, resilience/health.py): the sentinel reads
+each step's metrics one step late; the ladder skips, cools the learning
+rate (``state.lr_scale``, a host float, times ``cooldown_factor``) and
+rolls back to the newest ``mark_good`` step on a perturbed shuffle; past
+``max_rollbacks`` it raises ``DivergenceError`` (exit code 76).
+
+Telemetry: a run manifest (``manifest_<name>.json`` and a ``manifest``
+record), host spans exported as ``trace_<name>.json`` (Perfetto) at the
+end of ``fit``, the kernel-build watchdog armed after the first epoch, a
+``memory`` record per epoch on the card, the ``img_dispatch_rate`` EWMA
+and, with ``debug.nan_sentinel``, sentinel events as records.
 
 With ``lr_policy="plateau"`` a :class:`~p2p_tpu_torch.train.schedules.
 PlateauController` is fed each epoch's ``loss_g`` after the epoch record
-and before the checkpoint; its scale is the state's ``lr_scale``, which
-multiplies every update, is saved with the checkpoint and seeds the
-controller on resume. The logged ``lr`` includes it. With an EMA
-generator (``ema_decay``) the eval scores the EMA weights (bitwise G's
-at decay 0).
+and before the checkpoint; its scale times the ladder's cooldown factor
+is the state's ``lr_scale``, which multiplies every update, is saved
+with the checkpoint and seeds the controller on resume. The logged ``lr``
+includes it. With an EMA generator (``ema_decay``) the eval scores the
+EMA weights (bitwise G's at decay 0).
 
-Not ported yet: the health ladder (the in-step skip guard is the train
-step's), preemption, exact-step and elastic resume, obs, scan steps,
-meshes and FID.
+Not ported yet: elastic resume across a topology change (slice 11), scan
+steps, meshes and FID.
 """
 
 from __future__ import annotations
 
 import contextlib
-import json
 import os
+import signal
 import time
 from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
 
+from p2p_tpu_torch.core.cache import enable_compilation_cache
 from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.core.debug import check_finite, enable_nan_debugging
 from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import train_dtype
 from p2p_tpu_torch.data.pipeline import (PairedImageDataset, device_prefetch,
                                          make_loader)
+from p2p_tpu_torch.obs import (MemoryWatchdog, MetricsLogger,
+                               RetraceWatchdog, SpanRecorder,
+                               add_sentinel_handler, read_sentinels,
+                               remove_sentinel_handler, timed_annotation,
+                               write_manifest)
+from p2p_tpu_torch.obs.taps import host_copy
+from p2p_tpu_torch.resilience.chaos import FaultInjected, chaos_point
+from p2p_tpu_torch.resilience.health import (DivergenceError, TrainingHealth,
+                                             poison_nan_observation)
+from p2p_tpu_torch.resilience.preempt import Preempted, PreemptionGuard
 from p2p_tpu_torch.train.checkpoint import (CheckpointCorrupt,
                                             CheckpointManager)
 from p2p_tpu_torch.train.schedules import PlateauController, make_schedule
@@ -55,30 +100,341 @@ from p2p_tpu_torch.train.step import (build_eval_step, build_train_step,
 from p2p_tpu_torch.utils.images import ingest, save_img
 
 
-class MetricsLogger:
-    """Records as JSON lines (``metrics_<name>.jsonl``) and on stdout, as
-    the JAX ``MetricsLogger`` writes them: numbers as floats, a ``ts``
-    wall-clock stamp; printed when forced, for ``eval`` records and every
-    ``print_every`` steps."""
+# ----------------------------------------------------------- telemetry
+def init_trainer_obs(tr) -> None:
+    """The trainer's telemetry: the run manifest and its record, the span
+    recorder and trace path, the memory watchdog, the dispatch-rate EWMA,
+    then the health wiring. The process-wide hooks (the build watchdog's
+    listener, the sentinel handler) are :func:`install_trainer_hooks`'s,
+    for the duration of ``fit``."""
+    cfg = tr.cfg
+    tr.spans = SpanRecorder()
+    tr._trace_path = os.path.join(tr.workdir, f"trace_{cfg.name}.json")
+    man = write_manifest(
+        os.path.join(tr.workdir, f"manifest_{cfg.name}.json"), cfg,
+        device=tr.device)
+    tr.logger.log({"kind": "manifest", "config_hash": man["config_hash"],
+                   "git_sha": man["git_sha"], "backend": man["backend"]},
+                  force=True)
+    tr.retrace = None
+    tr.memwatch = MemoryWatchdog(registry=tr.obs, devices=[tr.device])
+    tr._img_rate = tr.obs.ewma("img_dispatch_rate")
+    tr._sentinel_handler = None
+    init_trainer_health(tr)
 
-    def __init__(self, path: str, print_every: int = 50):
-        self.path = path
-        self.print_every = max(1, print_every)
-        d = os.path.dirname(path)
-        if d:
-            os.makedirs(d, exist_ok=True)
 
-    def log(self, record: Dict, force: bool = False) -> None:
-        rec = {k: float(v) if isinstance(v, (int, float)) else v
-               for k, v in record.items()}
-        rec.setdefault("ts", round(time.time(), 3))
-        with open(self.path, "a") as f:
-            f.write(json.dumps(rec) + "\n")
-        step = rec.get("step", 0)
-        if force or rec.get("kind") == "eval" or step % self.print_every == 0:
-            print(" ".join(f"{k}={v:.4f}" if isinstance(v, float)
-                           else f"{k}={v}" for k, v in rec.items()
-                           if k != "ts"), flush=True)
+def install_trainer_hooks(tr) -> None:
+    """The build watchdog (a new one each ``fit``: armed after the first
+    epoch) and, with ``nan_sentinel``, sentinel events routed into the
+    run's records. Both are process-wide: :func:`close_trainer_obs`
+    removes them when ``fit`` returns or raises."""
+    tr.retrace = RetraceWatchdog(registry=tr.obs, logger=tr.logger)
+    if tr.cfg.debug.nan_sentinel:
+        # the handler captures the logger and registry, not the trainer
+        logger, reg = tr.logger, tr.obs
+
+        def _handler(ev):
+            reg.counter("nonfinite_events", tag=ev.get("tag", "")).inc()
+            logger.log(ev, force=True)
+
+        tr._sentinel_handler = _handler
+        add_sentinel_handler(_handler)
+
+
+def close_trainer_obs(tr) -> None:
+    """Remove the hooks :func:`install_trainer_hooks` installed, so a
+    second trainer in the process does not report into this one's
+    stream. Idempotent."""
+    if tr.retrace is not None:
+        tr.retrace.close()
+    if tr._sentinel_handler is not None:
+        remove_sentinel_handler(tr._sentinel_handler)
+        tr._sentinel_handler = None
+
+
+# ----------------------------------------------- checkpoints and resume
+def trainer_topology(tr) -> Dict:
+    """The sidecar's topology block in its one-device form: the JAX keys,
+    with one process, one device, no mesh axes and no pipeline stages."""
+    cfg = tr.cfg
+    return {"process_count": 1, "device_count": 1, "mesh": {},
+            "global_batch": int(cfg.data.batch_size),
+            "mixed_precision": bool(cfg.train.mixed_precision),
+            "moment_dtype": cfg.optim.moment_dtype,
+            "int8_delayed": bool(cfg.model.int8_delayed),
+            "loader": "fallback", "pp_stages": 1}
+
+
+def save_trainer_ckpt(tr) -> int:
+    """Checkpoint the state and its iterator sidecar: together they name
+    an exact point of the sample stream, so any checkpoint (an epoch's end
+    or a preemption mid-epoch) resumes without replaying or skipping a
+    sample. Returns the step."""
+    step = int(tr.state.step)
+    tr.ckpt.save(step, tr.state, tr.epoch)
+    tr.ckpt.save_aux(step, {
+        "step": step,
+        "epoch": tr.epoch,
+        "batches_done": step % tr.steps_per_epoch,
+        "steps_per_epoch": tr.steps_per_epoch,
+        "samples_seen": int(tr._samples_seen),
+        "epoch_samples_done": int(tr._epoch_samples_done),
+        "aug_seed": tr.cfg.train.seed + tr.epoch + tr._seed_jitter,
+        # a rollback's shuffle perturbation (the resumed epoch must skip
+        # against the perturbed permutation) and the base LR scale (the
+        # state's may carry a cooldown that must not outlive a resume)
+        "seed_jitter": int(tr._seed_jitter),
+        "lr_base": float(tr._base_lr_scale),
+        "topology": trainer_topology(tr),
+    })
+    return step
+
+
+def finish_preempted(tr) -> None:
+    """The preemption epilogue: the exact-step save, the ``preempt``
+    record, the span export and a flush, then :class:`Preempted` (exit
+    code 75 in ``cli/train.py``)."""
+    with tr.spans.span("preempt_save", epoch=tr.epoch):
+        step = save_trainer_ckpt(tr)
+    signum = getattr(tr.preempt, "signum", None)
+    tr.logger.log({"kind": "preempt", "epoch": tr.epoch, "step": step,
+                   "signum": signum or 0}, force=True)
+    tr.spans.export_perfetto(tr._trace_path)
+    tr.logger.registry.flush()
+    raise Preempted(step, signum)
+
+
+_AUX_UNREAD = object()
+
+
+def derive_sample_position(tr, step: int, aux, mid: int) -> int:
+    """Set the trainer's sample accounting (``_samples_seen``,
+    ``_epoch_samples_done``, ``_resume_skip_samples``) from a restored
+    step's sidecar. A sidecar without the sample fields (or none) falls
+    back to step × batch, counted on ``aux_compat_total`` with a
+    ``kind="aux_compat"`` record. Returns the epoch's consumed samples."""
+    topo = (aux or {}).get("topology") or {}
+    b_saved = int(topo.get("global_batch") or tr.cfg.data.batch_size)
+    ss = (aux or {}).get("samples_seen")
+    es = (aux or {}).get("epoch_samples_done")
+    if ss is None or es is None:
+        tr.obs.counter("aux_compat_total").inc()
+        tr.logger.log(
+            {"kind": "aux_compat", "step": int(step),
+             "missing": [k for k, v in (("samples_seen", ss),
+                                        ("epoch_samples_done", es))
+                         if v is None],
+             "derived_batch": b_saved},
+            force=True)
+        if ss is None:
+            ss = int(step) * b_saved
+        if es is None:
+            es = int(mid) * b_saved
+    tr._samples_seen = int(ss)
+    tr._epoch_samples_done = int(es)
+    tr._resume_skip_samples = int(es)
+    return int(es)
+
+
+def derive_resume_position(tr, step: int, aux=_AUX_UNREAD):
+    """``(done_full_epochs, mid_batches)`` of a restored step: from
+    ``step % steps_per_epoch``, overridden by the sidecar where there is
+    one (a different ``steps_per_epoch`` there means the dataset or the
+    batch changed under the checkpoint: warned). Restores the seed jitter,
+    sets the sample position and logs a ``kind="resume"`` record for a
+    mid-epoch step. ``aux`` is the sidecar the caller already read (None:
+    read but missing or corrupt), else it is read here."""
+    done, mid = divmod(int(step), tr.steps_per_epoch)
+    if aux is _AUX_UNREAD:
+        aux = tr.ckpt.restore_aux(int(step))
+    if aux is not None and aux.get("seed_jitter") is not None:
+        tr._seed_jitter = int(aux["seed_jitter"])
+    if aux is not None and aux.get("batches_done") is not None:
+        if int(aux.get("steps_per_epoch", tr.steps_per_epoch)) \
+                != tr.steps_per_epoch:
+            print(
+                f"WARNING: checkpoint step {step} was saved with "
+                f"steps_per_epoch={aux.get('steps_per_epoch')} but this "
+                f"run has {tr.steps_per_epoch} — exact-step resume "
+                "alignment is not guaranteed (did the dataset or batch "
+                "size change?)", flush=True)
+        mid = int(aux["batches_done"])
+        done = (int(step) - mid) // int(
+            aux.get("steps_per_epoch") or tr.steps_per_epoch)
+        want_aug = tr.cfg.train.seed + done + 1 + tr._seed_jitter
+        if mid and int(aux.get("aug_seed", want_aug)) != want_aug:
+            print(
+                f"WARNING: mid-epoch resume with a different --seed "
+                f"(checkpoint aug_seed={aux.get('aug_seed')}, this run "
+                f"would use {want_aug}): the interrupted epoch's sample "
+                "order cannot be reproduced — expect replayed/skipped "
+                "samples. Relaunch with the original --seed for exact "
+                "resume.", flush=True)
+    derive_sample_position(tr, step, aux, mid)
+    if mid:
+        tr.logger.log({"kind": "resume", "step": int(step),
+                       "epoch": done + 1, "batches_done": mid}, force=True)
+    return done, mid
+
+
+def poll_preempt(tr) -> bool:
+    """The step-boundary preemption poll, behind the ``elastic`` chaos
+    seam: armed (``P2P_CHAOS=elastic@N``), it turns host step N into a
+    preemption request, with no signal-timing race."""
+    if tr.preempt is None:
+        return False
+    try:
+        chaos_point("elastic", step=tr._host_step)
+    except FaultInjected:
+        tr.preempt.request(signal.SIGTERM)
+        return True
+    return tr.preempt.should_stop()
+
+
+def acquire_preempt_guard(tr):
+    """Install a :class:`PreemptionGuard` for ``fit`` unless the caller
+    injected one. Returns the guard this call owns (for
+    :func:`release_preempt_guard`), or None: an injected guard, or no
+    signal handlers off the main thread (the run goes unguarded)."""
+    if tr.preempt is not None:
+        return None
+    try:
+        guard = PreemptionGuard(registry=tr.obs).install()
+    except ValueError:
+        return None
+    # buffered records reach disk even if the grace window ends first
+    guard.add_flush_hook(tr.logger.registry.flush)
+    tr.preempt = guard
+    return guard
+
+
+def release_preempt_guard(tr, owned_guard) -> None:
+    if owned_guard is not None:
+        owned_guard.uninstall()
+        tr.preempt = None
+
+
+# ---------------------------------------------------------- self-healing
+# The sentinel reads each step's metrics ONE STEP LATE, from a pinned host
+# buffer the step's metrics were copied into behind a CUDA event: by then
+# the copy has landed, so the happy path waits on nothing.
+
+
+def init_trainer_health(tr) -> None:
+    """Sentinel and ladder wiring, and the host mirrors the health path
+    and the sidecar read (``_host_step`` mirrors ``state.step``)."""
+    tr.health = None
+    tr._pending_health = None
+    tr._seed_jitter = 0
+    tr._base_lr_scale = 1.0
+    tr._applied_lr_scale = 1.0
+    tr._host_step = 0
+    tr._samples_seen = 0
+    tr._epoch_samples_done = 0
+    tr._resume_skip_samples = 0
+    if tr.cfg.health.enabled:
+        tr.health = TrainingHealth(tr.cfg.health, registry=tr.obs,
+                                   logger=tr.logger)
+
+
+def apply_health_lr(tr) -> None:
+    """The state's ``lr_scale`` = plateau scale × cooldown multiplier,
+    written only when the product changed."""
+    mult = tr.health.lr_multiplier if tr.health is not None else 1.0
+    want = float(tr._base_lr_scale) * float(mult)
+    if want != tr._applied_lr_scale:
+        tr.state.lr_scale = want
+        tr._applied_lr_scale = want
+
+
+def stage_metrics(metrics: Dict[str, torch.Tensor]):
+    """``(keys, values, event)``: a step's 0-d metrics stacked on their
+    device and, on the card, copied to a pinned host buffer behind an
+    event (obs/taps.host_copy: no host sync)."""
+    keys = list(metrics)
+    values, event = host_copy(torch.stack(
+        [metrics[k].detach().reshape(()).float() for k in keys]))
+    return keys, values, event
+
+
+def queue_health_observation(tr, metrics: Dict[str, torch.Tensor]) -> None:
+    """Count the step's samples, queue its metrics for the delayed read
+    and consume the previous step's."""
+    tr._samples_seen += tr.cfg.data.batch_size
+    tr._epoch_samples_done += tr.cfg.data.batch_size
+    if tr.health is None:
+        tr._host_step += 1
+        return
+    prev, tr._pending_health = (
+        tr._pending_health, (tr._host_step + 1, stage_metrics(metrics)))
+    tr._host_step += 1
+    if prev is not None:
+        consume_health_observation(tr, prev)
+
+
+def flush_health_observations(tr) -> None:
+    """Drain the delayed slot (the epoch's last step must not escape the
+    sentinel)."""
+    if tr.health is None:
+        return
+    pend, tr._pending_health = tr._pending_health, None
+    if pend is not None:
+        consume_health_observation(tr, pend)
+
+
+def consume_health_observation(tr, pend) -> None:
+    """Read one queued step's metrics (after its event) and walk them
+    through the sentinel and the ladder. The ``nan`` chaos seam poisons
+    the observed losses here (``P2P_CHAOS=nan@50x3``: steps 50..52)."""
+    step, (keys, values, event) = pend
+    if event is not None:
+        event.synchronize()
+    host = dict(zip(keys, values.tolist()))
+    tr.health.observe(step, poison_nan_observation(step, host))
+    apply_health_lr(tr)
+
+
+def perform_rollback(tr) -> None:
+    """Ladder rung 3: restore the newest ``mark_good`` checkpoint (the
+    newest intact one when none is marked; an older intact one when it is
+    corrupt), re-enter its epoch on a perturbed shuffle and re-arm the
+    post-rollback cooldown."""
+    cur_step = tr._host_step
+    target = tr.ckpt.last_good_step()
+    if target is None:
+        target = tr.ckpt.latest_step()
+    if target is None:
+        raise DivergenceError(cur_step, tr.health.ladder.rollbacks,
+                              "no checkpoint to roll back to")
+    tr.ckpt.restore(tr.state, step=int(target), fallback=True)
+    if tr.ckpt.last_restored_step is not None:
+        target = tr.ckpt.last_restored_step
+    done, mid = divmod(int(target), tr.steps_per_epoch)
+    aux = tr.ckpt.restore_aux(int(target))
+    if aux is not None and aux.get("batches_done") is not None:
+        mid = int(aux["batches_done"])
+        done = (int(target) - mid) // int(
+            aux.get("steps_per_epoch") or tr.steps_per_epoch)
+    tr.epoch = done + 1
+    derive_sample_position(tr, int(target), aux, mid)
+    tr._seed_jitter += 1000003  # a new shuffle permutation from here on
+    tr._pending_health = None
+    tr._host_step = int(target)
+    tr.health.after_rollback(cur_step, int(target))
+    # the restore wrote the checkpoint's lr_scale into the state: NaN
+    # compares unequal to any product, so the host-known scale is written
+    tr._applied_lr_scale = float("nan")
+    apply_health_lr(tr)
+    tr.logger.log({"kind": "rollback", "step": int(cur_step),
+                   "target_step": int(target), "epoch": tr.epoch,
+                   "skip_batches": mid,
+                   "rollbacks": tr.health.ladder.rollbacks}, force=True)
+
+
+def log_health_summary(tr) -> None:
+    if tr.health is not None:
+        tr.logger.log({"kind": "health_summary", **tr.health.summary()},
+                      force=True)
 
 
 def metrics_path(workdir: str, name: str) -> str:
@@ -129,7 +485,11 @@ def eval_weights(state: TrainState) -> Iterator[None]:
 class Trainer:
     """Train ``cfg`` on ``<data_root>/{train,test}/{a,b}/`` (default
     ``<cfg.data.root>/<cfg.data.dataset>``) on one device (``cuda`` unless
-    the caller asks for the CPU), writing under ``workdir``."""
+    the caller asks for the CPU), writing under ``workdir``. ``preempt``
+    may be set to a guard-like object (``should_stop()``, ``request()``,
+    ``signum``) before :meth:`fit`; else ``fit`` installs the signal
+    guard. ``fit`` installs the process-wide telemetry hooks and removes
+    them when it returns or raises."""
 
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  workdir: str = ".",
@@ -137,6 +497,12 @@ class Trainer:
         self.cfg = cfg
         self.workdir = workdir
         self.device = resolve_device(device)
+        if cfg.train.debug_nans:
+            enable_nan_debugging()
+        if cfg.train.compilation_cache_dir:
+            # before any kernel is built: the libraries land in (and are
+            # reused from) this directory (core/cache.py)
+            enable_compilation_cache(cfg.train.compilation_cache_dir)
         root = data_root or os.path.join(cfg.data.root, cfg.data.dataset)
         ds_dtype = "uint8" if cfg.data.uint8_pipeline else "float32"
         self.train_ds = PairedImageDataset(
@@ -161,25 +527,35 @@ class Trainer:
             self.device, sample_batch=sample)
         self.train_step = build_train_step(cfg, self.vgg, self.dtype)
         self.eval_step = build_eval_step(cfg, self.dtype)
-        self.ckpt = CheckpointManager(os.path.join(
-            workdir, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
         self.logger = MetricsLogger(metrics_path(workdir, cfg.name),
                                     cfg.train.log_every)
+        self.obs = self.logger.registry
+        # after the logger: retry, corruption and sidecar counters belong
+        # to this run's registry
+        self.ckpt = CheckpointManager(os.path.join(
+            workdir, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name),
+            registry=self.obs)
         self.plateau = (PlateauController()
                         if cfg.optim.lr_policy == "plateau" else None)
         self.epoch = cfg.train.epoch_count
-        self._resume_skip = 0
-        self._samples_seen = 0     # this process's, for the train records
+        self.preempt: Optional[PreemptionGuard] = None
+        self._preempted = False
+        init_trainer_obs(self)
 
     # ------------------------------------------------------------ resume
     def maybe_resume(self) -> bool:
-        """Restore the newest intact checkpoint, if there is one: the
-        next epoch is the one after the restored step's. Returns whether
-        one was restored."""
-        if self.ckpt.latest_step() is None:
+        """Restore the newest intact checkpoint, if there is one, and
+        re-enter the sample stream where it was saved: the restored step's
+        epoch after its consumed samples (its sidecar's, or the step
+        counter's). Returns whether one was restored."""
+        step = self.ckpt.latest_step()
+        if step is None:
             return False
+        # the step's sidecar, read once for every consumer below (a
+        # corrupt one is counted once)
+        aux = self.ckpt.restore_aux(int(step))
         try:
-            step, _ = self.ckpt.restore(self.state)
+            self.ckpt.restore(self.state)
         except CheckpointCorrupt as e:
             if self.cfg.health.ema_decay is not None:
                 raise RuntimeError(
@@ -188,13 +564,15 @@ class Trainer:
                     "resume without --ema_decay (EMA can only start on a "
                     f"fresh run); underlying: {e}") from e
             raise
-        if self.plateau is not None:
-            # the scale only ever falls: a resume keeps the reductions
-            self.plateau.scale = self.state.lr_scale
-        done, mid = divmod(step, self.steps_per_epoch)
-        # a step inside an epoch (the dataset or the batch changed under
-        # the checkpoint) resumes that epoch after its first `mid` batches
-        self._resume_skip = mid
+        # the integrity fallback may have restored an older step than the
+        # newest: the position follows the weights actually restored
+        if self.ckpt.last_restored_step is not None \
+                and int(self.ckpt.last_restored_step) != int(step):
+            step = self.ckpt.last_restored_step
+            aux = self.ckpt.restore_aux(int(step))
+        done, _ = derive_resume_position(self, int(step), aux=aux)
+        # a step inside an epoch re-enters that epoch (done + 1), the
+        # loader skipping the samples it consumed
         self.epoch = max(self.cfg.train.epoch_count, 1 + done)
         # the restored schedulers count `done` epochs already: an epoch
         # label given with --epoch_count must not count them again
@@ -206,34 +584,58 @@ class Trainer:
                         self.state.opt_c):
                 if opt is not None:
                     opt[1].lr_lambdas = [schedule]
+        # the restored lr_scale may carry a cooldown (preempted during
+        # one); the sidecar's lr_base is the plateau scale
+        base = (aux or {}).get("lr_base")
+        if base is not None and self.state.lr_scale != float(base):
+            self.state.lr_scale = float(base)
+        if self.plateau is not None:
+            # the scale only ever falls: a resume keeps the reductions
+            self.plateau.scale = self.state.lr_scale
+        self._base_lr_scale = self._applied_lr_scale = self.state.lr_scale
+        self._host_step = int(step)
         return True
 
     # ------------------------------------------------------------- train
     def current_lr(self) -> float:
         """G's effective learning rate of the last applied step: the
-        schedule's value (the JAX state's ``inject_hyperparams``) times the
-        plateau scale."""
+        schedule's value (the JAX state's ``inject_hyperparams``) times
+        ``lr_scale`` (plateau scale × cooldown)."""
         _, scheduler = self.state.opt_g
         return (scheduler.base_lrs[0]
                 * scheduler.lr_lambdas[0](max(scheduler.last_epoch - 1, 0))
                 * self.state.lr_scale)
 
     def train_epoch(self, seed: Optional[int] = None,
-                    skip_batches: int = 0) -> Dict[str, float]:
-        """One pass over the train split; returns the epoch's metric means
-        and ``img_per_sec`` over the steps after the first."""
+                    skip_samples: int = 0) -> Dict[str, float]:
+        """One pass over the train split (after its first
+        ``skip_samples`` samples); returns the
+        epoch's metric means and ``img_per_sec`` over the steps after the
+        first. Stops early when the ladder asks for a rollback or a
+        preemption is requested (``fit`` acts on both)."""
         cfg = self.cfg
-        seed = self.epoch if seed is None else seed
+        seed = (self.epoch if seed is None else seed) + self._seed_jitter
         self.train_ds.aug_seed = cfg.train.seed + seed
         loader = make_loader(self.train_ds, cfg.data.batch_size,
                              shuffle=True, seed=cfg.train.seed + seed,
-                             skip_batches=skip_batches)
+                             skip_samples=skip_samples)
         sums: Optional[Dict[str, torch.Tensor]] = None
         count = last_logged = 0
+        disp_hist = self.obs.histogram("dispatch_secs")
         t0 = time.perf_counter()
         for batch in device_prefetch(loader, self.device):
-            self.state, metrics = self.train_step(self.state, batch)
-            self._samples_seen += cfg.data.batch_size
+            # each epoch's first 4 steps land in the span ring, the rest
+            # only in the histogram and the profiler's timeline
+            cm = (self.spans.span("train_dispatch", steps=1,
+                                  histogram=disp_hist) if count < 4
+                  else timed_annotation("train_dispatch", disp_hist))
+            with cm:
+                self.state, metrics = self.train_step(self.state, batch)
+            self._img_rate.mark(cfg.data.batch_size)
+            queue_health_observation(self, metrics)
+            if cfg.debug.check_finite:
+                # a fence: the nonfinite record lands before the raise
+                check_finite(metrics, "step_metrics", registry=self.obs)
             masked = mask_skipped(metrics)
             sums = (dict(masked) if sums is None
                     else {k: sums[k] + v for k, v in masked.items()})
@@ -247,6 +649,14 @@ class Trainer:
                                  "samples": self._samples_seen,
                                  **{k: float(v) for k, v in metrics.items()}},
                                 force=True)
+            if self.health is not None and self.health.rollback_pending:
+                break
+            if poll_preempt(self):
+                self._preempted = True
+                break
+        flush_health_observations(self)
+        if cfg.debug.nan_sentinel:
+            read_sentinels()
         if sums is None:
             return {}
         keys = list(sums)
@@ -263,6 +673,10 @@ class Trainer:
         """Score every test image; with ``save_samples`` write the first
         batch's first input, target, prediction and (with a compression
         net) G's quantized input as PNGs."""
+        with self.spans.span("evaluate", epoch=self.epoch):
+            return self._evaluate(save_samples)
+
+    def _evaluate(self, save_samples: bool) -> Dict[str, float]:
         cfg = self.cfg
         loader = make_loader(self.test_ds, cfg.data.test_batch_size,
                              shuffle=False, num_epochs=1,
@@ -314,25 +728,67 @@ class Trainer:
     # --------------------------------------------------------------- fit
     def fit(self, nepoch: Optional[int] = None) -> List[Dict[str, float]]:
         """Epochs ``self.epoch`` through ``nepoch`` (default
-        ``cfg.train.nepoch``): train, eval, log, checkpoint."""
+        ``cfg.train.nepoch``): train, eval, log, checkpoint. Raises
+        :class:`Preempted` after a preemption's save and
+        :class:`DivergenceError` when the ladder is exhausted; the
+        epilogue (span export, health summary, flush) runs on every
+        exit."""
         cfg = self.cfg
         nepoch = nepoch or cfg.train.nepoch
         history = []
-        while self.epoch <= nepoch:
-            t0 = time.time()
-            skip, self._resume_skip = self._resume_skip, 0
-            record = {"epoch": self.epoch}
-            train_metrics = self.train_epoch(seed=self.epoch,
-                                             skip_batches=skip)
-            record.update({"sec": time.time() - t0, **train_metrics,
-                           "lr": self.current_lr()})
-            record.update(self.evaluate(save_samples=True))
-            history.append(record)
-            self.logger.log({"kind": "epoch", **record}, force=True)
-            if self.plateau is not None and "loss_g" in record:
-                self.state.lr_scale = self.plateau.update(record["loss_g"])
-            if self.epoch % cfg.train.epoch_save == 0 \
-                    or self.epoch == nepoch:
-                self.ckpt.save(self.state.step, self.state, self.epoch)
-            self.epoch += 1
+        armed_builds = False
+        self._preempted = False
+        owned_guard = acquire_preempt_guard(self)
+        try:
+            install_trainer_hooks(self)
+            while self.epoch <= nepoch:
+                t0 = time.time()
+                skip_s = self._resume_skip_samples
+                self._resume_skip_samples = 0
+                rollback = False
+                with self.spans.span("epoch", epoch=self.epoch):
+                    train_metrics = self.train_epoch(seed=self.epoch,
+                                                     skip_samples=skip_s)
+                    record = {"epoch": self.epoch, "sec": time.time() - t0,
+                              **train_metrics, "lr": self.current_lr()}
+                    rollback = (self.health is not None
+                                and self.health.rollback_pending)
+                    if not self._preempted and not rollback:
+                        record.update(self.evaluate(save_samples=True))
+                if self._preempted:
+                    # a partial epoch writes no epoch record
+                    finish_preempted(self)
+                if rollback:
+                    # the diverged partial epoch writes no epoch record
+                    perform_rollback(self)
+                    continue
+                self._epoch_samples_done = 0
+                history.append(record)
+                self.logger.log({"kind": "epoch", **record}, force=True)
+                self.memwatch.sample(self.logger)
+                if self.plateau is not None and "loss_g" in record:
+                    self._base_lr_scale = self.plateau.update(
+                        record["loss_g"])
+                    apply_health_lr(self)
+                if self.epoch % cfg.train.epoch_save == 0 \
+                        or self.epoch == nepoch:
+                    with self.spans.span("checkpoint_save",
+                                         epoch=self.epoch):
+                        saved = save_trainer_ckpt(self)
+                    # the rollback target: a step whose eval came back
+                    psnr = record.get("psnr_mean")
+                    if psnr is not None and np.isfinite(psnr):
+                        self.ckpt.mark_good(saved)
+                if not armed_builds:
+                    # the first completed epoch loaded every library: a
+                    # build from here on is unexpected
+                    self.retrace.arm()
+                    armed_builds = True
+                self.epoch += 1
+        finally:
+            release_preempt_guard(self, owned_guard)
+            close_trainer_obs(self)
+            self.spans.export_perfetto(self._trace_path)
+            log_health_summary(self)
+            self.logger.registry.flush()
         return history

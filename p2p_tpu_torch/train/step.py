@@ -56,6 +56,13 @@ count the non-finite gradient entries the clip zeroed (``nonfinite_g``,
 ``nonfinite_d`` and, with net_c, ``nonfinite_c``), on a step the guard
 dropped too, as JAX counts them.
 
+The telemetry taps (``p2p_tpu/train/step.py:563-577``): with
+``debug.grad_norms`` the metrics carry ``grad_norm_g``/``grad_norm_d``
+(and ``grad_norm_c``), the global norms of each optimizer's raw
+gradients; with ``debug.nan_sentinel`` the metrics (and the LR scale)
+get per-leaf NaN/Inf counts queued to a pinned host buffer and read one
+step later (obs/taps.py), which adds no host sync.
+
 int8 QAT runs wherever the config puts it (``p2p_tpu/train/step.py:
 223-300``): D's inner convs (``int8``), under spectral norm too, with the
 quantize-fused epilogue (``int8_fused_epilogue``), D's stem and logits
@@ -84,6 +91,7 @@ from p2p_tpu_torch.losses.l1 import l1_loss
 from p2p_tpu_torch.losses.metrics import psnr, ssim
 from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
 from p2p_tpu_torch.models.patchgan import check_norm_d
+from p2p_tpu_torch.obs.taps import grad_norm_taps, nan_sentinel
 from p2p_tpu_torch.ops.int8 import stored_scales
 from p2p_tpu_torch.ops.norm import NORM_KINDS
 from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
@@ -317,6 +325,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
     use_pool = cfg.train.pool_size > 0
     ema_decay = cfg.health.ema_decay
     clip = cfg.optim.grad_clip
+    grad_norms = cfg.debug.grad_norms
+    sentinel = cfg.debug.nan_sentinel
 
     def step(state: TrainState, batch: Dict[str, np.ndarray]
              ) -> Tuple[TrainState, Metrics]:
@@ -371,6 +381,10 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         loss_g.backward(inputs=list(net_g.parameters()))
 
         # ---- 5. G then D updates, unless the guard drops the step --------
+        # the grad-norm taps read the raw gradients, before any clip
+        norms = (grad_norm_taps({}, g=_grads(state.opt_g),
+                                d=_grads(state.opt_d))
+                 if grad_norms else {})
         ok = _finite(loss_g, loss_d) if guard else True
         counts = {"nonfinite_g": _apply(state.opt_g, ok, clip,
                                          state.lr_scale),
@@ -398,6 +412,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             ok_all = ok and (_finite(loss_c) if guard else True)
             if cfg.optim.train_compression_net:
                 loss_c.backward(inputs=list(net_c.parameters()))
+                if grad_norms:
+                    grad_norm_taps(norms, c=_grads(state.opt_c))
                 counts["nonfinite_c"] = _apply(state.opt_c, ok_all, clip,
                                                state.lr_scale)
         else:
@@ -414,6 +430,13 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         if guard:
             metrics["health_ok"] = torch.tensor(float(ok_all),
                                                 device=state.device)
+        metrics.update(norms)
+        if sentinel:
+            # per-leaf NaN/Inf counts, copied to a pinned buffer behind an
+            # event and read one step later (obs/taps.py): no host sync;
+            # the effective LR scale rides along, as in JAX
+            nan_sentinel({**metrics, "lr_scale": float(state.lr_scale)},
+                         tag="train_step")
         return state, metrics
 
     return step

@@ -24,6 +24,7 @@ import copy
 import dataclasses
 import json
 import os
+import shutil
 import zlib
 from unittest import mock
 
@@ -237,14 +238,30 @@ def test_a_failed_save_leaves_nothing_and_max_to_keep_prunes(tmp_path):
 
     def failing(obj, f, *a, **kw):
         calls.append(1)
-        if len(calls) == 3:
+        if len(calls) >= 3:
             raise OSError("disk full")
         return real_save(obj, f, *a, **kw)
 
+    # a write that keeps failing exhausts the save's retries (CKPT_POLICY:
+    # 4 tries) and raises; no try leaves a step or a temporary directory
     with mock.patch.object(torch, "save", failing):
         with pytest.raises(OSError):
             mgr.save(state.step, state, epoch=1)
+    assert len(calls) == 2 + 4
     assert mgr.all_steps() == [] and os.listdir(mgr.directory) == []
+    # a transient failure is retried and the step lands whole
+    calls.clear()
+
+    def flaky(obj, f, *a, **kw):
+        calls.append(1)
+        if len(calls) == 3:
+            raise OSError("blip")
+        return real_save(obj, f, *a, **kw)
+
+    with mock.patch.object(torch, "save", flaky):
+        mgr.save(state.step, state, epoch=1)
+    assert mgr.all_steps() == [state.step] and not mgr.verify(state.step)
+    shutil.rmtree(mgr.step_dir(state.step))
     for epoch in (1, 2, 3):
         state, _ = step(state, batch)
         mgr.save(state.step, state, epoch=epoch)

@@ -1240,3 +1240,79 @@ def test_batch_moments_under_the_int8_net_c_of_a_unet_preset(no_tf32):
     want = net.state_dict()
     for k in ("BatchNorm_0.mean", "BatchNorm_0.var"):
         torch.testing.assert_close(got[k], want[k], rtol=1e-5, atol=1e-6)
+
+
+def test_nan_sentinel_queues_without_a_host_sync_and_reads_late(cuda):
+    """The trainer's NaN sentinel (obs/taps.py) and its health staging
+    (train/loop.stage_metrics) on the card: queueing the per-leaf counts
+    (device sums, a ``non_blocking`` copy to a pinned buffer, an event)
+    and staging the step's metrics make no host sync: under
+    ``torch.cuda.set_sync_debug_mode("error")`` any sync raises, which
+    ``.item()`` in the same region shows. The counts are read after, one
+    call later, and are right."""
+    from p2p_tpu_torch.obs import taps
+    from p2p_tpu_torch.train.loop import stage_metrics
+
+    taps.read_sentinels()
+    got = []
+    taps.add_sentinel_handler(got.append)
+    x = torch.randn(1 << 22, device=cuda)
+    grad = torch.ones(1000, device=cuda)
+    grad[3] = float("inf")
+    grad[7:10] = float("nan")
+    metrics = {"loss_g": (x * float("nan")).mean(), "loss_d": (x * x).mean(),
+               "grad": grad, "steps": torch.arange(3, device=cuda)}
+    torch.cuda.synchronize()
+    try:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            taps.nan_sentinel({**metrics, "lr_scale": 0.5},
+                              tag="train_step")
+            staged = stage_metrics({k: metrics[k]
+                                    for k in ("loss_g", "loss_d")})
+            y = (x * 3).sum()                # the next step's work
+            with pytest.raises(RuntimeError):
+                y.item()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert got == []
+        taps.read_sentinels()
+    finally:
+        taps.remove_sentinel_handler(got.append)
+    assert [(e["nan"], e["inf"], e["leaves"]) for e in got] == [
+        (4, 1, {"loss_g": {"nan": 1, "inf": 0},
+                "grad": {"nan": 3, "inf": 1}})]
+    keys, buf, event = staged
+    event.synchronize()
+    assert keys == ["loss_g", "loss_d"] and buf.is_pinned()
+    vals = buf.tolist()
+    assert np.isnan(vals[0]) and vals[1] == pytest.approx(
+        float((x * x).mean()), rel=1e-6)
+
+
+def test_memory_watchdog_reads_the_card(cuda):
+    """``MemoryWatchdog`` on the card: the JAX record's four keys from
+    ``torch.cuda.memory_stats`` and ``mem_get_info``, a live 256 MiB
+    allocation inside them, the gauges and the ``memory`` record."""
+    from p2p_tpu_torch.obs import MemoryWatchdog, MetricsRegistry
+
+    big = torch.empty(256 << 20, dtype=torch.uint8, device=cuda)
+    reg = MetricsRegistry()
+    logged = []
+
+    class _Log:
+        def log(self, rec, force=False):
+            logged.append(rec)
+
+    out = MemoryWatchdog(reg, [cuda]).sample(_Log())
+    (stats,) = out.values()
+    assert set(stats) == {"bytes_in_use", "peak_bytes_in_use",
+                          "bytes_limit", "largest_alloc_size"}
+    assert stats["peak_bytes_in_use"] >= stats["bytes_in_use"] \
+        >= big.numel()
+    assert stats["largest_alloc_size"] >= big.numel()
+    assert stats["bytes_limit"] > stats["bytes_in_use"]
+    assert logged == [{"kind": "memory", "n_devices": 1, **stats}]
+    idx = torch.cuda.current_device()
+    assert reg.gauge("hbm_bytes_in_use", device=idx).value == \
+        stats["bytes_in_use"]

@@ -750,12 +750,26 @@ def test_cli_http_subprocess_serves_hot_swaps_and_drains(runs):
     (["--input_dir", "x", "--weights", "g.npz", "--ema_decay", "0.99"],
      "--ema_decay"),
     (["--input_dir", "x", "--tp_min_ch", "8"], "--tp_min_ch"),
-    (["--http", "127.0.0.1:0", "--compilation_cache", "c"],
-     "--compilation_cache"),
+    # --compilation_cache is accepted: the kernel libraries are built into
+    # (and reused from) the directory it names, set before the bad tenant
+    # spec is refused
+    (["--http", "127.0.0.1:0", "--compilation_cache", "c", "--tenant",
+      "noequals"], "noequals"),
 ])
-def test_cli_refuses_bad_specs_and_unported_flags(args, says, capsys):
+def test_cli_refuses_bad_specs_and_unported_flags(args, says, capsys,
+                                                  tmp_path, monkeypatch):
+    from p2p_tpu_torch.core import cache
+    from p2p_tpu_torch.ops.cuda import build
+
+    monkeypatch.setattr(cache, "_enabled_dir", None)
+    monkeypatch.chdir(tmp_path)
     assert cli_serve.main(args) == 2
     assert says in capsys.readouterr().err
+    if "--compilation_cache" in args:
+        assert build.build_dir() == tmp_path / "c"
+        assert (tmp_path / "c").is_dir()
+    else:
+        assert build.build_dir() == build.BUILD_DIR
 
 
 def test_cli_defaults_are_the_jax_defaults():
