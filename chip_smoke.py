@@ -17,7 +17,8 @@ to the CPU or to a plain version):
    the operands' type): #1, #2 and #3 at every norm shape of the
    instance-norm paths (the full-width pix2pixHD generator at each batch
    size serving uses, N = 1, 2, 4, and in training at N = 1; the
-   instance-norm ``reference`` G and D at N = 1) and each
+   instance-norm ``reference`` G and D at N = 1; the video kernel form's
+   U-Net and D on N = 8 frames) and each
    activation/residual form; #2, #3 and #4 bitwise, alone and right
    after #1 (launched as ops/instance_norm.py launches them, x and #3's
    residual read before the dependent launch's wait), each row with its
@@ -199,7 +200,26 @@ to the CPU or to a plain version):
    the first epoch; (d) exactly 50 #5 launches a train step in every run,
    none in eval; (e) the loop's ms/step with health and obs on, beside
    phase 10's;
-15. the script's total seconds, a ``{"kernels": [...]}`` line, then the
+15. slice 11, video: ``vid2vid_temporal`` at full width (U-Net ngf 64 on
+   every frame, the 3-scale spectral-norm PatchGAN on each (input ‖
+   frame) pair, the 2-scale temporal 3-D PatchGAN on the (input ‖ clip)
+   pair, 8 frames of 256², batch 1, bf16 on f32 masters): (a) the port's
+   synthetic clips, 2 videos of 16 frames a split (4 train and 4 test
+   clips); (b) ``cli.train`` in process for 2 epochs of 4 steps (an eval
+   and a checkpoint an epoch): finite ``loss_d``, ``loss_dt``, ``loss_g``,
+   ``g_gan_t`` every step, ``n_frames_scored`` 32 in each eval, no kernel
+   launched, the step's ms (median after 2 warm-up), frames/s and the
+   peak memory; (c) ``P2P_CHAOS=elastic@6`` exits 75 and its relaunch 0,
+   resuming at epoch 2, batch 2 with its live state bitwise the saved
+   step (the manifest's CRC32s), reading exactly the uninterrupted run's
+   last 2 train clips; (d) ``cli.infer --metrics`` on that checkpoint: 32
+   PNGs of 256² and the metrics line; one profiled bf16 step of the
+   preset (busy share, largest device shares); (e) the kernel form
+   (``norm`` and ``norm_d`` ``pallas_instance``): 2 bf16 steps with
+   exactly 31 #1, 13 #2 and 18 #3 a step at N = 8, then the f32 (TF32
+   off, cuDNN deterministic) one-step check through them against their
+   plain versions within ``VID_F32_RTOL``;
+16. the script's total seconds, a ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -377,7 +397,9 @@ RES_MAX_ROLLBACKS = 1
 # between any two of three resumes of one step-6 checkpoint (cuDNN
 # deterministic), for the losses of steps 7-8 and for each network's
 # final parameters over their update from step 6, rounded up to 1, 2 or
-# 5 x 10^-n; bitwise where the resumes are bitwise equal. A resume at
+# 5 x 10^-n; bitwise where the resumes are bitwise equal, as they are
+# with the reflect pad's backward in a fixed order under cuDNN
+# deterministic (scripts/torch_reference_determinism.py). A resume at
 # RES_PLANTED_LR times the learning rate (the cooldown factor: a cooldown
 # carried across the resume) must fall outside them
 RES_BAND_FACTOR = 2.5
@@ -441,6 +463,28 @@ I8F_STEP1_RTOL, I8F_AFTER_RTOL = 1e-3, 1e-2
 # (c) path A with every int8 form: 2 bf16 steps; (d) pix2pixhd int8: one
 # bf16 step and one served forward
 A8_STEPS = 2
+
+
+# slice 11 (video): vid2vid_temporal through its CLIs on the port's
+# synthetic clips of 256², VID_SOURCES = (videos a split, frames a video),
+# so 4 train and 4 test clips of 8 frames; 2 epochs of 4 steps, preempted
+# in process at step VID_STOP and resumed; then its kernel form (#1 + #2
+# at the U-Net's norms, #1 + #3 at D's, N = 8 frames) for
+# VID_KERNEL_STEPS bf16 steps and the f32 one-step check through the
+# kernels against their plain versions. VID_F32_RTOL (ROADMAP Queue C's
+# rule): 2.5x the larger of the kernel route's and the f64-statistics
+# route's largest relative loss difference from the plain route over 8
+# seeds (scripts/torch_vid2vid_f32_spread.py on an H100), rounded up to
+# 1, 2 or 5 x 10^-n: the kernels 1.80e-7 (loss_d), the f64 sums 1.37e-7
+# (g_feat) on NVIDIA H100 80GB HBM3, 700.00 W; all its losses are taken
+# before any update, so one step differs only by the order of #1's sums
+VID_SOURCES = (2, 16)
+VID_EPOCHS = 2
+VID_STOP = 6
+VID_KERNEL_STEPS = 2
+VID_LOSS_KEYS = ("loss_d", "loss_dt", "loss_g", "g_gan", "g_gan_t",
+                 "g_feat")
+VID_F32_RTOL = 5e-7
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -910,8 +954,10 @@ def apply_row(timer, x, mean, rstd, common, count, where):
     affine; on a vector path (16-byte vectors along C, or across pixels at
     C = 3); then its times alone and as a site (#1 then #2). The library
     yardstick is ``F.batch_norm`` in inference mode on the (1, C, H, W)
-    tensor with ``running_var = rstd⁻² − ε``: the same function at N = 1,
-    the only N of #2's launches on the main path."""
+    tensor with ``running_var = rstd⁻² − ε``, the same function, at N = 1;
+    at N > 1 (the video kernel form's frames), where no library call
+    normalizes each sample by given statistics, ``F.instance_norm`` (the
+    normalize with its own statistics, #3's yardstick)."""
     import torch.nn.functional as F
 
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
@@ -919,8 +965,6 @@ def apply_row(timer, x, mean, rstd, common, count, where):
     from p2p_tpu_torch.ops.cuda.norm_act import plan_for
 
     n, c = x.shape[:2]
-    if n != 1:
-        raise AssertionError(f"#2 at N={n}: its yardstick needs N = 1")
     path = plan_for(x, x).path
     if path == "element":
         raise AssertionError(f"#2 {where}: one element at a time on the "
@@ -940,7 +984,14 @@ def apply_row(timer, x, mean, rstd, common, count, where):
                                 instance_norm_apply,
                                 instance_norm_apply_plain, x, **kw))
     eps = 1e-5
-    var = rstd[0].double().pow(-2).sub(eps).float()
+    if n == 1:
+        var = rstd[0].double().pow(-2).sub(eps).float()
+
+        def library():
+            return F.batch_norm(x, mean[0], var, training=False, eps=eps)
+    else:
+        def library():
+            return F.instance_norm(x, eps=eps)
     elt = x.element_size()
     ms = timer(lambda: instance_norm_apply(x, mean, rstd))
     site_ms = timer(sites[0])
@@ -949,8 +1000,7 @@ def apply_row(timer, x, mean, rstd, common, count, where):
         launches=count, max_abs_err=0.0, ms=ms, us=ms * 1e3,
         site_us=site_ms * 1e3,
         plain_ms=timer(lambda: instance_norm_apply_plain(x, mean, rstd)),
-        library_ms=timer(lambda: F.batch_norm(
-            x, mean[0], var, training=False, eps=eps)),
+        library_ms=timer(library),
         **bound_row(2 * x.numel() * elt + 2 * n * c * 4, 2 * x.numel(),
                     x.dtype))
 
@@ -1749,9 +1799,10 @@ def bf16_train_run(what, state, step, batches, warmup, want, loss_keys,
     return counts, med
 
 
-def instance_plain_patches():
+def instance_plain_patches(stats=None):
     """Patches that route every kernel of the instance-norm paths (#1, #2,
-    #3, #4 and the BatchNorms' #5) to its plain version."""
+    #3, #4 and the BatchNorms' #5) to its plain version (#1 to ``stats``
+    when given)."""
     import p2p_tpu_torch.ops.instance_norm as seam
     from p2p_tpu_torch.ops import norm
     from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments_plain
@@ -1761,7 +1812,7 @@ def instance_plain_patches():
                                                  norm_act_quant_plain)
 
     return (mock.patch.object(seam, "instance_norm_stats",
-                              instance_norm_stats_plain),
+                              stats or instance_norm_stats_plain),
             mock.patch.object(seam, "instance_norm_apply",
                               as_wrapper(instance_norm_apply_plain)),
             mock.patch.object(seam, "norm_act", as_wrapper(norm_act_plain)),
@@ -2358,16 +2409,16 @@ def manifest_tensors(step_dir: str):
 def live_is_saved(tr, step: int) -> bool:
     """Every tensor of the trainer's live state has the CRC32, shape and
     dtype the step's manifest recorded when it was saved."""
-    from p2p_tpu_torch.train.checkpoint import tensor_checksums
+    from p2p_tpu_torch.train.checkpoint import NETS, OPTS, tensor_checksums
 
     man = manifest_tensors(tr.ckpt.step_dir(step))
-    for name in ("net_g", "net_d", "net_c"):
-        net = getattr(tr.state, name)
+    for name in NETS:
+        net = getattr(tr.state, name, None)
         if net is not None and tensor_checksums(net.state_dict()) != \
                 man[f"{name}.pt"]:
             return False
-    for name in ("opt_g", "opt_d", "opt_c"):
-        opt = getattr(tr.state, name)
+    for name in OPTS:
+        opt = getattr(tr.state, name, None)
         if opt is not None and tensor_checksums(
                 {"optimizer": opt[0].state_dict(),
                  "scheduler": opt[1].state_dict()}) != man[f"{name}.pt"]:
@@ -2376,38 +2427,44 @@ def live_is_saved(tr, step: int) -> bool:
 
 
 @contextlib.contextmanager
-def watched_trainer():
-    """For the duration, ``cli.train``'s trainers report into the dict
-    yielded: train steps run, the train split's item indices in the order
-    read, #5 launches in each eval, seconds and steps of each
-    ``train_epoch`` (device synchronized at its end), the build
-    watchdog's counts when ``fit`` removes its hooks and, after a resume,
-    whether the live state is bitwise the restored step's as saved."""
-    from p2p_tpu_torch.data import pipeline
-    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
-    from p2p_tpu_torch.train import loop
+def watched_trainer(video: bool = False):
+    """For the duration, ``cli.train``'s trainers (the video trainer's
+    with ``video``) report into the dict yielded: train steps run and the
+    host-clock (start, end) of each step call, the train split's item
+    indices in the order read, kernel launches in each eval, seconds and
+    steps of each ``train_epoch`` (device synchronized at its end), the
+    build watchdog's counts when ``fit`` removes its hooks and, after a
+    resume, whether the live state is bitwise the restored step's as
+    saved."""
+    from p2p_tpu_torch.data import pipeline, video as clips
+    from p2p_tpu_torch.train import loop, video_loop
 
-    seen = {"steps": 0, "reads": [], "eval_launches": [], "epochs": [],
-            "builds": [], "restored": []}
+    seen = {"steps": 0, "calls": [], "reads": [], "eval_launches": [],
+            "epochs": [], "builds": [], "restored": []}
     tr_cls = loop.Trainer
-    build_step, evaluate = loop.build_train_step, tr_cls.evaluate
+    build_mod, build_name, ds_cls = (
+        (video_loop, "build_video_train_step", clips.VideoClipDataset)
+        if video else (loop, "build_train_step", pipeline.PairedImageDataset))
+    build_step, evaluate = getattr(build_mod, build_name), tr_cls.evaluate
     train_epoch, close = tr_cls.train_epoch, loop.close_trainer_obs
-    resume, getitem = tr_cls.maybe_resume, pipeline.PairedImageDataset.\
-        __getitem__
+    resume, getitem = tr_cls.maybe_resume, ds_cls.__getitem__
 
     def counting_build(*a, **kw):
         step = build_step(*a, **kw)
 
         def counted(state, batch):
             seen["steps"] += 1
-            return step(state, batch)
+            t = time.perf_counter()
+            res = step(state, batch)
+            seen["calls"].append((t, time.perf_counter()))
+            return res
 
         return counted
 
     def watched_evaluate(self, *a, **kw):
-        before = batch_moments.launches
+        before = sum(launch_counts().values())
         res = evaluate(self, *a, **kw)
-        seen["eval_launches"].append(batch_moments.launches - before)
+        seen["eval_launches"].append(sum(launch_counts().values()) - before)
         return res
 
     def watched_epoch(self, *a, **kw):
@@ -2435,23 +2492,23 @@ def watched_trainer():
             seen["reads"].append(int(idx))
         return getitem(self, idx)
 
-    with mock.patch.object(loop, "build_train_step", counting_build), \
+    with mock.patch.object(build_mod, build_name, counting_build), \
             mock.patch.object(tr_cls, "evaluate", watched_evaluate), \
             mock.patch.object(tr_cls, "train_epoch", watched_epoch), \
             mock.patch.object(loop, "close_trainer_obs", watched_close), \
             mock.patch.object(tr_cls, "maybe_resume", watched_resume), \
-            mock.patch.object(pipeline.PairedImageDataset, "__getitem__",
-                              reading):
+            mock.patch.object(ds_cls, "__getitem__", reading):
         yield seen
 
 
 def res_train(what: str, args, want_rc: int, per_step: int,
-              chaos: str = None, within=None):
+              chaos: str = None, within=None, video: bool = False):
     """One in-process ``cli.train`` run (its output kept, not printed),
     inside the context ``within`` if given: the exit code as wanted,
-    exactly ``per_step`` #5 launches a train step run and none else (none
-    in eval), no unexpected kernel build after the first epoch. Returns
-    what ``watched_trainer`` saw and the output."""
+    exactly ``per_step`` #5 launches a train step run and no other kernel
+    launch (none in eval), no unexpected kernel build after the first
+    epoch. ``video`` watches the video trainer (slice 11). Returns what
+    ``watched_trainer`` saw and the output."""
     from p2p_tpu_torch.cli import train
     from p2p_tpu_torch.resilience import ChaosMonkey, install_chaos
 
@@ -2459,7 +2516,8 @@ def res_train(what: str, args, want_rc: int, per_step: int,
     buf = io.StringIO()
     install_chaos(ChaosMonkey.from_spec(chaos) if chaos else None)
     try:
-        with watched_trainer() as seen, contextlib.redirect_stdout(buf), \
+        with watched_trainer(video) as seen, \
+                contextlib.redirect_stdout(buf), \
                 (within or contextlib.nullcontext()):
             rc = train.main(args)
     finally:
@@ -2467,11 +2525,12 @@ def res_train(what: str, args, want_rc: int, per_step: int,
     out = buf.getvalue()
     counts = launch_counts()
     want = only(batch_moments=per_step * seen["steps"])
-    print(f"slice 10: {what}: exit {rc} (want {want_rc}), "
-          f"{seen['steps']} train steps, #5 launches "
-          f"{counts['batch_moments']} (want {want['batch_moments']}), #5 in "
-          f"each eval {seen['eval_launches']}; builds (compiles, cache "
-          f"hits, unexpected, armed) {seen['builds']}", flush=True)
+    print(f"slice {11 if video else 10}: {what}: exit {rc} (want "
+          f"{want_rc}), {seen['steps']} train steps, #5 launches "
+          f"{counts['batch_moments']} (want {want['batch_moments']}), "
+          f"kernel launches in each eval {seen['eval_launches']}; builds "
+          f"(compiles, cache hits, unexpected, armed) {seen['builds']}",
+          flush=True)
     if rc != want_rc:
         raise AssertionError(f"{what}: exit {rc}:\n{out[-4000:]}")
     if counts != want or any(seen["eval_launches"]):
@@ -2843,6 +2902,264 @@ def resilience_phase(device, card, tmp: str, loop_ms):
           f"{loop_ms} (health and obs on in both); the phase "
           f"{time.perf_counter() - t_phase:.1f} s; on {card}", flush=True)
     return {"batch_moments": per_step * steps}
+
+
+def vid_kernel_config():
+    """``vid2vid_temporal`` with its U-Net's and spatial D's instance norms
+    on the kernels (#1 + #2 at the U-Net's 13 norms, #1 + #3 at D's 9
+    inner epilogues, on all N·T frames); the temporal D has no norm."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset("vid2vid_temporal")
+    return cfg.replace(model=dataclasses.replace(
+        cfg.model, norm="pallas_instance", norm_d="pallas_instance"))
+
+
+def vid_kernel_plan(cfg):
+    """(H, W, C, form) of every instance norm of one video train step of
+    ``cfg`` (:func:`vid_kernel_config`): the U-Net's once (one G forward),
+    the spatial D's twice (fake, real)."""
+    m = cfg.model
+    h, w = cfg.image_hw
+    return (unet_norm_plan(m.ngf, h, w)
+            + 2 * d_norm_plan(m.ndf, m.n_layers_D, m.num_D, h, w))
+
+
+def vid_per_step(plan):
+    n_apply = sum(form == "apply" for *_, form in plan)
+    return dict(instance_norm_stats=len(plan), instance_norm_apply=n_apply,
+                norm_act=len(plan) - n_apply)
+
+
+def stats_f64(x: torch.Tensor, eps: float = 1e-5):
+    """#1's function with its sums in f64, each result rounded once."""
+    xd = x.double()
+    count = float(x.shape[2] * x.shape[3])
+    mean = xd.sum(dim=(2, 3)) / count
+    var = ((xd * xd).sum(dim=(2, 3)) / count - mean * mean).clamp_min(0.0)
+    return mean.float(), torch.rsqrt(var + eps).float()
+
+
+def vid_clips(tmp: str, cfg, n_clips: int, seed: int):
+    """``n_clips`` uint8 batches of one clip each from the port's
+    synthetic videos of ``seed`` (``cfg``'s frames and size)."""
+    from p2p_tpu_torch.data.video import (VideoClipDataset,
+                                          make_synthetic_video_dataset)
+
+    t, (h, w) = cfg.data.n_frames, cfg.image_hw
+    root = make_synthetic_video_dataset(
+        os.path.join(tmp, f"clips{seed}"), n_videos=1, n_frames=n_clips * t,
+        size=h, seed=seed, splits=("train",))
+    ds = VideoClipDataset(root, "train", image_size=h, image_width=w,
+                          n_frames=t, dtype="uint8")
+    return [{k: v[None] for k, v in ds[i].items()} for i in range(n_clips)]
+
+
+def vid_f32_routes(cfg, batch, seed, routes):
+    """The losses of one f32 (TF32 off, cuDNN deterministic) video step of
+    ``cfg`` on ``batch`` from the state of ``seed``, per route of the
+    instance norms: ``"kernel"`` (#1, #2, #3), ``"plain"`` (their plain
+    versions) or ``"f64"`` (the plain versions, #1's sums in f64,
+    :func:`stats_f64`). Each run must launch exactly its kernels."""
+    from p2p_tpu_torch.train.video_step import (build_video_train_step,
+                                                create_video_train_state)
+
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  mixed_precision=False))
+    per_step = vid_per_step(vid_kernel_plan(cfg))
+    runs = {}
+    with tf32_off(), cudnn_deterministic():
+        for route in routes:
+            patches = {"kernel": (), "plain": instance_plain_patches(),
+                       "f64": instance_plain_patches(stats_f64)}[route]
+            st = create_video_train_state(cfg32, seed)
+            stp = build_video_train_step(cfg32)
+            before = launch_counts()
+            with contextlib.ExitStack() as stack:
+                for patch in patches:
+                    stack.enter_context(patch)
+                runs[route] = {k: float(v)
+                               for k, v in stp(st, batch)[1].items()}
+            launched = {k: launch_counts()[k] - before[k] for k in before}
+            want = only(**per_step) if route == "kernel" else only()
+            if launched != want:
+                raise AssertionError(f"f32 {route} video step launched "
+                                     f"{launched}, want {want}")
+            del st, stp
+            torch.cuda.empty_cache()
+    return runs
+
+
+def device_shares(table, busy_ms: float, n: int = 6):
+    """The ``n`` largest device-time entries of a profiler table, as
+    ``name: ms (share of the busy time)``."""
+    from torch.autograd import DeviceType
+
+    rows = sorted(((e.self_device_time_total / 1e3, e.key) for e in table
+                   if e.device_type == DeviceType.CUDA
+                   and not e.is_user_annotation), reverse=True)[:n]
+    return "; ".join(f"{k[:70]}: {ms:.3f} ms ({100 * ms / busy_ms:.1f}%)"
+                     for ms, k in rows)
+
+
+def video_phase(device, card, tmp: str):
+    """Slice 11, ``vid2vid_temporal`` at full width (U-Net ngf 64, the
+    3-scale spatial D and the 2-scale temporal D, ndf 64, n_layers 3, 8
+    frames of 256², batch 1, bf16 on f32 masters): (a) the data; (b) 2
+    epochs through ``cli.train``; (c) ``elastic@VID_STOP`` and its
+    resume; (d) ``cli.infer --metrics``; a profiled step; (e) the kernel
+    form's bf16 steps and its f32 check. Returns the launch counts of (e)'s
+    bf16 steps."""
+    from p2p_tpu_torch.cli import infer
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.video import make_synthetic_video_dataset
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager
+    from p2p_tpu_torch.train.video_step import (build_video_train_step,
+                                                create_video_train_state)
+
+    t_phase = time.perf_counter()
+    cfg = get_preset("vid2vid_temporal")
+    m, t = cfg.model, cfg.data.n_frames
+    h, w = cfg.image_hw
+    n_videos, n_frames = VID_SOURCES
+    n_clips = n_videos * (n_frames // t)
+    steps = VID_EPOCHS * n_clips
+    # ---- (a) the data
+    t0 = time.perf_counter()
+    data = make_synthetic_video_dataset(os.path.join(tmp, "data"),
+                                        n_videos=n_videos, n_frames=n_frames,
+                                        size=h, seed=SEED)
+    print(f"slice 11 (a): {n_videos} videos of {n_frames} frames of "
+          f"{h}x{w} a split ({n_clips} train and {n_clips} test clips of "
+          f"{t}) written in {time.perf_counter() - t0:.1f}s", flush=True)
+
+    def args(name, *extra):
+        return ["--preset", "vid2vid_temporal", "--data_root", data,
+                "--workdir", os.path.join(tmp, name), "--nepoch",
+                str(VID_EPOCHS), "--epochsave", "1", "--log_every", "1",
+                *extra]
+
+    def ckpt(name):
+        return CheckpointManager(os.path.join(
+            tmp, name, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
+
+    def records(name):
+        return read_records(os.path.join(tmp, name,
+                                         f"metrics_{cfg.name}.jsonl"))
+
+    # ---- (b) training through cli.train
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    u = res_train("uninterrupted run", args("u"), 0, 0, video=True)
+    peak = torch.cuda.max_memory_allocated(device)
+    rec_u = records("u")
+    trains = [r for r in rec_u if r["kind"] == "train"]
+    evals = [r for r in rec_u if r["kind"] == "eval"]
+    epochs = [r for r in rec_u if r["kind"] == "epoch"]
+    calls = [1e3 * (e - s) for s, e in u["calls"]]
+    med = statistics.median(calls[TRAIN_WARMUP:])
+    print(f"slice 11 (b): {len(trains)} train records, losses "
+          + json.dumps([{k: r[k] for k in VID_LOSS_KEYS} for r in trains])
+          + f"; eval {[(r['psnr_mean'], r['n_frames_scored']) for r in evals]}"
+          f"; step calls ms {[round(c, 2) for c in calls]}; median after "
+          f"{TRAIN_WARMUP} {med:.2f} ms/step, {t * 1e3 / med:.1f} frames/s "
+          f"(epoch records' frames_per_sec "
+          f"{[round(r['frames_per_sec'], 2) for r in epochs]}); peak "
+          f"device memory {peak / 2 ** 30:.2f} GiB; checkpoints "
+          f"{ckpt('u').all_steps()}; on {card}", flush=True)
+    if u["steps"] != steps or len(trains) != steps or not all(
+            np.isfinite(r[k]) for r in trains
+            for k in ("loss_d", "loss_dt", "loss_g", "g_gan_t")) \
+            or [r["n_frames_scored"] for r in evals] != [n_clips * t] * 2 \
+            or len(epochs) != VID_EPOCHS \
+            or ckpt("u").all_steps() != [n_clips, steps] \
+            or any(ckpt("u").verify(s) for s in (n_clips, steps)):
+        raise AssertionError("slice 11 (b): the training run")
+
+    # ---- (c) preemption at VID_STOP and the exact resume
+    pre = res_train(f"preempted run (P2P_CHAOS=elastic@{VID_STOP})",
+                    args("p"), 75, 0, chaos=f"elastic@{VID_STOP}",
+                    video=True)
+    res = res_train("the resumed run", args("p"), 0, 0, video=True)
+    rec_p = records("p")
+    resumed = [(r["step"], r["epoch"], r["batches_done"]) for r in rec_p
+               if r["kind"] == "resume"]
+    print(f"slice 11 (c): preempted after {pre['steps']} steps, "
+          f"checkpoints {ckpt('p').all_steps()}, the resume record "
+          f"{resumed}, restored (step, bitwise as saved) {res['restored']}, "
+          f"read {res['reads']} against the uninterrupted tail "
+          f"{u['reads'][VID_STOP:]}", flush=True)
+    # the loader runs one clip ahead on the card: the preempted run has
+    # read the first VID_STOP clips (and the next one, unconsumed)
+    if pre["steps"] != VID_STOP \
+            or pre["reads"][:VID_STOP] != u["reads"][:VID_STOP] \
+            or resumed != [(VID_STOP, 2, VID_STOP - n_clips)] \
+            or res["restored"] != [(VID_STOP, True)] \
+            or res["reads"] != u["reads"][VID_STOP:] \
+            or ckpt("p").all_steps() != [n_clips, VID_STOP, steps]:
+        raise AssertionError("slice 11 (c): the preempted run or its resume")
+
+    # ---- (d) clip inference from the resumed run's checkpoint
+    out_dir = os.path.join(tmp, "frames")
+    buf = io.StringIO()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = infer.main(["--preset", "vid2vid_temporal", "--data_root", data,
+                         "--workdir", os.path.join(tmp, "p"), "--metrics",
+                         "--out", out_dir])
+    sec = time.perf_counter() - t0
+    lines = buf.getvalue().splitlines()
+    pngs = sorted(os.listdir(out_dir))
+    print(f"slice 11 (d): cli.infer exit {rc} in {sec:.1f}s, {len(pngs)} "
+          f"PNGs; {lines}", flush=True)
+    if rc != 0 or len(pngs) != n_clips * t or launch_counts() != only() \
+            or not any(x.startswith("psnr_mean=") for x in lines):
+        raise AssertionError("slice 11 (d): cli.infer")
+    for name in pngs:
+        check_png(os.path.join(out_dir, name), h, w)
+
+    # ---- a profiled step of the preset as registered
+    dtype = train_dtype(cfg.train.mixed_precision)
+    batches = vid_clips(tmp, cfg, 2, SEED)
+    state = create_video_train_state(cfg, SEED, train_dtype=dtype)
+    step = build_video_train_step(cfg, None, dtype)
+    step(state, batches[0])
+    table, wall, busy, launches = profiled(lambda: step(state, batches[1]))
+    print(f"slice 11: one profiled bf16 step: wall {wall:.2f} ms (profiler "
+          f"on), device busy {busy:.2f} ms ({100 * busy / wall:.1f}% of "
+          f"that wall, {100 * busy / med:.1f}% of (b)'s median step), "
+          f"{launches} kernel launches; largest device shares: "
+          f"{device_shares(table, busy)}; on {card}", flush=True)
+    del state, step
+    torch.cuda.empty_cache()
+
+    # ---- (e) the kernel form: 2 bf16 steps, then the f32 check
+    kcfg = vid_kernel_config()
+    per_step = vid_per_step(vid_kernel_plan(kcfg))
+    state = create_video_train_state(kcfg, SEED, train_dtype=dtype)
+    step = build_video_train_step(kcfg, None, dtype)
+    what = "slice 11 (e) vid2vid kernel form"
+    print(f"{what}: norm={kcfg.model.norm}, norm_d={kcfg.model.norm_d}, "
+          f"{t} frames of {h}x{w}, {dtype}; per step {per_step} at N = "
+          f"{kcfg.data.batch_size * t}", flush=True)
+    counts, _ = bf16_train_run(
+        what, state, step, batches[:VID_KERNEL_STEPS], 1,
+        only(**{k: v * VID_KERNEL_STEPS for k, v in per_step.items()}),
+        VID_LOSS_KEYS, card, False)
+    del state, step
+    torch.cuda.empty_cache()
+    runs = vid_f32_routes(kcfg, batches[0], SEED, ("kernel", "plain"))
+    rels = {k: abs(runs["kernel"][k] - runs["plain"][k])
+            / abs(runs["plain"][k]) for k in VID_LOSS_KEYS}
+    print(f"{what}: f32 (TF32 off, cuDNN deterministic) one step through "
+          f"#1, #2, #3 vs their plain versions from one state: rel diff "
+          f"{json.dumps(rels)} (limit {VID_F32_RTOL}); the phase "
+          f"{time.perf_counter() - t_phase:.1f} s; on {card}", flush=True)
+    if not all(rel <= VID_F32_RTOL for rel in rels.values()):
+        raise AssertionError(f"{what}: f32 kernels vs plain {rels}")
+    return counts
 
 
 def add_moment_launches(rows, plan, steps: int) -> None:
@@ -4174,7 +4491,7 @@ def path_a8_phase(device, card, profile, per_step):
           f"{h}x{w}, {dtype}; built in {time.perf_counter() - t0:.1f}s",
           flush=True)
     counts, _ = bf16_train_run(
-        what, state, step, batches, 1,
+        what, state, step, batches[:VID_KERNEL_STEPS], 1,
         only(**{k: v * A8_STEPS for k, v in per_step.items()}), LOSS_KEYS,
         card, False)
     _check_scales(what, s0, _scales(*nets), moved="some")
@@ -4356,6 +4673,14 @@ def main(argv=None) -> int:
             a8_forms["quant"]) != (66, 12, 42, 12):
         raise AssertionError(f"path A int8 plan: {a8_per_step}")
     bn_launches[net_c_bn] += 2 * A8_STEPS
+    # slice 11: the video kernel form's steps, every norm at N = 8 frames
+    vk = vid_kernel_config()
+    vk_plan = vid_kernel_plan(vk)
+    vk_n = vk.data.batch_size * vk.data.n_frames
+    vk_per_step = vid_per_step(vk_plan)
+    if (vk_per_step["instance_norm_stats"], vk_per_step[
+            "instance_norm_apply"], vk_per_step["norm_act"]) != (31, 13, 18):
+        raise AssertionError(f"vid2vid kernel-form plan: {vk_per_step}")
     head_fwd = main_path_forwards() + collections.Counter({1: steps})
     head_dx = collections.Counter({1: steps})
     norm_launches = instance_launches(plan, a_plan, steps, hd_steps)
@@ -4371,6 +4696,8 @@ def main(argv=None) -> int:
         norm_launches[(1, hh, ww, c, form)] += A8_STEPS
     for hh, ww, c, act, res in plan:
         norm_launches[(1, hh, ww, c, form_of(act, res))] += 2
+    for hh, ww, c, form in vk_plan:
+        norm_launches[(vk_n, hh, ww, c, form)] += VID_KERNEL_STEPS
     rows = (kernel_phase(device, norm_launches)
             + moments_phase(device, bn_launches)
             + subpixel_phase(device, head_fwd, head_dx))
@@ -4406,6 +4733,8 @@ def main(argv=None) -> int:
         res_counts = resilience_phase(device, card, tmp, loop_ms)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_c2f_") as tmp:
         c2f_counts = coarse_to_fine_phase(device, card, tmp, c2f_per_image)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
+        vid_counts = video_phase(device, card, tmp)
     # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3,
     # the slice-10 phase's reference steps of #5
     add_serving_launches(rows, plan, http_forwards)
@@ -4416,7 +4745,7 @@ def main(argv=None) -> int:
               fac_train_counts, a_counts, b_counts, i8_counts,
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
               city_counts, options_counts, forms_counts, c2f_counts,
-              i8f_counts, a8_counts, hd8_counts, res_counts):
+              i8f_counts, a8_counts, hd8_counts, res_counts, vid_counts):
         counts.update(c)
 
     kernels = []
@@ -4465,6 +4794,11 @@ def main(argv=None) -> int:
         name = ("instance_norm_apply" if form == "apply" else
                 "norm_act_quant" if form.endswith("+quant") else "norm_act")
         a8_keys[(name, 1, (hh, ww, c), form)] += 1
+    vk_keys = collections.Counter()
+    for hh, ww, c, form in vk_plan:
+        vk_keys[("instance_norm_stats", vk_n, (hh, ww, c), "-")] += 1
+        name = "instance_norm_apply" if form == "apply" else "norm_act"
+        vk_keys[(name, vk_n, (hh, ww, c), form)] += 1
     u_keys = collections.Counter()
     for hh, ww, c, form in u_plan:
         u_keys[("instance_norm_stats", 1, (hh, ww, c), "-")] += 1
@@ -4509,7 +4843,11 @@ def main(argv=None) -> int:
             *[(f"#{i} per pallas_instance U-Net train step", name,
                {k[1:]: v for k, v in u_keys.items() if k[0] == name})
               for i, name in ((1, "instance_norm_stats"),
-                              (2, "instance_norm_apply"))]):
+                              (2, "instance_norm_apply"))],
+            *[(f"#{i} per vid2vid kernel-form train step (N = {vk_n})",
+               name, {k[1:]: v for k, v in vk_keys.items() if k[0] == name})
+              for i, name in ((1, "instance_norm_stats"),
+                              (2, "instance_norm_apply"), (3, "norm_act"))]):
         sel = [(bf16[(kernel,) + key], v) for key, v in keys.items()]
         print(f"{what} (bf16, {sum(v for _, v in sel)} launches): "
               + ", ".join(f"{k} {sum(r[k] * v for r, v in sel):.4f}"
@@ -4543,8 +4881,10 @@ def main(argv=None) -> int:
           "#7: facades training; slice 9: #5 in "
           f"{I8F_STEPS} facades_int8_full steps, #1-#5 in {A8_STEPS} path "
           "A int8 steps (#4 at its spectral-norm sites), #1 and #3 in "
-          "pix2pixhd int8's step and served forward): per-(N, shape, form) "
-          "device times weighted by launches")
+          "pix2pixhd int8's step and served forward; slice 11: #1, #2 and "
+          f"#3 in {VID_KERNEL_STEPS} vid2vid kernel-form steps at N = "
+          f"{vk_n}): per-(N, shape, form) device times weighted by "
+          "launches")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))

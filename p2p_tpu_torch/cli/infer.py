@@ -15,6 +15,13 @@ generator. One PNG per test image, named after it, goes to ``--out``
 ``psnr_mean=… psnr_max=… ssim_mean=… ssim_max=…`` over every test image;
 ``--stats`` the engine's timing as a JSON line. The card is the default
 device; flags of features the port lacks are refused by name (exit 2).
+
+A video config (``n_frames > 1``, ``vid2vid_temporal``) takes the clip
+route: G alone restored the same way, run in f32 in eval mode on every
+frame of every test clip (train/video_loop.py ``build_video_eval_step``,
+as the JAX clip route runs it), one PNG a frame as
+``<out>/<video>_<frame>.png``; ``--metrics`` prints the same line over
+every frame. The engine serves image presets only.
 """
 
 from __future__ import annotations
@@ -114,6 +121,8 @@ def main(argv=None) -> int:
                               n_blocks=args.n_blocks,
                               upsample_mode=args.upsample_mode),
         health=apply_overrides(cfg.health, ema_decay=args.ema_decay))
+    if cfg.data.n_frames > 1:
+        return _video_main(args, cfg)
     root = args.data_root or os.path.join(cfg.data.root, cfg.data.dataset)
     try:
         ds = PairedImageDataset(
@@ -156,6 +165,69 @@ def main(argv=None) -> int:
               f"ssim_mean={np.mean(ssims):.4f} ssim_max={np.max(ssims):.4f}")
     if args.stats:
         print(json.dumps({"kind": "serve_stats", **stats.as_dict()}))
+    return 0
+
+
+def _video_main(args, cfg) -> int:
+    """The clip route (counterpart of ``p2p_tpu/cli/infer.py:204
+    _video_main``): per-frame predictions as ``<out>/<video>_<frame>.png``
+    from G restored alone."""
+    import torch
+
+    from p2p_tpu_torch.core.device import resolve_device
+    from p2p_tpu_torch.data.pipeline import device_prefetch, make_loader
+    from p2p_tpu_torch.data.video import VideoClipDataset
+    from p2p_tpu_torch.models.registry import define_G
+    from p2p_tpu_torch.train.checkpoint import (CheckpointCorrupt,
+                                                CheckpointManager)
+    from p2p_tpu_torch.train.video_loop import build_video_eval_step
+    from p2p_tpu_torch.utils.images import save_img
+
+    root = args.data_root or os.path.join(cfg.data.root, cfg.data.dataset)
+    try:
+        ds = VideoClipDataset(
+            root, "test", cfg.data.direction, cfg.data.image_size,
+            cfg.data.image_width, n_frames=cfg.data.n_frames,
+            dtype="uint8" if cfg.data.uint8_pipeline else "float32")
+    except (RuntimeError, FileNotFoundError) as e:
+        print(f"no test clips under {root}: {e}", file=sys.stderr)
+        return 1
+    device = resolve_device(args.device)
+    net_g = define_G(cfg.model, image_hw=cfg.image_hw)
+    ckpt = CheckpointManager(os.path.join(
+        args.workdir, cfg.train.checkpoint_dir, cfg.data.dataset, cfg.name))
+    try:
+        step = ckpt.restore_nets(net_g, None, step=args.step)
+    except (FileNotFoundError, CheckpointCorrupt) as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    net_g.to(device, memory_format=torch.channels_last)
+    eval_step = build_video_eval_step(cfg)
+    out_dir = args.out or os.path.join(args.workdir, cfg.train.result_dir,
+                                       cfg.data.dataset)
+    os.makedirs(out_dir, exist_ok=True)
+    n_clip = n_written = 0
+    psnrs, ssims = [], []
+    loader = make_loader(ds, cfg.data.test_batch_size, shuffle=False,
+                         num_epochs=1, drop_remainder=False)
+    for batch in device_prefetch(loader, device):
+        pred, metrics = eval_step(net_g, batch)
+        psnrs.append(metrics["psnr"])
+        ssims.append(metrics["ssim"])
+        for clip in pred.float().cpu().numpy():
+            vid, frames = ds.windows[n_clip]
+            for frame, fname in zip(clip, frames):
+                stem = os.path.splitext(fname)[0]
+                save_img(frame, os.path.join(out_dir, f"{vid}_{stem}.png"))
+                n_written += 1
+            n_clip += 1
+    print(f"wrote {n_written} frames / {n_clip} clips (checkpoint step "
+          f"{step}) to {out_dir}")
+    if args.metrics:
+        p = torch.cat(psnrs).cpu().numpy()
+        s = torch.cat(ssims).cpu().numpy()
+        print(f"psnr_mean={np.mean(p):.4f} psnr_max={np.max(p):.4f} "
+              f"ssim_mean={np.mean(s):.4f} ssim_max={np.max(s):.4f}")
     return 0
 
 

@@ -39,7 +39,8 @@ a compression net serves the request image as its target. The card is
 the default device (``--device cpu`` to serve on the CPU);
 ``--compilation_cache DIR`` builds the CUDA kernel libraries into (and
 reuses them from) DIR (core/cache.py); flags of features the port lacks
-are refused by name (exit 2).
+are refused by name (exit 2), and so is a video preset (``n_frames >
+1``), whose clips ``cli/infer.py`` serves.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ UNPORTED = (
 )
 TENANT_KEYS = {"alias", "preset", "name", "dataset", "step", "image_size",
                "image_width", "ngf", "n_blocks", "ema_decay"}
+VIDEO_REFUSAL = "serve covers image presets; use cli/infer.py for video"
 # the tenant keys that take a number, and its type
 _NUMERIC_KEYS = {"step": int, "image_size": int, "image_width": int,
                  "ngf": int, "n_blocks": int, "ema_decay": float}
@@ -234,6 +236,9 @@ def _serve_http(args, buckets) -> int:
     try:
         for alias, ov in specs:
             cfg = _build_config(args, ov)
+            if cfg.data.n_frames > 1:
+                print(VIDEO_REFUSAL, file=sys.stderr)
+                return 2
             alias = alias or cfg.name
             if alias in app.tenants:
                 print(f"duplicate tenant alias {alias!r}: give each "
@@ -319,6 +324,9 @@ def main(argv=None) -> int:
     from p2p_tpu_torch.train.checkpoint import CheckpointCorrupt
 
     cfg = _build_config(args)
+    if cfg.data.n_frames > 1:
+        print(VIDEO_REFUSAL, file=sys.stderr)
+        return 2
     h, w = cfg.image_hw
     as_uint8 = cfg.data.uint8_pipeline
     try:

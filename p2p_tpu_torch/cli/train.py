@@ -20,6 +20,11 @@ not have. ``--tensorboard`` writes event files under
 (else a note, and the run goes on); ``--prom_textfile PATH`` keeps the
 run's registry in Prometheus text format at PATH.
 
+A config with ``n_frames > 1`` (the ``vid2vid_temporal`` preset) trains
+clips through train/video_loop.py's ``VideoTrainer``, with the same
+resume, exit codes and sinks; it has no fake pool, so ``--pool_size``
+above 0 is refused for it (exit 2).
+
 pix2pixHD's coarse-to-fine schedule: ``--phase global`` trains G1 alone
 (``pix2pixhd_global``) at half the resolution, with its checkpoints under
 ``<name>_g1``; ``--phase full`` then trains the whole generator with G1's
@@ -249,11 +254,19 @@ def main(argv=None) -> int:
         print("--cuda contradicts --device", file=sys.stderr)
         return 2
     cfg = config_from_flags(args)
+    if cfg.data.n_frames > 1 and cfg.train.pool_size > 0:
+        print(f"--pool_size {cfg.train.pool_size}: preset {cfg.name!r} "
+              "trains video clips, and the video step has no fake pool",
+              file=sys.stderr)
+        return 2
 
     from p2p_tpu_torch.resilience import (DIVERGED_EXIT_CODE,
                                           PREEMPTED_EXIT_CODE,
                                           DivergenceError, Preempted)
-    from p2p_tpu_torch.train.loop import Trainer
+    if cfg.data.n_frames > 1:
+        from p2p_tpu_torch.train.video_loop import VideoTrainer as Trainer
+    else:
+        from p2p_tpu_torch.train.loop import Trainer
 
     trainer = Trainer(cfg, data_root=args.data_root, workdir=args.workdir,
                       device=args.device)

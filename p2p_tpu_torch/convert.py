@@ -21,6 +21,11 @@ kernel #6 reads in HWIO) keeps it as it is:
     up3/kernel (4,4,I,O) → up3.weight (I,O,4,4), [i,o,a,b] = [3-a,3-b,i,o]
     up0/Conv_0/kernel (2,2,C,4F) → up0.conv.kernel (2,2,C,4F)
 
+A 3-D kernel (the temporal D's, DHWIO) goes to torch's OIDHW:
+
+    tscale1/_Conv3D_0/Conv_0/kernel (3,4,4,I,O)
+      → tscale1._Conv3D_0.conv.weight (O,I,3,4,4)
+
 Networks whose flax tree has no leaf for a module carry none here
 either: an ExpandNetwork with ``norm="pallas_instance"`` (affine-free
 norms, no conv biases) has no ``BatchNorm_k`` leaves, and the
@@ -113,8 +118,9 @@ def state_from_flax(*trees: Mapping[str, Any],
     collections: ``batch_stats``, ``spectral``) → the state_dict of the
     port's module of the same config. Raises on a leaf with no counterpart.
 
-    Conv kernels go HWIO → OIHW and are named ``weight`` (under ``conv``
-    where flax has an inner ``Conv_0``); with ``module``, transposed-conv
+    Conv kernels go HWIO → OIHW (3-D ones DHWIO → OIDHW) and are named
+    ``weight`` (under ``conv`` where flax has an inner ``Conv_0``); with
+    ``module``, transposed-conv
     kernels are flipped into ``nn.ConvTranspose2d``'s layout and a layer's
     own ``kernel`` parameter stays HWIO. BatchNorm's inner
     ``BatchNorm_0`` level goes (its ``scale``/``bias``/``mean``/``var``
@@ -129,10 +135,12 @@ def state_from_flax(*trees: Mapping[str, Any],
             if path[-1:] == ["BatchNorm_0"] and len(path) > 1 \
                     and path[-2].startswith("BatchNorm_"):
                 path.pop()
-            if leaf == "kernel":
+            if leaf == "kernel" and arr.ndim == 5:
+                leaf, arr = "weight", arr.transpose(4, 3, 0, 1, 2)
+            elif leaf == "kernel":
                 if arr.ndim != 4:
-                    raise ValueError(f"{key}: expected an HWIO kernel, got "
-                                     f"shape {arr.shape}")
+                    raise ValueError(f"{key}: expected an HWIO or DHWIO "
+                                     f"kernel, got shape {arr.shape}")
                 owner = _owner(module, path)
                 if isinstance(owner, torch.nn.ConvTranspose2d):
                     leaf, arr = "weight", arr[::-1, ::-1].transpose(
@@ -193,6 +201,24 @@ def load_train_state(state, flax_state: Mapping[str, Any]):
                                  "port's state has no such network")
             continue
         load_flax(net, *(t for t in trees if t is not None))
+    return state
+
+
+def load_video_train_state(state, flax_state: Mapping[str, Any]):
+    """Load a JAX ``VideoTrainState``'s networks into the port's ``state``
+    (train/video_step.py): ``flax_state`` maps ``params_g``,
+    ``batch_stats_g``, ``params_d``, ``spectral_d``, ``params_dt`` and
+    ``spectral_dt`` to numpy trees (``batch_stats_g`` empty for an
+    instance-norm U-Net), and ``lr_scale`` when given to the state's
+    scale. Every parameter and buffer must be present, and nothing else;
+    the optimizers stay fresh."""
+    for net, fields in ((state.net_g, ("params_g", "batch_stats_g")),
+                        (state.net_d, ("params_d", "spectral_d")),
+                        (state.net_dt, ("params_dt", "spectral_dt"))):
+        load_flax(net, *(flax_state[f] for f in fields
+                         if flax_state.get(f) is not None))
+    if flax_state.get("lr_scale") is not None:
+        state.lr_scale = float(np.asarray(flax_state["lr_scale"]))
     return state
 
 

@@ -129,6 +129,9 @@ class DataConfig:
     test_batch_size: int = 1
     # the paired resize-286 / random-crop / flip of the train split
     augment: bool = False
+    # frames per clip: > 1 selects the video path (data/video.py,
+    # train/video_step.py, train/video_loop.py)
+    n_frames: int = 1
     # requests travel host → device as uint8 and are normalized on the
     # device (utils/images.ingest)
     uint8_pipeline: bool = True
@@ -314,6 +317,24 @@ _register(
         loss=LossConfig(lambda_l1=0.0),
         data=DataConfig(dataset="cityscapes", image_size=256,
                         image_width=512, batch_size=4),
+    )
+)
+
+
+# vid2vid: the facades-width U-Net (norm "instance", no dropout) on every
+# frame, the 3-scale spectral-norm PatchGAN on each (input ‖ frame) pair
+# and a 2-scale temporal 3-D PatchGAN on the (input ‖ clip) pair; LSGAN +
+# 10·FM (spatial and temporal), 8-frame clips of 256², batch 1. The JAX
+# preset's MeshSpec(data=-1, time=4) has no counterpart here: the port
+# runs on one device.
+_register(
+    Config(
+        name="vid2vid_temporal",
+        model=ModelConfig(generator="unet", ngf=64, norm="instance",
+                          use_compression_net=False),
+        loss=LossConfig(lambda_feat=10.0, lambda_vgg=0.0, lambda_tv=0.0),
+        data=DataConfig(dataset="vid2vid", image_size=256, batch_size=1,
+                        n_frames=8),
     )
 )
 

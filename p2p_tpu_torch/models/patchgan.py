@@ -68,8 +68,17 @@ def check_norm_d(kind: str) -> None:
 
 
 def avg_pool_downsample(x: torch.Tensor) -> torch.Tensor:
-    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False)."""
-    return F.avg_pool2d(x, 3, stride=2, padding=1, count_include_pad=False)
+    """AvgPool2d(3, stride=2, padding=1, count_include_pad=False), output
+    channels_last. It pools an NCHW copy: PyTorch's CUDA backward of this
+    overlapping pool on a channels_last input is wrong (0.81–0.98 of the
+    gradient's largest entry off an f64 CPU reference, with either
+    count_include_pad, torch 2.11.0+cu128 on an H100,
+    scripts/torch_pool_backward_check.py; the NCHW kernel is right), and
+    the input gradient of every D scale after the first flows through
+    it."""
+    y = F.avg_pool2d(x.contiguous(), 3, stride=2, padding=1,
+                     count_include_pad=False)
+    return y.contiguous(memory_format=torch.channels_last)
 
 
 class _PlainConv(nn.Module):

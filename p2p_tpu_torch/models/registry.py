@@ -22,7 +22,8 @@ from torch import nn
 from p2p_tpu_torch.core.config import ModelConfig
 from p2p_tpu_torch.ops.conv import SubpixelConv
 from p2p_tpu_torch.ops.norm import BatchNorm
-from p2p_tpu_torch.ops.spectral_norm import SpectralConv, l2normalize
+from p2p_tpu_torch.ops.spectral_norm import (SpectralConv, SpectralConv3D,
+                                             l2normalize)
 
 # generators served with a compute dtype on f32 masters (their BatchNorm
 # statistics stay f32); the others are served as a copy cast to the
@@ -111,17 +112,17 @@ def init_weights(module: nn.Module, generator: torch.Generator,
                  std: float = 0.02) -> nn.Module:
     """Reference init (networks.py:131 via ``normal_init``), drawn from
     ``generator``: every conv kernel (plain, transposed, spectral-norm,
-    subpixel) ~ N(0, std) and every conv bias 0; BatchNorm γ ~ N(1, 0.02)
-    and β = 0; a spectral-norm ``u`` ~ N(0, 1), normalized. PReLU keeps
-    its 0.25."""
+    subpixel, 3-D) ~ N(0, std) and every conv bias 0; BatchNorm γ ~ N(1,
+    0.02) and β = 0; a spectral-norm ``u`` ~ N(0, 1), normalized. PReLU
+    keeps its 0.25."""
     for m in module.modules():
-        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, SpectralConv,
-                          SubpixelConv)):
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Conv3d,
+                          SpectralConv, SpectralConv3D, SubpixelConv)):
             kernel = m.kernel if isinstance(m, SubpixelConv) else m.weight
             kernel.normal_(0.0, std, generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
-        if isinstance(m, SpectralConv):
+        if isinstance(m, (SpectralConv, SpectralConv3D)):
             m.u.copy_(l2normalize(m.u.normal_(generator=generator)))
         elif isinstance(m, BatchNorm):
             m.scale.normal_(1.0, 0.02, generator=generator)

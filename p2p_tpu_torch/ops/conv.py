@@ -51,10 +51,45 @@ def cast_conv(conv: nn.Module, x: torch.Tensor,
     return fn(x.to(dt), conv.weight.to(dt), bias, conv.stride, conv.padding)
 
 
+def _fold_reflected(g: torch.Tensor, pad: int, dim: int) -> torch.Tensor:
+    """The gradient of a reflection pad of ``pad`` along ``dim``: the
+    middle, then each border flipped and added onto the entries it
+    copied, in that order."""
+    n = g.shape[dim] - 2 * pad
+    out = g.narrow(dim, pad, n).clone()
+    out.narrow(dim, 1, pad).add_(g.narrow(dim, 0, pad).flip(dim))
+    out.narrow(dim, n - 1 - pad, pad).add_(
+        g.narrow(dim, n + pad, pad).flip(dim))
+    return out
+
+
+class _FixedOrderReflectPad(torch.autograd.Function):
+    """``F.pad(mode="reflect")`` whose backward adds every entry's terms in
+    one fixed order (W's borders, then H's)."""
+
+    @staticmethod
+    def forward(ctx, x, pad):
+        ctx.pad = pad
+        return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        p = ctx.pad
+        return _fold_reflected(_fold_reflected(g, p, -1), p, -2), None
+
+
 def reflect_pad_2d(x: torch.Tensor, pad: int) -> torch.Tensor:
-    """Reflection-pad H and W."""
+    """Reflection-pad H and W. PyTorch's CUDA backward of the reflect pad
+    adds the borders onto the input's gradient with atomics, so two runs
+    differ in their last bits; where the caller asks for reproducible runs
+    (``torch.backends.cudnn.deterministic`` or PyTorch's deterministic
+    algorithms), a CUDA tensor's backward adds them in a fixed order
+    instead. The forward is the same either way."""
     if pad == 0:
         return x
+    if x.is_cuda and (torch.backends.cudnn.deterministic
+                      or torch.are_deterministic_algorithms_enabled()):
+        return _FixedOrderReflectPad.apply(x, pad)
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
 
 

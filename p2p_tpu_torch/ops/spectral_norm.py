@@ -1,6 +1,7 @@
 """Spectral weight normalization (counterpart of
 ``p2p_tpu/ops/spectral_norm.py:36 spectral_normalize`` and ``:58
-SpectralConv``).
+SpectralConv``, and of ``p2p_tpu/models/temporal_d.py:128
+SpectralConv3D``).
 
 One power-iteration step per call on the kernel viewed as (out, kh·kw·in),
 the JAX package's column order; ``u`` is a buffer (the flax ``spectral``
@@ -86,3 +87,37 @@ class SpectralConv(QuantScale, nn.Module):
         if bias is not None:
             y = y + bias.to(y.dtype).view(1, -1, 1, 1)
         return (y, tap) if self.epilogue_tap else y
+
+
+class SpectralConv3D(nn.Module):
+    """3-D conv of (N, C, T, H, W) clips with spectral weight norm, k (3,
+    4, 4), zero padding (1, 2, 2), stride (1, s, s). Parameters ``weight``
+    (OIDHW) and ``bias``, buffer ``u``. The power iteration runs on the
+    kernel as (out, kt·kh·kw·in) rows, the flax DHWIO kernel's order, and
+    ``u`` advances in training mode only. ``dtype`` as in ops/conv.py: the
+    input and w/σ are cast to it and the bias is added in the output's
+    dtype after the conv, as flax adds it."""
+
+    def __init__(self, in_channels: int, features: int, stride_hw: int = 2,
+                 use_bias: bool = True, dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.stride = (1, stride_hw, stride_hw)
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(features, in_channels, 3, 4,
+                                               4))
+        self.bias = nn.Parameter(torch.zeros(features)) if use_bias else None
+        self.register_buffer("u", l2normalize(torch.ones(features)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        w_mat = w.permute(0, 2, 3, 4, 1).reshape(w.shape[0], -1)
+        sigma, u, _ = spectral_normalize(w_mat, self.u)
+        if self.training:
+            with torch.no_grad():
+                self.u.copy_(u)
+        dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
+        y = F.conv3d(x.to(dt), (w / sigma).to(dt), None, self.stride,
+                     (1, 2, 2))
+        if self.bias is not None:
+            y = y + self.bias.to(y.dtype).view(1, -1, 1, 1, 1)
+        return y

@@ -105,6 +105,10 @@ class InferenceEngine:
                  device: Union[str, torch.device, None] = None,
                  net_c: Optional[nn.Module] = None,
                  with_metrics: bool = False, io_workers: int = IO_WORKERS):
+        if cfg.data.n_frames > 1:
+            raise NotImplementedError(
+                "InferenceEngine serves image presets; video inference "
+                "stays on cli/infer.py's clip path")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)

@@ -62,6 +62,10 @@ class Tenant:
 
     def __init__(self, alias: str, cfg: Config, ckpt_dir: str,
                  step: Optional[int] = None, registry=None, **engine_kw):
+        if cfg.data.n_frames > 1:
+            raise ValueError(
+                f"tenant {alias!r}: serving covers image presets; video "
+                "stays on cli/infer.py's clip path")
         self.alias = alias
         self.cfg = cfg
         self.ckpt_dir = ckpt_dir

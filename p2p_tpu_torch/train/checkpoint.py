@@ -9,13 +9,15 @@ file per top-level field of the state, so a reader loads only what it
 needs (inference reads ``net_g`` and ``net_c``, as the JAX params-only
 ``restore_subtree`` does):
 
-- ``net_g.pt``, ``net_d.pt``, ``net_c.pt``: each network's state_dict,
+- ``net_g.pt``, ``net_d.pt``, ``net_c.pt`` and, for a video state
+  (train/video_step.py), ``net_dt.pt``: each network's state_dict,
   parameters and buffers (BatchNorm running statistics, spectral-norm
-  ``u``, the delayed-int8 ``amax_x`` of G, D and net_c: the JAX
-  ``quant_g``, ``quant_d`` and ``quant_c``, which ``restore_nets`` brings
-  back with G and net_c for serving);
-- ``opt_g.pt``, ``opt_d.pt``, ``opt_c.pt``: each optimizer's state_dict
-  (Adam or ``AdamLP`` moments and counts) with its ``LambdaLR``'s;
+  ``u`` of D and the temporal D, the delayed-int8 ``amax_x`` of G, D and
+  net_c: the JAX ``quant_g``, ``quant_d`` and ``quant_c``, which
+  ``restore_nets`` brings back with G and net_c for serving);
+- ``opt_g.pt``, ``opt_d.pt``, ``opt_c.pt``, ``opt_dt.pt``: each
+  optimizer's state_dict (Adam or ``AdamLP`` moments and counts) with its
+  ``LambdaLR``'s;
 - ``ema_g.pt``: the EMA generator's parameters, when the state carries
   one (``HealthConfig.ema_decay``);
 - ``pool.pt``: the historical-fake ring ``pool`` and its count
@@ -68,8 +70,10 @@ from p2p_tpu_torch.resilience.chaos import FaultInjected, chaos_point
 from p2p_tpu_torch.resilience.retry import CKPT_POLICY, retry_call
 from p2p_tpu_torch.train.state import TrainState
 
-NETS = ("net_g", "net_d", "net_c")
-OPTS = ("opt_g", "opt_d", "opt_c")
+# the fields a state may carry (an image state has no net_dt, a video state
+# no net_c): each is saved and restored when the state has it
+NETS = ("net_g", "net_d", "net_c", "net_dt")
+OPTS = ("opt_g", "opt_d", "opt_c", "opt_dt")
 EMA = "ema_g"
 POOL = "pool"
 PROGRESS = "progress"
@@ -183,16 +187,16 @@ class CheckpointManager:
             "step": int(step), "epoch": int(epoch),
             "lr_scale": float(state.lr_scale)}}
         for name in NETS:
-            net = getattr(state, name)
+            net = getattr(state, name, None)
             if net is not None:
                 fields[name] = net.state_dict()
         for name in OPTS:
-            opt = getattr(state, name)
+            opt = getattr(state, name, None)
             if opt is not None:
                 fields[name] = _opt_state(opt)
-        if state.ema_g is not None:
+        if getattr(state, EMA, None) is not None:
             fields[EMA] = dict(state.ema_g)
-        if state.pool is not None:
+        if getattr(state, POOL, None) is not None:
             fields[POOL] = {"pool": state.pool, "pool_n": state.pool_n}
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
 
@@ -334,7 +338,7 @@ class CheckpointManager:
         ``step``; with ``fallback=True`` the newest intact step at or
         below it); returns ``(step, epoch)`` and sets ``state.step``."""
         names = [n for n in NETS + OPTS + (EMA, POOL)
-                 if getattr(state, n) is not None]
+                 if getattr(state, n, None) is not None]
         s, fields = self._restore(step, names + [PROGRESS], fallback)
         for name in NETS:
             if name in fields:

@@ -58,7 +58,11 @@ with the checkpoint and seeds the controller on resume. The logged ``lr``
 includes it. With an EMA generator (``ema_decay``) the eval scores the
 EMA weights (bitwise G's at decay 0).
 
-Not ported yet: elastic resume across a topology change (slice 11), scan
+The video trainer (train/video_loop.py ``VideoTrainer``) is this trainer
+on clips: it overrides the factories and the eval batch, and shares every
+path above.
+
+Not ported yet: elastic resume across a topology change (slice 13), scan
 steps, meshes and FID.
 """
 
@@ -90,7 +94,7 @@ from p2p_tpu_torch.resilience.chaos import FaultInjected, chaos_point
 from p2p_tpu_torch.resilience.health import (DivergenceError, TrainingHealth,
                                              poison_nan_observation)
 from p2p_tpu_torch.resilience.preempt import Preempted, PreemptionGuard
-from p2p_tpu_torch.train.checkpoint import (CheckpointCorrupt,
+from p2p_tpu_torch.train.checkpoint import (OPTS, CheckpointCorrupt,
                                             CheckpointManager)
 from p2p_tpu_torch.train.schedules import PlateauController, make_schedule
 from p2p_tpu_torch.train.state import (TrainState, create_train_state,
@@ -489,7 +493,13 @@ class Trainer:
     may be set to a guard-like object (``should_stop()``, ``request()``,
     ``signum``) before :meth:`fit`; else ``fit`` installs the signal
     guard. ``fit`` installs the process-wide telemetry hooks and removes
-    them when it returns or raises."""
+    them when it returns or raises. train/video_loop.py's ``VideoTrainer``
+    overrides the dataset, state and step factories, the eval batch and the
+    samples, and the two keys below."""
+
+    # the epoch record's throughput key and the eval record's count key
+    RATE_KEY = "img_per_sec"
+    EVAL_COUNT_KEY = "n_images"
 
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  workdir: str = ".",
@@ -504,29 +514,15 @@ class Trainer:
             # reused from) this directory (core/cache.py)
             enable_compilation_cache(cfg.train.compilation_cache_dir)
         root = data_root or os.path.join(cfg.data.root, cfg.data.dataset)
-        ds_dtype = "uint8" if cfg.data.uint8_pipeline else "float32"
-        self.train_ds = PairedImageDataset(
-            root, "train", cfg.data.direction, cfg.data.image_size,
-            cfg.data.image_width, augment=cfg.data.augment, dtype=ds_dtype)
-        self.test_ds = PairedImageDataset(
-            root, "test", cfg.data.direction, cfg.data.image_size,
-            cfg.data.image_width, dtype=ds_dtype)
+        self.train_ds, self.test_ds = self._datasets(root)
         self.steps_per_epoch = max(1, len(self.train_ds)
                                    // cfg.data.batch_size)
         self.dtype = train_dtype(cfg.train.mixed_precision)
         self.vgg = (load_vgg19(device=self.device,
                                imagenet_norm=cfg.loss.vgg_imagenet_norm)
                     if cfg.loss.lambda_vgg > 0 else None)
-        sample = None
-        if cfg.model.int8_delayed:
-            item = self.train_ds[0]
-            sample = {k: np.broadcast_to(v, (cfg.data.batch_size,) + v.shape
-                                         ).copy() for k, v in item.items()}
-        self.state = create_train_state(
-            cfg, cfg.train.seed, self.steps_per_epoch, self.dtype,
-            self.device, sample_batch=sample)
-        self.train_step = build_train_step(cfg, self.vgg, self.dtype)
-        self.eval_step = build_eval_step(cfg, self.dtype)
+        self.state = self._create_state()
+        self.train_step, self.eval_step = self._build_steps()
         self.logger = MetricsLogger(metrics_path(workdir, cfg.name),
                                     cfg.train.log_every)
         self.obs = self.logger.registry
@@ -541,6 +537,35 @@ class Trainer:
         self.preempt: Optional[PreemptionGuard] = None
         self._preempted = False
         init_trainer_obs(self)
+
+    def _datasets(self, root: str):
+        """The train and test splits under ``root``."""
+        cfg = self.cfg
+        ds_dtype = "uint8" if cfg.data.uint8_pipeline else "float32"
+        return (PairedImageDataset(
+            root, "train", cfg.data.direction, cfg.data.image_size,
+            cfg.data.image_width, augment=cfg.data.augment, dtype=ds_dtype),
+            PairedImageDataset(
+                root, "test", cfg.data.direction, cfg.data.image_size,
+                cfg.data.image_width, dtype=ds_dtype))
+
+    def _create_state(self):
+        """The initial train state (under ``int8_delayed`` its stored
+        scales set from the first train pair)."""
+        cfg = self.cfg
+        sample = None
+        if cfg.model.int8_delayed:
+            item = self.train_ds[0]
+            sample = {k: np.broadcast_to(v, (cfg.data.batch_size,) + v.shape
+                                         ).copy() for k, v in item.items()}
+        return create_train_state(
+            cfg, cfg.train.seed, self.steps_per_epoch, self.dtype,
+            self.device, sample_batch=sample)
+
+    def _build_steps(self):
+        """``(train_step, eval_step)``."""
+        return (build_train_step(self.cfg, self.vgg, self.dtype),
+                build_eval_step(self.cfg, self.dtype))
 
     # ------------------------------------------------------------ resume
     def maybe_resume(self) -> bool:
@@ -580,8 +605,8 @@ class Trainer:
         if eff != self.cfg.train.epoch_count:
             schedule = make_schedule(self.cfg.optim, self.steps_per_epoch,
                                      eff)
-            for opt in (self.state.opt_g, self.state.opt_d,
-                        self.state.opt_c):
+            for name in OPTS:
+                opt = getattr(self.state, name, None)
                 if opt is not None:
                     opt[1].lr_lambdas = [schedule]
         # the restored lr_scale may carry a cooldown (preempted during
@@ -609,9 +634,9 @@ class Trainer:
     def train_epoch(self, seed: Optional[int] = None,
                     skip_samples: int = 0) -> Dict[str, float]:
         """One pass over the train split (after its first
-        ``skip_samples`` samples); returns the
-        epoch's metric means and ``img_per_sec`` over the steps after the
-        first. Stops early when the ladder asks for a rollback or a
+        ``skip_samples`` samples); returns the epoch's metric means and
+        ``RATE_KEY`` (images, or clip frames, a second) over the steps
+        after the first. Stops early when the ladder asks for a rollback or a
         preemption is requested (``fit`` acts on both)."""
         cfg = self.cfg
         seed = (self.epoch if seed is None else seed) + self._seed_jitter
@@ -631,7 +656,7 @@ class Trainer:
                   else timed_annotation("train_dispatch", disp_hist))
             with cm:
                 self.state, metrics = self.train_step(self.state, batch)
-            self._img_rate.mark(cfg.data.batch_size)
+            self._img_rate.mark(cfg.data.batch_size * cfg.data.n_frames)
             queue_health_observation(self, metrics)
             if cfg.debug.check_finite:
                 # a fence: the nonfinite record lands before the raise
@@ -664,8 +689,8 @@ class Trainer:
         elapsed = time.perf_counter() - t0
         out = epoch_metric_means(dict(zip(keys, host)), count)
         if count > 1:
-            out["img_per_sec"] = ((count - 1) * cfg.data.batch_size
-                                  / max(elapsed, 1e-9))
+            out[self.RATE_KEY] = ((count - 1) * cfg.data.batch_size
+                                  * cfg.data.n_frames / max(elapsed, 1e-9))
         return out
 
     # -------------------------------------------------------------- eval
@@ -685,8 +710,7 @@ class Trainer:
         ssims: List[torch.Tensor] = []
         saved = False
         for batch in device_prefetch(loader, self.device):
-            with eval_weights(self.state):
-                pred, metrics = self.eval_step(self.state, batch)
+            pred, metrics = self._eval_batch(batch)
             psnrs.append(metrics["psnr"])
             ssims.append(metrics["ssim"])
             if save_samples and not saved:
@@ -696,9 +720,15 @@ class Trainer:
         s = torch.cat(ssims).cpu().numpy()
         result = {"psnr_mean": float(np.mean(p)), "psnr_max": float(np.max(p)),
                   "ssim_mean": float(np.mean(s)), "ssim_max": float(np.max(s)),
-                  "n_images": len(p)}
+                  self.EVAL_COUNT_KEY: len(p)}
         self.logger.log({"kind": "eval", "epoch": self.epoch, **result})
         return result
+
+    def _eval_batch(self, batch):
+        """``(pred, metrics)`` of one test batch (the EMA weights when the
+        state carries them)."""
+        with eval_weights(self.state):
+            return self.eval_step(self.state, batch)
 
     def _save_samples(self, batch, pred: torch.Tensor) -> None:
         out_dir = os.path.join(self.workdir, self.cfg.train.result_dir,

@@ -1,0 +1,88 @@
+"""The video trainer and its eval step (counterpart of
+``p2p_tpu/train/video_loop.py:57 build_video_eval_step`` and ``:86
+VideoTrainer``, single device).
+
+:class:`VideoTrainer` is train/loop.py's ``Trainer`` on clips: the splits
+are ``data/video.VideoClipDataset`` windows of ``n_frames``, the state
+and the step are train/video_step.py's (G, the spatial D and the
+temporal D with their three optimizers), and the eval scores every frame
+of every test clip (``n_frames_scored`` in the ``eval`` record; no sample
+PNGs, as in JAX). Everything else is the image trainer's own code: the
+epochs and their shuffle, the metric sums, ``frames_per_sec`` (clip
+frames a second after the first step), the checkpoints (``net_dt.pt`` and
+``opt_dt.pt`` beside G's and D's, train/checkpoint.py) with their
+iterator sidecar, ``mark_good`` on a finite PSNR, exact-step preemption
+(exit 75 in ``cli/train.py``), the sentinel, the ladder and rollback
+(exit 76), and the spans, records and memory samples.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.data.video import VideoClipDataset
+from p2p_tpu_torch.train.loop import Trainer
+from p2p_tpu_torch.train.step import make_infer_forward
+from p2p_tpu_torch.train.video_step import (build_video_train_step,
+                                            create_video_train_state)
+
+
+def build_video_eval_step(cfg: Config,
+                          dtype: Optional[torch.dtype] = None):
+    """``eval_step(net_g, batch) -> (pred, metrics)``: G in eval mode on
+    every frame of NTHWC ``batch`` (train/step.py ``make_infer_forward``
+    on the folded frames), ``pred`` (N, T, H, W, C) on the device and
+    per-frame ``psnr`` and ``ssim`` vectors of length N·T against the
+    target clip."""
+    fwd = make_infer_forward(cfg, dtype, with_metrics=True)
+
+    def eval_step(net_g: nn.Module, batch: Dict[str, np.ndarray]):
+        n, t = batch["input"].shape[:2]
+        frames = {k: v.reshape((n * t,) + tuple(v.shape[2:]))
+                  for k, v in batch.items()}
+        mode = net_g.training
+        net_g.eval()
+        try:
+            pred, metrics = fwd(net_g, frames)
+        finally:
+            net_g.train(mode)
+        return pred.reshape((n, t) + tuple(pred.shape[1:])), metrics
+
+    return eval_step
+
+
+class VideoTrainer(Trainer):
+    """Train a video config (``cfg.data.n_frames > 1``) on
+    ``<data_root>/{train,test}/{a,b}/<video>/<frame>.png``; the arguments
+    and protocol of :class:`~p2p_tpu_torch.train.loop.Trainer`."""
+
+    RATE_KEY = "frames_per_sec"
+    EVAL_COUNT_KEY = "n_frames_scored"
+
+    def _datasets(self, root: str):
+        d = self.cfg.data
+        kw = dict(direction=d.direction, image_size=d.image_size,
+                  image_width=d.image_width, n_frames=d.n_frames,
+                  dtype="uint8" if d.uint8_pipeline else "float32")
+        return (VideoClipDataset(root, "train", **kw),
+                VideoClipDataset(root, "test", **kw))
+
+    def _create_state(self):
+        return create_video_train_state(self.cfg, self.cfg.train.seed,
+                                        self.steps_per_epoch, self.dtype,
+                                        self.device)
+
+    def _build_steps(self):
+        return (build_video_train_step(self.cfg, self.vgg, self.dtype),
+                build_video_eval_step(self.cfg, self.dtype))
+
+    def _eval_batch(self, batch):
+        return self.eval_step(self.state.net_g, batch)
+
+    def _save_samples(self, batch, pred) -> None:
+        """The JAX video trainer writes no sample images."""

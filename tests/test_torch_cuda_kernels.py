@@ -39,6 +39,23 @@ wave; #1 (its finalize a programmatic dependent of its pass 1) the same
 bits for the same input over 50 launches on alternating inputs; #2 at C = 3
 on 16-byte vectors across pixels where H·W·3 divides into them; #4 with
 NaN, ±inf and −0 in x, its arrival counter and max word left at 0.
+The temporal 3-D discriminator of the video slice (split stem,
+``SpectralConv3D``, both scales) in f32 with TF32 off on the card against
+itself in f64 on the CPU (its stem as one f64 ``F.conv3d``): features,
+input and parameter gradients within 1e-4 of each tensor's largest (f32
+sums of up to 12,288 products, about √n·2⁻²⁴ ≈ 7e-6 of the largest),
+the advanced ``u`` within 1e-5; and a clip sent to the card
+(``to_device_clip``) is channels_last_3d, its frames a view, G's frames a
+view of the fake clip. The discriminators' pooling
+(``models/patchgan.avg_pool_downsample``, AvgPool 3 s2 p1 without the
+padding in the count) on a channels_last input: output and input gradient
+within 1e-6 of their largest against f64 on the CPU (sums of 9 terms),
+output channels_last.
+The conv layers' reflect pad (``ops/conv.reflect_pad_2d``) under
+``torch.backends.cudnn.deterministic`` at the reference G's k9 stem and
+residual blocks: its fixed-order backward the same bits over 20
+backward passes, and within 1e-6 of the largest entry of the f64 CPU
+gradient (sums of up to 4 terms).
 SSIM (``losses/metrics.ssim``, the eval's metric) on the card: exactly 1
 for an image against itself, and within 1e-5 of a float64 numpy SSIM
 (its window sums on the CUDA cores are exact integers, so no TF32 enters).
@@ -1316,3 +1333,118 @@ def test_memory_watchdog_reads_the_card(cuda):
     idx = torch.cuda.current_device()
     assert reg.gauge("hbm_bytes_in_use", device=idx).value == \
         stats["bytes_in_use"]
+
+
+def test_temporal_d_on_the_card_matches_f64(no_tf32):
+    import copy
+
+    from p2p_tpu_torch.models import temporal_d
+    from p2p_tpu_torch.models.registry import init_weights
+
+    d = temporal_d.MultiscaleTemporalDiscriminator(6, 64, 3, 2)
+    init_weights(d, torch.Generator().manual_seed(5))
+    x = torch.rand((1, 8, 32, 32, 6), generator=torch.Generator(
+        ).manual_seed(6)).permute(0, 4, 1, 2, 3) * 2 - 1
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev, dtype, thin in (("cuda", torch.float32, 8),
+                                 ("cpu", torch.float64, 0)):
+            m = copy.deepcopy(d).to(dev, dtype,
+                                    memory_format=torch.channels_last_3d)
+            xx = x.to(dev, dtype).detach().requires_grad_(True)
+            with pytest.MonkeyPatch.context() as mp:
+                # the reference's stem is one f64 conv3d
+                mp.setattr(temporal_d, "THIN_STEM_CHANNELS", thin)
+                feats = [f for scale in m.train()(xx) for f in scale]
+            sum((f * f).mean() for f in feats).backward()
+            out[dev] = ([f.detach() for f in feats] + [xx.grad]
+                        + [p.grad for p in m.parameters()],
+                        [b for b in m.buffers()])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    (got, got_u), (want, want_u) = out["cuda"], out["cpu"]
+    assert len(got) == len(want) == 10 + 1 + 20
+    for g, w in zip(got, want):
+        err = float((g.cpu().double() - w).abs().max())
+        assert err <= 1e-4 * float(w.abs().max()), (tuple(w.shape), err)
+    assert len(got_u) == 6
+    for g, w in zip(got_u, want_u):
+        assert float((g.cpu().double() - w).abs().max()) <= 1e-5
+
+
+def test_clip_and_fake_frames_are_views_on_the_card(cuda):
+    from p2p_tpu_torch.models.temporal_d import fold_frames, unfold_frames
+    from p2p_tpu_torch.models.unet import UNetGenerator
+    from p2p_tpu_torch.train.video_step import to_device_clip
+
+    host = np.random.default_rng(0).integers(0, 256, (2, 8, 32, 32, 3),
+                                             dtype=np.uint8)
+    clip = to_device_clip(host, cuda, torch.bfloat16)
+    assert clip.is_contiguous(memory_format=torch.channels_last_3d)
+    frames = fold_frames(clip)
+    assert frames.data_ptr() == clip.data_ptr()
+    assert frames.is_contiguous(memory_format=torch.channels_last)
+    g = UNetGenerator(in_channels=3, ngf=8, out_channels=3,
+                      image_hw=(32, 32), norm="instance",
+                      dtype=torch.bfloat16).to(
+        cuda, memory_format=torch.channels_last)
+    fake = g(frames)
+    fake_clip = unfold_frames(fake, 2)
+    assert fake_clip.data_ptr() == fake.data_ptr()
+    assert fake_clip.is_contiguous(memory_format=torch.channels_last_3d)
+
+
+@pytest.mark.parametrize("shape", [(8, 16, 33, 33), (8, 6, 256, 256)])
+def test_avg_pool_downsample_and_its_gradient_on_the_card(cuda, shape):
+    from p2p_tpu_torch.models.patchgan import avg_pool_downsample
+
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(shape, generator=g)
+    out = {}
+    for dev, dtype in (("cuda", torch.float32), ("cpu", torch.float64)):
+        z = x.to(dev, dtype).contiguous(
+            memory_format=torch.channels_last).requires_grad_(True)
+        y = avg_pool_downsample(z)
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(
+            3)).to(dev, dtype)
+        (y * cot).sum().backward()
+        out[dev] = (y.detach(), z.grad)
+    for got, want in zip(out["cuda"], out["cpu"]):
+        err = float((got.cpu().double() - want).abs().max())
+        assert err <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.parametrize("shape,pad", [((1, 3, 256, 256), 4),
+                                       ((1, 128, 64, 64), 1)])
+def test_reflect_pad_backward_repeats_its_bits_on_the_card(cuda, shape,
+                                                           pad):
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.conv import reflect_pad_2d
+
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(shape, generator=g)
+    x_gpu = x.to("cuda").contiguous(memory_format=torch.channels_last)
+    cot = torch.randn([shape[0], shape[1], shape[2] + 2 * pad,
+                       shape[3] + 2 * pad], generator=g)
+    cot_gpu = cot.to("cuda")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = []
+        for _ in range(20):
+            z = x_gpu.detach().requires_grad_(True)
+            y = reflect_pad_2d(z, pad)
+            assert y.grad_fn.name() == "_FixedOrderReflectPadBackward"
+            (y * cot_gpu).sum().backward()
+            grads.append(z.grad)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert all(torch.equal(gr, grads[0]) for gr in grads[1:])
+    z = x.double().requires_grad_(True)
+    (F.pad(z, (pad,) * 4, mode="reflect") * cot.double()).sum().backward()
+    err = float((grads[0].cpu().double() - z.grad).abs().max())
+    assert err <= 1e-6 * float(z.grad.abs().max())
