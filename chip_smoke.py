@@ -219,7 +219,31 @@ to the CPU or to a plain version):
    exactly 31 #1, 13 #2 and 18 #3 a step at N = 8, then the f32 (TF32
    off, cuDNN deterministic) one-step check through them against their
    plain versions within ``VID_F32_RTOL``;
-16. the script's total seconds, a ``{"kernels": [...]}`` line, then the
+16. slice 12, the rest of the one-device surface: (a) the C++ host image
+   path on the card's host: 512x1024 PNGs written here with every row
+   Paeth, every row Average, all five filters in turn, and RGBA, decoded
+   bitwise equal by the C++ route and the numpy plain version; Pillow's
+   bicubic resize 512x1024 → 256x512 and 1024x512 → 286x572 bitwise
+   equal by both; a JPEG request body read through Pillow; the ms of
+   each route (median of ``S12_REPS``); (b) ``make_loader`` with a pool
+   of 4 worker processes kept across three epochs against none over 72
+   uncached 256² pairs: the same batches, bitwise and in order, with and
+   without ``skip_samples``, each epoch's seconds; (c) the full-width ``reference`` preset through ``cli.train``
+   on phase 10's data, 2 epochs of 4 bf16 steps, with ``--lambda_sobel 1
+   --sobel_warmup_epochs 2 --lambda_angular 1 --eval_fid --save_masks
+   --threads 4`` and ``lambda_style`` ``S12_STYLE``: ``g_style``,
+   ``g_sobel`` and ``g_angular`` finite in every train record, a finite
+   ``vfid`` and its feature source in each eval, each mask PNG the AND of
+   the saved prediction and input, exactly 50 #5 a step and none in eval,
+   ms/step and peak memory; (d) the backward of ``sobel_edges``,
+   ``angular_loss`` and ``gram_matrix`` on the card in f32, in the train
+   step's TF32 setting, and channels_last against f64 on the CPU, the same bits twice under cuDNN
+   deterministic; (e) ``init_type`` xavier, kaiming and orthogonal on the
+   full-width ``reference`` state, every re-drawn kernel by its law; (f)
+   phase 12's pix2pixHD phase-1 line is the end-to-end reading of the
+   host path; (g) ``cli.infer --compilation_cache <dir>`` in a process of
+   its own exits 0 with its libraries built into ``<dir>``;
+17. the script's total seconds, a ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -485,6 +509,19 @@ VID_KERNEL_STEPS = 2
 VID_LOSS_KEYS = ("loss_d", "loss_dt", "loss_g", "g_gan", "g_gan_t",
                  "g_feat")
 VID_F32_RTOL = 5e-7
+# slice 12: the host image path at pix2pixHD's 512x1024 (median of
+# S12_REPS decodes and resizes per route), the loader over S12_PAIRS
+# uncached 256² pairs with S12_WORKERS worker processes against none, the
+# reference run of phase 10's data with the new losses and eval options
+# (S12_STYLE is lambda_style, which has no flag), the new ops' backward
+# against f64 (S12_GRAD_RTOL of the largest entry), init_type at full width
+S12_REPS = 5
+S12_PAIRS = 72
+S12_WORKERS = 4
+S12_SKIP = 5
+S12_STYLE = 1.0
+S12_GRAD_RTOL = 1e-4
+S12_INIT_GAIN = 0.5
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -2502,13 +2539,15 @@ def watched_trainer(video: bool = False):
 
 
 def res_train(what: str, args, want_rc: int, per_step: int,
-              chaos: str = None, within=None, video: bool = False):
+              chaos: str = None, within=None, video: bool = False,
+              label: str = None):
     """One in-process ``cli.train`` run (its output kept, not printed),
     inside the context ``within`` if given: the exit code as wanted,
     exactly ``per_step`` #5 launches a train step run and no other kernel
     launch (none in eval), no unexpected kernel build after the first
-    epoch. ``video`` watches the video trainer (slice 11). Returns what
-    ``watched_trainer`` saw and the output."""
+    epoch. ``video`` watches the video trainer (slice 11); ``label`` heads
+    the printed line. Returns what ``watched_trainer`` saw and the
+    output."""
     from p2p_tpu_torch.cli import train
     from p2p_tpu_torch.resilience import ChaosMonkey, install_chaos
 
@@ -2525,7 +2564,8 @@ def res_train(what: str, args, want_rc: int, per_step: int,
     out = buf.getvalue()
     counts = launch_counts()
     want = only(batch_moments=per_step * seen["steps"])
-    print(f"slice {11 if video else 10}: {what}: exit {rc} (want "
+    label = label or f"slice {11 if video else 10}"
+    print(f"{label}: {what}: exit {rc} (want "
           f"{want_rc}), {seen['steps']} train steps, #5 launches "
           f"{counts['batch_moments']} (want {want['batch_moments']}), "
           f"kernel launches in each eval {seen['eval_launches']}; builds "
@@ -3162,6 +3202,372 @@ def video_phase(device, card, tmp: str):
     return counts
 
 
+def paeth_np(a, b, c):
+    p = a + b - c
+    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def filtered_png(img: np.ndarray, filters) -> bytes:
+    """An 8-bit RGB or RGBA PNG of ``img`` whose row r is written with
+    filter ``filters[r % len(filters)]`` (0 None, 1 Sub, 2 Up, 3 Average,
+    4 Paeth), the filters applied here in numpy."""
+    import struct
+    import zlib
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    h, w, c = img.shape
+    rows = img.reshape(h, w * c).astype(np.int64)
+    out = bytearray()
+    prior = np.zeros(w * c, np.int64)
+    for r in range(h):
+        x = rows[r]
+        a = np.concatenate([np.zeros(c, np.int64), x[:-c]])
+        cc = np.concatenate([np.zeros(c, np.int64), prior[:-c]])
+        ftype = filters[r % len(filters)]
+        pred = {0: 0, 1: a, 2: prior, 3: (a + prior) >> 1,
+                4: paeth_np(a, prior, cc)}[ftype]
+        out.append(ftype)
+        out += ((x - pred) % 256).astype(np.uint8).tobytes()
+        prior = x
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {3: 2, 4: 6}[c], 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", ihdr)
+            + chunk(b"IDAT", zlib.compress(bytes(out))) + chunk(b"IEND", b""))
+
+
+def median_ms(fn, reps: int = S12_REPS):
+    """``(result, median ms)`` of ``reps`` host-clock calls."""
+    times = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        out = fn()
+        times.append((time.perf_counter() - t) * 1e3)
+    return out, statistics.median(times)
+
+
+def host_image_check(card: str):
+    """(a) The C++ host image path against its numpy plain versions on
+    the card's host: 512x1024 PNGs with every row Paeth, every row
+    Average, all five filters in turn, and RGBA, decoded bitwise equal by
+    both routes (the C++ route counted); Pillow's bicubic resize 512x1024
+    → 256x512 and 1024x512 → 286x572 bitwise equal by both; a JPEG body
+    read through Pillow as Pillow reads it; the ms of each route, median
+    of ``S12_REPS``."""
+    import io
+
+    from p2p_tpu_torch import native
+    from p2p_tpu_torch.data.pipeline import load_image_bytes
+    from p2p_tpu_torch.obs.registry import get_registry
+    from p2p_tpu_torch.utils import images
+
+    rng = np.random.default_rng(SEED)
+    img = np.cumsum(rng.integers(0, 8, (512, 1024, 4), dtype=np.uint8),
+                    axis=1, dtype=np.uint8)
+    native.library()                       # built before the timing
+    cases = {"paeth": (img[..., :3], (4,)), "average": (img[..., :3], (3,)),
+             "all five": (img[..., :3], (0, 1, 2, 3, 4)),
+             "rgba": (img, (4, 3, 2, 1, 0))}
+    routes = "png_decode_total{route=native}"
+    for what, (x, filters) in cases.items():
+        data = filtered_png(x, filters)
+        before = get_registry().snapshot().get(routes, {}).get("value", 0)
+        got, ms = median_ms(lambda: images.decode_png(data))
+        after = get_registry().snapshot()[routes]["value"]
+        want, plain_ms = median_ms(lambda: images.decode_png_plain(data))
+        if not (np.array_equal(got, want) and np.array_equal(got, x[..., :3])
+                and after - before == S12_REPS):
+            raise AssertionError(f"host decode {what}: the routes differ")
+        print(f"slice 12 (a): decode 512x1024 {what} ({len(data)} bytes): "
+              f"C++ {ms:.2f} ms, numpy {plain_ms:.2f} ms, bitwise equal; "
+              f"on the host of {card}", flush=True)
+    for (h, w), (oh, ow) in (((512, 1024), (256, 512)),
+                             ((1024, 512), (286, 572))):
+        x = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        got, ms = median_ms(lambda: images.resize_bicubic(x, oh, ow))
+        want, plain_ms = median_ms(
+            lambda: images.resize_bicubic_plain(x, oh, ow))
+        if got.shape != (oh, ow, 3) or not np.array_equal(got, want):
+            raise AssertionError(f"host resize {h}x{w} -> {oh}x{ow}")
+        print(f"slice 12 (a): bicubic resize {h}x{w} -> {oh}x{ow}: C++ "
+              f"{ms:.2f} ms, numpy {plain_ms:.2f} ms, bitwise equal",
+              flush=True)
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(img[:256, :256, :3]).save(buf, format="JPEG")
+    want = np.asarray(Image.open(io.BytesIO(buf.getvalue())).convert("RGB"))
+    got = load_image_bytes(buf.getvalue(), 256, 256, as_uint8=True)
+    if not np.array_equal(got, want):
+        raise AssertionError("a JPEG body is not read as Pillow reads it")
+    print("slice 12 (a): a 256x256 JPEG request body decoded through "
+          "Pillow as Pillow decodes it", flush=True)
+
+
+def loader_check(tmp: str):
+    """(b) ``make_loader`` over ``S12_PAIRS`` uncached 256² pairs in this
+    process against a pool of ``S12_WORKERS`` worker processes kept across
+    three epochs, as the trainer keeps it: the same batches, bitwise and
+    in order, with and without ``skip_samples``; each epoch's seconds
+    (the first with the workers' start)."""
+    from p2p_tpu_torch.data.pipeline import (LoaderWorkers,
+                                             PairedImageDataset, make_loader)
+    from p2p_tpu_torch.utils.images import encode_png
+
+    root = os.path.join(tmp, "loader")
+    rng = np.random.default_rng(SEED)
+    for side in "ab":
+        os.makedirs(os.path.join(root, "train", side))
+    for i in range(S12_PAIRS):
+        for side in "ab":
+            x = np.cumsum(rng.integers(0, 8, (256, 256, 3), dtype=np.uint8),
+                          axis=1, dtype=np.uint8)
+            with open(os.path.join(root, "train", side, f"{i:03d}.png"),
+                      "wb") as f:
+                f.write(encode_png(x))
+    ds = PairedImageDataset(root, "train", image_size=256, cache=False,
+                            dtype="uint8")
+
+    def epoch(skip, workers=None):
+        t = time.perf_counter()
+        out = list(make_loader(ds, 1, seed=SEED, skip_samples=skip,
+                               workers=workers))
+        return out, time.perf_counter() - t
+
+    want = {skip: epoch(skip) for skip in (0, S12_SKIP)}
+    pool = LoaderWorkers(ds, S12_WORKERS)
+    try:
+        kept = [(skip,) + epoch(skip, pool) for skip in (0, S12_SKIP, 0)]
+    finally:
+        pool.close()
+    for i, (skip, got, secs) in enumerate(kept):
+        a = want[skip][0]
+        if len(a) != S12_PAIRS - skip or len(got) != len(a) or any(
+                x.keys() != y.keys() or any(not np.array_equal(x[k], y[k])
+                                            for k in x)
+                for x, y in zip(a, got)):
+            raise AssertionError(f"loader workers, epoch {i + 1}, skip "
+                                 f"{skip}: batches differ")
+        print(f"slice 12 (b): epoch {i + 1} of {len(a)} uncached 256² pairs "
+              f"(skip_samples {skip}): {want[skip][1]:.2f} s in process, "
+              f"{secs:.2f} s with {S12_WORKERS} kept worker processes"
+              f"{' (their start included)' if i == 0 else ''}, the same "
+              "batches in the same order", flush=True)
+
+
+def op_grads(fn, x: torch.Tensor, g: torch.Tensor):
+    """``(value, d<value·g>/dx)`` of ``fn`` at ``x``."""
+    x = x.detach().clone().requires_grad_(True)
+    y = fn(x)
+    (dx,) = torch.autograd.grad(y, x, g)
+    return y.detach(), dx
+
+
+def new_ops_backward(device):
+    """(d) ``sobel_edges``, ``angular_loss`` and ``gram_matrix`` forward and
+    backward on the card in f32, channels_last, at the shapes of the
+    reference step (256² images; the five VGG19 taps), against f64 on the
+    CPU within ``S12_GRAD_RTOL`` of the largest entry, each twice under
+    cuDNN deterministic for the same bits. They run in the TF32 setting
+    the train step runs them in, PyTorch's defaults (checked here): cuDNN
+    TF32 on, which the Sobel sums never reach, and matmul TF32 off, which
+    Gram's ``bmm`` reads."""
+    from p2p_tpu_torch.losses.style import gram_matrix
+    from p2p_tpu_torch.ops.sobel import angular_loss, sobel_edges
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    img = (1, 3, 256, 256)
+    cases = [("sobel_edges", sobel_edges, img, (1, 1, 256, 256)),
+             ("angular_loss", None, img, ())]
+    for c, s in ((64, 256), (128, 128), (256, 64), (512, 32), (512, 16)):
+        cases.append((f"gram_matrix {c}x{s}x{s}", gram_matrix,
+                      (1, c, s, s), (1, c, c)))
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    if tf32 != (True, False):
+        raise AssertionError(f"(d) wants PyTorch's TF32 defaults, the train "
+                             f"step's (cuDNN on, matmul off); got {tf32}")
+    with cudnn_deterministic():
+        for what, fn, shape, out_shape in cases:
+            x = make_input(gen, *shape, torch.float32, device)
+            if fn is None:
+                other = make_input(gen, *shape, torch.float32, device)
+
+                def fn(v, other=other):
+                    return angular_loss(v, other)
+            g = torch.randn(out_shape, generator=gen, device=device)
+            runs = [op_grads(fn, x, g) for _ in range(2)]
+            if not all(torch.equal(a, b) for a, b in zip(*runs)):
+                raise AssertionError(f"{what}: two runs differ")
+            x64 = x.detach().cpu().double()
+            if what == "angular_loss":
+                o64 = other.detach().cpu().double()
+                want = op_grads(lambda v: angular_loss(v, o64), x64,
+                                g.cpu().double())
+            else:
+                want = op_grads(fn, x64, g.cpu().double())
+            errs = []
+            for got, ref in zip(runs[0], want):
+                err = (got.cpu().double() - ref).abs().max().item()
+                errs.append(err / max(ref.abs().max().item(), 1e-30))
+            if max(errs) > S12_GRAD_RTOL:
+                raise AssertionError(f"{what}: {errs} of the largest entry")
+            print(f"slice 12 (d): {what} on the card (f32 in the step's "
+                  f"TF32 setting, channels_last) "
+                  f"against f64: value {errs[0]:.2e}, gradient {errs[1]:.2e} "
+                  "of the largest entry; the same bits twice", flush=True)
+
+
+def init_type_check(device):
+    """(e) ``init_type`` on the full-width ``reference`` state: every
+    re-drawn kernel of G, D and net_c follows its law (the std within 6
+    standard errors of σ and |w| ≤ 2σ/0.87962566 for the truncated
+    xavier and kaiming; WᵀW = gain²·I in the JAX (H·W·I, O) layout, WWᵀ
+    where it is wide, for orthogonal)."""
+    from p2p_tpu_torch.convert import kernel_to_flax
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.models.registry import jax_kernels, kernel_fans
+    from p2p_tpu_torch.train.state import create_train_state
+
+    cfg = get_preset("reference")
+    for init_type in ("xavier", "kaiming", "orthogonal"):
+        st = create_train_state(cfg.replace(model=dataclasses.replace(
+            cfg.model, init_type=init_type, init_gain=S12_INIT_GAIN)),
+            cfg.train.seed, device=device)
+        n, worst = 0, 0.0
+        for net in (st.net_g, st.net_d, st.net_c):
+            for name, p, owner in jax_kernels(net):
+                w = kernel_to_flax(p.detach(), owner).double().cpu()
+                shape = tuple(w.shape)
+                n += 1
+                if init_type == "orthogonal":
+                    m = w.reshape(-1, shape[-1])
+                    gram = m.T @ m if m.shape[0] >= m.shape[1] else m @ m.T
+                    err = (gram - S12_INIT_GAIN ** 2 * torch.eye(
+                        len(gram), dtype=torch.float64)).abs().max().item()
+                    worst = max(worst, err / S12_INIT_GAIN ** 2)
+                    if err > 1e-5 * S12_INIT_GAIN ** 2:
+                        raise AssertionError(f"{init_type} {name}: {err}")
+                    continue
+                fan_in, fan_out = kernel_fans(shape)
+                sigma = math.sqrt(2.0 / (fan_in + fan_out)
+                                  if init_type == "xavier" else 2.0 / fan_in)
+                se = 1.0 / math.sqrt(2 * w.numel())
+                dev = abs(w.std().item() / sigma - 1.0) / se
+                worst = max(worst, dev)
+                if dev > 6 + 1e-3 / se or w.abs().max().item() > (
+                        2 * sigma / 0.87962566103423978 * (1 + 1e-6)):
+                    raise AssertionError(f"{init_type} {name}: std "
+                                         f"{w.std().item()} vs {sigma}")
+        what = ("largest |WᵀW − g²I| / g²" if init_type == "orthogonal"
+                else "largest |std/σ − 1| in standard errors")
+        print(f"slice 12 (e): init_type {init_type} on the full-width "
+              f"reference state: {n} kernels of G, D and net_c by the law; "
+              f"{what} {worst:.3g}", flush=True)
+        del st
+
+
+def infer_cache_check(work: str, data: str, tmp: str):
+    """(g) ``cli.infer --compilation_cache <dir>`` in a process of its own
+    exits 0 and builds its libraries into ``<dir>``."""
+    built = os.path.join(tmp, "infer_cache")
+    out = os.path.join(tmp, "infer_cache_pred")
+    t = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "p2p_tpu_torch.cli.infer", "--preset",
+         "reference", "--data_root", data, "--workdir", work, "--out", out,
+         "--compilation_cache", built], capture_output=True, text=True,
+        timeout=600)
+    libs = sorted(os.listdir(built)) if os.path.isdir(built) else []
+    print(f"slice 12 (g): cli.infer --compilation_cache: exit "
+          f"{proc.returncode} in {time.perf_counter() - t:.1f} s; built "
+          f"there {libs}", flush=True)
+    if proc.returncode != 0 or not any(
+            f.startswith("libfastimage-") and f.endswith(".so")
+            for f in libs):
+        raise AssertionError(f"cli.infer --compilation_cache:\n"
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+
+
+def slice12_phase(device, card, tmp: str):
+    """Slice 12 (phase 16): (a) the host image path, (b) the loader's
+    workers, (c) the full-width ``reference`` run through ``cli.train`` on
+    phase 10's data with the Sobel, angular and style terms, VFID and the
+    masks, (d) the new ops' backward, (e) ``init_type``, (g) ``cli.infer
+    --compilation_cache``. Returns the launch counts of (c)'s steps."""
+    from p2p_tpu_torch.cli import train
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.utils.images import decode_png
+
+    t_phase = time.perf_counter()
+    host_image_check(card)
+    loader_check(tmp)
+
+    cfg = get_preset("reference")
+    m = cfg.model
+    per_step = len(batchnorm_plan(m.ngf, m.n_blocks, *cfg.image_hw))
+    data = os.path.join(tmp, "data")
+    work = os.path.join(tmp, "slice12")
+    config_from_flags = train.config_from_flags
+
+    def with_style(args):
+        c = config_from_flags(args)
+        return c.replace(loss=dataclasses.replace(c.loss,
+                                                  lambda_style=S12_STYLE))
+
+    torch.cuda.reset_peak_memory_stats(device)
+    seen = res_train(
+        "reference with --lambda_sobel 1 --sobel_warmup_epochs 2 "
+        "--lambda_angular 1 --eval_fid --save_masks --threads 4, "
+        f"lambda_style {S12_STYLE}",
+        ["--preset", "reference", "--data_root", data, "--workdir", work,
+         "--nepoch", str(LOOP_EPOCHS), "--epochsave", "1", "--log_every",
+         "1", "--lambda_sobel", "1", "--sobel_warmup_epochs", "2",
+         "--lambda_angular", "1", "--eval_fid", "--save_masks", "--threads",
+         "4"], 0, per_step,
+        within=mock.patch.object(train, "config_from_flags", with_style),
+        label="slice 12 (c)")
+    peak = torch.cuda.max_memory_allocated(device)
+    records = run_records(work)
+    steps = [r for r in records if r["kind"] == "train"]
+    evals = [r for r in records if r["kind"] == "eval"]
+    keys = ("g_style", "g_sobel", "g_angular")
+    if len(steps) != LOOP_STEPS or seen["steps"] != LOOP_STEPS or not all(
+            np.isfinite(r[k]) for r in steps for k in keys):
+        raise AssertionError(f"slice 12 (c): train records {steps}")
+    if len(evals) != LOOP_EPOCHS or not all(
+            np.isfinite(r["vfid"]) and r["vfid_feature_source"] == "random"
+            for r in evals):
+        raise AssertionError(f"slice 12 (c): eval records {evals}")
+    out = os.path.join(work, cfg.train.result_dir, cfg.data.dataset)
+    for e in range(1, LOOP_EPOCHS + 1):
+        pred, inp, mask = (decode_png(open(os.path.join(
+            out, f"e{e}_{k}.png"), "rb").read())
+            for k in ("pred", "input", "mask"))
+        if not np.array_equal(mask, np.bitwise_and(pred, inp)):
+            raise AssertionError(f"slice 12 (c): e{e}_mask.png is not the "
+                                 "AND of the saved prediction and input")
+    took = sorted(b - a for a, b in seen["calls"][2:])
+    print(f"slice 12 (c): {seen['steps']} steps, g_style/g_sobel/g_angular "
+          "finite in every train record ("
+          + ", ".join(f"{k} {steps[-1][k]:.4g}" for k in keys)
+          + "), vfid " + ", ".join(f"{r['vfid']:.4f}" for r in evals)
+          + f" ({evals[0]['vfid_feature_source']} VGG19 features), masks "
+          f"the AND of pred and input; step median "
+          f"{statistics.median(took) * 1e3:.2f} ms (steps 3-{LOOP_STEPS}); "
+          f"peak device memory {peak / 2 ** 30:.2f} GiB; on {card}",
+          flush=True)
+
+    new_ops_backward(device)
+    init_type_check(device)
+    infer_cache_check(os.path.join(tmp, "work"), data, tmp)
+    print(f"slice 12: phase 16 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"batch_moments": per_step * seen["steps"]}
+
+
 def add_moment_launches(rows, plan, steps: int) -> None:
     """Add ``steps`` reference train steps to the bf16 #5 rows that weight
     the ``kernels`` line: one launch at each shape of ``plan`` a step."""
@@ -3741,7 +4147,9 @@ def coarse_to_fine_phase(device, card, tmp: str, per_image):
               f"eval forwards in {wall:.2f}s; loss_g {epoch['loss_g']:.4f}, "
               f"loss_d {epoch['loss_d']:.4f}; {1e3 / epoch['img_per_sec']:.2f}"
               f" ms/step (the record's steps 2-{n_train}, the loader's PNG "
-              f"decode and bicubic resize on the host included); peak device "
+              f"decode and bicubic resize on the host included: phase 1's "
+              f"line is the end-to-end reading of the C++ host image path, "
+              f"slice 12); peak device "
               f"memory {peak / 2 ** 30:.2f} GiB; launches {got} (want "
               f"{want}); on {card}", flush=True)
         if got != want:
@@ -4731,6 +5139,7 @@ def main(argv=None) -> int:
             card, os.path.join(tmp, "work"), (LOOP_SOURCES[0], LOOP_STEPS),
             tmp, serve_stats.img_per_sec)
         res_counts = resilience_phase(device, card, tmp, loop_ms)
+        s12_counts = slice12_phase(device, card, tmp)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_c2f_") as tmp:
         c2f_counts = coarse_to_fine_phase(device, card, tmp, c2f_per_image)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
@@ -4740,12 +5149,15 @@ def main(argv=None) -> int:
     add_serving_launches(rows, plan, http_forwards)
     add_moment_launches(rows, bn_plan,
                         res_counts["batch_moments"] // len(bn_plan))
+    add_moment_launches(rows, bn_plan,
+                        s12_counts["batch_moments"] // len(bn_plan))
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
               fac_train_counts, a_counts, b_counts, i8_counts,
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
               city_counts, options_counts, forms_counts, c2f_counts,
-              i8f_counts, a8_counts, hd8_counts, res_counts, vid_counts):
+              i8f_counts, a8_counts, hd8_counts, res_counts, vid_counts,
+              s12_counts):
         counts.update(c)
 
     kernels = []
@@ -4876,7 +5288,9 @@ def main(argv=None) -> int:
           f"steps, {e2s_steps} edges2shoes_dp steps at batch {e2s_bs}, "
           f"{OPTIONS_ALL_STEPS} facades steps with the trainer options and "
           f"{bn_forms} U-Net form steps, the slice-10 phase's "
-          f"{res_counts['batch_moments'] // len(bn_plan)} reference steps; "
+          f"{res_counts['batch_moments'] // len(bn_plan)} reference steps "
+          f"and the slice-12 phase's "
+          f"{s12_counts['batch_moments'] // len(bn_plan)}; "
           f"#6: facades serving and training; "
           "#7: facades training; slice 9: #5 in "
           f"{I8F_STEPS} facades_int8_full steps, #1-#5 in {A8_STEPS} path "

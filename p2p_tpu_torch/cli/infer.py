@@ -14,7 +14,9 @@ generator. One PNG per test image, named after it, goes to ``--out``
 (default ``<workdir>/<result_dir>/<dataset>``). ``--metrics`` prints
 ``psnr_mean=… psnr_max=… ssim_mean=… ssim_max=…`` over every test image;
 ``--stats`` the engine's timing as a JSON line. The card is the default
-device; flags of features the port lacks are refused by name (exit 2).
+device; ``--compilation_cache DIR`` builds the kernel and host image
+libraries into (and reuses them from) DIR; flags of features the port
+lacks are refused by name (exit 2).
 
 A video config (``n_frames > 1``, ``vid2vid_temporal``) takes the clip
 route: G alone restored the same way, run in f32 in eval mode on every
@@ -37,7 +39,6 @@ from p2p_tpu_torch.cli import add_unported, apply_overrides, refuse_unported
 
 UNPORTED = (
     ("mesh", None, {"type": str}), ("tp_min_ch", None, {"type": int}),
-    ("compilation_cache", None, {"type": str}),
 )
 
 
@@ -82,6 +83,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="PNG encode worker threads")
     p.add_argument("--stats", action="store_true",
                    help="print the engine's timing breakdown as JSON")
+    p.add_argument("--compilation_cache", type=str, default=None,
+                   help="directory the kernel and host image libraries "
+                        "are built into and reused from (core/cache.py)")
     p.add_argument("--ema_decay", type=float, default=None,
                    help="the checkpoint was trained with --ema_decay: "
                         "restore the EMA generator weights and infer with "
@@ -102,6 +106,12 @@ def main(argv=None) -> int:
         if getattr(args, flag) is not None:
             print(f"note: --{flag} is not needed: only G and net_c are "
                   "restored", file=sys.stderr)
+    if args.compilation_cache:
+        # before the first build: the libraries land in (and are reused
+        # from) this directory, as under cli.train and cli.serve
+        from p2p_tpu_torch.core.cache import enable_compilation_cache
+
+        enable_compilation_cache(args.compilation_cache)
 
     from p2p_tpu_torch.core.config import get_preset
     from p2p_tpu_torch.data.pipeline import PairedImageDataset, make_loader

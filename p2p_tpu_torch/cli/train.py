@@ -31,10 +31,17 @@ pix2pixHD's coarse-to-fine schedule: ``--phase global`` trains G1 alone
 weights grafted in from that run's newest step (or from
 ``--init_g1_from``) when it starts fresh (train/graft.py).
 
+The losses and eval options: ``--lambda_sobel`` (with
+``--sobel_warmup_epochs``) and ``--lambda_angular`` add the Sobel-edge and
+angular terms to the G loss (train/step.py ``make_g_loss_fn``);
+``--eval_fid`` adds VFID to each eval (loading VGG19 whatever
+``--lambda_vgg`` is); ``--save_masks`` writes ``e{epoch}_mask.png`` beside
+the samples; ``--threads N`` reads a split of more than 64 items that is
+not memoized with N loader worker processes.
+
 A flag of the JAX CLI whose feature the port does not have (meshes,
-elastic resume across topologies, Grain's loader threads, scan steps, the
-losses and eval of slice 12, …) is refused by name with exit code 2
-unless it is left at its default.
+elastic resume across topologies, scan steps, …) is refused by name with
+exit code 2 unless it is left at its default.
 """
 
 from __future__ import annotations
@@ -53,11 +60,6 @@ UNPORTED = (
     ("elastic", True, _BOOL),
     ("cast_on_restore", False, _BOOL),
     ("recalibrate_steps", 0, {"type": int}),
-    ("threads", 4, {"type": int}),
-    ("lambda_sobel", 0.0, {"type": float}),
-    ("sobel_warmup_epochs", 0, {"type": int}),
-    ("lambda_angular", 0.0, {"type": float}),
-    ("save_masks", False, _TRUE), ("eval_fid", False, _TRUE),
     ("scan_steps", 1, {"type": int}),
 )
 
@@ -135,6 +137,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--lambda_vgg", type=float, default=None)
     p.add_argument("--lambda_feat", type=float, default=None)
     p.add_argument("--lambda_tv", type=float, default=None)
+    p.add_argument("--lambda_sobel", type=float, default=None,
+                   help="Sobel edge-L1 weight (the reference's commented "
+                        "edge experiment; 0 = off)")
+    p.add_argument("--sobel_warmup_epochs", type=int, default=None,
+                   help="ramp the sobel weight linearly over this many "
+                        "epochs (0 = constant)")
+    p.add_argument("--lambda_angular", type=float, default=None,
+                   help="mean-angular-error weight (the reference's "
+                        "commented experiment; 0 = off)")
+    p.add_argument("--threads", type=int, default=None,
+                   help="loader worker processes for a split of more than "
+                        "64 items that is not memoized (default 4)")
+    p.add_argument("--save_masks", action="store_true", default=None,
+                   help="write e<epoch>_mask.png = uint8(pred) AND "
+                        "uint8(input) with the eval samples")
+    p.add_argument("--eval_fid", action="store_true", default=None,
+                   help="VFID (Fréchet distance of VGG19 features) in each "
+                        "eval; the feature source (pretrained npz or "
+                        "random) is reported")
     p.add_argument("--log_every", type=int, default=None)
     p.add_argument("--ema_decay", type=float, default=None,
                    help="EMA generator decay (e.g. 0.999): the state "
@@ -209,7 +230,10 @@ def config_from_flags(args: argparse.Namespace):
                  legacy_layout=args.legacy_layout, thin_head=args.thin_head,
                  norm_d=args.norm_d)
     loss = over(cfg.loss, lambda_l1=args.lamb, lambda_vgg=args.lambda_vgg,
-                lambda_feat=args.lambda_feat, lambda_tv=args.lambda_tv)
+                lambda_feat=args.lambda_feat, lambda_tv=args.lambda_tv,
+                lambda_sobel=args.lambda_sobel,
+                sobel_warmup_epochs=args.sobel_warmup_epochs,
+                lambda_angular=args.lambda_angular)
     optim = over(cfg.optim, lr=args.lr, lr_policy=args.lr_policy,
                  lr_decay_iters=args.lr_decay_iters, beta1=args.beta1,
                  niter=args.niter, niter_decay=args.niter_decay,
@@ -217,7 +241,8 @@ def config_from_flags(args: argparse.Namespace):
     data = over(cfg.data, dataset=args.dataset, direction=args.direction,
                 batch_size=args.batch_size, image_size=args.image_size,
                 image_width=args.image_width,
-                test_batch_size=args.test_batch_size, augment=args.augment)
+                test_batch_size=args.test_batch_size, augment=args.augment,
+                threads=args.threads)
     if args.image_size is not None and args.image_width is None \
             and data.image_width is not None:
         # a square --image_size overrides a rectangular preset wholesale
@@ -225,7 +250,8 @@ def config_from_flags(args: argparse.Namespace):
     train = over(cfg.train, nepoch=args.nepoch, epoch_count=args.epoch_count,
                  epoch_save=args.epochsave, seed=args.seed,
                  log_every=args.log_every, pool_size=args.pool_size,
-                 compilation_cache_dir=args.compilation_cache)
+                 compilation_cache_dir=args.compilation_cache,
+                 eval_fid=args.eval_fid, save_masks=args.save_masks)
     debug = over(cfg.debug, check_finite=args.check_finite,
                  nan_sentinel=args.nan_sentinel, grad_norms=args.grad_norms)
     health = over(cfg.health, enabled=args.health, ema_decay=args.ema_decay,

@@ -111,6 +111,31 @@ def load_npz(path: str) -> Dict[str, Any]:
 _KEPT_LEAVES = ("bias", "scale", "mean", "var", "alpha", "u", "amax_x")
 
 
+def kernel_to_port(w: torch.Tensor, owner: Optional[torch.nn.Module]
+                   ) -> torch.Tensor:
+    """A flax conv kernel (HWIO, or DHWIO in 3-D) → the layout of the
+    port's parameter of ``owner``: a layer's own ``kernel`` parameter keeps
+    HWIO, an ``nn.ConvTranspose2d``'s weight is (I, O, kh, kw) flipped in
+    both spatial axes, any other conv's weight OIHW (OIDHW). A view where
+    no flip is needed."""
+    if isinstance(getattr(owner, "kernel", None), torch.nn.Parameter):
+        return w
+    if isinstance(owner, torch.nn.ConvTranspose2d):
+        return w.flip(0, 1).permute(2, 3, 0, 1)
+    return w.permute(w.dim() - 1, w.dim() - 2, *range(w.dim() - 2))
+
+
+def kernel_to_flax(p: torch.Tensor, owner: Optional[torch.nn.Module]
+                   ) -> torch.Tensor:
+    """The inverse of :func:`kernel_to_port`: the port's kernel parameter
+    ``p`` of ``owner`` in its flax layout."""
+    if isinstance(getattr(owner, "kernel", None), torch.nn.Parameter):
+        return p
+    if isinstance(owner, torch.nn.ConvTranspose2d):
+        return p.permute(2, 3, 0, 1).flip(0, 1)
+    return p.permute(*range(2, p.dim()), 1, 0)
+
+
 def state_from_flax(*trees: Mapping[str, Any],
                     module: Optional[torch.nn.Module] = None
                     ) -> Dict[str, torch.Tensor]:
@@ -135,24 +160,20 @@ def state_from_flax(*trees: Mapping[str, Any],
             if path[-1:] == ["BatchNorm_0"] and len(path) > 1 \
                     and path[-2].startswith("BatchNorm_"):
                 path.pop()
-            if leaf == "kernel" and arr.ndim == 5:
-                leaf, arr = "weight", arr.transpose(4, 3, 0, 1, 2)
-            elif leaf == "kernel":
-                if arr.ndim != 4:
+            t = torch.from_numpy(np.array(arr, dtype=np.float32))
+            if leaf == "kernel":
+                if arr.ndim not in (4, 5):
                     raise ValueError(f"{key}: expected an HWIO or DHWIO "
                                      f"kernel, got shape {arr.shape}")
-                owner = _owner(module, path)
-                if isinstance(owner, torch.nn.ConvTranspose2d):
-                    leaf, arr = "weight", arr[::-1, ::-1].transpose(
-                        2, 3, 0, 1)
-                elif not isinstance(getattr(owner, "kernel", None),
-                                    torch.nn.Parameter):
-                    leaf, arr = "weight", arr.transpose(3, 2, 0, 1)
+                owner = _owner(module, path) if arr.ndim == 4 else None
+                t = kernel_to_port(t, owner).contiguous()
+                if not isinstance(getattr(owner, "kernel", None),
+                                  torch.nn.Parameter):
+                    leaf = "weight"
             elif leaf not in _KEPT_LEAVES:
                 raise ValueError(f"no torch counterpart for flax leaf "
                                  f"{key!r}")
-            state[".".join(path + [leaf])] = torch.from_numpy(
-                np.array(arr, dtype=np.float32, order="C"))
+            state[".".join(path + [leaf])] = t
     return state
 
 

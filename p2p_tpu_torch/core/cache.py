@@ -1,10 +1,11 @@
 """The kernel build cache (counterpart of ``p2p_tpu/core/cache.py``): the
 JAX package points XLA's persistent compilation cache at a directory, so a
 restarted process reloads its programs instead of compiling them. What the
-port compiles is its CUDA kernel libraries (``ops/cuda/build.py``), so the
-same knob (``TrainConfig.compilation_cache_dir``, ``--compilation_cache``
-of ``cli.train`` and ``cli.serve``) names the directory they are built
-into and reused from: a preempted or restarted process on the same
+port compiles is its CUDA kernel libraries (``ops/cuda/build.py``) and its
+host image library (``native/``), so the same knob
+(``TrainConfig.compilation_cache_dir``, ``--compilation_cache`` of
+``cli.train``, ``cli.serve`` and ``cli.infer``) names the directory they
+are built into and reused from: a preempted or restarted process on the same
 machine, or a fleet sharing the directory, builds each library once. The
 build watchdog (obs/watchdogs.py) counts the builds and the reuses.
 """

@@ -86,6 +86,12 @@ class ModelConfig:
     # concatenated pair (the split saves memory only under spatial
     # sharding, which the port does not have; models/patchgan.py)
     split_d_pairs: bool = False
+    # the kernels' init (models/registry.py apply_init_type): "normal"
+    # keeps the reference's N(0, 0.02); "xavier" and "kaiming" re-draw every
+    # conv kernel from flax's truncated-normal laws (init_gain unused),
+    # "orthogonal" from an orthogonal matrix times init_gain
+    init_type: str = "normal"
+    init_gain: float = 0.02
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +103,14 @@ class LossConfig:
     # feed VGG [-1, 1] images un-normalized, as the reference does
     vgg_imagenet_norm: bool = False
     lambda_l1: float = 0.0
+    # Gram-matrix style loss on the VGG19 taps (losses/style.py; 0 = off)
+    lambda_style: float = 0.0
+    # Sobel edge L1 between fake and real (ops/sobel.py; 0 = off), its
+    # weight ramped linearly over sobel_warmup_epochs epochs (0 = constant)
+    lambda_sobel: float = 0.0
+    sobel_warmup_epochs: int = 0
+    # mean angular error (degrees) of the illumination quotients (0 = off)
+    lambda_angular: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,6 +141,9 @@ class DataConfig:
     image_width: Optional[int] = None  # None → square
     batch_size: int = 1
     test_batch_size: int = 1
+    # loader worker processes for a split that is not memoized and has
+    # more than 64 items (data/pipeline.py make_loader)
+    threads: int = 4
     # the paired resize-286 / random-crop / flip of the train split
     augment: bool = False
     # frames per clip: > 1 selects the video path (data/video.py,
@@ -149,6 +166,13 @@ class TrainConfig:
     log_every: int = 50
     checkpoint_dir: str = "checkpoint"
     result_dir: str = "result"
+    # the per-epoch eval (off: no eval record, no samples, no mark_good)
+    eval_every_epoch: bool = True
+    # VFID (Fréchet distance of mean-pooled VGG19 taps, losses/fid.py) in
+    # each eval; loads VGG19 whatever lambda_vgg says
+    eval_fid: bool = False
+    # e{epoch}_mask.png = uint8(pred) AND uint8(input) beside the samples
+    save_masks: bool = False
     # bf16 compute on f32 master parameters (core/dtypes.py)
     mixed_precision: bool = True
     # the historical-fake pool of concatenated (input ‖ fake) pairs fed to

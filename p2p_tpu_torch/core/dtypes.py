@@ -31,3 +31,10 @@ def train_dtype(mixed_precision: bool) -> Optional[torch.dtype]:
     input and weight, flax's ``dtype=``), otherwise in f32 (None: the
     promoted type of input and weight)."""
     return torch.bfloat16 if mixed_precision else None
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 when it is f64: the losses that the JAX
+    package computes in f32 (ops/sobel.py, losses/style.py) keep an f64
+    input in f64, so the card checks can hold them against f64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))

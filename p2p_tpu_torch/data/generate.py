@@ -4,10 +4,11 @@ nearest-upsample each image, trim it to a multiple of the crop size, tile
 it, and save each patch twice, the original to ``a/`` and its bit-depth
 quantized copy to ``b/``, under ``<out>/<split>/{a,b}/``.
 
-Images are read and written with the port's stdlib PNG codec
-(utils/images.py; no Pillow), so the sources must be PNG files; a file
-with another image extension raises with its name. The patches hold the
-pixels the JAX package writes; the PNG bytes may differ.
+Images are read and written with the port's PNG codec (utils/images.py:
+the C++ decoder, a stdlib writer; no Pillow), so the sources must be PNG
+files; a file with another image extension raises with its name. The
+patches hold the pixels the JAX package writes; the PNG bytes may
+differ.
 """
 
 from __future__ import annotations

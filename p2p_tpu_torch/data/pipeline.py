@@ -3,14 +3,19 @@
 
 - :class:`PairedImageDataset`: ``<root>/<split>/a/<name>`` paired with
   ``b/<name>``, decoded by the port's PNG reader, resized bicubic to the
-  target size when it differs (Pillow's bytes, utils/images.py), and
-  normalized to [-1, 1] or kept uint8; the direction swap, the optional
-  286/256 crop-and-flip augmentation and the decode memo.
+  target size when it differs (Pillow's bytes), and normalized to [-1, 1]
+  or kept uint8, all three in the C++ host image library (utils/images.py,
+  native/); the direction swap, the optional 286/256 crop-and-flip
+  augmentation and the decode memo.
 - :func:`make_loader`: the JAX package's in-process loader (its fallback
   when Grain is absent), order for order: one ``np.random.default_rng(seed)``
   shuffles ``arange(n)`` once per epoch, :func:`shard_epoch_indices` cuts
-  the epoch, consecutive items stack into batches. Grain and its worker
-  processes are not ported.
+  the epoch, consecutive items stack into batches. Given a
+  :class:`LoaderWorkers` pool, kept across epochs, the batches are read
+  by its worker processes (``spawn``, through a
+  ``torch.utils.data.DataLoader`` with persistent workers) and come out
+  in the same order, the role Grain's workers play in JAX
+  (``DataConfig.threads``).
 - :func:`device_prefetch`: pinned host buffers and ``non_blocking`` copies
   to the card one batch ahead of the consumer.
 """
@@ -18,26 +23,30 @@
 from __future__ import annotations
 
 import collections
+import functools
+import io
 import os
 from typing import Dict, Iterator, Optional, Union
 
 import numpy as np
 import torch
 
+from p2p_tpu_torch import native
 from p2p_tpu_torch.data.generate import is_image_file, read_png
-from p2p_tpu_torch.utils.images import decode_png, resize_bicubic
+from p2p_tpu_torch.utils.images import (PNG_SIGNATURE, decode_png,
+                                        resize_bicubic)
 
 
 def _fit(arr: np.ndarray, h: int, w: int, as_uint8: bool) -> np.ndarray:
     """Resize to (h, w) only when the size differs, then float32 [-1, 1]
     by ``(x − 127.5)·(1/127.5)`` (the expression of the JAX package and of
-    ``utils/images.ingest``), or the uint8 bytes with ``as_uint8``."""
+    ``utils/images.ingest``; ``native.normalize_f32``), or the uint8 bytes
+    with ``as_uint8``."""
     if arr.shape[:2] != (h, w):
         arr = resize_bicubic(arr, h, w)
     if as_uint8:
         return arr
-    return ((arr.astype(np.float32) - np.float32(127.5))
-            * np.float32(1.0 / 127.5))
+    return native.normalize_f32(arr)
 
 
 def load_image(path: str, h: int, w: int, as_uint8: bool = False
@@ -49,16 +58,37 @@ def load_image(path: str, h: int, w: int, as_uint8: bool = False
 def load_image_bytes(data: bytes, h: int, w: int, as_uint8: bool = False
                      ) -> np.ndarray:
     """:func:`load_image` over an in-memory body (counterpart of
-    ``p2p_tpu/data/pipeline.py:70``, the HTTP request body). The port
-    decodes PNG only (its stdlib reader; no Pillow on the card): any other
-    body raises ``ValueError`` naming that decoder."""
-    try:
-        arr = decode_png(bytes(data))
-    except ValueError as e:
-        raise ValueError(f"request body is not a PNG this decoder reads "
-                         f"(the port's stdlib PNG decoder, PNG only): {e}"
-                         ) from None
+    ``p2p_tpu/data/pipeline.py:70``, the HTTP request body). A PNG body is
+    read by the port's PNG reader; any other (JPEG, ...) by Pillow's
+    ``Image.open(...).convert("RGB")``, as the JAX function reads every
+    body, where Pillow is installed. Without Pillow a body that is not a
+    PNG raises ``ValueError`` naming the PNG reader, as does any body
+    neither reads."""
+    data = bytes(data)
+    if data.startswith(PNG_SIGNATURE):
+        try:
+            arr = decode_png(data)
+        except ValueError as e:
+            raise ValueError(f"request body is not a PNG this decoder reads "
+                             f"(the port's PNG decoder): {e}") from None
+    else:
+        arr = _decode_with_pillow(data)
     return _fit(arr, h, w, as_uint8)
+
+
+def _decode_with_pillow(data: bytes) -> np.ndarray:
+    """A non-PNG body → uint8 (h, w, 3) RGB through Pillow."""
+    try:
+        from PIL import Image, UnidentifiedImageError
+    except ImportError:
+        raise ValueError("request body is not a PNG, and without Pillow "
+                         "the port reads PNG only") from None
+    try:
+        with Image.open(io.BytesIO(data)) as img:
+            return np.asarray(img.convert("RGB"), np.uint8)
+    except (UnidentifiedImageError, OSError, SyntaxError) as e:
+        raise ValueError(f"request body is neither a PNG nor an image "
+                         f"Pillow reads: {e}") from None
 
 
 class PairedImageDataset:
@@ -163,24 +193,126 @@ def shard_epoch_indices(idx: np.ndarray, batch_size: int,
     return list(idx)
 
 
-def _stacked(ds, batch_size: int, indices, drop_remainder: bool):
-    """Consecutive items of ``indices`` stacked into batches."""
-    end = (len(indices) - batch_size + 1 if drop_remainder
-           else len(indices))
-    for i in range(0, end, batch_size):
-        items = [ds[j] for j in indices[i:i + batch_size]]
-        yield {k: np.stack([it[k] for it in items]) for k in items[0]}
+def _stack(ds, indices) -> Dict[str, np.ndarray]:
+    """The items of ``indices`` stacked into one batch."""
+    items = [ds[j] for j in indices]
+    return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+
+def _batch_indices(n: int, batch_size: int, drop_remainder: bool):
+    """``[start, end)`` of each batch of ``n`` items."""
+    end = n - batch_size + 1 if drop_remainder else n
+    return [(i, min(i + batch_size, n)) for i in range(0, max(end, 0),
+                                                      batch_size)]
+
+
+class _RunBatches(torch.utils.data.Dataset):
+    """The worker processes' view of a dataset: key ``(aug_seed, indices)``
+    is the batch of ``indices`` at that ``aug_seed``, the one attribute the
+    trainer changes between epochs (None for a dataset without it)."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __getitem__(self, key) -> Dict[str, np.ndarray]:
+        aug_seed, indices = key
+        if aug_seed is not None:
+            self.ds.aug_seed = aug_seed
+        return _stack(self.ds, indices)
+
+
+class _EpochKeys(torch.utils.data.Sampler):
+    """The keys of the epoch being read, replaced before each pass."""
+
+    def __init__(self):
+        self.keys = []
+
+    def __iter__(self):
+        return iter(self.keys)
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+
+def _as_is(batch):
+    """The DataLoader's collate: the batch stays numpy."""
+    return batch
+
+
+def _worker_init(cache_dir: Optional[str], _worker_id: int) -> None:
+    """A worker reads images on one thread and builds or loads the host
+    image library where its parent does (the compilation cache)."""
+    torch.set_num_threads(1)
+    if cache_dir:
+        from p2p_tpu_torch.core.cache import enable_compilation_cache
+
+        enable_compilation_cache(cache_dir)
+
+
+class LoaderWorkers:
+    """``num_workers`` spawned processes that read ``dataset``'s batches
+    for every epoch they are given: started by the first epoch and kept
+    until :meth:`close` (a ``DataLoader`` with ``persistent_workers``), so
+    a run starts them once, not once an epoch. They hold a copy of the
+    dataset made when they start, return numpy arrays and touch no CUDA
+    device. Each epoch's batches come out whole and in order; the rest of
+    an epoch left part way is drained when the next one starts."""
+
+    def __init__(self, dataset, num_workers: int):
+        from p2p_tpu_torch.core.cache import compilation_cache_dir
+
+        self.dataset = dataset
+        self._keys = _EpochKeys()
+        self._loader = torch.utils.data.DataLoader(
+            _RunBatches(dataset), batch_size=None, sampler=self._keys,
+            num_workers=num_workers, persistent_workers=True,
+            collate_fn=_as_is, multiprocessing_context="spawn",
+            worker_init_fn=functools.partial(_worker_init,
+                                             compilation_cache_dir()))
+
+    def epoch(self, indices, bounds) -> Iterator[Dict[str, np.ndarray]]:
+        """The batches ``indices[lo:hi]`` of each ``(lo, hi)`` in
+        ``bounds``, at the dataset's current ``aug_seed``."""
+        seed = getattr(self.dataset, "aug_seed", None)
+        self._keys.keys = [(seed, [int(i) for i in indices[lo:hi]])
+                           for lo, hi in bounds]
+        return iter(self._loader)
+
+    def close(self) -> None:
+        """Stop the worker processes (a later epoch starts new ones)."""
+        it = self._loader._iterator
+        self._loader._iterator = None
+        if it is not None:
+            it._shutdown_workers()
+
+
+def _epoch_batches(ds, batch_size: int, indices, drop_remainder: bool,
+                   workers: Optional[LoaderWorkers]):
+    """One epoch's batches of ``indices`` in order, read in this process
+    or by ``workers``."""
+    bounds = _batch_indices(len(indices), batch_size, drop_remainder)
+    if workers is None or not bounds:
+        for lo, hi in bounds:
+            yield _stack(ds, indices[lo:hi])
+        return
+    yield from workers.epoch(indices, bounds)
 
 
 def make_loader(dataset: PairedImageDataset, batch_size: int,
                 shuffle: bool = True, seed: int = 0,
                 num_epochs: Optional[int] = 1, drop_remainder: bool = True,
-                skip_batches: int = 0, skip_samples: int = 0
+                skip_batches: int = 0, skip_samples: int = 0,
+                workers: Optional[LoaderWorkers] = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
     """Host batches of ``dataset`` for ``num_epochs`` epochs (forever with
     None), in the JAX fallback loader's order: ``default_rng(seed)``
     shuffles ``arange(len)`` at the start of every epoch;
-    ``skip_batches``/``skip_samples`` apply to the first epoch only."""
+    ``skip_batches``/``skip_samples`` apply to the first epoch only.
+    With ``workers`` (a pool over ``dataset`` that the caller keeps and
+    closes) the batches are read by its processes: the same batches, in
+    the same order."""
+    if workers is not None and workers.dataset is not dataset:
+        raise ValueError("make_loader: the workers read another dataset")
     rng = np.random.default_rng(seed)
     epoch = 0
     skip = max(0, int(skip_batches))
@@ -193,7 +325,8 @@ def make_loader(dataset: PairedImageDataset, batch_size: int,
                                     drop_remainder=drop_remainder,
                                     skip_samples=skip_s)
         skip = skip_s = 0
-        yield from _stacked(dataset, batch_size, local, drop_remainder)
+        yield from _epoch_batches(dataset, batch_size, local,
+                                  drop_remainder, workers)
         epoch += 1
 
 

@@ -27,7 +27,13 @@ def vgg_loss(vgg: nn.Module, x: torch.Tensor,
              y_feats: List[torch.Tensor]) -> torch.Tensor:
     """Perceptual distance between x and the target whose taps are
     ``y_feats``."""
-    total = x.new_zeros((), dtype=torch.float32)
-    for w, fx, fy in zip(VGG_SLICE_WEIGHTS, vgg(x), y_feats):
+    return perceptual_distance(vgg(x), y_feats)
+
+
+def perceptual_distance(x_feats: List[torch.Tensor],
+                        y_feats: List[torch.Tensor]) -> torch.Tensor:
+    """:func:`vgg_loss` on the taps of both images."""
+    total = x_feats[0].new_zeros((), dtype=torch.float32)
+    for w, fx, fy in zip(VGG_SLICE_WEIGHTS, x_feats, y_feats):
         total = total + w * (fx.float() - fy.float()).abs().mean()
     return total

@@ -1,6 +1,6 @@
 """Model factories (counterparts of ``p2p_tpu/models/registry.py:25
-define_C``, ``:33 define_G`` and ``:109 define_D``) and the reference
-weight init.
+define_C``, ``:33 define_G`` and ``:109 define_D``), the reference weight
+init and the ``init_type`` re-draw (``:118-160``).
 
 ``dtype`` is the compute dtype of the trained networks (flax ``dtype=``,
 on f32 parameters and statistics). The ResNet-family generators
@@ -14,11 +14,14 @@ stem and head knobs; all take ``int8_delayed``.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import math
+from typing import Iterator, Optional, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
+from p2p_tpu_torch.convert import kernel_to_flax, kernel_to_port
 from p2p_tpu_torch.core.config import ModelConfig
 from p2p_tpu_torch.ops.conv import SubpixelConv
 from p2p_tpu_torch.ops.norm import BatchNorm
@@ -127,4 +130,100 @@ def init_weights(module: nn.Module, generator: torch.Generator,
         elif isinstance(m, BatchNorm):
             m.scale.normal_(1.0, 0.02, generator=generator)
             m.bias.zero_()
+    return module
+
+
+# modules whose ``weight`` is a flax ``kernel`` (int8 convs subclass these)
+_KERNEL_OWNERS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, SpectralConv,
+                  SpectralConv3D)
+# flax's truncated normal at ±2: its std is 0.87962566 of the base normal's
+_TRUNC_STD = 0.87962566103423978
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
+
+
+def jax_kernels(module: nn.Module
+                ) -> Iterator[Tuple[str, nn.Parameter, nn.Module]]:
+    """``(name, parameter, owner)`` of every conv kernel of ``module`` (the
+    flax leaves named ``kernel``), in ``named_parameters`` order:
+    ``convert.kernel_to_flax(parameter, owner)`` is its flax (HWIO, DHWIO)
+    layout."""
+    for name, p in module.named_parameters():
+        owner_name, _, leaf = name.rpartition(".")
+        owner = module.get_submodule(owner_name) if owner_name else module
+        if (leaf == "kernel" and p.dim() >= 2) or (
+                leaf == "weight" and isinstance(owner, _KERNEL_OWNERS)):
+            yield name, p, owner
+
+
+def kernel_fans(shape: Tuple[int, ...]) -> Tuple[int, int]:
+    """flax's ``_compute_fans`` of a kernel of flax shape ``shape``: the
+    receptive field times the input axis and times the output axis."""
+    rf = math.prod(shape[:-2])
+    return shape[-2] * rf, shape[-1] * rf
+
+
+def draw_kernel(init_type: str, shape: Tuple[int, ...], gain: float,
+                generator: torch.Generator) -> torch.Tensor:
+    """A kernel of flax shape ``shape`` from flax's law for ``init_type``:
+    ``xavier`` (``xavier_normal``: variance 2/(fan_in + fan_out)) and
+    ``kaiming`` (``kaiming_normal``: variance 2/fan_in) as normals
+    truncated at ±2σ′, σ′ = σ/0.87962566 so that the std is σ, ``gain``
+    unused; ``orthogonal``: the (H·W·I, O) matrix with orthonormal columns
+    (rows where it is wide: Q of the QR of a normal matrix, its columns'
+    signs those of R's diagonal) times ``gain``. Drawn in f32 (the QR in
+    f64) on the generator's device."""
+    dev = generator.device
+    if init_type in ("xavier", "kaiming"):
+        fan_in, fan_out = kernel_fans(shape)
+        var = (2.0 / (fan_in + fan_out) if init_type == "xavier"
+               else 2.0 / fan_in)
+        w = torch.empty(shape, device=dev)
+        nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+        return w * (math.sqrt(var) / _TRUNC_STD)
+    if init_type == "orthogonal":
+        n_cols = shape[-1]
+        n_rows = math.prod(shape) // n_cols
+        wide = n_rows < n_cols
+        a = torch.randn((n_cols, n_rows) if wide else (n_rows, n_cols),
+                        generator=generator, dtype=torch.float64,
+                        device=dev)
+        q, r = torch.linalg.qr(a)
+        q = q * torch.sign(torch.diagonal(r))
+        if wide:
+            q = q.T
+        return (gain * q).reshape(shape).float()
+    raise ValueError(f"unknown init type {init_type!r} (have {INIT_TYPES})")
+
+
+def init_generator(seed: int, net: int, leaf: int,
+                   device: Union[str, torch.device] = "cpu"
+                   ) -> torch.Generator:
+    """The stream of one re-drawn kernel on ``device``: leaf ``leaf`` of
+    network ``net`` of a state seeded with ``seed`` (the triple hashed by
+    numpy's ``SeedSequence``)."""
+    mixed = np.random.SeedSequence([seed, net, leaf]).generate_state(
+        1, np.uint64)
+    return torch.Generator(device=device).manual_seed(int(mixed[0]))
+
+
+@torch.no_grad()
+def apply_init_type(module: nn.Module, seed: int, net: int,
+                    init_type: str = "normal", gain: float = 0.02
+                    ) -> nn.Module:
+    """Re-draw every conv kernel of ``module`` from :func:`draw_kernel`'s
+    law for ``init_type``, each from its own :func:`init_generator` stream
+    on the kernel's device (``p2p_tpu/models/registry.py:133
+    apply_init_type``); biases, norm affines, PReLU slopes and the
+    spectral-norm ``u`` keep their values. ``normal`` keeps the reference
+    init (the module as it is)."""
+    if init_type == "normal":
+        return module
+    if init_type not in INIT_TYPES:
+        raise ValueError(f"unknown init type {init_type!r} (have "
+                         f"{INIT_TYPES})")
+    for i, (_, p, owner) in enumerate(jax_kernels(module)):
+        shape = tuple(kernel_to_flax(p, owner).shape)
+        w = draw_kernel(init_type, shape, gain,
+                        init_generator(seed, net, i, p.device))
+        p.copy_(kernel_to_port(w, owner))
     return module

@@ -29,13 +29,15 @@ from p2p_tpu_torch.ops.norm import make_norm_act
 
 
 class ResnetBlock(nn.Module):
-    """reflectpad-conv-norm-relu-reflectpad-conv-norm + identity."""
+    """reflectpad-conv-norm-relu-reflectpad-conv-norm + identity. The convs
+    carry biases with ``norm="none"`` or ``legacy_layout`` (the JAX
+    block's flag, which models/compression_ae.py pins)."""
 
     def __init__(self, features: int, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 int8_delayed: bool = False):
+                 int8_delayed: bool = False, legacy_layout: bool = False):
         super().__init__()
-        ub = norm == "none"
+        ub = legacy_layout or norm == "none"
         self.na = make_norm_act(norm)
         q = dict(use_bias=ub, dtype=dtype, int8=int8,
                  int8_delayed=int8_delayed)

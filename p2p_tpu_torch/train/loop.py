@@ -9,16 +9,27 @@ Each epoch shuffles the train split with ``default_rng(seed + epoch +
 jitter)`` (and crops with ``aug_seed`` = the same sum; the jitter moves
 only after a rollback), runs one train step per batch with the batches
 sent to the card one ahead (data/pipeline.py), and keeps the metrics as
-device-side running sums fetched once at the epoch's end. The eval scores
-every test image (per-image PSNR/SSIM in eval mode, no moments kernel)
-and writes the first batch's ``e{epoch}_{input,target,pred,comp}.png``
-under ``<workdir>/<result_dir>/<dataset>/``. A checkpoint is saved every
-``epoch_save`` epochs and at the last one, with its iterator sidecar, and
-marked good when its eval's PSNR is finite. ``metrics_<name>.jsonl`` in
-the workdir receives the JAX trainer's records under the same keys
-(``manifest``, ``train``, ``epoch``, ``eval``, ``memory``, ``preempt``,
-``resume``, ``health``, ``rollback``, ``health_summary``, ...), through
-the registry's sinks (obs/sinks.py).
+device-side running sums fetched once at the epoch's end. The eval
+scores every test image (per-image PSNR/SSIM in eval mode, no moments
+kernel) and writes the first batch's
+``e{epoch}_{input,target,pred,comp}.png`` under
+``<workdir>/<result_dir>/<dataset>/``; with ``train.save_masks`` also
+``e{epoch}_mask.png``, the bitwise AND of the uint8 prediction and
+input; with ``train.eval_fid`` it adds ``vfid``, the Fréchet distance of
+the test split's targets and predictions in mean-pooled VGG19 features
+(losses/fid.py; ``vfid_feature_source`` "random" beside it when the VGG
+weights are the seeded draw, not an ``.npz``), once more than one image
+was scored. ``train.eval_every_epoch`` False skips the per-epoch eval
+(and so ``mark_good``). A split that is not memoized and has more than
+64 items is read by ``data.threads`` loader worker processes, started
+once for the run (``fit`` stops them at its end). A
+checkpoint is saved every ``epoch_save`` epochs and at the last one,
+with its iterator sidecar, and marked good when its eval's PSNR is
+finite. ``metrics_<name>.jsonl`` in the workdir receives the JAX
+trainer's records under the same keys (``manifest``, ``train``,
+``epoch``, ``eval``, ``memory``, ``preempt``, ``resume``, ``health``,
+``rollback``, ``health_summary``, ...), through the registry's sinks
+(obs/sinks.py).
 
 Host syncs of a step: the skip guard's two (train/step.py), one per
 ``log_every`` steps for the ``train`` record, and the divergence
@@ -62,8 +73,8 @@ The video trainer (train/video_loop.py ``VideoTrainer``) is this trainer
 on clips: it overrides the factories and the eval batch, and shares every
 path above.
 
-Not ported yet: elastic resume across a topology change (slice 13), scan
-steps, meshes and FID.
+Not ported yet: elastic resume across a topology change and meshes
+(slice 13), scan steps.
 """
 
 from __future__ import annotations
@@ -82,8 +93,10 @@ from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.core.debug import check_finite, enable_nan_debugging
 from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import train_dtype
-from p2p_tpu_torch.data.pipeline import (PairedImageDataset, device_prefetch,
-                                         make_loader)
+from p2p_tpu_torch.data.pipeline import (LoaderWorkers, PairedImageDataset,
+                                         device_prefetch, make_loader)
+from p2p_tpu_torch.losses.fid import FIDEvaluator, make_vgg_feature_fn
+from p2p_tpu_torch.models.vgg import vgg19_npz_path
 from p2p_tpu_torch.obs import (MemoryWatchdog, MetricsLogger,
                                RetraceWatchdog, SpanRecorder,
                                add_sentinel_handler, read_sentinels,
@@ -101,7 +114,7 @@ from p2p_tpu_torch.train.state import (TrainState, create_train_state,
                                        load_vgg19)
 from p2p_tpu_torch.train.step import (build_eval_step, build_train_step,
                                       compressed_input, to_device_image)
-from p2p_tpu_torch.utils.images import ingest, save_img
+from p2p_tpu_torch.utils.images import ingest, save_img, to_uint8_img
 
 
 # ----------------------------------------------------------- telemetry
@@ -497,9 +510,11 @@ class Trainer:
     overrides the dataset, state and step factories, the eval batch and the
     samples, and the two keys below."""
 
-    # the epoch record's throughput key and the eval record's count key
+    # the epoch record's throughput key and the eval record's count key;
+    # whether eval_fid scores VFID (the JAX video trainer computes none)
     RATE_KEY = "img_per_sec"
     EVAL_COUNT_KEY = "n_images"
+    SCORES_FID = True
 
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  workdir: str = ".",
@@ -520,7 +535,15 @@ class Trainer:
         self.dtype = train_dtype(cfg.train.mixed_precision)
         self.vgg = (load_vgg19(device=self.device,
                                imagenet_norm=cfg.loss.vgg_imagenet_norm)
-                    if cfg.loss.lambda_vgg > 0 else None)
+                    if self._needs_vgg() else None)
+        self.fid_feature_fn = self.vgg_source = None
+        if cfg.train.eval_fid and self.SCORES_FID:
+            self.vgg_source = "pretrained" if vgg19_npz_path() else "random"
+            if self.vgg_source != "pretrained":
+                print("WARNING: VFID will use RANDOM VGG19 features (no "
+                      "pretrained npz asset found) — distances are not "
+                      "comparable to real VFID/FID numbers.", flush=True)
+            self.fid_feature_fn = make_vgg_feature_fn(self.vgg)
         self.state = self._create_state()
         self.train_step, self.eval_step = self._build_steps()
         self.logger = MetricsLogger(metrics_path(workdir, cfg.name),
@@ -536,7 +559,39 @@ class Trainer:
         self.epoch = cfg.train.epoch_count
         self.preempt: Optional[PreemptionGuard] = None
         self._preempted = False
+        self._workers: Optional[LoaderWorkers] = None
         init_trainer_obs(self)
+
+    def _needs_vgg(self) -> bool:
+        """VGG19 is loaded for the perceptual or style loss or for VFID
+        (``p2p_tpu/train/loop.py:946``)."""
+        L = self.cfg.loss
+        return (L.lambda_vgg > 0 or L.lambda_style > 0
+                or (self.cfg.train.eval_fid and self.SCORES_FID))
+
+    def _loader_workers(self) -> int:
+        """Loader worker processes of the train split: ``data.threads``
+        for a split of more than 64 items that is not memoized (workers
+        would each start with an empty memo; ``p2p_tpu/train/loop.py:
+        1237``), else none."""
+        ds = self.train_ds
+        if getattr(ds, "cache_enabled", False) or len(ds) <= 64:
+            return 0
+        return self.cfg.data.threads
+
+    def _train_workers(self) -> Optional[LoaderWorkers]:
+        """The train split's worker pool, started by the first epoch that
+        wants one and kept for the run (``fit`` closes it)."""
+        n = self._loader_workers()
+        if n > 0 and self._workers is None:
+            self._workers = LoaderWorkers(self.train_ds, n)
+        return self._workers if n > 0 else None
+
+    def close_workers(self) -> None:
+        """Stop the train split's loader workers, if any were started."""
+        if self._workers is not None:
+            self._workers.close()
+            self._workers = None
 
     def _datasets(self, root: str):
         """The train and test splits under ``root``."""
@@ -564,7 +619,8 @@ class Trainer:
 
     def _build_steps(self):
         """``(train_step, eval_step)``."""
-        return (build_train_step(self.cfg, self.vgg, self.dtype),
+        return (build_train_step(self.cfg, self.vgg, self.dtype,
+                                 self.steps_per_epoch),
                 build_eval_step(self.cfg, self.dtype))
 
     # ------------------------------------------------------------ resume
@@ -643,7 +699,8 @@ class Trainer:
         self.train_ds.aug_seed = cfg.train.seed + seed
         loader = make_loader(self.train_ds, cfg.data.batch_size,
                              shuffle=True, seed=cfg.train.seed + seed,
-                             skip_samples=skip_samples)
+                             skip_samples=skip_samples,
+                             workers=self._train_workers())
         sums: Optional[Dict[str, torch.Tensor]] = None
         count = last_logged = 0
         disp_hist = self.obs.histogram("dispatch_secs")
@@ -708,11 +765,16 @@ class Trainer:
                              drop_remainder=False)
         psnrs: List[torch.Tensor] = []
         ssims: List[torch.Tensor] = []
+        fid = (FIDEvaluator(self.fid_feature_fn)
+               if self.fid_feature_fn is not None else None)
         saved = False
         for batch in device_prefetch(loader, self.device):
             pred, metrics = self._eval_batch(batch)
             psnrs.append(metrics["psnr"])
             ssims.append(metrics["ssim"])
+            if fid is not None:
+                fid.update(to_device_image(batch["target"], self.device),
+                           pred.permute(0, 3, 1, 2))
             if save_samples and not saved:
                 self._save_samples(batch, pred)
                 saved = True
@@ -721,6 +783,10 @@ class Trainer:
         result = {"psnr_mean": float(np.mean(p)), "psnr_max": float(np.max(p)),
                   "ssim_mean": float(np.mean(s)), "ssim_max": float(np.max(s)),
                   self.EVAL_COUNT_KEY: len(p)}
+        if fid is not None and fid.real.n > 1:
+            result["vfid"] = fid.compute()
+            if self.vgg_source != "pretrained":
+                result["vfid_feature_source"] = self.vgg_source
         self.logger.log({"kind": "eval", "epoch": self.epoch, **result})
         return result
 
@@ -752,6 +818,11 @@ class Trainer:
             finally:
                 net_c.train()
             images["comp"] = first(comp.permute(0, 2, 3, 1))
+        if self.cfg.train.save_masks:
+            # the reference's commented masking experiment: the bitwise
+            # AND of the uint8 prediction and input
+            images["mask"] = np.bitwise_and(to_uint8_img(images["pred"]),
+                                            to_uint8_img(images["input"]))
         for k, img in images.items():
             save_img(img, os.path.join(out_dir, f"e{self.epoch}_{k}.png"))
 
@@ -783,7 +854,8 @@ class Trainer:
                               **train_metrics, "lr": self.current_lr()}
                     rollback = (self.health is not None
                                 and self.health.rollback_pending)
-                    if not self._preempted and not rollback:
+                    if cfg.train.eval_every_epoch and not self._preempted \
+                            and not rollback:
                         record.update(self.evaluate(save_samples=True))
                 if self._preempted:
                     # a partial epoch writes no epoch record
@@ -816,6 +888,7 @@ class Trainer:
                     armed_builds = True
                 self.epoch += 1
         finally:
+            self.close_workers()
             release_preempt_guard(self, owned_guard)
             close_trainer_obs(self)
             self.spans.export_perfetto(self._trace_path)

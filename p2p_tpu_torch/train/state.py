@@ -44,8 +44,8 @@ from torch import nn
 
 from p2p_tpu_torch.core.config import Config
 from p2p_tpu_torch.core.device import resolve_device
-from p2p_tpu_torch.models.registry import define_C, define_D, define_G, \
-    init_weights
+from p2p_tpu_torch.models.registry import (apply_init_type, define_C,
+                                           define_D, define_G, init_weights)
 from p2p_tpu_torch.models.vgg import (VGG19Features, init_vgg19,
                                       load_vgg19_npz, vgg19_npz_path)
 from p2p_tpu_torch.ops.int8 import quant_modules
@@ -233,8 +233,11 @@ def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
                        sample_batch: Optional[Dict[str, np.ndarray]] = None
                        ) -> TrainState:
     """The networks of ``cfg`` with the reference init drawn from ``seed``
-    (G, then D, then C), as f32 masters on ``device`` (``cuda`` unless the
-    caller asks for the CPU) in channels_last, and fresh optimizers. Under
+    (G, then D, then C) and, with ``model.init_type`` other than
+    ``normal``, every kernel re-drawn from that law (models/registry.py
+    ``apply_init_type``, net streams 0, 1, 2), as f32 masters on ``device``
+    (``cuda`` unless the caller asks for the CPU) in channels_last, and
+    fresh optimizers. Under
     ``int8_delayed`` the stored activation scales are initialized from
     ``sample_batch`` (NHWC host arrays ``"input"`` and ``"target"``, as a
     train step takes), which is then required."""
@@ -245,9 +248,11 @@ def create_train_state(cfg: Config, seed: int = 0, steps_per_epoch: int = 1,
     g, d, c = build_models(cfg, train_dtype)
     nets = [g, d] if c is None else [g, d, c]
     gen = torch.Generator().manual_seed(seed)
-    for net in nets:
+    for i, net in enumerate(nets):
         init_weights(net, gen)
         net.to(dev, memory_format=torch.channels_last).train()
+        apply_init_type(net, seed, i, cfg.model.init_type,
+                        cfg.model.init_gain)
     if cfg.model.int8_delayed:
         x = _image(sample_batch["input"], dev)
         init_amax(g, x, train=False)

@@ -23,7 +23,8 @@ metrics)`` in the order of the JAX step (``step.py:277-597``):
    generator seeded from ``(seed, step)``), so the step keeps the
    reference's three D forwards: D(pooled) and D(real) for the D loss,
    then D(real_a ‖ fake_b) for the G loss, gradient to fake_b only;
-4. the G loss: GAN + feature matching + VGG + TV + L1 per the config;
+4. the G loss: GAN + feature matching + VGG + style + TV + angular +
+   Sobel + L1 per the config (:func:`make_g_loss_fn`);
 5. G's update, then D's, each scaled by ``state.lr_scale`` and, with
    ``grad_clip``, on gradients with their non-finite entries zeroed and
    clipped to that global norm (train/state.py ``clip_grads_``); then the
@@ -31,7 +32,8 @@ metrics)`` in the order of the JAX step (``step.py:277-597``):
 6. with a compression net, the net_c branch against the UPDATED G:
    MSE(G(cq), real_b) + λ_vgg·VGG(cq, real_b), ``cq =
    quantize_ste(net_c(real_b))``, the gradient reaching net_c through the
-   straight-through quantizer; without one, ``loss_c`` is a 0-d zero.
+   straight-through quantizer (no style, angular or Sobel term: the JAX
+   branch has none); without one, ``loss_c`` is a 0-d zero.
 
 Running statistics, spectral ``u`` and the delayed-int8 ``amax_x`` are
 buffers that each forward in training mode advances in place, so they
@@ -89,12 +91,15 @@ from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
 from p2p_tpu_torch.losses.gan import gan_loss
 from p2p_tpu_torch.losses.l1 import l1_loss
 from p2p_tpu_torch.losses.metrics import psnr, ssim
-from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
+from p2p_tpu_torch.losses.perceptual import (perceptual_distance,
+                                             target_features, vgg_loss)
+from p2p_tpu_torch.losses.style import style_loss
 from p2p_tpu_torch.models.patchgan import check_norm_d
 from p2p_tpu_torch.obs.taps import grad_norm_taps, nan_sentinel
 from p2p_tpu_torch.ops.int8 import stored_scales
 from p2p_tpu_torch.ops.norm import NORM_KINDS
 from p2p_tpu_torch.ops.quantize import quantize, quantize_ste
+from p2p_tpu_torch.ops.sobel import angular_loss, sobel_edges
 from p2p_tpu_torch.ops.tv import total_variation_loss
 from p2p_tpu_torch.train.state import (TrainState, clip_grads_,
                                        ema_update_)
@@ -203,25 +208,64 @@ def single_forward_d_losses(net_d: nn.Module, fake_pair: torch.Tensor,
     return (loss_fake + loss_real).detach(), pred_fake, pred_real
 
 
-def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module]):
-    """``g_losses(fake_b, pred_fake, pred_real, real_b, real_feats) ->
-    (total, parts)``: GAN + feature matching + VGG + TV + L1 per the
-    config; ``parts`` holds each term under the JAX metric keys."""
-    L = cfg.loss
+def make_g_loss_fn(cfg: Config, vgg: Optional[nn.Module],
+                   steps_per_epoch: int = 1):
+    """``g_losses(fake_b, pred_fake, pred_real, real_a, real_b, real_feats,
+    step) -> (total, parts)``: GAN + feature matching + VGG + style + TV +
+    angular + Sobel + L1 per the config, summed in that order, with
+    ``parts`` holding each term under the JAX metric keys (``p2p_tpu/
+    train/step.py:140 make_g_loss_fn``). ``real_a`` is the batch's input
+    (not net_c's output), ``real_feats`` the VGG taps of ``real_b`` (when
+    VGG or style is on; the fake's taps are computed once for both),
+    ``step`` the step count before this step's increment.
 
-    def g_losses(fake_b, pred_fake, pred_real, real_b, real_feats):
-        total = gan_loss(pred_fake, True, L.gan_mode, for_discriminator=False)
-        parts = {"g_gan": total}
+    - style: ``lambda_style`` × :func:`~p2p_tpu_torch.losses.style.
+      style_loss`, whenever ``vgg`` is given (``lambda_vgg`` may be 0);
+    - angular: ``lambda_angular`` × the angular error between the
+      illumination quotients ``real_a / max(real_b, 1e-4)`` and
+      ``real_a / max(fake_b, 1e-4)``;
+    - Sobel: the mean |sobel(fake_b) − sobel(real_b)| times
+      ``lambda_sobel`` · min((1 + step // steps_per_epoch) /
+      sobel_warmup_epochs, 1) (the plain weight without a warm-up)."""
+    L = cfg.loss
+    need_vgg = L.lambda_vgg > 0 and vgg is not None
+    need_style = L.lambda_style > 0 and vgg is not None
+
+    def g_losses(fake_b, pred_fake, pred_real, real_a, real_b, real_feats,
+                 step: int):
+        parts = {"g_gan": gan_loss(pred_fake, True, L.gan_mode,
+                                   for_discriminator=False)}
         if L.lambda_feat > 0:
             parts["g_feat"] = feature_matching_loss(
                 pred_fake, pred_real, cfg.model.n_layers_D, L.lambda_feat)
-        if L.lambda_vgg > 0 and vgg is not None:
-            parts["g_vgg"] = vgg_loss(vgg, fake_b, real_feats) * L.lambda_vgg
+        fake_feats = vgg(fake_b) if need_vgg or need_style else None
+        if need_vgg:
+            parts["g_vgg"] = (perceptual_distance(fake_feats, real_feats)
+                              * L.lambda_vgg)
+        if need_style:
+            parts["g_style"] = (style_loss(fake_feats, real_feats)
+                                * L.lambda_style)
         if L.lambda_tv > 0:
             parts["g_tv"] = total_variation_loss(fake_b) * L.lambda_tv
+        if L.lambda_angular > 0:
+            eps = torch.tensor(1e-4, dtype=real_b.dtype, device=real_b.device)
+            parts["g_angular"] = angular_loss(
+                real_a / torch.maximum(real_b, eps),
+                real_a / torch.maximum(fake_b, eps)) * L.lambda_angular
+        if L.lambda_sobel > 0:
+            lam = np.float32(L.lambda_sobel)     # the ramp in f32, as JAX
+            if L.sobel_warmup_epochs > 0:
+                epoch = 1 + step // max(steps_per_epoch, 1)
+                lam = lam * np.minimum(
+                    np.float32(epoch) / np.float32(L.sobel_warmup_epochs),
+                    np.float32(1.0))
+            parts["g_sobel"] = (sobel_edges(fake_b) - sobel_edges(real_b)
+                                ).abs().mean() * float(lam)
         if L.lambda_l1 > 0:
             parts["g_l1"] = l1_loss(fake_b, real_b) * L.lambda_l1
-        for k in ("g_feat", "g_vgg", "g_tv", "g_l1"):
+        total = parts["g_gan"]
+        for k in ("g_feat", "g_vgg", "g_style", "g_tv", "g_angular",
+                  "g_sobel", "g_l1"):
             if k in parts:
                 total = total + parts[k]
         return total, parts
@@ -301,11 +345,13 @@ def dropout_generator(seed: int, step: int, device: torch.device
 
 
 def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
-                     train_dtype: Optional[torch.dtype] = None):
+                     train_dtype: Optional[torch.dtype] = None,
+                     steps_per_epoch: int = 1):
     """``step(state, batch) -> (state, metrics)`` for ``cfg``; ``vgg`` is
-    the frozen VGG19 trunk (needed
-    when ``lambda_vgg > 0``), ``train_dtype`` the dtype the images enter
-    in (bf16 under mixed precision, None for f32). ``batch`` holds NHWC
+    the frozen VGG19 trunk (needed when ``lambda_vgg`` or ``lambda_style``
+    is above 0), ``train_dtype`` the dtype the images enter in (bf16 under
+    mixed precision, None for f32), ``steps_per_epoch`` the epoch length
+    the Sobel warm-up counts in. ``batch`` holds NHWC
     host arrays ``"input"`` and ``"target"``; ``state`` is advanced in
     place; ``metrics`` are 0-d f32 tensors on the device under the JAX
     keys."""
@@ -317,10 +363,11 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
     # dropout lives in the U-Net only (the JAX ExpandNetwork has none)
     use_dropout = cfg.model.use_dropout and cfg.model.generator == "unet"
     need_vgg = L.lambda_vgg > 0 and vgg is not None
-    if need_vgg and vgg.imagenet_norm != L.vgg_imagenet_norm:
+    need_feats = vgg is not None and (L.lambda_vgg > 0 or L.lambda_style > 0)
+    if need_feats and vgg.imagenet_norm != L.vgg_imagenet_norm:
         raise ValueError("vgg.imagenet_norm must equal "
                          "cfg.loss.vgg_imagenet_norm")
-    g_losses = make_g_loss_fn(cfg, vgg)
+    g_losses = make_g_loss_fn(cfg, vgg, steps_per_epoch)
     guard = cfg.health.enabled
     use_pool = cfg.train.pool_size > 0
     ema_decay = cfg.health.ema_decay
@@ -375,9 +422,9 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             loss_d, pred_fake, pred_real = single_forward_d_losses(
                 net_d, torch.cat([real_a, fake_b], dim=1), real_pair,
                 L.gan_mode)
-        real_feats = target_features(vgg, real_b) if need_vgg else None
-        loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_b,
-                                 real_feats)
+        real_feats = target_features(vgg, real_b) if need_feats else None
+        loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_a,
+                                 real_b, real_feats, state.step)
         loss_g.backward(inputs=list(net_g.parameters()))
 
         # ---- 5. G then D updates, unless the guard drops the step --------

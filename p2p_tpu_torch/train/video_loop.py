@@ -2,18 +2,22 @@
 ``p2p_tpu/train/video_loop.py:57 build_video_eval_step`` and ``:86
 VideoTrainer``, single device).
 
-:class:`VideoTrainer` is train/loop.py's ``Trainer`` on clips: the splits
-are ``data/video.VideoClipDataset`` windows of ``n_frames``, the state
-and the step are train/video_step.py's (G, the spatial D and the
+:class:`VideoTrainer` is train/loop.py's ``Trainer`` on clips: the
+splits are ``data/video.VideoClipDataset`` windows of ``n_frames``, the
+state and the step are train/video_step.py's (G, the spatial D and the
 temporal D with their three optimizers), and the eval scores every frame
-of every test clip (``n_frames_scored`` in the ``eval`` record; no sample
-PNGs, as in JAX). Everything else is the image trainer's own code: the
-epochs and their shuffle, the metric sums, ``frames_per_sec`` (clip
-frames a second after the first step), the checkpoints (``net_dt.pt`` and
-``opt_dt.pt`` beside G's and D's, train/checkpoint.py) with their
-iterator sidecar, ``mark_good`` on a finite PSNR, exact-step preemption
-(exit 75 in ``cli/train.py``), the sentinel, the ladder and rollback
-(exit 76), and the spans, records and memory samples.
+of every test clip (``n_frames_scored`` in the ``eval`` record; no
+sample PNGs, no masks and no VFID, as in JAX: its video trainer loads
+VGG19 only for ``lambda_vgg``). Everything else is the image trainer's
+own code: the epochs and their shuffle, ``data.threads`` loader workers
+for a split of more than 64 clips, the per-epoch eval gated by
+``train.eval_every_epoch`` (``p2p_tpu/train/video_loop.py:475``), the
+metric sums, ``frames_per_sec`` (clip frames a second after the first
+step), the checkpoints (``net_dt.pt`` and ``opt_dt.pt`` beside G's and
+D's, train/checkpoint.py) with their iterator sidecar, ``mark_good`` on
+a finite PSNR, exact-step preemption (exit 75 in ``cli/train.py``), the
+sentinel, the ladder and rollback (exit 76), and the spans, records and
+memory samples.
 """
 
 from __future__ import annotations
@@ -63,6 +67,10 @@ class VideoTrainer(Trainer):
 
     RATE_KEY = "frames_per_sec"
     EVAL_COUNT_KEY = "n_frames_scored"
+    SCORES_FID = False
+
+    def _needs_vgg(self) -> bool:
+        return self.cfg.loss.lambda_vgg > 0
 
     def _datasets(self, root: str):
         d = self.cfg.data

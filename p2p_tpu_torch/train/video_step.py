@@ -31,7 +31,8 @@ are concatenated on channels, as JAX concatenates them.
 
 The metrics are the JAX keys: ``loss_d``, ``loss_dt``, ``loss_g``,
 ``g_gan``, ``g_gan_t``, ``g_feat`` (and ``g_vgg``, ``g_tv``, ``g_l1``
-when weighted), ``health_ok`` under the guard. The video state has no
+when weighted; no style, angular or Sobel term, as the JAX video step
+has none), ``health_ok`` under the guard. The video state has no
 compression net, fake pool, EMA generator or stored int8 scales: the
 port refuses ``int8_delayed`` and ``ema_decay`` with the JAX messages,
 and ``cli/train.py`` a pool.
@@ -52,7 +53,8 @@ from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
 from p2p_tpu_torch.losses.gan import gan_loss
 from p2p_tpu_torch.losses.l1 import l1_loss
 from p2p_tpu_torch.losses.perceptual import target_features, vgg_loss
-from p2p_tpu_torch.models.registry import define_D, define_G, init_weights
+from p2p_tpu_torch.models.registry import (apply_init_type, define_D,
+                                           define_G, init_weights)
 from p2p_tpu_torch.models.temporal_d import (MultiscaleTemporalDiscriminator,
                                              fold_frames, unfold_frames)
 from p2p_tpu_torch.ops.tv import total_variation_loss
@@ -107,7 +109,8 @@ def create_video_train_state(cfg: Config, seed: int = 0,
                              device: Union[str, torch.device, None] = None
                              ) -> VideoTrainState:
     """The networks of ``cfg`` with the reference init drawn from ``seed``
-    (G, then D, then the temporal D), as f32 masters on ``device``
+    (G, then D, then the temporal D), the kernels re-drawn per
+    ``model.init_type`` (net streams 0, 1 and 3), as f32 masters on ``device``
     (``cuda`` unless the caller asks for the CPU), G and D in
     channels_last and the temporal D in channels_last_3d, and fresh
     optimizers."""
@@ -118,10 +121,14 @@ def create_video_train_state(cfg: Config, seed: int = 0,
     dev = resolve_device(device)
     g, d, dt = build_video_models(cfg, train_dtype)
     gen = torch.Generator().manual_seed(seed)
-    for net, fmt in ((g, torch.channels_last), (d, torch.channels_last),
-                     (dt, torch.channels_last_3d)):
+    for i, (net, fmt) in enumerate(((g, torch.channels_last),
+                                    (d, torch.channels_last),
+                                    (dt, torch.channels_last_3d))):
         init_weights(net, gen)
         net.to(dev, memory_format=fmt).train()
+        # the temporal D's kernels draw from net stream 3 (net_c's is 2)
+        apply_init_type(net, seed, i if i < 2 else 3, cfg.model.init_type,
+                        cfg.model.init_gain)
     opts = make_optimizers(cfg, [g, d, dt], steps_per_epoch)
     return VideoTrainState(0, g, d, dt, *opts)
 

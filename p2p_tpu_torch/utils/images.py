@@ -1,8 +1,17 @@
 """Image helpers (counterpart of ``p2p_tpu/utils/images.py:15 ingest`` and
-``:39 to_uint8_img``), a PNG writer and reader built on the standard
-library (zlib + struct), and Pillow's bicubic resize of
-``p2p_tpu/data/pipeline.py:56-58 load_image`` in numpy, byte for byte, so
-serving and the data pipeline read and write images without Pillow.
+``:39 to_uint8_img``), a PNG writer and reader, and Pillow's bicubic
+resize of ``p2p_tpu/data/pipeline.py:56-58 load_image``, byte for byte,
+so serving and the data pipeline read and write images without Pillow.
+
+:func:`decode_png` and :func:`resize_bicubic` run the C++ host image
+library (``native/fastimage.cpp``). The decoder routes by format: an
+8-bit RGB or RGBA PNG that is not interlaced (what the port's writer and
+``generate_dataset`` write) is decoded in C++, every other PNG by the
+numpy reader :func:`decode_png_plain`; the process registry
+(obs/registry.py ``get_registry``) counts each route in
+``png_decode_total{route="native"|"numpy"}``. :func:`decode_png_plain` and
+:func:`resize_bicubic_plain` (numpy, standard library) are the plain
+versions the tests hold the C++ code against.
 """
 
 from __future__ import annotations
@@ -13,6 +22,9 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from p2p_tpu_torch import native
+from p2p_tpu_torch.obs.registry import get_registry
 
 # 1/127.5 rounded to f32 once: the scalar the JAX package multiplies by
 _INV_127_5 = float(np.float32(1.0 / 127.5))
@@ -76,14 +88,14 @@ def save_img(x, path: str) -> None:
         f.write(encode_png(to_uint8_img(x)))
 
 
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # samples per pixel of each 8-bit colour type
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 
 def _png_chunks(data: bytes):
     """Yield ``(type, payload)`` of every chunk, checking each CRC."""
-    pos = len(_PNG_SIGNATURE)
+    pos = len(PNG_SIGNATURE)
     while pos < len(data):
         if pos + 8 > len(data):
             raise ValueError("PNG truncated inside a chunk header")
@@ -144,13 +156,24 @@ def _unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
 
 
 def decode_png(data: bytes) -> np.ndarray:
+    """PNG bytes → uint8 (h, w, 3) RGB, :func:`decode_png_plain`'s result:
+    in C++ for an 8-bit RGB or RGBA, non-interlaced PNG, by the numpy
+    reader for any other; each decode counted under its route. Raises
+    ``ValueError`` on what neither reads."""
+    arr = native.png_decode(data)
+    route = "numpy" if arr is None else "native"
+    get_registry().counter("png_decode_total", route=route).inc()
+    return decode_png_plain(data) if arr is None else arr
+
+
+def decode_png_plain(data: bytes) -> np.ndarray:
     """PNG bytes → uint8 (h, w, 3) RGB: the inverse of :func:`encode_png`
     for every 8-bit non-interlaced colour type (0 grey, 2 RGB, 3 palette,
     4 grey + alpha, 6 RGBA), converted as Pillow's ``convert("RGB")`` does
     (grey repeated, alpha dropped, palette looked up). Raises
     ``ValueError`` on anything else: another bit depth, interlace, a
     truncated stream or a chunk with a bad CRC."""
-    if not data.startswith(_PNG_SIGNATURE):
+    if not data.startswith(PNG_SIGNATURE):
         raise ValueError("not a PNG (bad signature)")
     header, palette, idat = None, None, []
     for kind, payload in _png_chunks(data):
@@ -202,14 +225,13 @@ def _bicubic(x: np.ndarray) -> np.ndarray:
                     np.where(x < 2.0, (((x - 5) * x + 8) * x - 4) * a, 0.0))
 
 
-def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    """One pass of Pillow's ``ImagingResample`` (``precompute_coeffs``,
-    ``normalize_coeffs_8bpc`` and the 8-bit inner loop) along ``axis`` of
-    a uint8 (H, W, C) image: f64 weights of the kernel widened by the
-    downscale factor, normalized to sum 1 in the kernel's order, rounded
-    to 22-bit fixed point, then integer sums rounded at the half and
-    clamped to 0..255."""
-    in_size = img.shape[axis]
+def _resample_coeffs(in_size: int, out_size: int):
+    """``(xmin, count, fixed)`` of one pass of Pillow's ``ImagingResample``
+    from ``in_size`` to ``out_size`` (``precompute_coeffs`` and
+    ``normalize_coeffs_8bpc``): f64 weights of the kernel widened by the
+    downscale factor, normalized to sum 1 in the kernel's order, rounded to
+    22-bit fixed point; output j reads ``count[j]`` inputs from
+    ``xmin[j]`` with the first ``count[j]`` entries of ``fixed[j]``."""
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = 2.0 * filterscale
@@ -229,7 +251,18 @@ def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
                  w / np.where(total != 0.0, total, 1.0)[:, None], w)
     fixed = (w * (1 << _PRECISION_BITS)
              + np.where(w < 0, -0.5, 0.5)).astype(np.int64)
-    idx = np.minimum(xmin[:, None] + taps[None, :], in_size - 1)
+    return xmin, count, fixed
+
+
+def _resample_axis_plain(img: np.ndarray, axis: int, out_size: int
+                         ) -> np.ndarray:
+    """One pass of Pillow's 8-bit resample along ``axis`` of a uint8 (H, W,
+    C) image in numpy: the integer sums of :func:`_resample_coeffs`'
+    windows rounded at the half and clamped to 0..255."""
+    in_size = img.shape[axis]
+    xmin, count, fixed = _resample_coeffs(in_size, out_size)
+    idx = np.minimum(xmin[:, None] + np.arange(fixed.shape[1])[None, :],
+                     in_size - 1)
     src = np.take(img.astype(np.int64), idx, axis=axis)
     if axis == 1:                      # (H, out, k, C)
         acc = (src * fixed[None, :, :, None]).sum(axis=2)
@@ -239,14 +272,31 @@ def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
     return np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
 
 
+def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """:func:`_resample_axis_plain` with the integer loop in C++
+    (``native.resample_axis``) on the same coefficients."""
+    return native.resample_axis(img, axis,
+                                *_resample_coeffs(img.shape[axis], out_size))
+
+
+def _resize(img: np.ndarray, h: int, w: int, resample) -> np.ndarray:
+    out = np.asarray(img, np.uint8)
+    if out.shape[1] != w:
+        out = resample(out, 1, w)
+    if out.shape[0] != h:
+        out = resample(out, 0, h)
+    return np.ascontiguousarray(out)
+
+
 def resize_bicubic(img: np.ndarray, h: int, w: int) -> np.ndarray:
     """uint8 (H, W, C) → uint8 (h, w, C) with the same bytes as Pillow's
     ``Image.resize((w, h), Image.BICUBIC)``, which the JAX ``load_image``
     uses: the width is resampled first, then the height, each pass only
-    where the size changes (:func:`_resample_axis`)."""
-    out = np.asarray(img, np.uint8)
-    if out.shape[1] != w:
-        out = _resample_axis(out, 1, w)
-    if out.shape[0] != h:
-        out = _resample_axis(out, 0, h)
-    return np.ascontiguousarray(out)
+    where the size changes, the integer loop in C++
+    (:func:`_resample_axis`)."""
+    return _resize(img, h, w, _resample_axis)
+
+
+def resize_bicubic_plain(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """:func:`resize_bicubic` in numpy (:func:`_resample_axis_plain`)."""
+    return _resize(img, h, w, _resample_axis_plain)

@@ -71,3 +71,22 @@ def test_wrappers_refuse_a_device_they_have_no_route_for():
     with pytest.raises(ValueError, match="CUDA tensor"):
         norm_act(x, torch.empty((1, 8), device="meta"),
                  torch.empty((1, 8), device="meta"))
+
+
+SLICE_12 = ("native/__init__.py", "ops/sobel.py", "losses/style.py",
+            "losses/fid.py", "models/compression_ae.py")
+
+
+@pytest.mark.parametrize("module", SLICE_12)
+def test_slice_12_modules_are_inside_the_boundary(module):
+    path = ROOT / "p2p_tpu_torch" / module
+    assert path in _port_files()
+    assert not set(_imported_roots(path)) & FORBIDDEN
+
+
+def test_the_host_image_library_includes_only_the_standard_library_and_zlib():
+    src = (ROOT / "p2p_tpu_torch" / "native" / "fastimage.cpp").read_text()
+    headers = {line.split()[1] for line in src.splitlines()
+               if line.startswith("#include")}
+    assert headers == {"<algorithm>", "<cstdint>", "<cstring>", "<new>",
+                       "<vector>", "<zlib.h>"}

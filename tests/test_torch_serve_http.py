@@ -630,12 +630,29 @@ def test_request_decode_matches_jax(case):
         np.testing.assert_array_equal(got, want)
 
 
-def test_a_non_png_body_is_refused_naming_the_png_decoder():
+def test_a_non_png_body_is_refused_naming_the_png_decoder(monkeypatch):
+    """Without Pillow the port reads PNG bodies only."""
     Image = pytest.importorskip("PIL.Image")
     buf = io.BytesIO()
     Image.fromarray(_images(1, (8, 8), 12)[0]).save(buf, format="JPEG")
+    monkeypatch.setitem(sys.modules, "PIL", None)
     with pytest.raises(ValueError, match="PNG only"):
         load_image_bytes(buf.getvalue(), 8, 8)
+
+
+@pytest.mark.parametrize("size", [(32, 32), (40, 24)])
+def test_a_jpeg_body_is_read_by_pillow_as_jax_reads_it(size):
+    Image = pytest.importorskip("PIL.Image")
+    buf = io.BytesIO()
+    Image.fromarray(_images(1, size, 14)[0]).save(buf, format="JPEG")
+    for as_uint8 in (True, False):
+        got = load_image_bytes(buf.getvalue(), 32, 32, as_uint8=as_uint8)
+        want = jax_load_image_bytes(buf.getvalue(), 32, 32,
+                                    as_uint8=as_uint8)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="neither a PNG nor"):
+        load_image_bytes(b"GIF89a not an image", 8, 8)
 
 
 def test_response_png_decodes_to_the_jax_response_pixels():
