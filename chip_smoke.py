@@ -243,7 +243,35 @@ to the CPU or to a plain version):
    phase 12's pix2pixHD phase-1 line is the end-to-end reading of the
    host path; (g) ``cli.infer --compilation_cache <dir>`` in a process of
    its own exits 0 with its libraries built into ``<dir>``;
-17. the script's total seconds, a ``{"kernels": [...]}`` line, then the
+17. slice 13, data parallel (``torchrun`` starts this script's
+   ``--worker`` ranks, which call the port's entry points in process so
+   that their launches are counted; the kernels are built in phase 1,
+   before any rank starts): (a) NCCL at world size 1: the full-width
+   ``edges2shoes_dp`` at batch 64, bf16, 2 steps with the process group
+   bitwise the 2 steps without it (cuDNN deterministic: losses, G, D and
+   G's Adam state), exactly 13 #5 a step, each followed by one all-reduce
+   of its sums (and one of their cotangents in the backward), the
+   ms/step beside phase 12's, then ``cli.train --mesh data=-1`` for
+   ``DP_EPOCHS`` epochs of 2 steps on synthetic 256² pairs; (b) two ranks
+   on the one card through gloo: one f32 step (TF32 off, cuDNN
+   deterministic) at global batch ``DP_GLOBAL_BATCH`` with dropout on
+   against the one-rank step at that batch (losses within
+   ``E2S_STEP1_RTOL``; each tensor's distance over its update within
+   ``band_of`` the one-rank kernel-vs-plain distance of the same call),
+   ``fsdp=2`` bitwise ``data=2``, and the sync-BatchNorm backward in
+   channels_last against f64 on the CPU (``DP_BN_TOL_OF_MAX``), the same
+   bits twice; (c) ``cli.train`` at 2 gloo ranks with
+   ``P2P_CHAOS=elastic@DP_STOP`` exits 75 on both, its relaunch at world
+   size 1 (NCCL) is a ``reshard`` whose live state is bitwise the saved
+   step (the manifest's CRC32s), the two runs read exactly the
+   uninterrupted run's samples (none twice, none missing), a relaunch at
+   global batch ``DP_REBASE_BATCH`` resumes through ``batch_rebase`` and
+   completes, and ``--no-elastic`` exits 2 with the ``TopologyMismatch``
+   text; (d) ``pix2pixhd`` at 1024×512 in bf16 with remat off, "full" and
+   "conv": the peak memory (off > conv > full), ms/step and the #1/#3
+   launches a step of the recompute plan, and one f32 step with each
+   remat bitwise the no-remat step (cuDNN deterministic);
+18. the script's total seconds, a ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -267,6 +295,7 @@ import threading
 import time
 import urllib.error
 import urllib.request
+import warnings
 from unittest import mock
 
 import numpy as np
@@ -522,6 +551,23 @@ S12_SKIP = 5
 S12_STYLE = 1.0
 S12_GRAD_RTOL = 1e-4
 S12_INIT_GAIN = 0.5
+# slice 13 (phase 17), data parallel: (a) and (c) train edges2shoes_dp
+# through cli.train on DP_E2S_PAIRS (train, test) synthetic 256² pairs, 2
+# steps an epoch at the preset's global batch 64, DP_EPOCHS epochs; (a)
+# times DP_TIMED steps with the process group; (b) takes one f32 step at
+# global batch DP_GLOBAL_BATCH on 2 gloo ranks and holds the sync-BatchNorm
+# backward within DP_BN_TOL_OF_MAX of the largest |dx| of f64; (c)
+# preempts at step DP_STOP and relaunches at world size 1 and at global
+# batch DP_REBASE_BATCH; (d) takes REMAT_STEPS bf16 pix2pixHD steps a mode
+DP_E2S_PAIRS = (128, 2)
+DP_EPOCHS = 2
+DP_TIMED = 3
+DP_GLOBAL_BATCH = 8
+DP_BN_TOL_OF_MAX = 1e-4
+DP_STOP = 3
+DP_REBASE_BATCH = 32
+REMAT_MODES = (False, "full", "conv")
+REMAT_STEPS = 3
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -2617,10 +2663,10 @@ RES_BUFFERS = ("mean", "var", "u")
 def net_tensors(ckpt: str, step: int):
     """``{network: {name: tensor}}`` of the parameters of a checkpoint's
     step (its buffers left out)."""
-    from p2p_tpu_torch.train.checkpoint import CheckpointManager, _tensors
+    from p2p_tpu_torch.train.checkpoint import CheckpointManager, tensor_paths
 
     got = CheckpointManager(ckpt).read(step, list(RES_NETS))
-    return {n: {k: t for k, t in _tensors(got[n])
+    return {n: {k: t for k, t in tensor_paths(got[n])
                 if k.rsplit(".", 1)[-1] not in RES_BUFFERS}
             for n in RES_NETS}
 
@@ -4264,7 +4310,7 @@ def edges2shoes_phase(device, card, profile: bool):
           f"{TRAIN_F32_STEPS} steps through #5 vs its plain version, same "
           f"state and dropout seed: losses max rel diff {worst:.3g} (step 1 "
           f"limit {E2S_STEP1_RTOL}, step 2 {E2S_LATER_RTOL})", flush=True)
-    return counts, n_steps + 1
+    return counts, n_steps + 1, med
 
 
 def cityscapes_phase(device, card, profile: bool):
@@ -4961,11 +5007,676 @@ def hd_int8_phase(device, card, profile, per_forward):
     return collections.Counter(counts) + collections.Counter(serve_counts)
 
 
+# ------------------------------------------------------------- slice 13
+def dp_config(batch: int, f32: bool = False):
+    """``edges2shoes_dp`` (the U-Net with dropout, 13 BatchNorms) at
+    ``batch`` (the global batch), in f32 with ``f32``."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset("edges2shoes_dp")
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, batch_size=batch),
+        train=dataclasses.replace(cfg.train,
+                                  mixed_precision=not f32 and
+                                  cfg.train.mixed_precision))
+
+
+def dp_cli_args(data: str, work: str, device: str = "cuda:0"):
+    """``cli.train`` of the full-width ``edges2shoes_dp`` on ``data``:
+    ``DP_EPOCHS`` epochs of 2 steps at the preset's global batch 64, an
+    eval of the 2 test pairs (one a rank on two) each and a checkpoint at
+    the end (and at a preemption), the images read in process."""
+    return ["--preset", "edges2shoes_dp", "--data_root", data, "--workdir",
+            work, "--device", device, "--nepoch", str(DP_EPOCHS),
+            "--epochsave", str(DP_EPOCHS), "--log_every", "1",
+            "--threads", "0", "--test_batch_size", "2"]
+
+
+def nets_of(state):
+    """G's and D's parameters and buffers, on the CPU."""
+    return {f"{n}/{k}": v.detach().cpu().clone()
+            for n in ("net_g", "net_d")
+            for k, v in getattr(state, n).state_dict().items()}
+
+
+def counted_sync(fn):
+    """``fn()`` and the #5 launches and sync-BatchNorm all-reduces (sums,
+    cotangents) it made."""
+    from p2p_tpu_torch.ops import norm
+
+    before = (launch_counts()["batch_moments"], norm.sync_moments.allreduces,
+              norm.sync_moments.backward_allreduces)
+    out = fn()
+    torch.cuda.synchronize()
+    after = (launch_counts()["batch_moments"], norm.sync_moments.allreduces,
+             norm.sync_moments.backward_allreduces)
+    return out, tuple(a - b for a, b in zip(after, before))
+
+
+@contextlib.contextmanager
+def watched_parallel(seen):
+    """``cli.train``'s data-parallel steps for the duration: each counted
+    in ``seen["steps"]`` with its #5 launches and sync all-reduces, the
+    train split's reads in ``seen["reads"]``, and after a resume whether
+    the live state is bitwise the restored step (``seen["restored"]``)."""
+    from p2p_tpu_torch.data import pipeline
+    from p2p_tpu_torch.train import loop
+
+    build, resume = loop.make_parallel_train_step, loop.Trainer.maybe_resume
+    getitem = pipeline.PairedImageDataset.__getitem__
+
+    def counting_build(*a, **kw):
+        step = build(*a, **kw)
+
+        def counted(state, batch):
+            res, c = counted_sync(lambda: step(state, batch))
+            seen["steps"] += 1
+            seen["per_step"].append(c)
+            seen["local_batch"] = int(batch["input"].shape[0])
+            return res
+
+        return counted
+
+    def watched_resume(self):
+        ok = resume(self)
+        if ok:
+            step = self.ckpt.last_restored_step
+            seen["restored"].append((int(step), live_is_saved(self, step)))
+        return ok
+
+    def reading(self, idx):
+        if os.path.basename(os.path.dirname(self.a_dir)) == "train":
+            seen["reads"].append(int(idx))
+        return getitem(self, idx)
+
+    with mock.patch.object(loop, "make_parallel_train_step",
+                           counting_build), \
+            mock.patch.object(loop.Trainer, "maybe_resume", watched_resume), \
+            mock.patch.object(pipeline.PairedImageDataset, "__getitem__",
+                              reading):
+        yield seen
+
+
+def dp_cli(args, chaos=None):
+    """One in-process ``cli.train`` run under :func:`watched_parallel`:
+    its exit code, what it saw and its output."""
+    from p2p_tpu_torch.cli import train
+    from p2p_tpu_torch.resilience import ChaosMonkey, install_chaos
+
+    seen = {"steps": 0, "per_step": [], "reads": [], "restored": [],
+            "local_batch": None}
+    buf = io.StringIO()
+    install_chaos(ChaosMonkey.from_spec(chaos) if chaos else None)
+    try:
+        with watched_parallel(seen), contextlib.redirect_stdout(buf), \
+                contextlib.redirect_stderr(buf):
+            rc = train.main(args)
+    finally:
+        install_chaos(None)
+    seen["rc"] = rc
+    seen["out"] = buf.getvalue()[-3000:]
+    return seen
+
+
+def bn_f64_grad(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
+                bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """dx of Σ BatchNorm(x)·g in f64 on the CPU (batch statistics)."""
+    xd = x.detach().cpu().double().requires_grad_(True)
+    mean = xd.mean(dim=(0, 2, 3), keepdim=True)
+    var = ((xd - mean) ** 2).mean(dim=(0, 2, 3), keepdim=True)
+    y = ((xd - mean) / torch.sqrt(var + eps)
+         * scale.detach().cpu().double().view(1, -1, 1, 1)
+         + bias.detach().cpu().double().view(1, -1, 1, 1))
+    (y * g.cpu().double()).sum().backward()
+    return xd.grad
+
+
+def worker_note(what: str) -> None:
+    """A rank's progress line (the phase prints a failed rank's output)."""
+    print(f"worker: {what} at {time.strftime('%H:%M:%S')}", flush=True)
+
+
+def gloo2_worker(rank: int, out: str, tmp: str) -> dict:
+    """Two ranks on the one card through gloo: (b) one f32 data-parallel
+    step at the global batch against the one-rank step (rank 0), ``fsdp=2``
+    against ``data=2``, the sync-BatchNorm backward against f64; (c) the
+    ``elastic@DP_STOP`` preemption of ``cli.train`` at 2 ranks."""
+    import torch.distributed as dist
+
+    from p2p_tpu_torch.core.mesh import Mesh, MeshSpec, mesh_context
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments_plain
+    from p2p_tpu_torch.parallel import (full_params, make_parallel_train_step,
+                                        place_state, shard_batch)
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step
+
+    res = {}
+    cfg = dp_config(DP_GLOBAL_BATCH, f32=True)
+    batch = e2s_batches(cfg, 1, SEED)[0]
+    with tf32_off(), cudnn_deterministic():
+        # the one-rank step at the global batch, through #5 on rank 0 and
+        # #5's plain version on rank 1 (its distance from the first is the
+        # spread the band is set from)
+        route = ("kernel", "plain")[rank]
+        st = create_train_state(cfg, SEED)
+        start = nets_of(st)
+        with (mock.patch.object(norm, "batch_moments", batch_moments_plain)
+              if route == "plain" else contextlib.nullcontext()):
+            _, m = build_train_step(cfg)(st, batch)
+        torch.save(({k: float(m[k]) for k in FACADES_LOSS_KEYS},
+                    nets_of(st)), f"{out}.route.{route}")
+        del st
+        torch.cuda.empty_cache()
+        dist.barrier()
+        worker_note("(b) one-rank routes done")
+        dp = {}
+        for name, spec in (("data", MeshSpec(data=-1)),
+                           ("fsdp", MeshSpec(data=1, fsdp=2))):
+            mesh = Mesh(spec)
+            st = create_train_state(cfg, SEED)
+            place_state(st, mesh)
+            step = make_parallel_train_step(cfg, mesh)
+            # the step's metrics are the global batch's (their mean over
+            # the ranks)
+            (_, m), c = counted_sync(lambda: step(st, shard_batch(batch,
+                                                                  mesh)))
+            with full_params(st):
+                nets = nets_of(st)
+            opt = {i: {k: v.cpu() for k, v in s.items()
+                       if torch.is_tensor(v)}
+                   for i, s in st.opt_g[0].state_dict()["state"].items()}
+            dp[name] = ({k: float(m[k]) for k in FACADES_LOSS_KEYS}, nets,
+                        opt, c, {k: float(v) for k, v in m.items()})
+            del st, step
+            torch.cuda.empty_cache()
+        res["counts"] = {k: v[3] for k, v in dp.items()}
+        res["fsdp_bitwise"] = (
+            dp["fsdp"][4] == dp["data"][4]
+            and all(torch.equal(dp["fsdp"][1][k], v)
+                    for k, v in dp["data"][1].items())
+            and all(torch.equal(dp["fsdp"][2][i][k], v)
+                    for i, s in dp["data"][2].items() for k, v in s.items()))
+        if rank == 0:
+            one_l, one_n = torch.load(f"{out}.route.kernel",
+                                      weights_only=False)
+            plain_n = torch.load(f"{out}.route.plain", weights_only=False)[1]
+
+            def update_dist(a, b):
+                worst = 0.0
+                for k, v in b.items():
+                    if not v.is_floating_point() or k.endswith(
+                            ("mean", "var")):
+                        continue
+                    upd = float((v - start[k]).norm())
+                    if upd > 0:
+                        worst = max(worst, float((a[k] - v).norm()) / upd)
+                return worst
+
+            res["loss_rel"] = max(abs(dp["data"][0][k] - one_l[k])
+                                  / abs(one_l[k]) for k in one_l)
+            res["spread_update"] = update_dist(plain_n, one_n)
+            res["dp_update"] = update_dist(dp["data"][1], one_n)
+            res["dp_max_abs"] = max(float((dp["data"][1][k] - v).abs().max())
+                                    for k, v in one_n.items()
+                                    if v.is_floating_point())
+        worker_note("(b) data=2 and fsdp=2 steps done")
+        # the sync-BatchNorm backward at the U-Net's first decoder-sized
+        # BatchNorm shape, channels_last, against f64 on the CPU
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        n, c, h, w = DP_GLOBAL_BATCH, 64, 128, 128
+        mean = torch.linspace(-2.0, 2.0, c, device="cuda").view(1, c, 1, 1)
+        x = (torch.randn((n, c, h, w), generator=gen, device="cuda") * 1.5
+             + mean).contiguous(memory_format=torch.channels_last)
+        g = torch.randn((n, c, h, w), generator=gen, device="cuda"
+                        ).contiguous(memory_format=torch.channels_last)
+        rows = slice(rank * n // 2, (rank + 1) * n // 2)
+        mesh = Mesh(MeshSpec(data=-1))
+        dxs = []
+        for _ in range(2):
+            # a fresh module each time: the forward moves its running mean,
+            # which is the next forward's shift
+            bn = norm.BatchNorm(c).cuda()
+            with torch.no_grad():
+                bn.scale.copy_(torch.linspace(0.5, 1.5, c))
+            xr = x[rows].clone().requires_grad_(True)
+            with mesh_context(mesh):
+                (bn(xr) * g[rows]).sum().backward()
+            dxs.append(xr.grad.detach().cpu())
+        mine = dxs[0].contiguous()
+        parts = [torch.empty_like(mine) for _ in range(2)]
+        dist.all_gather(parts, mine)
+        res["bn_same_bits"] = bool(torch.equal(dxs[0], dxs[1]))
+        if rank == 0:
+            want = bn_f64_grad(x, g, bn.scale.detach(), bn.bias.detach())
+            got = torch.cat(parts).double()
+            res["bn_err_of_max"] = float((got - want).abs().max()
+                                         / want.abs().max())
+    worker_note("(b) sync-BatchNorm backward done")
+    # (c) two ranks preempted at step DP_STOP
+    reset_launch_counts()
+    seen = dp_cli(dp_cli_args(os.path.join(tmp, "e2s"),
+                              os.path.join(tmp, "work_c"))
+                  + ["--mesh", "data=-1"], chaos=f"elastic@{DP_STOP}")
+    res["elastic"] = {k: seen[k] for k in ("rc", "steps", "per_step",
+                                           "reads", "local_batch", "out")}
+    res["launches"] = launch_counts()
+    return res
+
+
+def nccl1_worker(rank: int, out: str, tmp: str) -> dict:
+    """One rank through NCCL: (a) the full-width ``edges2shoes_dp`` step
+    at batch 64 with the process group against the step without it
+    (bitwise, cuDNN deterministic), its ms/step, then ``cli.train`` for
+    ``DP_EPOCHS`` epochs; (c) the relaunch of (c)'s preempted run at
+    world size 1 and, from a copy, at global batch ``DP_REBASE_BATCH``."""
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.core.mesh import Mesh, MeshSpec
+    from p2p_tpu_torch.parallel import make_parallel_train_step, place_state
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_train_step
+
+    res = {}
+    cfg = dp_config(64)
+    dtype = train_dtype(cfg.train.mixed_precision)
+    batches = e2s_batches(cfg, 2 + DP_TIMED, SEED)
+    mesh = Mesh(MeshSpec(data=-1))
+    reset_launch_counts()
+    with cudnn_deterministic():
+        plain = create_train_state(cfg, SEED, train_dtype=dtype)
+        p_step = build_train_step(cfg, None, dtype)
+        p_losses = [{k: float(v) for k, v in p_step(plain, b)[1].items()}
+                    for b in batches[:2]]
+        p_nets = nets_of(plain)
+        p_opt = {i: {k: v.cpu() for k, v in s.items() if torch.is_tensor(v)}
+                 for i, s in plain.opt_g[0].state_dict()["state"].items()}
+        del plain, p_step
+        torch.cuda.empty_cache()
+        st = create_train_state(cfg, SEED, train_dtype=dtype)
+        place_state(st, mesh)
+        step = make_parallel_train_step(cfg, mesh, None, dtype)
+        d_losses, per_step = [], []
+        for b in batches[:2]:
+            (_, m), c = counted_sync(lambda: step(st, b))
+            d_losses.append({k: float(v) for k, v in m.items()})
+            per_step.append(c)
+    res["bitwise"] = (
+        d_losses == p_losses
+        and all(torch.equal(v, p_nets[k]) for k, v in nets_of(st).items())
+        and all(torch.equal(v.cpu(), p_opt[i][k]) for i, s in
+                st.opt_g[0].state_dict()["state"].items()
+                for k, v in s.items() if torch.is_tensor(v)))
+    times = []
+    for b in batches[2:]:
+        t = time.perf_counter()
+        _, c = counted_sync(lambda: step(st, b))
+        times.append((time.perf_counter() - t) * 1e3)
+        per_step.append(c)
+    res["per_step"] = per_step
+    res["ms"] = times
+    worker_note("(a) bitwise and timed steps done")
+    del st, step
+    torch.cuda.empty_cache()
+    res["direct_launches"] = launch_counts()
+    # (a) through cli.train
+    reset_launch_counts()
+    seen = dp_cli(dp_cli_args(os.path.join(tmp, "e2s"),
+                              os.path.join(tmp, "work_a"))
+                  + ["--mesh", "data=-1"])
+    res["cli"] = {k: seen[k] for k in ("rc", "steps", "per_step",
+                                       "local_batch", "out")}
+    res["cli"]["launches"] = launch_counts()
+    worker_note("(a) cli.train done")
+    # (c) the relaunch at world size 1, and at another global batch
+    for name, extra in (("reshard", []),
+                        ("rebase", ["--batch_size", str(DP_REBASE_BATCH)])):
+        work = os.path.join(tmp, "work_c" if name == "reshard"
+                            else "work_rebase")
+        reset_launch_counts()
+        seen = dp_cli(dp_cli_args(os.path.join(tmp, "e2s"), work)
+                      + ["--mesh", "data=-1"] + extra)
+        res[name] = {k: seen[k] for k in ("rc", "steps", "per_step", "reads",
+                                          "restored", "local_batch", "out")}
+        res[name]["launches"] = launch_counts()
+        res[name]["records"] = [
+            r for r in read_records(os.path.join(
+                work, "metrics_edges2shoes_dp.jsonl"))
+            if r["kind"] in ("elastic_resume", "resharded_restore",
+                             "batch_rebase", "resume")]
+    return res
+
+
+def dp_worker(name: str, out: str, tmp: str) -> int:
+    """A rank of the slice-13 phase, started by ``torchrun``: forms its
+    group (``gloo2``: gloo, both ranks on cuda:0; ``nccl1``: NCCL, one
+    rank), runs its part and writes it to ``out.<rank>``."""
+    import torch.distributed as dist
+
+    from p2p_tpu_torch.core.mesh import distributed_init
+
+    torch.cuda.set_device(0)
+    if name == "gloo2":
+        dist.init_process_group("gloo", init_method="env://")
+    else:
+        distributed_init(torch.device("cuda", 0))
+    rank = dist.get_rank()
+    try:
+        fn = {"gloo2": gloo2_worker, "nccl1": nccl1_worker}[name]
+        res = fn(rank, out, tmp)
+        torch.save(res, f"{out}.{rank}")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def torchrun(name: str, n: int, tmp: str, timeout: float = 600):
+    """``chip_smoke.py --worker name`` on ``n`` ranks under ``torchrun``;
+    every rank's result."""
+    out = os.path.join(tmp, name)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(n), os.path.abspath(__file__),
+           "--worker", name, out, tmp]
+    t = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"torchrun {name}: exit {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    print(f"slice 13: torchrun --nproc_per_node {n} ({name}): "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(n)]
+
+
+def remat_plan(cfg):
+    """#1 and #3 launches a ``pix2pixhd`` train step per remat mode: the
+    36 epilogues of the forward, then the recompute of the residual
+    blocks' 2 epilogues each (9 global + 3 local blocks): "full" both
+    kernels again, "conv" #3 only (#1's statistics are kept)."""
+    n_blocks = cfg.model.n_blocks + 3
+    extra = 2 * n_blocks
+    return {False: (NORMS_PER_FORWARD, NORMS_PER_FORWARD),
+            "full": (NORMS_PER_FORWARD + extra, NORMS_PER_FORWARD + extra),
+            "conv": (NORMS_PER_FORWARD, NORMS_PER_FORWARD + extra)}
+
+
+def set_remat(net, mode) -> int:
+    """Switch every residual block of ``net`` to ``mode``; how many."""
+    blocks = [m for m in net.modules() if hasattr(m, "remat")]
+    for m in blocks:
+        m.remat = mode
+    return len(blocks)
+
+
+def remat_phase(device, card):
+    """(d) ``pix2pixhd`` at 1024×512 with remat off, "full" and "conv":
+    peak memory, ms/step and the #1/#3 launches a bf16 step (the recompute
+    plan); one f32 step (TF32 off, cuDNN deterministic) bitwise the
+    no-remat step. Returns the launch counts and the per-mode steps."""
+    import copy
+
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.data.synthetic import synthetic_hd_batch
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    cfg = get_preset("pix2pixhd")
+    h, w = cfg.image_hw
+    plan = remat_plan(cfg)
+    host = synthetic_hd_batch(REMAT_STEPS, h, w, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(REMAT_STEPS)]
+    vgg = load_vgg19(device=device)
+    dtype = train_dtype(cfg.train.mixed_precision)
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    step = build_train_step(cfg, vgg, dtype)
+    counts = collections.Counter()
+    out = {}
+    for mode in REMAT_MODES:
+        n = set_remat(state.net_g, mode)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+        reset_launch_counts()
+        times = []
+        for b in batches:
+            t = time.perf_counter()
+            _, m = step(state, b)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            if not np.isfinite(float(m["loss_g"])):
+                raise AssertionError(f"remat {mode}: non-finite loss")
+        got = launch_counts()
+        want = only(instance_norm_stats=plan[mode][0] * len(batches),
+                    norm_act=plan[mode][1] * len(batches))
+        if got != want:
+            raise AssertionError(f"remat {mode}: launches {got}, want {want}")
+        counts.update(got)
+        out[mode] = (torch.cuda.max_memory_allocated(device),
+                     statistics.median(times[1:]))
+        print(f"slice 13 (d): pix2pixhd {h}x{w} bf16, remat {mode!r} on "
+              f"{n} blocks: peak {out[mode][0] / 2 ** 30:.3f} GiB, median "
+              f"{out[mode][1]:.2f} ms/step ({times[1:]}), #1 "
+              f"{plan[mode][0]} and #3 {plan[mode][1]} a step as planned; "
+              f"on {card}", flush=True)
+    set_remat(state.net_g, False)
+    del state, step
+    torch.cuda.empty_cache()
+    peaks = [out[m][0] for m in REMAT_MODES]
+    if not peaks[0] > peaks[2] > peaks[1]:
+        raise AssertionError(f"remat peaks off/full/conv {peaks}: want "
+                             "off > conv > full")
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  mixed_precision=False))
+    nets = {}
+    with tf32_off(), cudnn_deterministic(), warnings.catch_warnings():
+        # a deep copy of an optimizer its scheduler wrapped: the copy's
+        # step counts as unwrapped to LambdaLR's check (its warning only)
+        warnings.simplefilter("ignore", UserWarning)
+        base = create_train_state(cfg32, SEED)
+        step32 = build_train_step(cfg32, vgg)
+        for mode in REMAT_MODES:
+            st = copy.deepcopy(base)
+            set_remat(st.net_g, mode)
+            _, m = step32(st, batches[0])
+            nets[mode] = ({k: float(v) for k, v in m.items()}, nets_of(st))
+            del st
+            torch.cuda.empty_cache()
+    for mode in REMAT_MODES[1:]:
+        same = nets[mode][0] == nets[False][0] and all(
+            torch.equal(v, nets[False][1][k]) for k, v in
+            nets[mode][1].items())
+        if not same:
+            raise AssertionError(f"remat {mode!r}: the f32 step is not "
+                                 "bitwise the no-remat step")
+    print("slice 13 (d): one f32 step (TF32 off, cuDNN deterministic) with "
+          "remat 'full' and 'conv' bitwise the no-remat step (losses, G "
+          "and D)", flush=True)
+    del base, step32, vgg
+    torch.cuda.empty_cache()
+    return counts, {m: len(batches) for m in REMAT_MODES}
+
+
+def dp_phase(device, card, tmp: str, e2s_med: float):
+    """Slice 13 (phase 17), data parallel: (a) NCCL at world size 1, (b)
+    two gloo ranks on the card, (c) elastic, (d) remat (module
+    docstring). Returns the main path's launch counts, the #5 launches
+    by local batch and the remat steps by mode."""
+    from p2p_tpu_torch.core.config import get_preset
+    from p2p_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    data = make_synthetic_dataset(os.path.join(tmp, "e2s"),
+                                  n_train=DP_E2S_PAIRS[0],
+                                  n_test=DP_E2S_PAIRS[1], size=256,
+                                  seed=SEED)
+    counts = collections.Counter()
+    moments_by_batch = collections.Counter()
+    fails = []
+    g2 = torchrun("gloo2", 2, tmp)
+    r0 = g2[0]
+    per_bn = 13
+    for r in g2:
+        for name, c in r["counts"].items():
+            if c != (per_bn, per_bn, per_bn):
+                fails.append(f"(b) {name}: #5 / all-reduces {c}")
+            moments_by_batch[DP_GLOBAL_BATCH // 2] += c[0]
+            counts["batch_moments"] += c[0]
+    band = band_of(r0["spread_update"])
+    print(f"slice 13 (b): 2 gloo ranks on one card, f32 (TF32 off, cuDNN "
+          f"deterministic), global batch {DP_GLOBAL_BATCH} of 256², "
+          f"dropout on: losses vs the one-rank step max rel "
+          f"{r0['loss_rel']:.3g} (band E2S_STEP1_RTOL {E2S_STEP1_RTOL}); "
+          f"each tensor's distance over its update {r0['dp_update']:.3g} "
+          f"(band {band:.3g} = band_of the one-rank kernel-vs-plain "
+          f"spread {r0['spread_update']:.3g}), max abs "
+          f"{r0['dp_max_abs']:.3g}; fsdp=2 bitwise data=2: "
+          f"{[r['fsdp_bitwise'] for r in g2]}; sync-BatchNorm backward vs "
+          f"f64 {r0['bn_err_of_max']:.3g} of the largest |dx| (limit "
+          f"{DP_BN_TOL_OF_MAX}), same bits twice "
+          f"{[r['bn_same_bits'] for r in g2]}; on {card}", flush=True)
+    if not r0["loss_rel"] <= E2S_STEP1_RTOL:
+        fails.append(f"(b) losses {r0['loss_rel']}")
+    if not r0["dp_update"] <= band:
+        fails.append(f"(b) update distance {r0['dp_update']} > {band}")
+    if not all(r["fsdp_bitwise"] for r in g2):
+        fails.append("(b) fsdp=2 is not bitwise data=2")
+    if not r0["bn_err_of_max"] <= DP_BN_TOL_OF_MAX \
+            or not all(r["bn_same_bits"] for r in g2):
+        fails.append("(b) sync-BatchNorm backward")
+    # (c) the preempted two-rank run: both exit 75 after DP_STOP steps
+    local = None
+    for r in g2:
+        e = r["elastic"]
+        local = e["local_batch"]
+        if e["rc"] != 75 or e["steps"] != DP_STOP or any(
+                c != (per_bn, per_bn, per_bn) for c in e["per_step"]):
+            fails.append(f"(c) rank exit {e['rc']}, {e['steps']} steps, "
+                         f"{e['per_step']}:\n{e['out']}")
+        moments_by_batch[local] += sum(c[0] for c in e["per_step"])
+        counts.update(r["launches"])
+    # copies of the preempted run for the batch relaunch and --no-elastic
+    shutil.copytree(os.path.join(tmp, "work_c"),
+                    os.path.join(tmp, "work_rebase"))
+    shutil.copytree(os.path.join(tmp, "work_c"),
+                    os.path.join(tmp, "work_strict"))
+    strict = dp_cli(dp_cli_args(data, os.path.join(tmp, "work_strict"),
+                                "cuda") + ["--no-elastic"])
+    if strict["rc"] != 2 or "topology changed with elastic resume " \
+            "disabled" not in strict["out"]:
+        fails.append(f"(c) --no-elastic: exit {strict['rc']}\n"
+                     f"{strict['out']}")
+    (n1,) = torchrun("nccl1", 1, tmp)
+    # (a)
+    ms = statistics.median(n1["ms"])
+    print(f"slice 13 (a): NCCL at world size 1, edges2shoes_dp batch 64 "
+          f"bf16: 2 steps with the process group bitwise the steps without "
+          f"it (cuDNN deterministic): {n1['bitwise']}; #5 / sum all-reduces "
+          f"/ cotangent all-reduces a step "
+          f"{sorted(set(map(tuple, n1['per_step'])))}; "
+          f"median {ms:.2f} ms/step ({n1['ms']}) against {e2s_med:.2f} "
+          f"without a group (phase 12); cli.train --mesh data=-1: exit "
+          f"{n1['cli']['rc']}, {n1['cli']['steps']} steps; on {card}",
+          flush=True)
+    if not n1["bitwise"]:
+        fails.append("(a) the NCCL step is not bitwise the plain step")
+    for c in n1["per_step"] + n1["cli"]["per_step"]:
+        if tuple(c) != (per_bn, per_bn, per_bn):
+            fails.append(f"(a) #5 / all-reduces a step {c}")
+    if n1["cli"]["rc"] != 0 or n1["cli"]["steps"] != \
+            DP_EPOCHS * DP_E2S_PAIRS[0] // 64:
+        fails.append(f"(a) cli.train: {n1['cli']}")
+    # the plain route's 2 steps and the process group's are main-path
+    # launches at batch 64
+    moments_by_batch[64] += n1["direct_launches"]["batch_moments"]
+    counts.update(n1["direct_launches"])
+    counts.update(n1["cli"]["launches"])
+    moments_by_batch[64] += n1["cli"]["launches"]["batch_moments"]
+    # (c) the relaunches
+    rs, rb = n1["reshard"], n1["rebase"]
+    kinds = {r["kind"]: r for r in rs["records"]}
+    if rs["rc"] != 0 or kinds.get("elastic_resume", {}).get(
+            "decision") != "reshard" or rs["restored"] != [(DP_STOP, True)]:
+        fails.append(f"(c) reshard relaunch: {rs}")
+    if rb["rc"] != 0 or "batch_rebase" not in {r["kind"]
+                                               for r in rb["records"]}:
+        fails.append(f"(c) batch relaunch: {rb}")
+    for r in (rs, rb):
+        counts.update(r["launches"])
+        moments_by_batch[r["local_batch"]] += r["launches"]["batch_moments"]
+    # gapless: the uninterrupted run's epochs from the loader's arithmetic;
+    # each rank's consumed reads are its first DP_STOP batches (the card's
+    # loader reads one batch ahead)
+    seed = get_preset("edges2shoes_dp").train.seed
+    n = DP_E2S_PAIRS[0]
+    perms = {}
+    for e in (1, 2):
+        idx = np.arange(n)
+        np.random.default_rng(seed + e).shuffle(idx)
+        perms[e] = [int(i) for i in idx]
+    spe = n // 64
+    e1 = sorted(v for r in g2 for v in r["elastic"]["reads"][:spe * local])
+    e2 = sorted(v for r in g2 for v in r["elastic"]["reads"][
+        spe * local:DP_STOP * local])
+    rest = rs["reads"][:(2 * spe - DP_STOP) * 64]
+    gapless = (e1 == sorted(perms[1]) and e2 == sorted(perms[2][:64])
+               and rest == perms[2][64:])
+    print(f"slice 13 (c): elastic@{DP_STOP} at 2 gloo ranks: exits "
+          f"{[r['elastic']['rc'] for r in g2]}; relaunch at world size 1 "
+          f"(NCCL): {kinds.get('elastic_resume', {}).get('decision')}, "
+          f"restored {rs['restored']} (step, live state bitwise the "
+          f"manifest), {rs['steps']} steps, exit {rs['rc']}; the two runs "
+          f"read the uninterrupted run's samples, none twice, none "
+          f"missing: {gapless}; relaunch at global batch "
+          f"{DP_REBASE_BATCH}: batch_rebase, {rb['steps']} steps, exit "
+          f"{rb['rc']}; --no-elastic: exit {strict['rc']}", flush=True)
+    if not gapless:
+        fails.append(f"(c) not gapless: {e1} {e2} {rest}")
+    # (d)
+    remat_counts, remat_steps = remat_phase(device, card)
+    counts.update(remat_counts)
+    secs = time.perf_counter() - t_phase
+    print(f"slice 13: phase 17 took {secs:.1f} s; on {card}", flush=True)
+    if fails:
+        raise AssertionError("slice 13: " + "; ".join(fails))
+    return counts, moments_by_batch, remat_steps
+
+
+def add_dp_launches(rows, moments_by_batch, remat_steps, plan) -> None:
+    """Add phase 17's launches to the bf16 rows that weight the
+    ``kernels`` line: #5 at the U-Net's BatchNorm shapes at each local
+    batch (13 a step), #1 and #3 at pix2pixHD's epilogues per the remat
+    plan."""
+    by_key = {(r["kernel"], r["n"], tuple(r["shape"]), r["form"]): r
+              for r in rows if r["dtype"] == "bfloat16"}
+    for batch, launches in moments_by_batch.items():
+        shapes = [(batch * m, c) for m, c in facades_bn_plan(64, 256, 256)]
+        if launches % len(shapes):
+            raise AssertionError(f"#5 at batch {batch}: {launches} launches")
+        for shape in shapes:
+            by_key[("batch_moments", 1, shape, "-")]["launches"] += \
+                launches // len(shapes)
+    blocks = {i for i, (_, _, _, act, res) in enumerate(plan)
+              if res or (i + 1 < len(plan) and plan[i + 1][4])}
+    for mode, steps in remat_steps.items():
+        for i, (h, w, c, act, res) in enumerate(plan):
+            again = i in blocks and mode in ("full", "conv")
+            by_key[("instance_norm_stats", 1, (h, w, c), "-")][
+                "launches"] += steps * (1 + (again and mode == "full"))
+            by_key[("norm_act", 1, (h, w, c), form_of(act, res))][
+                "launches"] += steps * (1 + again)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler table of one forward")
+    ap.add_argument("--worker", nargs=3, metavar=("NAME", "OUT", "TMP"),
+                    help="a rank of the slice-13 phase (started by the "
+                         "phase itself through torchrun)")
     args = ap.parse_args(argv)
+    if args.worker:
+        return dp_worker(*args.worker)
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5055,6 +5766,12 @@ def main(argv=None) -> int:
         raise AssertionError("edges2shoes_dp / U-Net norm plans")
     for shape in e2s_plan:
         bn_launches[shape] += e2s_steps
+    # slice 13: edges2shoes_dp's BatchNorms at the local batches of the
+    # data-parallel runs (4: two ranks of 8; 32: two ranks of 64, and the
+    # relaunch at global batch 32); their launches are added after phase 17
+    for local in (DP_GLOBAL_BATCH // 2, DP_REBASE_BATCH):
+        for m, c in facades_bn_plan(e2s.model.ngf, *e2s.image_hw):
+            bn_launches[(local * m, c)] += 0
     bn_forms = sum(f not in ("instance", "pallas_instance")
                    for f in UNET_FORMS)
     for shape in fac_bn_plan:
@@ -5126,7 +5843,8 @@ def main(argv=None) -> int:
         i8f_counts, _, _ = int8_full_phase(device, card, args.profile, tmp)
     a8_counts = path_a8_phase(device, card, args.profile, a8_per_step)
     hd8_counts = hd_int8_phase(device, card, args.profile, b_per_step)
-    e2s_counts, n_e2s = edges2shoes_phase(device, card, args.profile)
+    e2s_counts, n_e2s, e2s_med = edges2shoes_phase(device, card,
+                                                   args.profile)
     if n_e2s != e2s_steps:
         raise AssertionError(f"edges2shoes_dp ran {n_e2s} steps")
     city_counts = cityscapes_phase(device, card, args.profile)
@@ -5144,6 +5862,9 @@ def main(argv=None) -> int:
         c2f_counts = coarse_to_fine_phase(device, card, tmp, c2f_per_image)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_video_") as tmp:
         vid_counts = video_phase(device, card, tmp)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+        dp_counts, dp_moments, remat_steps = dp_phase(device, card, tmp,
+                                                      e2s_med)
     # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3,
     # the slice-10 phase's reference steps of #5
     add_serving_launches(rows, plan, http_forwards)
@@ -5151,13 +5872,14 @@ def main(argv=None) -> int:
                         res_counts["batch_moments"] // len(bn_plan))
     add_moment_launches(rows, bn_plan,
                         s12_counts["batch_moments"] // len(bn_plan))
+    add_dp_launches(rows, dp_moments, remat_steps, plan)
     counts = collections.Counter()
     for c in (serve_counts, train_counts, fac_serve_counts,
               fac_train_counts, a_counts, b_counts, i8_counts,
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
               city_counts, options_counts, forms_counts, c2f_counts,
               i8f_counts, a8_counts, hd8_counts, res_counts, vid_counts,
-              s12_counts):
+              s12_counts, dp_counts):
         counts.update(c)
 
     kernels = []
@@ -5297,8 +6019,10 @@ def main(argv=None) -> int:
           "A int8 steps (#4 at its spectral-norm sites), #1 and #3 in "
           "pix2pixhd int8's step and served forward; slice 11: #1, #2 and "
           f"#3 in {VID_KERNEL_STEPS} vid2vid kernel-form steps at N = "
-          f"{vk_n}): per-(N, shape, form) device times weighted by "
-          "launches")
+          f"{vk_n}; slice 13: #5 in the data-parallel edges2shoes_dp "
+          f"steps at local batches {dict(dp_moments)} (launches), #1 and "
+          f"#3 in pix2pixhd's remat steps {remat_steps}): per-(N, shape, "
+          "form) device times weighted by launches")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -39,9 +39,26 @@ angular terms to the G loss (train/step.py ``make_g_loss_fn``);
 the samples; ``--threads N`` reads a split of more than 64 items that is
 not memoized with N loader worker processes.
 
-A flag of the JAX CLI whose feature the port does not have (meshes,
-elastic resume across topologies, scan steps, …) is refused by name with
-exit code 2 unless it is left at its default.
+Data parallel on several cards (or CPU processes): start the CLI with
+``torchrun`` (``python -m torch.distributed.run --nproc_per_node N -m
+p2p_tpu_torch.cli.train ...``): each rank joins the default group (NCCL on
+the cards, gloo with ``--device cpu``; one that fails to form exits non-zero
+and nothing falls back) and trains its stride of each global batch
+(``--batch_size`` is the global batch) on ``cuda:LOCAL_RANK``. ``--mesh``
+sets the mesh in either grammar (``data=-1``, ``data=2,fsdp=2``,
+``4,1,1``); ``--fsdp_params`` splits the parameters too when ``fsdp`` > 1
+(train/loop.py, parallel/). A mesh whose ``spatial``, ``time``, ``model``
+or ``pipe`` axis is wider than one exits 2 naming slice 13b or 13c, as does
+a ``--mesh`` that does not fit the processes. A relaunch on another
+process count, mesh or global batch resumes elastically;
+``--no-elastic`` makes any topology change exit 2 with the
+``TopologyMismatch`` text, and a dtype change exits 2 unless
+``--cast_on_restore``. A plain ``python -m p2p_tpu_torch.cli.train`` is one
+process with no group.
+
+A flag of the JAX CLI whose feature the port does not have (tensor and
+pipeline parallelism, scan steps, …) is refused by name with exit code 2
+unless it is left at its default.
 """
 
 from __future__ import annotations
@@ -55,10 +72,7 @@ from p2p_tpu_torch.train.schedules import LR_POLICIES
 _TRUE = {"action": "store_true"}
 _BOOL = {"action": argparse.BooleanOptionalAction}
 UNPORTED = (
-    ("mesh", None, {"type": str}), ("tp_min_ch", 512, {"type": int}),
-    ("fsdp_params", False, _TRUE), ("pp_overlap", False, _BOOL),
-    ("elastic", True, _BOOL),
-    ("cast_on_restore", False, _BOOL),
+    ("tp_min_ch", 512, {"type": int}), ("pp_overlap", False, _BOOL),
     ("recalibrate_steps", 0, {"type": int}),
     ("scan_steps", 1, {"type": int}),
 )
@@ -204,6 +218,26 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep the run's metrics in Prometheus text format "
                         "at this path (node_exporter's textfile "
                         "collector)")
+    p.add_argument("--mesh", type=str, default=None,
+                   help="mesh axes: positional 'data,spatial,time[,model[,"
+                        "pipe]]' or named 'axis=size,...' over data/fsdp/"
+                        "spatial/time/model/pipe (data may be -1 = every "
+                        "process); this port has data and fsdp")
+    p.add_argument("--fsdp_params", action="store_true", default=None,
+                   help="with mesh fsdp>1: split the parameters too, "
+                        "gathered on use, not only the Adam moments and "
+                        "the EMA")
+    p.add_argument("--elastic", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="elastic relaunch: on resume, reshard or migrate "
+                        "the checkpoint onto this launch's topology (on by "
+                        "default); --no-elastic: any topology change "
+                        "exits 2")
+    p.add_argument("--cast_on_restore",
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="a mixed-precision or --moment_dtype change on "
+                        "resume is an explicit, logged cast instead of "
+                        "exit 2")
     p.add_argument("--init_g1_from", type=str, default=None,
                    help="explicit phase-1 checkpoint dir for --phase full "
                         "(default: checkpoint/<dataset>/<name>_g1)")
@@ -251,7 +285,14 @@ def config_from_flags(args: argparse.Namespace):
                  epoch_save=args.epochsave, seed=args.seed,
                  log_every=args.log_every, pool_size=args.pool_size,
                  compilation_cache_dir=args.compilation_cache,
-                 eval_fid=args.eval_fid, save_masks=args.save_masks)
+                 eval_fid=args.eval_fid, save_masks=args.save_masks,
+                 elastic=args.elastic, cast_on_restore=args.cast_on_restore)
+    parallel = over(cfg.parallel, fsdp_params=args.fsdp_params)
+    if args.mesh is not None:
+        from p2p_tpu_torch.core.mesh import parse_mesh_arg
+
+        parallel = dataclasses.replace(parallel,
+                                       mesh=parse_mesh_arg(args.mesh))
     debug = over(cfg.debug, check_finite=args.check_finite,
                  nan_sentinel=args.nan_sentinel, grad_norms=args.grad_norms)
     health = over(cfg.health, enabled=args.health, ema_decay=args.ema_decay,
@@ -261,7 +302,7 @@ def config_from_flags(args: argparse.Namespace):
                   window=args.health_window)
     cfg = cfg.replace(name=args.name or cfg.name, model=model, loss=loss,
                       optim=optim, data=data, train=train, health=health,
-                      debug=debug)
+                      debug=debug, parallel=parallel)
     if args.phase == "global":
         # coarse-to-fine phase 1, after the flags: an explicit --image_size
         # or --name is halved or suffixed as phase 2 expects to find it
@@ -279,26 +320,69 @@ def main(argv=None) -> int:
     if args.cuda and args.device not in (None, "cuda"):
         print("--cuda contradicts --device", file=sys.stderr)
         return 2
-    cfg = config_from_flags(args)
+    from p2p_tpu_torch.core.mesh import (check_ported_axes,
+                                         distributed_init, process_count,
+                                         rank_device)
+    try:
+        cfg = config_from_flags(args)
+        if args.mesh is not None:
+            check_ported_axes(cfg.parallel.mesh)
+    except (ValueError, NotImplementedError) as e:
+        if args.mesh is None:
+            raise
+        print(f"--mesh {args.mesh!r}: {e}", file=sys.stderr)
+        return 2
     if cfg.data.n_frames > 1 and cfg.train.pool_size > 0:
         print(f"--pool_size {cfg.train.pool_size}: preset {cfg.name!r} "
               "trains video clips, and the video step has no fake pool",
               file=sys.stderr)
         return 2
 
-    from p2p_tpu_torch.resilience import (DIVERGED_EXIT_CODE,
-                                          PREEMPTED_EXIT_CODE,
-                                          DivergenceError, Preempted)
     if cfg.data.n_frames > 1:
         from p2p_tpu_torch.train.video_loop import VideoTrainer as Trainer
     else:
         from p2p_tpu_torch.train.loop import Trainer
 
-    trainer = Trainer(cfg, data_root=args.data_root, workdir=args.workdir,
-                      device=args.device)
+    import torch.distributed as dist
+
+    # the group torchrun's environment names (a caller may have formed one)
+    formed = not dist.is_initialized() and distributed_init(
+        rank_device(args.device))
+    if not dist.is_initialized() and args.mesh is not None:
+        try:
+            cfg.parallel.mesh.resolve(process_count())
+        except ValueError as e:
+            print(f"--mesh {args.mesh!r}: {e} (start several processes "
+                  "with torchrun)", file=sys.stderr)
+            return 2
+    try:
+        return _run(Trainer, cfg, args)
+    finally:
+        if formed:
+            dist.destroy_process_group()
+
+
+def _run(Trainer, cfg, args: argparse.Namespace) -> int:
+    """Build the trainer, resume and fit; the exit code."""
+    from p2p_tpu_torch.core.mesh import TopologyMismatch
+    from p2p_tpu_torch.resilience import (DIVERGED_EXIT_CODE,
+                                          PREEMPTED_EXIT_CODE,
+                                          DivergenceError, Preempted)
+    try:
+        trainer = Trainer(cfg, data_root=args.data_root,
+                          workdir=args.workdir, device=args.device)
+    except NotImplementedError as e:
+        print(f"not ported yet: {e}", file=sys.stderr)
+        return 2
     try:
         attach_sinks(trainer, args)
-        if trainer.maybe_resume():
+        try:
+            resumed = trainer.maybe_resume()
+        except TopologyMismatch as tm:
+            # a flags problem, not a transient: exit 2, not 75
+            print(f"topology mismatch: {tm}", file=sys.stderr, flush=True)
+            return 2
+        if resumed:
             print(f"resumed at epoch {trainer.epoch} (step "
                   f"{trainer.state.step})", flush=True)
         elif args.phase == "full":

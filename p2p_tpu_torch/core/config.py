@@ -1,15 +1,20 @@
 """Configuration (counterpart of ``p2p_tpu/core/config.py``), cut to the
 fields the serving paths, the train steps of the registered presets, the
-data pipeline and the trainer (train/loop.py) read. Field names, defaults
-and the preset values are those of the JAX package, so one preset name
-means one model in both. The presets run on one device: the JAX presets'
-meshes have no counterpart here yet.
+data pipeline, the trainer (train/loop.py) and data-parallel training
+(parallel/) read. Field names, defaults and the preset values are those of
+the JAX package, so one preset name means one model in both, its
+``parallel=`` mesh included. A preset whose mesh widens ``spatial`` or
+``time`` (``cityscapes_spatial``, ``pix2pixhd``, ``vid2vid_temporal``)
+trains on one card with those axes resolved as 1 (train/loop.py
+``build_trainer_mesh``); on more processes they wait for slice 13b.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
+
+from p2p_tpu_torch.core.mesh import MeshSpec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +189,14 @@ class TrainConfig:
     # torch.autograd's anomaly mode: the backward op that first makes a
     # NaN raises with the forward's trace (a debugging tool, slow)
     debug_nans: bool = False
+    # elastic relaunch: on resume, reconcile the checkpoint's recorded
+    # topology (process count, mesh axes, global batch, dtype policy) with
+    # this launch's and reshard compatible deltas (resilience/reshape.py);
+    # False: any delta aborts (exit 2)
+    elastic: bool = True
+    # a mixed_precision / moment_dtype delta on resume is an explicit,
+    # logged cast (MOMENT_MIGRATION) instead of an abort
+    cast_on_restore: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +240,28 @@ class DebugConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ParallelConfig:
+    mesh: MeshSpec = MeshSpec(data=-1, spatial=1, time=1)
+    # tensor parallelism's smallest sharded channel count (slice 13c:
+    # carried, no effect yet)
+    tp_min_ch: int = 512
+    # with mesh.fsdp > 1: split the parameters too, gathered on use, not
+    # only the Adam moments and the EMA (parallel/rules.py)
+    fsdp_params: bool = False
+    # BatchNorm statistics over the global batch: each rank's (Σx, Σx²)
+    # from kernel #5, then one all-reduce (ops/norm.py)
+    sync_batchnorm: bool = True
+    # recompute the generator's residual blocks in the backward (ops/
+    # conv.py remat_call): False off; True/"full" the whole block; "conv"
+    # keeps the conv outputs and the norm statistics and recomputes only
+    # the elementwise chain
+    remat: Union[bool, str] = False
+    # the latency-hiding GPipe schedule (slice 13c: carried, no effect
+    # yet)
+    pp_overlap: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     name: str = "default"
     model: ModelConfig = ModelConfig()
@@ -236,6 +271,7 @@ class Config:
     train: TrainConfig = TrainConfig()
     health: HealthConfig = HealthConfig()
     debug: DebugConfig = DebugConfig()
+    parallel: ParallelConfig = ParallelConfig()
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -262,6 +298,7 @@ _register(
         name="reference",
         model=ModelConfig(generator="expand"),
         data=DataConfig(dataset="facades", image_size=256, batch_size=1),
+        parallel=ParallelConfig(mesh=MeshSpec(data=1)),
     )
 )
 
@@ -276,6 +313,7 @@ _register(
         loss=LossConfig(lambda_feat=0.0, lambda_vgg=0.0, lambda_tv=0.0,
                         lambda_l1=100.0),
         data=DataConfig(dataset="facades", image_size=256, batch_size=1),
+        parallel=ParallelConfig(mesh=MeshSpec(data=1)),
     )
 )
 
@@ -293,13 +331,14 @@ _register(
                         lambda_l1=100.0),
         data=DataConfig(dataset="facades", image_size=256, batch_size=1),
         optim=OptimConfig(moment_dtype="bfloat16"),
+        parallel=ParallelConfig(mesh=MeshSpec(data=1)),
     )
 )
 
 # pix2pixHD coarse-to-fine G at 1024×512, fused instance-norm epilogues,
-# 3-scale spectral-norm D (split pairs in JAX); LSGAN + 10·FM + 10·VGG19. The
-# JAX preset's MeshSpec(data=-1, spatial=2) has no counterpart here: the
-# port runs on one device (spatial sharding is a later slice).
+# 3-scale spectral-norm D (split pairs in JAX); LSGAN + 10·FM + 10·VGG19,
+# on the JAX preset's MeshSpec(data=-1, spatial=2) (spatial is 1 on one
+# card; wider, slice 13b).
 _register(
     Config(
         name="pix2pixhd",
@@ -309,13 +348,14 @@ _register(
         loss=LossConfig(lambda_tv=0.0),
         data=DataConfig(dataset="cityscapes_hd", image_size=512,
                         image_width=1024, batch_size=1),
+        parallel=ParallelConfig(mesh=MeshSpec(data=-1, spatial=2)),
     )
 )
 
 
-# edges2shoes at 256², batch 64: the facades U-Net and PatchGAN. The JAX
-# preset's data-parallel MeshSpec(data=-1) comes with slice 11; here the
-# whole batch runs on one device.
+# edges2shoes at 256², batch 64: the facades U-Net and PatchGAN, data
+# parallel over every process (MeshSpec(data=-1); one card without
+# torchrun).
 _register(
     Config(
         name="edges2shoes_dp",
@@ -326,13 +366,14 @@ _register(
                         lambda_l1=100.0),
         data=DataConfig(dataset="edges2shoes", image_size=256,
                         batch_size=64),
+        parallel=ParallelConfig(mesh=MeshSpec(data=-1)),
     )
 )
 
 # Cityscapes labels→photo at 256×512, batch 4: the 9-block ResnetGenerator
 # with plain instance norms and the 3-scale spectral-norm D, LSGAN + 10·FM
-# + 10·VGG19 + 1·TV. The JAX preset's MeshSpec(data=-1, spatial=2) comes
-# with slice 11; here it runs on one device.
+# + 10·VGG19 + 1·TV, on the JAX preset's MeshSpec(data=-1, spatial=2)
+# (spatial is 1 on one card; wider, slice 13b).
 _register(
     Config(
         name="cityscapes_spatial",
@@ -341,6 +382,7 @@ _register(
         loss=LossConfig(lambda_l1=0.0),
         data=DataConfig(dataset="cityscapes", image_size=256,
                         image_width=512, batch_size=4),
+        parallel=ParallelConfig(mesh=MeshSpec(data=-1, spatial=2)),
     )
 )
 
@@ -348,9 +390,9 @@ _register(
 # vid2vid: the facades-width U-Net (norm "instance", no dropout) on every
 # frame, the 3-scale spectral-norm PatchGAN on each (input ‖ frame) pair
 # and a 2-scale temporal 3-D PatchGAN on the (input ‖ clip) pair; LSGAN +
-# 10·FM (spatial and temporal), 8-frame clips of 256², batch 1. The JAX
-# preset's MeshSpec(data=-1, time=4) has no counterpart here: the port
-# runs on one device.
+# 10·FM (spatial and temporal), 8-frame clips of 256², batch 1, on the JAX
+# preset's MeshSpec(data=-1, time=4) (time is 1 on one card; wider, slice
+# 13b).
 _register(
     Config(
         name="vid2vid_temporal",
@@ -359,6 +401,7 @@ _register(
         loss=LossConfig(lambda_feat=10.0, lambda_vgg=0.0, lambda_tv=0.0),
         data=DataConfig(dataset="vid2vid", image_size=256, batch_size=1,
                         n_frames=8),
+        parallel=ParallelConfig(mesh=MeshSpec(data=-1, time=4)),
     )
 )
 

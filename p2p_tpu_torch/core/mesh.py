@@ -1,0 +1,448 @@
+"""The mesh of the port's data axis and its process groups (counterpart of
+``p2p_tpu/core/mesh.py``).
+
+The JAX package lays every device into one ``jax.sharding.Mesh`` with the
+named axes ``data``, ``fsdp``, ``spatial``, ``time``, ``model`` and
+``pipe``, and GSPMD inserts the collectives. Here one process drives one
+device (rank ``r`` on ``cuda:LOCAL_RANK``), the processes are started by
+``torchrun`` (``python -m torch.distributed.run``), and every collective is
+written out: :class:`Mesh` holds the world size and rank, the resolved
+axis sizes and one ``torch.distributed`` group per axis that is wider than
+one (``data``; ``fsdp`` when > 1; an axis as wide as the world is the
+default group). :func:`distributed_init` forms the default group from the
+``torchrun`` environment, NCCL on the card and gloo on the CPU; a group
+that fails to form raises, and nothing falls back to one process.
+
+This slice has the data axis and ZeRO state sharding over ``fsdp``
+(parallel/dp.py, parallel/rules.py). A mesh whose ``spatial``, ``time``,
+``model`` or ``pipe`` axis is wider than one is refused by name
+(:func:`check_ported_axes`): the spatial and temporal axes come with
+slice 13b, tensor and pipeline parallelism with slice 13c.
+
+Ported as they are, as pure functions: :class:`MeshSpec` and its
+``resolve`` diagnostics, the ``--mesh`` grammar (:func:`parse_mesh_arg`),
+:class:`TopologyMismatch`, the sidecar topology block
+(:func:`mesh_topology`, :func:`describe_topology`), the elastic
+classification (:class:`TopologyDelta`, :func:`classify_topology_delta`)
+and :func:`local_batch_size`. The JAX ``mesh_context`` / ``current_mesh``
+pair makes the mesh visible to the layers that need it (sync-BatchNorm,
+dropout, ops/norm.py and models/unet.py) for the duration of a parallel
+step; :func:`process_count`, :func:`process_index` and
+:func:`process_allgather` are the port's ``jax.process_count``,
+``jax.process_index`` and ``multihost_utils.process_allgather``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import dataclasses
+import os
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+DATA_AXIS = "data"
+FSDP_AXIS = "fsdp"
+SPATIAL_AXIS = "spatial"
+TIME_AXIS = "time"
+MODEL_AXIS = "model"
+PIPE_AXIS = "pipe"
+ALL_AXES = (DATA_AXIS, FSDP_AXIS, SPATIAL_AXIS, TIME_AXIS, MODEL_AXIS,
+            PIPE_AXIS)
+#: the axes a batch's leading dimension shards over
+BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
+#: the axes of a later slice, and which
+LATER_AXES = {SPATIAL_AXIS: "13b", TIME_AXIS: "13b", MODEL_AXIS: "13c",
+              PIPE_AXIS: "13c"}
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshSpec:
+    """Logical mesh shape. -1 on the data axis means "all remaining
+    devices"."""
+
+    data: int = -1
+    spatial: int = 1
+    time: int = 1
+    model: int = 1
+    pipe: int = 1
+    fsdp: int = 1
+
+    def resolve(self, n_devices: int,
+                context: str = "") -> Tuple[int, int, int, int, int, int]:
+        """Concrete per-axis sizes ``(data, fsdp, spatial, time, model,
+        pipe)`` for ``n_devices``; ``context`` is appended to the failure
+        diagnostics (the elastic relaunch passes the saved topology)."""
+        d, f, s, t, m, p = (self.data, self.fsdp, self.spatial, self.time,
+                            self.model, self.pipe)
+        fixed = f * s * t * m * p
+        suffix = f"; {context}" if context else ""
+        if d == -1:
+            if n_devices % fixed:
+                raise ValueError(
+                    f"mesh data=-1,fsdp={f},spatial={s},time={t},model={m},"
+                    f"pipe={p} cannot resolve: {n_devices} device(s) not "
+                    f"divisible by fsdp*spatial*time*model*pipe={fixed} — "
+                    f"pick axes whose product divides the device "
+                    f"count{suffix}"
+                )
+            d = n_devices // fixed
+        if d * fixed > n_devices:
+            raise ValueError(
+                f"mesh data={d},fsdp={f},spatial={s},time={t},model={m},"
+                f"pipe={p} needs {d * fixed} devices but only {n_devices} "
+                f"are available — shrink an axis or use data=-1 (all "
+                f"remaining devices){suffix}"
+            )
+        return d, f, s, t, m, p
+
+
+def parse_mesh_arg(text: str) -> MeshSpec:
+    """The ``--mesh`` flag grammar: positional ``data,spatial,time[,model[,
+    pipe]]`` or named ``axis=size[,axis=size...]`` over every axis (unnamed
+    axes 1, data -1 when omitted; the only way to name ``fsdp``). Raises
+    ``ValueError`` with the offending text."""
+    text = text.strip()
+    if "=" in text:
+        sizes = {}
+        for part in text.split(","):
+            if not part.strip():
+                continue
+            key, _, val = part.partition("=")
+            key = key.strip()
+            if key not in ALL_AXES:
+                raise ValueError(
+                    f"unknown mesh axis {key!r} (have {ALL_AXES})")
+            if key in sizes:
+                raise ValueError(f"mesh axis {key!r} named twice")
+            sizes[key] = int(val)
+        spec = MeshSpec(data=sizes.pop(DATA_AXIS, -1), **sizes)
+    else:
+        vals = [int(v) for v in text.split(",")]
+        if len(vals) < 3:   # only model/pipe are optional
+            raise ValueError("too few axes")
+        while len(vals) < 5:
+            vals.append(1)
+        if len(vals) > 5:
+            raise ValueError("too many axes (use the named form for fsdp)")
+        d, s, t, m, p = vals
+        spec = MeshSpec(data=d, spatial=s, time=t, model=m, pipe=p)
+    for axis in ALL_AXES:
+        size = getattr(spec, axis)
+        if size < 1 and not (axis == DATA_AXIS and size == -1):
+            raise ValueError(
+                f"mesh axis {axis}={size}: axes must be >=1 (data may be "
+                "-1 = all remaining devices)")
+    return spec
+
+
+def check_ported_axes(spec: MeshSpec) -> None:
+    """Raise ``NotImplementedError`` naming the later slice when ``spec``
+    widens an axis this slice does not have."""
+    wide = [f"{a}={getattr(spec, a)}" for a in LATER_AXES
+            if getattr(spec, a) > 1]
+    if wide:
+        slices = sorted({LATER_AXES[w.split("=")[0]] for w in wide})
+        raise NotImplementedError(
+            f"mesh axes {', '.join(wide)} are not ported yet: the port has "
+            "the data and fsdp axes (slice 13); spatial and time come with "
+            "slice 13b, model and pipe with slice 13c (this mesh needs "
+            f"slice {' and '.join(slices)})")
+
+
+class TopologyMismatch(ValueError):
+    """An elastic relaunch hit a topology delta the resharded resume cannot
+    reconcile (``abort``), or elastic resume was disabled; the message
+    names the saved and current topologies and what to change."""
+
+
+# ------------------------------------------------------------- processes
+def process_count() -> int:
+    """Processes of the default group (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def process_index() -> int:
+    """This process's rank in the default group (0 without one)."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def collective_device() -> torch.device:
+    """Where a host-side collective's tensor lives: the current card under
+    NCCL (which takes no CPU tensor), the CPU under gloo."""
+    if dist.is_initialized() and dist.get_backend() == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def process_allgather(x: np.ndarray) -> np.ndarray:
+    """Every process's ``x`` (one shape and dtype on all), stacked along a
+    new leading axis in rank order; ``x[None]`` on one process."""
+    x = np.asarray(x)
+    if process_count() == 1:
+        return x[None]
+    t = torch.from_numpy(np.ascontiguousarray(x)).to(collective_device())
+    out = [torch.empty_like(t) for _ in range(process_count())]
+    dist.all_gather(out, t)
+    return np.stack([o.cpu().numpy() for o in out])
+
+
+def distributed_init(device: Optional[torch.device] = None) -> bool:
+    """Form the default process group from the ``torchrun`` environment
+    (``WORLD_SIZE``, ``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``): NCCL when
+    ``device`` is a card (after ``torch.cuda.set_device``), gloo on the
+    CPU. Returns False with no ``torchrun`` environment (one process, no
+    group: the plain run), True when a group is up (also one formed by
+    the caller before). A group that fails to form raises, and NCCL
+    missing on a card raises."""
+    if dist.is_initialized():
+        return True
+    if "WORLD_SIZE" not in os.environ:
+        return False
+    cuda = device is not None and torch.device(device).type == "cuda"
+    backend = "nccl" if cuda else "gloo"
+    if cuda:
+        if not dist.is_nccl_available():
+            raise RuntimeError("a CUDA run needs NCCL, and this PyTorch "
+                               "has no NCCL backend")
+        torch.cuda.set_device(torch.device(device))
+    elif not dist.is_gloo_available():
+        raise RuntimeError("a CPU run needs gloo, and this PyTorch has none")
+    dist.init_process_group(backend, init_method="env://",
+                            world_size=int(os.environ["WORLD_SIZE"]),
+                            rank=int(os.environ["RANK"]))
+    return True
+
+
+def rank_device(device: Optional[torch.device] = None) -> torch.device:
+    """Rank ``r``'s device: ``cuda:LOCAL_RANK`` for a card (the default)
+    under ``torchrun``, else ``device`` as given."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None \
+            and "LOCAL_RANK" in os.environ:
+        return torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    return dev
+
+
+# ------------------------------------------------------------------ mesh
+class Mesh:
+    """The processes of the default group laid out as the JAX mesh: axis
+    order (data, fsdp, spatial, time, model, pipe), data outermost, one
+    process per device, every process in the mesh. ``shape`` maps every
+    axis to its size (as ``jax.sharding.Mesh.shape``); :meth:`group` is the
+    process group of an axis through this rank (None: the default group,
+    for an axis as wide as the world); ``batch_group`` is the group the
+    batch splits over (data × fsdp), ``batch_rank`` this rank's slot in
+    it. Every rank builds every group, in one order."""
+
+    def __init__(self, spec: MeshSpec = MeshSpec()):
+        if not dist.is_initialized():
+            raise RuntimeError("Mesh needs a process group: call "
+                               "distributed_init under torchrun first")
+        self.world_size = dist.get_world_size()
+        self.rank = dist.get_rank()
+        check_ported_axes(spec)
+        sizes = spec.resolve(self.world_size)
+        if int(np.prod(sizes)) != self.world_size:
+            raise ValueError(
+                f"mesh {dict(zip(ALL_AXES, sizes))} covers "
+                f"{int(np.prod(sizes))} of {self.world_size} processes: "
+                "every process of the group must be in the mesh")
+        self.spec = spec
+        self.shape: Dict[str, int] = dict(zip(ALL_AXES, map(int, sizes)))
+        self.size = self.world_size
+        coords = np.unravel_index(self.rank, sizes)
+        self.coords = dict(zip(ALL_AXES, map(int, coords)))
+        self._groups = {}
+        grid = np.arange(self.world_size).reshape(sizes)
+        for i, axis in enumerate(ALL_AXES):
+            n = self.shape[axis]
+            if n == 1:
+                continue
+            if n == self.world_size:
+                self._groups[axis] = None
+                continue
+            lines = np.moveaxis(grid, i, -1).reshape(-1, n)
+            for line in lines:
+                g = dist.new_group([int(r) for r in line])
+                if self.rank in line:
+                    self._groups[axis] = g
+        self.batch_shards = self.shape[DATA_AXIS] * self.shape[FSDP_AXIS]
+        self.batch_rank = (self.coords[DATA_AXIS] * self.shape[FSDP_AXIS]
+                           + self.coords[FSDP_AXIS])
+        # data x fsdp is the whole world while the later axes are 1
+        self.batch_group = None
+
+    def group(self, axis: str):
+        """The process group of ``axis`` through this rank (None: the
+        default group). Raises for an axis of size 1."""
+        if axis not in self._groups:
+            raise ValueError(f"mesh axis {axis!r} has size 1: no group")
+        return self._groups[axis]
+
+    def group_ranks(self, axis: str):
+        """The global ranks of ``axis``'s group through this rank, in
+        axis order."""
+        grid = np.arange(self.world_size).reshape(
+            [self.shape[a] for a in ALL_AXES])
+        idx = tuple(slice(None) if a == axis else self.coords[a]
+                    for a in ALL_AXES)
+        return [int(r) for r in grid[idx]]
+
+
+_ACTIVE_MESH: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
+    "p2p_tpu_torch_active_mesh", default=None)
+
+
+@contextlib.contextmanager
+def mesh_context(mesh: Optional[Mesh]) -> Iterator[Optional[Mesh]]:
+    """Expose ``mesh`` to the layers that run inside this context (the
+    parallel step builders enter it around the step body)."""
+    token = _ACTIVE_MESH.set(mesh)
+    try:
+        yield mesh
+    finally:
+        _ACTIVE_MESH.reset(token)
+
+
+def current_mesh() -> Optional[Mesh]:
+    """The mesh made visible by :func:`mesh_context`, or None."""
+    return _ACTIVE_MESH.get()
+
+
+# -------------------------------------------------------------- topology
+def mesh_topology(mesh: Optional[Mesh]) -> dict:
+    """The recorded topology block of the checkpoint sidecar: process and
+    device counts and the mesh's axis sizes (empty without a mesh)."""
+    return {
+        "process_count": process_count(),
+        "device_count": int(mesh.size) if mesh is not None else 1,
+        "mesh": dict(mesh.shape) if mesh is not None else {},
+    }
+
+
+def describe_topology(topo: dict) -> str:
+    """One-line human form of a topology block."""
+    mesh = topo.get("mesh") or {}
+    axes = ",".join(f"{a}={mesh[a]}" for a in mesh) or "none"
+    return (f"{topo.get('process_count', '?')} process(es) x "
+            f"{topo.get('device_count', '?')} device(s), mesh [{axes}], "
+            f"global_batch={topo.get('global_batch', '?')}")
+
+
+@dataclasses.dataclass(frozen=True)
+class TopologyDelta:
+    """A saved-vs-current topology difference: ``kind`` is ``"same"``,
+    ``"reshard"`` (process count, data/fsdp/spatial/time widths, device
+    count: a plain load onto the new world), ``"migrate"`` (through the
+    restore-time transforms ``chain`` names, in order: ``batch_rebase``,
+    ``pp_restructure``, ``tp_amax_recalibrate``, ``dtype_cast``) or
+    ``"abort"``."""
+
+    kind: str
+    reason: str
+    chain: tuple = ()
+
+
+def classify_topology_delta(saved: dict, current: dict,
+                            has_quant_state: bool = False,
+                            cast_on_restore: bool = False) -> TopologyDelta:
+    """Reconcile a checkpoint's recorded topology block with the
+    relaunch's, by the JAX rules (``p2p_tpu/core/mesh.py:241``): a global
+    batch change migrates through ``batch_rebase``; a mixed-precision or
+    moment-dtype change through ``dtype_cast`` with ``cast_on_restore``,
+    else aborts; an ``int8_delayed`` change aborts; a pipe-width change
+    migrates through ``pp_restructure``, a model-width change under
+    delayed-int8 state through ``tp_amax_recalibrate``; any other mesh,
+    process-count or device-count change reshards. Keys absent from
+    ``saved`` match."""
+    def differs(key):
+        if key not in saved:
+            return False
+        a, b = saved[key], current.get(key)
+        if key == "moment_dtype":
+            a, b = a or "float32", b or "float32"
+        return a != b
+
+    chain = []
+    reasons = []
+    if differs("global_batch"):
+        chain.append("batch_rebase")
+        reasons.append(
+            f"the global batch size changed "
+            f"({saved.get('global_batch')} -> "
+            f"{current.get('global_batch')}) — step/epoch position and "
+            "the LR-schedule basis re-derive from cumulative samples")
+    for key, what in (("mixed_precision", "the mixed-precision policy"),
+                      ("moment_dtype", "the Adam moment storage dtype")):
+        if differs(key):
+            if not cast_on_restore:
+                return TopologyDelta(
+                    "abort",
+                    f"{what} changed ({saved.get(key)} -> "
+                    f"{current.get(key)}) — restore would silently cast "
+                    "the state; relaunch with the original dtype flags, "
+                    "or opt in to an explicit, logged cast with "
+                    "--cast_on_restore")
+            if "dtype_cast" not in chain:
+                chain.append("dtype_cast")
+            reasons.append(
+                f"{what} changed ({saved.get(key)} -> "
+                f"{current.get(key)}) — cast on restore "
+                "(--cast_on_restore)")
+    if differs("int8_delayed"):
+        return TopologyDelta(
+            "abort",
+            "the delayed-int8 policy changed — the TrainState tree "
+            "differs (quant collections), which no cast reconciles; "
+            "relaunch with the original --int8_delayed")
+    has_saved_mesh = "mesh" in saved
+    saved_mesh = saved.get("mesh") or {}
+    cur_mesh = current.get("mesh") or {}
+
+    def axis(block, name):
+        return int(block.get(name, 1))
+
+    if has_saved_mesh:
+        if axis(saved_mesh, PIPE_AXIS) != axis(cur_mesh, PIPE_AXIS):
+            chain.append("pp_restructure")
+            reasons.append(
+                f"the pipeline-parallel width changed "
+                f"({axis(saved_mesh, PIPE_AXIS)} -> "
+                f"{axis(cur_mesh, PIPE_AXIS)}) — the stacked trunk "
+                "merges and re-splits at the new width")
+        if axis(saved_mesh, MODEL_AXIS) != axis(cur_mesh, MODEL_AXIS) \
+                and has_quant_state:
+            chain.append("tp_amax_recalibrate")
+            reasons.append(
+                f"the tensor-parallel width changed "
+                f"({axis(saved_mesh, MODEL_AXIS)} -> "
+                f"{axis(cur_mesh, MODEL_AXIS)}) under delayed-int8 amax "
+                "state — stored scales remap by the closed-form max law")
+    changed = [k for k in ("process_count", "device_count")
+               if differs(k)]
+    if has_saved_mesh:
+        changed += [f"mesh.{a}" for a in set(saved_mesh) | set(cur_mesh)
+                    if axis(saved_mesh, a) != axis(cur_mesh, a)]
+    if chain:
+        if changed:
+            reasons.append("topology delta: " + ", ".join(sorted(changed)))
+        return TopologyDelta("migrate", "; ".join(reasons),
+                             chain=tuple(chain))
+    if changed:
+        return TopologyDelta(
+            "reshard", "topology delta: " + ", ".join(sorted(changed)))
+    return TopologyDelta("same", "identical topology")
+
+
+def local_batch_size(global_batch: int, mesh: Optional[Mesh] = None) -> int:
+    """Per-process batch of the input pipeline (global / processes)."""
+    n_proc = process_count()
+    if global_batch % n_proc:
+        raise ValueError(f"global batch {global_batch} not divisible by "
+                         f"{n_proc} processes")
+    del mesh
+    return global_batch // n_proc

@@ -170,24 +170,49 @@ class PairedImageDataset:
 
 
 def shard_epoch_indices(idx: np.ndarray, batch_size: int,
-                        skip_batches: int = 0, drop_remainder: bool = True,
+                        skip_batches: int = 0, n_proc: Optional[int] = None,
+                        pid: Optional[int] = None,
+                        drop_remainder: bool = True,
                         skip_samples: int = 0) -> list:
-    """One epoch's shuffled index vector → the batch-aligned, post-skip
-    slice the epoch consumes: the JAX package's arithmetic
-    (``pipeline.py:257 shard_epoch_indices``) for its one process
-    (``n_proc = 1``, ``pid = 0``; the port runs one process).
-    ``skip_batches`` drops the first batches; ``skip_samples`` drops the
-    permutation prefix ``[0, S)`` and, with ``drop_remainder``, keeps
-    ``len//batch_size − ceil(S/batch_size)`` batches."""
+    """One epoch's shuffled global index vector → this process's
+    batch-aligned, post-skip slice: the JAX package's arithmetic
+    (``p2p_tpu/data/pipeline.py:257 shard_epoch_indices``), ``n_proc``
+    and ``pid`` defaulting to the default group's size and rank.
+
+    Sharding is by stride: process ``p`` takes ``idx[p::n_proc]`` (after
+    trimming ``len % n_proc`` with ``drop_remainder``), so its local batch
+    ``i`` of ``batch_size`` rows holds flat positions ``i·B·… + p`` with
+    ``B = batch_size·n_proc`` the global batch, and the union over the
+    processes of local batch ``i`` is flat positions ``[i·B, (i+1)·B)``
+    whatever ``n_proc`` is: a relaunch on another process count that skips
+    the consumed prefix reads exactly the samples the dead run did not.
+    ``skip_batches`` drops the first local batches; ``skip_samples`` drops
+    the flat prefix ``[0, S)`` (process ``p`` drops its rows at flat
+    positions below S) and, with ``drop_remainder``, keeps ``n_usable //
+    B − ceil(S / B)`` batches on every process."""
+    from p2p_tpu_torch.core.mesh import process_count, process_index
+
     idx = np.asarray(idx)
+    if n_proc is None:
+        n_proc = process_count()
+    if pid is None:
+        pid = process_index()
     if skip_batches and skip_samples:
         raise ValueError("pass skip_batches OR skip_samples, not both")
+    n_usable = len(idx)
+    if n_proc > 1:
+        if drop_remainder:
+            idx = idx[: len(idx) - len(idx) % n_proc]
+            n_usable = len(idx)
+        idx = idx[pid::n_proc]
     if skip_samples > 0:
         s = int(skip_samples)
-        n_b = max(0, len(idx) // batch_size - -(-s // batch_size))
-        idx = idx[s:]
+        drop = (s - pid + n_proc - 1) // n_proc if s > pid else 0
+        idx = idx[drop:]
         if drop_remainder:
-            idx = idx[:n_b * batch_size]
+            b = batch_size * n_proc
+            n_b = max(0, n_usable // b - -(-s // b))
+            idx = idx[: n_b * batch_size]
     elif skip_batches > 0:
         idx = idx[skip_batches * batch_size:]
     return list(idx)
@@ -302,12 +327,17 @@ def make_loader(dataset: PairedImageDataset, batch_size: int,
                 shuffle: bool = True, seed: int = 0,
                 num_epochs: Optional[int] = 1, drop_remainder: bool = True,
                 skip_batches: int = 0, skip_samples: int = 0,
-                workers: Optional[LoaderWorkers] = None
+                workers: Optional[LoaderWorkers] = None,
+                n_proc: Optional[int] = None, pid: Optional[int] = None
                 ) -> Iterator[Dict[str, np.ndarray]]:
-    """Host batches of ``dataset`` for ``num_epochs`` epochs (forever with
-    None), in the JAX fallback loader's order: ``default_rng(seed)``
-    shuffles ``arange(len)`` at the start of every epoch;
-    ``skip_batches``/``skip_samples`` apply to the first epoch only.
+    """This process's host batches of ``dataset`` (``batch_size`` is the
+    local batch) for ``num_epochs`` epochs (forever with None), in the JAX
+    fallback loader's order: ``default_rng(seed)`` shuffles
+    ``arange(len)`` at the start of every epoch, the same permutation on
+    every process, and :func:`shard_epoch_indices` takes this process's
+    stride of it (``n_proc`` processes, this one ``pid``: the default
+    group's by default); ``skip_batches``/``skip_samples`` apply to the
+    first epoch only.
     With ``workers`` (a pool over ``dataset`` that the caller keeps and
     closes) the batches are read by its processes: the same batches, in
     the same order."""
@@ -322,6 +352,7 @@ def make_loader(dataset: PairedImageDataset, batch_size: int,
         if shuffle:
             rng.shuffle(idx)
         local = shard_epoch_indices(idx, batch_size, skip_batches=skip,
+                                    n_proc=n_proc, pid=pid,
                                     drop_remainder=drop_remainder,
                                     skip_samples=skip_s)
         skip = skip_s = 0

@@ -15,25 +15,29 @@ downs, the upsample convs and the head stay in the compute dtype.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from p2p_tpu_torch.ops.activations import PReLU, leaky_relu_y, tanh_y
 from p2p_tpu_torch.ops.conv import ConvLayer, UpsampleConvLayer, \
-    upsample_nearest
+    check_remat, remat_call, upsample_nearest
 from p2p_tpu_torch.ops.norm import make_norm, make_norm_act
 from p2p_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
 
 
 class ResidualBlock(nn.Module):
-    """conv-norm-relu-conv-norm + identity, relu after the add."""
+    """conv-norm-relu-conv-norm + identity, relu after the add;
+    rematerialized per ``remat`` (ops/conv.py ``remat_call``)."""
 
     def __init__(self, features: int, norm: str = "batch",
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 int8_delayed: bool = False):
+                 int8_delayed: bool = False,
+                 remat: Union[bool, str] = False):
         super().__init__()
+        check_remat(remat)
+        self.remat = remat
         ub = norm == "none"
         q = dict(use_bias=ub, dtype=dtype, int8=int8,
                  int8_delayed=int8_delayed)
@@ -43,6 +47,9 @@ class ResidualBlock(nn.Module):
         self.BatchNorm_1 = make_norm_act(norm, features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat_call(self, self._block, x, mode=self.remat)
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         y = self.BatchNorm_0(self.ConvLayer_0(x), act="relu")
         return self.BatchNorm_1(self.ConvLayer_1(y), act="relu", residual=x)
 
@@ -51,7 +58,8 @@ class ExpandNetwork(nn.Module):
     def __init__(self, in_channels: int = 3, ngf: int = 32,
                  n_blocks: int = 9, out_channels: int = 3,
                  norm: str = "batch", dtype: Optional[torch.dtype] = None,
-                 int8: bool = False, int8_delayed: bool = False):
+                 int8: bool = False, int8_delayed: bool = False,
+                 remat: Union[bool, str] = False):
         super().__init__()
         ub = norm == "none"
         self.n_blocks = n_blocks
@@ -65,7 +73,7 @@ class ExpandNetwork(nn.Module):
         for i in range(n_blocks):
             setattr(self, f"ResidualBlock_{i}",
                     ResidualBlock(ngf * 4, norm=norm, dtype=dtype, int8=int8,
-                                  int8_delayed=int8_delayed))
+                                  int8_delayed=int8_delayed, remat=remat))
         ups = [(ngf * 4, ngf * 2, 3, 2), (ngf * 2, ngf, 3, 2),
                (ngf, out_channels, 9, 0)]
         for i, (cin, f, k, up) in enumerate(ups):

@@ -8,14 +8,16 @@ hands its pre-output ngf-channel features to G2, the local enhancer, which
 adds them to its own half-resolution features, runs ``n_blocks_local``
 residual blocks and one upsample back to full resolution. The enhancer
 runs at ``ngf // 2``. G1 is registered under the name ``"global"``, as in
-the flax tree. ``dtype`` is the convs' compute dtype on f32 masters, as
-in training (models/resnet_gen.py). ``int8`` puts G1's trunk and the
-enhancer's residual blocks on the int8 path (models/resnet_gen.py).
+the flax tree. ``remat`` rematerializes every residual block of both
+trunks (``ParallelConfig.remat``). ``dtype`` is the convs' compute dtype
+on f32 masters, as in training (models/resnet_gen.py). ``int8`` puts G1's
+trunk and the enhancer's residual blocks on the int8 path
+(models/resnet_gen.py).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
@@ -32,13 +34,14 @@ def GlobalGenerator(in_channels: int = 3, ngf: int = 64,
                     norm: str = "instance",
                     return_features: bool = False,
                     dtype: Optional[torch.dtype] = None, int8: bool = False,
-                    int8_delayed: bool = False) -> ResnetGenerator:
+                    int8_delayed: bool = False,
+                    remat: Union[bool, str] = False) -> ResnetGenerator:
     """G1: the ResnetGenerator configured as pix2pixHD's global net."""
     return ResnetGenerator(
         in_channels=in_channels, ngf=ngf, n_blocks=n_blocks,
         out_channels=out_channels, n_downsampling=4, norm=norm,
         max_features=1024, return_features=return_features, dtype=dtype,
-        int8=int8, int8_delayed=int8_delayed)
+        int8=int8, int8_delayed=int8_delayed, remat=remat)
 
 
 class Pix2PixHDGenerator(nn.Module):
@@ -48,7 +51,8 @@ class Pix2PixHDGenerator(nn.Module):
                  out_channels: int = 3, n_blocks_global: int = 9,
                  n_blocks_local: int = 3, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 int8_delayed: bool = False):
+                 int8_delayed: bool = False,
+                 remat: Union[bool, str] = False):
         super().__init__()
         self.na = make_norm_act(norm)
         self.n_blocks_local = n_blocks_local
@@ -57,7 +61,7 @@ class Pix2PixHDGenerator(nn.Module):
         self.add_module("global", GlobalGenerator(
             in_channels=in_channels, ngf=ngf, n_blocks=n_blocks_global,
             norm=norm, return_features=True, dtype=dtype, int8=int8,
-            int8_delayed=int8_delayed))
+            int8_delayed=int8_delayed, remat=remat))
         self.ConvLayer_0 = ConvLayer(in_channels, ngf_local, 7, use_bias=ub,
                                      dtype=dtype)
         self.ConvLayer_1 = ConvLayer(ngf_local, ngf, 3, stride=2,
@@ -65,7 +69,7 @@ class Pix2PixHDGenerator(nn.Module):
         for i in range(n_blocks_local):
             setattr(self, f"ResnetBlock_{i}",
                     ResnetBlock(ngf, norm=norm, dtype=dtype, int8=int8,
-                                int8_delayed=int8_delayed))
+                                int8_delayed=int8_delayed, remat=remat))
         self.UpsampleConvLayer_0 = UpsampleConvLayer(
             ngf, ngf_local, 3, upsample=2, use_bias=ub, dtype=dtype)
         self.ConvLayer_2 = ConvLayer(ngf_local, out_channels, 7, dtype=dtype)

@@ -35,9 +35,12 @@ COMPUTE_DTYPE_GENERATORS = ("expand", "unet")
 
 
 def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
-             image_hw: Optional[Tuple[int, int]] = None) -> nn.Module:
+             image_hw: Optional[Tuple[int, int]] = None,
+             remat: Union[bool, str] = False) -> nn.Module:
     """The generator ``cfg.generator`` names, on the CPU in f32.
-    ``image_hw`` is the input size, which fixes the U-Net's depth."""
+    ``image_hw`` is the input size, which fixes the U-Net's depth;
+    ``remat`` (``ParallelConfig.remat``) rematerializes the residual
+    blocks of the ExpandNetwork and of the ResNet-family trunks."""
     q = dict(int8=cfg.int8 and cfg.int8_generator,
              int8_delayed=cfg.int8_delayed)
     if cfg.generator == "expand":
@@ -45,7 +48,8 @@ def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
 
         return ExpandNetwork(
             in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
-            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype, **q)
+            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype,
+            remat=remat, **q)
     if cfg.generator == "unet":
         from p2p_tpu_torch.models.unet import UNetGenerator
 
@@ -67,20 +71,21 @@ def define_G(cfg: ModelConfig, dtype: Optional[torch.dtype] = None,
         return Pix2PixHDGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf,
             out_channels=cfg.output_nc, n_blocks_global=cfg.n_blocks,
-            norm=cfg.norm, dtype=dtype, **q)
+            norm=cfg.norm, dtype=dtype, remat=remat, **q)
     if cfg.generator == "pix2pixhd_global":
         from p2p_tpu_torch.models.pix2pixhd import GlobalGenerator
 
         return GlobalGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf,
             out_channels=cfg.output_nc, n_blocks=cfg.n_blocks,
-            norm=cfg.norm, dtype=dtype, **q)
+            norm=cfg.norm, dtype=dtype, remat=remat, **q)
     if cfg.generator == "resnet":
         from p2p_tpu_torch.models.resnet_gen import ResnetGenerator
 
         return ResnetGenerator(
             in_channels=cfg.input_nc, ngf=cfg.ngf, n_blocks=cfg.n_blocks,
-            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype, **q)
+            out_channels=cfg.output_nc, norm=cfg.norm, dtype=dtype,
+            remat=remat, **q)
     raise ValueError(f"generator {cfg.generator!r} is not ported yet")
 
 

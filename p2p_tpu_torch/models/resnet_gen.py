@@ -18,25 +18,30 @@ the head stay as they are.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from p2p_tpu_torch.ops.activations import tanh_y
-from p2p_tpu_torch.ops.conv import ConvLayer, UpsampleConvLayer
+from p2p_tpu_torch.ops.conv import (ConvLayer, UpsampleConvLayer,
+                                    check_remat, remat_call)
 from p2p_tpu_torch.ops.norm import make_norm_act
 
 
 class ResnetBlock(nn.Module):
     """reflectpad-conv-norm-relu-reflectpad-conv-norm + identity. The convs
     carry biases with ``norm="none"`` or ``legacy_layout`` (the JAX
-    block's flag, which models/compression_ae.py pins)."""
+    block's flag, which models/compression_ae.py pins). Rematerialized
+    per ``remat`` (ops/conv.py ``remat_call``)."""
 
     def __init__(self, features: int, norm: str = "instance",
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 int8_delayed: bool = False, legacy_layout: bool = False):
+                 int8_delayed: bool = False, legacy_layout: bool = False,
+                 remat: Union[bool, str] = False):
         super().__init__()
+        check_remat(remat)
+        self.remat = remat
         ub = legacy_layout or norm == "none"
         self.na = make_norm_act(norm)
         q = dict(use_bias=ub, dtype=dtype, int8=int8,
@@ -45,6 +50,9 @@ class ResnetBlock(nn.Module):
         self.ConvLayer_1 = ConvLayer(features, features, 3, **q)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return remat_call(self, self._block, x, mode=self.remat)
+
+    def _block(self, x: torch.Tensor) -> torch.Tensor:
         y = self.na(self.ConvLayer_0(x), act="relu")
         return self.na(self.ConvLayer_1(y), residual=x)
 
@@ -60,7 +68,8 @@ class ResnetGenerator(nn.Module):
                  max_features: Optional[int] = None,
                  return_features: bool = False,
                  dtype: Optional[torch.dtype] = None, int8: bool = False,
-                 int8_delayed: bool = False):
+                 int8_delayed: bool = False,
+                 remat: Union[bool, str] = False):
         super().__init__()
         self.na = make_norm_act(norm)
         self.n_downsampling = n_downsampling
@@ -80,7 +89,7 @@ class ResnetGenerator(nn.Module):
         for i in range(n_blocks):
             setattr(self, f"ResnetBlock_{i}",
                     ResnetBlock(c, norm=norm, dtype=dtype, int8=int8,
-                                int8_delayed=int8_delayed))
+                                int8_delayed=int8_delayed, remat=remat))
         for j, i in enumerate(reversed(range(n_downsampling))):
             f = min(ngf * 2 ** i, cap)
             setattr(self, f"UpsampleConvLayer_{j}", UpsampleConvLayer(

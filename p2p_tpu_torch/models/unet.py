@@ -52,6 +52,7 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from p2p_tpu_torch.core.mesh import current_mesh
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y, tanh_y
 from p2p_tpu_torch.ops.conv import (SubpixelDeconv, UpsampleConvLayer,
                                     cast_conv)
@@ -77,10 +78,18 @@ def unet_levels(num_downs: int, h: int, w: int) -> int:
 
 def dropout(y: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Keep each element with probability 0.5 and scale it by 2 (flax
-    ``nn.Dropout(0.5)``), drawing the mask from ``generator``."""
+    ``nn.Dropout(0.5)``), drawing the mask from ``generator``. Inside a
+    data-parallel step (a mesh made visible by ``core/mesh.mesh_context``)
+    the mask is drawn for the global batch and this rank keeps its rows,
+    so W ranks apply the masks one rank does at the global batch."""
     n, c, h, w = y.shape
-    u = torch.rand((n, h, w, c), generator=generator,
-                   device=y.device).permute(0, 3, 1, 2)
+    mesh = current_mesh()
+    shards = 1 if mesh is None else mesh.batch_shards
+    u = torch.rand((n * shards, h, w, c), generator=generator,
+                   device=y.device)
+    if shards > 1:
+        u = u[mesh.batch_rank * n:(mesh.batch_rank + 1) * n]
+    u = u.permute(0, 3, 1, 2)
     keep = 1.0 - DROPOUT_RATE
     return torch.where(u < keep, y / keep, torch.zeros((), dtype=y.dtype,
                                                        device=y.device))

@@ -6,9 +6,10 @@ either package.
 
 Ported: the four metric kinds, :class:`MetricsRegistry` (get-or-create
 factories, ``snapshot``, ``kinds``, ``total``, the record bus that fans
-structured records out to its sinks: obs/sinks.py) and the process
-default (:func:`get_registry` / :func:`set_registry`). The cross-host
-``aggregate`` comes with meshes (slice 11).
+structured records out to its sinks: obs/sinks.py, and the cross-process
+``aggregate`` over the default process group), the pure combine
+:func:`combine_host_snapshots` and the process default
+(:func:`get_registry` / :func:`set_registry`).
 """
 
 from __future__ import annotations
@@ -164,6 +165,45 @@ def _key(name: str, tags: Tags) -> str:
                    if tags else "")
 
 
+# the cross-process combine of each kind's snapshot fields
+_REDUCERS = {
+    "counter": {"value": sum},
+    "gauge": {"value_mean": None, "value_max": None},  # special-cased
+    "ewma": {"rate": sum},
+    "histogram": {"count": sum, "sum": sum, "min": min, "max": max},
+}
+
+
+def combine_host_snapshots(rows: List[Dict[str, Dict[str, float]]],
+                           kinds: Dict[str, str]
+                           ) -> Dict[str, Dict[str, float]]:
+    """Combine per-process ``snapshot()`` dicts (``p2p_tpu/obs/
+    registry.py:189``): counters and EWMA rates add, histograms add their
+    counts and sums and keep the extremes, gauges give their mean and max;
+    a metric missing on some process combines over those that have it."""
+    out: Dict[str, Dict[str, float]] = {}
+    for key, kind in kinds.items():
+        cols = [r[key] for r in rows if key in r]
+        if not cols:
+            continue
+        if kind == "gauge":
+            vals = [c["value"] for c in cols if not math.isnan(c["value"])]
+            out[key] = {
+                "value_mean": sum(vals) / len(vals) if vals else float("nan"),
+                "value_max": max(vals) if vals else float("nan"),
+            }
+            continue
+        fields = {}
+        for f, red in _REDUCERS[kind].items():
+            vals = [c[f] for c in cols if f in c]
+            if vals:
+                fields[f] = red(vals)
+        if kind == "histogram" and fields.get("count"):
+            fields["mean"] = fields["sum"] / fields["count"]
+        out[key] = fields
+    return out
+
+
 class MetricsRegistry:
     """Metric factory: ``counter/gauge/histogram/ewma(name, **tags)``
     get or create a metric (idempotent per (name, tags), safe in hot
@@ -250,6 +290,35 @@ class MetricsRegistry:
             items = list(self._metrics.items())
         return sum(m.value for (n, _), m in items
                    if n == name and m.kind == "counter")
+
+    def aggregate(self) -> Dict[str, Dict[str, float]]:
+        """The snapshot combined over every process of the default group
+        (the snapshot itself through the same combine on one process).
+        Every process calls it together: the key sets may differ, so each
+        snapshot travels as length-padded JSON in two all-gathers (the
+        lengths, then the bytes)."""
+        import json
+
+        import numpy as np
+
+        from p2p_tpu_torch.core.mesh import process_allgather, process_count
+
+        snap = self.snapshot()
+        kinds = self.kinds()
+        if process_count() == 1:
+            return combine_host_snapshots([snap], kinds)
+        blob = json.dumps([snap, kinds]).encode()
+        lens = process_allgather(
+            np.array([len(blob)], np.int64)).reshape(-1)
+        buf = np.zeros(int(lens.max()), np.uint8)
+        buf[:len(blob)] = np.frombuffer(blob, np.uint8)
+        rows = process_allgather(buf).reshape(len(lens), -1)
+        host_rows, all_kinds = [], {}
+        for r, n in zip(rows, lens):
+            s, k = json.loads(bytes(r[:int(n)]).decode())
+            host_rows.append(s)
+            all_kinds.update(k)
+        return combine_host_snapshots(host_rows, all_kinds)
 
 
 _default_registry: Optional[MetricsRegistry] = None

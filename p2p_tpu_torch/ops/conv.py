@@ -23,11 +23,30 @@ on the int8 path of ops/int8.py.
 ``dtype`` is flax's ``dtype=``: the conv's input, weight and bias are cast
 to it (bf16 compute on f32 master weights in training); ``None`` computes
 in the promoted type of input and weight.
+
+Rematerialization (``ParallelConfig.remat``; ``p2p_tpu/ops/conv.py:26
+remat_wrap``): :func:`remat_call` runs a generator block's forward under
+``torch.utils.checkpoint`` (non-reentrant). ``True``/``"full"`` keeps only
+the block's input and recomputes the whole block in the backward (its
+convs, #1, #3, #5 and sync-BatchNorm's all-reduce again); ``"conv"`` is a
+selective policy: the conv outputs (``aten.convolution``) and the norm
+statistics are kept and only the elementwise chain is recomputed (#3 and
+the plain norms' elementwise ops again; #1's, #5's and the all-reduced
+sums' results are replayed from a :class:`StatsTape`, and the plain
+instance norm's means are kept as ``aten.mean`` outputs). The recompute
+sees the block's buffers (BatchNorm running statistics, stored int8
+scales) as the forward saw them, and puts back what the forward wrote, so
+a buffer moves once a step, and it runs in the forward's context (the
+active mesh and sync-BatchNorm setting), whatever thread the backward
+recomputes on.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+import contextvars
+import functools
+from typing import Callable, Iterator, List, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +117,117 @@ def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
     if factor == 1:
         return x
     return F.interpolate(x, scale_factor=factor, mode="nearest")
+
+
+class StatsTape:
+    """The norm statistics of one remat'd block: recorded in its forward,
+    replayed in order by its recompute (the ``"conv"`` policy)."""
+
+    def __init__(self):
+        self.records: List[Tuple[torch.Tensor, ...]] = []
+        self.replay = False
+        self._next = 0
+
+    def take(self, compute: Callable[[], Tuple[torch.Tensor, ...]]
+             ) -> Tuple[torch.Tensor, ...]:
+        if self.replay:
+            out = self.records[self._next]
+            self._next += 1
+            return tuple(t.detach() for t in out)
+        out = compute()
+        self.records.append(tuple(t.detach() for t in out))
+        return out
+
+
+_TAPE: contextvars.ContextVar[Optional[StatsTape]] = contextvars.ContextVar(
+    "p2p_tpu_torch_stats_tape", default=None)
+
+
+def taped(compute: Callable[[], Tuple[torch.Tensor, ...]]
+          ) -> Tuple[torch.Tensor, ...]:
+    """``compute()`` (a tuple of statistics tensors), or its recorded
+    result while a ``"conv"`` recompute replays the block's tape."""
+    tape = _TAPE.get()
+    return compute() if tape is None else tape.take(compute)
+
+
+@contextlib.contextmanager
+def _taping(tape: Optional[StatsTape]) -> Iterator[None]:
+    token = _TAPE.set(tape)
+    try:
+        yield
+    finally:
+        _TAPE.reset(token)
+
+
+REMAT_MODES = (False, True, "full", "conv")
+
+
+def _conv_policy(ctx, op, *args, **kwargs):
+    """Keep the conv outputs and the plain norms' means; recompute the
+    rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.convolution.default,
+              torch.ops.aten.mean.dim):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def check_remat(mode: Union[bool, str]) -> None:
+    if mode not in REMAT_MODES:
+        raise ValueError(f"unknown remat mode {mode!r}; expected False, "
+                         "True/'full', or 'conv'")
+
+
+def remat_call(module: nn.Module, fn: Callable[..., torch.Tensor],
+               *args: torch.Tensor, mode: Union[bool, str] = False
+               ) -> torch.Tensor:
+    """``fn(*args)``, ``module``'s forward, rematerialized per ``mode``
+    (module docstring); as it is when ``mode`` is off or no gradient is
+    recorded."""
+    check_remat(mode)
+    if not mode or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    bufs = list(module.buffers())
+    before = [b.detach().clone() for b in bufs]
+    tape = StatsTape() if mode == "conv" else None
+    forward_ctx = contextvars.copy_context()
+    calls = [0]
+
+    def put(values: List[torch.Tensor]) -> None:
+        if bufs:
+            with torch.no_grad():
+                torch._foreach_copy_(bufs, values)
+
+    def block(first: bool, *a):
+        # the same ops in the forward and in the recompute (the selective
+        # policy matches the two runs op by op): the recompute starts from
+        # the buffers the forward saw and ends on those it wrote
+        now = [b.detach().clone() for b in bufs]
+        put(before)
+        with _taping(tape):
+            out = fn(*a)
+        tail = [b.detach().clone() for b in bufs]
+        put(tail if first else now)
+        return out
+
+    def run(*a):
+        calls[0] += 1
+        if calls[0] == 1:
+            return block(True, *a)
+        if tape is not None:
+            tape.replay = True
+        return forward_ctx.run(block, False, *a)
+
+    kw = {}
+    if mode == "conv":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _conv_policy)
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 class ConvLayer(nn.Module):

@@ -42,6 +42,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from p2p_tpu_torch.ops.conv import taped
 from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
     instance_norm_apply, instance_norm_stats)
 from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_quant, \
@@ -74,7 +75,7 @@ class _InstanceNorm(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, eps):
-        mean, rstd = instance_norm_stats(x, eps)
+        mean, rstd = taped(lambda: instance_norm_stats(x, eps))
         ctx.save_for_backward(x, mean, rstd, scale)
         return instance_norm_apply(x, mean, rstd, scale, bias,
                                    x_ready=True)
@@ -91,7 +92,7 @@ class _InstanceNormAct(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, scale, bias, residual, act, slope, eps):
-        mean, rstd = instance_norm_stats(x, eps)
+        mean, rstd = taped(lambda: instance_norm_stats(x, eps))
         y = norm_act(x, mean, rstd, scale, bias, residual, act, slope,
                      x_ready=True)
         ctx.save_for_backward(x, mean, rstd, scale, y)
@@ -139,7 +140,7 @@ class _InstanceNormActQuant(torch.autograd.Function):
     def forward(ctx, x, scale, bias, sx, act, slope, eps, use_kernel):
         sx = sx.float().clamp_min(1e-12)
         if use_kernel:
-            mean, rstd = instance_norm_stats(x, eps)
+            mean, rstd = taped(lambda: instance_norm_stats(x, eps))
             q, amax = norm_act_quant(x, mean, rstd, scale, bias, sx, act,
                                      slope, x_ready=True)
         else:

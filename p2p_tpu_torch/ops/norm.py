@@ -9,14 +9,32 @@ for the fused epilogue), ``"instance"`` (plain PyTorch, the op order of the
 JAX ``InstanceNorm`` module) and ``"none"``. The stateless kinds
 are plain functions on tensors; ``"batch"`` is a module, built per call
 site with its channel count, so the factories take ``features`` for it.
+
+Sync-BatchNorm (``ParallelConfig.sync_batchnorm``, on by default): inside
+a data-parallel step (a mesh made visible by ``core/mesh.mesh_context``)
+each rank runs kernel #5 on its own (M/W, C) rows, then ONE all-reduce
+(SUM) of the (2, C) f32 buffer (Σx, Σx²) over the batch group; mean and
+variance divide by the global count, so the running statistics move
+identically on every rank. Its backward all-reduces the cotangents of the
+two sums before the closed form ``dxc = ds + 2·xc·dss``: each rank's
+gradient then carries every rank's loss terms, which the gradient average
+(parallel/dp.py) divides by the world size. Each of the two all-reduces
+is counted (``sync_moments.allreduces``, ``sync_moments.backward_
+allreduces``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+import contextlib
+import contextvars
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
+
+from p2p_tpu_torch.core.mesh import current_mesh
+from p2p_tpu_torch.ops.conv import taped
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y
 from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
@@ -37,7 +55,7 @@ class _DualMoments(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xc):
         ctx.save_for_backward(xc)
-        return batch_moments(xc)
+        return taped(lambda: batch_moments(xc))
 
     @staticmethod
     def backward(ctx, ds, dss):
@@ -52,11 +70,70 @@ def dual_moments(xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _DualMoments.apply(xc)
 
 
+_SYNC_BN: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "p2p_tpu_torch_sync_batchnorm", default=True)
+
+
+@contextlib.contextmanager
+def sync_batchnorm(enabled: bool) -> Iterator[None]:
+    """Whether BatchNorm sums its moments over the active mesh's batch
+    group (``ParallelConfig.sync_batchnorm``; False: each rank's own)."""
+    token = _SYNC_BN.set(bool(enabled))
+    try:
+        yield
+    finally:
+        _SYNC_BN.reset(token)
+
+
+class _SyncMoments(torch.autograd.Function):
+    """The all-reduce (SUM) of a rank's (Σx, Σx²) over ``group`` as one
+    (2, C) f32 buffer; the backward all-reduces the two cotangents the
+    same way."""
+
+    @staticmethod
+    def forward(ctx, s1, s2, group):
+        ctx.group = group
+
+        def reduce():
+            buf = torch.stack([s1, s2])
+            dist.all_reduce(buf, group=group)
+            sync_moments.allreduces += 1
+            return buf[0], buf[1]
+
+        return taped(reduce)
+
+    @staticmethod
+    def backward(ctx, ds, dss):
+        buf = torch.stack([ds, dss])
+        dist.all_reduce(buf, group=ctx.group)
+        sync_moments.backward_allreduces += 1
+        return buf[0], buf[1], None
+
+
+def sync_moments(xc: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``(Σxc, Σxc², count)`` of an (M, C) tensor over the global batch:
+    :func:`dual_moments` on this rank's rows, then, inside a
+    data-parallel step with sync-BatchNorm on, one all-reduce over the
+    mesh's batch group (``count`` is then M times the batch shards)."""
+    s1, s2 = dual_moments(xc)
+    mesh = current_mesh()
+    if mesh is None or not _SYNC_BN.get():
+        return s1, s2, xc.shape[0]
+    s1, s2 = _SyncMoments.apply(s1, s2, mesh.batch_group)
+    return s1, s2, xc.shape[0] * mesh.batch_shards
+
+
+sync_moments.allreduces = 0
+sync_moments.backward_allreduces = 0
+
+
 class BatchNorm(nn.Module):
     """The JAX ``_FastBatchNorm`` over (N, H, W) of an (N, C, H, W) tensor.
 
     In training the moments are shifted by the running mean ``c`` (cast to
-    x's dtype, no gradient): ``xc = x − c``, ``mean = Σxc/n + c``,
+    x's dtype, no gradient): ``xc = x − c``, ``mean = Σxc/n + c``
+    (Σ and n over the global batch under sync-BatchNorm),
     ``var = max(Σxc²/n − (Σxc/n)², 0)`` (biased), and the running
     statistics move as ``r ← 0.9·r + 0.1·stat`` (flax momentum 0.9, torch
     momentum 0.1) in place. The folded affine ``a = γ·rsqrt(var + ε)``,
@@ -80,8 +157,7 @@ class BatchNorm(nn.Module):
         if self.training:
             shift = self.mean.to(x.dtype)
             xc = x - shift.view(1, c, 1, 1)
-            n = x.numel() // c
-            s1, s2 = dual_moments(xc.permute(0, 2, 3, 1).reshape(-1, c))
+            s1, s2, n = sync_moments(xc.permute(0, 2, 3, 1).reshape(-1, c))
             mean_c = s1 / n
             mean = mean_c + shift.float()
             var = torch.maximum(s2 / n - mean_c * mean_c, s2.new_zeros(()))

@@ -1,0 +1,204 @@
+"""Data-parallel training over the mesh's batch axes (counterpart of
+``p2p_tpu/parallel/dp.py:37-146``).
+
+The JAX step is one jitted program over the mesh: the state replicated,
+the batch split along N over (data, fsdp), and GSPMD inserts the gradient
+and BatchNorm all-reduces. Here each rank runs the one-device step
+(train/step.py ``build_train_step``) on its rows of the global batch, and
+the collectives are written out:
+
+- :func:`replicate_state` broadcasts every tensor of the state from rank
+  0: parameters, buffers (BatchNorm running statistics, spectral-norm
+  ``u``, stored int8 scales), optimizer moments, the EMA and the pool;
+- :func:`shard_batch` keeps rank ``r``'s rows ``[r·n, (r+1)·n)`` of a
+  global host batch (the loader of a trainer hands each rank its own
+  rows already, data/pipeline.py);
+- :class:`DataParallel` is what the step calls: :meth:`DataParallel.
+  sync_grads` all-reduces one network's gradients as ONE coalesced
+  buffer, divided by the world size, after that network's backward and
+  before its optimizer step (G, then D, then net_c: the same order on
+  every rank; the step's G backward reaches G's parameters only, so D's
+  reduction never sees a gradient from the G loss), :meth:`agree`
+  makes the skip guard's verdict one for all ranks, and
+  :meth:`mean_metrics` turns the step's metrics into the global batch's;
+- BatchNorm sums its moments over the batch group (ops/norm.py,
+  sync-BatchNorm through kernel #5), and the U-Net draws its dropout mask
+  for the global batch and keeps the rank's rows (models/unet.py), both
+  through the mesh this module makes visible (``core/mesh.mesh_context``).
+
+The loss of the JAX step is a mean over the GLOBAL batch, so its
+gradients equal a one-device step on the same global batch
+(``dp.py:15-17``); here each rank's loss is the mean over its rows, and
+the gradient average over the ranks is that same mean.
+
+With ``fsdp`` > 1 the optimizers and the EMA are sharded (parallel/
+rules.py): the gradient is still all-reduced whole, so the update of a
+range is bitwise the replicated update of it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.core.mesh import Mesh, mesh_context
+from p2p_tpu_torch.ops.norm import sync_batchnorm
+from p2p_tpu_torch.parallel.rules import (ShardedOptimizer, gather_params,
+                                          in_layout_of, mem_flat,
+                                          release_params, shard_state)
+
+
+def state_tensors(state) -> List[torch.Tensor]:
+    """Every tensor of a train state, in one order on every rank."""
+    out: List[torch.Tensor] = []
+    for name in ("net_g", "net_d", "net_c", "net_dt"):
+        net = getattr(state, name, None)
+        if net is not None:
+            out += [t.data for t in net.parameters()]
+            out += list(net.buffers())
+    for name in ("opt_g", "opt_d", "opt_c", "opt_dt"):
+        opt = getattr(state, name, None)
+        if opt is None:
+            continue
+        for group in opt[0].param_groups:
+            for p in group["params"]:
+                st = opt[0].state.get(p, {})
+                out += [st[k] for k in sorted(st) if torch.is_tensor(st[k])
+                        and st[k].device == p.device]
+    ema = getattr(state, "ema_g", None)
+    if ema is not None:
+        out += list(ema.values())
+    for name in ("pool", "pool_n"):
+        t = getattr(state, name, None)
+        if t is not None:
+            out.append(t)
+    return out
+
+
+@torch.no_grad()
+def replicate_state(state, mesh: Mesh):
+    """Broadcast every tensor of ``state`` from rank 0 (in place)."""
+    for t in state_tensors(state):
+        dist.broadcast(t, src=0)
+    return state
+
+
+def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh
+                ) -> Dict[str, np.ndarray]:
+    """This rank's rows of a global host batch (N split over the batch
+    shards, in rank order)."""
+    out = {}
+    for k, v in batch.items():
+        n = v.shape[0]
+        if n % mesh.batch_shards:
+            raise ValueError(f"batch of {n} does not split over "
+                             f"{mesh.batch_shards} ranks")
+        m = n // mesh.batch_shards
+        out[k] = v[mesh.batch_rank * m:(mesh.batch_rank + 1) * m]
+    return out
+
+
+class DataParallel:
+    """The collectives of one data-parallel train step on ``mesh``."""
+
+    def __init__(self, mesh: Mesh):
+        self.mesh = mesh
+
+    @torch.no_grad()
+    def sync_grads(self, opt) -> None:
+        """All-reduce (SUM) the gradients of ``opt``'s parameters as one
+        buffer laid out as the parameters, divide it by the world size,
+        and make each ``.grad`` a view of it (a sharded optimizer steps on
+        its range). Every parameter must have a gradient."""
+        optimizer = opt[0]
+        params = [p for g in optimizer.param_groups for p in g["params"]]
+        missing = [i for i, p in enumerate(params) if p.grad is None]
+        if missing:
+            raise RuntimeError(f"data parallel: {len(missing)} parameters "
+                               "got no gradient (every rank must reduce "
+                               "the same buffer)")
+        flat = torch.cat([mem_flat(in_layout_of(p.grad, p))
+                          for p in params])
+        dist.all_reduce(flat, group=self.mesh.batch_group)
+        flat.div_(self.mesh.batch_shards)
+        off = 0
+        for p in params:
+            p.grad = flat.as_strided(p.shape, p.stride(), off)
+            off += p.numel()
+        if isinstance(optimizer, ShardedOptimizer):
+            optimizer.grad_flat = flat
+
+    def mean_metrics(self, metrics: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+        """The step's 0-d metrics as their mean over the ranks (one
+        all-reduce of their stack): the global batch's losses, as the JAX
+        step reports them, so every rank's sentinel, ladder and records
+        see the same values."""
+        keys = list(metrics)
+        stacked = torch.stack([metrics[k].detach().reshape(()).float()
+                               for k in keys])
+        dist.all_reduce(stacked, group=self.mesh.batch_group)
+        stacked.div_(self.mesh.batch_shards)
+        return dict(zip(keys, stacked.unbind()))
+
+    def agree(self, *losses: torch.Tensor) -> bool:
+        """Whether every rank's losses are finite (one all-reduce MIN)."""
+        ok = torch.isfinite(torch.stack([x.detach().float()
+                                         for x in losses])).all().float()
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN,
+                        group=self.mesh.batch_group)
+        return bool(ok)
+
+    def before_step(self, state) -> None:
+        gather_params(state)
+
+    def after_step(self, state) -> None:
+        release_params(state)
+
+
+def place_state(state, mesh: Mesh, fsdp_params: bool = False):
+    """The data-parallel layout of a freshly created state: replicated
+    from rank 0, then (``fsdp`` > 1) ZeRO-sharded."""
+    replicate_state(state, mesh)
+    return shard_state(state, mesh, fsdp_params=fsdp_params)
+
+
+def make_parallel_train_step(cfg: Config, mesh: Mesh,
+                             vgg: Optional[nn.Module] = None,
+                             train_dtype: Optional[torch.dtype] = None,
+                             steps_per_epoch: int = 1):
+    """``step(state, batch) -> (state, metrics)``: the one-device step on
+    this rank's rows with the data-parallel collectives, inside the mesh's
+    context (sync-BatchNorm per ``cfg.parallel.sync_batchnorm``, the
+    global dropout draw). ``state`` is in the layout of
+    :func:`place_state`; ``metrics`` are the means over the ranks."""
+    from p2p_tpu_torch.train.step import build_train_step
+
+    dp = DataParallel(mesh)
+    step = build_train_step(cfg, vgg, train_dtype, steps_per_epoch, dp=dp)
+
+    def parallel_step(state, batch):
+        with mesh_context(mesh), sync_batchnorm(cfg.parallel.sync_batchnorm):
+            return step(state, batch)
+
+    return parallel_step
+
+
+def make_parallel_eval_step(cfg: Config, mesh: Mesh,
+                            train_dtype: Optional[torch.dtype] = None):
+    """The eval step on this rank's rows, inside the mesh's context
+    (eval mode reads the running statistics: no collective)."""
+    from p2p_tpu_torch.train.step import build_eval_step
+
+    step = build_eval_step(cfg, train_dtype)
+
+    def parallel_eval(state, batch):
+        with mesh_context(mesh):
+            return step(state, batch)
+
+    return parallel_eval

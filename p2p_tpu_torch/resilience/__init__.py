@@ -2,8 +2,9 @@
 shutdown and preemption with exit code 75 (:mod:`.preempt`), the training
 health sentinel and recovery ladder with exit code 76 (:mod:`.health`),
 retry with backoff (:mod:`.retry`), fault injection (:mod:`.chaos`) and
-the bounded request queue with quarantine (:mod:`.queue`). The elastic
-reshape (``reshape.py``) comes with meshes (slice 11)."""
+the bounded request queue with quarantine (:mod:`.queue`) and the
+restore-time migrations of an elastic relaunch, the data-axis part
+(:mod:`.reshape`)."""
 
 from p2p_tpu_torch.resilience.chaos import (
     ChaosMonkey,

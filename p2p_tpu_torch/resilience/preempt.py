@@ -7,8 +7,10 @@ boundaries, saves an exact-step checkpoint with its iterator sidecar and
 raises :class:`Preempted`, which ``cli/train.py`` turns into
 :data:`PREEMPTED_EXIT_CODE` (75, ``EX_TEMPFAIL``: "re-run me"). A second
 signal restores the old handler and re-delivers it, so a wedged process
-can still be killed. The multi-host agreement of ``should_stop`` comes
-with meshes (slice 11); one process polls its own flag."""
+can still be killed. On more than one process ``should_stop`` agrees: every
+``sync_every``-th poll is one all-reduce MAX of the flag over the default
+group, so every rank stops (saves, exits 75) at the same step even when
+one alone was signalled; one process polls its own flag."""
 
 from __future__ import annotations
 
@@ -42,10 +44,9 @@ class PreemptionGuard:
 
     def __init__(self, registry=None, sync_every: int = 16):
         self._registry = registry
-        # the JAX guard's cadence of its cross-host agreement; one process
-        # has nothing to agree with, so it only rides along in the
-        # signature
+        # the polls between two agreements of the processes
         self.sync_every = max(1, int(sync_every))
+        self._polls = 0
         self._requested = False
         self._signum: Optional[int] = None
         self._old = {}
@@ -126,8 +127,27 @@ class PreemptionGuard:
         self._requested = True
 
     def should_stop(self) -> bool:
-        """Poll at a step boundary: the local flag (one process)."""
-        return self._requested
+        """Poll at a step boundary. One process: the local flag. More: the
+        flag agreed over the default group every ``sync_every``-th poll
+        (False in between); every process calls this once a step, so the
+        collectives line up (``p2p_tpu/resilience/preempt.py:176``)."""
+        from p2p_tpu_torch.core.mesh import collective_device, process_count
+
+        if process_count() == 1:
+            return self._requested
+        self._polls += 1
+        if self._polls % self.sync_every:
+            return False
+        import torch
+        import torch.distributed as dist
+
+        flag = torch.tensor([1 if self._requested else 0],
+                            dtype=torch.int32, device=collective_device())
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        agreed = bool(flag.item())
+        if agreed and not self._requested:
+            self._requested = True      # a peer was signalled
+        return agreed
 
     @property
     def requested(self) -> bool:

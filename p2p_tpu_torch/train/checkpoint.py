@@ -49,9 +49,17 @@ samples seen, the shuffle's seed jitter, the base LR scale and the
 topology: exact-step resume, train/loop.py ``save_trainer_ckpt``), and
 ``<step>.good.json``, the eval-validated mark the recovery ladder rolls
 back to. A sidecar that does not parse reads as missing and is counted
-(``aux_corrupt_total``, a ``kind="aux_corrupt"`` record). The
-quant-template reconciliation of pre-drain JAX checkpoints has no
+(``aux_corrupt_total``, a ``kind="aux_corrupt"`` record);
+:func:`peek_topology` reads the newest recorded topology block without a
+manager, and raises :class:`SidecarCorrupt` when every sidecar is torn.
+The quant-template reconciliation of pre-drain JAX checkpoints has no
 counterpart: every port checkpoint carries every scale.
+
+Data parallel: a step is always in the one-device format.
+:func:`state_fields` gathers a ZeRO-sharded optimizer's moments and EMA
+(parallel/rules.py; collective over the ``fsdp`` group, so every rank
+calls it), rank 0 writes them (``save(..., fields=)``, train/loop.py
+``save_trainer_ckpt``), and a restore cuts them to each rank's range.
 """
 
 from __future__ import annotations
@@ -80,6 +88,54 @@ PROGRESS = "progress"
 MANIFEST = "manifest.json"
 
 
+class SidecarCorrupt(RuntimeError):
+    """Every iterator-state sidecar of a run failed to parse: its recorded
+    topology cannot be reconciled (an error, not the None of a
+    pre-elastic run)."""
+
+    def __init__(self, directory: str, newest_step: int):
+        self.directory = directory
+        self.newest_step = newest_step
+        super().__init__(
+            f"every checkpoint sidecar under {directory}.aux is "
+            f"torn/unreadable (newest attempted step: {newest_step}) — "
+            "the run's recorded topology cannot be reconciled; inspect "
+            "the .aux directory (restore a sidecar from backup, or "
+            "delete the aux dir to resume with step-derived position "
+            "AND pre-elastic topology semantics)")
+
+
+def peek_topology(directory: str) -> Optional[Dict[str, Any]]:
+    """The newest sidecar's recorded topology block under
+    ``<directory>.aux`` (``p2p_tpu/train/checkpoint.py:101``), without a
+    manager (which would create directories); None when no sidecar names
+    one. Raises :class:`SidecarCorrupt` when sidecars exist and none
+    parses."""
+    aux_dir = os.path.abspath(directory) + ".aux"
+    try:
+        names = os.listdir(aux_dir)
+    except OSError:
+        return None
+    steps = []
+    for n in names:
+        stem, dot, ext = n.partition(".")
+        if dot and ext == "json" and stem.isdigit():
+            steps.append(int(stem))
+    torn = 0
+    for s in sorted(steps, reverse=True):
+        try:
+            with open(os.path.join(aux_dir, f"{s}.json")) as f:
+                topo = json.load(f).get("topology")
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError):
+            torn += 1
+            continue
+        if topo:
+            return topo
+    if steps and torn == len(steps):
+        raise SidecarCorrupt(os.path.abspath(directory), max(steps))
+    return None
+
+
 class CheckpointCorrupt(RuntimeError):
     """No intact checkpoint could be restored: every step in scope failed
     its checksums or could not be read. Re-reading does not help."""
@@ -93,7 +149,8 @@ class CheckpointCorrupt(RuntimeError):
                          f"steps {tried}){cause}")
 
 
-def _tensors(obj: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
+def tensor_paths(obj: Any, prefix: str = ""
+                 ) -> List[Tuple[str, torch.Tensor]]:
     """Every tensor of a nested dict/list/tuple with its ``/`` path."""
     if isinstance(obj, torch.Tensor):
         return [(prefix, obj)]
@@ -105,7 +162,7 @@ def _tensors(obj: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
         return []
     out = []
     for k, v in items:
-        out.extend(_tensors(v, f"{prefix}/{k}" if prefix else str(k)))
+        out.extend(tensor_paths(v, f"{prefix}/{k}" if prefix else str(k)))
     return out
 
 
@@ -113,7 +170,7 @@ def tensor_checksums(obj: Any) -> Dict[str, Dict[str, Any]]:
     """``{path: {crc32, shape, dtype}}`` over the tensors of ``obj``, each
     CRC taken over its bytes in logical (contiguous) order."""
     out = {}
-    for path, t in _tensors(obj):
+    for path, t in tensor_paths(obj):
         flat = t.detach().cpu().contiguous().reshape(-1)
         out[path] = {"crc32": zlib.crc32(flat.view(torch.uint8).numpy()),
                      "shape": list(t.shape), "dtype": str(t.dtype)}
@@ -124,6 +181,32 @@ def _opt_state(opt) -> Dict[str, Any]:
     optimizer, scheduler = opt
     return {"optimizer": optimizer.state_dict(),
             "scheduler": scheduler.state_dict()}
+
+
+def state_fields(state: TrainState, step: int, epoch: int
+                 ) -> Dict[str, Any]:
+    """The files of a step of ``state`` in the one-device format: each
+    network's state_dict, each optimizer's with its scheduler's, the EMA,
+    the pool and the progress. Collective when the state is ZeRO-sharded
+    (every rank calls it, in one order)."""
+    from p2p_tpu_torch.parallel.rules import ema_state
+
+    fields: Dict[str, Any] = {PROGRESS: {
+        "step": int(step), "epoch": int(epoch),
+        "lr_scale": float(state.lr_scale)}}
+    for name in NETS:
+        net = getattr(state, name, None)
+        if net is not None:
+            fields[name] = net.state_dict()
+    for name in OPTS:
+        opt = getattr(state, name, None)
+        if opt is not None:
+            fields[name] = _opt_state(opt)
+    if getattr(state, EMA, None) is not None:
+        fields[EMA] = ema_state(state.ema_g)
+    if getattr(state, POOL, None) is not None:
+        fields[POOL] = {"pool": state.pool, "pool_n": state.pool_n}
+    return fields
 
 
 def _copy_exact(live: Dict[str, torch.Tensor],
@@ -177,27 +260,16 @@ class CheckpointManager:
     def step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(int(step)))
 
-    def save(self, step: int, state: TrainState, epoch: int) -> bool:
-        """Write ``state`` (and the epoch label) as step ``step``. A step
-        already on disk is left as it is (returns False)."""
+    def save(self, step: int, state: TrainState, epoch: int,
+             fields: Optional[Dict[str, Any]] = None) -> bool:
+        """Write ``state`` (and the epoch label) as step ``step``, or the
+        ``fields`` :func:`state_fields` gathered from it. A step already
+        on disk is left as it is (returns False)."""
         final = self.step_dir(step)
         if os.path.exists(final):
             return False
-        fields: Dict[str, Any] = {PROGRESS: {
-            "step": int(step), "epoch": int(epoch),
-            "lr_scale": float(state.lr_scale)}}
-        for name in NETS:
-            net = getattr(state, name, None)
-            if net is not None:
-                fields[name] = net.state_dict()
-        for name in OPTS:
-            opt = getattr(state, name, None)
-            if opt is not None:
-                fields[name] = _opt_state(opt)
-        if getattr(state, EMA, None) is not None:
-            fields[EMA] = dict(state.ema_g)
-        if getattr(state, POOL, None) is not None:
-            fields[POOL] = {"pool": state.pool, "pool_n": state.pool_n}
+        if fields is None:
+            fields = state_fields(state, step, epoch)
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
 
         def _save():
@@ -267,6 +339,11 @@ class CheckpointManager:
                 raise ValueError(f"{name}.pt: tensors fail their CRC32")
             out[name] = obj
         return out
+
+    def manifest(self, step: int) -> Dict[str, Any]:
+        """The ``files`` record of step ``step``'s manifest."""
+        with open(os.path.join(self.step_dir(step), MANIFEST)) as f:
+            return json.load(f)["files"]
 
     def verify(self, step: int) -> List[str]:
         """The problems of step ``step`` (empty when every file and tensor
@@ -351,7 +428,10 @@ class CheckpointManager:
                 scheduler.load_state_dict(fields[name]["scheduler"])
         with torch.no_grad():
             if EMA in fields:
-                _copy_exact(state.ema_g, fields[EMA], EMA)
+                if isinstance(state.ema_g, dict):
+                    _copy_exact(state.ema_g, fields[EMA], EMA)
+                else:
+                    state.ema_g.load_state_dict(fields[EMA])
             if POOL in fields:
                 _copy_exact({"pool": state.pool, "pool_n": state.pool_n},
                             fields[POOL], POOL)

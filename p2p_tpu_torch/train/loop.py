@@ -73,13 +73,40 @@ The video trainer (train/video_loop.py ``VideoTrainer``) is this trainer
 on clips: it overrides the factories and the eval batch, and shares every
 path above.
 
-Not ported yet: elastic resume across a topology change and meshes
-(slice 13), scan steps.
+Data parallel (slice 13): under ``torchrun`` (a default process group,
+``core/mesh.distributed_init``) the trainer builds the mesh of
+``cfg.parallel.mesh`` (:func:`build_trainer_mesh`), replicates the state
+from rank 0 and ZeRO-shards it over ``fsdp`` (parallel/dp.py
+``place_state``), and trains through ``make_parallel_train_step``: each
+rank reads its stride of every epoch's permutation (``data/pipeline.
+shard_epoch_indices``; ``cfg.data.batch_size`` is the global batch), each
+step's metrics are all-reduced into the global batch's (so the epoch sums,
+the records and every rank's sentinel and ladder see the same values),
+each rank scores its stride of the test split
+and the (sum, max, count) statistics are gathered (:func:`combine_process_
+metric_stats`; VFID is off on more than one process, as in JAX). Rank 0
+writes the checkpoints in the one-device format and the run's manifest,
+trace and sample PNGs, every rank waits at a barrier after a save, and
+rank ``p`` > 0 writes its records to ``metrics_<name>.p<p>.jsonl``
+(:func:`metrics_path`). The preemption poll agrees over the ranks
+(``resilience/preempt.py``), so every rank saves and exits 75 at one
+step. A plain run (no ``torchrun``) has no group and no mesh.
+
+Elastic relaunch (``cfg.train.elastic``): ``maybe_resume`` reconciles the
+step's recorded topology (:func:`trainer_topology`) with this launch's
+before it restores (:func:`plan_elastic_restore`): a process-count or
+data/fsdp-width change is a plain load onto the new world
+(``reshard``), a global-batch change re-bases the position from samples
+(``batch_rebase``), a dtype change casts with ``cast_on_restore``
+(``dtype_cast``); what cannot be reconciled raises ``TopologyMismatch``
+(exit 2 in ``cli/train.py``). Not ported yet: scan steps; the spatial,
+time, model and pipe axes (slices 13b, 13c).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import signal
 import time
@@ -87,9 +114,16 @@ from typing import Dict, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from p2p_tpu_torch.core.cache import enable_compilation_cache
 from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.core.mesh import (LATER_AXES, Mesh, TopologyMismatch,
+                                     classify_topology_delta,
+                                     describe_topology, local_batch_size,
+                                     mesh_topology,
+                                     process_allgather, process_count,
+                                     process_index, rank_device)
 from p2p_tpu_torch.core.debug import check_finite, enable_nan_debugging
 from p2p_tpu_torch.core.device import resolve_device
 from p2p_tpu_torch.core.dtypes import train_dtype
@@ -107,8 +141,16 @@ from p2p_tpu_torch.resilience.chaos import FaultInjected, chaos_point
 from p2p_tpu_torch.resilience.health import (DivergenceError, TrainingHealth,
                                              poison_nan_observation)
 from p2p_tpu_torch.resilience.preempt import Preempted, PreemptionGuard
+from p2p_tpu_torch.parallel import (full_params, make_parallel_eval_step,
+                                    make_parallel_train_step, place_state)
+from p2p_tpu_torch.resilience.reshape import (ElasticPlan,
+                                              apply_batch_rebase,
+                                              check_ported_chain,
+                                              elastic_restore)
 from p2p_tpu_torch.train.checkpoint import (OPTS, CheckpointCorrupt,
-                                            CheckpointManager)
+                                            CheckpointManager,
+                                            SidecarCorrupt, peek_topology,
+                                            state_fields)
 from p2p_tpu_torch.train.schedules import PlateauController, make_schedule
 from p2p_tpu_torch.train.state import (TrainState, create_train_state,
                                        load_vgg19)
@@ -127,9 +169,19 @@ def init_trainer_obs(tr) -> None:
     cfg = tr.cfg
     tr.spans = SpanRecorder()
     tr._trace_path = os.path.join(tr.workdir, f"trace_{cfg.name}.json")
-    man = write_manifest(
-        os.path.join(tr.workdir, f"manifest_{cfg.name}.json"), cfg,
-        device=tr.device)
+    extra = None
+    if tr.mesh is not None:
+        extra = {"n_devices": tr.mesh.size, "process_index": tr.rank,
+                 "process_count": process_count(),
+                 "mesh_shape": dict(tr.mesh.shape)}
+    path = os.path.join(tr.workdir, f"manifest_{cfg.name}.json")
+    if tr.rank:
+        # rank 0 keeps the run's manifest file; each rank records it
+        from p2p_tpu_torch.obs.manifest import build_manifest
+
+        man = build_manifest(cfg, device=tr.device, extra=extra)
+    else:
+        man = write_manifest(path, cfg, device=tr.device, extra=extra)
     tr.logger.log({"kind": "manifest", "config_hash": man["config_hash"],
                    "git_sha": man["git_sha"], "backend": man["backend"]},
                   force=True)
@@ -171,39 +223,51 @@ def close_trainer_obs(tr) -> None:
 
 # ----------------------------------------------- checkpoints and resume
 def trainer_topology(tr) -> Dict:
-    """The sidecar's topology block in its one-device form: the JAX keys,
-    with one process, one device, no mesh axes and no pipeline stages."""
+    """The sidecar's topology block, recorded with every step and
+    reconciled on relaunch: the mesh's (:func:`~p2p_tpu_torch.core.mesh.
+    mesh_topology`: the real process and device counts and the axis
+    sizes, none without a mesh) and the global batch, the dtype policy,
+    the loader (the port's is always the stride-sharded fallback) and the
+    pipeline stages (1: flat)."""
     cfg = tr.cfg
-    return {"process_count": 1, "device_count": 1, "mesh": {},
-            "global_batch": int(cfg.data.batch_size),
-            "mixed_precision": bool(cfg.train.mixed_precision),
-            "moment_dtype": cfg.optim.moment_dtype,
-            "int8_delayed": bool(cfg.model.int8_delayed),
-            "loader": "fallback", "pp_stages": 1}
+    topo = mesh_topology(tr.mesh)
+    topo.update({"global_batch": int(cfg.data.batch_size),
+                 "mixed_precision": bool(cfg.train.mixed_precision),
+                 "moment_dtype": cfg.optim.moment_dtype,
+                 "int8_delayed": bool(cfg.model.int8_delayed),
+                 "loader": "fallback", "pp_stages": 1})
+    return topo
 
 
 def save_trainer_ckpt(tr) -> int:
     """Checkpoint the state and its iterator sidecar: together they name
     an exact point of the sample stream, so any checkpoint (an epoch's end
     or a preemption mid-epoch) resumes without replaying or skipping a
-    sample. Returns the step."""
+    sample. On a mesh every rank gathers the ZeRO ranges, rank 0 writes
+    the one-device format and every rank waits for it. Returns the
+    step."""
     step = int(tr.state.step)
-    tr.ckpt.save(step, tr.state, tr.epoch)
-    tr.ckpt.save_aux(step, {
-        "step": step,
-        "epoch": tr.epoch,
-        "batches_done": step % tr.steps_per_epoch,
-        "steps_per_epoch": tr.steps_per_epoch,
-        "samples_seen": int(tr._samples_seen),
-        "epoch_samples_done": int(tr._epoch_samples_done),
-        "aug_seed": tr.cfg.train.seed + tr.epoch + tr._seed_jitter,
-        # a rollback's shuffle perturbation (the resumed epoch must skip
-        # against the perturbed permutation) and the base LR scale (the
-        # state's may carry a cooldown that must not outlive a resume)
-        "seed_jitter": int(tr._seed_jitter),
-        "lr_base": float(tr._base_lr_scale),
-        "topology": trainer_topology(tr),
-    })
+    with full_params(tr.state):
+        fields = state_fields(tr.state, step, tr.epoch)
+    if tr.rank == 0:
+        tr.ckpt.save(step, tr.state, tr.epoch, fields=fields)
+        tr.ckpt.save_aux(step, {
+            "step": step,
+            "epoch": tr.epoch,
+            "batches_done": step % tr.steps_per_epoch,
+            "steps_per_epoch": tr.steps_per_epoch,
+            "samples_seen": int(tr._samples_seen),
+            "epoch_samples_done": int(tr._epoch_samples_done),
+            "aug_seed": tr.cfg.train.seed + tr.epoch + tr._seed_jitter,
+            # a rollback's shuffle perturbation (the resumed epoch must skip
+            # against the perturbed permutation) and the base LR scale (the
+            # state's may carry a cooldown that must not outlive a resume)
+            "seed_jitter": int(tr._seed_jitter),
+            "lr_base": float(tr._base_lr_scale),
+            "topology": trainer_topology(tr),
+        })
+    if tr.mesh is not None:
+        dist.barrier()
     return step
 
 
@@ -216,7 +280,8 @@ def finish_preempted(tr) -> None:
     signum = getattr(tr.preempt, "signum", None)
     tr.logger.log({"kind": "preempt", "epoch": tr.epoch, "step": step,
                    "signum": signum or 0}, force=True)
-    tr.spans.export_perfetto(tr._trace_path)
+    if tr.rank == 0:
+        tr.spans.export_perfetto(tr._trace_path)
     tr.logger.registry.flush()
     raise Preempted(step, signum)
 
@@ -267,8 +332,12 @@ def derive_resume_position(tr, step: int, aux=_AUX_UNREAD):
     if aux is not None and aux.get("seed_jitter") is not None:
         tr._seed_jitter = int(aux["seed_jitter"])
     if aux is not None and aux.get("batches_done") is not None:
+        plan = getattr(tr, "_elastic_plan", None)
+        rebasing = plan is not None and "batch_rebase" in plan.chain
         if int(aux.get("steps_per_epoch", tr.steps_per_epoch)) \
-                != tr.steps_per_epoch:
+                != tr.steps_per_epoch and not rebasing:
+            # a planned batch migration re-bases from samples
+            # (resilience/reshape.apply_batch_rebase)
             print(
                 f"WARNING: checkpoint step {step} was saved with "
                 f"steps_per_epoch={aux.get('steps_per_epoch')} but this "
@@ -423,7 +492,8 @@ def perform_rollback(tr) -> None:
     if target is None:
         raise DivergenceError(cur_step, tr.health.ladder.rollbacks,
                               "no checkpoint to roll back to")
-    tr.ckpt.restore(tr.state, step=int(target), fallback=True)
+    with full_params(tr.state):
+        tr.ckpt.restore(tr.state, step=int(target), fallback=True)
     if tr.ckpt.last_restored_step is not None:
         target = tr.ckpt.last_restored_step
     done, mid = divmod(int(target), tr.steps_per_epoch)
@@ -455,7 +525,126 @@ def log_health_summary(tr) -> None:
 
 
 def metrics_path(workdir: str, name: str) -> str:
-    return os.path.join(workdir, f"metrics_{name}.jsonl")
+    """Per-process metrics JSONL path: rank 0 keeps
+    ``metrics_<name>.jsonl``, rank ``p`` writes the ``.p<p>`` sibling (two
+    processes appending to one file would tear records)."""
+    idx = process_index()
+    suffix = "" if idx == 0 else f".p{idx}"
+    return os.path.join(workdir, f"metrics_{name}{suffix}.jsonl")
+
+
+def combine_process_metric_stats(psnrs, ssims):
+    """``(psnr_mean, psnr_max, ssim_mean, ssim_max, n_total)`` over every
+    process's per-image lists: one all-gather of (sum, max, count) each
+    (``p2p_tpu/train/loop.py:827``). A process that scored no image
+    enters the collective with empty-safe statistics; none scored at all
+    raises."""
+    stats = np.array(
+        [np.sum(psnrs), np.max(psnrs, initial=-np.inf), len(psnrs),
+         np.sum(ssims), np.max(ssims, initial=-np.inf)], np.float64)
+    g = process_allgather(stats)
+    n_total = g[:, 2].sum()
+    if n_total == 0:
+        raise RuntimeError(
+            "multi-process eval scored 0 images: the test split is "
+            "smaller than process_count × test batch — shrink "
+            "test_batch_size or add test data")
+    return (float(g[:, 0].sum() / n_total), float(g[:, 1].max()),
+            float(g[:, 3].sum() / n_total), float(g[:, 4].max()),
+            int(n_total))
+
+
+def build_trainer_mesh(cfg: Config, workdir: str) -> Optional[Mesh]:
+    """The mesh of ``cfg.parallel.mesh`` over the default process group,
+    or None without one (a plain run). At world size 1 a preset's spatial
+    or time axis resolves as 1 (the one-card form of ``cityscapes_spatial``,
+    ``pix2pixhd`` and ``vid2vid_temporal``); wider worlds need slice 13b
+    for them (``NotImplementedError``). A mesh that does not fit the
+    processes names the topology the run's checkpoint was saved on
+    (``p2p_tpu/train/loop.py:458``)."""
+    if not dist.is_initialized():
+        return None
+    spec = cfg.parallel.mesh
+    if dist.get_world_size() == 1:
+        spec = dataclasses.replace(spec, **{a: 1 for a in LATER_AXES})
+    try:
+        return Mesh(spec)
+    except ValueError as e:
+        ckpt_dir = os.path.join(workdir, cfg.train.checkpoint_dir,
+                                cfg.data.dataset, cfg.name)
+        try:
+            saved = peek_topology(ckpt_dir)
+        except SidecarCorrupt:
+            saved = None
+        if saved is not None:
+            raise ValueError(
+                f"{e} [relaunch context: the checkpoint under {ckpt_dir} "
+                f"was saved on {describe_topology(saved)}; an elastic "
+                "relaunch may change the topology, but the new mesh must "
+                "fit the processes this launch actually has]") from e
+        raise
+
+
+def plan_elastic_restore(tr, step: int, aux) -> Optional[ElasticPlan]:
+    """Reconcile the step's recorded topology with this launch's before the
+    restore (``p2p_tpu/train/loop.py:332``), for both trainers: None for
+    the same topology (or a run that recorded none), else the
+    :class:`~p2p_tpu_torch.resilience.reshape.ElasticPlan` that
+    ``elastic_restore`` executes. Raises ``TopologyMismatch`` (both
+    topologies named) on an abort delta, on a transform of a later slice,
+    and on any delta with ``train.elastic`` off. A torn sidecar for this
+    step falls back to the newest intact one (``peek_topology``)."""
+    tr._elastic_plan = None
+    saved = (aux or {}).get("topology")
+    if not saved:
+        saved = peek_topology(tr.ckpt.directory)
+    if not saved:
+        return None
+    current = trainer_topology(tr)
+    delta = classify_topology_delta(
+        saved, current, has_quant_state=bool(tr.cfg.model.int8_delayed),
+        cast_on_restore=tr.cfg.train.cast_on_restore)
+    if delta.kind == "same":
+        return None
+    detail = (f"saved: {describe_topology(saved)}; "
+              f"current: {describe_topology(current)}")
+    if delta.kind == "abort":
+        raise TopologyMismatch(
+            f"cannot resume across this topology change — {delta.reason} "
+            f"({detail})")
+    if not tr.cfg.train.elastic:
+        raise TopologyMismatch(
+            f"topology changed with elastic resume disabled — "
+            f"{delta.reason} ({detail}); relaunch on the original "
+            "topology, or drop --no-elastic to reshard")
+    check_ported_chain(delta.chain, detail)
+    tr.obs.counter("elastic_resume_total").inc()
+    tr.logger.log({"kind": "elastic_resume", "step": int(step),
+                   "decision": delta.kind, "reason": delta.reason,
+                   "chain": list(delta.chain), "saved": saved,
+                   "current": current}, force=True)
+    verb = "migrating" if delta.kind == "migrate" else "resharding"
+    chain_note = f" via {'+'.join(delta.chain)}" if delta.chain else ""
+    print(f"elastic resume: {delta.reason} — {verb} the step-{step} "
+          f"checkpoint onto the current topology{chain_note} ({detail})",
+          flush=True)
+    plan = ElasticPlan(kind=delta.kind, chain=delta.chain,
+                       reason=delta.reason, saved=saved, current=current)
+    tr._elastic_plan = plan
+    return plan
+
+
+def finish_elastic_restore(tr, step: int, plan) -> None:
+    """One auditable record of a resharded or migrated restore."""
+    if plan is None:
+        return
+    tr.obs.counter("resharded_restore_total").inc()
+    tr.logger.log(
+        {"kind": "resharded_restore", "step": int(step),
+         "decision": plan.kind, "chain": list(plan.chain),
+         "resharded_restore_total":
+             tr.obs.counter("resharded_restore_total").value},
+        force=True)
 
 
 def epoch_metric_means(host_sums: Dict[str, float], count: int
@@ -484,15 +673,19 @@ def mask_skipped(metrics: Dict[str, torch.Tensor]
 @contextlib.contextmanager
 def eval_weights(state: TrainState) -> Iterator[None]:
     """G's parameters are the EMA's for the duration, when the state
-    carries one (the JAX ``eval_state_of``); its buffers stay G's."""
+    carries one (the JAX ``eval_state_of``; a ZeRO-sharded EMA is gathered
+    once, collectively); its buffers stay G's."""
     if state.ema_g is None:
         yield
         return
+    from p2p_tpu_torch.parallel.rules import ema_state
+
+    ema = ema_state(state.ema_g)
     params = dict(state.net_g.named_parameters())
     raw = {k: p.data for k, p in params.items()}
     try:
         for k, p in params.items():
-            p.data = state.ema_g[k]
+            p.data = ema[k]
         yield
     finally:
         for k, p in params.items():
@@ -506,9 +699,11 @@ class Trainer:
     may be set to a guard-like object (``should_stop()``, ``request()``,
     ``signum``) before :meth:`fit`; else ``fit`` installs the signal
     guard. ``fit`` installs the process-wide telemetry hooks and removes
-    them when it returns or raises. train/video_loop.py's ``VideoTrainer``
-    overrides the dataset, state and step factories, the eval batch and the
-    samples, and the two keys below."""
+    them when it returns or raises. Under a default process group the
+    trainer is data parallel over the mesh ``build_trainer_mesh`` builds,
+    on ``cuda:LOCAL_RANK`` by default. train/video_loop.py's
+    ``VideoTrainer`` overrides the dataset, state and step factories, the
+    eval batch and the samples, and the two keys below."""
 
     # the epoch record's throughput key and the eval record's count key;
     # whether eval_fid scores VFID (the JAX video trainer computes none)
@@ -519,9 +714,26 @@ class Trainer:
     def __init__(self, cfg: Config, data_root: Optional[str] = None,
                  workdir: str = ".",
                  device: Union[str, torch.device, None] = None):
-        self.cfg = cfg
         self.workdir = workdir
+        if dist.is_initialized():
+            device = rank_device(device)
         self.device = resolve_device(device)
+        self.mesh = build_trainer_mesh(cfg, workdir)
+        self.rank = process_index() if self.mesh is not None else 0
+        if cfg.train.eval_fid and process_count() > 1:
+            # per-process VFID over a stride of the test split would be
+            # another statistic (p2p_tpu/train/loop.py:931-944)
+            print("WARNING: eval_fid disabled on multi-process runs "
+                  "(host-side feature accumulation is per-process).",
+                  flush=True)
+            cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                        eval_fid=False))
+        self.cfg = cfg
+        # cfg.data.batch_size is the global batch; each process loads its
+        # stride of it
+        self.local_bs = local_batch_size(cfg.data.batch_size, self.mesh)
+        self.local_test_bs = local_batch_size(cfg.data.test_batch_size,
+                                              self.mesh)
         if cfg.train.debug_nans:
             enable_nan_debugging()
         if cfg.train.compilation_cache_dir:
@@ -545,6 +757,8 @@ class Trainer:
                       "comparable to real VFID/FID numbers.", flush=True)
             self.fid_feature_fn = make_vgg_feature_fn(self.vgg)
         self.state = self._create_state()
+        if self.mesh is not None:
+            place_state(self.state, self.mesh, cfg.parallel.fsdp_params)
         self.train_step, self.eval_step = self._build_steps()
         self.logger = MetricsLogger(metrics_path(workdir, cfg.name),
                                     cfg.train.log_every)
@@ -618,7 +832,13 @@ class Trainer:
             self.device, sample_batch=sample)
 
     def _build_steps(self):
-        """``(train_step, eval_step)``."""
+        """``(train_step, eval_step)``: data parallel on a mesh."""
+        if self.mesh is not None:
+            return (make_parallel_train_step(self.cfg, self.mesh, self.vgg,
+                                             self.dtype,
+                                             self.steps_per_epoch),
+                    make_parallel_eval_step(self.cfg, self.mesh,
+                                            self.dtype))
         return (build_train_step(self.cfg, self.vgg, self.dtype,
                                  self.steps_per_epoch),
                 build_eval_step(self.cfg, self.dtype))
@@ -628,15 +848,19 @@ class Trainer:
         """Restore the newest intact checkpoint, if there is one, and
         re-enter the sample stream where it was saved: the restored step's
         epoch after its consumed samples (its sidecar's, or the step
-        counter's). Returns whether one was restored."""
+        counter's). The step's recorded topology is reconciled with this
+        launch's first (:func:`plan_elastic_restore`). Returns whether one
+        was restored."""
         step = self.ckpt.latest_step()
         if step is None:
             return False
         # the step's sidecar, read once for every consumer below (a
         # corrupt one is counted once)
         aux = self.ckpt.restore_aux(int(step))
+        plan = plan_elastic_restore(self, int(step), aux)
         try:
-            self.ckpt.restore(self.state)
+            with full_params(self.state):
+                restored = elastic_restore(self, int(step), plan)
         except CheckpointCorrupt as e:
             if self.cfg.health.ema_decay is not None:
                 raise RuntimeError(
@@ -647,11 +871,15 @@ class Trainer:
             raise
         # the integrity fallback may have restored an older step than the
         # newest: the position follows the weights actually restored
-        if self.ckpt.last_restored_step is not None \
-                and int(self.ckpt.last_restored_step) != int(step):
-            step = self.ckpt.last_restored_step
+        if restored != int(step):
+            step = restored
             aux = self.ckpt.restore_aux(int(step))
-        done, _ = derive_resume_position(self, int(step), aux=aux)
+        finish_elastic_restore(self, int(step), plan)
+        done, mid = derive_resume_position(self, int(step), aux=aux)
+        host_step = int(step)
+        if plan is not None and "batch_rebase" in plan.chain:
+            done, host_step = apply_batch_rebase(self, int(step), aux, plan,
+                                                 done, mid)
         # a step inside an epoch re-enters that epoch (done + 1), the
         # loader skipping the samples it consumed
         self.epoch = max(self.cfg.train.epoch_count, 1 + done)
@@ -674,7 +902,7 @@ class Trainer:
             # the scale only ever falls: a resume keeps the reductions
             self.plateau.scale = self.state.lr_scale
         self._base_lr_scale = self._applied_lr_scale = self.state.lr_scale
-        self._host_step = int(step)
+        self._host_step = host_step
         return True
 
     # ------------------------------------------------------------- train
@@ -697,10 +925,11 @@ class Trainer:
         cfg = self.cfg
         seed = (self.epoch if seed is None else seed) + self._seed_jitter
         self.train_ds.aug_seed = cfg.train.seed + seed
-        loader = make_loader(self.train_ds, cfg.data.batch_size,
+        loader = make_loader(self.train_ds, self.local_bs,
                              shuffle=True, seed=cfg.train.seed + seed,
                              skip_samples=skip_samples,
-                             workers=self._train_workers())
+                             workers=self._train_workers(),
+                             **self._shard())
         sums: Optional[Dict[str, torch.Tensor]] = None
         count = last_logged = 0
         disp_hist = self.obs.histogram("dispatch_secs")
@@ -758,31 +987,53 @@ class Trainer:
         with self.spans.span("evaluate", epoch=self.epoch):
             return self._evaluate(save_samples)
 
+    def _shard(self) -> Dict[str, int]:
+        """The loader's process sharding: the default group's on a mesh,
+        else one process."""
+        if self.mesh is None:
+            return {"n_proc": 1, "pid": 0}
+        return {"n_proc": process_count(), "pid": process_index()}
+
     def _evaluate(self, save_samples: bool) -> Dict[str, float]:
         cfg = self.cfg
-        loader = make_loader(self.test_ds, cfg.data.test_batch_size,
+        n_proc = self._shard()["n_proc"]
+        # every image on one process; on more, equal batch counts (the
+        # stride shards drop the split's remainder, as JAX's multi-host
+        # eval does)
+        loader = make_loader(self.test_ds, self.local_test_bs,
                              shuffle=False, num_epochs=1,
-                             drop_remainder=False)
+                             drop_remainder=n_proc > 1, **self._shard())
         psnrs: List[torch.Tensor] = []
         ssims: List[torch.Tensor] = []
         fid = (FIDEvaluator(self.fid_feature_fn)
                if self.fid_feature_fn is not None else None)
         saved = False
-        for batch in device_prefetch(loader, self.device):
-            pred, metrics = self._eval_batch(batch)
-            psnrs.append(metrics["psnr"])
-            ssims.append(metrics["ssim"])
-            if fid is not None:
-                fid.update(to_device_image(batch["target"], self.device),
-                           pred.permute(0, 3, 1, 2))
-            if save_samples and not saved:
-                self._save_samples(batch, pred)
-                saved = True
-        p = torch.cat(psnrs).cpu().numpy()
-        s = torch.cat(ssims).cpu().numpy()
-        result = {"psnr_mean": float(np.mean(p)), "psnr_max": float(np.max(p)),
-                  "ssim_mean": float(np.mean(s)), "ssim_max": float(np.max(s)),
-                  self.EVAL_COUNT_KEY: len(p)}
+        with full_params(self.state), self._eval_weights():
+            for batch in device_prefetch(loader, self.device):
+                pred, metrics = self._eval_batch(batch)
+                psnrs.append(metrics["psnr"])
+                ssims.append(metrics["ssim"])
+                if fid is not None:
+                    fid.update(to_device_image(batch["target"],
+                                               self.device),
+                               pred.permute(0, 3, 1, 2))
+                if save_samples and not saved and self.rank == 0:
+                    self._save_samples(batch, pred)
+                    saved = True
+        p = (torch.cat(psnrs).cpu().numpy() if psnrs
+             else np.zeros(0, np.float32))
+        s = (torch.cat(ssims).cpu().numpy() if ssims
+             else np.zeros(0, np.float32))
+        if n_proc > 1:
+            pm, px, sm, sx, n_total = combine_process_metric_stats(p, s)
+            result = {"psnr_mean": pm, "psnr_max": px, "ssim_mean": sm,
+                      "ssim_max": sx, self.EVAL_COUNT_KEY: n_total}
+        else:
+            result = {"psnr_mean": float(np.mean(p)),
+                      "psnr_max": float(np.max(p)),
+                      "ssim_mean": float(np.mean(s)),
+                      "ssim_max": float(np.max(s)),
+                      self.EVAL_COUNT_KEY: len(p)}
         if fid is not None and fid.real.n > 1:
             result["vfid"] = fid.compute()
             if self.vgg_source != "pretrained":
@@ -790,11 +1041,14 @@ class Trainer:
         self.logger.log({"kind": "eval", "epoch": self.epoch, **result})
         return result
 
+    def _eval_weights(self):
+        """The weights the eval scores: G's, or the EMA's when the state
+        carries one (for the whole eval)."""
+        return eval_weights(self.state)
+
     def _eval_batch(self, batch):
-        """``(pred, metrics)`` of one test batch (the EMA weights when the
-        state carries them)."""
-        with eval_weights(self.state):
-            return self.eval_step(self.state, batch)
+        """``(pred, metrics)`` of one test batch."""
+        return self.eval_step(self.state, batch)
 
     def _save_samples(self, batch, pred: torch.Tensor) -> None:
         out_dir = os.path.join(self.workdir, self.cfg.train.result_dir,
@@ -879,7 +1133,8 @@ class Trainer:
                         saved = save_trainer_ckpt(self)
                     # the rollback target: a step whose eval came back
                     psnr = record.get("psnr_mean")
-                    if psnr is not None and np.isfinite(psnr):
+                    if psnr is not None and np.isfinite(psnr) \
+                            and self.rank == 0:
                         self.ckpt.mark_good(saved)
                 if not armed_builds:
                     # the first completed epoch loaded every library: a
@@ -891,7 +1146,8 @@ class Trainer:
             self.close_workers()
             release_preempt_guard(self, owned_guard)
             close_trainer_obs(self)
-            self.spans.export_perfetto(self._trace_path)
+            if self.rank == 0:
+                self.spans.export_perfetto(self._trace_path)
             log_health_summary(self)
             self.logger.registry.flush()
         return history

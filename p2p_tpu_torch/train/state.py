@@ -80,7 +80,8 @@ def build_models(cfg: Config, train_dtype: Optional[torch.dtype] = None
     ``train_dtype``; C is None without a compression net."""
     net_c = (define_C(cfg.model, train_dtype)
              if cfg.model.use_compression_net else None)
-    return (define_G(cfg.model, train_dtype, cfg.image_hw),
+    return (define_G(cfg.model, train_dtype, cfg.image_hw,
+                     remat=cfg.parallel.remat),
             define_D(cfg.model, train_dtype), net_c)
 
 
@@ -174,7 +175,11 @@ def ema_update_(ema: Dict[str, torch.Tensor], net: nn.Module,
                 decay: float) -> None:
     """``e ← e·d + p·(1−d)`` for each of ``net``'s parameters, in the
     EMA's dtype (the JAX ``ema_update``): at d = 0 the EMA equals the
-    parameters bitwise."""
+    parameters bitwise. A ZeRO-sharded EMA (parallel/rules.py) moves its
+    range the same way."""
+    if hasattr(ema, "update_"):
+        ema.update_(decay)
+        return
     names = list(ema)
     params = dict(net.named_parameters())
     es = [ema[k] for k in names]

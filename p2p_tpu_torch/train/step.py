@@ -75,6 +75,14 @@ trunks) and net_c (``int8_compression``), with dynamic or stored
 forward run the networks in eval mode, which reads the stored scales
 frozen. :func:`build_train_step` refuses norms the port does not have,
 and ``split_d_pairs`` with the pool, as JAX does.
+
+Data parallel (parallel/dp.py ``make_parallel_train_step``): with ``dp``
+the step runs on this rank's rows and calls ``dp`` at four points: the
+split parameters are re-formed at its start (``fsdp_params``), G's and
+D's gradients are all-reduced after G's backward (G's, then D's) and
+net_c's after its own, each before its optimizer step, the guard's
+verdicts are agreed over the ranks, the split parameters are freed at
+its end, and the metrics are their means over the ranks (one all-reduce).
 """
 
 from __future__ import annotations
@@ -330,7 +338,10 @@ def _apply(opt, grads_ok: bool, clip: float = 0.0,
     return zeroed
 
 
-def _finite(*losses: torch.Tensor) -> bool:
+def _finite(*losses: torch.Tensor, dp=None) -> bool:
+    """Whether the losses are finite (on every rank, under ``dp``)."""
+    if dp is not None:
+        return dp.agree(*losses)
     return bool(torch.isfinite(torch.stack(losses)).all())
 
 
@@ -346,7 +357,7 @@ def dropout_generator(seed: int, step: int, device: torch.device
 
 def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
                      train_dtype: Optional[torch.dtype] = None,
-                     steps_per_epoch: int = 1):
+                     steps_per_epoch: int = 1, dp=None):
     """``step(state, batch) -> (state, metrics)`` for ``cfg``; ``vgg`` is
     the frozen VGG19 trunk (needed when ``lambda_vgg`` or ``lambda_style``
     is above 0), ``train_dtype`` the dtype the images enter in (bf16 under
@@ -354,7 +365,7 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
     the Sobel warm-up counts in. ``batch`` holds NHWC
     host arrays ``"input"`` and ``"target"``; ``state`` is advanced in
     place; ``metrics`` are 0-d f32 tensors on the device under the JAX
-    keys."""
+    keys. ``dp`` is a ``parallel.dp.DataParallel`` (module docstring)."""
     _check_supported(cfg)
     L = cfg.loss
     bits = cfg.model.quant_bits
@@ -374,9 +385,15 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
     clip = cfg.optim.grad_clip
     grad_norms = cfg.debug.grad_norms
     sentinel = cfg.debug.nan_sentinel
+    if dp is not None and use_pool and dp.mesh.batch_shards > 1:
+        raise NotImplementedError(
+            "pool_size > 0 under data parallelism is not ported: the JAX "
+            "pool holds the global batch's pairs; leave --pool_size 0")
 
     def step(state: TrainState, batch: Dict[str, np.ndarray]
              ) -> Tuple[TrainState, Metrics]:
+        if dp is not None:
+            dp.before_step(state)
         net_g, net_d, net_c = state.net_g, state.net_d, state.net_c
         real_a = to_device_image(batch["input"], state.device, train_dtype)
         real_b = to_device_image(batch["target"], state.device, train_dtype)
@@ -426,13 +443,16 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_a,
                                  real_b, real_feats, state.step)
         loss_g.backward(inputs=list(net_g.parameters()))
+        if dp is not None:
+            dp.sync_grads(state.opt_g)
+            dp.sync_grads(state.opt_d)
 
         # ---- 5. G then D updates, unless the guard drops the step --------
         # the grad-norm taps read the raw gradients, before any clip
         norms = (grad_norm_taps({}, g=_grads(state.opt_g),
                                 d=_grads(state.opt_d))
                  if grad_norms else {})
-        ok = _finite(loss_g, loss_d) if guard else True
+        ok = _finite(loss_g, loss_d, dp=dp) if guard else True
         counts = {"nonfinite_g": _apply(state.opt_g, ok, clip,
                                          state.lr_scale),
                   "nonfinite_d": _apply(state.opt_d, ok, clip,
@@ -456,9 +476,11 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             loss_c = ((fake_ac.float() - real_b.float()) ** 2).mean()
             if need_vgg:
                 loss_c = loss_c + vgg_loss(vgg, cq, real_feats) * L.lambda_vgg
-            ok_all = ok and (_finite(loss_c) if guard else True)
+            ok_all = ok and (_finite(loss_c, dp=dp) if guard else True)
             if cfg.optim.train_compression_net:
                 loss_c.backward(inputs=list(net_c.parameters()))
+                if dp is not None:
+                    dp.sync_grads(state.opt_c)
                 if grad_norms:
                     grad_norm_taps(norms, c=_grads(state.opt_c))
                 counts["nonfinite_c"] = _apply(state.opt_c, ok_all, clip,
@@ -469,6 +491,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             snap_stats.restore()
 
         state.step += 1
+        if dp is not None:
+            dp.after_step(state)
         metrics = {"loss_d": loss_d, "loss_g": loss_g.detach(),
                    "loss_c": loss_c.detach(),
                    **{k: v.detach() for k, v in parts.items()},
@@ -478,6 +502,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             metrics["health_ok"] = torch.tensor(float(ok_all),
                                                 device=state.device)
         metrics.update(norms)
+        if dp is not None:
+            metrics = dp.mean_metrics(metrics)
         if sentinel:
             # per-leaf NaN/Inf counts, copied to a pinned buffer behind an
             # event and read one step later (obs/taps.py): no host sync;

@@ -16,12 +16,17 @@ metric sums, ``frames_per_sec`` (clip frames a second after the first
 step), the checkpoints (``net_dt.pt`` and ``opt_dt.pt`` beside G's and
 D's, train/checkpoint.py) with their iterator sidecar, ``mark_good`` on
 a finite PSNR, exact-step preemption (exit 75 in ``cli/train.py``), the
-sentinel, the ladder and rollback (exit 76), and the spans, records and
-memory samples.
+sentinel, the ladder and rollback (exit 76), the spans, records and
+memory samples, and the elastic reconciliation of a resume (train/loop.py
+``plan_elastic_restore``). Under a process group of one rank it runs its
+one-device step and records the mesh; more ranks need the parallel video
+step (``p2p_tpu/train/video_step.py:335 make_parallel_video_step``),
+which comes with slice 13b.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional
 
 import numpy as np
@@ -86,8 +91,17 @@ class VideoTrainer(Trainer):
                                         self.device)
 
     def _build_steps(self):
+        if self.mesh is not None and self.mesh.size > 1:
+            raise NotImplementedError(
+                "video training on more than one process is not ported: "
+                "the parallel video step (make_parallel_video_step) comes "
+                "with slice 13b")
         return (build_video_train_step(self.cfg, self.vgg, self.dtype),
                 build_video_eval_step(self.cfg, self.dtype))
+
+    def _eval_weights(self):
+        """G's own weights (the video state carries no EMA)."""
+        return contextlib.nullcontext()
 
     def _eval_batch(self, batch):
         return self.eval_step(self.state.net_g, batch)

@@ -99,8 +99,8 @@ def build_video_models(cfg: Config, train_dtype: Optional[torch.dtype] = None
         in_channels=m.input_nc + m.output_nc, ndf=m.ndf,
         n_layers=m.n_layers_D, num_D=max(1, m.num_D - 1),
         use_spectral_norm=m.use_spectral_norm, dtype=train_dtype)
-    return (define_G(m, train_dtype, cfg.image_hw), define_D(m, train_dtype),
-            dt)
+    return (define_G(m, train_dtype, cfg.image_hw,
+                     remat=cfg.parallel.remat), define_D(m, train_dtype), dt)
 
 
 def create_video_train_state(cfg: Config, seed: int = 0,

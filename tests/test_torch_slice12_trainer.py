@@ -134,8 +134,7 @@ def test_no_vfid_for_one_image_or_for_video(tmp_path):
 
 def test_cli_flags_of_slice_12_are_accepted():
     assert {n for n, _, _ in train.UNPORTED} == {
-        "mesh", "tp_min_ch", "fsdp_params", "pp_overlap", "elastic",
-        "cast_on_restore", "recalibrate_steps", "scan_steps"}
+        "tp_min_ch", "pp_overlap", "recalibrate_steps", "scan_steps"}
     assert {n for n, _, _ in infer.UNPORTED} == {"mesh", "tp_min_ch"}
     args = train.build_parser().parse_args(
         ["--threads", "2", "--lambda_sobel", "1.5", "--sobel_warmup_epochs",

@@ -61,7 +61,8 @@ def test_presets_match_the_jax_presets_but_the_mesh(name):
         for f in dataclasses.fields(port):
             assert getattr(port, f.name) == getattr(
                 getattr(j, section), f.name), (section, f.name)
-    assert not hasattr(t, "parallel")
+    # the mesh too, since the data axis is ported (slice 13)
+    assert dataclasses.asdict(t.parallel) == dataclasses.asdict(j.parallel)
     if name == "edges2shoes_dp":
         assert t.data.batch_size == 64 and t.image_hw == (256, 256)
     else:
