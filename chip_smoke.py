@@ -271,7 +271,40 @@ to the CPU or to a plain version):
    "conv": the peak memory (off > conv > full), ms/step and the #1/#3
    launches a step of the recompute plan, and one f32 step with each
    remat bitwise the no-remat step (cuDNN deterministic);
-18. the script's total seconds, a ``{"kernels": [...]}`` line, then the
+18. slice 13b, the spatial axis (``torchrun`` starts two ``--worker
+   spatial2`` ranks that form a gloo group on the one card; H is split
+   over them, ``MeshSpec(data=-1, spatial=2)``, the presets' own mesh):
+   (a) ``pix2pixhd`` at 1024×512, bf16, ``SP_WARMUP`` + ``SP_TIMED``
+   steps: each rank's ms/step and peak memory, and a step's launches of
+   #1's sums entry, its finalize and #3 (36 each, no #1) against the
+   epilogue plan, the statistics all-reduces (36 forward, 36 backward)
+   and the halo exchanges by route with their bytes (gloo on CUDA
+   tensors: the slot route; these times stage through the host and are
+   no speed of the spatial axis); (b) f32 (TF32 off, cuDNN
+   deterministic): one ``cityscapes_spatial`` step at 256×512, batch 4,
+   on 2 ranks against the one-rank step on the same global batch (losses
+   within ``SP_LOSS_RTOL``; each tensor's distance over its update within
+   ``band_of`` the one-rank spread from summing the plain instance norm's
+   statistics in f64), and ``pix2pixhd``'s step-1 losses at 2 ranks
+   against 1 (losses only: its f32 G gradient is ill-conditioned); (c)
+   in this process, at every epilogue shape on a rank's rows: the sums
+   entry and the finalize against their plain versions, the global
+   statistics of two blocks against #1 on the whole map, #2 and #3 fed
+   them bitwise their plain versions, each timed (the ``kernels`` line's
+   rows of the two new entries and of #3 at a rank's rows); (d) the halo
+   exchange's backward and each sharded windowed op's input gradient
+   (reflect-padded k3/k7 at stride 1 and 2, the upsample conv, the D's
+   k4 convs at stride 2 and 1, the AvgPool, VGG's conv and max pool) on
+   an uneven map, channels_last, against f64 on the CPU
+   (``SP_GRAD_TOL_OF_MAX``), the same bits twice under cuDNN
+   deterministic; (e) ``cli.train --mesh 1,2,1`` of the full-width
+   ``cityscapes_spatial`` at 2 ranks for 2 epochs (exit 0, the spatial
+   peers reading the same samples), then ``P2P_CHAOS=elastic@
+   SP_CLI_STOP`` (exit 75 on both) and the relaunch at world size 1 in
+   this process: a ``reshard`` whose live state is bitwise the saved
+   step, the two runs reading the uninterrupted run's samples, none
+   twice, none missing;
+19. the script's total seconds, a ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -568,6 +601,18 @@ DP_STOP = 3
 DP_REBASE_BATCH = 32
 REMAT_MODES = (False, "full", "conv")
 REMAT_STEPS = 3
+# slice 13b (phase 18), the spatial axis: (a) pix2pixhd bf16 at 2 ranks,
+# SP_WARMUP + SP_TIMED steps; (b) the f32 losses' band (step 1, as
+# E2S_STEP1_RTOL); (d) the windowed ops' input gradients against f64 on
+# an uneven map; (e) cli.train on SP_CLI_PAIRS synthetic pairs, preempted
+# at step SP_CLI_STOP
+SP_WARMUP, SP_TIMED = 2, 3
+SP_LOSS_RTOL = 1e-4
+SP_CITY_KEYS = ("loss_g", "loss_d", "g_gan", "g_feat", "g_vgg", "g_tv")
+SP_OPS_SHAPE = (1, 32, 129, 96)
+SP_GRAD_TOL_OF_MAX = 1e-5
+SP_CLI_PAIRS = (4, 2)
+SP_CLI_STOP = 3
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -1233,7 +1278,11 @@ def totals(rows, kernel, dtype="bfloat16"):
     ``bound_by`` is what bounds the launch-weighted sum."""
     sel = [r for r in rows if r["kernel"] == kernel and r["dtype"] == dtype]
     out = {k: sum(r[k] * r["launches"] for r in sel)
-           for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+           for k in ("ms", "plain_ms", "bound_ms")}
+    # a kernel with no one-call library counterpart has none on any row
+    out["library_ms"] = (None if any(r["library_ms"] is None for r in sel)
+                         else sum(r["library_ms"] * r["launches"]
+                                  for r in sel))
     out["launches"] = sum(r["launches"] for r in sel)
     out["max_abs_err"] = max(r["max_abs_err"] for r in sel)
     by = collections.Counter()
@@ -1246,12 +1295,15 @@ def totals(rows, kernel, dtype="bfloat16"):
 def _wrappers():
     from p2p_tpu_torch.ops.cuda.batch_moments import batch_moments
     from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
-        instance_norm_apply, instance_norm_stats)
+        instance_norm_apply, instance_norm_finalize, instance_norm_stats,
+        instance_norm_sums)
     from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_quant
     from p2p_tpu_torch.ops.cuda.subpixel_head import (subpixel_head_dx,
                                                       subpixel_head_fwd)
 
     return {"instance_norm_stats": instance_norm_stats,
+            "instance_norm_sums": instance_norm_sums,
+            "instance_norm_finalize": instance_norm_finalize,
             "instance_norm_apply": instance_norm_apply, "norm_act": norm_act,
             "norm_act_quant": norm_act_quant,
             "batch_moments": batch_moments,
@@ -5355,13 +5407,14 @@ def dp_worker(name: str, out: str, tmp: str) -> int:
     from p2p_tpu_torch.core.mesh import distributed_init
 
     torch.cuda.set_device(0)
-    if name == "gloo2":
+    if name in ("gloo2", "spatial2"):
         dist.init_process_group("gloo", init_method="env://")
     else:
         distributed_init(torch.device("cuda", 0))
     rank = dist.get_rank()
     try:
-        fn = {"gloo2": gloo2_worker, "nccl1": nccl1_worker}[name]
+        fn = {"gloo2": gloo2_worker, "nccl1": nccl1_worker,
+              "spatial2": spatial2_worker}[name]
         res = fn(rank, out, tmp)
         torch.save(res, f"{out}.{rank}")
         dist.barrier()
@@ -5383,7 +5436,7 @@ def torchrun(name: str, n: int, tmp: str, timeout: float = 600):
     if proc.returncode:
         raise AssertionError(f"torchrun {name}: exit {proc.returncode}:\n"
                              f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
-    print(f"slice 13: torchrun --nproc_per_node {n} ({name}): "
+    print(f"torchrun --nproc_per_node {n} ({name}): "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     return [torch.load(f"{out}.{r}", weights_only=False) for r in range(n)]
 
@@ -5667,13 +5720,495 @@ def add_dp_launches(rows, moments_by_batch, remat_steps, plan) -> None:
                 "launches"] += steps * (1 + again)
 
 
+# ------------------------------------------------------------- slice 13b
+def spatial_config(name: str, f32: bool = False):
+    """The preset ``name`` (``pix2pixhd`` or ``cityscapes_spatial``) at full
+    width on its own mesh ``data=-1, spatial=2``; in f32 with ``f32``."""
+    from p2p_tpu_torch.core.config import get_preset
+
+    cfg = get_preset(name)
+    return cfg.replace(train=dataclasses.replace(
+        cfg.train, mixed_precision=not f32 and cfg.train.mixed_precision))
+
+
+def spatial_counts():
+    """The sums entry, the finalize, #1, #3, the statistics all-reduces
+    (forward, backward) and the halo exchanges by route (calls, bytes)
+    so far."""
+    from p2p_tpu_torch.ops import instance_norm as inorm
+    from p2p_tpu_torch.parallel.halo import halo_stats
+
+    c = launch_counts()
+    return (c["instance_norm_sums"], c["instance_norm_finalize"],
+            c["instance_norm_stats"], c["norm_act"],
+            inorm.sharded_stats.allreduces,
+            inorm.sharded_stats.backward_allreduces,
+            halo_stats["slot"]["calls"], halo_stats["slot"]["bytes"],
+            halo_stats["p2p"]["calls"], halo_stats["p2p"]["bytes"])
+
+
+def spatial_step_run(cfg, mesh, batches, vgg, dtype):
+    """The spatial step of ``cfg`` on ``mesh`` over ``batches`` (global
+    host batches) from a fresh state at SEED: per step its metrics,
+    ms and :func:`spatial_counts` delta; then the final state."""
+    from p2p_tpu_torch.parallel import (make_parallel_train_step,
+                                        place_state, shard_batch)
+    from p2p_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    place_state(state, mesh)
+    step = make_parallel_train_step(cfg, mesh, vgg, dtype)
+    out = []
+    for b in batches:
+        local = shard_batch(b, mesh)
+        torch.cuda.synchronize()
+        before = spatial_counts()
+        t = time.perf_counter()
+        state, m = step(state, local)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        out.append(({k: float(v) for k, v in m.items()}, ms,
+                    tuple(a - b for a, b in zip(spatial_counts(), before))))
+    return out, state
+
+
+def spatial_ops_check(mesh, device) -> dict:
+    """(d): the halo exchange's backward and each sharded windowed op's
+    input gradient on the card in channels_last (f32, TF32 off, cuDNN
+    deterministic), on an uneven map (129 rows: 64 and 65), gathered
+    against f64 on the CPU (rank 0) and the same bits twice."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.core.mesh import mesh_context, row_block, set_rows
+    from p2p_tpu_torch.models.patchgan import avg_pool_downsample
+    from p2p_tpu_torch.parallel.halo import halo_exchange
+    from p2p_tpu_torch.parallel.spatial import (conv_rows, gather_rows,
+                                                max_pool_rows, spatial_ring,
+                                                upsample_rows)
+
+    n, c, h, w = SP_OPS_SHAPE
+    g = torch.Generator().manual_seed(SEED + 11)
+    x = torch.randn((n, c, h, w), generator=g)
+    wt = torch.randn((c, c, 7, 7), generator=g) * 0.05
+    a, b = row_block(h, mesh.spatial, mesh.spatial_rank)
+
+    def k(kk):
+        return wt[:, :, :kk, :kk].contiguous()
+
+    forms = {
+        "halo_reflect": (lambda t, W: halo_exchange(
+            t, 2, 3, spatial_ring(mesh).group, "reflect"),
+            lambda t: F.pad(t, (0, 0, 3, 3), mode="reflect"), None),
+        "conv_k3s1": (lambda t, W: conv_rows(t, W, None, 1, 1, "reflect"),
+                      lambda t: F.conv2d(F.pad(t, (1,) * 4, mode="reflect"),
+                                         k(3).double()), 3),
+        "conv_k7s1": (lambda t, W: conv_rows(t, W, None, 1, 3, "reflect"),
+                      lambda t: F.conv2d(F.pad(t, (3,) * 4, mode="reflect"),
+                                         k(7).double()), 7),
+        "conv_k3s2": (lambda t, W: conv_rows(t, W, None, 2, 1, "reflect"),
+                      lambda t: F.conv2d(F.pad(t, (1,) * 4, mode="reflect"),
+                                         k(3).double(), stride=2), 3),
+        "upconv_k3": (lambda t, W: conv_rows(upsample_rows(t, 2), W, None,
+                                             1, 1, "reflect"),
+                      lambda t: F.conv2d(F.pad(F.interpolate(
+                          t, scale_factor=2, mode="nearest"), (1,) * 4,
+                          mode="reflect"), k(3).double()), 3),
+        "d_k4s2": (lambda t, W: conv_rows(t, W, None, 2, 2, "zero"),
+                   lambda t: F.conv2d(t, k(4).double(), stride=2,
+                                      padding=2), 4),
+        "d_k4s1": (lambda t, W: conv_rows(t, W, None, 1, 2, "zero"),
+                   lambda t: F.conv2d(t, k(4).double(), padding=2), 4),
+        "avg_pool": (lambda t, W: avg_pool_downsample(t),
+                     lambda t: F.avg_pool2d(t, 3, 2, 1,
+                                            count_include_pad=False), None),
+        "vgg_k3_pool": (lambda t, W: max_pool_rows(conv_rows(
+            t, W, None, 1, 1, "zero")),
+            lambda t: F.max_pool2d(F.conv2d(t, k(3).double(), padding=1), 2,
+                                   2), 3),
+    }
+    res = {}
+    with tf32_off(), cudnn_deterministic():
+        for name, (sharded, whole, kk) in forms.items():
+            W = None if kk is None else k(kk).to(device)
+            dxs = []
+            for _ in range(2):
+                xl = set_rows(x[:, :, a:b].to(device).contiguous(
+                    memory_format=torch.channels_last).requires_grad_(True),
+                    h)
+                with mesh_context(mesh):
+                    y = sharded(xl, W)
+                    hy = getattr(y, "p2p_rows", None)
+                    gen = torch.Generator().manual_seed(SEED + 12)
+                    if hy is None:
+                        # the exchange: this rank's window of the rank-
+                        # ordered windows (its rows and 3 more each side)
+                        cot = torch.randn((n, c, h + 6 * mesh.spatial, w),
+                                          generator=gen)
+                        start = a + 6 * mesh.spatial_rank
+                        cot_local = cot[:, :, start:start + b - a + 6]
+                    else:
+                        oa, oz = row_block(hy, mesh.spatial,
+                                           mesh.spatial_rank)
+                        cot = torch.randn((n, y.shape[1], hy, y.shape[3]),
+                                          generator=gen)
+                        cot_local = cot[:, :, oa:oz]
+                    (y * cot_local.to(device)).sum().backward()
+                    dxs.append(set_rows(xl.grad.detach().contiguous(), h))
+            same = bool(torch.equal(dxs[0], dxs[1]))
+            with mesh_context(mesh):
+                full = gather_rows(dxs[0], mesh).cpu().double()
+            if hy is None:
+                # the exchange's adjoint: the windows of the padded whole
+                # tensor, in rank order
+                z = x.double().requires_grad_(True)
+                pad = whole(z)
+                wins = torch.cat([pad[:, :, r0:r1 + 6] for r0, r1 in (
+                    row_block(h, mesh.spatial, r)
+                    for r in range(mesh.spatial))], dim=2)
+                (wins * cot.double()).sum().backward()
+            else:
+                z = x.double().requires_grad_(True)
+                (whole(z) * cot.double()).sum().backward()
+            err = float((full - z.grad).abs().max() / z.grad.abs().max())
+            res[name] = (err, same)
+    dist.barrier()
+    return res
+
+
+def spatial2_worker(rank: int, out: str, tmp: str) -> dict:
+    """Two ranks on the one card through gloo, H split over them (phase
+    18): (a) ``pix2pixhd`` at 1024×512 bf16 on its own mesh; (b) f32 steps
+    of ``cityscapes_spatial`` and ``pix2pixhd`` against the one-rank step
+    on the same global batch; (d) the exchanges' and windowed ops'
+    gradients against f64; (e) ``cli.train --mesh 1,2,1`` and its
+    ``elastic@SP_CLI_STOP`` preemption."""
+    from unittest import mock
+
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.core.mesh import Mesh, MeshSpec
+    from p2p_tpu_torch.data.synthetic import synthetic_hd_batch
+    from p2p_tpu_torch.ops import norm
+    from p2p_tpu_torch.parallel.halo import reset_halo_stats
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    device = torch.device("cuda", 0)
+    res = {}
+    mesh = Mesh(MeshSpec(data=-1, spatial=2))
+    vgg = load_vgg19(device=device)
+    # (a) pix2pixHD bf16 on the preset's mesh
+    cfg = spatial_config("pix2pixhd")
+    h, w = cfg.image_hw
+    dtype = train_dtype(cfg.train.mixed_precision)
+    host = synthetic_hd_batch(SP_WARMUP + SP_TIMED, h, w, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(SP_WARMUP + SP_TIMED)]
+    reset_launch_counts()
+    reset_halo_stats()
+    torch.cuda.reset_peak_memory_stats(device)
+    runs, state = spatial_step_run(cfg, mesh, batches, vgg, dtype)
+    res["a"] = {"steps": [(m, ms, c) for m, ms, c in runs],
+                "peak": torch.cuda.max_memory_allocated(device),
+                "launches": launch_counts()}
+    del state
+    torch.cuda.empty_cache()
+    worker_note("(a) pix2pixhd bf16 steps done")
+    # (b) one f32 step at 2 ranks against the one-rank step on the same
+    # global batch (rank 0), and the one-rank step with the plain instance
+    # norm's statistics in f64 (rank 1): the spread the band is set from
+    with tf32_off(), cudnn_deterministic():
+        for name in ("cityscapes_spatial", "pix2pixhd"):
+            cfg = spatial_config(name, f32=True)
+            h, w = cfg.image_hw
+            bs = cfg.data.batch_size
+            batch = synthetic_hd_batch(bs, h, w, seed=SEED + 1)
+            start = nets_of(create_train_state(cfg, SEED))
+            runs, state = spatial_step_run(cfg, mesh, [batch], vgg, None)
+            res[name] = {"metrics": runs[0][0], "counts": runs[0][2],
+                         "nets": nets_of(state), "start": start}
+            del state
+            torch.cuda.empty_cache()
+            route = ("plain", "f64")[rank]
+            if name == "pix2pixhd" and route == "f64":
+                continue
+            patch = (mock.patch.object(norm, "instance_norm", norm_f64)
+                     if route == "f64" else contextlib.nullcontext())
+            with patch:
+                st = create_train_state(cfg, SEED)
+                _, m = build_train_step(cfg, vgg)(st, batch)
+            torch.save(({k: float(v) for k, v in m.items()}, nets_of(st)),
+                       f"{out}.{name}.{route}")
+            del st
+            torch.cuda.empty_cache()
+    import torch.distributed as dist
+
+    dist.barrier()
+    worker_note("(b) f32 steps done")
+    res["ops"] = spatial_ops_check(mesh, device)
+    worker_note("(d) ops done")
+    # (e) cli.train on the preset's mesh, then preempted
+    data = os.path.join(tmp, "city")
+    for what, chaos in (("full", None), ("elastic", f"elastic@{SP_CLI_STOP}")):
+        reset_launch_counts()
+        seen = dp_cli(spatial_cli_args(data, os.path.join(tmp, what)),
+                      chaos=chaos)
+        res[what] = {k: seen[k] for k in ("rc", "steps", "reads", "out")}
+    return res
+
+
+def norm_f64(x, eps: float = 1e-5):
+    """The plain instance norm with its statistics in f64 (the spread
+    route of phase 18 (b))."""
+    x64 = x.double()
+    mean = x64.mean(dim=(2, 3), keepdim=True)
+    var = (x64 - mean).square().mean(dim=(2, 3), keepdim=True)
+    return ((x64 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def spatial_cli_args(data: str, work: str, device: str = "cuda:0"):
+    """``cli.train`` of the full-width ``cityscapes_spatial`` on ``data``
+    with ``--mesh 1,2,1``: 2 epochs of 2 steps at global batch 2, one
+    eval image a batch, a checkpoint at the end (and at a preemption)."""
+    return ["--preset", "cityscapes_spatial", "--data_root", data,
+            "--workdir", work, "--device", device, "--nepoch", "2",
+            "--epochsave", "2", "--log_every", "1", "--threads", "0",
+            "--batch_size", "2", "--test_batch_size", "1", "--mesh",
+            "1,2,1"]
+
+
+def spatial_kernel_rows(device, plan, steps: int, ranks: int):
+    """(c): the sums entry, the finalize and #3 at pix2pixHD's epilogue
+    shapes on a rank's rows (H halved), each held against its plain
+    version, the global statistics against #1 on the whole map, #2 and #3
+    fed them bitwise their plain versions; timed as the kernel phase times
+    them, each row weighted by the (a) run's launches (``steps`` bf16
+    steps on ``ranks`` ranks)."""
+    from p2p_tpu_torch.core.mesh import row_block
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_apply, instance_norm_apply_plain, instance_norm_finalize,
+        instance_norm_finalize_plain, instance_norm_stats, instance_norm_sums,
+        instance_norm_sums_plain)
+    from p2p_tpu_torch.ops.cuda.norm_act import norm_act, norm_act_plain
+
+    timer = Timer(device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    forms = collections.defaultdict(collections.Counter)
+    for hh, ww, c, act, res in plan:
+        forms[(hh, ww, c)][form_of(act, res)] += steps * ranks
+    rows = []
+    worst = {"sums": 0.0, "stats": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        elt = torch.tensor([], dtype=dtype).element_size()
+        for (hh, ww, c), by_form in sorted(forms.items()):
+            where = f"{str(dtype)[6:]} N=1 {hh}x{ww}x{c} in 2 blocks"
+            x = make_input(gen, 1, c, hh, ww, dtype, device)
+            sums = []
+            for r in range(2):
+                a, b = row_block(hh, 2, r)
+                xr = x[:, :, a:b].contiguous(
+                    memory_format=torch.channels_last)
+                s = instance_norm_sums(xr)
+                p = instance_norm_sums_plain(xr)
+                for got, want in zip(s, p):
+                    assert_close(f"sums {where}", got, want, *STATS_TOL)
+                    worst["sums"] = max(worst["sums"], max_err(got, want))
+                sums.append((xr, s, p))
+            s1 = sums[0][1][0] + sums[1][1][0]
+            s2 = sums[0][1][1] + sums[1][1][1]
+            count = float(hh * ww)
+            mean, rstd = instance_norm_finalize(s1, s2, count)
+            pm, pr = instance_norm_finalize_plain(s1, s2, count)
+            assert_close(f"finalize {where}", mean, pm, 0.0, 2e-7)
+            assert_close(f"finalize {where}", rstd, pr, 0.0, 2e-7)
+            wm, wr = instance_norm_stats(x)
+            assert_close(f"global stats {where} mean", mean, wm, *STATS_TOL)
+            assert_close(f"global stats {where} rstd", rstd, wr, *STATS_TOL)
+            worst["stats"] = max(worst["stats"], max_err(mean, wm),
+                                 max_err(rstd, wr))
+            xr = sums[0][0]
+            if not torch.equal(instance_norm_apply(xr, mean, rstd),
+                               instance_norm_apply_plain(xr, mean, rstd)):
+                raise AssertionError(f"#2 fed global statistics {where}")
+            if not torch.equal(norm_act(xr, mean, rstd, act="relu"),
+                               norm_act_plain(xr, mean, rstd, act="relu")):
+                raise AssertionError(f"#3 fed global statistics {where}")
+            n_launch = sum(by_form.values()) // 2     # a rank's rows each
+            common = dict(dtype=str(dtype)[6:], n=1, shape=(b - a, ww, c))
+            numel = xr.numel()
+            rows.append(dict(
+                kernel="instance_norm_sums", **common, form="-",
+                launches=2 * n_launch,
+                max_abs_err=max(max_err(g, w) for g, w in zip(
+                    sums[0][1], sums[0][2])),
+                ms=timer(lambda: instance_norm_sums(xr)),
+                plain_ms=timer(lambda: instance_norm_sums_plain(xr)),
+                library_ms=None,
+                **bound_row(numel * elt + 2 * c * 4, 3 * numel, dtype)))
+            rows.append(dict(
+                kernel="instance_norm_finalize", **common, form="-",
+                launches=2 * n_launch,
+                max_abs_err=max(max_err(mean, pm), max_err(rstd, pr)),
+                ms=timer(lambda: instance_norm_finalize(s1, s2, count)),
+                plain_ms=timer(lambda: instance_norm_finalize_plain(
+                    s1, s2, count)),
+                library_ms=None,
+                **bound_row(4 * c * 4, 6 * c, torch.float32)))
+            for form, k in sorted(by_form.items()):
+                r = make_input(gen, 1, c, b - a, ww, dtype, device) \
+                    if form.endswith("+residual") else None
+                rows.append(norm_act_row(timer, xr, r, mean, rstd, common,
+                                         k, where, form))
+    print("slice 13b (c): the sums entry and the finalize of #1 on a "
+          "rank's rows against their plain versions (max abs "
+          f"{worst['sums']:.3g}), the global statistics against #1 on the "
+          f"whole map (max abs {worst['stats']:.3g}), #2 and #3 fed them "
+          "bitwise; rows (device ms, median of cold-L2 runs):", flush=True)
+    for row in rows:
+        print("  " + json.dumps(row))
+    return rows
+
+
+def spatial_phase(device, card, tmp: str, plan):
+    """Slice 13b (phase 18), the spatial axis: (a)-(e) of the module
+    docstring. Returns the main path's launch counts and the (c) rows."""
+    from p2p_tpu_torch.data.synthetic import make_synthetic_dataset
+
+    t_phase = time.perf_counter()
+    make_synthetic_dataset(os.path.join(tmp, "city"),
+                           n_train=SP_CLI_PAIRS[0], n_test=SP_CLI_PAIRS[1],
+                           size=256, seed=SEED)
+    fails = []
+    ranks = torchrun("spatial2", 2, tmp)
+    # (a)
+    per = {"sums": len(plan), "finalize": len(plan), "stats": 0,
+           "norm_act": len(plan), "fwd_ar": len(plan), "bwd_ar": len(plan)}
+    for i, r in enumerate(ranks):
+        a = r["a"]
+        ms = [s[1] for s in a["steps"][SP_WARMUP:]]
+        c = a["steps"][-1][2]
+        print(f"slice 13b (a) rank {i}: pix2pixhd 1024x512 bf16 on "
+              f"data=1,spatial=2 (512 rows of 1024 a rank, gloo): "
+              f"{statistics.median(ms):.2f} ms/step median of {ms}; peak "
+              f"{a['peak'] / 2 ** 30:.3f} GiB (phase 17 (d): 5.44 at one "
+              f"rank); a step: {c[0]} sums, {c[1]} finalize, {c[2]} #1, "
+              f"{c[3]} #3 (plan {len(plan)} each, #1 0), statistics "
+              f"all-reduces {c[4]} forward, {c[5]} backward; halo "
+              f"exchanges: slot {c[6]} calls, {c[7]} bytes sent; p2p "
+              f"{c[8]} calls, {c[9]} bytes; losses "
+              f"{ {k: round(v, 4) for k, v in a['steps'][-1][0].items()} }; "
+              f"on {card}", flush=True)
+        for m, _, c in a["steps"]:
+            if c[:6] != (per["sums"], per["finalize"], 0, per["norm_act"],
+                         per["fwd_ar"], per["bwd_ar"]) or c[8] or not c[6]:
+                fails.append(f"(a) rank {i} counts {c}")
+            if not all(math.isfinite(v) for v in m.values()):
+                fails.append(f"(a) rank {i} losses {m}")
+    # (b) against the one-rank step
+    for name, keys in (("cityscapes_spatial", SP_CITY_KEYS),
+                       ("pix2pixhd", HD_LOSS_KEYS)):
+        one_m, one_n = torch.load(f"{os.path.join(tmp, 'spatial2')}."
+                                  f"{name}.plain", weights_only=False)
+        got = ranks[0][name]
+        rel = max(abs(got["metrics"][k] - one_m[k]) / abs(one_m[k])
+                  for k in keys)
+        line = (f"slice 13b (b) {name} f32 (TF32 off, cuDNN deterministic),"
+                f" 2 ranks vs the one-rank step: losses max rel {rel:.3g}")
+        if name == "cityscapes_spatial":
+            f64_m, f64_n = torch.load(f"{os.path.join(tmp, 'spatial2')}."
+                                      f"{name}.f64", weights_only=False)
+            spread = update_distance(f64_n, one_n, got["start"])
+            dist_ = update_distance(got["nets"], one_n, got["start"])
+            band = band_of(spread)
+            line += (f" (band {SP_LOSS_RTOL}); each tensor's distance over "
+                     f"its update {dist_:.3g} (band {band:.3g} = band_of the "
+                     f"one-rank f64-statistics spread {spread:.3g})")
+            if not dist_ <= band:
+                fails.append(f"(b) {name} update distance {dist_} > {band}")
+        else:
+            line += f" (band {SP_LOSS_RTOL}; G's f32 gradient is " \
+                    "ill-conditioned: losses only)"
+        print(line + f"; on {card}", flush=True)
+        if not rel <= SP_LOSS_RTOL:
+            fails.append(f"(b) {name} losses {rel}")
+        if not all(torch.equal(ranks[1][name]["nets"][k], v)
+                   for k, v in got["nets"].items()):
+            fails.append(f"(b) {name}: the ranks' states differ")
+    # (c) on the main process
+    rows = spatial_kernel_rows(device, plan, SP_WARMUP + SP_TIMED,
+                               len(ranks))
+    # (d)
+    for i, r in enumerate(ranks):
+        ops = r["ops"]
+        print(f"slice 13b (d) rank {i}: input gradients on the card "
+              f"(channels_last, f32, {SP_OPS_SHAPE}, slot route) vs f64, of "
+              "the largest |dx|, same bits twice: "
+              + ", ".join(f"{k} {e:.3g} {s}" for k, (e, s) in ops.items())
+              + f" (limit {SP_GRAD_TOL_OF_MAX}); on {card}", flush=True)
+        for k, (e, s) in ops.items():
+            if not (e <= SP_GRAD_TOL_OF_MAX and s):
+                fails.append(f"(d) {k}: {e}, same bits {s}")
+    # (e) cli.train at 2 ranks, the preemption, the relaunch at world 1
+    for r in ranks:
+        if r["full"]["rc"] != 0 or r["elastic"]["rc"] != 75:
+            fails.append(f"(e) exits {r['full']['rc']} "
+                         f"{r['elastic']['rc']}:\n{r['elastic']['out']}")
+    rel = dp_cli(spatial_cli_args(os.path.join(tmp, "city"),
+                                  os.path.join(tmp, "elastic"), "cuda")[:-2])
+    recs = [r for r in read_records(os.path.join(
+        tmp, "elastic", "metrics_cityscapes_spatial.jsonl"))
+        if r["kind"] == "elastic_resume"]
+    full = ranks[0]["full"]["reads"]
+    pre = ranks[0]["elastic"]["reads"]
+    n_pre = SP_CLI_STOP * 2
+    gapless = (ranks[0]["full"]["reads"] == ranks[1]["full"]["reads"]
+               and pre[:n_pre] + rel["reads"][:len(full) - n_pre]
+               == full[:len(full)])
+    decision = recs[-1]["decision"] if recs else None
+    print(f"slice 13b (e): cli.train --mesh 1,2,1 (cityscapes_spatial "
+          f"256x512, 2 gloo ranks): exits "
+          f"{[r['full']['rc'] for r in ranks]}, {ranks[0]['full']['steps']} "
+          f"steps; elastic@{SP_CLI_STOP}: exits "
+          f"{[r['elastic']['rc'] for r in ranks]}; relaunch at world size 1:"
+          f" {decision}, restored {rel['restored']}, exit {rel['rc']}; the "
+          f"spatial peers read the same samples and the two runs the "
+          f"uninterrupted run's, none twice, none missing: {gapless}; on "
+          f"{card}", flush=True)
+    if rel["rc"] != 0 or decision != "reshard" or rel["restored"] != [
+            (SP_CLI_STOP, True)] or not gapless:
+        fails.append(f"(e) relaunch: {rel['rc']} {decision} "
+                     f"{rel['restored']} gapless {gapless}\n{rel['out']}")
+    counts = collections.Counter()
+    for r in ranks:
+        counts.update(r["a"]["launches"])
+    secs = time.perf_counter() - t_phase
+    print(f"slice 13b: phase 18 took {secs:.1f} s; on {card}", flush=True)
+    if fails:
+        raise AssertionError("slice 13b: " + "; ".join(fails))
+    return counts, rows
+
+
+def update_distance(a, b, start) -> float:
+    """The largest distance between two states' tensors over the update
+    ``b`` made from ``start`` (floating parameters; running statistics
+    left out)."""
+    worst = 0.0
+    for k, v in b.items():
+        if not v.is_floating_point() or k.endswith(("mean", "var")):
+            continue
+        upd = float((v - start[k]).norm())
+        if upd > 0:
+            worst = max(worst, float((a[k] - v).norm()) / upd)
+    return worst
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print a torch.profiler table of one forward")
     ap.add_argument("--worker", nargs=3, metavar=("NAME", "OUT", "TMP"),
-                    help="a rank of the slice-13 phase (started by the "
-                         "phase itself through torchrun)")
+                    help="a rank of the slice-13 or 13b phase (started by "
+                         "the phase itself through torchrun)")
     args = ap.parse_args(argv)
     if args.worker:
         return dp_worker(*args.worker)
@@ -5865,6 +6400,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
         dp_counts, dp_moments, remat_steps = dp_phase(device, card, tmp,
                                                       e2s_med)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_spatial_") as tmp:
+        sp_counts, sp_rows = spatial_phase(device, card, tmp, plan)
+    rows += sp_rows
     # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3,
     # the slice-10 phase's reference steps of #5
     add_serving_launches(rows, plan, http_forwards)
@@ -5879,13 +6417,17 @@ def main(argv=None) -> int:
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
               city_counts, options_counts, forms_counts, c2f_counts,
               i8f_counts, a8_counts, hd8_counts, res_counts, vid_counts,
-              s12_counts, dp_counts):
+              s12_counts, dp_counts, sp_counts):
         counts.update(c)
 
     kernels = []
     for name, source, replaces in (
             ("instance_norm_stats", instance_norm_kernel.SOURCE,
              instance_norm_kernel.REPLACES),
+            ("instance_norm_sums", instance_norm_kernel.SOURCE,
+             instance_norm_kernel.REPLACES_SUMS),
+            ("instance_norm_finalize", instance_norm_kernel.SOURCE,
+             instance_norm_kernel.REPLACES_FINALIZE),
             ("instance_norm_apply", instance_norm_kernel.SOURCE_APPLY,
              instance_norm_kernel.REPLACES_APPLY),
             ("norm_act", norm_act.SOURCE, norm_act.REPLACES),
@@ -6021,8 +6563,10 @@ def main(argv=None) -> int:
           f"#3 in {VID_KERNEL_STEPS} vid2vid kernel-form steps at N = "
           f"{vk_n}; slice 13: #5 in the data-parallel edges2shoes_dp "
           f"steps at local batches {dict(dp_moments)} (launches), #1 and "
-          f"#3 in pix2pixhd's remat steps {remat_steps}): per-(N, shape, "
-          "form) device times weighted by launches")
+          f"#3 in pix2pixhd's remat steps {remat_steps}; slice 13b: the "
+          f"sums entry, the finalize and #3 in {SP_WARMUP + SP_TIMED} bf16 "
+          "pix2pixhd steps on 2 spatial ranks, at a rank's rows): per-(N, "
+          "shape, form) device times weighted by launches")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))

@@ -47,9 +47,12 @@ and nothing falls back) and trains its stride of each global batch
 (``--batch_size`` is the global batch) on ``cuda:LOCAL_RANK``. ``--mesh``
 sets the mesh in either grammar (``data=-1``, ``data=2,fsdp=2``,
 ``4,1,1``); ``--fsdp_params`` splits the parameters too when ``fsdp`` > 1
-(train/loop.py, parallel/). A mesh whose ``spatial``, ``time``, ``model``
-or ``pipe`` axis is wider than one exits 2 naming slice 13b or 13c, as does
-a ``--mesh`` that does not fit the processes. A relaunch on another
+(train/loop.py, parallel/). A ``spatial`` axis wider than one splits the
+images along H over its ranks (``pix2pixhd`` and ``cityscapes_spatial``
+carry ``data=-1,spatial=2`` in their own mesh; ``--mesh 1,2,1`` names it).
+A mesh whose ``time``, ``model`` or ``pipe`` axis is wider than one exits
+2 naming slice 13b-time or 13c, and a ``--mesh`` wider than the launch's
+processes exits 2 saying so. A relaunch on another
 process count, mesh or global batch resumes elastically;
 ``--no-elastic`` makes any topology change exit 2 with the
 ``TopologyMismatch`` text, and a dtype change exits 2 unless
@@ -352,8 +355,9 @@ def main(argv=None) -> int:
         try:
             cfg.parallel.mesh.resolve(process_count())
         except ValueError as e:
-            print(f"--mesh {args.mesh!r}: {e} (start several processes "
-                  "with torchrun)", file=sys.stderr)
+            print(f"--mesh {args.mesh!r}: {e} (the mesh is wider than "
+                  f"this launch's {process_count()} process(es): start "
+                  "several processes with torchrun)", file=sys.stderr)
             return 2
     try:
         return _run(Trainer, cfg, args)

@@ -6,7 +6,9 @@ the JAX package, so one preset name means one model in both, its
 ``parallel=`` mesh included. A preset whose mesh widens ``spatial`` or
 ``time`` (``cityscapes_spatial``, ``pix2pixhd``, ``vid2vid_temporal``)
 trains on one card with those axes resolved as 1 (train/loop.py
-``build_trainer_mesh``); on more processes they wait for slice 13b.
+``build_trainer_mesh``); on more processes the spatial axis splits H
+(slice 13b, parallel/spatial.py) and the time axis waits for slice
+13b-time.
 """
 
 from __future__ import annotations
@@ -338,7 +340,7 @@ _register(
 # pix2pixHD coarse-to-fine G at 1024×512, fused instance-norm epilogues,
 # 3-scale spectral-norm D (split pairs in JAX); LSGAN + 10·FM + 10·VGG19,
 # on the JAX preset's MeshSpec(data=-1, spatial=2) (spatial is 1 on one
-# card; wider, slice 13b).
+# card; on more ranks H is split over them, parallel/spatial.py).
 _register(
     Config(
         name="pix2pixhd",
@@ -373,7 +375,7 @@ _register(
 # Cityscapes labels→photo at 256×512, batch 4: the 9-block ResnetGenerator
 # with plain instance norms and the 3-scale spectral-norm D, LSGAN + 10·FM
 # + 10·VGG19 + 1·TV, on the JAX preset's MeshSpec(data=-1, spatial=2)
-# (spatial is 1 on one card; wider, slice 13b).
+# (spatial is 1 on one card; on more ranks H is split over them).
 _register(
     Config(
         name="cityscapes_spatial",
@@ -392,7 +394,7 @@ _register(
 # and a 2-scale temporal 3-D PatchGAN on the (input ‖ clip) pair; LSGAN +
 # 10·FM (spatial and temporal), 8-frame clips of 256², batch 1, on the JAX
 # preset's MeshSpec(data=-1, time=4) (time is 1 on one card; wider, slice
-# 13b).
+# 13b-time).
 _register(
     Config(
         name="vid2vid_temporal",

@@ -13,11 +13,13 @@ default group). :func:`distributed_init` forms the default group from the
 ``torchrun`` environment, NCCL on the card and gloo on the CPU; a group
 that fails to form raises, and nothing falls back to one process.
 
-This slice has the data axis and ZeRO state sharding over ``fsdp``
-(parallel/dp.py, parallel/rules.py). A mesh whose ``spatial``, ``time``,
-``model`` or ``pipe`` axis is wider than one is refused by name
-(:func:`check_ported_axes`): the spatial and temporal axes come with
-slice 13b, tensor and pipeline parallelism with slice 13c.
+The port has the data axis and ZeRO state sharding over ``fsdp``
+(parallel/dp.py, parallel/rules.py) and the spatial axis (slice 13b:
+parallel/halo.py, parallel/spatial.py): H split over ``spatial`` ranks,
+each rank holding a contiguous block of rows of every activation. A mesh
+whose ``time``, ``model`` or ``pipe`` axis is wider than one is refused
+by name (:func:`check_ported_axes`): the time axis comes with slice
+13b-time, tensor and pipeline parallelism with slice 13c.
 
 Ported as they are, as pure functions: :class:`MeshSpec` and its
 ``resolve`` diagnostics, the ``--mesh`` grammar (:func:`parse_mesh_arg`),
@@ -55,8 +57,9 @@ ALL_AXES = (DATA_AXIS, FSDP_AXIS, SPATIAL_AXIS, TIME_AXIS, MODEL_AXIS,
 #: the axes a batch's leading dimension shards over
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
 #: the axes of a later slice, and which
-LATER_AXES = {SPATIAL_AXIS: "13b", TIME_AXIS: "13b", MODEL_AXIS: "13c",
-              PIPE_AXIS: "13c"}
+LATER_AXES = {TIME_AXIS: "13b-time", MODEL_AXIS: "13c", PIPE_AXIS: "13c"}
+#: the axes a one-process run resolves as 1 (the presets' own meshes)
+ONE_DEVICE_AXES = (SPATIAL_AXIS,) + tuple(LATER_AXES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,9 +151,9 @@ def check_ported_axes(spec: MeshSpec) -> None:
         slices = sorted({LATER_AXES[w.split("=")[0]] for w in wide})
         raise NotImplementedError(
             f"mesh axes {', '.join(wide)} are not ported yet: the port has "
-            "the data and fsdp axes (slice 13); spatial and time come with "
-            "slice 13b, model and pipe with slice 13c (this mesh needs "
-            f"slice {' and '.join(slices)})")
+            "the data and fsdp axes (slice 13) and the spatial axis (slice "
+            "13b); time comes with slice 13b-time, model and pipe with "
+            f"slice 13c (this mesh needs slice {' and '.join(slices)})")
 
 
 class TopologyMismatch(ValueError):
@@ -235,8 +238,14 @@ class Mesh:
     axis to its size (as ``jax.sharding.Mesh.shape``); :meth:`group` is the
     process group of an axis through this rank (None: the default group,
     for an axis as wide as the world); ``batch_group`` is the group the
-    batch splits over (data × fsdp), ``batch_rank`` this rank's slot in
-    it. Every rank builds every group, in one order."""
+    batch splits over (the data × fsdp line through this rank; None when
+    that is the whole world), ``batch_rank`` this rank's slot in it. With
+    ``spatial`` > 1,
+    ``spatial``/``spatial_rank`` are the axis size and this rank's
+    coordinate, and :meth:`group` of ``"spatial"`` the ranks that hold one
+    batch slot's rows; with time, model and pipe at 1
+    (:func:`check_ported_axes`) data × fsdp × spatial is the whole world,
+    the default group. Every rank builds every group, in one order."""
 
     def __init__(self, spec: MeshSpec = MeshSpec()):
         if not dist.is_initialized():
@@ -259,22 +268,32 @@ class Mesh:
         self._groups = {}
         grid = np.arange(self.world_size).reshape(sizes)
         for i, axis in enumerate(ALL_AXES):
-            n = self.shape[axis]
-            if n == 1:
-                continue
-            if n == self.world_size:
-                self._groups[axis] = None
-                continue
-            lines = np.moveaxis(grid, i, -1).reshape(-1, n)
-            for line in lines:
-                g = dist.new_group([int(r) for r in line])
-                if self.rank in line:
-                    self._groups[axis] = g
+            if self.shape[axis] > 1:
+                self._groups[axis] = self._line_group(grid, (i,))
         self.batch_shards = self.shape[DATA_AXIS] * self.shape[FSDP_AXIS]
         self.batch_rank = (self.coords[DATA_AXIS] * self.shape[FSDP_AXIS]
                            + self.coords[FSDP_AXIS])
-        # data x fsdp is the whole world while the later axes are 1
-        self.batch_group = None
+        # the data x fsdp line through this rank: the world only while
+        # every other axis is 1
+        self.batch_group = self._line_group(grid, (0, 1))
+        self.spatial = self.shape[SPATIAL_AXIS]
+        self.spatial_rank = self.coords[SPATIAL_AXIS]
+
+    def _line_group(self, grid: np.ndarray, dims: Tuple[int, ...]):
+        """The group of the ranks that differ from this one only along the
+        mesh dimensions ``dims`` (None: the default group, when that is
+        every rank). Every rank creates every line's group, in order."""
+        n = int(np.prod([grid.shape[d] for d in dims]))
+        if n == self.world_size:
+            return None
+        rest = [d for d in range(grid.ndim) if d not in dims]
+        lines = np.transpose(grid, rest + list(dims)).reshape(-1, n)
+        mine = None
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if self.rank in line:
+                mine = g
+        return mine
 
     def group(self, axis: str):
         """The process group of ``axis`` through this rank (None: the
@@ -337,7 +356,8 @@ def describe_topology(topo: dict) -> str:
 class TopologyDelta:
     """A saved-vs-current topology difference: ``kind`` is ``"same"``,
     ``"reshard"`` (process count, data/fsdp/spatial/time widths, device
-    count: a plain load onto the new world), ``"migrate"`` (through the
+    count: a plain load onto the new world, every checkpoint being in the
+    one-device format), ``"migrate"`` (through the
     restore-time transforms ``chain`` names, in order: ``batch_rebase``,
     ``pp_restructure``, ``tp_amax_recalibrate``, ``dtype_cast``) or
     ``"abort"``."""
@@ -439,10 +459,57 @@ def classify_topology_delta(saved: dict, current: dict,
 
 
 def local_batch_size(global_batch: int, mesh: Optional[Mesh] = None) -> int:
-    """Per-process batch of the input pipeline (global / processes)."""
-    n_proc = process_count()
+    """Per-process batch of the input pipeline: the global batch over the
+    mesh's batch slots (spatial peers load the same samples), or over the
+    processes without a mesh."""
+    n_proc = mesh.batch_shards if mesh is not None else process_count()
     if global_batch % n_proc:
         raise ValueError(f"global batch {global_batch} not divisible by "
                          f"{n_proc} processes")
-    del mesh
     return global_batch // n_proc
+
+
+# ----------------------------------------------------------- spatial rows
+def spatial_mesh() -> Optional[Mesh]:
+    """The active mesh when its ``spatial`` axis is wider than one (every
+    activation of the step is then this rank's block of rows), else
+    None."""
+    mesh = current_mesh()
+    return mesh if mesh is not None and mesh.spatial > 1 else None
+
+
+def row_block(h: int, n: int, i: int) -> Tuple[int, int]:
+    """Rows ``[start, stop)`` of ``h`` that rank ``i`` of ``n`` owns: the
+    balanced split, ``start = ⌊i·h/n⌋``. Every map of a spatial step is laid
+    out so, whatever its height, and each output row of a windowed op has
+    exactly this one owner."""
+    return (i * h) // n, ((i + 1) * h) // n
+
+
+def set_rows(x: torch.Tensor, h: int) -> torch.Tensor:
+    """Record on ``x`` (this rank's rows of a map) the map's global height
+    ``h``; returns ``x``."""
+    x.p2p_rows = int(h)
+    return x
+
+
+def rows_of(x: torch.Tensor) -> int:
+    """The global height of the map whose rows ``x`` holds. Raises for a
+    tensor no spatial op or caller recorded it on: an op the spatial step
+    does not cover (nothing computes on rows it cannot place)."""
+    h = getattr(x, "p2p_rows", None)
+    if h is None:
+        raise RuntimeError(
+            f"a tensor of shape {tuple(x.shape)} reached a spatial op with "
+            "no row layout recorded: this op or model has no sharded form "
+            "under a spatial mesh (parallel/spatial.py)")
+    return h
+
+
+def keep_rows(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` with ``x``'s recorded height, under a spatial mesh, when y has
+    x's rows (an elementwise op, a channel concat); returns ``y``."""
+    h = getattr(x, "p2p_rows", None)
+    if h is not None and y.dim() == 4 and y.shape[2] == x.shape[2]:
+        y.p2p_rows = h
+    return y

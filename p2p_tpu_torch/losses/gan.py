@@ -1,6 +1,9 @@
 """Adversarial losses (counterpart of ``p2p_tpu/losses/gan.py:23-58``):
 LSGAN (the default), vanilla (BCE with logits) or hinge on the LAST
-prediction map of each scale, in f32, summed over the scales."""
+prediction map of each scale, in f32, summed over the scales. Under a
+spatial mesh each mean is this rank's share of the global one
+(parallel/spatial.py ``mean_of``): the D's maps have uneven rows, so a
+mean of the ranks' means would be another number."""
 
 from __future__ import annotations
 
@@ -8,6 +11,8 @@ from typing import List, Sequence, Union
 
 import torch
 import torch.nn.functional as F
+
+from p2p_tpu_torch.parallel.spatial import mean_of
 
 Preds = Union[Sequence[torch.Tensor], Sequence[Sequence[torch.Tensor]]]
 
@@ -23,15 +28,15 @@ def _elementwise(pred: torch.Tensor, target_is_real: bool, mode: str,
     p = pred.float()
     target = 1.0 if target_is_real else 0.0
     if mode == "lsgan":
-        return ((p - target) ** 2).mean()
+        return mean_of((p - target) ** 2, pred)
     if mode == "vanilla":
-        return (torch.clamp_min(p, 0) - p * target
-                + torch.log1p(torch.exp(-p.abs()))).mean()
+        return mean_of(torch.clamp_min(p, 0) - p * target
+                       + torch.log1p(torch.exp(-p.abs())), pred)
     if mode == "hinge":
         if for_discriminator:
-            return F.relu(1.0 - p).mean() if target_is_real \
-                else F.relu(1.0 + p).mean()
-        return -p.mean()
+            return mean_of(F.relu(1.0 - p), pred) if target_is_real \
+                else mean_of(F.relu(1.0 + p), pred)
+        return -mean_of(p, pred)
     raise ValueError(f"unknown gan mode {mode!r}")
 
 

@@ -20,6 +20,11 @@ function on the unconcatenated pair with the same parameter tree; it saves
 the 6-channel pair tensor under spatial sharding, which the port does not
 have, so the port always concatenates.
 
+Under a spatial mesh (every activation one rank's block of rows) the
+convs, the pools and the norms run their sharded forms (parallel/
+spatial.py, ops/instance_norm.py): each output row of the D's uneven maps
+(H → H/2 + 1 at stride 2, H → H + 1 at stride 1) has one owner.
+
 The multiscale D runs ``num_D`` of them on the input downsampled 0, 1, …
 times; results come finest first and scale i is named
 ``scale{num_D-1-i}``, as in the flax tree.
@@ -49,6 +54,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p2p_tpu_torch.core.mesh import spatial_mesh
 from p2p_tpu_torch.ops.activations import leaky_relu_y
 from p2p_tpu_torch.ops.conv import cast_conv
 from p2p_tpu_torch.ops.int8 import QuantConv, QuantKN2RowConv
@@ -75,7 +81,12 @@ def avg_pool_downsample(x: torch.Tensor) -> torch.Tensor:
     count_include_pad, torch 2.11.0+cu128 on an H100,
     scripts/torch_pool_backward_check.py; the NCHW kernel is right), and
     the input gradient of every D scale after the first flows through
-    it."""
+    it. Under a spatial mesh this rank's rows of it (parallel/spatial.py
+    ``avg_pool_rows``: the same NCHW pooling)."""
+    if spatial_mesh() is not None:
+        from p2p_tpu_torch.parallel.spatial import avg_pool_rows
+
+        return avg_pool_rows(x)
     y = F.avg_pool2d(x.contiguous(), 3, stride=2, padding=1,
                      count_include_pad=False)
     return y.contiguous(memory_format=torch.channels_last)
@@ -108,6 +119,15 @@ class _PlainConv(nn.Module):
                                   padding=2)
 
     def forward(self, x: torch.Tensor):
+        if spatial_mesh() is not None:
+            if self.int8:
+                raise NotImplementedError("the int8 D convs have no form "
+                                          "under a spatial mesh")
+            from p2p_tpu_torch.parallel.spatial import conv_rows
+
+            c = self.conv
+            return conv_rows(x, c.weight, c.bias, c.stride[0], 2, "zero",
+                             self.dtype)
         if self.int8:
             return self.conv(x)
         return cast_conv(self.conv, x, self.dtype)
@@ -165,6 +185,10 @@ class NLayerDiscriminator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         if self.fused_q:
+            if spatial_mesh() is not None:
+                raise NotImplementedError(
+                    "the quantize-fused D epilogue has no form under a "
+                    "spatial mesh")
             return self._forward_fused(x)
         feats = []
         y = x

@@ -22,6 +22,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from p2p_tpu_torch.core.mesh import keep_rows
 from p2p_tpu_torch.models.patchgan import avg_pool_downsample
 from p2p_tpu_torch.models.resnet_gen import ResnetBlock, ResnetGenerator
 from p2p_tpu_torch.ops.activations import tanh_y
@@ -78,7 +79,7 @@ class Pix2PixHDGenerator(nn.Module):
         g1_feats = self._modules["global"](avg_pool_downsample(x))
         y = self.na(self.ConvLayer_0(x), act="relu")
         y = self.na(self.ConvLayer_1(y), act="relu")
-        y = y + g1_feats
+        y = keep_rows(y + g1_feats, y)
         for i in range(self.n_blocks_local):
             y = getattr(self, f"ResnetBlock_{i}")(y)
         y = self.na(self.UpsampleConvLayer_0(y), act="relu")

@@ -6,7 +6,8 @@ activations after relu1_1, relu2_1, relu3_1, relu4_1 and relu5_1. Images go
 in as [-1, 1] with no ImageNet normalization unless ``imagenet_norm``. The
 trunk is frozen. Its convs compute in the promoted type of input and
 weight (flax ``dtype=None``): the f32 weights make it f32 even on a bf16
-input, as in the JAX step.
+input, as in the JAX step. Under a spatial mesh the convs and pools run on this
+rank's rows (parallel/spatial.py).
 
 The weights are found as the JAX package finds them
 (``p2p_tpu/models/vgg.py:78 vgg19_npz_path``): an ``.npz`` of HWIO
@@ -30,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p2p_tpu_torch.core.mesh import keep_rows, spatial_mesh
 from p2p_tpu_torch.ops.activations import relu_y
 from p2p_tpu_torch.ops.conv import cast_conv
 
@@ -63,14 +65,20 @@ class VGG19Features(nn.Module):
         if self.imagenet_norm:
             mean = x.new_tensor(_IMAGENET_MEAN).view(1, 3, 1, 1)
             std = x.new_tensor(_IMAGENET_STD).view(1, 3, 1, 1)
-            x = ((x + 1.0) * 0.5 - mean) / std
+            x = keep_rows(((x + 1.0) * 0.5 - mean) / std, x)
+        rows = spatial_mesh() is not None
+        if rows:
+            from p2p_tpu_torch.parallel.spatial import (conv_rows,
+                                                        max_pool_rows)
         outs = []
         y = x
         for name, _ in _CFG:
             if name == "M":
-                y = F.max_pool2d(y, 2, 2)
+                y = max_pool_rows(y) if rows else F.max_pool2d(y, 2, 2)
                 continue
-            y = relu_y(cast_conv(getattr(self, name), y))
+            conv = getattr(self, name)
+            y = relu_y(conv_rows(y, conv.weight, conv.bias, 1, 1, "zero")
+                       if rows else cast_conv(conv, y))
             if name in _TAPS:
                 outs.append(y)
         return outs

@@ -5,7 +5,8 @@
 gradients, which are computed from the OUTPUT: the mask ``y > 0`` (relu),
 ``y >= 0`` (leaky, slope > 0 preserves the sign) and ``1 − y²`` (tanh). The
 backward then keeps the output, which the next layer holds anyway, instead
-of the input.
+of the input. Under a spatial mesh each keeps its input's row layout
+(core/mesh.keep_rows).
 
 ``PReLU`` is one learned scalar (init 0.25) shared over all channels;
 ExpandNetwork builds one and calls it at every site, as the reference does.
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from p2p_tpu_torch.core.mesh import keep_rows
 
 
 class _ReluY(torch.autograd.Function):
@@ -58,17 +61,17 @@ class _TanhY(torch.autograd.Function):
 
 
 def relu_y(x: torch.Tensor) -> torch.Tensor:
-    return _ReluY.apply(x)
+    return keep_rows(_ReluY.apply(x), x)
 
 
 def leaky_relu_y(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
     if slope <= 0:
         raise ValueError(f"leaky_relu_y needs slope > 0 (got {slope})")
-    return _LeakyReluY.apply(x, slope)
+    return keep_rows(_LeakyReluY.apply(x, slope), x)
 
 
 def tanh_y(x: torch.Tensor) -> torch.Tensor:
-    return _TanhY.apply(x)
+    return keep_rows(_TanhY.apply(x), x)
 
 
 class PReLU(nn.Module):

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p2p_tpu_torch.core.mesh import spatial_mesh
 from p2p_tpu_torch.ops.cuda.subpixel_head import subpixel_head_conv
 
 
@@ -97,19 +98,58 @@ class _FixedOrderReflectPad(torch.autograd.Function):
         return _fold_reflected(_fold_reflected(g, p, -1), p, -2), None
 
 
+class _FixedOrderReflectPadW(torch.autograd.Function):
+    """The same along W only."""
+
+    @staticmethod
+    def forward(ctx, x, pad):
+        ctx.pad = pad
+        return F.pad(x, (pad, pad, 0, 0), mode="reflect")
+
+    @staticmethod
+    def backward(ctx, g):
+        return _fold_reflected(g, ctx.pad, -1), None
+
+
+def _fixed_order(x: torch.Tensor) -> bool:
+    """Whether a CUDA tensor's reflect pad should add its backward in a
+    fixed order (the caller asks for reproducible runs)."""
+    return x.is_cuda and (torch.backends.cudnn.deterministic
+                          or torch.are_deterministic_algorithms_enabled())
+
+
 def reflect_pad_2d(x: torch.Tensor, pad: int) -> torch.Tensor:
     """Reflection-pad H and W. PyTorch's CUDA backward of the reflect pad
     adds the borders onto the input's gradient with atomics, so two runs
     differ in their last bits; where the caller asks for reproducible runs
     (``torch.backends.cudnn.deterministic`` or PyTorch's deterministic
     algorithms), a CUDA tensor's backward adds them in a fixed order
-    instead. The forward is the same either way."""
+    instead. The forward is the same either way. Under a spatial mesh
+    (``x`` one rank's block of rows) H is padded through the halo
+    exchange: ``pad`` neighbour rows on each side, reflected rows at the
+    image's top and bottom (parallel/halo.py), W locally."""
     if pad == 0:
         return x
-    if x.is_cuda and (torch.backends.cudnn.deterministic
-                      or torch.are_deterministic_algorithms_enabled()):
+    if spatial_mesh() is not None:
+        from p2p_tpu_torch.parallel.halo import halo_exchange
+        from p2p_tpu_torch.parallel.spatial import spatial_ring
+
+        ring = spatial_ring(spatial_mesh())
+        return reflect_pad_w(halo_exchange(x, 2, pad, ring.group,
+                                           "reflect"), pad)
+    if _fixed_order(x):
         return _FixedOrderReflectPad.apply(x, pad)
     return F.pad(x, (pad, pad, pad, pad), mode="reflect")
+
+
+def reflect_pad_w(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Reflection-pad W only (the local half of a spatial reflect pad),
+    in a fixed order where :func:`reflect_pad_2d` uses one."""
+    if pad == 0:
+        return x
+    if _fixed_order(x):
+        return _FixedOrderReflectPadW.apply(x, pad)
+    return F.pad(x, (pad, pad, 0, 0), mode="reflect")
 
 
 def upsample_nearest(x: torch.Tensor, factor: int) -> torch.Tensor:
@@ -189,6 +229,11 @@ def remat_call(module: nn.Module, fn: Callable[..., torch.Tensor],
     check_remat(mode)
     if not mode or not torch.is_grad_enabled():
         return fn(*args)
+    if spatial_mesh() is not None:
+        raise NotImplementedError(
+            "remat under a spatial mesh is not ported: the recompute would "
+            "repeat the blocks' halo exchanges and statistics all-reduces "
+            "out of order; set ParallelConfig.remat off")
     from torch.utils.checkpoint import (checkpoint,
                                         create_selective_checkpoint_contexts)
 
@@ -256,6 +301,8 @@ class ConvLayer(nn.Module):
                                   stride=stride, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial_mesh() is not None:
+            return _conv_rows(self, x)
         x = reflect_pad_2d(x, self.pad)
         if self.int8:
             return self.conv(x)
@@ -276,9 +323,29 @@ class UpsampleConvLayer(nn.Module):
                               stride=stride, bias=use_bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if spatial_mesh() is not None:
+            if self.upsample:
+                from p2p_tpu_torch.parallel.spatial import upsample_rows
+
+                x = upsample_rows(x, self.upsample)
+            return _conv_rows(self, x)
         if self.upsample:
             x = upsample_nearest(x, self.upsample)
         return cast_conv(self.conv, reflect_pad_2d(x, self.pad), self.dtype)
+
+
+def _conv_rows(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``layer``'s reflect-padded conv on this rank's block of rows under a
+    spatial mesh (parallel/spatial.py ``conv_rows``)."""
+    from p2p_tpu_torch.parallel.spatial import conv_rows
+
+    conv = layer.conv
+    if not isinstance(conv, nn.Conv2d):
+        raise NotImplementedError(
+            f"{type(conv).__name__} has no form under a spatial mesh (the "
+            "int8 convs are not ported to the spatial axis)")
+    return conv_rows(x, conv.weight, conv.bias, conv.stride[0], layer.pad,
+                     "reflect", layer.dtype)
 
 
 def subpixel_interleave(out: torch.Tensor, features: int) -> torch.Tensor:

@@ -47,7 +47,10 @@ _F = ctypes.c_float
 SIGNATURES = {
     "instance_norm_stats": {
         "p2p_instance_norm_stats": (_P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
-                                    _L, _P, _P, _P, _P, _F, _P)},
+                                    _L, _P, _P, _P, _P, _F, _P),
+        "p2p_instance_norm_sums": (_P, _I, _I, _L, _I, _I, _I, _I, _I, _I,
+                                   _L, _P, _P, _P, _P, _P),
+        "p2p_instance_norm_finalize": (_P, _P, _P, _P, _L, _F, _F, _P)},
     "norm_act": {
         "p2p_norm_act": (_P, _P, _P, _P, _P, _P, _P, _I, _L, _L, _I, _I, _I,
                          _I, _F, _I, _I, _I, _P),

@@ -24,6 +24,16 @@ of 16-byte vectors (``norm_act.apply_plan``: along C, across pixels at
 C = 3, the ExpandNetwork's head, or one element at a time), and with
 ``x_ready=True`` reads x before it waits for #1 to end.
 
+Under a spatial mesh (x one rank's block of rows, ops/instance_norm.py)
+#1 is split at the collective: ``instance_norm_sums(x)`` stops at the
+fixed-order (N, C) f32 Σx and Σx² of pass 1 (``p2p_instance_norm_sums``),
+the caller all-reduces them over the spatial group, and
+``instance_norm_finalize(s1, s2, count, eps)`` turns the global sums and
+the global count (Σ of the ranks' H·W) into mean and rstd with #1's
+arithmetic (``p2p_instance_norm_finalize``, an ordinary launch after the
+collective). Replaces the sharded ``_fwd_impl`` of
+``instance_norm_kernel.py:115-130`` and ``norm_act.py:102-112``.
+
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches its kernel or raises.
 """
@@ -40,6 +50,10 @@ from p2p_tpu_torch.ops.cuda.norm_act import APPLY_PATHS, THREADS, \
 
 REPLACES = "p2p_tpu/ops/pallas/instance_norm_kernel.py:79 (_stats_local)"
 SOURCE = "p2p_tpu_torch/ops/cuda/csrc/instance_norm_stats.cu"
+REPLACES_SUMS = ("p2p_tpu/ops/pallas/instance_norm_kernel.py:188 "
+                 "(instance_norm_fused_sharded, _stats_local + psum)")
+REPLACES_FINALIZE = ("p2p_tpu/ops/pallas/instance_norm_kernel.py:115 "
+                     "(_fwd_impl, the sharded mean/rstd)")
 REPLACES_APPLY = "p2p_tpu/ops/pallas/instance_norm_kernel.py:105 (_norm_local)"
 SOURCE_APPLY = "p2p_tpu_torch/ops/cuda/csrc/norm_act.cu"
 
@@ -55,6 +69,25 @@ def instance_norm_stats_plain(x: torch.Tensor, eps: float = 1e-5
     count = float(x.shape[2] * x.shape[3])
     mean = x32.sum(dim=(2, 3)) / count
     var = ((x32 * x32).sum(dim=(2, 3)) / count - mean * mean).clamp_min(0.0)
+    return mean, torch.rsqrt(var + eps)
+
+
+def instance_norm_sums_plain(x: torch.Tensor
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(n, c) Σx and Σx² over H×W in f32, (N, C) each."""
+    x32 = x.float()
+    return x32.sum(dim=(2, 3)), (x32 * x32).sum(dim=(2, 3))
+
+
+def instance_norm_finalize_plain(s1: torch.Tensor, s2: torch.Tensor,
+                                 count: float, eps: float = 1e-5
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mean = s1 / count``, ``var = max(s2 / count − mean², 0)``,
+    ``rstd = rsqrt(var + eps)``; the count a 0-d tensor, so that a CUDA
+    tensor divides by it as the kernel does (not by its reciprocal)."""
+    n = s1.new_full((), count)
+    mean = s1 / n
+    var = (s2 / n - mean * mean).clamp_min(0.0)
     return mean, torch.rsqrt(var + eps)
 
 
@@ -95,7 +128,7 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5
                        dtype=torch.float32)
     mean = torch.empty((n, c), device=x.device, dtype=torch.float32)
     rstd = torch.empty_like(mean)
-    lib, fn = build.load("instance_norm_stats")
+    lib, fn = build.load("instance_norm_stats", "p2p_instance_norm_stats")
     with torch.cuda.device(x.device):
         err = fn(x.data_ptr(), build.DTYPE_CODES[x.dtype], n, h * w, c,
                  g.vec, g.tx, g.ty, g.cblocks, g.num_p, g.chunk,
@@ -107,6 +140,58 @@ def instance_norm_stats(x: torch.Tensor, eps: float = 1e-5
 
 
 instance_norm_stats.launches = 0
+
+
+def instance_norm_sums(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(n, c) Σx and Σx² of x (N, C, H, W) over its H×W, as (N, C) f32
+    (pass 1 of #1 and the fixed-order sum of its partials)."""
+    if x.device.type == "cpu":
+        return instance_norm_sums_plain(x)
+    build.check_activation(x, "instance_norm_sums")
+    n, c, h, w = x.shape
+    g = stats_geometry(n, h * w, c, build.vector_width(c, x))
+    part = torch.empty((2, n, g.num_p, c), device=x.device,
+                       dtype=torch.float32)
+    sums = torch.empty((2, n, c), device=x.device, dtype=torch.float32)
+    lib, fn = build.load("instance_norm_stats", "p2p_instance_norm_sums")
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), build.DTYPE_CODES[x.dtype], n, h * w, c,
+                 g.vec, g.tx, g.ty, g.cblocks, g.num_p, g.chunk,
+                 part[0].data_ptr(), part[1].data_ptr(), sums[0].data_ptr(),
+                 sums[1].data_ptr(), build.stream_handle(x.device))
+    build.check(lib, err, "instance_norm_sums")
+    build.count_launch(instance_norm_sums)
+    return sums[0], sums[1]
+
+
+instance_norm_sums.launches = 0
+
+
+def instance_norm_finalize(s1: torch.Tensor, s2: torch.Tensor, count: float,
+                           eps: float = 1e-5
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and rstd, (N, C) f32, from the global (N, C) f32 sums and the
+    global count (a host number: no read of the device)."""
+    if s1.device.type == "cpu":
+        return instance_norm_finalize_plain(s1, s2, count, eps)
+    for t, what in ((s1, "s1"), (s2, "s2")):
+        if t.device.type != "cuda" or t.dtype != torch.float32 \
+                or not t.is_contiguous() or t.shape != s1.shape:
+            raise ValueError(f"instance_norm_finalize: {what} must be a "
+                             "contiguous f32 CUDA tensor of s1's shape")
+    mean = torch.empty_like(s1)
+    rstd = torch.empty_like(s1)
+    lib, fn = build.load("instance_norm_stats", "p2p_instance_norm_finalize")
+    with torch.cuda.device(s1.device):
+        err = fn(s1.data_ptr(), s2.data_ptr(), mean.data_ptr(),
+                 rstd.data_ptr(), s1.numel(), float(count), eps,
+                 build.stream_handle(s1.device))
+    build.check(lib, err, "instance_norm_finalize")
+    build.count_launch(instance_norm_finalize)
+    return mean, rstd
+
+
+instance_norm_finalize.launches = 0
 
 
 def instance_norm_apply_plain(x: torch.Tensor, mean: torch.Tensor,

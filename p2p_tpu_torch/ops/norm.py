@@ -20,7 +20,16 @@ two sums before the closed form ``dxc = ds + 2·xc·dss``: each rank's
 gradient then carries every rank's loss terms, which the gradient average
 (parallel/dp.py) divides by the world size. Each of the two all-reduces
 is counted (``sync_moments.allreduces``, ``sync_moments.backward_
-allreduces``).
+allreduces``). Under a spatial mesh the moments are summed over data ×
+fsdp × spatial (the world) with the rank's row count
+riding in the same buffer, so the count is exact on uneven rows.
+
+Under a spatial mesh (x one rank's block of rows) the plain
+``instance_norm`` computes its two-pass statistics as ``jnp.mean`` and
+``jnp.var`` do under GSPMD: the sum of x over the spatial group, the mean,
+then the sum of (x − μ)² over the group (two differentiable all-reduces),
+each divided by the global count. Every epilogue passes its input's row
+layout on (core/mesh.keep_rows).
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch
 import torch.distributed as dist
 from torch import nn
 
-from p2p_tpu_torch.core.mesh import current_mesh
+from p2p_tpu_torch.core.mesh import (current_mesh, keep_rows, rows_of,
+                                     spatial_mesh)
 from p2p_tpu_torch.ops.conv import taped
 
 from p2p_tpu_torch.ops.activations import leaky_relu_y, relu_y
@@ -91,23 +101,29 @@ class _SyncMoments(torch.autograd.Function):
     same way."""
 
     @staticmethod
-    def forward(ctx, s1, s2, group):
+    def forward(ctx, s1, s2, group, count):
         ctx.group = group
 
         def reduce():
-            buf = torch.stack([s1, s2])
+            if count is None:
+                buf = torch.stack([s1, s2])
+            else:
+                buf = torch.cat([s1, s2, s1.new_full((1,), float(count))])
             dist.all_reduce(buf, group=group)
             sync_moments.allreduces += 1
-            return buf[0], buf[1]
+            if count is None:
+                return buf[0], buf[1]
+            c = s1.shape[0]
+            return buf[:c], buf[c:2 * c], buf[2 * c:]
 
         return taped(reduce)
 
     @staticmethod
-    def backward(ctx, ds, dss):
+    def backward(ctx, ds, dss, *_):
         buf = torch.stack([ds, dss])
         dist.all_reduce(buf, group=ctx.group)
         sync_moments.backward_allreduces += 1
-        return buf[0], buf[1], None
+        return buf[0], buf[1], None, None
 
 
 def sync_moments(xc: torch.Tensor
@@ -120,7 +136,12 @@ def sync_moments(xc: torch.Tensor
     mesh = current_mesh()
     if mesh is None or not _SYNC_BN.get():
         return s1, s2, xc.shape[0]
-    s1, s2 = _SyncMoments.apply(s1, s2, mesh.batch_group)
+    if mesh.spatial > 1:
+        # data x fsdp x spatial, the world; the rows differ by rank on
+        # uneven maps
+        s1, s2, n = _SyncMoments.apply(s1, s2, None, xc.shape[0])
+        return s1, s2, n.reshape(())
+    s1, s2 = _SyncMoments.apply(s1, s2, mesh.batch_group, None)
     return s1, s2, xc.shape[0] * mesh.batch_shards
 
 
@@ -169,15 +190,15 @@ class BatchNorm(nn.Module):
             mean, var = self.mean, self.var
         a = self.scale * torch.rsqrt(var + self.epsilon)
         b = self.bias - mean * a
-        return x * a.to(x.dtype).view(1, c, 1, 1) + b.to(x.dtype).view(
-            1, c, 1, 1)
+        return keep_rows(x * a.to(x.dtype).view(1, c, 1, 1)
+                         + b.to(x.dtype).view(1, c, 1, 1), x)
 
 
 def _epilogue(z: torch.Tensor, act: str, slope: float,
               residual: Optional[torch.Tensor]) -> torch.Tensor:
     """[+ residual] → activation, the JAX reference chain's order."""
     if residual is not None:
-        z = z + residual
+        z = keep_rows(z + residual, z)
     if act == "relu":
         return relu_y(z)
     if act == "leaky":
@@ -208,6 +229,15 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """Per-sample, per-channel norm over H, W with statistics in f32 and
     the result in x's dtype (the JAX ``InstanceNorm`` without affine)."""
     x32 = x.float()
+    if spatial_mesh() is not None:
+        from p2p_tpu_torch.parallel.spatial import all_reduce_sum
+
+        count = rows_of(x) * x.shape[3]
+        mean = all_reduce_sum(x32.sum(dim=(2, 3), keepdim=True)) / count
+        var = all_reduce_sum((x32 - mean).square().sum(
+            dim=(2, 3), keepdim=True)) / count
+        return keep_rows(((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype),
+                         x)
     mean = x32.mean(dim=(2, 3), keepdim=True)
     var = (x32 - mean).square().mean(dim=(2, 3), keepdim=True)
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)

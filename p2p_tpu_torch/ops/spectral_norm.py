@@ -25,6 +25,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from p2p_tpu_torch.core.mesh import spatial_mesh
 from p2p_tpu_torch.ops.int8 import CONV_FORMS, QuantScale
 
 
@@ -80,8 +81,16 @@ class SpectralConv(QuantScale, nn.Module):
         dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
         if not self.int8:
+            if spatial_mesh() is not None:
+                from p2p_tpu_torch.parallel.spatial import conv_rows
+
+                return conv_rows(x, (w / sigma).to(dt), bias, self.stride,
+                                 self.padding, "zero", dt)
             return F.conv2d(x.to(dt), (w / sigma).to(dt), bias, self.stride,
                             self.padding)
+        if spatial_mesh() is not None:
+            raise NotImplementedError("the int8 spectral-norm conv has no "
+                                      "form under a spatial mesh")
         y, tap = self.quant_conv(x, (w / sigma).to(dt), CONV_FORMS,
                                  (self.stride, self.stride), self.padding)
         if bias is not None:

@@ -34,11 +34,22 @@ the gradient average over the ranks is that same mean.
 With ``fsdp`` > 1 the optimizers and the EMA are sharded (parallel/
 rules.py): the gradient is still all-reduced whole, so the update of a
 range is bitwise the replicated update of it.
+
+With ``spatial`` > 1 (slice 13b, parallel/spatial.py) each batch slot's
+images are split along H over its spatial group: :func:`shard_batch`
+keeps this rank's rows of its slot's samples, every windowed op exchanges
+the rows it needs, and each rank's loss is its exact share of the global
+batch's loss (its sums over the global counts, losses/). So the gradients
+are SUMMED over the spatial group and averaged over the batch slots: one
+coalesced all-reduce a network over the whole world, divided by the
+number of batch slots; :meth:`DataParallel.mean_metrics` adds the
+spatial peers' loss shares and averages the rest, and :meth:`agree`
+spans the world.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -46,7 +57,7 @@ import torch.distributed as dist
 from torch import nn
 
 from p2p_tpu_torch.core.config import Config
-from p2p_tpu_torch.core.mesh import Mesh, mesh_context
+from p2p_tpu_torch.core.mesh import Mesh, mesh_context, row_block
 from p2p_tpu_torch.ops.norm import sync_batchnorm
 from p2p_tpu_torch.parallel.rules import (ShardedOptimizer, gather_params,
                                           in_layout_of, mem_flat,
@@ -90,8 +101,9 @@ def replicate_state(state, mesh: Mesh):
 
 def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh
                 ) -> Dict[str, np.ndarray]:
-    """This rank's rows of a global host batch (N split over the batch
-    shards, in rank order)."""
+    """This rank's part of a global NHWC host batch: N split over the
+    batch slots (in slot order), and with ``spatial`` > 1 H over the
+    spatial group (:func:`shard_rows`)."""
     out = {}
     for k, v in batch.items():
         n = v.shape[0]
@@ -100,6 +112,20 @@ def shard_batch(batch: Dict[str, np.ndarray], mesh: Mesh
                              f"{mesh.batch_shards} ranks")
         m = n // mesh.batch_shards
         out[k] = v[mesh.batch_rank * m:(mesh.batch_rank + 1) * m]
+    return shard_rows(out, mesh)
+
+
+def shard_rows(batch: Dict[str, np.ndarray], mesh: Mesh
+               ) -> Dict[str, np.ndarray]:
+    """This rank's block of rows (``core/mesh.row_block`` along H, dim 1 of
+    NHWC) of every image of a batch slot's samples; the batch as it is
+    when ``spatial`` is 1."""
+    if mesh.spatial == 1:
+        return batch
+    out = {}
+    for k, v in batch.items():
+        a, b = row_block(v.shape[1], mesh.spatial, mesh.spatial_rank)
+        out[k] = v[:, a:b]
     return out
 
 
@@ -108,6 +134,9 @@ class DataParallel:
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
+        # gradients and agreement span the world (the default group)
+        # under a spatial split
+        self.grad_group = None if mesh.spatial > 1 else mesh.batch_group
 
     @torch.no_grad()
     def sync_grads(self, opt) -> None:
@@ -124,7 +153,7 @@ class DataParallel:
                                "the same buffer)")
         flat = torch.cat([mem_flat(in_layout_of(p.grad, p))
                           for p in params])
-        dist.all_reduce(flat, group=self.mesh.batch_group)
+        dist.all_reduce(flat, group=self.grad_group)
         flat.div_(self.mesh.batch_shards)
         off = 0
         for p in params:
@@ -133,16 +162,25 @@ class DataParallel:
         if isinstance(optimizer, ShardedOptimizer):
             optimizer.grad_flat = flat
 
-    def mean_metrics(self, metrics: Dict[str, torch.Tensor]
+    def mean_metrics(self, metrics: Dict[str, torch.Tensor],
+                     shares: Sequence[str] = ()
                      ) -> Dict[str, torch.Tensor]:
-        """The step's 0-d metrics as their mean over the ranks (one
-        all-reduce of their stack): the global batch's losses, as the JAX
-        step reports them, so every rank's sentinel, ladder and records
-        see the same values."""
+        """The step's 0-d metrics as the global batch's (one all-reduce of
+        their stack), as the JAX step reports them, so every rank's
+        sentinel, ladder and records see the same values: the mean over
+        the batch slots, where the ``shares`` (the losses: each rank's
+        share of its slot's loss under a spatial split) are first summed
+        over the spatial group and the rest (equal on spatial peers)
+        averaged."""
         keys = list(metrics)
         stacked = torch.stack([metrics[k].detach().reshape(()).float()
                                for k in keys])
-        dist.all_reduce(stacked, group=self.mesh.batch_group)
+        s = self.mesh.spatial
+        if s > 1:
+            weight = torch.tensor([1.0 if k in shares else 1.0 / s
+                                   for k in keys], device=stacked.device)
+            stacked = stacked * weight
+        dist.all_reduce(stacked, group=self.grad_group)
         stacked.div_(self.mesh.batch_shards)
         return dict(zip(keys, stacked.unbind()))
 
@@ -150,8 +188,7 @@ class DataParallel:
         """Whether every rank's losses are finite (one all-reduce MIN)."""
         ok = torch.isfinite(torch.stack([x.detach().float()
                                          for x in losses])).all().float()
-        dist.all_reduce(ok, op=dist.ReduceOp.MIN,
-                        group=self.mesh.batch_group)
+        dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=self.grad_group)
         return bool(ok)
 
     def before_step(self, state) -> None:
@@ -202,3 +239,44 @@ def make_parallel_eval_step(cfg: Config, mesh: Mesh,
             return step(state, batch)
 
     return parallel_eval
+
+
+SPATIAL_GENERATORS = ("resnet", "pix2pixhd", "pix2pixhd_global")
+
+
+def check_spatial_config(cfg: Config, mesh: Mesh) -> None:
+    """Raise ``NotImplementedError`` for what the spatial step does not
+    cover (every op on its path has a sharded form; nothing else may run
+    on a block of rows): the ResNet-family generators, no compression net,
+    no int8, no fake pool, no style, Sobel or angular term, no remat; and
+    the image height must split into blocks of at least 2 rows at the
+    generator's deepest level (the halo+1 rule of its k3 convs)."""
+    if mesh.spatial == 1:
+        return
+    m, L = cfg.model, cfg.loss
+    refused = []
+    if m.generator not in SPATIAL_GENERATORS:
+        refused.append(f"generator {m.generator!r}")
+    if m.use_compression_net:
+        refused.append("the compression net")
+    if m.int8:
+        refused.append("int8")
+    if cfg.train.pool_size > 0:
+        refused.append("pool_size > 0")
+    for name in ("lambda_style", "lambda_sobel", "lambda_angular"):
+        if getattr(L, name) > 0:
+            refused.append(name)
+    if cfg.parallel.remat:
+        refused.append("remat")
+    if refused:
+        raise NotImplementedError(
+            f"spatial={mesh.spatial} is ported for {SPATIAL_GENERATORS} "
+            "with the plain losses; not for " + ", ".join(refused))
+    downs = (5 if m.generator == "pix2pixhd" else
+             4 if m.generator == "pix2pixhd_global" else 2)
+    deepest = cfg.data.image_size >> downs
+    if deepest < 2 * mesh.spatial:
+        raise ValueError(
+            f"image height {cfg.data.image_size} → deepest feature height "
+            f"{deepest} gives a spatial rank fewer than 2 rows "
+            f"(spatial={mesh.spatial}; a k3 conv's halo needs halo+1)")

@@ -9,7 +9,8 @@ checkpoint's recorded topology and the relaunch's (``core/mesh.
 classify_topology_delta``) and returns an :class:`ElasticPlan`;
 :func:`elastic_restore` executes it:
 
-- ``reshard`` (process count, data or fsdp width, device count): every
+- ``reshard`` (process count, data, fsdp or spatial width, device
+  count; the JAX classification's, ``p2p_tpu/core/mesh.py:216-219``): every
   checkpoint is in the one-device format (rank 0 writes it with the ZeRO
   ranges gathered, train/loop.py ``save_trainer_ckpt``), so a reshard is a
   plain load onto the new world, each sharded optimizer cutting its range

@@ -99,8 +99,12 @@ data/fsdp-width change is a plain load onto the new world
 (``reshard``), a global-batch change re-bases the position from samples
 (``batch_rebase``), a dtype change casts with ``cast_on_restore``
 (``dtype_cast``); what cannot be reconciled raises ``TopologyMismatch``
-(exit 2 in ``cli/train.py``). Not ported yet: scan steps; the spatial,
-time, model and pipe axes (slices 13b, 13c).
+(exit 2 in ``cli/train.py``). A spatial mesh (slice 13b) splits each
+batch slot's images along H: the loader shards by batch slot (spatial
+peers read the same samples), the step keeps the rank's rows, the eval
+gathers whole predictions and one spatial peer enters the metric combine;
+a relaunch across spatial widths is a ``reshard``. Not ported yet: scan
+steps; the time, model and pipe axes (slices 13b-time, 13c).
 """
 
 from __future__ import annotations
@@ -118,7 +122,8 @@ import torch.distributed as dist
 
 from p2p_tpu_torch.core.cache import enable_compilation_cache
 from p2p_tpu_torch.core.config import Config
-from p2p_tpu_torch.core.mesh import (LATER_AXES, Mesh, TopologyMismatch,
+from p2p_tpu_torch.core.mesh import (ONE_DEVICE_AXES, Mesh,
+                                     TopologyMismatch,
                                      classify_topology_delta,
                                      describe_topology, local_batch_size,
                                      mesh_topology,
@@ -142,7 +147,8 @@ from p2p_tpu_torch.resilience.health import (DivergenceError, TrainingHealth,
                                              poison_nan_observation)
 from p2p_tpu_torch.resilience.preempt import Preempted, PreemptionGuard
 from p2p_tpu_torch.parallel import (full_params, make_parallel_eval_step,
-                                    make_parallel_train_step, place_state)
+                                    make_parallel_train_step, place_state,
+                                    shard_rows)
 from p2p_tpu_torch.resilience.reshape import (ElasticPlan,
                                               apply_batch_rebase,
                                               check_ported_chain,
@@ -558,15 +564,16 @@ def build_trainer_mesh(cfg: Config, workdir: str) -> Optional[Mesh]:
     """The mesh of ``cfg.parallel.mesh`` over the default process group,
     or None without one (a plain run). At world size 1 a preset's spatial
     or time axis resolves as 1 (the one-card form of ``cityscapes_spatial``,
-    ``pix2pixhd`` and ``vid2vid_temporal``); wider worlds need slice 13b
-    for them (``NotImplementedError``). A mesh that does not fit the
-    processes names the topology the run's checkpoint was saved on
-    (``p2p_tpu/train/loop.py:458``)."""
+    ``pix2pixhd`` and ``vid2vid_temporal``); on wider worlds the spatial
+    axis splits H (slice 13b) and the time axis is refused
+    (``NotImplementedError`` naming slice 13b-time). A mesh that does not
+    fit the processes names the topology the run's checkpoint was saved
+    on (``p2p_tpu/train/loop.py:458``)."""
     if not dist.is_initialized():
         return None
     spec = cfg.parallel.mesh
     if dist.get_world_size() == 1:
-        spec = dataclasses.replace(spec, **{a: 1 for a in LATER_AXES})
+        spec = dataclasses.replace(spec, **{a: 1 for a in ONE_DEVICE_AXES})
     try:
         return Mesh(spec)
     except ValueError as e:
@@ -832,13 +839,20 @@ class Trainer:
             self.device, sample_batch=sample)
 
     def _build_steps(self):
-        """``(train_step, eval_step)``: data parallel on a mesh."""
+        """``(train_step, eval_step)``: data parallel on a mesh; under a
+        spatial split the train step takes this rank's rows of its batch
+        slot's images (the eval step takes whole images)."""
         if self.mesh is not None:
-            return (make_parallel_train_step(self.cfg, self.mesh, self.vgg,
-                                             self.dtype,
-                                             self.steps_per_epoch),
-                    make_parallel_eval_step(self.cfg, self.mesh,
-                                            self.dtype))
+            mesh = self.mesh
+            step = make_parallel_train_step(self.cfg, mesh, self.vgg,
+                                            self.dtype, self.steps_per_epoch)
+            if mesh.spatial > 1:
+                inner = step
+
+                def step(state, batch):
+                    return inner(state, shard_rows(batch, mesh))
+
+            return step, make_parallel_eval_step(self.cfg, mesh, self.dtype)
         return (build_train_step(self.cfg, self.vgg, self.dtype,
                                  self.steps_per_epoch),
                 build_eval_step(self.cfg, self.dtype))
@@ -988,11 +1002,13 @@ class Trainer:
             return self._evaluate(save_samples)
 
     def _shard(self) -> Dict[str, int]:
-        """The loader's process sharding: the default group's on a mesh,
-        else one process."""
+        """The loader's sharding: by the mesh's batch slot (spatial peers
+        read the same samples and keep their own rows), else one
+        process."""
         if self.mesh is None:
             return {"n_proc": 1, "pid": 0}
-        return {"n_proc": process_count(), "pid": process_index()}
+        return {"n_proc": self.mesh.batch_shards,
+                "pid": self.mesh.batch_rank}
 
     def _evaluate(self, save_samples: bool) -> Dict[str, float]:
         cfg = self.cfg
@@ -1024,7 +1040,11 @@ class Trainer:
              else np.zeros(0, np.float32))
         s = (torch.cat(ssims).cpu().numpy() if ssims
              else np.zeros(0, np.float32))
-        if n_proc > 1:
+        if self.mesh is not None and self.mesh.spatial_rank > 0:
+            # spatial peers scored the same whole images: one of them
+            # enters the combine with them
+            p, s = p[:0], s[:0]
+        if process_count() > 1:
             pm, px, sm, sx, n_total = combine_process_metric_stats(p, s)
             result = {"psnr_mean": pm, "psnr_max": px, "ssim_mean": sm,
                       "ssim_max": sx, self.EVAL_COUNT_KEY: n_total}

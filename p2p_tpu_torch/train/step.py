@@ -83,6 +83,15 @@ D's gradients are all-reduced after G's backward (G's, then D's) and
 net_c's after its own, each before its optimizer step, the guard's
 verdicts are agreed over the ranks, the split parameters are freed at
 its end, and the metrics are their means over the ranks (one all-reduce).
+Under a spatial split (``spatial`` > 1, parallel/spatial.py) the step
+takes this rank's rows of its batch slot's images (``parallel.dp.
+shard_batch``) of the configured height, records that height on them,
+and runs every op in its sharded form; its losses are this rank's shares
+(``parallel.dp.check_spatial_config`` names what is not covered). The
+eval and serving forward under a spatial mesh takes whole images, runs G
+on this rank's rows and gathers the prediction's rows on every rank
+(``parallel/spatial.gather_rows``), so PSNR and SSIM, whose windows cross
+the blocks, are the whole image's.
 """
 
 from __future__ import annotations
@@ -95,6 +104,8 @@ from torch import nn
 from torch.func import functional_call
 
 from p2p_tpu_torch.core.config import Config
+from p2p_tpu_torch.core.mesh import (keep_rows, row_block, set_rows,
+                                     spatial_mesh)
 from p2p_tpu_torch.losses.feature_matching import feature_matching_loss
 from p2p_tpu_torch.losses.gan import gan_loss
 from p2p_tpu_torch.losses.l1 import l1_loss
@@ -146,11 +157,14 @@ def make_infer_forward(cfg: Config, dtype: Optional[torch.dtype] = None,
         with torch.inference_mode():
             real_b = (to_device_image(batch["target"], device, dtype)
                       if use_c or with_metrics else None)
-            if use_c:
-                g_in = compressed_input(net_c, real_b, bits)
+            mesh = spatial_mesh()
+            if mesh is not None:
+                pred = _rows_forward(generator, batch["input"], device,
+                                     dtype, mesh, use_c)
             else:
-                g_in = to_device_image(batch["input"], device, dtype)
-            pred = generator(g_in).permute(0, 2, 3, 1)
+                g_in = (compressed_input(net_c, real_b, bits) if use_c else
+                        to_device_image(batch["input"], device, dtype))
+                pred = generator(g_in).permute(0, 2, 3, 1)
             metrics = {}
             if with_metrics:
                 real_b = real_b.permute(0, 2, 3, 1)
@@ -159,6 +173,23 @@ def make_infer_forward(cfg: Config, dtype: Optional[torch.dtype] = None,
         return pred, metrics
 
     return fwd
+
+
+def _rows_forward(generator: nn.Module, images, device: torch.device,
+                  dtype: Optional[torch.dtype], mesh, use_c: bool
+                  ) -> torch.Tensor:
+    """G's prediction (NHWC, whole images) under a spatial mesh: G on this
+    rank's rows of the whole input images, the rows gathered on every
+    rank."""
+    from p2p_tpu_torch.parallel.spatial import gather_rows, take_rows
+
+    if use_c:
+        raise NotImplementedError("the compression net has no form under "
+                                  "a spatial mesh")
+    h = images.shape[1]
+    g_in = set_rows(to_device_image(take_rows(images, h, mesh), device,
+                                    dtype), h)
+    return gather_rows(generator(g_in), mesh).permute(0, 2, 3, 1)
 
 
 def compressed_input(net_c: nn.Module, real_b: torch.Tensor, bits: int
@@ -389,14 +420,32 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
         raise NotImplementedError(
             "pool_size > 0 under data parallelism is not ported: the JAX "
             "pool holds the global batch's pairs; leave --pool_size 0")
+    rows = None
+    if dp is not None and dp.mesh.spatial > 1:
+        from p2p_tpu_torch.parallel.dp import check_spatial_config
+
+        check_spatial_config(cfg, dp.mesh)
+        rows = cfg.data.image_size
+
+    def images(x, device):
+        t = to_device_image(x, device, train_dtype)
+        if rows is not None:
+            a, b = row_block(rows, dp.mesh.spatial, dp.mesh.spatial_rank)
+            if t.shape[2] != b - a:
+                raise ValueError(
+                    f"spatial rank {dp.mesh.spatial_rank} got {t.shape[2]} "
+                    f"rows of an image of {rows}: expected {b - a} "
+                    "(parallel.dp.shard_batch)")
+            set_rows(t, rows)
+        return t
 
     def step(state: TrainState, batch: Dict[str, np.ndarray]
              ) -> Tuple[TrainState, Metrics]:
         if dp is not None:
             dp.before_step(state)
         net_g, net_d, net_c = state.net_g, state.net_d, state.net_c
-        real_a = to_device_image(batch["input"], state.device, train_dtype)
-        real_b = to_device_image(batch["target"], state.device, train_dtype)
+        real_a = images(batch["input"], state.device)
+        real_b = images(batch["target"], state.device)
         # G's scales follow the G/D verdict, its statistics and all of
         # net_c's buffers the verdict with the net_c loss (JAX quant_g1
         # against bs_g2, bs_c1 and quant_c1)
@@ -424,7 +473,7 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
 
         # ---- 2-4. G, D's forwards, G loss ---------------------------------
         fake_b = g_forward(g_input)
-        real_pair = torch.cat([real_a, real_b], dim=1)
+        real_pair = keep_rows(torch.cat([real_a, real_b], dim=1), real_a)
         if use_pool:
             pooled, pool1, pool_n1 = pool_lib.device_pool_query(
                 state.pool, state.pool_n,
@@ -437,8 +486,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             pred_fake = net_d(torch.cat([real_a, fake_b], dim=1))
         else:
             loss_d, pred_fake, pred_real = single_forward_d_losses(
-                net_d, torch.cat([real_a, fake_b], dim=1), real_pair,
-                L.gan_mode)
+                net_d, keep_rows(torch.cat([real_a, fake_b], dim=1), real_a),
+                real_pair, L.gan_mode)
         real_feats = target_features(vgg, real_b) if need_feats else None
         loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_a,
                                  real_b, real_feats, state.step)
@@ -503,7 +552,8 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
                                                 device=state.device)
         metrics.update(norms)
         if dp is not None:
-            metrics = dp.mean_metrics(metrics)
+            metrics = dp.mean_metrics(
+                metrics, ("loss_d", "loss_g", "loss_c", *parts))
         if sentinel:
             # per-leaf NaN/Inf counts, copied to a pinned buffer behind an
             # event and read one step later (obs/taps.py): no host sync;

@@ -21,7 +21,7 @@ memory samples, and the elastic reconciliation of a resume (train/loop.py
 ``plan_elastic_restore``). Under a process group of one rank it runs its
 one-device step and records the mesh; more ranks need the parallel video
 step (``p2p_tpu/train/video_step.py:335 make_parallel_video_step``),
-which comes with slice 13b.
+which comes with slice 13b-time.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ class VideoTrainer(Trainer):
             raise NotImplementedError(
                 "video training on more than one process is not ported: "
                 "the parallel video step (make_parallel_video_step) comes "
-                "with slice 13b")
+                "with slice 13b-time")
         return (build_video_train_step(self.cfg, self.vgg, self.dtype),
                 build_video_eval_step(self.cfg, self.dtype))
 

@@ -1448,3 +1448,79 @@ def test_reflect_pad_backward_repeats_its_bits_on_the_card(cuda, shape,
     (F.pad(z, (pad,) * 4, mode="reflect") * cot.double()).sum().backward()
     err = float((grads[0].cpu().double() - z.grad).abs().max())
     assert err <= 1e-6 * float(z.grad.abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 5, 7, 9), (1, 64, 257, 64),
+                                   (1, 1024, 8, 64), (2, 32, 13, 40)])
+def test_sharded_stats_entries_match_plain_versions(cuda, dtype, shape):
+    """#1's sums entry against its plain version (the fixed-order sums of
+    pass 1: the same bits as #1's own finalize reads), and the finalize
+    fed those sums and the count against #1 on the whole tensor: the
+    sharded route with one rank is #1, bitwise."""
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_finalize, instance_norm_finalize_plain,
+        instance_norm_sums, instance_norm_sums_plain)
+
+    x = _x(shape, dtype, cuda, 5)
+    n0 = (instance_norm_sums.launches, instance_norm_finalize.launches)
+    s1, s2 = instance_norm_sums(x)
+    p1, p2 = instance_norm_sums_plain(x)
+    torch.testing.assert_close(s1, p1, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(s2, p2, atol=1e-3, rtol=1e-5)
+    count = float(shape[2] * shape[3])
+    mean, rstd = instance_norm_finalize(s1, s2, count)
+    want = instance_norm_stats(x)
+    assert torch.equal(mean, want[0]) and torch.equal(rstd, want[1])
+    pm, pr = instance_norm_finalize_plain(s1, s2, count)
+    torch.testing.assert_close(mean, pm, atol=0, rtol=2e-7)
+    torch.testing.assert_close(rstd, pr, atol=0, rtol=2e-7)
+    assert (instance_norm_sums.launches - n0[0],
+            instance_norm_finalize.launches - n0[1]) == (1, 1)
+    again = instance_norm_sums(x)
+    assert torch.equal(again[0], s1) and torch.equal(again[1], s2)
+
+
+def test_sharded_stats_entries_raise_on_what_they_do_not_take(cuda):
+    from p2p_tpu_torch.ops.cuda.instance_norm_kernel import (
+        instance_norm_finalize, instance_norm_sums)
+
+    with pytest.raises(ValueError):
+        instance_norm_sums(torch.randn(2, 8, 4, 4, device=cuda))  # NCHW
+    s = torch.zeros(2, 8, device=cuda)
+    with pytest.raises(ValueError):
+        instance_norm_finalize(s.double(), s, 16.0)
+    with pytest.raises(ValueError):
+        instance_norm_finalize(s, s.t().contiguous().t(), 16.0)
+
+
+@pytest.mark.parametrize("pad", [1, 3])
+def test_reflect_pad_w_backward_repeats_its_bits_on_the_card(cuda, pad):
+    """The W half of a spatial reflect pad: fixed-order backward under
+    cuDNN deterministic, against f64 on the CPU."""
+    import torch.nn.functional as F
+
+    from p2p_tpu_torch.ops.conv import reflect_pad_w
+
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((1, 64, 40, 96), generator=g)
+    cot = torch.randn((1, 64, 40, 96 + 2 * pad), generator=g)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        grads = []
+        for _ in range(5):
+            z = x.to(cuda).contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+            y = reflect_pad_w(z, pad)
+            assert y.grad_fn.name() == "_FixedOrderReflectPadWBackward"
+            (y * cot.to(cuda)).sum().backward()
+            grads.append(z.grad)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    assert all(torch.equal(gr, grads[0]) for gr in grads[1:])
+    z = x.double().requires_grad_(True)
+    (F.pad(z, (pad, pad, 0, 0), mode="reflect") * cot.double()).sum(
+        ).backward()
+    err = float((grads[0].cpu().double() - z.grad).abs().max())
+    assert err <= 1e-6 * float(z.grad.abs().max())

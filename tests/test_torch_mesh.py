@@ -122,8 +122,9 @@ def test_topology_blocks_and_later_axes():
                     "global_batch": 8}
     assert tmesh.describe_topology(topo) == jmesh.describe_topology(topo)
     tmesh.check_ported_axes(tmesh.MeshSpec(data=-1, fsdp=2))
-    for axis, later in (("spatial", "13b"), ("time", "13b"),
-                        ("model", "13c"), ("pipe", "13c")):
+    tmesh.check_ported_axes(tmesh.MeshSpec(data=-1, spatial=2))
+    for axis, later in (("time", "13b-time"), ("model", "13c"),
+                        ("pipe", "13c")):
         with pytest.raises(NotImplementedError, match=later):
             tmesh.check_ported_axes(tmesh.MeshSpec(**{axis: 2}))
     assert tmesh.local_batch_size(8) == 8
@@ -237,13 +238,13 @@ def test_rebase_step_counters_moves_every_count():
 
 
 @pytest.mark.parametrize("mesh,later", [
-    ("data=1,spatial=2", "13b"), ("data=1,time=2", "13b"),
+    ("data=1,spatial=2", None), ("data=1,time=2", "13b-time"),
     ("1,1,1,2", "13c"), ("data=1,pipe=2", "13c"), ("data=2", None),
     ("data=x", None)])
 def test_cli_refuses_meshes_it_cannot_run(mesh, later, capsys):
     """Exit 2 before any model is built: an axis of a later slice names
-    it; a mesh wider than this launch's one process, or malformed, says
-    so."""
+    it; a mesh wider than this launch's one process (the spatial axis is
+    ported: it only needs the processes), or malformed, says so."""
     from p2p_tpu_torch.cli import train
 
     assert train.main(["--preset", "edges2shoes_dp", "--device", "cpu",
@@ -252,3 +253,5 @@ def test_cli_refuses_meshes_it_cannot_run(mesh, later, capsys):
     assert "--mesh" in err
     if later:
         assert f"slice {later}" in err
+    elif mesh != "data=x":
+        assert "wider than this launch" in err and "slice" not in err

@@ -15,6 +15,7 @@ at two ranks.
 
 import contextlib
 import dataclasses
+import importlib
 import os
 import socket
 from unittest import mock
@@ -214,27 +215,32 @@ def dp_checks(rank: int, world: int, tmp: str):
     return out
 
 
-def _entry(rank: int, world: int, port: int, fn_name: str, args, out: str):
+def _entry(rank: int, world: int, port: int, fn_name: str, args, out: str,
+           module: str = None):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
                             world_size=world, rank=rank)
     try:
-        res = globals()[fn_name](rank, world, *args)
+        fns = (vars(importlib.import_module(module)) if module
+               else globals())
+        res = fns[fn_name](rank, world, *args)
         torch.save(res, os.path.join(out, f"{rank}.pt"))
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def spawn(fn_name: str, world: int, out: str, *args, timeout: float = 240):
-    """Run ``fn_name(rank, world, *args)`` on ``world`` gloo ranks; their
-    results in rank order."""
+def spawn(fn_name: str, world: int, out: str, *args, timeout: float = 240,
+          module: str = None):
+    """Run ``fn_name(rank, world, *args)`` (a function of this module, or
+    of the test-directory module named ``module``) on ``world`` gloo
+    ranks; their results in rank order."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_entry,
-                         args=(r, world, port, fn_name, args, out))
+                         args=(r, world, port, fn_name, args, out, module))
              for r in range(world)]
     for p in procs:
         p.start()
