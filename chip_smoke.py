@@ -330,7 +330,45 @@ to the CPU or to a plain version):
    #1/#2/#3 at every shape (b) and (c) launched, held against their
    plain versions and timed (the ``kernels`` line's rows of these
    launches);
-20. the script's total seconds, a ``{"kernels": [...]}`` line, then the
+20. slice 13c-PP, the pipe axis and TP × int8 (``torchrun`` starts three
+   ``--worker pp3`` ranks, ``MeshSpec(data=1, pipe=3)``, then two
+   ``--worker tp8``, ``MeshSpec(data=1, model=2)``, gloo on the one card):
+   (a) path A (``reference`` with ``pallas_instance`` in G and D, global
+   batch ``PP_BATCH`` in ``PP_MICRO`` microbatches of 1, 3 blocks a
+   stage) through ``train/step.build_pp_train_step``, ``PP_WARMUP`` +
+   ``PP_TIMED`` bf16 steps: each rank's ms/step (the ranks share the
+   card: no speed of the axis) and peak memory, the #1/#2/#3 launches a
+   rank a step exactly :func:`pp_rank_plan` (the encoder, decoder and D
+   at N = 4, the rank's stage's blocks at N = 1 on each of its M ticks,
+   both G forwards) and 2 #5, the ring shifts a step by route with their
+   bytes, every replicated parameter and buffer the same bits on the
+   three ranks after the steps in cuDNN's default mode; then f32 (TF32
+   off, cuDNN deterministic): the 3-rank step against the one-rank
+   unpipelined step on the same batch (losses within ``PP_LOSS_RTOL``;
+   each updated tensor's distance over its update, the stage blocks
+   gathered back, within ``band_of`` the larger of the one-rank
+   kernel-vs-plain spread and the one-rank pipelined-vs-unpipelined
+   spread, each measured in the same call), and the overlapped schedule
+   (``pp_overlap``) bitwise the serial one on every rank; (b) path A
+   int8 (every int8 form, stored scales), one f32 step on the same mesh
+   against the one-rank step: the losses before the update and every
+   stored amax (the stages', D's, net_c's) within ``PP_INT8_RTOL``, loss_c
+   within ``PP_INT8_AFTER_RTOL``, #4 a
+   rank as :func:`path_a8_step_plan` plans it; (c) ``cityscapes_spatial``
+   (ResNet G, ngf 64, 9 blocks of 256 channels, 256×512, batch 4) one f32
+   step on ``pipe=3`` against the one-rank step (losses); (d)
+   ``pix2pixhd`` with its residual blocks int8 (stored scales) at
+   1024×512 on ``data=1, model=2``: ``PP_TP_WARMUP`` + ``PP_TP_TIMED``
+   bf16 steps, ms/step, peak, 36 #1 + 36 #3 a step by C, the model
+   group's collectives a step with their bytes (the int8 pairs' int32
+   accumulator sums and amax maxes), the replicas' bits, then one f32
+   step against the one-rank step (losses within ``PP_INT8_RTOL``; every
+   amax within ``band_of`` the one-rank kernels-vs-plain spread of the
+   same call); then, in this
+   process, #1/#2/#3 and #5 at every shape (a) and (d) launched, held
+   against their plain versions and timed (the ``kernels`` line's rows
+   of these launches);
+21. the script's total seconds, a ``{"kernels": [...]}`` line, then the
    last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -626,6 +664,8 @@ DP_GLOBAL_BATCH = 8
 DP_BN_TOL_OF_MAX = 1e-4
 DP_STOP = 3
 DP_REBASE_BATCH = 32
+# (b)'s replica check: bf16 steps at data=2 in cuDNN's default mode
+DP_HASH_STEPS = 2
 REMAT_MODES = (False, "full", "conv")
 REMAT_STEPS = 3
 # slice 13b (phase 18), the spatial axis: (a) pix2pixhd bf16 at 2 ranks,
@@ -656,6 +696,30 @@ AX_TP_WARMUP, AX_TP_TIMED = 2, 3
 AX_LOSS_RTOL = 1e-4
 AX_SERVE_ATOL = 1e-4
 AX_SERVE_LEVELS = 1
+# slice 13c-PP (phase 20): path A at global batch PP_BATCH (the preset's
+# 1 cannot fill 3 stages) in PP_MICRO microbatches on pipe=3, PP_WARMUP +
+# PP_TIMED bf16 steps; pix2pixhd int8 on model=2 for PP_TP_WARMUP +
+# PP_TP_TIMED bf16 steps. The f32 bands, set before the first run on the
+# card: the losses of a multi-rank step 1 against the one-rank step as
+# AX_LOSS_RTOL; under int8 ((b), (d)) the losses before the first update
+# and (b)'s stored amax after the step (each a max of activations the
+# step moves) as INT8_STEP1_RTOL, since a quantizer flips q where a value
+# sits at a rounding tie (the microbatches' and the model group's sums add
+# in another order), and loss_c, which follows G's first Adam update, as
+# INT8_LATER_RTOL. (d)'s amax: band_of the one-rank kernels-vs-plain
+# spread of the same call (set after the first card run, PR 21, where a
+# flat 1e-3 failed at 1.51e-2: a single flipped q moves an activation's
+# max by a grid step, 1/127 of it)
+PP_STAGES, PP_BATCH, PP_MICRO = 3, 4, 4
+PP_WARMUP, PP_TIMED = 2, 3
+PP_TP_WARMUP, PP_TP_TIMED = 2, 3
+PP_LOSS_RTOL = 1e-4
+PP_INT8_RTOL, PP_INT8_AFTER_RTOL = 1e-3, 1e-2
+# net_c's conv bias in front of its BatchNorm: the norm subtracts it, so
+# its gradient is rounding noise and Adam's first step takes its sign from
+# that noise (1.25 of its update between two one-rank routes on the CPU);
+# the update distances leave it out
+PP_DEAD = ("net_c/ConvLayer_1.conv.bias",)
 
 
 def epilogue_plan(ngf: int, n_global: int, n_local: int, h: int, w: int):
@@ -5134,6 +5198,39 @@ def nets_of(state):
             for k, v in getattr(state, n).state_dict().items()}
 
 
+def replica_hashes(state, skip=()) -> dict:
+    """The sha256 of every parameter and buffer of the state's networks
+    that each rank holds whole (``skip``: ``(net, name)`` of this rank's
+    own parts, Megatron shards), by ``<net>.<name>``."""
+    out = {}
+    for net in ("net_g", "net_d", "net_c", "net_dt"):
+        mod = getattr(state, net, None)
+        if mod is None:
+            continue
+        for k, t in list(mod.named_parameters()) + list(mod.named_buffers()):
+            if (net, k) not in skip:
+                out[f"{net}.{k}"] = hashlib.sha256(
+                    t.detach().reshape(-1).contiguous().view(torch.uint8)
+                    .cpu().numpy()).hexdigest()
+    return out
+
+
+def replicas_differ(ranks, what: str, card: str, fails) -> None:
+    """Print how many replicated tensors have the same bits on every rank
+    (``ranks``: each rank's :func:`replica_hashes`) and add a failure when
+    any differs."""
+    names = set(ranks[0])
+    differ = sorted(k for k in names
+                    if any(r.get(k) != ranks[0][k] for r in ranks[1:]))
+    print(f"{what}: after the steps (cuDNN's default mode) "
+          f"{len(names) - len(differ)} of {len(names)} replicated parameters "
+          f"and buffers have the same bits on all {len(ranks)} ranks; "
+          f"differ: {differ[:6]}; on {card}", flush=True)
+    if differ or any(set(r) != names for r in ranks[1:]):
+        fails.append(f"{what}: replicated tensors differ across ranks: "
+                     f"{differ[:20]}")
+
+
 def counted_sync(fn):
     """``fn()`` and the #5 launches and sync-BatchNorm all-reduces (sums,
     cotangents) it made."""
@@ -5348,6 +5445,20 @@ def gloo2_worker(rank: int, out: str, tmp: str) -> dict:
             res["bn_err_of_max"] = float((got - want).abs().max()
                                          / want.abs().max())
     worker_note("(b) sync-BatchNorm backward done")
+    # (b) the replicas after DP_HASH_STEPS bf16 steps in cuDNN's default
+    # mode
+    cfg = dp_config(DP_GLOBAL_BATCH)
+    mesh = Mesh(MeshSpec(data=-1))
+    st = create_train_state(cfg, SEED, train_dtype=torch.bfloat16)
+    place_state(st, mesh)
+    step = make_parallel_train_step(cfg, mesh, None, torch.bfloat16)
+    for b in e2s_batches(cfg, DP_HASH_STEPS, SEED + 5):
+        st, _ = step(st, shard_batch(b, mesh))
+    torch.cuda.synchronize()
+    res["replicated"] = replica_hashes(st)
+    del st, step
+    torch.cuda.empty_cache()
+    worker_note("(b) replica hashes done")
     # (c) two ranks preempted at step DP_STOP
     reset_launch_counts()
     seen = dp_cli(dp_cli_args(os.path.join(tmp, "e2s"),
@@ -5450,7 +5561,7 @@ def dp_worker(name: str, out: str, tmp: str) -> int:
     from p2p_tpu_torch.core.mesh import distributed_init
 
     torch.cuda.set_device(0)
-    if name in ("gloo2", "spatial2", "time4", "tp2"):
+    if name in ("gloo2", "spatial2", "time4", "tp2", "pp3", "tp8"):
         dist.init_process_group("gloo", init_method="env://")
     else:
         distributed_init(torch.device("cuda", 0))
@@ -5458,7 +5569,8 @@ def dp_worker(name: str, out: str, tmp: str) -> int:
     try:
         fn = {"gloo2": gloo2_worker, "nccl1": nccl1_worker,
               "spatial2": spatial2_worker, "time4": time4_worker,
-              "tp2": tp2_worker}[name]
+              "tp2": tp2_worker, "pp3": pp3_worker,
+              "tp8": tp8_worker}[name]
         res = fn(rank, out, tmp)
         torch.save(res, f"{out}.{rank}")
         dist.barrier()
@@ -5479,7 +5591,7 @@ def torchrun(name: str, n: int, tmp: str, timeout: float = 600):
                           timeout=timeout)
     if proc.returncode:
         raise AssertionError(f"torchrun {name}: exit {proc.returncode}:\n"
-                             f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-20000:]}")
     print(f"torchrun --nproc_per_node {n} ({name}): "
           f"{time.perf_counter() - t:.1f} s", flush=True)
     return [torch.load(f"{out}.{r}", weights_only=False) for r in range(n)]
@@ -5641,6 +5753,10 @@ def dp_phase(device, card, tmp: str, e2s_med: float):
     if not r0["bn_err_of_max"] <= DP_BN_TOL_OF_MAX \
             or not all(r["bn_same_bits"] for r in g2):
         fails.append("(b) sync-BatchNorm backward")
+    replicas_differ([r["replicated"] for r in g2],
+                    f"slice 13 (b): edges2shoes_dp bf16 on data=2, "
+                    f"{DP_HASH_STEPS} steps at global batch "
+                    f"{DP_GLOBAL_BATCH}", card, fails)
     # (c) the preempted two-rank run: both exit 75 after DP_STOP steps
     local = None
     for r in g2:
@@ -5954,7 +6070,8 @@ def spatial2_worker(rank: int, out: str, tmp: str) -> dict:
     runs, state = spatial_step_run(cfg, mesh, batches, vgg, dtype)
     res["a"] = {"steps": [(m, ms, c) for m, ms, c in runs],
                 "peak": torch.cuda.max_memory_allocated(device),
-                "launches": launch_counts()}
+                "launches": launch_counts(),
+                "replicated": replica_hashes(state)}
     del state
     torch.cuda.empty_cache()
     worker_note("(a) pix2pixhd bf16 steps done")
@@ -6150,6 +6267,9 @@ def spatial_phase(device, card, tmp: str, plan):
                 fails.append(f"(a) rank {i} counts {c}")
             if not all(math.isfinite(v) for v in m.values()):
                 fails.append(f"(a) rank {i} losses {m}")
+    replicas_differ([r["a"]["replicated"] for r in ranks],
+                    f"slice 13b (a): pix2pixhd bf16 on data=1,spatial=2, "
+                    f"{SP_WARMUP + SP_TIMED} steps", card, fails)
     # (b) against the one-rank step
     for name, keys in (("cityscapes_spatial", SP_CITY_KEYS),
                        ("pix2pixhd", HD_LOSS_KEYS)):
@@ -6303,6 +6423,7 @@ def time4_worker(rank: int, out: str, tmp: str) -> dict:
             t = time.perf_counter()
             out_ = step(state, batch)
             torch.cuda.synchronize()
+            seen["state"] = out_[0]
             seen["steps"].append((
                 (time.perf_counter() - t) * 1e3,
                 {r: (halo_stats[r]["calls"] - h0[r]["calls"],
@@ -6319,7 +6440,8 @@ def time4_worker(rank: int, out: str, tmp: str) -> dict:
         cli = dp_cli(time4_args(os.path.join(tmp, "clips"),
                                 os.path.join(tmp, "time4")))
     res["a"] = {"rc": cli["rc"], "out": cli["out"], "steps": seen["steps"],
-                "peak": torch.cuda.max_memory_allocated(device)}
+                "peak": torch.cuda.max_memory_allocated(device),
+                "replicated": replica_hashes(seen.pop("state"))}
     worker_note("(a) vid2vid_temporal cli.train done")
     # (b) the kernel form on the same mesh
     mesh = Mesh(MeshSpec(data=-1, time=4))
@@ -6478,6 +6600,514 @@ def tp2_worker(rank: int, out: str, tmp: str) -> dict:
     return res
 
 
+def pp_config(int8: bool = False, f32: bool = False):
+    """Path A (or path A int8) at global batch ``PP_BATCH`` for the pipe
+    phase; in f32 with ``f32``."""
+    cfg = path_a8_config() if int8 else instance_config()
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, batch_size=PP_BATCH),
+        train=dataclasses.replace(
+            cfg.train, mixed_precision=not f32 and cfg.train.mixed_precision))
+
+
+def pp_rank_plan(cfg, stage: int):
+    """(N, H, W, C, form) → launches of #2/#3 (each after a #1) of one
+    pipelined path-A step on pipe rank ``stage``: the encoder's and
+    decoder's norms on the local batch, the stage's blocks' epilogues on
+    each of its ``PP_MICRO`` ticks at N = batch / M, both G forwards (the
+    G step and the net_c branch), and D's on the batch (fake, real)."""
+    m = cfg.model
+    h, w = cfg.image_hw
+    n = cfg.data.batch_size
+    mb = n // PP_MICRO
+    per = m.n_blocks // PP_STAGES
+    plan = collections.Counter()
+    g = expand_norm_plan(m.ngf, m.n_blocks, h, w, m.output_nc)
+    for hh, ww, c, form in g[:6]:
+        plan[(n, hh, ww, c, form)] += 2
+    for hh, ww, c, form in g[6 + 2 * per * stage:6 + 2 * per * (stage + 1)]:
+        plan[(mb, hh, ww, c, form)] += 2 * PP_MICRO
+    for hh, ww, c, form in d_norm_plan(m.ndf, m.n_layers_D, m.num_D, h, w):
+        plan[(n, hh, ww, c, form)] += 2
+    return plan
+
+
+def nets_all(state):
+    """G's, D's and net_c's parameters and buffers, on the CPU."""
+    out = nets_of(state)
+    if state.net_c is not None:
+        out.update({f"net_c/{k}": v.detach().cpu().clone()
+                    for k, v in state.net_c.state_dict().items()})
+    return out
+
+
+def pp_f32_one_rank(cfg, batch, vgg, route: str, out: str) -> None:
+    """One f32 step of ``cfg`` on one rank from SEED, by ``route``:
+    ``kernel`` (the unpipelined step), ``plain`` (the unpipelined step with
+    every kernel on its plain version) or ``pp1`` (the pipelined step with
+    no mesh: the microbatches in sequence); its losses and networks to
+    ``out``."""
+    from p2p_tpu_torch.parallel.pp import pp_merge_state, pp_split_state
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import (build_pp_train_step,
+                                          build_train_step)
+
+    st = create_train_state(cfg, SEED, sample_batch=batch)
+    if route == "pp1":
+        pp_split_state(st, cfg, None, n_stages=PP_STAGES)
+        st, m = build_pp_train_step(cfg, None, PP_MICRO, vgg)(st, batch)
+        pp_merge_state(st, cfg)
+    else:
+        with contextlib.ExitStack() as stack:
+            if route == "plain":
+                for p in instance_plain_patches():
+                    stack.enter_context(p)
+            st, m = build_train_step(cfg, vgg)(st, batch)
+    torch.save(({k: float(v) for k, v in m.items()}, nets_all(st)), out)
+    del st
+    torch.cuda.empty_cache()
+
+
+def pp_f32_step(cfg, mesh, batch, vgg, n_micro: int = PP_MICRO):
+    """One f32 pipelined step of ``cfg`` on ``mesh`` from SEED: its
+    metrics, the networks (the stages gathered back) and the launches."""
+    from p2p_tpu_torch.parallel import place_state
+    from p2p_tpu_torch.parallel.pp import pp_merge_state, pp_split_state
+    from p2p_tpu_torch.train.state import create_train_state
+    from p2p_tpu_torch.train.step import build_pp_train_step
+
+    st = create_train_state(cfg, SEED, sample_batch=batch)
+    place_state(st, mesh)
+    pp_split_state(st, cfg, mesh)
+    step = build_pp_train_step(cfg, mesh, n_micro, vgg)
+    before = launch_counts()
+    st, m = step(st, batch)
+    torch.cuda.synchronize()
+    launched = {k: launch_counts()[k] - before[k] for k in before}
+    pp_merge_state(st, cfg, mesh=mesh)
+    nets = nets_all(st)
+    del st, step
+    torch.cuda.empty_cache()
+    return {k: float(v) for k, v in m.items()}, nets, launched
+
+
+def pp3_worker(rank: int, out: str, tmp: str) -> dict:
+    """Three ranks on the one card through gloo, the generator's trunk on
+    ``pipe=3`` (phase 20): (a) path A's pipelined bf16 steps, each timed
+    with its norms recorded and its ring shifts counted, the replicas
+    hashed, then the f32 checks (the one-rank routes on ranks 0-2, the
+    3-rank step serial and overlapped); (b) path A int8 and (c)
+    ``cityscapes_spatial``, one f32 step each against the one-rank step
+    (rank 0)."""
+    import torch.distributed as dist
+
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.core.mesh import Mesh, MeshSpec
+    from p2p_tpu_torch.data.synthetic import (synthetic_batch,
+                                              synthetic_hd_batch)
+    from p2p_tpu_torch.parallel import place_state
+    from p2p_tpu_torch.parallel.pp import pp_split_state, pp_stats
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_pp_train_step
+
+    device = torch.device("cuda", 0)
+    mesh = Mesh(MeshSpec(data=1, pipe=PP_STAGES))
+    vgg = load_vgg19(device=device)
+    res = {}
+    # (a) bf16 steps
+    cfg = pp_config()
+    h, w = cfg.image_hw
+    n_steps = PP_WARMUP + PP_TIMED
+    host = synthetic_batch(n_steps * PP_BATCH, h, cfg.model.quant_bits,
+                           seed=SEED, width=w)
+    batches = [{k: v[i * PP_BATCH:(i + 1) * PP_BATCH]
+                for k, v in host.items()} for i in range(n_steps)]
+    dtype = train_dtype(cfg.train.mixed_precision)
+    torch.cuda.reset_peak_memory_stats(device)
+    state = create_train_state(cfg, SEED, train_dtype=dtype)
+    place_state(state, mesh)
+    pp_split_state(state, cfg, mesh)
+    step = build_pp_train_step(cfg, mesh, PP_MICRO, vgg, 1, dtype)
+    rec = collections.Counter()
+    steps = []
+    for b in batches:
+        s0 = {k: dict(v) for k, v in pp_stats.items()}
+        before = launch_counts()
+        one = collections.Counter()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording_norms(one):
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        rec.update(one)
+        steps.append((ms, {k: launch_counts()[k] - before[k]
+                           for k in before},
+                      {k: (pp_stats[k]["calls"] - s0[k]["calls"],
+                           pp_stats[k]["bytes"] - s0[k]["bytes"])
+                       for k in pp_stats}, one,
+                      {k: float(v) for k, v in m.items()}))
+    res["a"] = {"steps": steps, "rec": rec,
+                "peak": torch.cuda.max_memory_allocated(device),
+                "replicated": replica_hashes(state),
+                "stage": state.pp_stages.stage}
+    del state, step
+    torch.cuda.empty_cache()
+    worker_note("(a) path A pipelined bf16 steps done")
+    # (a) f32: the one-rank routes, one a rank, then the 3-rank step
+    cfg32 = pp_config(f32=True)
+    batch = {k: v[:PP_BATCH] for k, v in synthetic_batch(
+        PP_BATCH, h, cfg.model.quant_bits, seed=SEED + 1, width=w).items()}
+    with tf32_off(), cudnn_deterministic():
+        route = ("kernel", "plain", "pp1")[rank]
+        pp_f32_one_rank(cfg32, batch, vgg, route, f"{out}.route.{route}")
+        dist.barrier()
+        worker_note("(a) one-rank f32 routes done")
+        runs = {}
+        for overlap in (False, True):
+            c = cfg32.replace(parallel=dataclasses.replace(
+                cfg32.parallel, pp_overlap=overlap))
+            runs[overlap] = pp_f32_step(c, mesh, batch, vgg)
+        res["a32"] = {"metrics": runs[False][0], "launched": runs[False][2],
+                      "overlap_bitwise": runs[False][0] == runs[True][0]
+                      and all(torch.equal(v, runs[True][1][k])
+                              for k, v in runs[False][1].items())}
+        if rank == 0:
+            loaded = {r: torch.load(f"{out}.route.{r}", weights_only=False)
+                      for r in ("kernel", "plain", "pp1")}
+            start = nets_all(create_train_state(cfg32, SEED))
+            one_m, one_n = loaded["kernel"]
+            res["a32"].update(
+                one=one_m,
+                dist=update_distance(runs[False][1], one_n, start, PP_DEAD),
+                spread_plain=update_distance(loaded["plain"][1], one_n,
+                                             start, PP_DEAD),
+                spread_pp1=update_distance(loaded["pp1"][1], one_n, start,
+                                           PP_DEAD),
+                pp1=loaded["pp1"][0],
+                worst={what: sorted(
+                    ((update_distance({k: v}, {k: one_n[k]}, start), k)
+                     for k, v in nets.items() if k not in PP_DEAD),
+                    reverse=True)[:3]
+                    for what, nets in (("pp", runs[False][1]),
+                                       ("plain", loaded["plain"][1]))})
+        del runs
+        torch.cuda.empty_cache()
+        worker_note("(a) 3-rank f32 steps done")
+        # (b) path A int8
+        cfg8 = pp_config(int8=True, f32=True)
+        m8, n8, launched8 = pp_f32_step(cfg8, mesh, batch, vgg)
+        res["b"] = {"metrics": m8, "launched": launched8,
+                    "amax": {k: float(v) for k, v in n8.items()
+                             if k.endswith("amax_x")}}
+        if rank == 0:
+            st = create_train_state(cfg8, SEED, sample_batch=batch)
+            from p2p_tpu_torch.train.step import build_train_step
+
+            st, m = build_train_step(cfg8, vgg)(st, batch)
+            res["b"]["one"] = {k: float(v) for k, v in m.items()}
+            res["b"]["one_amax"] = {k: float(v) for k, v in
+                                    nets_all(st).items()
+                                    if k.endswith("amax_x")}
+            del st
+        torch.cuda.empty_cache()
+        dist.barrier()
+        worker_note("(b) path A int8 f32 done")
+        # (c) cityscapes_spatial's ResNet trunk on pipe=3
+        cfgc = spatial_config("cityscapes_spatial", f32=True)
+        hc, wc = cfgc.image_hw
+        bc = synthetic_hd_batch(cfgc.data.batch_size, hc, wc, seed=SEED + 2)
+        mc, _, _ = pp_f32_step(cfgc, mesh, bc, vgg,
+                               n_micro=cfgc.data.batch_size)
+        res["c"] = {"metrics": mc}
+        if rank == 0:
+            from p2p_tpu_torch.train.step import build_train_step
+
+            st = create_train_state(cfgc, SEED)
+            _, m = build_train_step(cfgc, vgg)(st, bc)
+            res["c"]["one"] = {k: float(v) for k, v in m.items()}
+            del st
+        torch.cuda.empty_cache()
+        dist.barrier()
+    worker_note("(c) cityscapes_spatial f32 done")
+    return res
+
+
+def tp8_worker(rank: int, out: str, tmp: str) -> dict:
+    """Two ranks on the one card through gloo, ``pix2pixhd`` int8 on
+    ``model=2`` (phase 20 (d)): bf16 steps, each timed with its norms
+    recorded and its model-group collectives counted, the replicas
+    hashed; then one f32 step against the one-rank step (rank 0)."""
+    import torch.distributed as dist
+
+    from p2p_tpu_torch.core.dtypes import train_dtype
+    from p2p_tpu_torch.core.mesh import Mesh, MeshSpec
+    from p2p_tpu_torch.data.synthetic import synthetic_hd_batch
+    from p2p_tpu_torch.parallel import make_parallel_train_step, place_state
+    from p2p_tpu_torch.parallel.tp import tp_full, tp_stats
+    from p2p_tpu_torch.train.state import create_train_state, load_vgg19
+    from p2p_tpu_torch.train.step import build_train_step
+
+    device = torch.device("cuda", 0)
+    mesh = Mesh(MeshSpec(data=1, model=2))
+    vgg = load_vgg19(device=device)
+    cfg = hd_int8_config()
+    h, w = cfg.image_hw
+    dtype = train_dtype(cfg.train.mixed_precision)
+    n_steps = PP_TP_WARMUP + PP_TP_TIMED
+    host = synthetic_hd_batch(n_steps, h, w, seed=SEED)
+    batches = [{k: v[i:i + 1] for k, v in host.items()}
+               for i in range(n_steps)]
+    torch.cuda.reset_peak_memory_stats(device)
+    state = create_train_state(cfg, SEED, train_dtype=dtype,
+                               sample_batch=batches[0])
+    place_state(state, mesh, tp_min_ch=cfg.parallel.tp_min_ch)
+    step = make_parallel_train_step(cfg, mesh, vgg, dtype)
+    rec = collections.Counter()
+    steps = []
+    for b in batches:
+        s0 = {k: dict(v) for k, v in tp_stats.items()}
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording_norms(rec):
+            state, m = step(state, b)
+        torch.cuda.synchronize()
+        steps.append(((time.perf_counter() - t) * 1e3,
+                      {k: launch_counts()[k] - before[k] for k in before},
+                      {k: (tp_stats[k]["calls"] - s0[k]["calls"],
+                           tp_stats[k]["bytes"] - s0[k]["bytes"])
+                       for k in tp_stats},
+                      {k: float(v) for k, v in m.items()}))
+    res = {"d": {"steps": steps, "rec": rec,
+                 "peak": torch.cuda.max_memory_allocated(device),
+                 "shards": sorted({(s.net, type(s.module).__name__)
+                                   for s in state.tp_shards}),
+                 "replicated": replica_hashes(
+                     state, {(s.net, s.name) for s in state.tp_shards})}}
+    del state, step
+    torch.cuda.empty_cache()
+    worker_note("(d) pix2pixhd int8 TP bf16 steps done")
+    cfg32 = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                  mixed_precision=False))
+    batch = synthetic_hd_batch(1, h, w, seed=SEED + 1)
+    with tf32_off(), cudnn_deterministic():
+        st = create_train_state(cfg32, SEED, sample_batch=batch)
+        place_state(st, mesh, tp_min_ch=cfg32.parallel.tp_min_ch)
+        st, m = make_parallel_train_step(cfg32, mesh, vgg)(st, batch)
+        res["d"]["f32"] = {k: float(v) for k, v in m.items()}
+        with tp_full(st):
+            res["d"]["amax"] = {k: float(v) for k, v in nets_of(st).items()
+                                if k.endswith("amax_x")}
+        del st
+        # the one-rank step (rank 0) and, for the spread the amax band is
+        # set from, the one-rank step with every kernel on its plain
+        # version (rank 1)
+        with contextlib.ExitStack() as stack:
+            if rank == 1:
+                for p in instance_plain_patches():
+                    stack.enter_context(p)
+            st = create_train_state(cfg32, SEED, sample_batch=batch)
+            st, m = build_train_step(cfg32, vgg)(st, batch)
+        torch.save(({k: float(v) for k, v in m.items()},
+                    {k: float(v) for k, v in nets_of(st).items()
+                     if k.endswith("amax_x")}), f"{out}.one.{rank}")
+        del st
+        dist.barrier()
+        if rank == 0:
+            (res["d"]["f32_one"], res["d"]["one_amax"]), plain = (
+                torch.load(f"{out}.one.{r}", weights_only=False)
+                for r in (0, 1))
+            res["d"]["spread_loss"] = max_rel(plain[0],
+                                              res["d"]["f32_one"],
+                                              HD_LOSS_KEYS)
+            res["d"]["spread_amax"] = max_rel(plain[1],
+                                              res["d"]["one_amax"])
+    torch.cuda.empty_cache()
+    dist.barrier()
+    worker_note("(d) f32 check done")
+    return res
+
+
+def max_rel(got: dict, want: dict, keys=None) -> float:
+    """The largest relative difference of ``got`` from ``want`` over
+    ``keys`` (every key of ``want``)."""
+    keys = list(want) if keys is None else [k for k in keys if k in want]
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in keys)
+
+
+def pp_phase(device, card, tmp: str):
+    """Slice 13c-PP (phase 20), the pipe axis and TP × int8: (a)-(d) of the
+    module docstring. Returns the main paths' launch counts ((a)'s and
+    (d)'s bf16 steps) and the kernel rows at their shapes."""
+    t_phase = time.perf_counter()
+    fails = []
+    ranks = torchrun("pp3", PP_STAGES, tmp)
+    t_pp3 = time.perf_counter() - t_phase
+    cfg = pp_config()
+    h, w = cfg.image_hw
+    counts = collections.Counter()
+    rec = collections.Counter()
+    # (a)
+    for i, r in enumerate(ranks):
+        a = r["a"]
+        want = pp_rank_plan(cfg, a["stage"])
+        n_apply = sum(v for k, v in want.items() if k[4] == "apply")
+        n_norms = sum(want.values())
+        per_step = only(instance_norm_stats=n_norms,
+                        instance_norm_apply=n_apply,
+                        norm_act=n_norms - n_apply, batch_moments=2)
+        ms = [s[0] for s in a["steps"][PP_WARMUP:]]
+        shifts = a["steps"][-1][2]
+        print(f"slice 13c-PP (a) rank {i} (stage {a['stage']}): path A "
+              f"{h}x{w} bf16 on data=1,pipe={PP_STAGES}, global batch "
+              f"{PP_BATCH} in {PP_MICRO} microbatches of "
+              f"{PP_BATCH // PP_MICRO}: {statistics.median(ms):.2f} ms/step "
+              f"median of {[round(v, 2) for v in ms]} (3 ranks share the "
+              f"card through gloo: no speed of the pipe axis); peak "
+              f"{a['peak'] / 2 ** 30:.3f} GiB; a step: "
+              f"{ {k: v for k, v in a['steps'][-1][1].items() if v} } "
+              f"(plan {n_norms} #1, {n_apply} #2, {n_norms - n_apply} #3, "
+              f"2 #5); transfers a step (calls, bytes sent): "
+              f"{ {k: v for k, v in shifts.items() if v[0]} }; losses "
+              f"{ {k: round(v, 4) for k, v in a['steps'][-1][4].items()} }; "
+              f"on {card}", flush=True)
+        for ms_, lc, st, one, m in a["steps"]:
+            if lc != per_step or one != want or not st["slot"][0] \
+                    or st["p2p"][0] or not all(math.isfinite(v)
+                                               for v in m.values()):
+                fails.append(f"(a) rank {i} launches {lc} (want {per_step}"
+                             f"), norms {dict(one)} (want {dict(want)}), "
+                             f"transfers {st}, losses {m}")
+            counts.update(lc)
+        rec.update(a["rec"])
+    replicas_differ([r["a"]["replicated"] for r in ranks],
+                    f"slice 13c-PP (a): path A bf16 on data=1,pipe="
+                    f"{PP_STAGES}, {PP_WARMUP + PP_TIMED} steps (the encoder, "
+                    "decoder, D and net_c)", card, fails)
+    a32 = ranks[0]["a32"]
+    worst = a32["worst"].items()
+    rel = max_rel(a32["metrics"], a32["one"], LOSS_KEYS)
+    band = band_of(max(a32["spread_plain"], a32["spread_pp1"]))
+    print(f"slice 13c-PP (a) f32 (TF32 off, cuDNN deterministic): the "
+          f"3-rank pipelined step vs the one-rank unpipelined step: losses "
+          f"max rel {rel:.3g} (band {PP_LOSS_RTOL}); each updated tensor's "
+          f"distance over its update {a32['dist']:.3g} (band {band:.3g} = "
+          f"band_of the larger of the one-rank spreads: kernels vs plain "
+          f"{a32['spread_plain']:.3g}, pipelined on one rank vs unpipelined "
+          f"{a32['spread_pp1']:.3g}; the largest: "
+          f"{ {k: [(f'{d:.3g}', n) for d, n in v] for k, v in worst} }"
+          f"); pp_overlap bitwise the serial step on every rank: "
+          f"{[r['a32']['overlap_bitwise'] for r in ranks]}; on {card}",
+          flush=True)
+    if not rel <= PP_LOSS_RTOL:
+        fails.append(f"(a) f32 losses {rel}")
+    if not a32["dist"] <= band:
+        fails.append(f"(a) f32 update distance {a32['dist']} > {band}")
+    if not all(r["a32"]["overlap_bitwise"] for r in ranks):
+        fails.append("(a) pp_overlap is not bitwise the serial step")
+    # (b)
+    b0 = ranks[0]["b"]
+    plan8 = path_a8_step_plan(pp_config(int8=True))
+    want4 = sum(f.endswith("+quant") for *_, f in plan8)
+    step1 = [k for k in LOSS_KEYS if k != "loss_c"]
+    rel = max_rel(b0["metrics"], b0["one"], step1)
+    rel_c = max_rel(b0["metrics"], b0["one"], ["loss_c"])
+    amax_rel = max_rel(b0["amax"], b0["one_amax"])
+    got4 = [r["b"]["launched"]["norm_act_quant"] for r in ranks]
+    print(f"slice 13c-PP (b) path A int8 f32 on data=1,pipe={PP_STAGES}: "
+          f"losses before the update vs the one-rank step max rel "
+          f"{rel:.3g} (band {PP_INT8_RTOL}), loss_c {rel_c:.3g} (band "
+          f"{PP_INT8_AFTER_RTOL}); {len(b0['one_amax'])} stored amax "
+          f"(stages, D, net_c) max rel {amax_rel:.3g} (band "
+          f"{PP_INT8_RTOL}); #4 a rank {got4} (plan {want4}); on {card}",
+          flush=True)
+    if not rel <= PP_INT8_RTOL or not rel_c <= PP_INT8_AFTER_RTOL \
+            or not amax_rel <= PP_INT8_RTOL \
+            or set(b0["amax"]) != set(b0["one_amax"]) \
+            or any(g != want4 for g in got4):
+        fails.append(f"(b) losses {rel}, loss_c {rel_c}, amax {amax_rel}, "
+                     f"#4 {got4}")
+    # (c)
+    c0 = ranks[0]["c"]
+    rel = max_rel(c0["metrics"], c0["one"], SP_CITY_KEYS)
+    print(f"slice 13c-PP (c) cityscapes_spatial f32 (ResNet trunk, 9 blocks "
+          f"of 256 channels, 256x512, batch 4) on data=1,pipe={PP_STAGES}: "
+          f"losses vs the one-rank step max rel {rel:.3g} (band "
+          f"{PP_LOSS_RTOL}); on {card}", flush=True)
+    if not rel <= PP_LOSS_RTOL:
+        fails.append(f"(c) losses {rel}")
+    # (d)
+    t1 = time.perf_counter()
+    tp = torchrun("tp8", 2, tmp)
+    t_tp8 = time.perf_counter() - t1
+    hd = hd_int8_config()
+    full_plan = epilogue_plan(hd.model.ngf, hd.model.n_blocks, 3,
+                              *hd.image_hw)
+    for i, r in enumerate(tp):
+        d = r["d"]
+        rec.update(d["rec"])
+        ms = [s[0] for s in d["steps"][PP_TP_WARMUP:]]
+        by_c = collections.Counter()
+        for key, v in d["rec"].items():
+            by_c[key[3]] += v
+        stats = d["steps"][-1][2]
+        print(f"slice 13c-PP (d) rank {i}: pix2pixhd int8 1024x512 bf16 on "
+              f"data=1,model=2 (sharded: {d['shards']}, gloo): "
+              f"{statistics.median(ms):.2f} ms/step median of "
+              f"{[round(v, 2) for v in ms]}; peak {d['peak'] / 2 ** 30:.3f} "
+              f"GiB; a step: {d['steps'][-1][1]['instance_norm_stats']} #1, "
+              f"{d['steps'][-1][1]['norm_act']} #3, #3 by C over the steps "
+              f"{dict(sorted(by_c.items()))}; model-group collectives a "
+              f"step (calls, bytes): "
+              f"{ {k: v for k, v in stats.items() if v[0]} }; on {card}",
+              flush=True)
+        for _, lc, st, m in d["steps"]:
+            if (lc["instance_norm_stats"], lc["norm_act"]) != (
+                    len(full_plan), len(full_plan)) \
+                    or not st["int32_sum"][0] or not st["amax_max"][0] \
+                    or not all(math.isfinite(v) for v in m.values()):
+                fails.append(f"(d) rank {i} step {lc} {st} {m}")
+            counts.update(lc)
+    replicas_differ([r["d"]["replicated"] for r in tp],
+                    f"slice 13c-PP (d): pix2pixhd int8 bf16 on data=1,"
+                    f"model=2, {PP_TP_WARMUP + PP_TP_TIMED} steps", card,
+                    fails)
+    d0 = tp[0]["d"]
+    rel = max_rel(d0["f32"], d0["f32_one"], HD_LOSS_KEYS)
+    amax_rel = max_rel(d0["amax"], d0["one_amax"])
+    amax_band = band_of(d0["spread_amax"])
+    print(f"slice 13c-PP (d) f32 (TF32 off, cuDNN deterministic): the "
+          f"model=2 int8 step vs the one-rank step: losses max rel "
+          f"{rel:.3g} (band {PP_INT8_RTOL}; the one-rank kernels-vs-plain "
+          f"spread {d0['spread_loss']:.3g}); {len(d0['one_amax'])} stored "
+          f"amax max rel {amax_rel:.3g} (band {amax_band:.3g} = band_of the "
+          f"one-rank kernels-vs-plain spread {d0['spread_amax']:.3g}); on "
+          f"{card}", flush=True)
+    if not rel <= PP_INT8_RTOL or not amax_rel <= amax_band \
+            or set(d0["amax"]) != set(d0["one_amax"]):
+        fails.append(f"(d) f32 losses {rel}, amax {amax_rel}")
+    rows = kernel_phase(device, rec)
+    net_c_bn = (PP_BATCH * h * w, 64)
+    rows += moments_phase(device, {net_c_bn: counts["batch_moments"]})
+    for kernel in ("instance_norm_stats", "instance_norm_apply",
+                   "norm_act", "batch_moments"):
+        t = totals(rows, kernel)
+        print(f"slice 13c-PP {kernel} ((a) and (d), bf16, {t['launches']} "
+              "launches over the ranks' steps): "
+              + ", ".join(f"{k} {t[k]:.4f}" for k in (
+                  "ms", "bound_ms", "plain_ms", "library_ms")
+                  if t[k] is not None)
+              + f"; on {card}", flush=True)
+    secs = time.perf_counter() - t_phase
+    print(f"slice 13c-PP: phase 20 took {secs:.1f} s (pp3 ranks "
+          f"{t_pp3:.1f} s, tp8 ranks {t_tp8:.1f} s); on {card}", flush=True)
+    if fails:
+        raise AssertionError("phase 20: " + "; ".join(fails))
+    return counts, rows
+
+
 def to_levels(x: torch.Tensor) -> np.ndarray:
     """A [-1, 1] NHWC prediction as uint8 levels (int32)."""
     return np.round((x.numpy() + 1.0) * 127.5).clip(0, 255).astype(np.int32)
@@ -6519,6 +7149,11 @@ def axes_phase(device, card, tmp: str):
                 s[2] != 2 or s[1]["slot"][0] == 0 or s[1]["p2p"][0]
                 for s in a["steps"]):
             fails.append(f"(a) rank {i} steps {a['steps']}")
+    if all(r["a"]["rc"] == 0 for r in ranks):
+        replicas_differ([r["a"]["replicated"] for r in ranks],
+                        f"slice 13b-time (a): vid2vid_temporal bf16 on "
+                        f"data=1,time=4 through cli.train, "
+                        f"{AX_EPOCHS * AX_CLIPS} steps", card, fails)
     # (b)
     plan = vid_kernel_plan(cfg)
     n_local = cfg.data.batch_size * cfg.data.n_frames // 4
@@ -6638,13 +7273,14 @@ def axes_phase(device, card, tmp: str):
     return counts, rows
 
 
-def update_distance(a, b, start) -> float:
+def update_distance(a, b, start, skip=()) -> float:
     """The largest distance between two states' tensors over the update
     ``b`` made from ``start`` (floating parameters; running statistics
-    left out)."""
+    and the names in ``skip`` left out)."""
     worst = 0.0
     for k, v in b.items():
-        if not v.is_floating_point() or k.endswith(("mean", "var")):
+        if not v.is_floating_point() or k.endswith(("mean", "var")) \
+                or k in skip:
             continue
         upd = float((v - start[k]).norm())
         if upd > 0:
@@ -6856,6 +7492,9 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_axes_") as tmp:
         ax_counts, ax_rows = axes_phase(device, card, tmp)
     rows += ax_rows
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pp_") as tmp:
+        pp_counts, pp_rows = pp_phase(device, card, tmp)
+    rows += pp_rows
     # the HTTP phase's pix2pixHD forwards are main-path launches of #1, #3,
     # the slice-10 phase's reference steps of #5
     add_serving_launches(rows, plan, http_forwards)
@@ -6870,7 +7509,7 @@ def main(argv=None) -> int:
               i8_as_is_counts, loop_counts, http_counts, e2s_counts,
               city_counts, options_counts, forms_counts, c2f_counts,
               i8f_counts, a8_counts, hd8_counts, res_counts, vid_counts,
-              s12_counts, dp_counts, sp_counts, ax_counts):
+              s12_counts, dp_counts, sp_counts, ax_counts, pp_counts):
         counts.update(c)
 
     kernels = []
@@ -7022,8 +7661,13 @@ def main(argv=None) -> int:
           f"13b-time: #1, #2 and #3 in {AX_KERNEL_STEPS} kernel-form steps "
           "on 4 time ranks at N = 2 frames a rank; slice 13c: #1 and #3 in "
           f"{AX_TP_WARMUP + AX_TP_TIMED} bf16 pix2pixhd steps on 2 model "
-          "ranks, the pairs' inner norms on their channel slice): per-(N, "
-          "shape, form) device times weighted by launches")
+          "ranks, the pairs' inner norms on their channel slice; slice "
+          f"13c-PP: #1, #2, #3 and #5 in {PP_WARMUP + PP_TIMED} bf16 path A "
+          f"steps on {PP_STAGES} pipe ranks (the encoder, decoder and D at "
+          f"N = {PP_BATCH}, a stage's blocks at N = {PP_BATCH // PP_MICRO} "
+          f"on each tick), #1 and #3 in {PP_TP_WARMUP + PP_TP_TIMED} bf16 "
+          "pix2pixhd int8 steps on 2 model ranks): per-(N, shape, form) "
+          "device times weighted by launches")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"kernels' build included; on {card}", flush=True)
     print(json.dumps({"kernels": kernels}))

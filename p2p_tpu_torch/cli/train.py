@@ -53,11 +53,16 @@ carry ``data=-1,spatial=2`` in their own mesh; ``--mesh 1,2,1`` names it);
 a ``time`` axis splits each clip's frames (``vid2vid_temporal`` carries
 ``data=-1,time=4``: at world size 4 it trains on it); a ``model`` axis
 runs Megatron tensor parallelism over each conv pair of at least
-``--tp_min_ch`` channels (``--mesh 1,1,1,2``). A mesh whose ``pipe``
-axis is wider than one exits 2 naming the PP slice, as do the axis
+``--tp_min_ch`` channels (``--mesh 1,1,1,2``), int8 included. On a
+``pipe`` axis wider than one the trainer prints JAX's warning and runs
+flat, the pipe ranks as replicas (the GPipe step is train/step.py
+``build_pp_train_step``); ``--pp_overlap`` sets that step's schedule.
+``--recalibrate_steps N`` holds the int8 scales frozen for N steps after
+a model-width migration under delayed int8 (``tp_amax_recalibrate``) or a
+restore that initialized scales the checkpoint lacked. The axis
 combinations the port does not compose and the options a parallel step
-refuses by name; a ``--mesh`` wider than the launch's processes exits 2
-saying so. A relaunch on another
+refuses by name exit 2; a ``--mesh`` wider than the launch's processes
+exits 2 saying so. A relaunch on another
 process count, mesh or global batch resumes elastically;
 ``--no-elastic`` makes any topology change exit 2 with the
 ``TopologyMismatch`` text, and a dtype change exits 2 unless
@@ -80,8 +85,6 @@ from p2p_tpu_torch.train.schedules import LR_POLICIES
 _TRUE = {"action": "store_true"}
 _BOOL = {"action": argparse.BooleanOptionalAction}
 UNPORTED = (
-    ("pp_overlap", False, _BOOL),
-    ("recalibrate_steps", 0, {"type": int}),
     ("scan_steps", 1, {"type": int}),
 )
 
@@ -230,7 +233,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="mesh axes: positional 'data,spatial,time[,model[,"
                         "pipe]]' or named 'axis=size,...' over data/fsdp/"
                         "spatial/time/model/pipe (data may be -1 = every "
-                        "process); pipe is not ported")
+                        "process); on pipe>1 the trainer runs flat, the "
+                        "pipe ranks as replicas")
     p.add_argument("--tp_min_ch", type=int, default=None,
                    help="tensor parallelism (mesh model>1): the smallest "
                         "channel count a Megatron pair shards (default "
@@ -253,6 +257,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--init_g1_from", type=str, default=None,
                    help="explicit phase-1 checkpoint dir for --phase full "
                         "(default: checkpoint/<dataset>/<name>_g1)")
+    p.add_argument("--pp_overlap", action=argparse.BooleanOptionalAction,
+                   default=None,
+                   help="the pipelined step's latency-hiding schedule (the "
+                        "stage hand-off under the next tick's blocks)")
+    p.add_argument("--recalibrate_steps", type=int, default=None,
+                   help="after a model-width migration under delayed "
+                        "int8, or a restore that initialized int8 scales, "
+                        "hold the scales frozen for this many steps")
     add_unported(p, UNPORTED)
     return p
 
@@ -298,9 +310,10 @@ def config_from_flags(args: argparse.Namespace):
                  log_every=args.log_every, pool_size=args.pool_size,
                  compilation_cache_dir=args.compilation_cache,
                  eval_fid=args.eval_fid, save_masks=args.save_masks,
-                 elastic=args.elastic, cast_on_restore=args.cast_on_restore)
+                 elastic=args.elastic, cast_on_restore=args.cast_on_restore,
+                 recalibrate_steps=args.recalibrate_steps)
     parallel = over(cfg.parallel, fsdp_params=args.fsdp_params,
-                    tp_min_ch=args.tp_min_ch)
+                    tp_min_ch=args.tp_min_ch, pp_overlap=args.pp_overlap)
     if args.mesh is not None:
         from p2p_tpu_torch.core.mesh import parse_mesh_arg
 

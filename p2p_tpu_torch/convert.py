@@ -49,6 +49,15 @@ A ``QuantSubpixelDeconv``'s (2, 2, C, 4F) kernel stays HWIO, as
 ``SubpixelDeconv``'s; a ``QuantConvTranspose``'s is flipped into
 ``nn.ConvTranspose2d``'s layout, as ``ConvTranspose``'s.
 
+A JAX train state split over a pipe mesh (``p2p_tpu/parallel/pp.py
+pp_split_state``) holds its trunk as ``pp_stages``, each collection one
+block's tree with ``[S, B]`` leading axes, and the trunk's Adam state as
+``opt_s``; :func:`unstack_flax` reads block ``s·B + j`` at ``[s, j]`` (the
+law of parallel/pp.py ``stack_trunk``) back into per-block subtrees, and
+:func:`load_pp_train_state` loads such a state into the port's flat one,
+which ``parallel.pp.pp_split_state`` then puts on the stage ranks under
+the same law.
+
 An ``.npz`` file holds one array per leaf under its ``/``-joined path (a
 generator's parameters and running statistics side by side).
 """
@@ -223,6 +232,38 @@ def load_train_state(state, flax_state: Mapping[str, Any]):
             continue
         load_flax(net, *(t for t in trees if t is not None))
     return state
+
+
+def unstack_flax(stacked: Mapping[str, Any], prefix: str
+                 ) -> Dict[str, Any]:
+    """A flax tree shaped like one trunk block with ``[S, B]`` leading axes
+    (a collection of JAX's ``pp_stages``, or a moment tree of its
+    ``opt_s``) → ``{f"{prefix}{i}": block subtree}``, block ``s·B + j``
+    from ``[s, j]``."""
+    from p2p_tpu_torch.parallel.pp import unstack_trunk
+
+    per_block = unstack_trunk(flatten_tree(stacked), prefix)
+    return {k: unflatten_tree(v) for k, v in per_block.items()}
+
+
+def load_pp_train_state(state, flax_state: Mapping[str, Any], prefix: str):
+    """:func:`load_train_state` of a JAX state split over a pipe mesh: its
+    ``pp_stages`` collections (``params``, ``batch_stats``, ``quant``)
+    unstacked (:func:`unstack_flax`) into ``params_g``, ``batch_stats_g``
+    and ``quant_g`` under the trunk blocks' names (``prefix``, parallel/
+    pp.py ``trunk_prefix``), then loaded into the port's flat ``state``.
+    The optimizers stay fresh, as :func:`load_train_state` leaves them
+    (``opt_s``'s moment trees unstack under the same law)."""
+    fs = {k: v for k, v in flax_state.items() if k not in ("pp_stages",
+                                                          "opt_s")}
+    stages = flax_state.get("pp_stages") or {}
+    for coll, field in (("params", "params_g"),
+                        ("batch_stats", "batch_stats_g"),
+                        ("quant", "quant_g")):
+        if stages.get(coll):
+            fs[field] = {**(fs.get(field) or {}),
+                         **unstack_flax(stages[coll], prefix)}
+    return load_train_state(state, fs)
 
 
 def load_video_train_state(state, flax_state: Mapping[str, Any]):

@@ -9,8 +9,9 @@ trains on one card with those axes resolved as 1 (train/loop.py
 ``build_trainer_mesh``); on more processes the spatial axis splits H
 (slice 13b, parallel/spatial.py) and the time axis each clip's frames
 (parallel/temporal.py), and a ``model`` axis (``--mesh ...,model=M``)
-runs Megatron tensor parallelism (parallel/tp.py). The pipe axis waits
-for the pipeline-parallel slice (13c-PP).
+runs Megatron tensor parallelism (parallel/tp.py). A ``pipe`` axis is
+the GPipe step's (train/step.py ``build_pp_train_step``); the trainer
+runs flat on it, the pipe ranks as replicas, as JAX's does.
 """
 
 from __future__ import annotations
@@ -201,6 +202,11 @@ class TrainConfig:
     # a mixed_precision / moment_dtype delta on resume is an explicit,
     # logged cast (MOMENT_MIGRATION) instead of an abort
     cast_on_restore: bool = False
+    # after a TP-width amax migration (tp_amax_recalibrate) or a restore
+    # that initialized int8 scales a checkpoint lacked, hold the int8
+    # scales frozen for this many steps (resilience/reshape.py
+    # hold_frozen_quant); 0 = off
+    recalibrate_steps: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,8 +266,9 @@ class ParallelConfig:
     # keeps the conv outputs and the norm statistics and recomputes only
     # the elementwise chain
     remat: Union[bool, str] = False
-    # the latency-hiding GPipe schedule (the pipeline-parallel slice,
-    # 13c-PP: carried, no effect yet)
+    # the latency-hiding GPipe schedule of train/step.py
+    # build_pp_train_step (parallel/pp.py gpipe_trunk overlap=): the stage
+    # hand-off of the previous tick runs under this tick's blocks
     pp_overlap: bool = False
 
 

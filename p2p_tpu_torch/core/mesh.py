@@ -20,12 +20,14 @@ each rank holding a contiguous block of rows of every activation; the
 time axis (parallel/temporal.py): a clip's T split over ``time`` ranks,
 each rank holding a contiguous block of frames (:func:`frame_block`, the
 clip layout of ``p2p_tpu/core/mesh.py:412 video_sharding``: N over data ×
-fsdp, T over time); and the model axis (parallel/tp.py): Megatron tensor
-parallelism, each conv of a pair holding its channel shard. A mesh whose
-``pipe`` axis is wider than one is refused by name
-(:func:`check_ported_axes`): pipeline parallelism comes with the PP slice
-(13c-PP); so are the axis combinations the port does not compose (time
-with spatial on one clip; model with spatial, time or fsdp).
+fsdp, T over time); the model axis (parallel/tp.py): Megatron tensor
+parallelism, each conv of a pair holding its channel shard; and the pipe
+axis (parallel/pp.py): the generator's residual trunk on the GPipe
+schedule, each pipe rank holding one stage's blocks, the rest replicated
+over ``pipe``. :func:`check_ported_axes` refuses by name the axis
+combinations the port does not compose (time with spatial on one clip;
+model with spatial, time or fsdp; pipe with spatial, time, model or fsdp:
+JAX's ``gpipe_trunk`` shards only ``data`` and ``pipe``).
 
 Ported as they are, as pure functions: :class:`MeshSpec` and its
 ``resolve`` diagnostics, the ``--mesh`` grammar (:func:`parse_mesh_arg`),
@@ -62,13 +64,15 @@ ALL_AXES = (DATA_AXIS, FSDP_AXIS, SPATIAL_AXIS, TIME_AXIS, MODEL_AXIS,
             PIPE_AXIS)
 #: the axes a batch's leading dimension shards over
 BATCH_AXES = (DATA_AXIS, FSDP_AXIS)
-#: the axes of a later slice, and which
-LATER_AXES = {PIPE_AXIS: "13c-PP"}
+#: the axes of a later slice, and which (none: every axis is ported)
+LATER_AXES: Dict[str, str] = {}
 #: the axes a one-process run resolves as 1 (the presets' own meshes)
 ONE_DEVICE_AXES = (SPATIAL_AXIS, TIME_AXIS, MODEL_AXIS, PIPE_AXIS)
 #: pairs of axes the port does not compose on one mesh
 UNCOMPOSED_AXES = ((TIME_AXIS, SPATIAL_AXIS), (MODEL_AXIS, SPATIAL_AXIS),
-                   (MODEL_AXIS, TIME_AXIS), (MODEL_AXIS, FSDP_AXIS))
+                   (MODEL_AXIS, TIME_AXIS), (MODEL_AXIS, FSDP_AXIS),
+                   (PIPE_AXIS, SPATIAL_AXIS), (PIPE_AXIS, TIME_AXIS),
+                   (PIPE_AXIS, MODEL_AXIS), (PIPE_AXIS, FSDP_AXIS))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,18 +157,15 @@ def parse_mesh_arg(text: str) -> MeshSpec:
 
 def check_ported_axes(spec: MeshSpec) -> None:
     """Raise ``NotImplementedError`` naming the later slice when ``spec``
-    widens an axis this slice does not have (``pipe``: the PP slice,
-    13c-PP), or widens two axes the port does not compose
-    (:data:`UNCOMPOSED_AXES`)."""
+    widens an axis of :data:`LATER_AXES` (none now), or widens two axes
+    the port does not compose (:data:`UNCOMPOSED_AXES`)."""
     wide = [f"{a}={getattr(spec, a)}" for a in LATER_AXES
             if getattr(spec, a) > 1]
     if wide:
         slices = sorted({LATER_AXES[w.split("=")[0]] for w in wide})
         raise NotImplementedError(
-            f"mesh axes {', '.join(wide)} are not ported yet: the port has "
-            "the data, fsdp, spatial, time and model axes; pipe comes with "
-            f"the pipeline-parallel slice (this mesh needs slice "
-            f"{' and '.join(slices)})")
+            f"mesh axes {', '.join(wide)} are not ported yet (this mesh "
+            f"needs slice {' and '.join(slices)})")
     for a, b in UNCOMPOSED_AXES:
         if getattr(spec, a) > 1 and getattr(spec, b) > 1:
             raise NotImplementedError(
@@ -263,9 +264,11 @@ class Mesh:
     batch slot's rows; ``time``/``time_rank`` and ``model``/``model_rank``
     likewise (a slot's frames; a conv pair's channel shards).
     ``reduce_group`` is the line over data × fsdp × spatial × time through
-    this rank (None when that is the world: with ``model`` at 1), the
-    ranks whose gradients of one parameter shard add up. Every rank
-    builds every group, in one order."""
+    this rank (None when that is the world: with ``model`` and ``pipe`` at
+    1), the ranks whose gradients of one parameter shard (a Megatron
+    shard, a pipe stage's blocks) add up. ``pipe``/``pipe_rank`` are the
+    pipe axis's size and this rank's stage. Every rank builds every
+    group, in one order."""
 
     def __init__(self, spec: MeshSpec = MeshSpec()):
         if not dist.is_initialized():
@@ -303,6 +306,8 @@ class Mesh:
         self.time_rank = self.coords[TIME_AXIS]
         self.model = self.shape[MODEL_AXIS]
         self.model_rank = self.coords[MODEL_AXIS]
+        self.pipe = self.shape[PIPE_AXIS]
+        self.pipe_rank = self.coords[PIPE_AXIS]
 
     def _line_group(self, grid: np.ndarray, dims: Tuple[int, ...]):
         """The group of the ranks that differ from this one only along the
@@ -485,8 +490,8 @@ def classify_topology_delta(saved: dict, current: dict,
 
 def local_batch_size(global_batch: int, mesh: Optional[Mesh] = None) -> int:
     """Per-process batch of the input pipeline: the global batch over the
-    mesh's batch slots (spatial peers load the same samples), or over the
-    processes without a mesh."""
+    mesh's batch slots (spatial, model and pipe peers load the same
+    samples), or over the processes without a mesh."""
     n_proc = mesh.batch_shards if mesh is not None else process_count()
     if global_batch % n_proc:
         raise ValueError(f"global batch {global_batch} not divisible by "

@@ -27,6 +27,17 @@ from p2p_tpu_torch.ops.norm import make_norm, make_norm_act
 from p2p_tpu_torch.ops.pixel_shuffle import pixel_unshuffle
 
 
+def trunk_block(net: nn.Module, name: str) -> nn.Module:
+    """The trunk block ``name`` of ``net``; raises when a pipe split moved
+    it out (parallel/pp.py ``pp_split_state``: the module then runs only
+    with a ``trunk_fn``)."""
+    block = getattr(net, name)
+    if block is None:
+        raise RuntimeError(f"{name} lives in a pipe stage (pp_split_state): "
+                           "run this generator with its trunk_fn")
+    return block
+
+
 class ResidualBlock(nn.Module):
     """conv-norm-relu-conv-norm + identity, relu after the add;
     rematerialized per ``remat`` (ops/conv.py ``remat_call``)."""
@@ -81,15 +92,18 @@ class ExpandNetwork(nn.Module):
                 cin, f, k, upsample=up, use_bias=ub, dtype=dtype))
             setattr(self, f"BatchNorm_{i + 3}", make_norm(norm, f))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, trunk_fn=None) -> torch.Tensor:
         act = self.PReLU_0
         y = upsample_nearest(pixel_unshuffle(x, 2), 2)
         for i in range(3):
             y = act(getattr(self, f"BatchNorm_{i}")(
                 getattr(self, f"ConvLayer_{i}")(y)))
         residual = y
-        for i in range(self.n_blocks):
-            y = getattr(self, f"ResidualBlock_{i}")(y)
+        if trunk_fn is not None:
+            y = trunk_fn(y)
+        else:
+            for i in range(self.n_blocks):
+                y = trunk_block(self, f"ResidualBlock_{i}")(y)
         y = leaky_relu_y(y + residual, 0.2)
         for i in range(2):
             y = act(getattr(self, f"BatchNorm_{i + 3}")(

@@ -13,7 +13,9 @@ copy (serve/engine.py), the networks take none and compute in their
 weights' dtype. With ``int8`` the residual blocks' k3-s1 convs run on the
 int8 path (``ConvLayer(int8=True)``, stored scales under
 ``int8_delayed``); the stem, the stride-2 downs, the upsample convs and
-the head stay as they are.
+the head stay as they are. ``forward(x, trunk_fn=...)`` hands the
+residual trunk to an external schedule (``p2p_tpu/models/resnet_gen.py:
+94-98``; the GPipe path, parallel/pp.py).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from typing import Optional, Union
 import torch
 from torch import nn
 
+from p2p_tpu_torch.models.expand import trunk_block
 from p2p_tpu_torch.ops.activations import tanh_y
 from p2p_tpu_torch.ops.conv import (ConvLayer, UpsampleConvLayer,
                                     check_remat, remat_call)
@@ -99,12 +102,15 @@ class ResnetGenerator(nn.Module):
             setattr(self, f"ConvLayer_{n_downsampling + 1}",
                     ConvLayer(c, out_channels, 7, dtype=dtype))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, trunk_fn=None) -> torch.Tensor:
         y = self.na(self.ConvLayer_0(x), act="relu")
         for i in range(self.n_downsampling):
             y = self.na(getattr(self, f"ConvLayer_{i + 1}")(y), act="relu")
-        for i in range(self.n_blocks):
-            y = getattr(self, f"ResnetBlock_{i}")(y)
+        if trunk_fn is not None:
+            y = trunk_fn(y)
+        else:
+            for i in range(self.n_blocks):
+                y = trunk_block(self, f"ResnetBlock_{i}")(y)
         for j in range(self.n_downsampling):
             y = self.na(getattr(self, f"UpsampleConvLayer_{j}")(y),
                         act="relu")

@@ -102,6 +102,34 @@ def quantize_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
         torch.int8)
 
 
+def reshard_amax(amax: torch.Tensor, old_width: int, new_width: int
+                 ) -> torch.Tensor:
+    """The closed-form amax law of a TP-width change under delayed int8
+    (``p2p_tpu/ops/int8.py:523``; the elastic ``tp_amax_recalibrate``): a
+    per-tensor amax (0-d, or any leaf without a leading ``old_width``
+    axis: every ``amax_x`` of the port, a max over the whole tensor on
+    every rank) is width invariant; a per-shard amax (leading
+    ``[old_width]``) repeats each shard's to its children when the width
+    grows and takes the max over the shards a new one absorbs when it
+    shrinks (widen-then-narrow round-trips bitwise). Widths that do not
+    divide raise, naming both."""
+    amax = torch.as_tensor(amax)
+    old_width, new_width = int(old_width), int(new_width)
+    if old_width == new_width or amax.dim() == 0 \
+            or amax.shape[0] != old_width:
+        return amax
+    if new_width > old_width:
+        if new_width % old_width:
+            raise ValueError(f"cannot widen amax shards {old_width} -> "
+                             f"{new_width}: widths must divide")
+        return amax.repeat_interleave(new_width // old_width, dim=0)
+    if old_width % new_width:
+        raise ValueError(f"cannot narrow amax shards {old_width} -> "
+                         f"{new_width}: widths must divide")
+    k = old_width // new_width
+    return amax.reshape((new_width, k) + tuple(amax.shape[1:])).amax(dim=1)
+
+
 def amax_update(cur: torch.Tensor, stored: torch.Tensor) -> torch.Tensor:
     """The delayed-scale update: ``max(cur, AMAX_DECAY·stored)``."""
     return torch.maximum(cur, AMAX_DECAY * stored)
@@ -230,12 +258,36 @@ def _undo_pad(x: torch.Tensor, pads: Pads, lhs_dil: Pair) -> torch.Tensor:
     return x[:, ::lhs_dil[0], ::lhs_dil[1]]
 
 
+def _group_max(t: torch.Tensor, tp) -> torch.Tensor:
+    """``t`` max-reduced over the model group of a sharded conv's ``tp``
+    (``parallel.tp.TPConv``; None: a whole conv, ``t`` as it is)."""
+    if tp is None:
+        return t
+    from p2p_tpu_torch.parallel.tp import model_allreduce
+
+    return model_allreduce(t, tp.group, "amax_max")
+
+
+def _group_sum(t: torch.Tensor, tp) -> torch.Tensor:
+    """``t`` summed over the model group of ``tp`` (exact for the int32
+    accumulators)."""
+    if tp is None:
+        return t
+    from p2p_tpu_torch.parallel.tp import model_allreduce
+
+    return model_allreduce(t, tp.group, "int32_sum"
+                           if t.dtype == torch.int32 else "reduce")
+
+
 def _int8_bwd_core(strides: Pair, padding: Pads, lhs_dil: Pair, xq, sx,
-                   wq, sw, x_dtype, w_dtype, g: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   wq, sw, x_dtype, w_dtype, g: torch.Tensor,
+                   tp=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx in x's dtype, dw in w's dtype) of the dequantized surrogate,
     from the saved int8 operands: ``xq`` NHWC, ``wq`` HWIO, ``sw`` (O,),
-    and the NHWC cotangent ``g``."""
+    and the NHWC cotangent ``g``. ``tp``: the shard of a conv whose C_out
+    is sharded (``parallel.tp.TPConv``): the cotangent scales are maxed
+    over its model group and the dgrad's partial sums (int32) added over
+    it, so dx is the whole conv's on every rank."""
     k_hw = tuple(wq.shape[:2])
     in_hw, out_hw = tuple(xq.shape[1:3]), tuple(g.shape[1:3])
     gf = g.float()
@@ -245,12 +297,12 @@ def _int8_bwd_core(strides: Pair, padding: Pads, lhs_dil: Pair, xq, sx,
         # the conv of g̃ with the flipped, transposed kernel, window
         # strides = the forward's lhs_dilation
         gt = gf * sw
-        sgt = absmax_scale(gt)
+        sgt = scale_of(_group_max(gt.abs().amax(), tp))
         gtq = quantize_int8(gt, sgt)
         w_t = wq.flip(0, 1).transpose(2, 3).contiguous()   # (kh, kw, O, I)
         pad_lhs = _vjp_lhs_padding(in_hw, k_hw, strides, out_hw, padding,
                                    lhs_dil, (1, 1))
-        dx32 = conv_i32(gtq, w_t, lhs_dil, pad_lhs)
+        dx32 = _group_sum(conv_i32(gtq, w_t, lhs_dil, pad_lhs), tp)
         dx = (dx32.float() * sgt).to(x_dtype)
     else:
         # the library's conv input gradient on ŵ, taken w.r.t. the padded,
@@ -261,13 +313,14 @@ def _int8_bwd_core(strides: Pair, padding: Pads, lhs_dil: Pair, xq, sx,
         dxe = torch.nn.grad.conv2d_input(
             (xq.shape[0], xq.shape[3], *xe), w_hat, _nchw(_bf16(gf)),
             strides, 0)
-        dx = _undo_pad(_nhwc(dxe), padding, lhs_dil).to(x_dtype)
+        dx = _group_sum(_undo_pad(_nhwc(dxe), padding, lhs_dil).contiguous(),
+                        tp).to(x_dtype)
 
     # ---- wgrad ----
     ho, wo = out_hw
     if lhs_dil == (1, 1) and \
             _INT8_WGRAD_SLICE_MIN <= ho * wo <= _INT8_WGRAD_SLICE_MAX:
-        sg = absmax_scale(gf)
+        sg = scale_of(_group_max(gf.abs().amax(), tp))
         gq = quantize_int8(gf, sg)
         rows, _ = im2col(xq, k_hw, strides, padding)
         n_pos = rows.shape[0]
@@ -394,6 +447,67 @@ def int8_conv_pq(xi: torch.Tensor, w: torch.Tensor, sx: torch.Tensor,
                              tuple(lhs_dilation))
 
 
+class _TPInt8Conv(torch.autograd.Function):
+    """The Megatron form of an int8 conv whose weight holds a channel
+    shard (``tp``, parallel/tp.py): role "out" (C_out sliced: x whole, the
+    output this rank's channels) or "in" (C_in sliced: x and the output's
+    partial contraction this rank's). The scales are the whole conv's:
+    under "in" the input's amax and each output channel's weight amax are
+    maxed over the model group and the int32 accumulators are summed over
+    it before the dequantize; under "out" the backward's cotangent scales
+    are maxed and the dgrad's int32 partial sums added. Every sum is of
+    integers, so the forward, the amax and both gradients are the one-rank
+    conv's bit for bit. ``mode``: "dynamic" (x's own scale), "stored"
+    (``sx`` given, returns the measured amax too) or "prequant" (x on the
+    int8 grid at ``sx``)."""
+
+    @staticmethod
+    def forward(ctx, x, w, sx, mode, tp, strides, padding, lhs_dil):
+        inner = tp if tp.role == "in" else None
+        amax = torch.zeros((), device=x.device)
+        if mode == "dynamic":
+            sx = scale_of(_group_max(x.float().abs().amax(), inner))
+            xq = quantize_int8(_nhwc(x), sx)
+        elif mode == "stored":
+            xq, xf, sx = _quantize_at(x, sx)
+            amax = _group_max(xf.abs().amax(), inner)
+        else:
+            sx = sx.float().clamp_min(1e-12)
+            xq = _nhwc(x).to(torch.int8)
+        sw = scale_of(_group_max(w.float().abs().amax(
+            dim=(1, 2, 3), keepdim=True), inner)).reshape(-1)
+        wq = quantize_int8(w.permute(2, 3, 1, 0), sw)
+        y32 = _group_sum(conv_i32(xq, wq.contiguous(), strides, padding,
+                                  lhs_dil), inner)
+        y = _nchw((y32.float() * (sx * sw)).to(x.dtype))
+        _save(ctx, xq, sx, wq, sw, x, w, strides, padding, lhs_dil)
+        ctx.outer = tp if tp.role == "out" else None
+        ctx.mark_non_differentiable(amax)
+        return y, amax
+
+    @staticmethod
+    def backward(ctx, g, _g_amax):
+        xq, sx, wq, sw = ctx.saved_tensors
+        dx, dw = _int8_bwd_core(ctx.strides, ctx.padding, ctx.lhs_dil, xq,
+                                sx, wq, sw, ctx.x_dtype, ctx.w_dtype,
+                                _nhwc(g), ctx.outer)
+        return (_nchw(dx), dw.permute(3, 2, 0, 1), None, None, None, None,
+                None, None)
+
+
+def tp_conv_forms(tp):
+    """:data:`CONV_FORMS` of a sharded int8 conv (:class:`_TPInt8Conv`;
+    ``tp`` its ``parallel.tp.TPConv``)."""
+
+    def call(mode, x, w, sx, strides=(1, 1), padding=0, lhs=(1, 1)):
+        return _TPInt8Conv.apply(x, w, sx, mode, tp, tuple(strides),
+                                 as_pads(padding), tuple(lhs))
+
+    return (lambda x, w, *a: call("dynamic", x, w, None, *a)[0],
+            lambda x, w, sx, *a: call("stored", x, w, sx, *a),
+            lambda x, w, sx, *a: call("prequant", x, w, sx, *a)[0])
+
+
 # ------------------------------------------------------------- kn2row
 
 def _kn2row_bwd(ctx, g):
@@ -492,7 +606,10 @@ class QuantScale:
 
     ``init_amax`` (set by ``train.state.init_amax``) makes the next
     forward set ``amax_x`` from its own input first, as flax init does:
-    max|x|, or under an epilogue its amax at sx = 1."""
+    max|x|, or under an epilogue its amax at sx = 1. ``pp_proposal``, set
+    by a pipelined stage, collects ``max(amax_update(amax, amax_x))`` over
+    the stage's microbatches in place of the store (the JAX stacked
+    ``quant`` proposal)."""
 
     def _init_scale(self, delayed: bool, epilogue: Optional[Callable] = None,
                     epilogue_tap: bool = False) -> None:
@@ -504,12 +621,19 @@ class QuantScale:
         self.epilogue = epilogue
         self.epilogue_tap = epilogue_tap
         self.init_amax = False
+        # a pipelined stage's running max of this module's update
+        # proposals (parallel/pp.py start_proposals / take_proposals):
+        # while set, the scale stays frozen and nothing is stored
+        self.pp_proposal: Optional[torch.Tensor] = None
         if delayed:
             self.register_buffer("amax_x", torch.zeros(()))
 
     @torch.no_grad()
     def _store(self, amax: torch.Tensor) -> None:
-        if self.training:
+        if self.pp_proposal is not None:
+            self.pp_proposal = torch.maximum(
+                self.pp_proposal, amax_update(amax, self.amax_x))
+        elif self.training:
             self.amax_x.copy_(amax_update(amax, self.amax_x))
 
     def quant_conv(self, x: torch.Tensor, w: torch.Tensor, forms, *args
@@ -518,6 +642,15 @@ class QuantScale:
         the compute dtype) by ``forms`` (:data:`CONV_FORMS` or
         :data:`KN2ROW_FORMS`, each called with ``*args`` after its
         operands); ``tap`` is None without ``epilogue_tap``."""
+        tp = getattr(self, "p2p_tp", None)
+        if tp is not None:
+            from p2p_tpu_torch.parallel.tp import tp_int8_input
+
+            if forms is not CONV_FORMS:
+                raise NotImplementedError(
+                    f"a sharded {type(self).__name__} has no tensor-parallel "
+                    "form (model > 1)")
+            forms = tp_conv_forms(tp)
         dynamic, stored, prequant = forms
         dt = w.dtype
         tap = None
@@ -528,18 +661,31 @@ class QuantScale:
                         x, torch.ones((), device=x.device))[1])
             sx = scale_of(self.amax_x)
             q, amax = self.epilogue(x, sx)
+            if tp is not None and tp.role == "in" \
+                    and x.shape[1] < self.p2p_tp_io[0]:
+                # the epilogue saw this rank's channels only
+                amax = _group_max(amax, tp)
             self._store(amax)
+            if tp is not None:
+                q = tp_int8_input(q, self)
             y = prequant(q.to(dt), w, sx, *args)
             if self.epilogue_tap:
                 tap = surrogate_tap(q.to(dt), sx).to(dt)
-        elif self.delayed:
-            if self.init_amax:
-                with torch.no_grad():
-                    self.amax_x.copy_(x.detach().float().abs().amax())
-            y, amax = stored(x.to(dt), w, scale_of(self.amax_x), *args)
-            self._store(amax)
         else:
-            y = dynamic(x.to(dt), w, *args)
+            if tp is not None:
+                x = tp_int8_input(x, self)
+            if self.delayed:
+                if self.init_amax:
+                    with torch.no_grad():
+                        self.amax_x.copy_(x.detach().float().abs().amax())
+                y, amax = stored(x.to(dt), w, scale_of(self.amax_x), *args)
+                self._store(amax)
+            else:
+                y = dynamic(x.to(dt), w, *args)
+        if tp is not None:
+            from p2p_tpu_torch.parallel.tp import tp_int8_output
+
+            y = tp_int8_output(y, self)
         return y, tap
 
 
@@ -591,7 +737,8 @@ class QuantConv(QuantScale, nn.Conv2d):
         w = self.weight.to(_compute_dtype(self, x, self.weight))
         y, tap = self.quant_conv(x, w, CONV_FORMS, tuple(self.stride),
                                  self.pads)
-        y = _add_bias(y, self.bias)
+        if getattr(self, "p2p_tp", None) is None:   # else added by the TP form
+            y = _add_bias(y, self.bias)
         return (y, tap) if self.epilogue_tap else y
 
 

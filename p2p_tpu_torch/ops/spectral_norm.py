@@ -91,7 +91,7 @@ class SpectralConv(QuantScale, nn.Module):
                 self.u.copy_(u)
         dt = self.dtype or torch.promote_types(x.dtype, w.dtype)
         bias = None if self.bias is None else self.bias.to(dt)
-        if tp is not None:
+        if tp is not None and not self.int8:
             from p2p_tpu_torch.parallel.tp import tp_conv
 
             return tp_conv(tp, F.conv2d, x.to(dt), (w / sigma).to(dt), bias,
@@ -110,7 +110,7 @@ class SpectralConv(QuantScale, nn.Module):
                                       "form under a spatial mesh")
         y, tap = self.quant_conv(x, (w / sigma).to(dt), CONV_FORMS,
                                  (self.stride, self.stride), self.padding)
-        if bias is not None:
+        if bias is not None and tp is None:     # else added by the TP form
             y = y + bias.to(y.dtype).view(1, -1, 1, 1)
         return (y, tap) if self.epilogue_tap else y
 

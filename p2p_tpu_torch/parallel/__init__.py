@@ -2,9 +2,9 @@
 data parallelism (``dp``), ZeRO state sharding over ``fsdp`` and the TP
 tables (``rules``), the spatial axis (``halo``, ``spatial``: H split over
 ranks, slice 13b), the time axis (``temporal``: a clip's frames split over
-ranks) and tensor parallelism over ``model`` (``tp``: Megatron channel
-shards). Pipeline parallelism (``pp``) comes with the PP slice
-(13c-PP)."""
+ranks), tensor parallelism over ``model`` (``tp``: Megatron channel
+shards) and pipeline parallelism over ``pipe`` (``pp``: GPipe over the
+generator's residual trunk)."""
 
 from p2p_tpu_torch.parallel.dp import (DataParallel, make_parallel_eval_step,
                                        make_parallel_train_step,

@@ -62,6 +62,15 @@ card's atomics add (a reflect pad's backward, a non-deterministic cuDNN
 algorithm), so it is averaged over the world: the model peers take one
 update and their copies stay the same bits. The metrics and the guard's
 verdict span the world too.
+
+With ``pipe`` > 1 (parallel/pp.py, train/step.py ``build_pp_train_step``)
+each pipe rank holds one stage of the generator's trunk; everything else
+(the encoder and decoder, the shared PReLU, D, net_c) is replicated over
+``pipe`` and computed alike on the pipe peers, which read the same
+samples. A stage block's gradient is averaged over its data line (the
+ranks with its pipe index, ``Mesh.reduce_group``); a replicated
+parameter's is averaged over the world, pipe peers included, so their
+copies take one update.
 """
 
 from __future__ import annotations
@@ -169,15 +178,23 @@ def _reduce_grads(params: List[nn.Parameter], group, n: int
     return flat
 
 
+def _local(p: torch.Tensor) -> bool:
+    """Whether ``p`` is this rank's own part (a Megatron shard, a pipe
+    stage's block) rather than a replica."""
+    return bool(getattr(p, "p2p_tp_role", None)
+                or getattr(p, "p2p_pp_stage", False))
+
+
 class DataParallel:
     """The collectives of one data-parallel train step on ``mesh``."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
-        # a shard's gradients span data x fsdp x spatial x time (the world
-        # unless a model axis splits it); everything else spans the world
+        # a shard's (or a pipe stage's) gradients span data x fsdp x
+        # spatial x time (the world unless a model or pipe axis splits
+        # it); everything else spans the world
         self.grad_group = mesh.reduce_group
-        self.n_world = mesh.batch_shards * mesh.model
+        self.n_world = mesh.batch_shards * mesh.model * mesh.pipe
 
     @torch.no_grad()
     def sync_grads(self, opt) -> None:
@@ -195,14 +212,14 @@ class DataParallel:
             raise RuntimeError(f"data parallel: {len(missing)} parameters "
                                "got no gradient (every rank must reduce "
                                "the same buffer)")
-        if self.mesh.model == 1:
+        if self.mesh.model == 1 and self.mesh.pipe == 1:
             flat = _reduce_grads(params, self.grad_group,
                                  self.mesh.batch_shards)
             if isinstance(optimizer, ShardedOptimizer):
                 optimizer.grad_flat = flat
             return
-        shards = [p for p in params if getattr(p, "p2p_tp_role", None)]
-        whole = [p for p in params if not getattr(p, "p2p_tp_role", None)]
+        shards = [p for p in params if _local(p)]
+        whole = [p for p in params if not _local(p)]
         if whole:
             _reduce_grads(whole, None, self.n_world)
         if shards:
@@ -214,10 +231,10 @@ class DataParallel:
         """The step's 0-d metrics as the global batch's (one all-reduce of
         their stack), as the JAX step reports them, so every rank's
         sentinel, ladder and records see the same values: the mean over
-        the batch slots (and the model peers), where the ``shares`` (the
-        losses: each rank's share of its slot's loss under a spatial or
-        time split) are first summed over the spatial and time group and
-        the rest (equal on those peers) averaged."""
+        the batch slots (and the model and pipe peers), where the
+        ``shares`` (the losses: each rank's share of its slot's loss under
+        a spatial or time split) are first summed over the spatial and
+        time group and the rest (equal on those peers) averaged."""
         keys = list(metrics)
         stacked = torch.stack([metrics[k].detach().reshape(()).float()
                                for k in keys])

@@ -174,6 +174,14 @@ def _slots(ring: Ring, sizes, mine, device: torch.device):
     ``mine[key]`` into its slots, one ``all_reduce`` (SUM) over the ring
     adds them, and the returned ``read(rank, key, dtype, shape)`` copies a
     slot out."""
+    read, work = _slots_start(ring, sizes, mine, device)
+    work.wait()
+    return read
+
+
+def _slots_start(ring: Ring, sizes, mine, device: torch.device):
+    """:func:`_slots` with its ``all_reduce`` started asynchronously:
+    ``(read, work)``, ``read`` valid after ``work.wait()``."""
     offsets, off = {}, 0
     for key in sorted(sizes):
         offsets[key] = (off, sizes[key])
@@ -184,13 +192,13 @@ def _slots(ring: Ring, sizes, mine, device: torch.device):
         if piece is not None:
             o, nb = offsets[ring.index, key]
             raw[o:o + nb].copy_(piece.contiguous().view(-1).view(torch.uint8))
-    dist.all_reduce(words, group=ring.group)
+    work = dist.all_reduce(words, group=ring.group, async_op=True)
 
     def read(r, key, dtype, shape):
         o, nb = offsets[r, key]
         return raw[o:o + nb].view(dtype).view(shape).clone()
 
-    return read
+    return read, work
 
 
 def _rows_first(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -451,26 +459,55 @@ class _RingShift(torch.autograd.Function):
 
 def _shift(x: torch.Tensor, ring: Ring, shift: int, route: str
            ) -> torch.Tensor:
+    return shift_start(x, ring, shift, route)()
+
+
+def shift_start(x: torch.Tensor, ring: Ring, shift: int, route: str,
+                stats: Optional[Dict[str, Dict[str, int]]] = None):
+    """Start a cyclic shift of the ranks' ``x`` around ``ring`` (rank ``i``
+    gets rank ``i − shift``'s) without waiting for it: returns ``wait()``,
+    which waits and returns the received tensor in x's dense layout
+    (channels_last kept; not differentiable). The transfer is counted in
+    ``stats`` (:data:`halo_stats` by default) by route. Every rank of the
+    ring must start the same shifts in one order."""
     n, i = ring.size, ring.index
     src, dst = (i - shift) % n, (i + shift) % n
     if src == i:
-        return x.clone()
-    halo_stats[route]["calls"] += 1
-    halo_stats[route]["bytes"] += x.numel() * x.element_size()
+        out = x.clone()
+        return lambda: out
+    stats = halo_stats if stats is None else stats
+    stats[route]["calls"] += 1
+    stats[route]["bytes"] += x.numel() * x.element_size()
+    fmt = _dense_format(x)
+
+    def laid_out(t: torch.Tensor) -> torch.Tensor:
+        return t if fmt is None else t.contiguous(memory_format=fmt)
+
     if route == "p2p":
-        out = torch.empty_like(x)
+        # gloo sends and receives dense row-major buffers only
+        out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
         reqs = dist.batch_isend_irecv([
             dist.P2POp(dist.isend, x.contiguous(), ring.ranks[dst],
                        ring.group, _TO_NEXT),
             dist.P2POp(dist.irecv, out, ring.ranks[src], ring.group,
                        _TO_NEXT)])
-        for req in reqs:
-            req.wait()
-        return out
+
+        def wait_p2p():
+            for req in reqs:
+                req.wait()
+            return laid_out(out)
+
+        return wait_p2p
     nbytes = x.numel() * x.element_size()
-    got = _slots(ring, {(r, "x"): nbytes for r in range(n)}, {"x": x},
-                 x.device)
-    return got(src, "x", x.dtype, x.shape)
+    read, work = _slots_start(
+        ring, {(r, "x"): nbytes for r in range(n)}, {"x": x.contiguous()},
+        x.device)
+
+    def wait_slot():
+        work.wait()
+        return laid_out(read(src, "x", x.dtype, x.shape))
+
+    return wait_slot
 
 
 def ring_shift(x: torch.Tensor, group=None, shift: int = 1,

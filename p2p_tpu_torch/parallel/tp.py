@@ -212,10 +212,14 @@ def scatter_to_model(x: torch.Tensor, tp: TPConv) -> torch.Tensor:
 
 
 #: the TP layers' forward collectives (each one's adjoint runs in the
-#: backward): calls and bytes of the tensor each takes, by kind
+#: backward): calls and bytes of the tensor each takes, by kind; the
+#: int8 convs' model-group all-reduces (parallel ops/int8.py
+#: ``_TPInt8Conv``) count forward and backward alike: ``int32_sum`` (the
+#: accumulators) and ``amax_max`` (the input, weight and cotangent amax)
 tp_stats: Dict[str, Dict[str, int]] = {
     k: {"calls": 0, "bytes": 0}
-    for k in ("copy", "reduce", "gather", "scatter", "sigma")}
+    for k in ("copy", "reduce", "gather", "scatter", "sigma", "int32_sum",
+              "amax_max")}
 
 
 def reset_tp_stats() -> None:
@@ -226,6 +230,43 @@ def reset_tp_stats() -> None:
 def _count(kind: str, t: torch.Tensor) -> None:
     tp_stats[kind]["calls"] += 1
     tp_stats[kind]["bytes"] += t.numel() * t.element_size()
+
+
+def model_allreduce(t: torch.Tensor, group, kind: str) -> torch.Tensor:
+    """``t`` all-reduced over a model group, MAX for ``kind`` "amax_max"
+    and SUM otherwise (not differentiable), counted in :data:`tp_stats`
+    under ``kind``."""
+    out = t.detach().clone()
+    _count(kind, out)
+    dist.all_reduce(out, op=dist.ReduceOp.MAX if kind == "amax_max"
+                    else dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def tp_int8_input(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+    """The input of a sharded int8 conv: an "in" conv given the whole
+    channels takes this rank's (scatter); otherwise x as it is (an "out"
+    conv's input is whole, an "in" conv's kept slice is this rank's)."""
+    tp: TPConv = conv.p2p_tp
+    if tp.role == "in" and x.shape[1] == conv.p2p_tp_io[0]:
+        _count("scatter", x)
+        return scatter_to_model(x, tp)
+    return x
+
+
+def tp_int8_output(y: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+    """The output of a sharded int8 conv (the int32 sums done inside it)
+    with its bias: an "out" conv's channels get this rank's slice of the
+    bias and are gathered unless the pair keeps the slice; an "in" conv's
+    whole output gets the whole bias."""
+    tp: TPConv = conv.p2p_tp
+    bias = getattr(conv, "bias", None)
+    if bias is not None:
+        y = y + bias.to(y.dtype).view(1, -1, *([1] * (y.dim() - 2)))
+    if tp.role == "out" and not tp.keep:
+        _count("gather", y)
+        return gather_from_model(y, tp, conv.p2p_tp_io[1])
+    return y
 
 
 def tp_conv(tp: TPConv, fn, x: torch.Tensor, weight: torch.Tensor,
@@ -397,6 +438,7 @@ def shard_module(net: nn.Module, mesh: Mesh, min_ch: int, field: str = ""
     ``mesh``'s model axis) to this rank's shard in place, mark each
     sharded conv (``p2p_tp``, ``p2p_tp_io``) and return the shards.
     Raises for a sharded parameter of a module with no TP form."""
+    from p2p_tpu_torch.ops.int8 import QuantConv
     from p2p_tpu_torch.ops.spectral_norm import SpectralConv
 
     if mesh.model == 1:
@@ -410,8 +452,7 @@ def shard_module(net: nn.Module, mesh: Mesh, min_ch: int, field: str = ""
             continue
         module, attr = _module_of(net, name)
         if type(module) not in (nn.Conv2d, nn.ConvTranspose2d,
-                                SpectralConv) or getattr(module, "int8",
-                                                         False):
+                                SpectralConv, QuantConv):
             raise NotImplementedError(
                 f"{field}.{name}: a {type(module).__name__} has no tensor-"
                 "parallel form in the port (model > 1)")
@@ -438,15 +479,14 @@ def shard_module(net: nn.Module, mesh: Mesh, min_ch: int, field: str = ""
 
 def check_tp_config(cfg, mesh: Mesh) -> None:
     """Raise ``NotImplementedError`` for what the TP step does not cover,
-    by name: int8 (TP × int8 and its ``tp_amax_recalibrate`` come with the
-    PP slice), remat (the recompute would repeat the model group's
+    by name: remat (the recompute would repeat the model group's
     collectives), the global-norm clip and the gradient-norm taps (both
-    read every shard), a video preset."""
+    read every shard), a video preset. int8 runs in the Megatron forms of
+    ops/int8.py (``_TPInt8Conv``); a sharded kn2row, subpixel or
+    transposed int8 conv has none and raises when it runs."""
     if mesh.model == 1:
         return
     refused = []
-    if cfg.model.int8:
-        refused.append("int8")
     if cfg.parallel.remat:
         refused.append("remat")
     if cfg.optim.grad_clip > 0:
@@ -543,7 +583,8 @@ def tp_full(state) -> Iterator[None]:
 
 
 __all__ = ["TPConv", "check_tp_config", "conv_io", "copy_to_model",
-           "gather_channels", "gather_from_model", "place_state_tp",
+           "gather_channels", "gather_from_model", "model_allreduce",
+           "place_state_tp", "tp_int8_input", "tp_int8_output",
            "reduce_from_model", "reset_tp_stats", "scatter_to_model",
            "shard_module", "tp_assignment", "tp_cast_conv", "tp_conv",
            "tp_full", "tp_leaf_spec", "tp_spectral_sigma", "tp_stats"]

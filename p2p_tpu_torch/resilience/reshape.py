@@ -1,8 +1,10 @@
-"""Restore-time state migration, the data-axis part (counterpart of
-``p2p_tpu/resilience/reshape.py``: ``:92 ElasticPlan``, ``:140
-elastic_restore``, ``:262 _moment_roots``, ``:275 _dtype_cast``, ``:344
-rebase_step_counters``, ``:367 apply_batch_rebase`` and ``:62
-MOMENT_MIGRATION``).
+"""Restore-time state migration (counterpart of
+``p2p_tpu/resilience/reshape.py``: ``:92 ElasticPlan``, ``:108
+pp_width_of``, ``:120 _pp_template_at_width``, ``:140 elastic_restore``,
+``:190 _pp_restructure``, ``:214 _tp_amax_recalibrate``, ``:262
+_moment_roots``, ``:275 _dtype_cast``, ``:344 rebase_step_counters``,
+``:367 apply_batch_rebase``, ``:423 arm_quant_init_warmup``, ``:459
+hold_frozen_quant`` and ``:62 MOMENT_MIGRATION``).
 
 ``train/loop.plan_elastic_restore`` classifies the delta between a
 checkpoint's recorded topology and the relaunch's (``core/mesh.
@@ -25,29 +27,45 @@ classify_topology_delta``) and returns an :class:`ElasticPlan`;
   position, the step and optimizer counters and the loader's skip are
   re-derived from the sidecar's cumulative ``samples_seen``.
 
-``pp_restructure`` (the pipe axis) and ``tp_amax_recalibrate`` (a model
-width change under delayed-int8 state: TP × int8) come with the PP slice
-(13c-PP): a chain that names them raises ``TopologyMismatch``. A plain
-model-width change is a ``reshard``: every checkpoint holds the whole
-tensors (parallel/tp.py ``tp_full``), which a restore cuts to the shards.
-The manifest of the step on disk names the bytes on disk, which a cast on
-load does not change, so it is not rewritten.
+- ``migrate`` through ``pp_restructure`` (a pipe-width change): every
+  checkpoint is flat (a split state is saved through parallel/pp.py
+  ``pp_full``), so the restore merges a split live state, loads, and
+  re-splits at the run's width (:func:`_pp_template_at_width`); the
+  record names ``stages_saved`` (the sidecar's ``pp_stages``) and
+  ``stages_current``. The CLI trainer runs flat on a pipe mesh, so its
+  runs record 1 on both sides, as JAX's do;
+- ``migrate`` through ``tp_amax_recalibrate`` (a model-width change under
+  delayed-int8 state): every stored amax, a split trunk's included, is
+  remapped by ``ops/int8.reshard_amax`` (the port's are per-tensor, so
+  they keep their bits), the record logged, and with
+  ``--recalibrate_steps`` N the scales are held frozen for N steps
+  (:func:`hold_frozen_quant`, then a ``recalibrate_done`` record).
+
+A plain model-width change is a ``reshard``: every checkpoint holds the
+whole tensors (parallel/tp.py ``tp_full``), which a restore cuts to the
+shards. A restore that initialized int8 scales the checkpoint lacked
+(wider int8 coverage: ``CheckpointManager.last_restore_initialized_
+quant``) logs a ``quant_init`` record and arms the same frozen window
+(:func:`arm_quant_init_warmup`). The manifest of the step on disk names
+the bytes on disk, which a cast on load does not change, so it is not
+rewritten.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from p2p_tpu_torch.core.mesh import TopologyMismatch
+from p2p_tpu_torch.core.mesh import MODEL_AXIS, TopologyMismatch
 
 RESHAPE_TRANSFORMS = ("batch_rebase", "pp_restructure",
                       "tp_amax_recalibrate", "dtype_cast")
-#: the transforms of a later slice
-LATER_TRANSFORMS = {"pp_restructure": "13c-PP",
-                    "tp_amax_recalibrate": "13c-PP"}
+#: the transforms of a later slice (none: every transform is ported)
+LATER_TRANSFORMS: dict = {}
+#: the state fields whose networks hold stored int8 scales
+QUANT_NETS = ("net_g", "net_d", "net_c", "pp_stages")
 
 #: Adam-moment migration policy of a ``dtype_cast`` restore, keyed by
 #: (saved moment dtype, current moment dtype), None meaning the f32
@@ -86,9 +104,9 @@ def check_ported_chain(chain, detail: str = "") -> None:
     later = [t for t in chain if t in LATER_TRANSFORMS]
     if later:
         raise TopologyMismatch(
-            f"cannot resume through {'+'.join(later)}: the pipe axis and "
-            f"TP x int8 come with the pipeline-parallel slice 13c-PP "
-            f"({detail}); relaunch on the original pipe and model widths")
+            f"cannot resume through {'+'.join(later)}: not ported yet "
+            f"(slice {', '.join(LATER_TRANSFORMS[t] for t in later)}; "
+            f"{detail})")
 
 
 def _optimizer_states(optimizer) -> List[dict]:
@@ -106,20 +124,152 @@ def _moment_roots(opt) -> List[dict]:
             if "exp_avg" in st and "exp_avg_sq" in st]
 
 
+def _pp_template_at_width(state, cfg, n_stages: int, steps_per_epoch: int,
+                          mesh=None):
+    """Re-express ``state`` (in place) at ``n_stages`` pipe stages (1 =
+    flat): merge a split state, then split at the width; the live
+    moments ride through both (``init_opt=False``). Collective over the
+    pipe group when a stack holds one stage."""
+    from p2p_tpu_torch.parallel.pp import (pp_merge_state, pp_split_state,
+                                           pp_width_of)
+
+    if pp_width_of(state) == n_stages:
+        return state
+    if getattr(state, "pp_stages", None) is not None:
+        pp_merge_state(state, cfg, steps_per_epoch, mesh)
+    if n_stages > 1:
+        pp_split_state(state, cfg, mesh, steps_per_epoch, n_stages,
+                       init_opt=False, place=mesh is not None)
+    return state
+
+
 def elastic_restore(tr, step: int, plan: Optional[ElasticPlan]):
     """Restore trainer ``tr``'s state in place at ``step`` per ``plan``
     (None: same topology; a reshard is the same plain load), then run
     the plan's restore-time transforms (``batch_rebase`` runs later, from
-    ``maybe_resume``). Returns the step restored (an older intact one
-    when the newest fails its checksums)."""
+    ``maybe_resume``). A state split over a pipe mesh is restored flat
+    (every checkpoint is) and split again at the run's width. Returns the
+    step restored (an older intact one when the newest fails its
+    checksums)."""
+    from p2p_tpu_torch.parallel.pp import pp_full
+
     if plan is not None:
         check_ported_chain(plan.chain)
-    tr.ckpt.restore(tr.state)
+    with pp_full(tr.state, tr.cfg, tr.mesh, tr.steps_per_epoch):
+        tr.ckpt.restore(tr.state)
     if tr.ckpt.last_restored_step is not None:
         step = int(tr.ckpt.last_restored_step)
-    if plan is not None and "dtype_cast" in plan.chain:
+    chain = plan.chain if plan is not None else ()
+    if "pp_restructure" in chain:
+        _pp_restructure(tr, int(step), plan)
+    if "tp_amax_recalibrate" in chain:
+        _tp_amax_recalibrate(tr, int(step), plan)
+    if "dtype_cast" in chain:
         _dtype_cast(tr, int(step), plan)
     return int(step)
+
+
+def _saved_axis(plan: ElasticPlan, axis: str, block: str = "saved") -> int:
+    mesh = (getattr(plan, block).get("mesh") or {})
+    return int(mesh.get(axis, 1) or 1)
+
+
+def _pp_restructure(tr, step: int, plan: ElasticPlan) -> None:
+    """The pipe-width migration's record: the checkpoint's stacking (the
+    sidecar's ``pp_stages``; the restore above merged and re-split the
+    live state at the run's width)."""
+    from p2p_tpu_torch.parallel.pp import pp_width_of
+
+    tr.logger.log(
+        {"kind": "pp_restructure", "step": int(step),
+         "stages_saved": int(plan.saved.get("pp_stages") or 1),
+         "stages_current": pp_width_of(tr.state)},
+        force=True)
+
+
+def _amax_buffers(state) -> Dict[str, torch.Tensor]:
+    """Every stored int8 scale of ``state`` by ``<field>.<buffer name>``."""
+    out = {}
+    for field in QUANT_NETS:
+        net = getattr(state, field, None)
+        if net is None:
+            continue
+        for name, b in net.named_buffers():
+            if name.endswith("amax_x"):
+                out[f"{field}.{name}"] = b
+    return out
+
+
+def _freeze_quant(tr, freeze: int) -> None:
+    """Open the frozen-scale window: the current stored scales are held
+    for ``freeze`` steps (:func:`hold_frozen_quant`)."""
+    tr._quant_freeze_remaining = freeze
+    tr._quant_frozen = ({k: b.detach().clone()
+                         for k, b in _amax_buffers(tr.state).items()}
+                        if freeze > 0 else None)
+
+
+def _tp_amax_recalibrate(tr, step: int, plan: ElasticPlan) -> None:
+    """Remap every stored amax by the closed-form width law, log it, and
+    (``--recalibrate_steps``) open the frozen-scale window."""
+    from p2p_tpu_torch.ops.int8 import reshard_amax
+
+    w_old = _saved_axis(plan, MODEL_AXIS, "saved")
+    w_new = _saved_axis(plan, MODEL_AXIS, "current")
+    bufs = _amax_buffers(tr.state)
+    with torch.no_grad():
+        for b in bufs.values():
+            b.copy_(reshard_amax(b, w_old, w_new))
+    freeze = int(tr.cfg.train.recalibrate_steps or 0)
+    _freeze_quant(tr, freeze)
+    tr.logger.log(
+        {"kind": "tp_amax_recalibrate", "step": int(step),
+         "width_saved": w_old, "width_current": w_new,
+         "amax_leaves": len(bufs), "recalibrate_steps": freeze},
+        force=True)
+
+
+def arm_quant_init_warmup(tr, step: int) -> None:
+    """A restore that initialized stored scales the checkpoint lacked
+    (``CheckpointManager.last_restore_initialized_quant``: wider int8
+    coverage than the run that saved it): log a ``quant_init`` record and
+    (``--recalibrate_steps``) hold the scales frozen over the window, the
+    initialized ones at their init-batch values."""
+    initialized = list(getattr(tr.ckpt, "last_restore_initialized_quant",
+                               []) or [])
+    if not initialized:
+        return
+    freeze = int(tr.cfg.train.recalibrate_steps or 0)
+    tr.logger.log(
+        {"kind": "quant_init", "step": int(step),
+         "initialized_leaves": len(initialized), "paths": initialized[:16],
+         "recalibrate_steps": freeze},
+        force=True)
+    if freeze > 0:
+        _freeze_quant(tr, freeze)
+
+
+def hold_frozen_quant(tr) -> None:
+    """The ``--recalibrate_steps`` window: after each step while it is
+    open, put the frozen stored scales back, so every step of the window
+    quantizes with them while the rest of the state trains; the last one
+    logs ``recalibrate_done``."""
+    n = int(getattr(tr, "_quant_freeze_remaining", 0) or 0)
+    if n <= 0:
+        return
+    frozen = getattr(tr, "_quant_frozen", None)
+    if not frozen:
+        tr._quant_freeze_remaining = 0
+        return
+    live = _amax_buffers(tr.state)
+    with torch.no_grad():
+        for k, v in frozen.items():
+            live[k].copy_(v)
+    tr._quant_freeze_remaining = n - 1
+    if tr._quant_freeze_remaining == 0:
+        tr._quant_frozen = None
+        tr.logger.log({"kind": "recalibrate_done",
+                       "step": int(tr._host_step)}, force=True)
 
 
 def _dtype_cast(tr, step: int, plan: ElasticPlan) -> None:

@@ -52,8 +52,14 @@ back to. A sidecar that does not parse reads as missing and is counted
 (``aux_corrupt_total``, a ``kind="aux_corrupt"`` record);
 :func:`peek_topology` reads the newest recorded topology block without a
 manager, and raises :class:`SidecarCorrupt` when every sidecar is torn.
-The quant-template reconciliation of pre-drain JAX checkpoints has no
-counterpart: every port checkpoint carries every scale.
+The quant-template reconciliation (``p2p_tpu/train/checkpoint.py:162
+reconcile_quant_template``): a step saved under narrower int8 coverage
+than the state it is restored into lacks some stored scales (``amax_x``);
+they keep the state's initialized values, every other tensor is loaded,
+and their paths are listed in ``last_restore_initialized_quant`` (empty
+after a restore that needed none), which the trainer reports and may
+hold frozen (resilience/reshape.py ``arm_quant_init_warmup``). Any other
+missing or extra tensor still fails the load.
 
 Data parallel: a step is always in the one-device format.
 :func:`state_fields` gathers a ZeRO-sharded optimizer's moments and EMA
@@ -225,6 +231,20 @@ def _copy_exact(live: Dict[str, torch.Tensor],
         t.copy_(saved[k])
 
 
+def _load_net(net: nn.Module, saved: Dict[str, torch.Tensor], name: str
+              ) -> List[str]:
+    """Load ``saved`` into ``net`` strictly, except that stored int8 scales
+    (``amax_x``) the step lacks keep ``net``'s values; returns their
+    paths (``<net>/<buffer>``)."""
+    live = net.state_dict()
+    grafted = sorted(k for k in set(live) - set(saved)
+                     if k.endswith("amax_x"))
+    if grafted:
+        saved = {**saved, **{k: live[k] for k in grafted}}
+    net.load_state_dict(saved, strict=True)
+    return [f"{name}/{k}" for k in grafted]
+
+
 class CheckpointManager:
     """Steps of one run under ``directory``; the newest ``max_to_keep``
     are kept (all with None). Retry, corruption and sidecar counters go
@@ -240,6 +260,7 @@ class CheckpointManager:
         # the step the last restore returned (older than the one asked for
         # when that one failed its checksums)
         self.last_restored_step: Optional[int] = None
+        self.last_restore_initialized_quant: List[str] = []
 
     def _reg(self):
         if self._registry is None:
@@ -417,10 +438,11 @@ class CheckpointManager:
         names = [n for n in NETS + OPTS + (EMA, POOL)
                  if getattr(state, n, None) is not None]
         s, fields = self._restore(step, names + [PROGRESS], fallback)
+        self.last_restore_initialized_quant = []
         for name in NETS:
             if name in fields:
-                getattr(state, name).load_state_dict(fields[name],
-                                                     strict=True)
+                self.last_restore_initialized_quant += _load_net(
+                    getattr(state, name), fields[name], name)
         for name in OPTS:
             if name in fields:
                 optimizer, scheduler = getattr(state, name)

@@ -109,9 +109,20 @@ moments and EMA to the rank's channel shard after the replication
 (``place_state(..., tp_min_ch)``); model peers read the same samples,
 the saves and restores gather the whole tensors (``parallel.tp.tp_full``:
 one-device checkpoints on rank 0, a relaunch across model widths a
-``reshard``), and one model peer enters the metric combine. The video
-trainer's time axis: train/video_loop.py. Not ported yet: scan steps and
-the pipe axis (the PP slice).
+``reshard``), and one model peer enters the metric combine. On a
+``pipe`` axis wider than one the trainer prints JAX's warning and runs
+flat (``p2p_tpu/train/loop.py:893-903``): the pipe ranks are replicas
+that read the same samples, their gradients averaged over the world, and
+one pipe peer enters the metric combine; the sidecar records the
+stacking the state carries (``pp_stages``, parallel/pp.py
+``pp_width_of``: 1 for the trainer), so a relaunch at another pipe width
+migrates through ``pp_restructure``. A relaunch across model widths under
+delayed int8 migrates through ``tp_amax_recalibrate``, and with
+``recalibrate_steps`` the scales are held frozen for that many steps
+after it (or after a restore that initialized scales the checkpoint
+lacked): resilience/reshape.py ``hold_frozen_quant`` runs after each
+step of the window. The video trainer's time axis: train/video_loop.py.
+Not ported yet: scan steps.
 """
 
 from __future__ import annotations
@@ -156,11 +167,14 @@ from p2p_tpu_torch.resilience.preempt import Preempted, PreemptionGuard
 from p2p_tpu_torch.parallel import (full_params, make_parallel_eval_step,
                                     make_parallel_train_step, place_state,
                                     shard_rows)
+from p2p_tpu_torch.parallel.pp import pp_full, pp_width_of
 from p2p_tpu_torch.parallel.tp import tp_full
 from p2p_tpu_torch.resilience.reshape import (ElasticPlan,
                                               apply_batch_rebase,
+                                              arm_quant_init_warmup,
                                               check_ported_chain,
-                                              elastic_restore)
+                                              elastic_restore,
+                                              hold_frozen_quant)
 from p2p_tpu_torch.train.checkpoint import (OPTS, CheckpointCorrupt,
                                             CheckpointManager,
                                             SidecarCorrupt, peek_topology,
@@ -242,14 +256,14 @@ def trainer_topology(tr) -> Dict:
     mesh_topology`: the real process and device counts and the axis
     sizes, none without a mesh) and the global batch, the dtype policy,
     the loader (the port's is always the stride-sharded fallback) and the
-    pipeline stages (1: flat)."""
+    pipeline stages the state carries (1: flat)."""
     cfg = tr.cfg
     topo = mesh_topology(tr.mesh)
     topo.update({"global_batch": int(cfg.data.batch_size),
                  "mixed_precision": bool(cfg.train.mixed_precision),
                  "moment_dtype": cfg.optim.moment_dtype,
                  "int8_delayed": bool(cfg.model.int8_delayed),
-                 "loader": "fallback", "pp_stages": 1})
+                 "loader": "fallback", "pp_stages": pp_width_of(tr.state)})
     return topo
 
 
@@ -261,7 +275,8 @@ def save_trainer_ckpt(tr) -> int:
     the one-device format and every rank waits for it. Returns the
     step."""
     step = int(tr.state.step)
-    with full_params(tr.state), tp_full(tr.state):
+    with full_params(tr.state), tp_full(tr.state), \
+            pp_full(tr.state, tr.cfg, tr.mesh, tr.steps_per_epoch):
         fields = state_fields(tr.state, step, tr.epoch)
     if tr.rank == 0:
         tr.ckpt.save(step, tr.state, tr.epoch, fields=fields)
@@ -432,6 +447,9 @@ def init_trainer_health(tr) -> None:
     tr._samples_seen = 0
     tr._epoch_samples_done = 0
     tr._resume_skip_samples = 0
+    # the --recalibrate_steps window (resilience/reshape.py)
+    tr._quant_freeze_remaining = 0
+    tr._quant_frozen = None
     if tr.cfg.health.enabled:
         tr.health = TrainingHealth(tr.cfg.health, registry=tr.obs,
                                    logger=tr.logger)
@@ -736,6 +754,13 @@ class Trainer:
         self.device = resolve_device(device)
         self.mesh = build_trainer_mesh(cfg, workdir)
         self.rank = process_index() if self.mesh is not None else 0
+        if self.mesh is not None and self.mesh.pipe > 1:
+            # the pipe ranks train as replicas: correct, but duplicated
+            print(f"WARNING: mesh axis 'pipe'={self.mesh.pipe}: the CLI "
+                  "trainer does not pipeline — use train/step."
+                  "build_pp_train_step + parallel/pp.pp_split_state "
+                  "(docs/PARALLELISM.md) to actually exploit it",
+                  flush=True)
         if cfg.train.eval_fid and process_count() > 1:
             # per-process VFID over a stride of the test split would be
             # another statistic (p2p_tpu/train/loop.py:931-944)
@@ -899,6 +924,7 @@ class Trainer:
             step = restored
             aux = self.ckpt.restore_aux(int(step))
         finish_elastic_restore(self, int(step), plan)
+        arm_quant_init_warmup(self, int(step))
         done, mid = derive_resume_position(self, int(step), aux=aux)
         host_step = int(step)
         if plan is not None and "batch_rebase" in plan.chain:
@@ -968,6 +994,8 @@ class Trainer:
                 self.state, metrics = self.train_step(self.state, batch)
             self._img_rate.mark(cfg.data.batch_size * cfg.data.n_frames)
             queue_health_observation(self, metrics)
+            if self._quant_freeze_remaining:
+                hold_frozen_quant(self)
             if cfg.debug.check_finite:
                 # a fence: the nonfinite record lands before the raise
                 check_finite(metrics, "step_metrics", registry=self.obs)
@@ -1051,7 +1079,8 @@ class Trainer:
         s = (torch.cat(ssims).cpu().numpy() if ssims
              else np.zeros(0, np.float32))
         if self.mesh is not None and (self.mesh.spatial_rank > 0
-                                      or self.mesh.model_rank > 0):
+                                      or self.mesh.model_rank > 0
+                                      or self.mesh.pipe_rank > 0):
             # spatial and model peers scored the same whole images: one
             # of them enters the combine with them
             p, s = p[:0], s[:0]

@@ -23,6 +23,10 @@ With ``TrainConfig.pool_size`` the state carries the historical-fake ring
 (utils/pool.py); with ``HealthConfig.ema_decay`` it carries ``ema_g``,
 smoothed f32 copies of G's parameters (not of its running statistics),
 seeded with the initial parameters and moved by :func:`ema_update_`.
+Split over a pipe mesh (parallel/pp.py ``pp_split_state``) it carries
+``pp_stages``, this rank's trunk blocks, and their optimizer ``opt_s``
+(``p2p_tpu/train/state.py`` ``pp_stages``/``opt_s``); both are None when
+the state is flat.
 
 Under ``int8_delayed`` the JAX state's ``quant_g``, ``quant_d`` and
 ``quant_c`` collections are the ``amax_x`` buffers of G's, D's and net_c's
@@ -68,6 +72,10 @@ class TrainState:
     pool: Optional[torch.Tensor] = None
     pool_n: Optional[torch.Tensor] = None
     ema_g: Optional[Dict[str, torch.Tensor]] = None
+    # the pipe split (parallel/pp.py pp_split_state): this rank's trunk
+    # stage and its optimizer; None when flat
+    pp_stages: Optional[nn.Module] = None
+    opt_s: Optional[Optimizer] = None
 
     @property
     def device(self) -> torch.device:

@@ -1,8 +1,9 @@
 """The train step of the registered presets, generator inference and the
 eval step (counterparts
 of ``p2p_tpu/train/step.py:79 single_forward_d_losses``, ``:140
-make_g_loss_fn``, ``:209 build_train_step``, ``:940 make_infer_forward``
-and ``:995 build_eval_step``).
+make_g_loss_fn``, ``:209 build_train_step``, ``:600
+build_pp_train_step``, ``:940 make_infer_forward`` and ``:995
+build_eval_step``).
 
 ``build_train_step(cfg, vgg)`` returns ``step(state, batch) -> (state,
 metrics)`` in the order of the JAX step (``step.py:277-597``):
@@ -92,11 +93,16 @@ eval and serving forward under a spatial mesh takes whole images, runs G
 on this rank's rows and gathers the prediction's rows on every rank
 (``parallel/spatial.gather_rows``), so PSNR and SSIM, whose windows cross
 the blocks, are the whole image's.
+
+:func:`build_pp_train_step` is the step with G's residual trunk on the
+GPipe schedule over a pipe mesh (parallel/pp.py): its own function, as in
+JAX, over a state split by ``parallel.pp.pp_split_state``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+import contextlib
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -207,15 +213,8 @@ def build_eval_step(cfg: Config, dtype: Optional[torch.dtype] = None):
     fwd = make_infer_forward(cfg, dtype, with_metrics=True)
 
     def eval_step(state: TrainState, batch: Dict[str, np.ndarray]):
-        nets = [n for n in (state.net_g, state.net_c) if n is not None]
-        modes = [n.training for n in nets]
-        for n in nets:
-            n.eval()
-        try:
+        with _eval_mode(state.net_g, state.net_c):
             return fwd(state.net_g, batch, state.net_c)
-        finally:
-            for n, mode in zip(nets, modes):
-                n.train(mode)
 
     return eval_step
 
@@ -380,10 +379,11 @@ def dropout_generator(seed: int, step: int, device: torch.device
                       ) -> torch.Generator:
     """The generator of one step's dropout noise on ``device``, seeded from
     ``(seed, step)``: the same step draws the same masks. The pair is
-    hashed (numpy's ``SeedSequence``), since the CPU generator keeps only
-    32 bits of its seed."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)
-    return torch.Generator(device=device).manual_seed(int(mixed[0]))
+    hashed (numpy's ``SeedSequence``, core/rng.py ``RngStream``), since the
+    CPU generator keeps only 32 bits of its seed."""
+    from p2p_tpu_torch.core.rng import RngStream
+
+    return RngStream.from_seed(seed).at_step(step).generator(device)
 
 
 def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
@@ -561,5 +561,209 @@ def build_train_step(cfg: Config, vgg: Optional[nn.Module] = None,
             nan_sentinel({**metrics, "lr_scale": float(state.lr_scale)},
                          tag="train_step")
         return state, metrics
+
+    return step
+
+
+@contextlib.contextmanager
+def _eval_mode(*nets: Optional[nn.Module]) -> Iterator[None]:
+    """``nets`` in eval mode for the duration, their modes put back
+    after."""
+    nets = [n for n in nets if n is not None]
+    modes = [n.training for n in nets]
+    for n in nets:
+        n.eval()
+    try:
+        yield
+    finally:
+        for n, mode in zip(nets, modes):
+            n.train(mode)
+
+
+def build_pp_train_step(cfg: Config, mesh, n_micro: int,
+                        vgg: Optional[nn.Module] = None,
+                        steps_per_epoch: int = 1,
+                        train_dtype: Optional[torch.dtype] = None):
+    """``step(state, batch) -> (state, metrics)``: the alternating G/D(/C)
+    step with the generator's residual trunk on the GPipe schedule over
+    ``mesh``'s ``pipe`` axis (counterpart of ``p2p_tpu/train/step.py:600
+    build_pp_train_step``; parallel/pp.py). ``state`` is split by
+    ``parallel.pp.pp_split_state`` (after ``parallel.place_state`` on a
+    mesh); ``batch`` is this rank's rows (``parallel.shard_batch``: pipe
+    peers read the same rows), carved into ``n_micro`` microbatches
+    mb-major. ``mesh`` None runs the microbatches in sequence on one
+    process (a stack holding every stage).
+
+    The loss surface, the single D(fake) forward and the update order are
+    :func:`build_train_step`'s. G runs in eval mode (``p2p_tpu/parallel/
+    pp.py:392-397``): BatchNorm reads its running statistics and G's are
+    not advanced; the instance-norm family is exact against the one-rank
+    step. net_c runs in training mode (its BatchNorm through #5, its
+    stored scales updated). The trunk's stored int8 scales are frozen for
+    the step's microbatches and take the max-combined proposals after the
+    G/D verdict (``gpipe_trunk``'s ``quant``). One backward of the G loss
+    reaches ``net_g`` and the stage blocks; the skip guard drops every
+    update, stage stack included, by a verdict agreed over the world. The
+    compression branch runs a second pipelined forward through the
+    updated G and stages (the new scales frozen, its proposals dropped),
+    whose backward crosses the ring shifts again. Refused with JAX's
+    messages: ``health.ema_decay``, ``pool_size > 0`` and a generator
+    without a pipelined trunk; with more than one stage also
+    ``grad_clip`` and ``grad_norms`` (their global norms would span the
+    stages: not ported)."""
+    from p2p_tpu_torch.core.mesh import mesh_context
+    from p2p_tpu_torch.ops.norm import sync_batchnorm
+    from p2p_tpu_torch.parallel.dp import DataParallel
+    from p2p_tpu_torch.parallel.pp import (mb_major_flatten,
+                                           mb_major_unflatten,
+                                           pp_generator_forward,
+                                           start_proposals, take_proposals,
+                                           trunk_prefix)
+
+    if cfg.health.ema_decay is not None:
+        raise ValueError(
+            "health.ema_decay is not supported on the pipelined step "
+            "(v1 bound: the trunk lives in pp_stages); run EMA configs "
+            "unpipelined")
+    trunk_prefix(cfg.model)
+    if cfg.train.pool_size > 0:
+        raise ValueError(
+            "build_pp_train_step does not support the historical-fake "
+            "pool (pool_size > 0); run pooled configs unpipelined")
+    _check_supported(cfg)
+    wide = mesh is not None and mesh.pipe > 1
+    if wide and (cfg.optim.grad_clip > 0 or cfg.debug.grad_norms):
+        raise NotImplementedError(
+            "grad_clip and grad_norms on the pipelined step over more than "
+            "one stage are not ported (their global norms span the "
+            "stages)")
+    L = cfg.loss
+    bits = cfg.model.quant_bits
+    quant = quantize_ste if cfg.model.quant_ste else quantize
+    use_c = cfg.model.use_compression_net
+    need_vgg = L.lambda_vgg > 0 and vgg is not None
+    need_feats = vgg is not None and (L.lambda_vgg > 0 or L.lambda_style > 0)
+    g_losses = make_g_loss_fn(cfg, vgg, steps_per_epoch)
+    guard = cfg.health.enabled
+    clip = cfg.optim.grad_clip
+    grad_norms = cfg.debug.grad_norms
+    sentinel = cfg.debug.nan_sentinel
+    overlap = cfg.parallel.pp_overlap
+    dp = DataParallel(mesh) if mesh is not None and mesh.size > 1 else None
+
+    def body(state: TrainState, batch: Dict[str, np.ndarray]):
+        net_g, net_d, net_c = state.net_g, state.net_d, state.net_c
+        stages = state.pp_stages
+        real_a = to_device_image(batch["input"], state.device, train_dtype)
+        real_b = to_device_image(batch["target"], state.device, train_dtype)
+        n = int(real_a.shape[0])
+        if n % n_micro:
+            raise ValueError(f"batch {n} not divisible by n_micro={n_micro}")
+        scales_s = stored_scales(stages)
+        snap_stats = (_Snapshot(list(net_c.buffers())) if guard
+                      and net_c is not None else None)
+        snap_u = _Snapshot(list(net_d.buffers())) if guard else None
+
+        def g_pp(x):
+            with _eval_mode(net_g, stages):
+                y = pp_generator_forward(
+                    net_g, stages, mb_major_unflatten(x, n_micro), mesh,
+                    overlap)
+            return mb_major_flatten(y).contiguous(
+                memory_format=torch.channels_last)
+
+        # ---- 1. net_c + quantizer (its statistics update is kept) -------
+        if use_c:
+            stats_c0 = {k: v.clone() for k, v in net_c.named_buffers()}
+            with torch.no_grad():
+                g_input = quant(net_c(real_b), bits)
+        else:
+            g_input = real_a
+
+        # ---- 2-4. the pipelined G, D's forwards, G loss -----------------
+        start_proposals(stages)
+        fake_b = g_pp(g_input)
+        proposals = take_proposals(stages, mesh)
+        loss_d, pred_fake, pred_real = single_forward_d_losses(
+            net_d, torch.cat([real_a, fake_b], dim=1),
+            torch.cat([real_a, real_b], dim=1), L.gan_mode)
+        real_feats = target_features(vgg, real_b) if need_feats else None
+        loss_g, parts = g_losses(fake_b, pred_fake, pred_real, real_a,
+                                 real_b, real_feats, state.step)
+        loss_g.backward(inputs=list(net_g.parameters())
+                        + list(stages.parameters()))
+        if dp is not None:
+            dp.sync_grads(state.opt_g)
+            dp.sync_grads(state.opt_s)
+            dp.sync_grads(state.opt_d)
+
+        # ---- 5. G (rest, then stages) and D updates, unless dropped ------
+        norms = (grad_norm_taps({}, g=_grads(state.opt_g)
+                                + _grads(state.opt_s),
+                                d=_grads(state.opt_d))
+                 if grad_norms else {})
+        ok = _finite(loss_g, loss_d, dp=dp) if guard else True
+        zg = _apply(state.opt_g, ok, clip, state.lr_scale)
+        zs = _apply(state.opt_s, ok, clip, state.lr_scale)
+        counts = {"nonfinite_g": None if zg is None else zg + zs,
+                  "nonfinite_d": _apply(state.opt_d, ok, clip,
+                                        state.lr_scale)}
+        snap_q = _Snapshot(scales_s)
+        with torch.no_grad():
+            for s, p in zip(scales_s, proposals):
+                s.copy_(p)
+        if not ok:
+            snap_u.restore()
+
+        # ---- 6. net_c branch against the updated G and stages ------------
+        ok_all = ok
+        if use_c:
+            cq = quant(functional_call(net_c, stats_c0, (real_b,)), bits)
+            fake_ac = g_pp(cq)
+            loss_c = ((fake_ac.float() - real_b.float()) ** 2).mean()
+            if need_vgg:
+                loss_c = loss_c + vgg_loss(vgg, cq, real_feats) * L.lambda_vgg
+            ok_all = ok and (_finite(loss_c, dp=dp) if guard else True)
+            if cfg.optim.train_compression_net:
+                loss_c.backward(inputs=list(net_c.parameters()))
+                if dp is not None:
+                    dp.sync_grads(state.opt_c)
+                if grad_norms:
+                    grad_norm_taps(norms, c=_grads(state.opt_c))
+                counts["nonfinite_c"] = _apply(state.opt_c, ok_all, clip,
+                                               state.lr_scale)
+        else:
+            loss_c = torch.zeros((), device=state.device)
+        if not ok:
+            snap_q.restore()
+        if not ok_all and snap_stats is not None:
+            snap_stats.restore()
+
+        state.step += 1
+        metrics = {"loss_d": loss_d, "loss_g": loss_g.detach(),
+                   "loss_c": loss_c.detach(),
+                   **{k: v.detach() for k, v in parts.items()},
+                   **{k: v.to(state.device, torch.float32)
+                      for k, v in counts.items() if v is not None}}
+        if guard:
+            metrics["health_ok"] = torch.tensor(float(ok_all),
+                                                device=state.device)
+        metrics.update(norms)
+        if dp is not None:
+            metrics = dp.mean_metrics(metrics)
+        if sentinel:
+            nan_sentinel({**metrics, "lr_scale": float(state.lr_scale)},
+                         tag="pp_train_step")
+        return state, metrics
+
+    def step(state: TrainState, batch: Dict[str, np.ndarray]
+             ) -> Tuple[TrainState, Metrics]:
+        if state.pp_stages is None:
+            raise ValueError(
+                "state has no pp_stages — prepare it with "
+                "parallel.pp.pp_split_state(state, cfg, mesh)")
+        with mesh_context(mesh), \
+                sync_batchnorm(cfg.parallel.sync_batchnorm):
+            return body(state, batch)
 
     return step

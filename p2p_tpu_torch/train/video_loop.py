@@ -28,8 +28,8 @@ resume holds; rank 0 writes the one-device checkpoints, the ranks agree
 on preemption (exit 75), and the eval sums each rank's per-frame PSNR and
 SSIM over the world (time peers score distinct frames). A relaunch across
 data or time widths is a ``reshard``. Tensor parallelism (``model``)
-has no video form here and is refused by name; pipeline parallelism
-comes with the PP slice.
+has no video form here and is refused by name; on a ``pipe`` axis it
+runs flat, the pipe ranks as replicas, as the image trainer does.
 """
 
 from __future__ import annotations

@@ -123,12 +123,16 @@ def test_topology_blocks_and_later_axes():
     assert tmesh.describe_topology(topo) == jmesh.describe_topology(topo)
     tmesh.check_ported_axes(tmesh.MeshSpec(data=-1, fsdp=2))
     tmesh.check_ported_axes(tmesh.MeshSpec(data=-1, spatial=2))
-    # the time and model axes are ported; pipe waits for the PP slice, and
-    # the combinations the port does not compose are refused by name
+    # every axis is ported (pipe with data, as JAX's gpipe_trunk shards
+    # only data and pipe), and the combinations the port does not compose
+    # are refused by name, pipe's with spatial, time, model and fsdp
+    assert tmesh.LATER_AXES == {}
     tmesh.check_ported_axes(tmesh.MeshSpec(data=-1, time=4))
     tmesh.check_ported_axes(tmesh.MeshSpec(data=-1, model=2))
-    with pytest.raises(NotImplementedError, match="slice 13c-PP"):
-        tmesh.check_ported_axes(tmesh.MeshSpec(pipe=2))
+    tmesh.check_ported_axes(tmesh.MeshSpec(pipe=2))
+    tmesh.check_ported_axes(tmesh.MeshSpec(data=2, pipe=4))
+    assert {b for a, b in tmesh.UNCOMPOSED_AXES if a == "pipe"} == {
+        "spatial", "time", "model", "fsdp"}
     for a, b in tmesh.UNCOMPOSED_AXES:
         with pytest.raises(NotImplementedError, match=f"{a}=2 and {b}=2"):
             tmesh.check_ported_axes(tmesh.MeshSpec(**{a: 2, b: 2}))
@@ -170,11 +174,12 @@ def test_shard_epoch_indices_is_jax_and_gapless(n_proc):
 def test_moment_migration_and_transform_names_are_jax():
     assert treshape.MOMENT_MIGRATION == jreshape.MOMENT_MIGRATION
     assert treshape.RESHAPE_TRANSFORMS == jreshape.RESHAPE_TRANSFORMS
+    # every transform is ported: no chain is refused
+    assert treshape.LATER_TRANSFORMS == {}
     for chain in (("pp_restructure",), ("batch_rebase",
-                                        "tp_amax_recalibrate")):
-        with pytest.raises(tmesh.TopologyMismatch, match="13c"):
-            treshape.check_ported_chain(chain)
-    treshape.check_ported_chain(("batch_rebase", "dtype_cast"))
+                                        "tp_amax_recalibrate"),
+                  ("batch_rebase", "dtype_cast")):
+        treshape.check_ported_chain(chain)
 
 
 class _Log:
@@ -248,13 +253,14 @@ def test_rebase_step_counters_moves_every_count():
     # (the case ids are kept from when they named a later slice)
     pytest.param("data=1,time=2", None, id="data=1,time=2-13b-time"),
     pytest.param("1,1,1,2", None, id="1,1,1,2-13c"),
-    ("data=1,pipe=2", "13c"), ("data=2", None),
+    # pipe is ported too: it only needs the processes
+    pytest.param("data=1,pipe=2", None, id="data=1,pipe=2-13c"),
+    ("data=2", None),
     ("data=x", None)])
 def test_cli_refuses_meshes_it_cannot_run(mesh, later, capsys):
-    """Exit 2 before any model is built: an axis of a later slice names
-    it (pipe: slice 13c-PP); a mesh wider than this launch's one process
-    (the spatial, time and model axes are ported: they only need the
-    processes), or malformed, says so."""
+    """Exit 2 before any model is built: a mesh wider than this launch's
+    one process (every axis is ported: it only needs the processes), or
+    malformed, says so."""
     from p2p_tpu_torch.cli import train
 
     assert train.main(["--preset", "edges2shoes_dp", "--device", "cpu",

@@ -133,9 +133,9 @@ def test_no_vfid_for_one_image_or_for_video(tmp_path):
 
 
 def test_cli_flags_of_slice_12_are_accepted():
-    # --tp_min_ch and the serving --mesh are ported with the model axis
-    assert {n for n, _, _ in train.UNPORTED} == {
-        "pp_overlap", "recalibrate_steps", "scan_steps"}
+    # --tp_min_ch and the serving --mesh are ported with the model axis,
+    # --pp_overlap and --recalibrate_steps with the pipe axis and TP x int8
+    assert {n for n, _, _ in train.UNPORTED} == {"scan_steps"}
     assert {n for n, _, _ in infer.UNPORTED} == set()
     args = train.build_parser().parse_args(
         ["--threads", "2", "--lambda_sobel", "1.5", "--sobel_warmup_epochs",
